@@ -9,16 +9,26 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
      with nvcc, one process per source, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card at
-     the main path's shapes and a few edge shapes, with the stated
+     the main paths' shapes and a few edge shapes, with the stated
      tolerance; CUDA-event times (warm, median), the least time the card
-     could take (bound), and one PyTorch library call's time as a yardstick;
-  4. serve — writes a random-weight transformer_lm artifact at the full
-     llama-7b width (depth cut, see --layers) into a temporary store,
-     builds a cache node on ``cuda`` through ``server.build_node`` (what
-     ``cli serve`` calls) and sends REST ``:predict`` requests over
+     could take (bound), and one PyTorch library call's time as a yardstick:
+     flash attention in bf16 and f32, paged decode attention over bf16,
+     int8 and f32 arenas;
+  4. artifact — writes a random-weight transformer_lm artifact at the full
+     llama-7b width (depth cut, see --layers) into a temporary store;
+  5. serve — builds a cache node on ``cuda`` through ``server.build_node``
+     (what ``cli serve`` calls) and sends REST ``:predict`` requests over
      localhost: cold, then warm. Every response is checked (HTTP 200, shape,
-     finite, agreement with the plain path on the card), and the kernels'
-     launch counters must show the path went through them.
+     finite, agreement with the plain path on the card), and the flash
+     kernel's launch counter must show the path went through it;
+  6. generate — REST ``:generate`` on the same artifact in three arms: (a)
+     the continuous paged engine over a bf16 arena, 16 concurrent greedy
+     requests plus a top_k=1 sampled one; (b) the solo path, two seeded
+     sampled requests; (c) the continuous engine over an int8 arena. Every
+     response is checked against the plain path on the card (teacher-forced
+     logits), the page census must be green after each arm, and the paged
+     kernel's launch counter must equal n_layers x the engine's decode
+     steps in each continuous arm (and stay 0 on the solo path).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -26,6 +36,8 @@ The last three lines of standard output are the card's name and power limit
 them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--layers N | --full-depth]
+(``TPUSC_PAGECHECK=1`` is set for the run: every paged decode chunk first
+asserts that no live lane maps the trash page.)
 """
 
 from __future__ import annotations
@@ -53,10 +65,24 @@ PEAK_HBM_BYTES = 3.35e12
 # values reach |x| ~ 4-8, where one bf16 ulp is 1/32; the kernel also
 # rounds p to bf16 before p.v where the plain version keeps f32.
 ATTN_TOL = 1.0 / 32
+# f32 flash kernel vs the plain version: the same f32 math in another
+# summation order (TF32 is off for the plain version, see the environment
+# phase)
+ATTN_TOL_F32 = 1e-4
 # |REST logits - plain-path logits| bound at llama-7b width: logits are
 # ~N(0, 1); both paths run bf16 matmuls and differ in attention rounding
 # (above) through every layer, 32 bf16 ulps at |x| ~ 1.
 LOGITS_TOL = 0.125
+# the same bound for tokens decoded over an int8 KV arena: an int8 row
+# carries a rounding error of up to absmax/254 per element (absmax ~ 3
+# sigma for N(0, sigma) rows: ~0.7% rms of the row's scale), about 3.5x the
+# relative error of a bf16 row (2**-9 ~ 0.2%); the bound is 4x the bf16 one
+LOGITS_TOL_INT8 = 0.5
+# paged decode kernel vs its plain version (f32 out): int8 and f32 arenas
+# dequantize to the same f32 values on both sides (other summation order);
+# a bf16 arena rounds p to bf16 on both sides but at other points of the
+# online softmax, a bf16 ulp of p on a convex mix of N(0, 1) rows
+PAGED_TOL = {"bfloat16": 2.0**-8, "int8": 1e-4, "float32": 1e-4}
 
 # (B, Hq, Hkv, S, D): the serving path's attention at llama-7b width for the
 # request shapes below (seq buckets 128, 1024, 512), a long sequence, the
@@ -69,6 +95,28 @@ KERNEL_SHAPES = [
     (1, 32, 32, 200, 128),
 ]
 MAIN_SHAPE = (2, 32, 32, 1024, 128)  # the largest attention call of the served requests
+# f32 inputs take the kernel's f32 instantiation (an f32 artifact's :predict)
+KERNEL_SHAPES_F32 = [(1, 8, 8, 256, 128)]
+# paged decode (S lanes, Hq, Hkv, D, page_tokens, max pos): the generate
+# phase's occupancy at llama-7b width (8 lanes, prompts up to 1024 + 64 new
+# tokens), full max_seq, GQA g = 4, a small page, head_dim 64
+PAGED_SHAPES = [
+    (8, 32, 32, 128, 16, 1088),
+    (32, 32, 32, 128, 16, 4095),
+    (16, 32, 8, 128, 16, 2047),
+    (4, 32, 32, 128, 8, 300),
+    (8, 16, 16, 64, 16, 500),
+]
+PAGED_MAIN = PAGED_SHAPES[0]
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (the paged kernel's FMAs)
+# every phase runs on device 0: the run uses one card whatever the host has
+CARDS_USED = 1
+# :generate phase: 16 single-row greedy requests from 8 client threads,
+# prompt lengths seeded-random in [64, 1024], 64 new tokens each
+GEN_REQUESTS = 16
+GEN_CLIENTS = 8
+GEN_PROMPT_RANGE = (64, 1024)
+GEN_NEW_TOKENS = 64
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
 
@@ -134,9 +182,10 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_busy_ms(fn) -> float | None:
-    """Sum of device kernel time of one ``fn()`` under ``torch.profiler``
-    (None when the profiler records no device time on this machine)."""
+def device_kernel_ms(fn, match: str = "") -> tuple[float, float] | None:
+    """(sum of device kernel time, the part in kernels whose name contains
+    ``match``) of one ``fn()`` under ``torch.profiler``, in ms; None when the
+    profiler records no device time on this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,11 +195,20 @@ def device_busy_ms(fn) -> float | None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    total_us = 0.0
+    total_us = matched_us = 0.0
     for row in prof.key_averages():  # kernel rows only: CPU ops would double-count
         if row.device_type == torch.autograd.DeviceType.CUDA:
             total_us += row.self_device_time_total
-    return total_us / 1e3 if total_us > 0 else None
+            if match and match in row.key:
+                matched_us += row.self_device_time_total
+    return (total_us / 1e3, matched_us / 1e3) if total_us > 0 else None
+
+
+def device_busy_ms(fn) -> float | None:
+    """Sum of device kernel time of one ``fn()`` under ``torch.profiler``
+    (None when the profiler records no device time on this machine)."""
+    got = device_kernel_ms(fn)
+    return None if got is None else got[0]
 
 
 def attention_bound_ms(b: int, hq: int, hkv: int, s: int, d: int, causal: bool) -> tuple[float, str]:
@@ -233,6 +291,37 @@ def phase_kernels(seed: int) -> dict:
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms}
             del q, k, v, out, ref
+    worst_f32 = 0.0
+    log(f"flash_attention f32 vs attention_reference, tolerance {ATTN_TOL_F32} (max |diff|)")
+    for (b, hq, hkv, s, d) in KERNEL_SHAPES_F32:
+        for causal in (True, False):
+            q = torch.randn(b, hq, s, d, device="cuda", generator=gen)
+            k = torch.randn(b, hkv, s, d, device="cuda", generator=gen)
+            v = torch.randn(b, hkv, s, d, device="cuda", generator=gen)
+            out = A.attention(q, k, v, causal)  # the dispatch: f32 passes the gate
+            torch.cuda.synchronize()
+            ref = A.attention_reference(q, k, v, causal)
+            err = (out - ref).abs().max().item()
+            worst_f32 = max(worst_f32, err)
+            ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal))
+            plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, causal), reps=10, warmup=1)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+            flops = (2 if causal else 4) * b * hq * s * s * d
+            nbytes = 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bound, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            log(
+                f"  f32 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}: "
+                f"max_abs_err={err:.6g} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+                f"sdpa={lib_ms:.4f}ms bound={bound:.4f}ms ({bound_by}, f32 FMA peak) "
+                f"bound/kernel={bound / ms:.3f}"
+            )
+            if out.dtype != torch.float32 or not err <= ATTN_TOL_F32:
+                raise AssertionError(
+                    f"f32 flash_attention disagrees at {(b, hq, hkv, s, d)} causal={causal}: "
+                    f"max_abs_err {err} > {ATTN_TOL_F32} (dtype {out.dtype})"
+                )
+            del q, k, v, out, ref
     torch.cuda.empty_cache()
     return {
         "flash_attention": {
@@ -245,6 +334,137 @@ def phase_kernels(seed: int) -> dict:
             **main,
             "shape": list(MAIN_SHAPE),
             "causal": True,
+            "max_abs_err_f32": worst_f32,
+        }
+    }
+
+
+def _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos):
+    """A scattered arena (random rows from the card's generator ``cgen``)
+    with ragged positions (lane 0 at ``max_pos``, the
+    others uniform in [max_pos / 4, max_pos]), each lane's pages at shuffled
+    arena slots and its table slots past the live pages on the trash page
+    0 (the layout tests/test_paged_kernel.py builds)."""
+    import torch
+
+    pps = -(-(max_pos + 1) // pt)
+    n_pages = lanes * pps + 1
+    tables = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(lanes, pps).int()
+    pos = torch.randint(max_pos // 4, max_pos + 1, (lanes,), generator=gen).int()
+    pos[0] = max_pos
+    for s in range(lanes):
+        tables[s, -(-(int(pos[s]) + 1) // pt):] = 0
+    kp = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
+    vp = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
+    return kp, vp, tables, pos
+
+
+def paged_bound_ms(pos, hq, hkv, d, pt, kv_itemsize, q_itemsize, quantized):
+    """The larger of bytes / HBM rate and operations / f32 FMA peak for one
+    paged decode call over THIS run's positions: the K/V rows the mask
+    admits (pos + 1 per lane, K and V), their f32 scales for int8, the table
+    entries read, q and the f32 output. Operations ~4*Hq*D per visible row
+    (two FMAs each for q.k and p.v) — far below the bytes' time."""
+    rows = sum(int(p) + 1 for p in pos)
+    lanes = len(pos)
+    nbytes = rows * hkv * d * 2 * kv_itemsize
+    if quantized:
+        nbytes += rows * hkv * 2 * 4
+    nbytes += sum(int(p) // pt + 1 for p in pos) * 4 + lanes * 4
+    nbytes += lanes * hq * d * (q_itemsize + 4)
+    flops = 4 * hq * d * rows
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def phase_paged_kernel(seed: int) -> dict:
+    """paged_decode_attention_kernel vs its plain version on the card, for
+    bf16 and int8 arenas at every shape and an f32 arena at the first."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    cgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    main = None
+    worst = {}
+    log("paged_decode_attention vs paged_decode_attention (plain), tolerance "
+        f"{PAGED_TOL} (max |diff|); yardstick: F.scaled_dot_product_attention on "
+        "K/V ALREADY GATHERED to dense (S, Hkv, L, D) with a boolean mask, the "
+        "gather excluded (no single PyTorch call computes paged attention)")
+    for shape in PAGED_SHAPES:
+        lanes, hq, hkv, d, pt, max_pos = shape
+        kp32, vp32, tables_h, pos_h = _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos)
+        q32 = torch.randn(lanes, hq, 1, d, generator=cgen, device="cuda")
+        arenas = ["bfloat16", "int8"] + (["float32"] if shape == PAGED_MAIN else [])
+        tables, pos = tables_h.cuda(), pos_h.cuda()
+        for arena in arenas:
+            ks = vs = None
+            if arena == "int8":
+                q = q32.bfloat16()
+                kp, ks = _quantize_kv_rows(kp32)
+                vp, vs = _quantize_kv_rows(vp32)
+                plain_k, plain_v = A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs)
+                kv_item, dense_dt = 1, torch.bfloat16
+            else:
+                dt = getattr(torch, arena)
+                q, kp, vp = q32.to(dt), kp32.to(dt), vp32.to(dt)
+                plain_k, plain_v = kp, vp
+                kv_item, dense_dt = kp.element_size(), dt
+            out = A.paged_decode_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
+            torch.cuda.synchronize()
+            ref = A.paged_decode_attention(q, plain_k, plain_v, tables, pos, pt)
+            err = (out - ref).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            worst[arena] = max(worst.get(arena, 0.0), err)
+            ms = cuda_ms(lambda: A.paged_decode_attention_kernel(
+                q, kp, vp, tables, pos, ks, vs, page_tokens=pt))
+            plain_ms = cuda_ms(lambda: A.paged_decode_attention(
+                q, plain_k, plain_v, tables, pos, pt), reps=5, warmup=1)
+            # yardstick: SDPA over K/V gathered to dense beforehand (excluded)
+            kd = A.paged_gather_kv(plain_k, tables, pt).to(dense_dt)
+            vd = A.paged_gather_kv(plain_v, tables, pt).to(dense_dt)
+            mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+                    <= pos.long()[:, None])[:, None, None, :]
+            qd = q.to(dense_dt)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=hq != hkv))
+            bound, bound_by = paged_bound_ms(pos_h.tolist(), hq, hkv, d, pt, kv_item,
+                                             q.element_size(), arena == "int8")
+            log(
+                f"  S={lanes} Hq={hq} Hkv={hkv} D={d} pt={pt} max_pos={max_pos} "
+                f"(live rows {int(pos_h.sum()) + lanes}) {arena}: max_abs_err={err:.6g} "
+                f"finite={finite} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+                f"sdpa_on_gathered={lib_ms:.4f}ms bound={bound:.4f}ms ({bound_by}) "
+                f"bound/kernel={bound / ms:.3f}"
+            )
+            if not finite or not err <= PAGED_TOL[arena]:
+                raise AssertionError(
+                    f"paged_decode_attention disagrees at {shape} {arena}: max_abs_err "
+                    f"{err} > {PAGED_TOL[arena]} or non-finite"
+                )
+            if shape == PAGED_MAIN and arena == "bfloat16":
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": lib_ms}
+            del out, ref, kd, vd, kp, vp, plain_k, plain_v
+        del kp32, vp32
+        torch.cuda.empty_cache()
+    return {
+        "paged_decode_attention": {
+            "name": "paged_decode_attention",
+            "route": "cuda",
+            "source": "tfservingcache_tpu_torch/ops/csrc/paged_decode_attention.cu",
+            "replaces": "tfservingcache_tpu/ops/attention.py:705",
+            "launches": 0,
+            "max_abs_err": max(worst.values()),
+            **main,
+            "library_note": "SDPA on K/V already gathered to dense, gather excluded",
+            "shape": list(PAGED_MAIN),
+            "arena": "bfloat16",
+            "max_abs_err_by_arena": worst,
         }
     }
 
@@ -263,28 +483,26 @@ def _post(url: str, body: dict, timeout: float) -> tuple[int, dict, float]:
     return status, json.loads(raw), dt
 
 
-def phase_serve(layers: int, seed: int, warm_reps: int, kernels: dict) -> None:
-    import numpy as np
-    import torch
+class Artifact:
+    """The random-weight llama-7b-width artifact both serving phases load,
+    and the same weights as a module on the card for the plain path."""
 
-    from tfservingcache_tpu_torch.config import config_from_dict
-    from tfservingcache_tpu_torch.models import registry
-    from tfservingcache_tpu_torch.models.transformer_lm import LLAMA7B_CONFIG
-    from tfservingcache_tpu_torch.ops import attention as A
-    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
-    from tfservingcache_tpu_torch.server import build_node
-    from tfservingcache_tpu_torch.types import ModelId
+    def __init__(self, layers: int, seed: int) -> None:
+        import torch
 
-    model_id = ModelId("llama7b", 1)
-    model_cfg = dict(LLAMA7B_CONFIG, n_layers=layers)
-    model_def = registry.build("transformer_lm", model_cfg)
-    vocab = model_cfg["vocab_size"]
-    log(f"transformer_lm at llama-7b width: d_model={model_cfg['d_model']} "
-        f"heads={model_cfg['n_heads']} d_ff={model_cfg['d_ff']} vocab={vocab}, "
-        f"n_layers={layers} (of 32)")
-    work = tempfile.mkdtemp(prefix="tpusc_chip_smoke_")
-    node = None
-    try:
+        from tfservingcache_tpu_torch.models import registry
+        from tfservingcache_tpu_torch.models.transformer_lm import LLAMA7B_CONFIG
+        from tfservingcache_tpu_torch.types import ModelId
+
+        self.layers = layers
+        self.model_id = ModelId("llama7b", 1)
+        model_cfg = dict(LLAMA7B_CONFIG, n_layers=layers)
+        model_def = registry.build("transformer_lm", model_cfg)
+        self.vocab = model_cfg["vocab_size"]
+        log(f"transformer_lm at llama-7b width: d_model={model_cfg['d_model']} "
+            f"heads={model_cfg['n_heads']} d_ff={model_cfg['d_ff']} vocab={self.vocab}, "
+            f"n_layers={layers} (of 32)")
+        self.work = tempfile.mkdtemp(prefix="tpusc_chip_smoke_")
         t0 = time.monotonic()
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = model_def.init(gen)
@@ -297,19 +515,39 @@ def phase_serve(layers: int, seed: int, warm_reps: int, kernels: dict) -> None:
             return tree.to(torch.bfloat16)
 
         params = to_bf16(params)  # the artifact's storage dtype, cast on the card
-        registry.save_artifact(os.path.join(work, "store", "llama7b", "1"), model_def, params)
-        art_bytes = os.path.getsize(os.path.join(work, "store", "llama7b", "1", "params.bin"))
-        log(f"wrote random-weight artifact (seed {seed}): {art_bytes} bytes "
+        self.store = os.path.join(self.work, "store")
+        registry.save_artifact(os.path.join(self.store, "llama7b", "1"), model_def, params)
+        self.nbytes = os.path.getsize(os.path.join(self.store, "llama7b", "1", "params.bin"))
+        log(f"wrote random-weight artifact (seed {seed}): {self.nbytes} bytes "
             f"in {time.monotonic() - t0:.2f}s")
-        plain_model = model_def.make_module(params).eval()  # same weights, for the plain path
+        self.plain_model = model_def.make_module(params).eval()  # same weights, plain path
 
-        cfg = config_from_dict({
-            "serving": {"load_timeout_s": 900.0, "max_concurrent_models": 2},
-            "cache": {"base_dir": os.path.join(work, "cache"),
-                      "disk_capacity_bytes": 4 * art_bytes},
-            "model_provider": {"type": "disk", "base_dir": os.path.join(work, "store")},
+    def node_config(self, name: str, **serving) -> dict:
+        return {
+            "serving": {"load_timeout_s": 900.0, "max_concurrent_models": 2, **serving},
+            "cache": {"base_dir": os.path.join(self.work, f"cache_{name}"),
+                      "disk_capacity_bytes": 4 * self.nbytes},
+            "model_provider": {"type": "disk", "base_dir": self.store},
             "cache_node": {"rest_port": 0},
-        })
+        }
+
+    def close(self) -> None:
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+    from tfservingcache_tpu_torch.server import build_node
+
+    model_id, vocab, layers, plain_model = art.model_id, art.vocab, art.layers, art.plain_model
+    node = None
+    try:
+        cfg = config_from_dict(art.node_config("serve"))
         node = build_node(cfg, device="cuda")
         port = node.start("127.0.0.1")
         url = f"http://127.0.0.1:{port}/v1/models/{model_id.name}/versions/1:predict"
@@ -408,7 +646,218 @@ def phase_serve(layers: int, seed: int, warm_reps: int, kernels: dict) -> None:
     finally:
         if node is not None:
             node.close()
-        shutil.rmtree(work, ignore_errors=True)
+
+
+def _teacher_forced_logits(plain_model, prompt, tokens):
+    """The plain path's logits (``attention_reference`` in every layer) over
+    prompt + emitted tokens: row j is the distribution token j was drawn
+    from. -> (len(tokens), V) f32 on the host."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    seq = np.concatenate([prompt, tokens[:-1]]).astype(np.int32)[None]
+    with torch.inference_mode():
+        logits = plain_model({"input_ids": torch.from_numpy(seq).cuda()},
+                             attention_fn=A.attention_reference)["logits"][0]
+        return logits[len(prompt) - 1:].cpu().numpy()
+
+
+def _check_greedy(art, prompt, tokens, tol, what) -> float:
+    """Every emitted token's plain logit lies within ``tol`` of its
+    position's maximum (a served argmax, up to bf16/int8 near-ties).
+    -> the largest gap."""
+    import numpy as np
+
+    logits = _teacher_forced_logits(art.plain_model, prompt, tokens)
+    gap = logits.max(-1) - logits[np.arange(len(tokens)), tokens]
+    worst = float(gap.max())
+    if not worst <= tol:
+        j = int(gap.argmax())
+        raise AssertionError(f"{what}: token {j} ({tokens[j]}) is {worst} below the plain "
+                             f"path's max logit (tolerance {tol})")
+    return worst
+
+
+def _post_many(url, bodies, clients):
+    """POST every body from ``clients`` threads at once. -> [(status, body,
+    seconds)] in the order of ``bodies``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        return list(pool.map(lambda b: _post(url, b, timeout=900.0), bodies))
+
+
+def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
+                            prompt_tokens: int = 600) -> None:
+    """One warm decode chunk with every lane live at ``prompt_tokens``
+    (the arena rows are whatever earlier rows left, fine for timing): host
+    clock, device kernel time under torch.profiler, the paged kernel's
+    share. Runs on the runtime directly while the engine is idle, and
+    hands every page back."""
+    st = rt._slot_states[model_id]
+    for lane in range(st.slots):
+        if not st.reserve_pages(lane, prompt_tokens + 8 * chunk):
+            raise AssertionError("arena too small for the chunk breakdown")
+        st.pos[lane], st.tok[lane], st.active[lane] = prompt_tokens, 1, True
+        st.temps[lane], st.topks[lane] = 0.0, 0
+    try:
+        def one_chunk():
+            rt.slot_decode_chunk(st, chunk)  # ends in a device-to-host copy
+
+        ms = host_ms(one_chunk, reps=3)
+        prof = device_kernel_ms(one_chunk, match="paged_decode")
+    finally:
+        for lane in range(st.slots):
+            st.release_pages(lane)
+        st.active[:] = False
+        st.pos[:] = 0
+    st.check_page_conservation()
+    if prof is None:
+        log(f"  warm decode chunk ({st.slots} lanes at {prompt_tokens} tokens, {chunk} steps): "
+            f"{ms:.2f} ms host clock; device time not measured (the profiler saw none)")
+        return
+    busy, paged = prof
+    log(f"  warm decode chunk ({st.slots} lanes at {prompt_tokens} tokens, {chunk} steps): "
+        f"{ms:.2f} ms host clock; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, "
+        f"torch.profiler); paged kernel {paged:.3f} ms = {paged / busy:.3f} of device time, "
+        f"{paged / (chunk * layers):.4f} ms a launch")
+
+
+def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
+    """One continuous-engine arm on a fresh node: a warm-up request, the
+    concurrent greedy burst, optionally an unseeded top_k=1 request. Every
+    response checked; the census must be green and the paged kernel's
+    launches must equal n_layers x the engine's decode steps. -> (node,
+    its :generate url, the arm's paged launches)."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    cfg = config_from_dict(art.node_config(
+        name, generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+        kv_page_tokens=16, **serving))
+    node = build_node(cfg, device="cuda")
+    url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
+    n_new = GEN_NEW_TOKENS
+    bodies = [{"input_ids": [p.tolist()], "max_new_tokens": n_new} for p in prompts]
+    # --- the main path: counter to 0, the arm's requests, counter read ----
+    A.PAGED_LAUNCHES.reset()
+    t0 = time.monotonic()
+    warm = _post(url, {"input_ids": [prompts[0][:32].tolist()], "max_new_tokens": 8}, 900.0)
+    cold_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    results = _post_many(url, bodies, GEN_CLIENTS)
+    wall = time.monotonic() - t0
+    top1_res = None
+    if top1:
+        top1_res = _post(url, dict(bodies[0], temperature=0.8, top_k=1), 900.0)
+    launches = A.PAGED_LAUNCHES.value
+    # ------------------------------------------------------------------------
+    eng = node.engine
+    expected = art.layers * eng.decode_steps
+    log(f"  [{name}] paged kernel launches: {launches} (n_layers {art.layers} x decode steps "
+        f"{eng.decode_steps} = {expected}); chunks {eng.chunks}, admitted {eng.admitted}, "
+        f"mean lanes per decode step {eng.lane_steps / max(1, eng.decode_steps):.2f} "
+        "(warm-up request included)")
+    if launches != expected or launches == 0:
+        raise AssertionError(f"[{name}] paged kernel launches {launches} != {expected}")
+    if warm[0] != 200:
+        raise AssertionError(f"[{name}] warm-up :generate answered {warm[0]}: {warm[1]}")
+    greedy = []
+    worst = 0.0
+    for p, (status, body, _dt) in zip(prompts, results):
+        if status != 200:
+            raise AssertionError(f"[{name}] :generate answered {status}: {body}")
+        toks = np.asarray(body["tokens"])
+        if toks.shape != (1, n_new) or not ((toks >= 0) & (toks < art.vocab)).all():
+            raise AssertionError(f"[{name}] tokens {toks.shape}, in vocab "
+                                 f"{bool(((toks >= 0) & (toks < art.vocab)).all())}")
+        greedy.append(toks[0])
+        worst = max(worst, _check_greedy(art, p, toks[0], tol, name))
+    st = node.runtime._slot_states[art.model_id]
+    st.check_page_conservation()
+    if sorted(st.free_pages) != list(range(1, st.arena_pages + 1)):
+        raise AssertionError(f"[{name}] pages still held after the drain")
+    lat = [dt for *_, dt in results]
+    log(f"  [{name}] {len(prompts)} requests x {n_new} tokens from {GEN_CLIENTS} clients: "
+        f"wall {wall * 1e3:.1f} ms, {len(prompts) * n_new / wall:.1f} generated tok/s, "
+        f"per-request p50 {statistics.median(lat) * 1e3:.1f} ms (host clock, localhost HTTP); "
+        f"cold first request {cold_s * 1e3:.1f} ms; teacher-forced max gap to the plain "
+        f"path's max logit {worst:.4f} (tolerance {tol}); census green, "
+        f"{st.arena_pages} pages free ({st.arena_dtype or 'model dtype'} arena, "
+        f"{(st.k.nbytes + st.v.nbytes + sum(t.nbytes for t in (st.scales or {}).values())) / 2**30:.2f} GiB)")
+    if top1_res is not None:
+        status, body, _dt = top1_res
+        if status != 200:
+            raise AssertionError(f"[{name}] top_k=1 :generate answered {status}: {body}")
+        t1 = np.asarray(body["tokens"])[0]
+        diff = np.nonzero(t1 != greedy[0])[0]
+        if diff.size:
+            # only an exact tie at the top lets a top_k=1 draw leave greedy
+            j = int(diff[0])
+            logits = _teacher_forced_logits(art.plain_model, prompts[0], greedy[0])[j]
+            top = logits.max()
+            if not (top - logits[t1[j]] <= tol and top - logits[greedy[0][j]] <= tol):
+                raise AssertionError(f"[{name}] top_k=1 left greedy at token {j} off a near-tie")
+            log(f"  [{name}] top_k=1 at t=0.8 equals greedy up to token {j}, a near-tie")
+        else:
+            log(f"  [{name}] top_k=1 at t=0.8 equals greedy ({n_new} tokens)")
+    _decode_chunk_breakdown(node.runtime, art.model_id, art.layers)
+    return node, url, launches
+
+
+def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
+    """REST :generate: (a) continuous engine over a bf16 arena, (b) the solo
+    path, (c) continuous engine over an int8 arena."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed + 2)
+    lo, hi = GEN_PROMPT_RANGE
+    prompts = [rng.integers(0, art.vocab, int(n)) for n in rng.integers(lo, hi + 1, GEN_REQUESTS)]
+    log(f"prompt lengths {[len(p) for p in prompts]}, {GEN_NEW_TOKENS} new tokens each")
+    node = None
+    launches = 0
+    try:
+        node, url, n = _continuous_arm(art, "a: bf16 arena", {}, prompts, LOGITS_TOL, top1=True)
+        launches += n
+        # (b) the solo path: seeded requests bypass the engine
+        body = {"input_ids": [prompts[1].tolist()], "max_new_tokens": GEN_NEW_TOKENS,
+                "temperature": 0.8, "top_k": 40, "seed": 7}
+        A.PAGED_LAUNCHES.reset()
+        solo = [_post(url, body, 900.0) for _ in range(2)]
+        solo_launches = A.PAGED_LAUNCHES.value
+        for status, out, _dt in solo:
+            if status != 200:
+                raise AssertionError(f"[b: solo] :generate answered {status}: {out}")
+        a, b = (np.asarray(out["tokens"]) for _s, out, _dt in solo)
+        if a.shape != (1, GEN_NEW_TOKENS) or not (a == b).all():
+            raise AssertionError("[b: solo] the same seed gave other tokens")
+        if solo_launches != 0:
+            raise AssertionError(f"[b: solo] the paged kernel ran {solo_launches} times")
+        logits = _teacher_forced_logits(art.plain_model, prompts[1], a[0])
+        kth = np.sort(logits, axis=-1)[:, -40]
+        gap = float((kth - logits[np.arange(GEN_NEW_TOKENS), a[0]]).max())
+        if not gap <= LOGITS_TOL:
+            raise AssertionError(f"[b: solo] a sampled token is {gap} below its step's top-40")
+        log(f"  [b: solo] 2 seeded requests (t=0.8, top_k=40, seed=7): identical; every token "
+            f"in its step's top-40 of the plain path (largest shortfall {max(gap, 0.0):.4f}, "
+            f"tolerance {LOGITS_TOL}); {solo[0][2] * 1e3:.1f} / {solo[1][2] * 1e3:.1f} ms; "
+            f"paged kernel launches {solo_launches}")
+        node.close()
+        node = None
+        node, _url, n = _continuous_arm(art, "c: int8 arena", {"kv_arena_dtype": "int8"},
+                                        prompts, LOGITS_TOL_INT8, top1=False)
+        launches += n
+    finally:
+        if node is not None:
+            node.close()
+    kernels["paged_decode_attention"]["launches"] = launches
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -423,6 +872,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     layers = 32 if args.full_depth else args.layers
 
+    # the pre-chunk trash-page assertion, read when the runtime is imported
+    os.environ["TPUSC_PAGECHECK"] = "1"
     with Phase("environment"):
         phase_environment()
     sys.path.insert(0, ROOT)
@@ -435,15 +886,23 @@ def main(argv: list[str] | None = None) -> int:
         phase_build()
     with Phase("kernels"):
         kernels = phase_kernels(args.seed)
-    with Phase("serve"):
-        phase_serve(layers, args.seed, args.warm, kernels)
+        kernels.update(phase_paged_kernel(args.seed))
+    with Phase("artifact"):
+        art = Artifact(layers, args.seed)
+    try:
+        with Phase("serve"):
+            phase_serve(art, args.seed, args.warm, kernels)
+        with Phase("generate"):
+            phase_generate(art, args.seed, kernels)
+    finally:
+        art.close()
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": CARDS_USED,
     }}))
     return 0
 

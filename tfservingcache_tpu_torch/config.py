@@ -29,6 +29,23 @@ class ServingConfig:
     load_timeout_s: float = 30.0
     # "cuda" (the default) or "cpu"; a missing card with "cuda" raises
     device: str = "cuda"
+    # :generate engine: "continuous" runs unseeded requests on the slotted
+    # continuous engine (runtime/batcher.py); "coalesce" (the reference's
+    # default name) runs every request on the solo path, since the port has
+    # no coalescer yet
+    generate_engine: str = "coalesce"
+    generate_slots: int = 8                # continuous-engine lanes per model
+    generate_chunk_tokens: int = 8         # decode steps per scheduler boundary
+    # paged KV arena for the continuous engine: 0 = dense per-lane rows;
+    # > 0 = pages of this many tokens shared through per-lane block tables
+    kv_page_tokens: int = 0
+    # usable arena pages; 0 auto-sizes to slots x ceil(max_seq / page_tokens)
+    # (int8 arenas grow to the same byte budget)
+    kv_arena_pages: int = 0
+    # paged decode attention through the CUDA kernel (False = the plain path)
+    kv_paged_kernel: bool = True
+    # "" = the model dtype; "int8" = quantized pages with per-row f32 scales
+    kv_arena_dtype: str = ""
 
 
 @dataclass

@@ -1,14 +1,19 @@
-"""Attention ops: a hand-written CUDA flash-attention kernel + its plain
-PyTorch version.
+"""Attention ops: hand-written CUDA kernels + their plain PyTorch versions.
 
-Counterpart of ``tfservingcache_tpu/ops/attention.py``. ``attention`` is the
-dispatch the model calls: on a CUDA tensor that passes the reference's gate
-it launches the kernel (``flash_attention``), otherwise it runs the plain
-version (``attention_reference``). There is no fallback: a kernel that fails
-to build or launch raises.
-
-Layouts follow the reference: q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``,
-GQA with ``Hq % Hkv == 0``, out in q's dtype.
+Counterpart of ``tfservingcache_tpu/ops/attention.py``:
+  - ``attention`` is the dispatch the model calls for full-sequence
+    attention: on a CUDA tensor that passes the reference's gate it launches
+    the flash kernel (``flash_attention``, bf16 or f32), otherwise it runs
+    the plain version (``attention_reference``). Layouts: q ``(B, Hq, S, D)``,
+    k/v ``(B, Hkv, S, D)``, GQA with ``Hq % Hkv == 0``, out in q's dtype.
+  - ``paged_attention`` is the dispatch of the continuous engine's decode
+    step: one query per lane over the paged KV arena. On a CUDA tensor that
+    passes the gate it launches the paged decode kernel
+    (``paged_decode_attention_kernel``, bf16 / f32 / int8 arenas), otherwise
+    it runs the plain gather + einsum version (``paged_decode_attention``).
+    q ``(S, Hq, 1, D)``, pages ``(n_pages, Hkv, page_tokens, D)``, tables
+    ``(S, pages_per_slot)`` int32, pos ``(S,)`` int32 -> f32 ``(S, Hq, 1, D)``.
+There is no fallback: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -45,9 +50,10 @@ class LaunchCounter:
             return self._n
 
 
-# bumped once per launch of the flash kernel (chip_smoke.py reads it to show
-# that the serving path went through the kernel)
+# bumped once per launch of each kernel (chip_smoke.py reads them to show
+# that the serving paths went through the kernels)
 FLASH_LAUNCHES = LaunchCounter()
+PAGED_LAUNCHES = LaunchCounter()
 
 
 def attention_reference(
@@ -74,29 +80,58 @@ def attention_reference(
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` with every entry point's C signature set
+    (ctypes would otherwise pass pointers as 32-bit ints)."""
+    from tfservingcache_tpu_torch.ops import _build
+
+    lib = _build.load(name)
     if not getattr(lib, "_tpusc_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpusc_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.tpusc_flash_attention_fwd.restype = i
+        if name == "flash_attention":
+            lib.tpusc_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            lib.tpusc_flash_attention_fwd.restype = i
+            lib.tpusc_flash_attention_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            lib.tpusc_flash_attention_fwd_f32.restype = i
+        else:
+            lib.tpusc_paged_decode_attention.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p,
+            ]
+            lib.tpusc_paged_decode_attention.restype = i
         lib.tpusc_cuda_error_string.argtypes = [i]
         lib.tpusc_cuda_error_string.restype = ctypes.c_char_p
         lib._tpusc_bound = True
     return lib
 
 
+def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.tpusc_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cuda error {rc})")
+
+
+_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
 ) -> torch.Tensor:
     """The CUDA kernel (``ops/csrc/flash_attention.cu``) on the current
-    stream. Takes contiguous, 16-byte aligned bf16 CUDA tensors with
-    head_dim in ``KERNEL_HEAD_DIMS`` and equal q/k/v lengths; raises on
-    anything else, CPU tensors included."""
+    stream. Takes contiguous, 16-byte aligned CUDA tensors of one dtype,
+    bf16 or f32, with head_dim in ``KERNEL_HEAD_DIMS`` and equal q/k/v
+    lengths; raises on anything else, CPU tensors included. The output has
+    the inputs' dtype (f32 in, f32 scores, f32 p, f32 out; bf16 in, f32
+    scores, p rounded to bf16 before p.v, bf16 out — the reference's
+    rounding points for each dtype)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, needs a CUDA tensor")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}, the kernel takes bfloat16")
+        if t.dtype not in _FLASH_DTYPES:
+            raise ValueError(
+                f"flash_attention: {name} is {t.dtype}, the kernel takes bfloat16 or float32"
+            )
+        if t.dtype != q.dtype:
+            raise ValueError("flash_attention: q, k and v must have one dtype")
         if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} must be a contiguous, 16-byte aligned 4-d tensor"
@@ -113,21 +148,19 @@ def flash_attention(
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if b * hq > 65535:
         raise ValueError(f"flash_attention: batch*heads {b * hq} exceeds the grid's 65535")
-    from tfservingcache_tpu_torch.ops import _build
-
-    lib = _bind(_build.load("flash_attention"))
+    lib = _load("flash_attention")
     out = torch.empty_like(q)
     if s == 0:
         return out
+    fwd = (lib.tpusc_flash_attention_fwd if q.dtype == torch.bfloat16
+           else lib.tpusc_flash_attention_fwd_f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.tpusc_flash_attention_fwd(
+        rc = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, s, d, int(causal), stream,
         )
-    if rc != 0:
-        msg = lib.tpusc_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cuda error {rc})")
+    _check_launch(lib, rc, "flash_attention")
     FLASH_LAUNCHES.add()
     return out
 
@@ -148,3 +181,188 @@ def attention(
     ):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return attention_reference(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# Paged-KV attention (continuous decode engine)
+# ---------------------------------------------------------------------------
+
+def paged_gather_kv(
+    pages: torch.Tensor, tables: torch.Tensor, page_tokens: int
+) -> torch.Tensor:
+    """Each lane's logical K or V row out of the shared arena (reference
+    attention.py:488): ``pages (n_pages, Hkv, pt, D)`` gathered through
+    ``tables (S, pps)`` and laid out in block-table order, so the result
+    ``(S, Hkv, pps * pt, D)`` is positionally a dense per-lane cache row.
+    A table entry of 0 is the trash page: harmless only while it sits above
+    ``pos`` (``TPUSC_PAGECHECK=1`` asserts that before every chunk)."""
+    s_lanes, pps = tables.shape
+    _, hkv, pt, d = pages.shape
+    gathered = pages[tables.long()]                      # (S, PPS, Hkv, pt, D)
+    return gathered.transpose(1, 2).reshape(s_lanes, hkv, pps * pt, d)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    page_tokens: int,
+) -> torch.Tensor:
+    """Single-position attention over a paged KV arena — the plain version
+    of the paged decode kernel, operation for operation the reference's
+    ``paged_decode_attention`` (attention.py:520): GQA folds as
+    ``(S, Hkv, g, 1, D)`` (query head ``kv*g + j`` reads KV head ``kv``);
+    scores are products of the stored values summed in f32 (computed from
+    f32 copies, which is exact for bf16); the mask is ``k_pos <= pos`` at
+    NEG_INF; p is cast to the cache dtype before the value product. Returns
+    f32 ``(S, Hq, 1, D)``."""
+    s_lanes, hq, _, d = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    kc = paged_gather_kv(k_pages, tables, page_tokens)   # (S, Hkv, L, D)
+    vc = paged_gather_kv(v_pages, tables, page_tokens)
+    qg = q.reshape(s_lanes, hkv, g, 1, d).float()
+    s = torch.einsum("bkgqd,bkld->bkgql", qg, kc.float()) / math.sqrt(d)
+    k_pos = torch.arange(kc.shape[2], device=q.device)
+    mask = k_pos[None, None, :] <= pos.long()[:, None, None]  # (S, 1, L)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgql,bkld->bkgqd", p.to(vc.dtype).float(), vc.float())
+    return out.reshape(s_lanes, hq, 1, d)
+
+
+def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """An int8 arena ``(n_pages, Hkv, pt, D)`` against its per-(page, head,
+    token) f32 scales ``(n_pages, Hkv, pt)`` back to f32 rows (reference
+    attention.py:615) — the kernel does the same multiply in registers."""
+    return pages.float() * scales[..., None]
+
+
+_PAGED_Q_TYPES = {torch.bfloat16: 0, torch.float32: 1}
+_PAGED_KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+def paged_decode_attention_kernel(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    *,
+    page_tokens: int,
+) -> torch.Tensor:
+    """The CUDA paged decode kernel (``ops/csrc/paged_decode_attention.cu``)
+    on the current stream: the contract of ``paged_decode_attention``, in
+    one pass over the live K/V rows of each lane. q is bf16 or f32; pages
+    are bf16, f32 or int8 (int8 with ``k_scale``/``v_scale``
+    ``(n_pages, Hkv, pt)`` f32); tables ``(S, pps)`` and pos ``(S,)`` are
+    int32 device tensors the kernel reads itself. Raises on a CPU tensor or
+    anything else the kernel does not take."""
+    quantized = k_scale is not None
+    named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+             ("tables", tables), ("pos", pos)]
+    if quantized:
+        if v_scale is None:
+            raise ValueError("paged_decode_attention_kernel: k_scale given without v_scale")
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"paged_decode_attention_kernel: {name} is on {t.device}, needs a CUDA tensor"
+            )
+        if t.device != q.device:
+            raise ValueError("paged_decode_attention_kernel: all tensors must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"paged_decode_attention_kernel: {name} must be contiguous and 16-byte aligned"
+            )
+    if q.dtype not in _PAGED_Q_TYPES:
+        raise ValueError(f"paged_decode_attention_kernel: q is {q.dtype}, takes bf16 or f32")
+    if k_pages.dtype not in _PAGED_KV_TYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(
+            f"paged_decode_attention_kernel: pages are {k_pages.dtype}/{v_pages.dtype}, "
+            "the kernel takes one of bf16, f32, int8"
+        )
+    if (k_pages.dtype == torch.int8) != quantized:
+        raise ValueError("paged_decode_attention_kernel: int8 pages need k_scale/v_scale "
+                         "and only int8 pages take them")
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("paged_decode_attention_kernel: tables and pos must be int32")
+    s_lanes, hq, one, d = q.shape
+    n_pages, hkv, pt, dk = k_pages.shape
+    if one != 1 or dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"paged_decode_attention_kernel: q {tuple(q.shape)} / pages "
+            f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)} do not match"
+        )
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention_kernel: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if pt != page_tokens:
+        raise ValueError(f"arena page_tokens {pt} != {page_tokens}")
+    if tables.dim() != 2 or tables.shape[0] != s_lanes or tuple(pos.shape) != (s_lanes,):
+        raise ValueError(
+            f"paged_decode_attention_kernel: tables {tuple(tables.shape)} / pos "
+            f"{tuple(pos.shape)} do not match {s_lanes} lanes"
+        )
+    if quantized and (k_scale.shape != k_pages.shape[:3] or v_scale.shape != k_scale.shape
+                      or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("paged_decode_attention_kernel: scales must be f32 (n_pages, Hkv, pt)")
+    if s_lanes > 65535:
+        raise ValueError(f"paged_decode_attention_kernel: {s_lanes} lanes exceed the grid's 65535")
+    lib = _load("paged_decode_attention")
+    out = torch.empty((s_lanes, hq, 1, d), dtype=torch.float32, device=q.device)
+    if s_lanes == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.tpusc_paged_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            s_lanes, hq, hkv, d, pt, tables.shape[1], n_pages,
+            _PAGED_Q_TYPES[q.dtype], _PAGED_KV_TYPES[k_pages.dtype], stream,
+        )
+    _check_launch(lib, rc, "paged_decode_attention")
+    PAGED_LAUNCHES.add()
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    page_tokens: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    kernel: bool = True,
+) -> torch.Tensor:
+    """Paged decode dispatch with the reference's gate (attention.py:848-855):
+    head_dim a multiple of 64 and GQA-divisible heads, where "is the tensor
+    on CUDA" replaces "is the backend a TPU". A gated CUDA call runs the
+    kernel and nothing else. ``kernel=False`` (serving.kv_paged_kernel)
+    forces the plain path; an int8 arena on the plain path is dequantized
+    first (:860-864)."""
+    if kernel and (
+        q.device.type == "cuda"
+        and q.shape[-1] % 64 == 0
+        and q.shape[1] % k_pages.shape[1] == 0
+    ):
+        return paged_decode_attention_kernel(
+            q.contiguous(), k_pages, v_pages, tables, pos, k_scale, v_scale,
+            page_tokens=page_tokens,
+        )
+    if k_scale is not None:
+        k_pages = dequantize_pages(k_pages, k_scale)
+        v_pages = dequantize_pages(v_pages, v_scale)
+    return paged_decode_attention(q, k_pages, v_pages, tables, pos, page_tokens)

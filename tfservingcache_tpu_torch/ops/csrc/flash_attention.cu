@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Flash attention forward for Hopper (sm_90a): bf16 in / bf16 out, and
+// f32 in / f32 out.
 //
 // Replaces the Pallas TPU kernel `flash_attention`
 // (tfservingcache_tpu/ops/attention.py:211, bodies `_flash_kernel` :75 and
@@ -23,8 +24,18 @@
 // scores and the output accumulator in registers. No wgmma/TMA, no
 // double-buffered copy pipeline yet.
 //
-// Entry point: tpusc_flash_attention_fwd (plain C, loaded with ctypes).
-// It launches on the given stream, allocates nothing and returns
+// f32 inputs take a second, plain SIMT kernel with the reference's f32
+// rounding: f32 scores, p kept in f32 for the p.v product (the reference's
+// `p.astype(v.dtype)` is a no-op there), f32 out. One block of 4 warps per
+// (batch*head, 16 query rows); each K/V tile of 32 keys sits in shared
+// memory; a lane scores one key of the tile with FMAs, the warp takes the
+// tile's max and sum with shuffles, and each lane accumulates D/32 output
+// columns. No tensor cores (no TF32), so f32 is exact to the reference's
+// rounding up to summation order.
+//
+// Entry points: tpusc_flash_attention_fwd (bf16) and
+// tpusc_flash_attention_fwd_f32 (plain C, loaded with ctypes). Each
+// launches on the given stream, allocates nothing and returns
 // cudaGetLastError() of the launch.
 
 #include <cuda_bf16.h>
@@ -267,6 +278,147 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
                 : launch<D, false>(q, k, v, o, B, Hq, Hkv, S, stream);
 }
 
+
+// ---- f32 inputs: plain SIMT kernel ----------------------------------------
+
+constexpr int F32_ROWS = 16;  // query rows per block (4 per warp)
+constexpr int F32_KEYS = 32;  // keys per K/V tile: one per lane when scoring
+
+template <int D>
+struct TileF32 {
+  static constexpr int K_STRIDE = D + 1;  // odd pitch: lane j reads K row j conflict-free
+  static constexpr size_t SMEM_BYTES =
+      sizeof(float) * (size_t)(F32_ROWS * D + F32_KEYS * K_STRIDE + F32_KEYS * D);
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv, int S,
+                         float scale) {
+  constexpr int E = D / 32;                     // output columns per lane: lane + 32 * e
+  constexpr int RPW = F32_ROWS / NUM_WARPS;     // query rows per warp
+  constexpr int KS = TileF32<D>::K_STRIDE;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + F32_ROWS * D;
+  float* sV = sK + F32_KEYS * KS;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;  // b * Hq + h
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * F32_ROWS;  // longest causal blocks first
+  const float* qp = q + (size_t)bh * S * D;
+  const float* kp = k + ((size_t)b * Hkv + kvh) * S * D;
+  const float* vp = v + ((size_t)b * Hkv + kvh) * S * D;
+
+  for (int c = threadIdx.x; c < F32_ROWS * D; c += NUM_THREADS) {
+    const int r = c / D;
+    sQ[c] = q_start + r < S ? qp[(size_t)(q_start + r) * D + c % D] : 0.f;
+  }
+
+  float m[RPW], l[RPW], acc[RPW][E];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  int n_tiles = (S + F32_KEYS - 1) / F32_KEYS;
+  if (CAUSAL) n_tiles = min(n_tiles, (q_start + F32_ROWS + F32_KEYS - 1) / F32_KEYS);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k_start = j * F32_KEYS;
+    __syncthreads();  // every warp is done with the previous tile
+    for (int c = threadIdx.x; c < F32_KEYS * D; c += NUM_THREADS) {
+      const int r = c / D;
+      const int col = c % D;
+      const bool ok = k_start + r < S;
+      sK[r * KS + col] = ok ? kp[(size_t)(k_start + r) * D + col] : 0.f;
+      sV[r * D + col] = ok ? vp[(size_t)(k_start + r) * D + col] : 0.f;
+    }
+    __syncthreads();
+
+    const int key = k_start + lane;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int row_local = warp * RPW + i;
+      const int row = q_start + row_local;
+      const float* qr = sQ + row_local * D;
+      const float* kr = sK + lane * KS;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      // the first tile always holds key 0, visible to every row, so m is
+      // finite after it and masked keys underflow to exactly 0 below
+      s = (key < S && (!CAUSAL || key <= row)) ? s * scale : NEG_INF;
+      const float m_new = fmaxf(m[i], warp_max(s));
+      const float alpha = expf(m[i] - m_new);
+      const float p = expf(s - m_new);
+      l[i] = alpha * l[i] + warp_sum(p);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+#pragma unroll 4
+      for (int jj = 0; jj < F32_KEYS; ++jj) {
+        const float pj = __shfl_sync(0xffffffffu, p, jj);
+        const float* vr = sV + jj * D + lane;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(pj, vr[32 * e], acc[i][e]);
+      }
+    }
+  }
+
+  float* op = o + (size_t)bh * S * D;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int row = q_start + warp * RPW + i;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) op[(size_t)row * D + lane + 32 * e] = acc[i][e] * inv;
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                       int S, cudaStream_t stream) {
+  constexpr size_t smem = TileF32<D>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, CAUSAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + F32_ROWS - 1) / F32_ROWS, B * Hq);
+  flash_fwd_f32_kernel<D, CAUSAL><<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, S, 1.f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                         int S, int causal, cudaStream_t stream) {
+  return causal ? launch_f32<D, true>(q, k, v, o, B, Hq, Hkv, S, stream)
+                : launch_f32<D, false>(q, k, v, o, B, Hq, Hkv, S, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,6 +434,19 @@ int tpusc_flash_attention_fwd(const void* q, const void* k, const void* v, void*
     case 128: return (int)launch_d<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 192: return (int)launch_d<192>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 256: return (int)launch_d<256>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same contract for f32 q, k, v, o.
+int tpusc_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int B,
+                                  int Hq, int Hkv, int S, int D, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return (int)launch_f32_d<64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 128: return (int)launch_f32_d<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 192: return (int)launch_f32_d<192>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 256: return (int)launch_f32_d<256>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,6 +30,8 @@ class ServingBackend(abc.ABC):
         version: int | None,
         verb: str | None,
         body: bytes,
+        query: dict[str, str] | None = None,
     ) -> RestResponse:
-        """Serve one parsed model URL. ``verb`` is ``predict`` (and the
-        verbs later slices add), ``metadata``, or None for a status GET."""
+        """Serve one parsed model URL. ``verb`` is ``predict``, ``generate``
+        (and the verbs later slices add), ``metadata``, or None for a status
+        GET; ``query`` holds the URL's query parameters."""

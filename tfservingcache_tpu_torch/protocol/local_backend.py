@@ -1,7 +1,9 @@
 """LocalServingBackend: the cache node's fulfilment of the REST protocol
 (counterpart of ``tfservingcache_tpu/protocol/local_backend.py``: ``:predict``,
-model status and metadata). The request is decoded and answered in-process:
-ensure the model is servable, run it on the runtime, encode the outputs.
+``:generate``, model status and metadata). The request is decoded and
+answered in-process: ensure the model is servable, run it on the runtime
+(or, for ``:generate``, on the continuous engine when one is configured),
+encode the outputs.
 
 Methods are synchronous; the REST server runs each request on its own
 thread.
@@ -10,6 +12,7 @@ thread.
 from __future__ import annotations
 
 import json
+import secrets
 from typing import Any, Mapping
 
 import numpy as np
@@ -29,12 +32,17 @@ from tfservingcache_tpu_torch.types import ModelId, ModelState
 _STATE_NAMES = {s.value: s.name for s in ModelState}
 
 # verbs the reference serves that this port does not yet
-_LATER_VERBS = ("classify", "regress", "generate")
+_LATER_VERBS = ("classify", "regress")
+
+_STREAM_ON = ("1", "true", "yes", "on")
 
 
 class LocalServingBackend(ServingBackend):
-    def __init__(self, manager: CacheManager) -> None:
+    def __init__(self, manager: CacheManager, generator: Any = None) -> None:
         self.manager = manager
+        # the continuous engine (runtime/batcher.py) when
+        # serving.generate_engine == "continuous"; None = the solo path
+        self._generator = generator
 
     def _ensure(self, model_id: ModelId) -> None:
         try:
@@ -53,6 +61,7 @@ class LocalServingBackend(ServingBackend):
         version: int | None,
         verb: str | None,
         body: bytes,
+        query: dict[str, str] | None = None,
     ) -> RestResponse:
         try:
             resolved = self.manager.resolve_version(model_name, version)
@@ -65,7 +74,7 @@ class LocalServingBackend(ServingBackend):
             return self._rest_metadata(model_id)
         if method == "POST" and verb in _LATER_VERBS:
             raise BackendError(f":{verb} is not served by this port yet", 501)
-        if method != "POST" or verb != "predict":
+        if method != "POST" or verb not in ("predict", "generate"):
             raise BackendError(f"unsupported {method} {verb or ''} request", 405)
         try:
             payload = json.loads(body or b"{}")
@@ -73,6 +82,8 @@ class LocalServingBackend(ServingBackend):
             raise BackendError(f"invalid JSON body: {e}", 400) from e
         if not isinstance(payload, dict):
             raise BackendError("request body must be a JSON object", 400)
+        if verb == "generate":
+            return self._rest_generate(model_id, payload, query or {})
         return self._rest_predict(model_id, payload)
 
     def _rest_predict(self, model_id: ModelId, payload: dict) -> RestResponse:
@@ -115,6 +126,73 @@ class LocalServingBackend(ServingBackend):
         except codec.CodecError as e:
             raise BackendError(str(e), 400) from e
         return RestResponse(status=200, body=body)
+
+    def _rest_generate(self, model_id: ModelId, payload: dict,
+                       query: dict[str, str]) -> RestResponse:
+        """tpusc extension verb ``:generate`` — KV-cached decoding
+        (reference local_backend.py:689-927).
+
+        Body: {"input_ids": [[...]], "prompt_lengths": [...]?,
+               "max_new_tokens": N?, "temperature": t?, "top_k": k?, "seed": s?,
+               "conversation_id": "..."?, "priority": "high"|"normal"|"low"?}
+        Response: {"tokens": [[...]]}, (rows, max_new_tokens) new tokens.
+
+        Without a "seed", a request runs on the continuous engine when one
+        is configured; a seeded request runs on the solo path, reproducibly.
+        "conversation_id" and "priority" are validated as the reference
+        validates them and then ignored (the conversation tier and priority
+        classes are later slices). "draft_model" and ``?stream=true`` answer
+        501 (later slices)."""
+        ids = payload.get("input_ids")
+        if not isinstance(ids, list) or not ids:
+            raise BackendError('"input_ids" must be a non-empty 2-D list', 400)
+        if payload.get("draft_model") is not None:
+            raise BackendError(
+                '"draft_model" (speculative decoding) is not served by this port yet', 501
+            )
+        conv_id = payload.get("conversation_id")
+        if conv_id is not None and (not isinstance(conv_id, str) or not conv_id):
+            raise BackendError('"conversation_id" must be a non-empty string', 400)
+        if payload.get("priority", "normal") not in ("high", "normal", "low"):
+            raise BackendError('"priority" must be one of "high", "normal", "low"', 400)
+        if str(query.get("stream", "")).strip().lower() in _STREAM_ON:
+            raise BackendError("?stream=true is not served by this port yet", 501)
+
+        def attempt() -> np.ndarray:
+            self._ensure(model_id)
+            try:
+                # inside the try: malformed params ("max_new_tokens": "abc")
+                # answer 400, not 500
+                kwargs = dict(
+                    prompt_lengths=payload.get("prompt_lengths"),
+                    max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                    temperature=float(payload.get("temperature", 0.0)),
+                    top_k=int(payload.get("top_k", 0)),
+                )
+                seed = int(payload["seed"]) if "seed" in payload else None
+                arr = np.asarray(ids, np.int32)
+                if self._generator is not None:
+                    return self._generator.generate(model_id, arr, seed=seed, **kwargs)
+                return self.manager.runtime.generate(
+                    model_id, arr, seed=seed if seed is not None else secrets.randbits(31),
+                    **kwargs,
+                )
+            except ModelNotLoadedError:
+                raise
+            except (RuntimeError_, ValueError, TypeError) as e:
+                raise BackendError(str(e), 400) from e
+            except TimeoutError as e:
+                raise BackendError(str(e), 504) from e
+
+        try:
+            tokens = attempt()
+        except ModelNotLoadedError:
+            # LRU eviction raced between ensure and generate: reload once
+            try:
+                tokens = attempt()
+            except ModelNotLoadedError as e:
+                raise BackendError(str(e), 400) from e
+        return RestResponse(status=200, body=json.dumps({"tokens": tokens.tolist()}).encode())
 
     def _rest_status(self, model_id: ModelId) -> RestResponse:
         """ModelService status: runtime-known versions, else disk-cached

@@ -18,6 +18,7 @@ import logging
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qsl
 
 from tfservingcache_tpu_torch.protocol.backend import BackendError, ServingBackend
 
@@ -29,7 +30,8 @@ URL_RE = re.compile(
 
 MAX_BODY_BYTES = 256 << 20
 
-# the reference's verbs; :predict is served here, the rest answer 501
+# the reference's verbs; :predict and :generate are served here, the rest
+# answer 501
 VERBS = ("predict", "classify", "regress", "generate")
 
 
@@ -65,7 +67,8 @@ class RestServingServer:
 
     def handle(self, method: str, path: str, body: bytes) -> tuple[int, bytes]:
         """One request -> (HTTP status, JSON body)."""
-        path = path.split("?", 1)[0]
+        path, _, raw_query = path.partition("?")
+        query = dict(parse_qsl(raw_query))
         if path == "/healthz":
             return 200, b'{"status": "ok"}'
         parsed = parse_model_url(path)
@@ -75,7 +78,7 @@ class RestServingServer:
         if version is None:  # the cache node serves versioned URLs only
             return 400, _error_body("Model version must be provided")
         try:
-            resp = self.backend.handle_rest(method, name, version, verb, body)
+            resp = self.backend.handle_rest(method, name, version, verb, body, query)
         except BackendError as e:
             return e.http_status, json.dumps({"error": str(e)}).encode()
         except Exception as e:  # noqa: BLE001 - a server answers 500, keeps serving

@@ -1,7 +1,9 @@
 """The PyTorch model runtime: artifact -> pinned host tensors -> GPU module.
 
 Counterpart of ``tfservingcache_tpu/runtime/model_runtime.py`` for the
-``:predict`` path. A load reads ``params.bin`` in one sequential read into
+``:predict`` and ``:generate`` paths: the solo ``generate`` and the slot
+surface the continuous engine (``runtime/batcher.py``) drives, over a dense
+slot array or a paged KV arena (``SlotDecodeState``). A load reads ``params.bin`` in one sequential read into
 page-locked host memory, copies every leaf to the device and wraps them in
 the family's ``nn.Module``; resident models live in a byte-budgeted LRU
 (capped at ``serving.max_concurrent_models``) whose eviction drops the
@@ -17,9 +19,11 @@ no card and no explicit device it raises. Forwards run eagerly under
 from __future__ import annotations
 
 import logging
+import math
+import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping
 
 import numpy as np
@@ -91,6 +95,132 @@ class LoadedModel:
     nbytes: int
 
 
+@dataclass
+class SlotDecodeState:
+    """Device + host state of one model's continuous-decode lanes
+    (reference model_runtime.py:650-846). Dense mode (``page_tokens == 0``):
+    ``k``/``v`` are the slot array ``(layers, S, n_kv, max_seq, hd)``, one
+    lane per slot. Paged mode: ``k``/``v`` are the shared arena
+    ``(layers, arena_pages + 1, n_kv, page_tokens, hd)`` — page 0 is the
+    trash page — and each lane reads and writes through its
+    ``block_tables`` row; the free list hands pages out at admission and
+    takes them back at retirement. The host mirrors (tok/pos/active/temps/
+    topks, block tables, free list) belong to the engine's scheduler
+    thread; the runtime copies them to the device once per chunk."""
+
+    model_id: ModelId
+    slots: int
+    max_seq: int
+    k: torch.Tensor                  # slot array or paged arena, updated in place
+    v: torch.Tensor
+    tok: np.ndarray                  # (S,) i32 last sampled token per lane
+    pos: np.ndarray                  # (S,) i32 next write position
+    active: np.ndarray               # (S,) bool
+    temps: np.ndarray                # (S,) f32 per-lane temperature
+    topks: np.ndarray                # (S,) i32 per-lane top_k
+    chunk_counter: int = 0           # seeds each chunk's generator
+    page_tokens: int = 0
+    arena_pages: int = 0             # usable pages (excludes trash page 0)
+    pages_per_slot: int = 0          # ceil(max_seq / page_tokens)
+    # int8 arena: per-row f32 scale buffers {"k", "v"} (None otherwise)
+    scales: dict | None = None
+    arena_dtype: str = ""            # "" = model dtype; "int8" = quantized
+    kernel: bool = True              # serving.kv_paged_kernel
+    block_tables: np.ndarray | None = None   # (S, pages_per_slot) i32
+    free_pages: list = field(default_factory=list)
+    lane_pages: dict = field(default_factory=dict)  # lane -> [page ids]
+    page_refs: np.ndarray | None = None      # (arena_pages + 1,) i32 owners per page
+
+    @property
+    def paged(self) -> bool:
+        return self.page_tokens > 0
+
+    def pages_needed(self, tokens: int) -> int:
+        return -(-int(tokens) // self.page_tokens)
+
+    def reserve_pages(self, lane: int, tokens: int) -> bool:
+        """Reserve pages for ``tokens`` (the row's prompt + max_new budget,
+        so a decoding row never starves) and point the lane's block table
+        at them. False when the free list cannot cover it: the caller
+        blocks admission and retries after retirements."""
+        need = self.pages_needed(tokens)
+        if need > len(self.free_pages):
+            return False
+        pages = [self.free_pages.pop() for _ in range(need)]
+        for pg in pages:
+            self.page_refs[pg] += 1
+        self.lane_pages[lane] = pages
+        self.block_tables[lane, :] = 0
+        self.block_tables[lane, :len(pages)] = pages
+        return True
+
+    def release_pages(self, lane: int) -> None:
+        """Drop a retired or failed lane's pages back on the free list and
+        park the lane on the trash page (zeroed table row), so its frozen
+        in-chunk rewrites never touch a recycled page's next owner."""
+        for pg in self.lane_pages.pop(lane, None) or ():
+            n = int(self.page_refs[pg]) - 1
+            self.page_refs[pg] = max(n, 0)
+            if n <= 0:
+                self.free_pages.append(pg)
+        if self.block_tables is not None:
+            self.block_tables[lane, :] = 0
+
+    def page_stats(self) -> dict:
+        """Distinct-page split of the arena (trash page 0 excluded). Without
+        shared prefixes every referenced page is private to one lane."""
+        used = {pg for pages in self.lane_pages.values() for pg in pages}
+        return {"free": len(self.free_pages), "cached": 0, "shared": 0, "private": len(used)}
+
+    def check_page_conservation(self) -> None:
+        """Assert the refcount invariant over the whole arena: every usable
+        page is exactly one of free or referenced, ``page_refs`` agrees with
+        the lanes' census, page 0 is never handed out. Host-only."""
+        if not self.paged:
+            return
+        census = np.zeros(self.arena_pages + 1, np.int64)
+        for pages in self.lane_pages.values():
+            for pg in pages:
+                census[pg] += 1
+        free = set(self.free_pages)
+        assert len(free) == len(self.free_pages), "duplicate free-list pages"
+        assert 0 not in free, "trash page on the free list"
+        assert census[0] == 0, "trash page is referenced"
+        for pg in range(1, self.arena_pages + 1):
+            refs = int(census[pg])
+            if pg in free:
+                assert refs == 0, f"page {pg} free but referenced {refs}x"
+            else:
+                assert refs > 0, f"page {pg} leaked (not free, unreferenced)"
+            got = int(self.page_refs[pg])
+            assert got == refs, f"page {pg}: page_refs says {got}, census says {refs}"
+
+
+# TPUSC_PAGECHECK=1: assert before every paged decode chunk that no live
+# lane's block table maps the trash page below its visible position — the
+# plain path and the kernel read whatever the table points at, so such an
+# entry would attend over junk K/V with no error anywhere.
+_PAGECHECK = os.environ.get("TPUSC_PAGECHECK", "") == "1"
+
+
+def _check_trash_unreachable(state: SlotDecodeState) -> None:
+    """Raise if an active lane's block-table row maps page 0 in a slot its
+    attention window reaches (pages covering tokens 0..pos inclusive)
+    (reference :858). Host-only, O(slots x pages_per_slot)."""
+    for lane in range(state.slots):
+        if not bool(state.active[lane]):
+            continue
+        live = state.pages_needed(int(state.pos[lane]) + 1)
+        row = state.block_tables[lane, :live]
+        if (row == 0).any():
+            bad = int(np.argmax(row == 0))
+            raise AssertionError(
+                f"TPUSC_PAGECHECK: lane {lane} maps trash page 0 at block-table slot "
+                f"{bad} below pos={int(state.pos[lane])} (live pages={live}) — attention "
+                "would read junk KV"
+            )
+
+
 class TorchModelRuntime(BaseRuntime):
     def __init__(
         self, cfg: ServingConfig | None = None, device: str | torch.device | None = None
@@ -105,6 +235,9 @@ class TorchModelRuntime(BaseRuntime):
         )
         self._load_locks: dict[ModelId, threading.Lock] = {}  # guarded-by: _load_locks_guard
         self._load_locks_guard = threading.Lock()
+        self._slot_states: dict[ModelId, SlotDecodeState] = {}  # guarded-by: _slot_lock
+        self._slot_init_guards: dict[ModelId, threading.Lock] = {}  # guarded-by: _slot_lock
+        self._slot_lock = threading.Lock()
 
     # -- load ---------------------------------------------------------------
     def ensure_loaded(self, model: Model) -> str:
@@ -265,9 +398,287 @@ class TorchModelRuntime(BaseRuntime):
             padded[name] = np.pad(arr, pad) if changed else arr
         return dyn_sizes, padded
 
+    # -- generate -----------------------------------------------------------
+    def _lm(self, model_id: ModelId) -> LoadedModel:
+        loaded = self._resident.get(model_id)
+        if loaded is None:
+            raise ModelNotLoadedError(f"model {model_id} is not loaded")
+        if loaded.model_def.family != "transformer_lm":
+            raise RuntimeError_(
+                "generate is supported for transformer_lm models, not "
+                f"{loaded.model_def.family!r}"
+            )
+        return loaded
+
+    def generate(
+        self,
+        model_id: ModelId,
+        input_ids: np.ndarray,
+        prompt_lengths: list[int] | None = None,
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """KV-cached decoding (``models/generation.generate``) on the solo
+        path (reference :1813-1993): the same validation; prompt seq,
+        max_new_tokens and the batch axis padded to power-of-two buckets,
+        with the exact sizes where the buckets would overshoot max_seq.
+        -> (B, max_new_tokens) int32."""
+        from tfservingcache_tpu_torch.models import generation
+
+        loaded = self._lm(model_id)
+        ids = np.asarray(input_ids, np.int32)
+        if ids.ndim != 2 or not ids.size:
+            raise RuntimeError_(f"input_ids must be (batch, seq), got {ids.shape}")
+        b, s = ids.shape
+        if prompt_lengths is None:
+            lengths = np.full((b,), s, np.int32)
+        else:
+            lengths = np.asarray(prompt_lengths, np.int32)
+            if lengths.shape != (b,) or (lengths < 1).any() or (lengths > s).any():
+                raise RuntimeError_(f"bad prompt_lengths {lengths!r} for shape {ids.shape}")
+        if max_new_tokens < 1:
+            raise RuntimeError_("max_new_tokens must be >= 1")
+        if not math.isfinite(temperature) or temperature < 0.0:
+            raise RuntimeError_(f"temperature must be a finite value >= 0, got {temperature}")
+        if top_k < 0:
+            raise RuntimeError_(f"top_k must be >= 0, got {top_k}")
+        cfg = loaded.model_def.config
+        max_seq = cfg["max_seq"]
+        s_bucket = next_bucket(s)
+        new_bucket = next_bucket(max_new_tokens)
+        if s_bucket + new_bucket > max_seq:
+            # bucket overshoot may exceed max_seq when the true request fits
+            s_bucket, new_bucket = s, max_new_tokens
+            if s + max_new_tokens > max_seq:
+                raise RuntimeError_(
+                    f"prompt {s} + max_new_tokens {max_new_tokens} exceeds max_seq {max_seq}"
+                )
+        if s_bucket != s:
+            ids = np.pad(ids, ((0, 0), (0, s_bucket - s)))
+        b_bucket = next_bucket(b)
+        if b_bucket != b:  # padding rows decode junk that is sliced off
+            ids = np.pad(ids, ((0, b_bucket - b), (0, 0)))
+            lengths = np.pad(lengths, (0, b_bucket - b), constant_values=1)
+        toks = generation.generate(
+            loaded.module, cfg, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(lengths), new_bucket, temperature=temperature,
+            top_k=top_k, seed=seed,
+        )
+        return toks.cpu().numpy()[:b, :max_new_tokens]
+
+    # -- continuous-decode slot surface (runtime/batcher.py) ----------------
+    def eos_id_of(self, model_id: ModelId) -> int | None:
+        """The model's ``eos_id`` config key, None when unset or not resident."""
+        loaded = self._resident.get(model_id, touch=False)
+        if loaded is None:
+            return None
+        eos = loaded.model_def.config.get("eos_id")
+        return None if eos is None else int(eos)
+
+    def max_seq_of(self, model_id: ModelId) -> int | None:
+        loaded = self._resident.get(model_id, touch=False)
+        if loaded is None:
+            return None
+        ms = loaded.model_def.config.get("max_seq")
+        return None if ms is None else int(ms)
+
+    def family_of(self, model_id: ModelId) -> str | None:
+        loaded = self._resident.get(model_id, touch=False)
+        return None if loaded is None else loaded.model_def.family
+
+    def slot_decode_state(
+        self,
+        model_id: ModelId,
+        slots: int,
+        page_tokens: int | None = None,
+        arena_pages: int | None = None,
+        arena_dtype: str | None = None,
+        paged_kernel: bool | None = None,
+    ) -> SlotDecodeState:
+        """Create-or-get the model's slot state (reference :2018). The knobs
+        default to the ServingConfig's; ``page_tokens == 0`` keeps the dense
+        slot array, ``> 0`` allocates the paged arena (``arena_pages == 0``
+        auto-sizes to slots x ceil(max_seq / page_tokens); an int8 arena
+        grows to the same byte budget). An existing state wins. Allocation
+        runs under a per-model once-guard, not under the map lock."""
+        self._lm(model_id)
+        with self._slot_lock:
+            st = self._slot_states.get(model_id)
+            if st is not None:
+                return st
+            guard = self._slot_init_guards.setdefault(model_id, threading.Lock())
+        with guard:
+            with self._slot_lock:
+                st = self._slot_states.get(model_id)
+            if st is not None:
+                return st
+            st = self._build_slot_state(
+                self._lm(model_id), model_id, slots, page_tokens, arena_pages,
+                arena_dtype, paged_kernel,
+            )
+            with self._slot_lock:
+                st = self._slot_states.setdefault(model_id, st)
+                self._slot_init_guards.pop(model_id, None)
+            return st
+
+    def _build_slot_state(
+        self,
+        loaded: LoadedModel,
+        model_id: ModelId,
+        slots: int,
+        page_tokens: int | None,
+        arena_pages: int | None,
+        arena_dtype: str | None,
+        paged_kernel: bool | None,
+    ) -> SlotDecodeState:
+        from tfservingcache_tpu_torch.models import generation
+
+        if page_tokens is None:
+            page_tokens = int(self.cfg.kv_page_tokens)
+        if arena_pages is None:
+            arena_pages = int(self.cfg.kv_arena_pages)
+        if arena_dtype is None:
+            arena_dtype = str(self.cfg.kv_arena_dtype or "")
+        if paged_kernel is None:
+            paged_kernel = bool(self.cfg.kv_paged_kernel)
+        cfg = loaded.model_def.config
+        max_seq = int(cfg["max_seq"])
+        common = dict(
+            model_id=model_id,
+            slots=slots,
+            max_seq=max_seq,
+            tok=np.zeros((slots,), np.int32),
+            pos=np.zeros((slots,), np.int32),
+            active=np.zeros((slots,), bool),
+            temps=np.zeros((slots,), np.float32),
+            topks=np.zeros((slots,), np.int32),
+            kernel=bool(paged_kernel),
+        )
+        if page_tokens and page_tokens > 0:
+            page_tokens = int(page_tokens)
+            pps = -(-max_seq // page_tokens)
+            usable = int(arena_pages) if arena_pages else slots * pps
+            if not arena_pages and arena_dtype == "int8":
+                # byte-matched auto-size: an int8 row is hd bytes + a 4-byte
+                # f32 scale against hd * itemsize, so the same budget holds
+                # more pages (reference :2129-2143)
+                hd = int(cfg["d_model"]) // int(cfg["n_heads"])
+                dense_item = torch.empty((), dtype=getattr(torch, cfg["dtype"])).element_size()
+                usable = max(usable, (usable * hd * dense_item) // (hd + 4))
+            # +1: page 0 is the trash page, permanently reserved
+            arena = generation.init_paged_cache(
+                cfg, usable + 1, page_tokens, arena_dtype, self.device
+            )
+            scales = None
+            if "k_scale" in arena:
+                scales = {"k": arena["k_scale"], "v": arena["v_scale"]}
+            return SlotDecodeState(
+                k=arena["k"], v=arena["v"], scales=scales, arena_dtype=arena_dtype,
+                page_tokens=page_tokens, arena_pages=usable, pages_per_slot=pps,
+                block_tables=np.zeros((slots, pps), np.int32),
+                free_pages=list(range(1, usable + 1)),
+                page_refs=np.zeros((usable + 1,), np.int32),
+                **common,
+            )
+        cache = generation.init_cache(cfg, slots, max_seq, self.device)
+        return SlotDecodeState(k=cache["k"], v=cache["v"], **common)
+
+    def drop_slot_state(self, model_id: ModelId) -> None:
+        with self._slot_lock:
+            self._slot_states.pop(model_id, None)
+
+    def slot_prefill(
+        self, model_id: ModelId, prompt: np.ndarray, temperature: float, top_k: int,
+        seed: int,
+    ) -> tuple[int, torch.Tensor, torch.Tensor]:
+        """Admission prefill of one request (reference :2232, no prefix
+        cache): the prompt through a ``(1, P_bucket)`` prefill and its first
+        token sampled from a generator seeded with ``seed``.
+        -> (first token, k, v), k/v ready for slot_admit."""
+        from tfservingcache_tpu_torch.models import generation
+
+        loaded = self._lm(model_id)
+        cfg = loaded.model_def.config
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        p = prompt.shape[0]
+        s_pad = next_bucket(p)
+        if s_pad > int(cfg["max_seq"]):
+            s_pad = p  # bucket overshoot: exact size (same rule as generate)
+        ids = np.zeros((1, s_pad), np.int32)
+        ids[0, :p] = prompt
+        tok, pk, pv, _last = generation.slot_prefill(
+            loaded.module, cfg, torch.from_numpy(ids).to(self.device), p,
+            temperature, top_k, seed,
+        )
+        return int(tok[0]), pk, pv
+
+    def slot_admit(self, state: SlotDecodeState, idx: int, pk: torch.Tensor,
+                   pv: torch.Tensor) -> None:
+        """Copy an admitted request's prefill K/V into lane ``idx`` in place
+        (reference :2737). A paged state must have the lane's pages reserved
+        first: the insert scatters through the lane's block-table row."""
+        from tfservingcache_tpu_torch.models import generation
+
+        if state.paged:
+            arena = {"k": state.k, "v": state.v}
+            if state.scales is not None:
+                arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
+            row = torch.from_numpy(state.block_tables[idx].copy()).to(self.device)
+            generation.paged_insert(arena, pk, pv, row, state.page_tokens)
+            return
+        generation.slot_insert(state.k, state.v, pk, pv, idx)
+
+    def slot_decode_chunk(self, state: SlotDecodeState, chunk: int) -> np.ndarray:
+        """Advance every active lane by ``chunk`` decode steps (reference
+        :2765). The host mirrors are copied to the device once, the steps
+        run without a host sync, and ``toks``/``tok``/``pos`` come back once
+        at the end. Updates the state's K/V in place and its tok/pos
+        mirrors; returns the (S, chunk) emitted tokens. Raises
+        ModelNotLoadedError when the model was evicted mid-decode."""
+        from tfservingcache_tpu_torch.models import generation
+
+        loaded = self._resident.get(state.model_id)
+        if loaded is None:
+            raise ModelNotLoadedError(f"model {state.model_id} is not loaded")
+        cfg = loaded.model_def.config
+        state.chunk_counter += 1
+        dev = self.device
+        gen = None
+        if (state.temps > 0).any():  # host mirror: every-lane-greedy draws nothing
+            gen = torch.Generator(device=dev).manual_seed(state.chunk_counter)
+        tok = torch.from_numpy(state.tok.astype(np.int64)).to(dev)
+        active = torch.from_numpy(state.active.copy()).to(dev)
+        temps = torch.from_numpy(state.temps.copy()).to(dev)
+        topks = torch.from_numpy(state.topks.copy()).to(dev)
+        if state.paged:
+            if _PAGECHECK:
+                _check_trash_unreachable(state)
+            arena = {"k": state.k, "v": state.v}
+            if state.scales is not None:
+                arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
+            tables = torch.from_numpy(state.block_tables.copy()).to(dev)
+            pos = torch.from_numpy(state.pos.copy()).to(dev)
+            tok, pos, toks = generation.paged_decode_chunk(
+                loaded.module, cfg, arena, tables, tok, pos, active, gen, temps, topks,
+                chunk, state.page_tokens, state.kernel,
+            )
+        else:
+            pos = torch.from_numpy(state.pos.astype(np.int64)).to(dev)
+            tok, pos, toks = generation.decode_chunk(
+                loaded.module, cfg, state.k, state.v, tok, pos, active, gen, temps,
+                topks, chunk,
+            )
+        # np.array (a writable copy): the scheduler writes these mirrors
+        state.tok = np.array(tok.cpu().numpy(), dtype=np.int32)
+        state.pos = np.array(pos.cpu().numpy(), dtype=np.int32)
+        return toks.cpu().numpy().astype(np.int32)
+
     # -- residency ----------------------------------------------------------
     def _on_evict(self, model_id: ModelId, entry: LRUEntry[LoadedModel]) -> None:
         self._set_state(model_id, ModelState.UNLOADING)
+        self.drop_slot_state(model_id)
         # only the LRU's reference goes: an in-flight predict holding the
         # LoadedModel keeps its tensors alive until it finishes
         self._set_state(model_id, ModelState.END)
@@ -310,3 +721,5 @@ class TorchModelRuntime(BaseRuntime):
 
     def close(self) -> None:
         self._resident.clear()
+        with self._slot_lock:
+            self._slot_states.clear()

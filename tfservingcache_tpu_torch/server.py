@@ -1,7 +1,9 @@
 """Process wiring: build and run a single-GPU cache node (counterpart of
 ``tfservingcache_tpu/server.py`` for one group on one device).
 
-provider -> disk cache -> runtime -> cache manager -> backend -> REST server.
+provider -> disk cache -> runtime -> cache manager -> backend -> REST server,
+plus the continuous generate engine when ``serving.generate_engine`` is
+``"continuous"``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from tfservingcache_tpu_torch.cache.providers import create_provider
 from tfservingcache_tpu_torch.config import Config
 from tfservingcache_tpu_torch.protocol.local_backend import LocalServingBackend
 from tfservingcache_tpu_torch.protocol.rest import RestServingServer
+from tfservingcache_tpu_torch.runtime.batcher import ContinuousGenerateEngine
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
 
 log = logging.getLogger("tpusc_torch.server")
@@ -25,7 +28,8 @@ class CacheNode:
     """One serving host with one device: provider + disk cache + runtime
     behind a REST server."""
 
-    def __init__(self, cfg: Config, runtime: TorchModelRuntime) -> None:
+    def __init__(self, cfg: Config, runtime: TorchModelRuntime,
+                 engine: ContinuousGenerateEngine | None = None) -> None:
         self.cfg = cfg
         self.provider = create_provider(cfg.model_provider)
         self.disk_cache = ModelDiskCache(cfg.cache.base_dir, cfg.cache.disk_capacity_bytes)
@@ -34,7 +38,8 @@ class CacheNode:
             self.provider, self.disk_cache, runtime,
             load_timeout_s=cfg.serving.load_timeout_s,
         )
-        self.backend = LocalServingBackend(self.manager)
+        self.engine = engine
+        self.backend = LocalServingBackend(self.manager, generator=engine)
         self.rest = RestServingServer(self.backend)
         self.rest_port = 0
 
@@ -49,6 +54,8 @@ class CacheNode:
 
     def close(self) -> None:
         self.rest.close()
+        if self.engine is not None:  # the engine's threads use the runtime
+            self.engine.close()
         self.manager.close()
 
 
@@ -56,4 +63,10 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
     """A ``CacheNode`` on ``device`` (default: ``cfg.serving.device``, which
     defaults to ``cuda``; a missing card raises rather than falling back)."""
     runtime = TorchModelRuntime(cfg.serving, device=device or cfg.serving.device)
-    return CacheNode(cfg, runtime)
+    engine = None
+    if cfg.serving.generate_engine == "continuous":
+        engine = ContinuousGenerateEngine(
+            runtime, slots=cfg.serving.generate_slots,
+            chunk_tokens=cfg.serving.generate_chunk_tokens,
+        )
+    return CacheNode(cfg, runtime, engine)
