@@ -13,22 +13,35 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      tolerance; CUDA-event times (warm, median), the least time the card
      could take (bound), and one PyTorch library call's time as a yardstick:
      flash attention in bf16 and f32, paged decode attention over bf16,
-     int8 and f32 arenas;
+     int8 and f32 arenas, paged verify attention at T in {1, 5, 9, 256}
+     (with its T = 1 gap to the decode kernel);
   4. artifact — writes a random-weight transformer_lm artifact at the full
-     llama-7b width (depth cut, see --layers) into a temporary store;
+     llama-7b width (depth cut, see --layers) into a temporary store, and
+     two drafts: an exact copy under another name, and a 1-layer model from
+     the target's embed, layer 0 and ln_f;
   5. serve — builds a cache node on ``cuda`` through ``server.build_node``
      (what ``cli serve`` calls) and sends REST ``:predict`` requests over
      localhost: cold, then warm. Every response is checked (HTTP 200, shape,
      finite, agreement with the plain path on the card), and the flash
-     kernel's launch counter must show the path went through it;
-  6. generate — REST ``:generate`` on the same artifact in three arms: (a)
+     kernel's launch counter must show the path went through it (every
+     request's forward and the load's warm-up forward);
+  6. generate — REST ``:generate`` on the same artifact in seven arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
-     sampled requests; (c) the continuous engine over an int8 arena. Every
-     response is checked against the plain path on the card (teacher-forced
-     logits), the page census must be green after each arm, and the paged
-     kernel's launch counter must equal n_layers x the engine's decode
-     steps in each continuous arm (and stay 0 on the solo path).
+     sampled requests; (c) the continuous engine over an int8 arena; (d)
+     (a) with speculative rounds drafted by the exact copy (>= 0.8 x
+     (spec + 1) tokens per lane-round, tokens as (a)'s up to near-ties);
+     (e) (c) with rounds drafted by the 1-layer draft; (f) two solo
+     ``"draft_model"`` requests; (g) (d) over an int8 arena, on 8 of the
+     prompts, so that accepted int8 verify rows decide served tokens (the
+     1-layer draft of (e) has every proposal rejected, which leaves only
+     position 0 of each verify pass served). Every response is checked against the
+     plain path on the card (teacher-forced logits), the page census must
+     be green after each arm (both arenas with a draft), and the kernels'
+     launch counters must equal what the engine ran in each continuous arm
+     (paged = n_layers x plain decode steps + draft layers x (spec + 1) x
+     spec rounds, verify = n_layers x spec rounds) and stay 0 on the solo
+     paths.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -36,8 +49,8 @@ The last three lines of standard output are the card's name and power limit
 them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--layers N | --full-depth]
-(``TPUSC_PAGECHECK=1`` is set for the run: every paged decode chunk first
-asserts that no live lane maps the trash page.)
+(``TPUSC_PAGECHECK=1`` is set for the run: every paged decode chunk and
+speculative round first asserts that no live lane maps the trash page.)
 """
 
 from __future__ import annotations
@@ -109,16 +122,34 @@ PAGED_SHAPES = [
 ]
 PAGED_MAIN = PAGED_SHAPES[0]
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (the paged kernel's FMAs)
-# every phase runs on device 0: the run uses one card whatever the host has
-CARDS_USED = 1
+# paged verify (S lanes, Hq, Hkv, D, page_tokens, max pos, T, arenas, lane 0
+# past its table): the spec rounds of the generate phase (T = spec + 1 = 5)
+# and T = 1 / 9 at its occupancy, GQA g = 4, a lane whose pos + T runs past
+# its table, and the chunked-prefill shape (T = 256)
+_ALL_ARENAS = ("bfloat16", "int8", "float32")
+VERIFY_SHAPES = [
+    (8, 32, 32, 128, 16, 1088, 1, _ALL_ARENAS, False),
+    (8, 32, 32, 128, 16, 1088, 5, _ALL_ARENAS, False),
+    (8, 32, 32, 128, 16, 1088, 9, _ALL_ARENAS, False),
+    (16, 32, 8, 128, 16, 2047, 5, ("bfloat16", "int8"), False),
+    (4, 32, 32, 128, 8, 300, 5, ("bfloat16", "int8"), True),
+    (8, 32, 32, 128, 16, 1088, 256, ("bfloat16", "int8"), False),
+]
+VERIFY_MAIN = (8, 32, 32, 128, 16, 1088, 5)
 # :generate phase: 16 single-row greedy requests from 8 client threads,
 # prompt lengths seeded-random in [64, 1024], 64 new tokens each
 GEN_REQUESTS = 16
 GEN_CLIENTS = 8
 GEN_PROMPT_RANGE = (64, 1024)
 GEN_NEW_TOKENS = 64
+# draft tokens per speculative round in arms (d)-(g)
+SPEC_TOKENS = 4
+# arm (g), the exact-copy draft over an int8 arena, runs the first 8 prompts
+SPEC_INT8_REQUESTS = 8
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
+# every phase runs on device 0: the last line's device count
+CARDS_USED = 1
 
 
 def log(msg: str) -> None:
@@ -182,10 +213,10 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_kernel_ms(fn, match: str = "") -> tuple[float, float] | None:
-    """(sum of device kernel time, the part in kernels whose name contains
-    ``match``) of one ``fn()`` under ``torch.profiler``, in ms; None when the
-    profiler records no device time on this machine."""
+def device_kernel_ms(fn, matches: tuple[str, ...] = ()) -> tuple[float, list[float]] | None:
+    """(sum of device kernel time, [the part in kernels whose name contains
+    each of ``matches``]) of one ``fn()`` under ``torch.profiler``, in ms;
+    None when the profiler records no device time on this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,13 +226,15 @@ def device_kernel_ms(fn, match: str = "") -> tuple[float, float] | None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    total_us = matched_us = 0.0
+    total_us = 0.0
+    matched_us = [0.0] * len(matches)
     for row in prof.key_averages():  # kernel rows only: CPU ops would double-count
         if row.device_type == torch.autograd.DeviceType.CUDA:
             total_us += row.self_device_time_total
-            if match and match in row.key:
-                matched_us += row.self_device_time_total
-    return (total_us / 1e3, matched_us / 1e3) if total_us > 0 else None
+            for i, m in enumerate(matches):
+                if m in row.key:
+                    matched_us[i] += row.self_device_time_total
+    return (total_us / 1e3, [u / 1e3 for u in matched_us]) if total_us > 0 else None
 
 
 def device_busy_ms(fn) -> float | None:
@@ -339,42 +372,50 @@ def phase_kernels(seed: int) -> dict:
     }
 
 
-def _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos):
+def _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos, t_q=1, overrun=False):
     """A scattered arena (random rows from the card's generator ``cgen``)
     with ragged positions (lane 0 at ``max_pos``, the
     others uniform in [max_pos / 4, max_pos]), each lane's pages at shuffled
     arena slots and its table slots past the live pages on the trash page
-    0 (the layout tests/test_paged_kernel.py builds)."""
+    0 (the layout tests/test_paged_kernel.py builds). With T query
+    positions a lane's live pages reach pos + T - 1; ``overrun`` sizes the
+    tables to max_pos and puts lane 0 where pos + T runs past its table."""
     import torch
 
-    pps = -(-(max_pos + 1) // pt)
+    pps = -(-(max_pos + (1 if overrun else t_q)) // pt)
     n_pages = lanes * pps + 1
     tables = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(lanes, pps).int()
     pos = torch.randint(max_pos // 4, max_pos + 1, (lanes,), generator=gen).int()
-    pos[0] = max_pos
+    pos[0] = pps * pt - max(1, t_q // 2) if overrun else max_pos
     for s in range(lanes):
-        tables[s, -(-(int(pos[s]) + 1) // pt):] = 0
+        tables[s, -(-(int(pos[s]) + t_q) // pt):] = 0
     kp = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
     vp = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
     return kp, vp, tables, pos
 
 
-def paged_bound_ms(pos, hq, hkv, d, pt, kv_itemsize, q_itemsize, quantized):
-    """The larger of bytes / HBM rate and operations / f32 FMA peak for one
-    paged decode call over THIS run's positions: the K/V rows the mask
-    admits (pos + 1 per lane, K and V), their f32 scales for int8, the table
-    entries read, q and the f32 output. Operations ~4*Hq*D per visible row
-    (two FMAs each for q.k and p.v) — far below the bytes' time."""
-    rows = sum(int(p) + 1 for p in pos)
+def paged_bound_ms(pos, hq, hkv, d, pt, kv_itemsize, q_itemsize, quantized, t_q=1,
+                   max_keys=None, f32=False):
+    """The larger of bytes / HBM rate and operations / peak rate for one
+    paged attention call with T query positions per lane (T = 1: a decode
+    step) over THIS run's positions. Bytes: the K/V rows visible to each
+    lane's deepest frontier (min(pos + T, max_keys), K and V), their f32
+    scales for int8, the table entries read, pos, q and the f32 output.
+    Operations: 4*Hq*D per (query, visible key) pair (two FMAs each for q.k
+    and p.v) over the bf16 tensor-core peak, or the f32 peak for an f32
+    arena. At T = 1 the operations' time is two orders below the bytes'."""
+    cap = max_keys if max_keys is not None else float("inf")
     lanes = len(pos)
+    rows = sum(min(int(p) + t_q, cap) for p in pos)
+    pairs = sum(min(int(p) + t + 1, cap) for p in pos for t in range(t_q))
     nbytes = rows * hkv * d * 2 * kv_itemsize
     if quantized:
         nbytes += rows * hkv * 2 * 4
-    nbytes += sum(int(p) // pt + 1 for p in pos) * 4 + lanes * 4
-    nbytes += lanes * hq * d * (q_itemsize + 4)
-    flops = 4 * hq * d * rows
+    nbytes += sum(-(-min(int(p) + t_q, cap) // pt) for p in pos) * 4 + lanes * 4
+    nbytes += lanes * hq * t_q * d * (q_itemsize + 4)
+    flops = 4 * hq * d * pairs
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -433,7 +474,8 @@ def phase_paged_kernel(seed: int) -> dict:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=mask, enable_gqa=hq != hkv))
             bound, bound_by = paged_bound_ms(pos_h.tolist(), hq, hkv, d, pt, kv_item,
-                                             q.element_size(), arena == "int8")
+                                             q.element_size(), arena == "int8",
+                                             f32=arena == "float32")
             log(
                 f"  S={lanes} Hq={hq} Hkv={hkv} D={d} pt={pt} max_pos={max_pos} "
                 f"(live rows {int(pos_h.sum()) + lanes}) {arena}: max_abs_err={err:.6g} "
@@ -456,7 +498,7 @@ def phase_paged_kernel(seed: int) -> dict:
         "paged_decode_attention": {
             "name": "paged_decode_attention",
             "route": "cuda",
-            "source": "tfservingcache_tpu_torch/ops/csrc/paged_decode_attention.cu",
+            "source": "tfservingcache_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "tfservingcache_tpu/ops/attention.py:705",
             "launches": 0,
             "max_abs_err": max(worst.values()),
@@ -465,6 +507,112 @@ def phase_paged_kernel(seed: int) -> dict:
             "shape": list(PAGED_MAIN),
             "arena": "bfloat16",
             "max_abs_err_by_arena": worst,
+        }
+    }
+
+
+def phase_verify_kernel(seed: int) -> dict:
+    """paged_verify_attention_kernel (B3) vs its plain version on the card
+    at every VERIFY_SHAPES row; at T = 1 also its gap to the decode kernel
+    (B1) on the same inputs (one body: 0 expected)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    cgen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    main = None
+    worst = {}
+    t1_gap = 0.0
+    log("paged_verify_attention vs paged_verify_attention (plain), tolerance "
+        f"{PAGED_TOL} (max |diff|); yardstick: F.scaled_dot_product_attention on "
+        "K/V ALREADY GATHERED to dense (S, Hkv, L, D) with a boolean (T, L) mask per "
+        "lane, the gather excluded")
+    for (lanes, hq, hkv, d, pt, max_pos, t_q, arenas, overrun) in VERIFY_SHAPES:
+        shape = (lanes, hq, hkv, d, pt, max_pos, t_q)
+        kp32, vp32, tables_h, pos_h = _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos,
+                                                   t_q=t_q, overrun=overrun)
+        q32 = torch.randn(lanes, hq, t_q, d, generator=cgen, device="cuda")
+        tables, pos = tables_h.cuda(), pos_h.cuda()
+        max_keys = tables_h.shape[1] * pt
+        for arena in arenas:
+            ks = vs = None
+            if arena == "int8":
+                q = q32.bfloat16()
+                kp, ks = _quantize_kv_rows(kp32)
+                vp, vs = _quantize_kv_rows(vp32)
+                plain_k, plain_v = A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs)
+                kv_item, dense_dt = 1, torch.bfloat16
+            else:
+                dt = getattr(torch, arena)
+                q, kp, vp = q32.to(dt), kp32.to(dt), vp32.to(dt)
+                plain_k, plain_v = kp, vp
+                kv_item, dense_dt = kp.element_size(), dt
+            out = A.paged_verify_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
+            torch.cuda.synchronize()
+            ref = A.paged_verify_attention(q, plain_k, plain_v, tables, pos, pt)
+            err = (out - ref).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            worst[arena] = max(worst.get(arena, 0.0), err)
+            gap = ""
+            if t_q == 1:
+                b1 = A.paged_decode_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
+                torch.cuda.synchronize()
+                g1 = (out - b1).abs().max().item()
+                t1_gap = max(t1_gap, g1)
+                gap = f" |B3 - B1|={g1:.3g}"
+            ms = cuda_ms(lambda: A.paged_verify_attention_kernel(
+                q, kp, vp, tables, pos, ks, vs, page_tokens=pt))
+            plain_ms = cuda_ms(lambda: A.paged_verify_attention(
+                q, plain_k, plain_v, tables, pos, pt), reps=5, warmup=1)
+            kd = A.paged_gather_kv(plain_k, tables, pt).to(dense_dt)
+            vd = A.paged_gather_kv(plain_v, tables, pt).to(dense_dt)
+            q_pos = pos.long()[:, None] + torch.arange(t_q, device="cuda")[None, :]
+            mask = (torch.arange(kd.shape[2], device="cuda")[None, None, :]
+                    <= q_pos[:, :, None])[:, None]                         # (S, 1, T, L)
+            qd = q.to(dense_dt)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=hq != hkv))
+            bound, bound_by = paged_bound_ms(pos_h.tolist(), hq, hkv, d, pt, kv_item,
+                                             q.element_size(), arena == "int8", t_q=t_q,
+                                             max_keys=max_keys, f32=arena == "float32")
+            log(
+                f"  S={lanes} Hq={hq} Hkv={hkv} D={d} pt={pt} max_pos={max_pos} T={t_q}"
+                f"{' (lane 0 past its table)' if overrun else ''} {arena}: "
+                f"max_abs_err={err:.6g} finite={finite}{gap} kernel={ms:.4f}ms "
+                f"plain={plain_ms:.4f}ms sdpa_on_gathered={lib_ms:.4f}ms "
+                f"bound={bound:.4f}ms ({bound_by}) bound/kernel={bound / ms:.3f}"
+            )
+            if not finite or not err <= PAGED_TOL[arena]:
+                raise AssertionError(
+                    f"paged_verify_attention disagrees at {shape} {arena}: max_abs_err "
+                    f"{err} > {PAGED_TOL[arena]} or non-finite"
+                )
+            if shape == VERIFY_MAIN and arena == "bfloat16":
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": lib_ms}
+            del out, ref, kd, vd, kp, vp, plain_k, plain_v
+        del kp32, vp32
+        torch.cuda.empty_cache()
+    log(f"paged_verify_attention at T = 1 vs paged_decode_attention (B1), same inputs: "
+        f"max |diff| {t1_gap:.3g} (one body)")
+    return {
+        "paged_verify_attention": {
+            "name": "paged_verify_attention",
+            "route": "cuda",
+            "source": "tfservingcache_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "tfservingcache_tpu/ops/attention.py:945",
+            "launches": 0,
+            "max_abs_err": max(worst.values()),
+            **main,
+            "library_note": "SDPA on K/V already gathered to dense with a (T, L) mask, "
+                            "gather excluded",
+            "shape": list(VERIFY_MAIN),
+            "arena": "bfloat16",
+            "max_abs_err_by_arena": worst,
+            "t1_gap_to_paged_decode": t1_gap,
         }
     }
 
@@ -521,6 +669,20 @@ class Artifact:
         log(f"wrote random-weight artifact (seed {seed}): {self.nbytes} bytes "
             f"in {time.monotonic() - t0:.2f}s")
         self.plain_model = model_def.make_module(params).eval()  # same weights, plain path
+        # two drafts for the speculative arms: an exact copy of the target
+        # under another name, and a 1-layer model built from the target's
+        # embed, layer 0 and ln_f
+        t0 = time.monotonic()
+        shutil.copytree(os.path.join(self.store, "llama7b"), os.path.join(self.store, "copy"))
+        self.draft_layers = 1
+        registry.save_artifact(
+            os.path.join(self.store, "layer0", "1"),
+            registry.build("transformer_lm", dict(model_cfg, n_layers=self.draft_layers)),
+            {"embed": params["embed"], "layers": params["layers"][:self.draft_layers],
+             "ln_f": params["ln_f"]},
+        )
+        log(f"wrote the drafts: 'copy' (the target, {layers} layers) and 'layer0' "
+            f"(embed + layer 0 + ln_f) in {time.monotonic() - t0:.2f}s")
 
     def node_config(self, name: str, **serving) -> dict:
         return {
@@ -566,9 +728,11 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
         launches = A.FLASH_LAUNCHES.value
         # -------------------------------------------------------------------
 
-        expected = layers * len(requests)
+        # the cold request's load runs one warm-up forward (seq 1) as well
+        expected = layers * (len(requests) + 1)
         log(f"flash_attention launches on the serving path: {launches} "
-            f"(n_layers {layers} x {len(requests)} requests = {expected})")
+            f"(n_layers {layers} x ({len(requests)} requests + the load's warm-up "
+            f"forward) = {expected})")
         if launches != expected:
             raise AssertionError(f"kernel launch count {launches} != {expected}")
         kernels["flash_attention"]["launches"] = launches
@@ -707,7 +871,7 @@ def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
             rt.slot_decode_chunk(st, chunk)  # ends in a device-to-host copy
 
         ms = host_ms(one_chunk, reps=3)
-        prof = device_kernel_ms(one_chunk, match="paged_decode")
+        prof = device_kernel_ms(one_chunk, ("paged_decode_attention_kernel",))
     finally:
         for lane in range(st.slots):
             st.release_pages(lane)
@@ -718,19 +882,63 @@ def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
         log(f"  warm decode chunk ({st.slots} lanes at {prompt_tokens} tokens, {chunk} steps): "
             f"{ms:.2f} ms host clock; device time not measured (the profiler saw none)")
         return
-    busy, paged = prof
+    busy, (paged,) = prof
     log(f"  warm decode chunk ({st.slots} lanes at {prompt_tokens} tokens, {chunk} steps): "
         f"{ms:.2f} ms host clock; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, "
         f"torch.profiler); paged kernel {paged:.3f} ms = {paged / busy:.3f} of device time, "
         f"{paged / (chunk * layers):.4f} ms a launch")
 
 
-def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
+def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600) -> None:
+    """One warm speculative round with every lane live at
+    ``prompt_tokens`` on both arenas (rows are whatever earlier rows left,
+    fine for timing): host clock, device kernel time under torch.profiler,
+    the draft's decode kernel's (B1) and the target's verify kernel's (B3)
+    shares. Runs on the runtime directly while the engine is idle,
+    and hands every page back."""
+    st = rt._slot_states[model_id]
+    d_st = st.spec_draft
+    budget = prompt_tokens + 64  # the rounds below advance pos by <= spec + 1 each
+    for lane in range(st.slots):
+        if not (st.reserve_pages(lane, budget) and d_st.reserve_pages(lane, budget)):
+            raise AssertionError("arena too small for the round breakdown")
+        st.pos[lane], st.tok[lane], st.active[lane] = prompt_tokens, 1, True
+        st.temps[lane], st.topks[lane] = 0.0, 0
+    try:
+        def one_round():
+            rt.slot_decode_spec_round(st)  # ends in a device-to-host copy
+
+        ms = host_ms(one_round, reps=3)
+        prof = device_kernel_ms(
+            one_round, ("paged_decode_attention_kernel", "paged_verify_attention_kernel"))
+    finally:
+        for lane in range(st.slots):
+            st.release_pages(lane)
+            d_st.release_pages(lane)
+        st.active[:] = False
+        st.pos[:] = 0
+    st.check_page_conservation()
+    d_st.check_page_conservation()
+    what = (f"  warm spec round ({st.slots} lanes at {prompt_tokens} tokens, spec "
+            f"{st.spec_tokens}): {ms:.2f} ms host clock")
+    if prof is None:
+        log(f"{what}; device time not measured (the profiler saw none)")
+        return
+    busy, (decode, verify) = prof
+    log(f"{what}; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, torch.profiler); "
+        f"draft decode kernel (B1) {decode:.3f} ms = {decode / busy:.3f} of device time; "
+        f"target verify kernel (B3) {verify:.3f} ms = {verify / busy:.3f}, "
+        f"{verify / layers:.4f} ms a launch")
+
+
+def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: int = 0):
     """One continuous-engine arm on a fresh node: a warm-up request, the
     concurrent greedy burst, optionally an unseeded top_k=1 request. Every
-    response checked; the census must be green and the paged kernel's
-    launches must equal n_layers x the engine's decode steps. -> (node,
-    its :generate url, the arm's paged launches)."""
+    response checked; the census must be green (on both arenas with a
+    draft) and the kernels' launches must equal what the engine ran:
+    paged = n_layers x plain decode steps + draft_layers x (spec + 1) x
+    spec rounds, verify = n_layers x spec rounds. -> (node, its :generate
+    url, the arm's paged launches, its verify launches, greedy tokens)."""
     import numpy as np
 
     from tfservingcache_tpu_torch.config import config_from_dict
@@ -740,12 +948,14 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
     cfg = config_from_dict(art.node_config(
         name, generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
         kv_page_tokens=16, **serving))
+    spec = cfg.serving.spec_tokens
     node = build_node(cfg, device="cuda")
     url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
     n_new = GEN_NEW_TOKENS
     bodies = [{"input_ids": [p.tolist()], "max_new_tokens": n_new} for p in prompts]
-    # --- the main path: counter to 0, the arm's requests, counter read ----
+    # --- the main path: counters to 0, the arm's requests, counters read ---
     A.PAGED_LAUNCHES.reset()
+    A.VERIFY_LAUNCHES.reset()
     t0 = time.monotonic()
     warm = _post(url, {"input_ids": [prompts[0][:32].tolist()], "max_new_tokens": 8}, 900.0)
     cold_s = time.monotonic() - t0
@@ -756,15 +966,22 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
     if top1:
         top1_res = _post(url, dict(bodies[0], temperature=0.8, top_k=1), 900.0)
     launches = A.PAGED_LAUNCHES.value
+    verify = A.VERIFY_LAUNCHES.value
     # ------------------------------------------------------------------------
     eng = node.engine
-    expected = art.layers * eng.decode_steps
+    expected = art.layers * eng.decode_steps + draft_layers * (spec + 1) * eng.spec_rounds
+    expected_verify = art.layers * eng.spec_rounds
     log(f"  [{name}] paged kernel launches: {launches} (n_layers {art.layers} x decode steps "
-        f"{eng.decode_steps} = {expected}); chunks {eng.chunks}, admitted {eng.admitted}, "
-        f"mean lanes per decode step {eng.lane_steps / max(1, eng.decode_steps):.2f} "
-        "(warm-up request included)")
-    if launches != expected or launches == 0:
-        raise AssertionError(f"[{name}] paged kernel launches {launches} != {expected}")
+        f"{eng.decode_steps} + draft layers {draft_layers} x (spec + 1) x spec rounds "
+        f"{eng.spec_rounds} = {expected}); verify kernel launches: {verify} (n_layers "
+        f"{art.layers} x spec rounds = {expected_verify}); chunks {eng.chunks}, admitted "
+        f"{eng.admitted}, mean lanes per plain decode step "
+        f"{eng.lane_steps / max(1, eng.decode_steps):.2f} (warm-up request included)")
+    if launches != expected or launches == 0 or verify != expected_verify:
+        raise AssertionError(f"[{name}] launches paged {launches} / verify {verify} != "
+                             f"{expected} / {expected_verify}")
+    if draft_layers and not verify:
+        raise AssertionError(f"[{name}] no speculative round ran")
     if warm[0] != 200:
         raise AssertionError(f"[{name}] warm-up :generate answered {warm[0]}: {warm[1]}")
     greedy = []
@@ -779,9 +996,10 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
         greedy.append(toks[0])
         worst = max(worst, _check_greedy(art, p, toks[0], tol, name))
     st = node.runtime._slot_states[art.model_id]
-    st.check_page_conservation()
-    if sorted(st.free_pages) != list(range(1, st.arena_pages + 1)):
-        raise AssertionError(f"[{name}] pages still held after the drain")
+    for s in (st, st.spec_draft) if draft_layers else (st,):
+        s.check_page_conservation()
+        if sorted(s.free_pages) != list(range(1, s.arena_pages + 1)):
+            raise AssertionError(f"[{name}] pages of {s.model_id} still held after the drain")
     lat = [dt for *_, dt in results]
     log(f"  [{name}] {len(prompts)} requests x {n_new} tokens from {GEN_CLIENTS} clients: "
         f"wall {wall * 1e3:.1f} ms, {len(prompts) * n_new / wall:.1f} generated tok/s, "
@@ -790,6 +1008,13 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
         f"path's max logit {worst:.4f} (tolerance {tol}); census green, "
         f"{st.arena_pages} pages free ({st.arena_dtype or 'model dtype'} arena, "
         f"{(st.k.nbytes + st.v.nbytes + sum(t.nbytes for t in (st.scales or {}).values())) / 2**30:.2f} GiB)")
+    if draft_layers:
+        lane_rounds = eng.drafted / spec
+        per_round = eng.accepted / max(1.0, lane_rounds)
+        log(f"  [{name}] spec rounds {eng.spec_rounds} (lane-rounds {lane_rounds:.0f}), "
+            f"{per_round:.3f} tokens emitted per lane-round (spec {spec}: at most {spec + 1}), "
+            f"plain decode steps {eng.decode_steps}; draft census green "
+            f"({st.spec_draft.arena_pages} pages)")
     if top1_res is not None:
         status, body, _dt = top1_res
         if status != 200:
@@ -806,13 +1031,40 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool):
             log(f"  [{name}] top_k=1 at t=0.8 equals greedy up to token {j}, a near-tie")
         else:
             log(f"  [{name}] top_k=1 at t=0.8 equals greedy ({n_new} tokens)")
-    _decode_chunk_breakdown(node.runtime, art.model_id, art.layers)
-    return node, url, launches
+    if draft_layers:
+        _spec_round_breakdown(node.runtime, art.model_id, art.layers)
+    else:
+        _decode_chunk_breakdown(node.runtime, art.model_id, art.layers)
+    return node, url, launches, verify, greedy
+
+
+def _compare_to_plain_arm(art, name, prompts, plain, spec_toks, tol) -> None:
+    """Spec-on tokens against the plain arm's: identical up to a first
+    divergence, where the shared prefix's teacher-forced logits must make
+    both tokens a near-tie (each within ``tol`` of the step's max)."""
+    import numpy as np
+
+    same = 0
+    for p, a, b in zip(prompts, plain, spec_toks):
+        diff = np.nonzero(a != b)[0]
+        if not diff.size:
+            same += 1
+            continue
+        j = int(diff[0])
+        logits = _teacher_forced_logits(art.plain_model, p, a)[j]
+        top = logits.max()
+        if not (top - logits[a[j]] <= tol and top - logits[b[j]] <= tol):
+            raise AssertionError(f"[{name}] leaves the plain arm's tokens at {j} off a near-tie")
+    log(f"  [{name}] tokens identical to the plain arm's in {same} of {len(prompts)} "
+        "requests; every divergence starts at a near-tie of the plain path")
 
 
 def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     """REST :generate: (a) continuous engine over a bf16 arena, (b) the solo
-    path, (c) continuous engine over an int8 arena."""
+    path, (c) continuous engine over an int8 arena, (d) (a) with speculative
+    rounds drafted by an exact copy of the target, (e) (c) with rounds
+    drafted by the 1-layer draft, (f) two solo "draft_model" requests, (g)
+    (d) over an int8 arena on the first SPEC_INT8_REQUESTS prompts."""
     import numpy as np
 
     from tfservingcache_tpu_torch.ops import attention as A
@@ -822,10 +1074,12 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     prompts = [rng.integers(0, art.vocab, int(n)) for n in rng.integers(lo, hi + 1, GEN_REQUESTS)]
     log(f"prompt lengths {[len(p) for p in prompts]}, {GEN_NEW_TOKENS} new tokens each")
     node = None
-    launches = 0
+    launches = verify = 0
     try:
-        node, url, n = _continuous_arm(art, "a: bf16 arena", {}, prompts, LOGITS_TOL, top1=True)
+        node, url, n, v, plain_greedy = _continuous_arm(art, "a: bf16 arena", {}, prompts,
+                                                        LOGITS_TOL, top1=True)
         launches += n
+        verify += v
         # (b) the solo path: seeded requests bypass the engine
         body = {"input_ids": [prompts[1].tolist()], "max_new_tokens": GEN_NEW_TOKENS,
                 "temperature": 0.8, "top_k": 40, "seed": 7}
@@ -851,13 +1105,109 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
             f"paged kernel launches {solo_launches}")
         node.close()
         node = None
-        node, _url, n = _continuous_arm(art, "c: int8 arena", {"kv_arena_dtype": "int8"},
-                                        prompts, LOGITS_TOL_INT8, top1=False)
+        node, _url, n, v, int8_greedy = _continuous_arm(
+            art, "c: int8 arena", {"kv_arena_dtype": "int8"}, prompts, LOGITS_TOL_INT8,
+            top1=False)
         launches += n
+        verify += v
+        node.close()
+        node = None
+        # (d) speculative rounds drafted by an exact copy of the target: every
+        # proposal should be accepted, up to bf16 near-ties between the
+        # draft's width-1 and the target's width-(spec+1) forwards
+        name = "d: spec, exact-copy draft"
+        node, _url, n, v, spec_greedy = _continuous_arm(
+            art, name, {"spec_draft_model": "copy", "spec_tokens": SPEC_TOKENS}, prompts,
+            LOGITS_TOL, top1=False, draft_layers=art.layers)
+        launches += n
+        verify += v
+        eng = node.engine
+        per_round = eng.accepted / max(1.0, eng.drafted / SPEC_TOKENS)
+        if not per_round >= 0.8 * (SPEC_TOKENS + 1):
+            raise AssertionError(f"[{name}] {per_round:.3f} tokens per lane-round < "
+                                 f"0.8 x (spec + 1) = {0.8 * (SPEC_TOKENS + 1)}")
+        _compare_to_plain_arm(art, name, prompts, plain_greedy, spec_greedy, LOGITS_TOL)
+        node.close()
+        node = None
+        # (e) the int8 arena with the 1-layer draft (acceptance reported as is)
+        node, _url, n, v, _g = _continuous_arm(
+            art, "e: spec, 1-layer draft, int8 arena",
+            {"kv_arena_dtype": "int8", "spec_draft_model": "layer0", "spec_tokens": SPEC_TOKENS},
+            prompts, LOGITS_TOL_INT8, top1=False, draft_layers=art.draft_layers)
+        launches += n
+        verify += v
+        node.close()
+        node = None
+        node = _solo_draft_arm(art, prompts)
+        node.close()
+        node = None
+        # (g) the exact-copy draft over an int8 arena: accepted rows of B3
+        # over int8 pages decide served tokens under the teacher-forced check
+        name = "g: spec, exact-copy draft, int8 arena"
+        few = prompts[:SPEC_INT8_REQUESTS]
+        node, _url, n, v, spec8_greedy = _continuous_arm(
+            art, name,
+            {"kv_arena_dtype": "int8", "spec_draft_model": "copy", "spec_tokens": SPEC_TOKENS},
+            few, LOGITS_TOL_INT8, top1=False, draft_layers=art.layers)
+        launches += n
+        verify += v
+        eng = node.engine
+        per_round = eng.accepted / max(1.0, eng.drafted / SPEC_TOKENS)
+        if not per_round >= 0.8 * (SPEC_TOKENS + 1):
+            raise AssertionError(f"[{name}] {per_round:.3f} tokens per lane-round < "
+                                 f"0.8 x (spec + 1) = {0.8 * (SPEC_TOKENS + 1)}")
+        _compare_to_plain_arm(art, name, few, int8_greedy, spec8_greedy, LOGITS_TOL_INT8)
     finally:
         if node is not None:
             node.close()
     kernels["paged_decode_attention"]["launches"] = launches
+    kernels["paged_verify_attention"]["launches"] = verify
+
+
+def _solo_draft_arm(art, prompts):
+    """(f) two solo "draft_model" requests with the 1-layer draft on a fresh
+    continuous node: greedy tokens checked against the plain path, identical
+    to each other; the engine's counters and the paged kernels' launches
+    must not move (the solo path runs dense caches, no kernel). -> the
+    node."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    name = "f: solo draft_model"
+    cfg = config_from_dict(art.node_config(
+        name, generate_engine="continuous", generate_slots=8, kv_page_tokens=16))
+    node = build_node(cfg, device="cuda")
+    url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
+    body = {"input_ids": [prompts[2].tolist()], "max_new_tokens": GEN_NEW_TOKENS,
+            "draft_model": "layer0", "spec_tokens": SPEC_TOKENS}
+    eng, rt = node.engine, node.runtime
+    before = (eng.admitted, eng.chunks, eng.spec_rounds, eng.decode_steps)
+    A.PAGED_LAUNCHES.reset()
+    A.VERIFY_LAUNCHES.reset()
+    res = [_post(url, body, 900.0) for _ in range(2)]
+    paged, verify = A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value
+    after = (eng.admitted, eng.chunks, eng.spec_rounds, eng.decode_steps)
+    for status, out, _dt in res:
+        if status != 200:
+            raise AssertionError(f"[{name}] :generate answered {status}: {out}")
+    a, b = (np.asarray(out["tokens"]) for _s, out, _dt in res)
+    if a.shape != (1, GEN_NEW_TOKENS) or not (a == b).all():
+        raise AssertionError(f"[{name}] two greedy requests gave other tokens")
+    worst = _check_greedy(art, prompts[2], a[0], LOGITS_TOL, name)
+    if after != before or paged or verify:
+        raise AssertionError(f"[{name}] the engine path moved: counters {before} -> {after}, "
+                             f"paged {paged}, verify {verify} launches")
+    rounds, emitted = rt.spec_rounds["solo"], rt.spec_emitted["solo"]
+    if not rounds:
+        raise AssertionError(f"[{name}] no speculative round ran")
+    log(f"  [{name}] 2 greedy requests with the 1-layer draft (spec {SPEC_TOKENS}): identical; "
+        f"teacher-forced max gap {worst:.4f} (tolerance {LOGITS_TOL}); {rounds} rounds, "
+        f"{emitted / rounds:.3f} tokens a round; {res[0][2] * 1e3:.1f} / {res[1][2] * 1e3:.1f} "
+        f"ms; engine counters and paged/verify launches unchanged ({paged}, {verify})")
+    return node
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -887,6 +1237,7 @@ def main(argv: list[str] | None = None) -> int:
     with Phase("kernels"):
         kernels = phase_kernels(args.seed)
         kernels.update(phase_paged_kernel(args.seed))
+        kernels.update(phase_verify_kernel(args.seed))
     with Phase("artifact"):
         art = Artifact(layers, args.seed)
     try:

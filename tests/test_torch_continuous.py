@@ -306,7 +306,8 @@ def test_rest_generate_matches_jax_runtime(store, tmp_path, engine):
                      {"input_ids": [[1, 2], [3]]}):
             assert _post(url, body)[0] == 400, body
         assert _post(url, None, raw=b"{nope")[0] == 400
-        assert _post(url, {"input_ids": [[1]], "draft_model": "d"})[0] == 501
+        # "draft_model" is served now: an unknown draft is 404
+        assert _post(url, {"input_ids": [[1]], "draft_model": "d"})[0] == 404
         assert _post(url + "?stream=true", {"input_ids": [[1]]})[0] == 501
         assert _post(url.replace(":generate", ":classify"), {"input_ids": [[1]]})[0] == 501
     finally:

@@ -60,8 +60,31 @@ def test_dispatch_launches_the_kernel_past_the_gate(card):
     before = A.FLASH_LAUNCHES.value
     A.attention(q, q, q, causal=True)
     assert A.FLASH_LAUNCHES.value == before + 1
-    A.attention(q[:, :, :64].contiguous(), q[:, :, :64].contiguous(), q[:, :, :64].contiguous())
-    assert A.FLASH_LAUNCHES.value == before + 1  # seq < 128: the gate's plain path
+    short = q[:, :, :64].contiguous()
+    out = A.attention(short, short, short)
+    torch.cuda.synchronize()
+    # seq < 128 too: on the card the dispatch has no plain path
+    assert A.FLASH_LAUNCHES.value == before + 2
+    ref = A.attention_reference(short, short, short)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-5
+
+
+def test_dispatches_raise_on_card_shapes_the_kernels_do_not_take(card):
+    """head_dim 96 is no kernel head_dim: a CUDA call raises rather than run
+    the plain version on the card; kernel=False still runs the plain path."""
+    q = torch.randn(1, 4, 128, 96, device=card).bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attention(q, q, q)
+    pq, kp, vp, tables, pos = _paged_case(card, 2, 4, 2, 96, 8, 2, seed=3)
+    vq = torch.randn(2, 4, 3, 96, device=card)
+    before = (A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.paged_attention(pq, kp, vp, tables, pos, 8)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.paged_attention_verify(vq, kp, vp, tables, pos, 8)
+    off = A.paged_attention_verify(vq, kp, vp, tables, pos, 8, kernel=False)
+    assert torch.equal(off, A.paged_verify_attention(vq, kp, vp, tables, pos, 8))
+    assert (A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value) == before
 
 
 F32_SHAPES = [  # (B, Hq, Hkv, S, D)
@@ -168,3 +191,62 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
     qt = torch.randn(1, 2, 64, 128, device=card).bfloat16().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         A.flash_attention(qt, qt, qt)
+
+
+def _verify_case(card, lanes, hq, hkv, d, pt, pps, t_q, seed):
+    """A scattered arena with ragged pos, lane 0's T positions running past
+    the end of its table (they are clipped to the table's keys), and table
+    slots past each lane's deepest frontier on the trash page."""
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = lanes * pps + 1
+    tables = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(lanes, pps).int()
+    pos = torch.randint(0, pps * pt - t_q + 1, (lanes,), generator=gen).int()
+    pos[0] = pps * pt - max(1, t_q // 2)
+    for s in range(lanes):
+        tables[s, -(-(int(pos[s]) + t_q) // pt):] = 0
+    kp = torch.randn(n_pages, hkv, pt, d, generator=gen)
+    vp = torch.randn(n_pages, hkv, pt, d, generator=gen)
+    q = torch.randn(lanes, hq, t_q, d, generator=gen)
+    return [t.to(card) for t in (q, kp, vp, tables, pos)]
+
+
+VERIFY_CASES = [  # (lanes, Hq, Hkv, D, page_tokens, pages_per_slot, T, arena)
+    (4, 8, 2, 128, 16, 4, 5, "bfloat16"),
+    (3, 4, 4, 64, 8, 6, 9, "int8"),
+    (5, 4, 2, 128, 16, 4, 1, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_verify_kernel_matches_plain_version(card, case):
+    """The paged verify kernel (B3) against ``paged_verify_attention``;
+    tolerances as for the decode kernel (module docstring)."""
+    lanes, hq, hkv, d, pt, pps, t_q, arena = case
+    q, kp, vp, tables, pos = _verify_case(card, lanes, hq, hkv, d, pt, pps, t_q, seed=sum(case[:7]))
+    ks = vs = None
+    if arena == "int8":
+        from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+
+        q = q.bfloat16()
+        kp, ks = _quantize_kv_rows(kp)
+        vp, vs = _quantize_kv_rows(vp)
+        want = A.paged_verify_attention(q, A.dequantize_pages(kp, ks),
+                                        A.dequantize_pages(vp, vs), tables, pos, pt)
+        tol = 1e-5
+    else:
+        dt = getattr(torch, arena)
+        q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+        want = A.paged_verify_attention(q, kp, vp, tables, pos, pt)
+        tol = 1e-5 if arena == "float32" else 2.0**-8
+    before = A.VERIFY_LAUNCHES.value
+    got = A.paged_attention_verify(q, kp, vp, tables, pos, pt, ks, vs)  # the dispatch
+    torch.cuda.synchronize()
+    assert A.VERIFY_LAUNCHES.value == before + 1
+    assert got.dtype == torch.float32 and got.shape == (lanes, hq, t_q, d)
+    assert (got - want).abs().max().item() <= tol
+    off = A.paged_attention_verify(q, kp, vp, tables, pos, pt, ks, vs, kernel=False)
+    assert A.VERIFY_LAUNCHES.value == before + 1  # kernel=False: the plain path
+    assert torch.equal(off, want)
+    if t_q == 1:  # one body: the decode kernel at T = 1, bit for bit
+        dec = A.paged_decode_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
+        assert torch.equal(dec, got)

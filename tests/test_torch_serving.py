@@ -154,8 +154,12 @@ def test_rest_error_contract(tmp_path, store):
                     {"instances": [[1]], "output_encoding": "xml"})[0] == 400
         assert call(f"{url}/v1/models/lm/versions/1:classify", "POST",
                     {"examples": [{"x": 1}]})[0] == 501
+        # "draft_model" is served (speculative decoding on the solo path):
+        # a model may draft for itself; an unknown draft is 404
         assert call(f"{url}/v1/models/lm/versions/1:generate", "POST",
-                    {"input_ids": [[1]], "draft_model": "lm"})[0] == 501
+                    {"input_ids": [[1]], "draft_model": "lm"})[0] == 200
+        assert call(f"{url}/v1/models/lm/versions/1:generate", "POST",
+                    {"input_ids": [[1]], "draft_model": "ghost"})[0] == 404
 
 
 def test_output_filter_and_base64_encoding(tmp_path, store):
@@ -215,8 +219,9 @@ def test_runtime_without_a_device_needs_cuda(monkeypatch):
 
 
 def test_port_serves_without_importing_jax(tmp_path):
-    """The port's whole serving path — ``:predict`` and ``:generate`` on the
-    continuous paged engine — in a fresh interpreter (this test process has
+    """The port's whole serving path — ``:predict``, ``:generate`` on the
+    continuous paged engine with speculative rounds, and a solo
+    ``"draft_model"`` request — in a fresh interpreter (this test process has
     JAX loaded by the harness): neither ``jax`` nor the JAX package may enter
     ``sys.modules``."""
     script = textwrap.dedent(f"""
@@ -228,8 +233,12 @@ def test_port_serves_without_importing_jax(tmp_path):
         store = {str(tmp_path / "store")!r}
         registry.export_artifact("transformer_lm", store, name="lm",
                                  config={dict(SMALL, dtype="bfloat16")!r}, device="cpu")
+        registry.export_artifact("transformer_lm", store, name="dr",
+                                 config={dict(SMALL, n_layers=1, dtype="bfloat16")!r},
+                                 device="cpu")
         cfg = config_from_dict({{"serving": {{"generate_engine": "continuous",
-                                             "kv_page_tokens": 16}},
+                                             "kv_page_tokens": 16,
+                                             "spec_draft_model": "dr"}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
                                 "model_provider": {{"base_dir": store}},
                                 "cache_node": {{"rest_port": 0}}}})
@@ -249,6 +258,15 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert resp.status == 200
             assert len(json.loads(resp.read())["tokens"][0]) == 4
         assert node.engine.admitted == 1  # the continuous paged engine served it
+        assert node.engine.spec_rounds > 0  # in speculative rounds with the draft
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{{port}}/v1/models/lm/versions/1:generate",
+            data=json.dumps({{"input_ids": [[1, 2, 3]], "max_new_tokens": 4,
+                              "draft_model": "dr"}}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:  # the solo spec path
+            assert resp.status == 200
+            assert len(json.loads(resp.read())["tokens"][0]) == 4
+        assert "tfservingcache_tpu_torch.models.speculative" in sys.modules
         node.close()
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "tfservingcache_tpu") or m.startswith(("jax.", "tfservingcache_tpu.")))

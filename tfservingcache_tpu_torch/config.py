@@ -46,6 +46,26 @@ class ServingConfig:
     kv_paged_kernel: bool = True
     # "" = the model dtype; "int8" = quantized pages with per-row f32 scales
     kv_arena_dtype: str = ""
+    # In-engine speculative decoding for generate_engine=continuous
+    # (runtime/batcher.py): name of the DRAFT model — "name" (highest
+    # resident version) or "name@version". "" = off (default). When set,
+    # each continuous scheduler attaches the draft to its paged slot state
+    # (runtime.slot_attach_draft) and replaces plain decode chunks with
+    # draft/verify rounds: the draft proposes spec_tokens greedy tokens per
+    # lane, ONE multi-position verify pass scores them, and each lane
+    # accepts a variable-length prefix — greedy streams stay identical to
+    # spec-off. Admission reserves spec_tokens of extra page headroom per
+    # row in BOTH arenas, so requests sized to the exact arena edge may
+    # need one more page than without spec. Dense (non-paged) states ignore
+    # the knob; lanes with temperature > 0 fall back to single-token
+    # emission inside the round.
+    spec_draft_model: str = ""
+    # Draft tokens proposed per verify round when spec_draft_model is set
+    # (clamped to {1, 2, 4, 8} at attach). Also the per-row page headroom
+    # reserved at admission. Higher values win only when acceptance is
+    # high; the runtime's acceptance health gate (_spec_admit) disables a
+    # pair that sustains low acceptance and re-auditions it periodically.
+    spec_tokens: int = 4
 
 
 @dataclass

@@ -11,7 +11,10 @@ with the same arithmetic and rounding points, reusing the port's
     (``decode_chunk``) or in a paged arena shared through per-lane block
     tables (``paged_decode_chunk``), whose attention goes through
     ``ops.attention.paged_attention`` — the CUDA paged decode kernel on the
-    card.
+    card;
+  - a speculative round's verify pass (``_paged_verify_step``, driven by
+    ``models/speculative.py``) forwards T positions per lane through
+    ``ops.attention.paged_attention_verify`` — the CUDA paged verify kernel.
 
 The JAX functions are pure and donate their buffers; here the cache and the
 arena are updated IN PLACE (index assignment under ``torch.inference_mode``).
@@ -34,7 +37,11 @@ import math
 import torch
 
 from tfservingcache_tpu_torch.models.transformer_lm import rmsnorm
-from tfservingcache_tpu_torch.ops.attention import NEG_INF, paged_attention
+from tfservingcache_tpu_torch.ops.attention import (
+    NEG_INF,
+    paged_attention,
+    paged_attention_verify,
+)
 
 
 def _dims(cfg: dict) -> tuple[int, int, int]:
@@ -327,42 +334,68 @@ def paged_insert(arena: dict, pk: torch.Tensor, pv: torch.Tensor, table_row: tor
     arena["v"][:, pages, :, offs, :] = vv.to(arena["v"].dtype)
 
 
+def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: dict,
+                tables: torch.Tensor, pos: torch.Tensor, page_tokens: int, kernel: bool,
+                attend) -> torch.Tensor:
+    """One forward of ``toks (S, T)`` per lane against the paged arena: lane
+    ``s``'s T tokens sit at ``pos[s] .. pos[s] + T - 1`` and each writes its
+    K/V row IN PLACE at ``tables[s, p // page_tokens]`` offset
+    ``p % page_tokens``. The table index is clipped first; a position at or
+    past ``pps * page_tokens`` then goes to the trash page 0 explicitly (the
+    clip alone would alias it onto the lane's last slot and overwrite
+    visible history). An int8 arena quantizes the T rows at write time.
+    Attention is one ``attend`` call per layer (the decode or the verify
+    dispatch). -> logits (S, T, V) f32."""
+    n_heads, n_kv, hd = _dims(cfg)
+    s_lanes, t_q = toks.shape
+    pps = tables.shape[1]
+    positions = pos.long()[:, None] + torch.arange(t_q, device=toks.device)[None, :]  # (S, T)
+    pages = tables.gather(1, (positions // page_tokens).clamp(0, pps - 1)).long()
+    pages = torch.where(positions // page_tokens >= pps, torch.zeros_like(pages), pages)
+    off = positions % page_tokens
+    quantized = "k_scale" in arena
+    x = _embed(model, toks)                                               # (S, T, d)
+    for li, layer in enumerate(model.layers):
+        q, k, v = _qkv(layer, x, positions, cfg)
+        # advanced indices (S, T) at arena dims 0 and 2 straddle the head
+        # slice, so the updated block is (S, T, n_kv, hd)
+        k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)              # (S, T, n_kv, hd)
+        ks_arena = vs_arena = None
+        if quantized:
+            k_rows, k_s = _quantize_kv_rows(k_rows)
+            v_rows, v_s = _quantize_kv_rows(v_rows)
+            ks_arena, vs_arena = arena["k_scale"][li], arena["v_scale"][li]
+            ks_arena[pages, :, off] = k_s
+            vs_arena[pages, :, off] = v_s
+        k_arena, v_arena = arena["k"][li], arena["v"][li]
+        k_arena[pages, :, off, :] = k_rows.to(k_arena.dtype)
+        v_arena[pages, :, off, :] = v_rows.to(v_arena.dtype)
+        out = attend(q, k_arena, v_arena, tables, pos, page_tokens,
+                     k_scale=ks_arena, v_scale=vs_arena, kernel=kernel)
+        x = _finish_layer(layer, x, out.reshape(s_lanes, n_heads, t_q, hd))
+    return _logits(model, x)
+
+
 def _paged_forward_step(model: torch.nn.Module, cfg: dict, tok: torch.Tensor, arena: dict,
                         tables: torch.Tensor, pos: torch.Tensor, page_tokens: int,
                         kernel: bool) -> torch.Tensor:
-    """One decode step (one token per lane) against the paged arena
-    (reference :441). Each lane writes its new K/V row at
-    ``tables[lane, pos // page_tokens]`` offset ``pos % page_tokens``; a
-    position past the table goes to the trash page explicitly (the clip,
-    then the ``where``, in that order). An int8 arena quantizes the row at
-    write time. Attention is ``paged_attention`` over the lane's pages.
-    -> logits (S, 1, V) f32."""
-    n_heads, n_kv, hd = _dims(cfg)
-    s_lanes = tok.shape[0]
-    pps = tables.shape[1]
-    posl = pos.long()
-    page = tables.gather(1, (posl // page_tokens).clamp(0, pps - 1)[:, None])[:, 0].long()
-    page = torch.where(posl // page_tokens >= pps, torch.zeros_like(page), page)
-    off = posl % page_tokens
-    quantized = "k_scale" in arena
-    x = _embed(model, tok[:, None])                                       # (S, 1, d)
-    for li, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, x, posl[:, None], cfg)
-        k_row, v_row = k[:, :, 0, :], v[:, :, 0, :]                       # (S, n_kv, hd)
-        ks_arena = vs_arena = None
-        if quantized:
-            k_row, k_s = _quantize_kv_rows(k_row)
-            v_row, v_s = _quantize_kv_rows(v_row)
-            ks_arena, vs_arena = arena["k_scale"][li], arena["v_scale"][li]
-            ks_arena[page, :, off] = k_s
-            vs_arena[page, :, off] = v_s
-        k_arena, v_arena = arena["k"][li], arena["v"][li]
-        k_arena[page, :, off, :] = k_row.to(k_arena.dtype)
-        v_arena[page, :, off, :] = v_row.to(v_arena.dtype)
-        out = paged_attention(q, k_arena, v_arena, tables, pos, page_tokens,
-                              k_scale=ks_arena, v_scale=vs_arena, kernel=kernel)
-        x = _finish_layer(layer, x, out.reshape(s_lanes, n_heads, 1, hd))
-    return _logits(model, x)
+    """One decode step (one token ``tok (S,)`` per lane) against the paged
+    arena (reference :441): ``_paged_step`` at T = 1 through
+    ``paged_attention``, the decode dispatch. -> logits (S, 1, V) f32."""
+    return _paged_step(model, cfg, tok[:, None], arena, tables, pos, page_tokens, kernel,
+                       paged_attention)
+
+
+def _paged_verify_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: dict,
+                       tables: torch.Tensor, pos: torch.Tensor, page_tokens: int,
+                       kernel: bool) -> torch.Tensor:
+    """One multi-position forward (``toks (S, T)``) against the paged arena
+    (reference :523): the verify pass of a speculative round, ``_paged_step``
+    through ``paged_attention_verify`` — one call per layer, each of the T
+    queries with its own causal frontier. At T = 1 it is the decode step
+    operation for operation. -> logits (S, T, V) f32."""
+    return _paged_step(model, cfg, toks, arena, tables, pos, page_tokens, kernel,
+                       paged_attention_verify)
 
 
 @torch.inference_mode()

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("flash_attention", "paged_decode_attention")
+KERNEL_SOURCES = ("flash_attention", "paged_attention")
 
 
 class KernelBuildError(RuntimeError):

@@ -2,18 +2,26 @@
 
 Counterpart of ``tfservingcache_tpu/ops/attention.py``:
   - ``attention`` is the dispatch the model calls for full-sequence
-    attention: on a CUDA tensor that passes the reference's gate it launches
-    the flash kernel (``flash_attention``, bf16 or f32), otherwise it runs
-    the plain version (``attention_reference``). Layouts: q ``(B, Hq, S, D)``,
+    attention: on a CUDA tensor it launches the flash kernel
+    (``flash_attention``, bf16 or f32), on a CPU tensor it runs the plain
+    version (``attention_reference``). Layouts: q ``(B, Hq, S, D)``,
     k/v ``(B, Hkv, S, D)``, GQA with ``Hq % Hkv == 0``, out in q's dtype.
   - ``paged_attention`` is the dispatch of the continuous engine's decode
-    step: one query per lane over the paged KV arena. On a CUDA tensor that
-    passes the gate it launches the paged decode kernel
-    (``paged_decode_attention_kernel``, bf16 / f32 / int8 arenas), otherwise
-    it runs the plain gather + einsum version (``paged_decode_attention``).
+    step: one query per lane over the paged KV arena. On a CUDA tensor it
+    launches the paged decode kernel (``paged_decode_attention_kernel``,
+    bf16 / f32 / int8 arenas); on a CPU tensor, or with ``kernel=False``, it
+    runs the plain gather + einsum version (``paged_decode_attention``).
     q ``(S, Hq, 1, D)``, pages ``(n_pages, Hkv, page_tokens, D)``, tables
     ``(S, pages_per_slot)`` int32, pos ``(S,)`` int32 -> f32 ``(S, Hq, 1, D)``.
-There is no fallback: a kernel that fails to build or launch raises.
+  - ``paged_attention_verify`` is the same with T query positions per lane
+    (q ``(S, Hq, T, D)`` at ``pos .. pos + T - 1``, each with its own causal
+    frontier): the verify pass of a speculative round and, at T = chunk,
+    chunked prefill. It launches the paged verify kernel
+    (``paged_verify_attention_kernel``) or runs ``paged_verify_attention``.
+    The decode and verify kernels are one CUDA body behind two kernel names
+    (``ops/csrc/paged_attention.cu``); the decode kernel is its T = 1 case.
+There is no fallback: on a CUDA tensor a kernel that does not take the
+arguments, fails to build or fails to launch raises.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ class LaunchCounter:
 # that the serving paths went through the kernels)
 FLASH_LAUNCHES = LaunchCounter()
 PAGED_LAUNCHES = LaunchCounter()
+VERIFY_LAUNCHES = LaunchCounter()
 
 
 def attention_reference(
@@ -94,10 +103,10 @@ def _load(name: str) -> ctypes.CDLL:
             lib.tpusc_flash_attention_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             lib.tpusc_flash_attention_fwd_f32.restype = i
         else:
-            lib.tpusc_paged_decode_attention.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p,
+            lib.tpusc_paged_attention.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p,
             ]
-            lib.tpusc_paged_decode_attention.restype = i
+            lib.tpusc_paged_attention.restype = i
         lib.tpusc_cuda_error_string.argtypes = [i]
         lib.tpusc_cuda_error_string.restype = ctypes.c_char_p
         lib._tpusc_bound = True
@@ -168,17 +177,14 @@ def flash_attention(
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
 ) -> torch.Tensor:
-    """Dispatch with the reference's gate (attention.py:812-818): head_dim a
-    multiple of 64, seq >= 128, self-attention lengths, GQA-divisible heads.
-    Where the reference asks "is the backend a TPU", this asks "is the
-    tensor on CUDA". A gated CUDA call runs the kernel and nothing else."""
-    if (
-        q.device.type == "cuda"
-        and q.shape[-1] % 64 == 0
-        and q.shape[2] >= 128
-        and k.shape[2] == q.shape[2]
-        and q.shape[1] % k.shape[1] == 0
-    ):
+    """Dispatch. Where the reference asks "is the backend a TPU" and then
+    gates on the shape (attention.py:812-818), this asks "is the tensor on
+    CUDA" and leaves the shape to the kernel: a CUDA call runs the flash
+    kernel at any sequence length, and one it does not take (head_dim
+    outside ``KERNEL_HEAD_DIMS``, unequal q/k lengths, heads that do not
+    group) raises rather than run the plain version on the card. A CPU call
+    runs ``attention_reference``."""
+    if q.device.type == "cuda":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return attention_reference(q, k, v, causal=causal)
 
@@ -211,28 +217,46 @@ def paged_decode_attention(
     page_tokens: int,
 ) -> torch.Tensor:
     """Single-position attention over a paged KV arena — the plain version
-    of the paged decode kernel, operation for operation the reference's
-    ``paged_decode_attention`` (attention.py:520): GQA folds as
-    ``(S, Hkv, g, 1, D)`` (query head ``kv*g + j`` reads KV head ``kv``);
-    scores are products of the stored values summed in f32 (computed from
-    f32 copies, which is exact for bf16); the mask is ``k_pos <= pos`` at
-    NEG_INF; p is cast to the cache dtype before the value product. Returns
-    f32 ``(S, Hq, 1, D)``."""
-    s_lanes, hq, _, d = q.shape
+    of the paged decode kernel, the reference's ``paged_decode_attention``
+    (attention.py:520). q ``(S, Hq, 1, D)`` -> f32 ``(S, Hq, 1, D)``. It is
+    ``paged_verify_attention`` at T = 1, whose operations are the
+    reference decode version's one for one."""
+    return paged_verify_attention(q, k_pages, v_pages, tables, pos, page_tokens)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    page_tokens: int,
+) -> torch.Tensor:
+    """T query positions per lane over a paged KV arena — the plain version
+    of the paged verify kernel, operation for operation the reference's
+    ``paged_verify_attention`` (attention.py:567): query ``t`` of lane ``s``
+    sits at ``pos[s] + t`` and sees keys ``k_pos <= pos[s] + t`` (NEG_INF
+    elsewhere); GQA folds as ``(S, Hkv, g, T, D)`` (query head ``kv*g + j``
+    reads KV head ``kv``); scores are products of the stored values summed
+    in f32 (computed from f32 copies, which is exact for bf16); the softmax
+    is f32; p is cast to the cache dtype before the value product.
+    q ``(S, Hq, T, D)`` -> f32 ``(S, Hq, T, D)``."""
+    s_lanes, hq, t, d = q.shape
     hkv = k_pages.shape[1]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     g = hq // hkv
     kc = paged_gather_kv(k_pages, tables, page_tokens)   # (S, Hkv, L, D)
     vc = paged_gather_kv(v_pages, tables, page_tokens)
-    qg = q.reshape(s_lanes, hkv, g, 1, d).float()
+    qg = q.reshape(s_lanes, hkv, g, t, d).float()
     s = torch.einsum("bkgqd,bkld->bkgql", qg, kc.float()) / math.sqrt(d)
     k_pos = torch.arange(kc.shape[2], device=q.device)
-    mask = k_pos[None, None, :] <= pos.long()[:, None, None]  # (S, 1, L)
+    q_pos = pos.long()[:, None] + torch.arange(t, device=q.device)[None, :]  # (S, T)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]                        # (S, T, L)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgql,bkld->bkgqd", p.to(vc.dtype).float(), vc.float())
-    return out.reshape(s_lanes, hq, 1, d)
+    return out.reshape(s_lanes, hq, t, d)
 
 
 def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -246,6 +270,91 @@ _PAGED_Q_TYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGED_KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
+def _paged_kernel(
+    verify: bool,
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    k_scale: torch.Tensor | None,
+    v_scale: torch.Tensor | None,
+    page_tokens: int,
+) -> torch.Tensor:
+    """Check the arguments of the paged verify kernel (``verify``) or the
+    paged decode kernel (one body, ``ops/csrc/paged_attention.cu``) and
+    launch it on the current stream. -> f32 ``(S, Hq, T, D)``."""
+    what = "paged_verify_attention" if verify else "paged_decode_attention"
+    fn = f"{what}_kernel"
+    quantized = k_scale is not None
+    named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+             ("tables", tables), ("pos", pos)]
+    if quantized:
+        if v_scale is None:
+            raise ValueError(f"{fn}: k_scale given without v_scale")
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor")
+        if t.device != q.device:
+            raise ValueError(f"{fn}: all tensors must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+    if q.dtype not in _PAGED_Q_TYPES:
+        raise ValueError(f"{fn}: q is {q.dtype}, takes bf16 or f32")
+    if k_pages.dtype not in _PAGED_KV_TYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(
+            f"{fn}: pages are {k_pages.dtype}/{v_pages.dtype}, "
+            "the kernel takes one of bf16, f32, int8"
+        )
+    if (k_pages.dtype == torch.int8) != quantized:
+        raise ValueError(f"{fn}: int8 pages need k_scale/v_scale and only int8 pages take them")
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError(f"{fn}: tables and pos must be int32")
+    if q.dim() != 4:
+        raise ValueError(f"{fn}: q must be (S, Hq, T, D), got {tuple(q.shape)}")
+    s_lanes, hq, t_q, d = q.shape
+    n_pages, hkv, pt, dk = k_pages.shape
+    if t_q < 1 or (not verify and t_q != 1) or dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"{fn}: q {tuple(q.shape)} / pages {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)} do not match"
+        )
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{fn}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if pt != page_tokens:
+        raise ValueError(f"arena page_tokens {pt} != {page_tokens}")
+    if tables.dim() != 2 or tables.shape[0] != s_lanes or tuple(pos.shape) != (s_lanes,):
+        raise ValueError(
+            f"{fn}: tables {tuple(tables.shape)} / pos {tuple(pos.shape)} do not match "
+            f"{s_lanes} lanes"
+        )
+    if quantized and (k_scale.shape != k_pages.shape[:3] or v_scale.shape != k_scale.shape
+                      or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError(f"{fn}: scales must be f32 (n_pages, Hkv, pt)")
+    if s_lanes > 65535:
+        raise ValueError(f"{fn}: {s_lanes} lanes exceed the grid's 65535")
+    lib = _load("paged_attention")
+    out = torch.empty((s_lanes, hq, t_q, d), dtype=torch.float32, device=q.device)
+    if s_lanes == 0:
+        return out
+    args = [
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        s_lanes, hq, hkv, d, pt, tables.shape[1], n_pages,
+        _PAGED_Q_TYPES[q.dtype], _PAGED_KV_TYPES[k_pages.dtype], t_q, int(verify),
+    ]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.tpusc_paged_attention(*args, stream)
+    _check_launch(lib, rc, what)
+    return out
+
+
 def paged_decode_attention_kernel(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -257,83 +366,54 @@ def paged_decode_attention_kernel(
     *,
     page_tokens: int,
 ) -> torch.Tensor:
-    """The CUDA paged decode kernel (``ops/csrc/paged_decode_attention.cu``)
-    on the current stream: the contract of ``paged_decode_attention``, in
-    one pass over the live K/V rows of each lane. q is bf16 or f32; pages
-    are bf16, f32 or int8 (int8 with ``k_scale``/``v_scale``
-    ``(n_pages, Hkv, pt)`` f32); tables ``(S, pps)`` and pos ``(S,)`` are
-    int32 device tensors the kernel reads itself. Raises on a CPU tensor or
-    anything else the kernel does not take."""
-    quantized = k_scale is not None
-    named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-             ("tables", tables), ("pos", pos)]
-    if quantized:
-        if v_scale is None:
-            raise ValueError("paged_decode_attention_kernel: k_scale given without v_scale")
-        named += [("k_scale", k_scale), ("v_scale", v_scale)]
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(
-                f"paged_decode_attention_kernel: {name} is on {t.device}, needs a CUDA tensor"
-            )
-        if t.device != q.device:
-            raise ValueError("paged_decode_attention_kernel: all tensors must be on one device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(
-                f"paged_decode_attention_kernel: {name} must be contiguous and 16-byte aligned"
-            )
-    if q.dtype not in _PAGED_Q_TYPES:
-        raise ValueError(f"paged_decode_attention_kernel: q is {q.dtype}, takes bf16 or f32")
-    if k_pages.dtype not in _PAGED_KV_TYPES or v_pages.dtype != k_pages.dtype:
-        raise ValueError(
-            f"paged_decode_attention_kernel: pages are {k_pages.dtype}/{v_pages.dtype}, "
-            "the kernel takes one of bf16, f32, int8"
-        )
-    if (k_pages.dtype == torch.int8) != quantized:
-        raise ValueError("paged_decode_attention_kernel: int8 pages need k_scale/v_scale "
-                         "and only int8 pages take them")
-    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("paged_decode_attention_kernel: tables and pos must be int32")
-    s_lanes, hq, one, d = q.shape
-    n_pages, hkv, pt, dk = k_pages.shape
-    if one != 1 or dk != d or v_pages.shape != k_pages.shape:
-        raise ValueError(
-            f"paged_decode_attention_kernel: q {tuple(q.shape)} / pages "
-            f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)} do not match"
-        )
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention_kernel: head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    if hq % hkv:
-        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    if pt != page_tokens:
-        raise ValueError(f"arena page_tokens {pt} != {page_tokens}")
-    if tables.dim() != 2 or tables.shape[0] != s_lanes or tuple(pos.shape) != (s_lanes,):
-        raise ValueError(
-            f"paged_decode_attention_kernel: tables {tuple(tables.shape)} / pos "
-            f"{tuple(pos.shape)} do not match {s_lanes} lanes"
-        )
-    if quantized and (k_scale.shape != k_pages.shape[:3] or v_scale.shape != k_scale.shape
-                      or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
-        raise ValueError("paged_decode_attention_kernel: scales must be f32 (n_pages, Hkv, pt)")
-    if s_lanes > 65535:
-        raise ValueError(f"paged_decode_attention_kernel: {s_lanes} lanes exceed the grid's 65535")
-    lib = _load("paged_decode_attention")
-    out = torch.empty((s_lanes, hq, 1, d), dtype=torch.float32, device=q.device)
-    if s_lanes == 0:
-        return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.tpusc_paged_decode_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if quantized else None,
-            v_scale.data_ptr() if quantized else None,
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            s_lanes, hq, hkv, d, pt, tables.shape[1], n_pages,
-            _PAGED_Q_TYPES[q.dtype], _PAGED_KV_TYPES[k_pages.dtype], stream,
-        )
-    _check_launch(lib, rc, "paged_decode_attention")
+    """The CUDA paged decode kernel (``ops/csrc/paged_attention.cu``) on the
+    current stream: the contract of ``paged_decode_attention``, in
+    one pass over the live K/V rows of each lane. q ``(S, Hq, 1, D)`` is
+    bf16 or f32; pages are bf16, f32 or int8 (int8 with
+    ``k_scale``/``v_scale`` ``(n_pages, Hkv, pt)`` f32); tables ``(S, pps)``
+    and pos ``(S,)`` are int32 device tensors the kernel reads itself.
+    Raises on a CPU tensor or anything else the kernel does not take."""
+    out = _paged_kernel(False, q, k_pages, v_pages, tables, pos,
+                        k_scale, v_scale, page_tokens)
     PAGED_LAUNCHES.add()
     return out
+
+
+def paged_verify_attention_kernel(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    *,
+    page_tokens: int,
+) -> torch.Tensor:
+    """The CUDA paged verify kernel (``ops/csrc/paged_attention.cu``) on the
+    current stream: the contract of ``paged_verify_attention`` for any
+    T >= 1 query positions per lane, q ``(S, Hq, T, D)`` -> f32
+    ``(S, Hq, T, D)``, each lane's live K/V rows read once per tile of
+    query rows. The arguments are those of
+    ``paged_decode_attention_kernel``, with the same checks; it runs the
+    decode kernel's body, so the two agree bit for bit at T = 1. Raises on a
+    CPU tensor."""
+    out = _paged_kernel(True, q, k_pages, v_pages, tables, pos,
+                        k_scale, v_scale, page_tokens)
+    VERIFY_LAUNCHES.add()
+    return out
+
+
+def _paged_dispatch(
+    kernel_fn, plain_fn, q, k_pages, v_pages, tables, pos, page_tokens, k_scale, v_scale, kernel
+) -> torch.Tensor:
+    if kernel and (q.device.type == "cuda" or k_pages.device.type == "cuda"):
+        return kernel_fn(q.contiguous(), k_pages, v_pages, tables, pos, k_scale, v_scale,
+                         page_tokens=page_tokens)
+    if k_scale is not None:
+        k_pages = dequantize_pages(k_pages, k_scale)
+        v_pages = dequantize_pages(v_pages, v_scale)
+    return plain_fn(q, k_pages, v_pages, tables, pos, page_tokens)
 
 
 def paged_attention(
@@ -347,22 +427,31 @@ def paged_attention(
     v_scale: torch.Tensor | None = None,
     kernel: bool = True,
 ) -> torch.Tensor:
-    """Paged decode dispatch with the reference's gate (attention.py:848-855):
-    head_dim a multiple of 64 and GQA-divisible heads, where "is the tensor
-    on CUDA" replaces "is the backend a TPU". A gated CUDA call runs the
-    kernel and nothing else. ``kernel=False`` (serving.kv_paged_kernel)
-    forces the plain path; an int8 arena on the plain path is dequantized
-    first (:860-864)."""
-    if kernel and (
-        q.device.type == "cuda"
-        and q.shape[-1] % 64 == 0
-        and q.shape[1] % k_pages.shape[1] == 0
-    ):
-        return paged_decode_attention_kernel(
-            q.contiguous(), k_pages, v_pages, tables, pos, k_scale, v_scale,
-            page_tokens=page_tokens,
-        )
-    if k_scale is not None:
-        k_pages = dequantize_pages(k_pages, k_scale)
-        v_pages = dequantize_pages(v_pages, v_scale)
-    return paged_decode_attention(q, k_pages, v_pages, tables, pos, page_tokens)
+    """Paged decode dispatch. Where the reference asks "is the backend a
+    TPU" and then gates on the shape (attention.py:848-855), this asks "is
+    the tensor on CUDA" and leaves the shape to the kernel: a CUDA call runs
+    the decode kernel, and one it does not take (head_dim outside
+    ``KERNEL_HEAD_DIMS``, heads that do not group) raises rather than run
+    the plain version on the card. A CPU call, or ``kernel=False``
+    (serving.kv_paged_kernel), runs the plain version; an int8 arena there
+    is dequantized first (:860-864)."""
+    return _paged_dispatch(paged_decode_attention_kernel, paged_decode_attention, q, k_pages,
+                           v_pages, tables, pos, page_tokens, k_scale, v_scale, kernel)
+
+
+def paged_attention_verify(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    page_tokens: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    kernel: bool = True,
+) -> torch.Tensor:
+    """Multi-position (verify) dispatch, ``paged_attention``'s rules with
+    the verify kernel and ``paged_verify_attention`` (reference
+    attention.py:1049-1081)."""
+    return _paged_dispatch(paged_verify_attention_kernel, paged_verify_attention, q, k_pages,
+                           v_pages, tables, pos, page_tokens, k_scale, v_scale, kernel)

@@ -12,6 +12,7 @@ thread.
 from __future__ import annotations
 
 import json
+import logging
 import secrets
 from typing import Any, Mapping
 
@@ -29,6 +30,8 @@ from tfservingcache_tpu_torch.runtime.base import (
 )
 from tfservingcache_tpu_torch.types import ModelId, ModelState
 
+log = logging.getLogger("tpusc_torch.backend")
+
 _STATE_NAMES = {s.value: s.name for s in ModelState}
 
 # verbs the reference serves that this port does not yet
@@ -38,11 +41,15 @@ _STREAM_ON = ("1", "true", "yes", "on")
 
 
 class LocalServingBackend(ServingBackend):
-    def __init__(self, manager: CacheManager, generator: Any = None) -> None:
+    def __init__(self, manager: CacheManager, generator: Any = None,
+                 spec_draft_model: str = "") -> None:
         self.manager = manager
         # the continuous engine (runtime/batcher.py) when
         # serving.generate_engine == "continuous"; None = the solo path
         self._generator = generator
+        # serving.spec_draft_model: the engine attaches the draft only while
+        # it is resident, so :generate ensures it beside the target
+        self._spec_draft_name = str(spec_draft_model or "")
 
     def _ensure(self, model_id: ModelId) -> None:
         try:
@@ -134,22 +141,23 @@ class LocalServingBackend(ServingBackend):
 
         Body: {"input_ids": [[...]], "prompt_lengths": [...]?,
                "max_new_tokens": N?, "temperature": t?, "top_k": k?, "seed": s?,
+               "draft_model": "name" | {"name", "version"?}?, "spec_tokens": K?,
                "conversation_id": "..."?, "priority": "high"|"normal"|"low"?}
         Response: {"tokens": [[...]]}, (rows, max_new_tokens) new tokens.
 
-        Without a "seed", a request runs on the continuous engine when one
-        is configured; a seeded request runs on the solo path, reproducibly.
-        "conversation_id" and "priority" are validated as the reference
-        validates them and then ignored (the conversation tier and priority
-        classes are later slices). "draft_model" and ``?stream=true`` answer
-        501 (later slices)."""
+        Without a "seed" or a "draft_model", a request runs on the continuous
+        engine when one is configured; a seeded request runs on the solo
+        path, reproducibly. A "draft_model" request runs greedy speculative
+        decoding on the solo path (``runtime.generate(draft_model_id=...)``):
+        an unknown draft is 404, a malformed one or a bad version 400,
+        temperature > 0 with a draft 400. "conversation_id" and "priority"
+        are validated as the reference validates them and then ignored (the
+        conversation tier and priority classes are later slices).
+        ``?stream=true`` answers 501 (a later slice)."""
         ids = payload.get("input_ids")
         if not isinstance(ids, list) or not ids:
             raise BackendError('"input_ids" must be a non-empty 2-D list', 400)
-        if payload.get("draft_model") is not None:
-            raise BackendError(
-                '"draft_model" (speculative decoding) is not served by this port yet', 501
-            )
+        draft_mid = self._draft_model(payload.get("draft_model"))
         conv_id = payload.get("conversation_id")
         if conv_id is not None and (not isinstance(conv_id, str) or not conv_id):
             raise BackendError('"conversation_id" must be a non-empty string', 400)
@@ -160,6 +168,10 @@ class LocalServingBackend(ServingBackend):
 
         def attempt() -> np.ndarray:
             self._ensure(model_id)
+            if draft_mid is not None:
+                self._ensure(draft_mid)
+            elif self._generator is not None:
+                self._ensure_engine_draft(model_id)
             try:
                 # inside the try: malformed params ("max_new_tokens": "abc")
                 # answer 400, not 500
@@ -171,11 +183,12 @@ class LocalServingBackend(ServingBackend):
                 )
                 seed = int(payload["seed"]) if "seed" in payload else None
                 arr = np.asarray(ids, np.int32)
-                if self._generator is not None:
+                if self._generator is not None and draft_mid is None:
                     return self._generator.generate(model_id, arr, seed=seed, **kwargs)
                 return self.manager.runtime.generate(
                     model_id, arr, seed=seed if seed is not None else secrets.randbits(31),
-                    **kwargs,
+                    draft_model_id=draft_mid,
+                    spec_tokens=int(payload.get("spec_tokens", 4)), **kwargs,
                 )
             except ModelNotLoadedError:
                 raise
@@ -193,6 +206,40 @@ class LocalServingBackend(ServingBackend):
             except ModelNotLoadedError as e:
                 raise BackendError(str(e), 400) from e
         return RestResponse(status=200, body=json.dumps({"tokens": tokens.tolist()}).encode())
+
+    def _draft_model(self, spec: Any) -> ModelId | None:
+        """The body's "draft_model" — a name or {"name", "version"?} —
+        resolved to a ModelId (reference local_backend.py:715-742)."""
+        if spec is None:
+            return None
+        if isinstance(spec, str):
+            name, version = spec, None
+        elif isinstance(spec, dict) and spec.get("name"):
+            name, version = spec["name"], spec.get("version")
+        else:
+            raise BackendError('"draft_model" must be a model name or {"name", "version"?}', 400)
+        try:
+            version = int(version) if version is not None else None
+        except (ValueError, TypeError) as e:
+            raise BackendError(f'"draft_model" version must be an integer: {e}', 400) from e
+        try:
+            return ModelId(name, self.manager.resolve_version(name, version))
+        except (KeyError, ModelNotFoundError) as e:
+            raise BackendError(str(e), 404) from e
+
+    def _ensure_engine_draft(self, model_id: ModelId) -> None:
+        """Engine-level spec (serving.spec_draft_model): load the configured
+        draft beside the target, best-effort — a missing draft degrades to
+        plain decode, it never fails the target's request (reference
+        :779-796)."""
+        base, _, ver = self._spec_draft_name.partition("@")
+        if not base or base == model_id.name:
+            return
+        try:
+            self.manager.ensure_servable(
+                ModelId(base, self.manager.resolve_version(base, int(ver) if ver else None)))
+        except Exception:  # noqa: BLE001 - speculation is an optimization
+            log.debug("spec draft %s not loaded", self._spec_draft_name, exc_info=True)
 
     def _rest_status(self, model_id: ModelId) -> RestResponse:
         """ModelService status: runtime-known versions, else disk-cached

@@ -11,15 +11,17 @@ model gets a scheduler thread over a fixed number of lanes (the runtime's
     pages than the arena has fails, and a row the free list cannot cover
     yet waits at the head of the queue;
   - advances every active lane by one decode chunk, clamped to
-    ``max(1, min(chunk_tokens, next_bucket(max_remaining)))``;
+    ``max(1, min(chunk_tokens, next_bucket(max_remaining)))`` — or, with a
+    draft model attached (``serving.spec_draft_model``), by one speculative
+    draft/verify round in which each lane accepts a variable-length prefix;
   - retires rows the moment they emit EOS or reach their max_new, at the
-    prefill and inside a chunk, and gives their pages back.
+    prefill and inside a chunk or round, and gives their pages back.
 Seeded and malformed requests go to ``runtime.generate`` (the solo path).
 
 Not ported yet: chunked prefill, shared-prefix KV, conversation KV,
-speculative decoding, priority classes and preemption, crash recovery
-(a scheduler exception fails the in-flight and queued rows and drops the
-slot state), token streaming, metrics and the flight recorder.
+priority classes and preemption, crash recovery (a scheduler exception
+fails the in-flight and queued rows and drops the slot state), token
+streaming, metrics and the flight recorder.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from tfservingcache_tpu_torch.runtime.base import RuntimeError_
+from tfservingcache_tpu_torch.runtime.base import ModelNotLoadedError, RuntimeError_
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, next_bucket
 from tfservingcache_tpu_torch.types import ModelId
 
@@ -62,6 +64,7 @@ class _ContinuousScheduler:
         self.cv = threading.Condition()
         self.pending: collections.deque[_ContinuousReq] = collections.deque()  # guarded-by: cv
         self.stopped = False  # guarded-by: cv
+        self._spec_broken = False  # the configured draft cannot pair: stay plain
         self.thread = threading.Thread(
             target=self._loop, daemon=True, name=f"tpusc-cdecode-{model_id.name}"
         )
@@ -80,6 +83,57 @@ class _ContinuousScheduler:
             if r.error is None and not r.done.is_set():
                 r.error = err
                 r.done.set()
+
+    def _resolve_draft_id(self, rt: TorchModelRuntime, name: str) -> ModelId | None:
+        """The ``spec_draft_model`` knob ("name" or "name@version") as a
+        RESIDENT ModelId, newest version first for a bare name; None when
+        nothing resident matches (reference :847)."""
+        if "@" in name:
+            base, _, ver = name.rpartition("@")
+            try:
+                want = ModelId(base, int(ver))
+            except ValueError:
+                return None
+            return want if rt.is_loaded(want) else None
+        best = None
+        for mid in rt.resident_models():
+            if mid.name == name and (best is None or mid.version > best.version):
+                best = mid
+        return best
+
+    def _spec_setup(self, rt: TorchModelRuntime, state, lanes: list) -> None:
+        """Attach (or detach) the configured draft on this scheduler's slot
+        state (reference :866-920). Attach only with every lane idle: rows
+        admitted while a draft is attached reserve and prefill BOTH arenas,
+        so a mid-flight attach would leave live lanes without draft pages.
+        A draft that is no longer resident detaches (plain chunks follow);
+        a model never drafts for itself."""
+        eng = self.engine
+        if state.spec_draft is not None:
+            if not rt.is_loaded(state.spec_draft_id):
+                _detach(state)
+            return
+        if self._spec_broken or not state.paged:
+            return
+        name = eng.spec_draft_model
+        if name is None:
+            name = str(rt.cfg.spec_draft_model or "")
+        if not name or any(r is not None for r in lanes):
+            return
+        draft_id = self._resolve_draft_id(rt, name)
+        if draft_id is None or draft_id == self.model_id:
+            return
+        spec = eng.spec_tokens if eng.spec_tokens is not None else int(rt.cfg.spec_tokens)
+        try:
+            rt.slot_attach_draft(state, draft_id, spec)
+            log.info("continuous spec attach model=%s draft=%s spec_tokens=%d",
+                     self.model_id, draft_id, state.spec_tokens)
+        except ModelNotLoadedError:
+            pass  # evicted between resolve and attach: retry at a later boundary
+        except RuntimeError_ as e:
+            self._spec_broken = True
+            log.warning("continuous spec disabled model=%s draft=%s: %s",
+                        self.model_id, draft_id, e)
 
     def _loop(self) -> None:
         rt = self.engine.runtime
@@ -112,19 +166,29 @@ class _ContinuousScheduler:
 
     def _step(self, rt: TorchModelRuntime, state, lanes: list):
         """One chunk boundary: admit into free lanes, then advance all
-        active lanes by one chunk. Runs only on self.thread."""
+        active lanes by one chunk or one speculative round. Runs only on
+        self.thread."""
         eng = self.engine
         eos = rt.eos_id_of(self.model_id)
         free = [i for i, r in enumerate(lanes) if r is None]
+        if state is not None:
+            # attach/detach before admission, so every row admitted below
+            # sees the final spec configuration (its budget has the
+            # draft's headroom iff the draft is on)
+            self._spec_setup(rt, state, lanes)
         while free:
             with self.cv:
                 if not self.pending:
                     break
                 req = self.pending.popleft()
             reserved = None
+            d_st = None
             try:
                 if state is None:
                     state = rt.slot_decode_state(self.model_id, eng.slots, **eng.state_knobs)
+                    # fresh state: every lane is idle, the draft can attach now
+                    self._spec_setup(rt, state, lanes)
+                d_st = state.spec_draft
                 prompt = req.prompt
                 p = prompt.shape[0]
                 remaining = req.max_new
@@ -135,9 +199,14 @@ class _ContinuousScheduler:
                     req.done.set()
                     continue
                 if state.paged:
-                    # the whole prompt + max_new budget up front: a decoding
-                    # row never starves for a page
-                    budget = min(p + remaining, state.pages_per_slot * state.page_tokens)
+                    # the whole prompt + max_new budget up front, so a
+                    # decoding row never starves for a page; with a draft
+                    # the budget grows by spec_tokens of headroom (a round
+                    # started one token short of max_new still writes rows
+                    # at pos..pos+spec, on pages this row owns)
+                    headroom = state.spec_tokens if d_st is not None else 0
+                    budget = min(p + remaining + headroom,
+                                 state.pages_per_slot * state.page_tokens)
                     need = state.pages_needed(budget)
                     if need > state.arena_pages:
                         req.error = RuntimeError_(
@@ -147,7 +216,17 @@ class _ContinuousScheduler:
                         req.done.set()
                         continue
                     idx = free[-1]  # the lane free.pop() hands out below
-                    if not state.reserve_pages(idx, budget):
+                    ok = state.reserve_pages(idx, budget)
+                    if ok and d_st is not None:
+                        # the draft arena mirrors the reservation, capped at
+                        # its own table (its auto-sized arena covers every
+                        # lane's full table, so this succeeds whenever the
+                        # lane is free)
+                        d_budget = min(budget, d_st.pages_per_slot * d_st.page_tokens)
+                        if not d_st.reserve_pages(idx, d_budget):
+                            state.release_pages(idx)
+                            ok = False
+                    if not ok:
                         # arena exhausted: the row waits at the head of the
                         # queue (FIFO kept); retirements below free pages for
                         # the next boundary. need <= arena_pages, so an idle
@@ -156,13 +235,18 @@ class _ContinuousScheduler:
                             self.pending.appendleft(req)
                         break
                     reserved = idx
+                seed = secrets.randbits(31)
                 tok, pk, pv = rt.slot_prefill(
-                    self.model_id, prompt, req.temperature, req.top_k,
-                    seed=secrets.randbits(31),
+                    self.model_id, prompt, req.temperature, req.top_k, seed=seed,
                 )
+                d_pk = d_pv = None
+                if d_st is not None and reserved is not None:
+                    # greedy draft prefill: only the draft's K/V rows matter
+                    _, d_pk, d_pv = rt.slot_prefill(state.spec_draft_id, prompt, 0.0, 0,
+                                                    seed=seed)
             except BaseException as e:  # noqa: BLE001 - out of pending, not yet in lanes
                 if reserved is not None:
-                    state.release_pages(reserved)
+                    _release(state, d_st, reserved)
                 self._fail([req], e)
                 raise
             req.tokens.append(int(tok))
@@ -170,11 +254,13 @@ class _ContinuousScheduler:
             if (eos is not None and int(tok) == eos) or remaining <= 1:
                 # done at prefill: the lane was never used
                 if reserved is not None:
-                    state.release_pages(reserved)
+                    _release(state, d_st, reserved)
                 req.done.set()
                 continue
             idx = free.pop()
             rt.slot_admit(state, idx, pk, pv)
+            if d_pk is not None:
+                rt.slot_admit(d_st, idx, d_pk, d_pv)  # the draft lane rides the same index
             state.tok[idx] = int(tok)
             state.pos[idx] = p
             state.active[idx] = True
@@ -187,26 +273,75 @@ class _ContinuousScheduler:
         # the pow2 cover of the largest remaining budget trims the overshoot
         max_remaining = max(r.max_new - len(r.tokens) for r in live)
         chunk = max(1, min(eng.chunk_tokens, next_bucket(max_remaining)))
-        toks = rt.slot_decode_chunk(state, chunk)
+        d_st = state.spec_draft
+        use_spec = (
+            d_st is not None
+            and rt.is_loaded(state.spec_draft_id)
+            and rt._spec_admit(self.model_id, state.spec_draft_id)
+            # a round without a greedy lane is pure draft overhead (every
+            # sampled lane accepts 0): decode plain instead
+            and any(r is not None and float(state.temps[i]) <= 0.0
+                    for i, r in enumerate(lanes))
+        )
+        accept = None
+        if use_spec:
+            try:
+                toks, accept = rt.slot_decode_spec_round(state)
+            except ModelNotLoadedError as e:
+                if not rt.is_loaded(self.model_id):
+                    raise
+                # the draft was evicted since the residency check: detach
+                # and decode plain (the round failed before any update)
+                log.info("continuous spec detach model=%s (%s)", self.model_id, e)
+                _detach(state)
+        if accept is None:
+            toks = rt.slot_decode_chunk(state, chunk)
+            eng.decode_steps += chunk
+            eng.lane_steps += chunk * len(live)
+        else:
+            eng.spec_rounds += 1
+            eng.drafted += state.spec_tokens * len(live)
+            eng.accepted += int(accept.sum())
         eng.chunks += 1
-        eng.decode_steps += chunk
-        eng.lane_steps += chunk * len(live)
         for idx, req in enumerate(lanes):
             if req is None:
                 continue
-            for j in range(chunk):
+            # a round emits a variable prefix per lane (the accepted draft
+            # run + the verify's correction token); a chunk emits `chunk`
+            n_emit = chunk if accept is None else int(accept[idx])
+            for j in range(n_emit):
                 t = int(toks[idx, j])
                 req.tokens.append(t)
                 if (eos is not None and t == eos) or len(req.tokens) >= req.max_new:
                     # retire now: the chunk's later steps for this row were
-                    # overshoot (< chunk, the waste continuous batching bounds)
+                    # overshoot (< chunk, the waste continuous batching
+                    # bounds); under spec this drops accepted tokens past a
+                    # mid-round EOS
                     state.active[idx] = False
                     lanes[idx] = None
                     if state.paged:
-                        state.release_pages(idx)
+                        _release(state, state.spec_draft, idx)
                     req.done.set()
                     break
+        if accept is not None:
+            # acceptance health: one verify round per active lane
+            rt._spec_observe(self.model_id, state.spec_draft_id, int(accept.sum()), len(live),
+                             engine="continuous")
         return state
+
+
+def _detach(state) -> None:
+    """Drop the draft from a slot state: plain chunks from here on."""
+    state.spec_draft = None
+    state.spec_draft_id = None
+    state.spec_tokens = 0
+
+
+def _release(state, d_st, idx: int) -> None:
+    """Give a retired or failed lane's pages back, the draft lane's too."""
+    state.release_pages(idx)
+    if d_st is not None:
+        d_st.release_pages(idx)
 
 
 class ContinuousGenerateEngine:
@@ -225,6 +360,8 @@ class ContinuousGenerateEngine:
         arena_pages: int | None = None,
         arena_dtype: str | None = None,
         paged_kernel: bool | None = None,
+        spec_draft_model: str | None = None,
+        spec_tokens: int | None = None,
     ) -> None:
         self.runtime = runtime
         self.slots = max(1, int(slots))
@@ -236,14 +373,22 @@ class ContinuousGenerateEngine:
         knobs = {"page_tokens": page_tokens, "arena_pages": arena_pages,
                  "arena_dtype": arena_dtype, "paged_kernel": paged_kernel}
         self.state_knobs = {k: v for k, v in knobs.items() if v is not None}
+        # in-engine speculative decoding: None defers to the ServingConfig
+        # (serving.spec_draft_model / serving.spec_tokens), "" = off; the
+        # draft is "name" (newest resident version) or "name@version"
+        self.spec_draft_model = None if spec_draft_model is None else str(spec_draft_model)
+        self.spec_tokens = None if spec_tokens is None else int(spec_tokens)
         self._lock = threading.Lock()
         self._scheds: dict[ModelId, _ContinuousScheduler] = {}  # guarded-by: _lock
         self._closed = False  # guarded-by: _lock
         # counters (scheduler threads write, tests and chip_smoke.py read)
         self.admitted = 0
         self.chunks = 0
-        self.decode_steps = 0  # sum of every chunk's size
-        self.lane_steps = 0    # sum over chunks of chunk size x active lanes
+        self.decode_steps = 0  # sum of every plain chunk's size
+        self.lane_steps = 0    # sum over plain chunks of chunk size x active lanes
+        self.spec_rounds = 0   # speculative rounds (each also counts in chunks)
+        self.drafted = 0       # spec_tokens x active lanes, summed over rounds
+        self.accepted = 0      # tokens the rounds emitted (accepted + correction)
 
     def _sched(self, model_id: ModelId) -> _ContinuousScheduler:
         with self._lock:

@@ -1,10 +1,13 @@
 """The PyTorch model runtime: artifact -> pinned host tensors -> GPU module.
 
 Counterpart of ``tfservingcache_tpu/runtime/model_runtime.py`` for the
-``:predict`` and ``:generate`` paths: the solo ``generate`` and the slot
-surface the continuous engine (``runtime/batcher.py``) drives, over a dense
-slot array or a paged KV arena (``SlotDecodeState``). A load reads ``params.bin`` in one sequential read into
-page-locked host memory, copies every leaf to the device and wraps them in
+``:predict`` and ``:generate`` paths: the solo ``generate`` (greedy
+speculative with ``draft_model_id``) and the slot surface the continuous
+engine (``runtime/batcher.py``) drives, over a dense slot array or a paged
+KV arena (``SlotDecodeState``), with an optional draft state for
+speculative rounds (``slot_attach_draft`` / ``slot_decode_spec_round``).
+A load reads ``params.bin`` in one sequential read into page-locked host
+memory, copies every leaf to the device and wraps them in
 the family's ``nn.Module``; resident models live in a byte-budgeted LRU
 (capped at ``serving.max_concurrent_models``) whose eviction drops the
 module so its device memory is freed. Variable request shapes are padded to
@@ -18,6 +21,7 @@ no card and no explicit device it raises. Forwards run eagerly under
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import os
@@ -40,6 +44,16 @@ from tfservingcache_tpu_torch.runtime.base import (
 from tfservingcache_tpu_torch.types import Model, ModelId, ModelState
 
 log = logging.getLogger("tpusc_torch.runtime")
+
+# Speculative-decoding health gate (reference :56-65): at acceptance ~0 every
+# verify round still pays spec_tokens draft forwards + one chunked target
+# forward to emit ONE token — more target work per token than plain decode.
+# Below this tokens-per-round a sustained run of generates disables the
+# (target, draft) pair; disabled pairs re-audition periodically.
+SPEC_MIN_TOKENS_PER_ROUND = 1.5
+SPEC_DISABLE_AFTER = 8      # consecutive low-acceptance generates
+SPEC_REPROBE_EVERY = 64     # every Nth gated request runs the draft again
+SPEC_TOKENS_MAX = 8         # spec_tokens clamps to a power of two <= this
 
 
 def next_bucket(n: int) -> int:
@@ -130,6 +144,15 @@ class SlotDecodeState:
     free_pages: list = field(default_factory=list)
     lane_pages: dict = field(default_factory=dict)  # lane -> [page ids]
     page_refs: np.ndarray | None = None      # (arena_pages + 1,) i32 owners per page
+    # in-engine speculative decoding (reference :703-712): the draft model's
+    # own SlotDecodeState rides on the target's — same slot count and
+    # page_tokens, its own arena/tables/free list/census — so every
+    # scheduler reserve/release mirrors 1:1 onto the draft arena. Its
+    # tok/pos/active host mirrors alias the target's (both caches advance
+    # through the same accepted positions). None = spec off.
+    spec_draft_id: ModelId | None = None
+    spec_draft: SlotDecodeState | None = None
+    spec_tokens: int = 0             # draft proposals per verify round
 
     @property
     def paged(self) -> bool:
@@ -221,6 +244,15 @@ def _check_trash_unreachable(state: SlotDecodeState) -> None:
             )
 
 
+def _arena(state: SlotDecodeState) -> dict:
+    """The paged arena of ``state`` as generation's ``{"k", "v"[, "k_scale",
+    "v_scale"]}`` dict (the same tensors, updated in place)."""
+    arena = {"k": state.k, "v": state.v}
+    if state.scales is not None:
+        arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
+    return arena
+
+
 class TorchModelRuntime(BaseRuntime):
     def __init__(
         self, cfg: ServingConfig | None = None, device: str | torch.device | None = None
@@ -238,6 +270,13 @@ class TorchModelRuntime(BaseRuntime):
         self._slot_states: dict[ModelId, SlotDecodeState] = {}  # guarded-by: _slot_lock
         self._slot_init_guards: dict[ModelId, threading.Lock] = {}  # guarded-by: _slot_lock
         self._slot_lock = threading.Lock()
+        # speculative decoding: acceptance health per (target, draft) pair,
+        # and cumulative verify rounds / emitted tokens per engine label
+        # ("solo", "continuous") in place of the reference's gauges
+        self._spec_health: dict[tuple[ModelId, ModelId], dict] = {}  # guarded-by: _spec_lock
+        self.spec_rounds: collections.Counter = collections.Counter()  # guarded-by: _spec_lock
+        self.spec_emitted: collections.Counter = collections.Counter()  # guarded-by: _spec_lock
+        self._spec_lock = threading.Lock()
 
     # -- load ---------------------------------------------------------------
     def ensure_loaded(self, model: Model) -> str:
@@ -419,15 +458,38 @@ class TorchModelRuntime(BaseRuntime):
         temperature: float = 0.0,
         top_k: int = 0,
         seed: int = 0,
+        draft_model_id: ModelId | None = None,
+        spec_tokens: int = 4,
     ) -> np.ndarray:
         """KV-cached decoding (``models/generation.generate``) on the solo
         path (reference :1813-1993): the same validation; prompt seq,
         max_new_tokens and the batch axis padded to power-of-two buckets,
         with the exact sizes where the buckets would overshoot max_seq.
-        -> (B, max_new_tokens) int32."""
+        -> (B, max_new_tokens) int32.
+
+        ``draft_model_id`` switches to greedy speculative decoding
+        (``models/speculative.py``): the draft proposes ``spec_tokens``
+        tokens per round (clamped to a power of two <= 8), this model
+        verifies them in one chunked forward; the output is its own greedy
+        decode. Requires temperature 0 and a resident draft sharing the
+        vocabulary. A pair the acceptance health gate disabled decodes plain
+        (identical tokens) until it re-auditions."""
         from tfservingcache_tpu_torch.models import generation
 
         loaded = self._lm(model_id)
+        draft = None
+        if draft_model_id is not None:
+            if temperature > 0.0:
+                raise RuntimeError_(
+                    "speculative decoding (draft_model) requires temperature 0 "
+                    "— sampled acceptance is not implemented"
+                )
+            if spec_tokens < 1:
+                raise RuntimeError_(f"spec_tokens must be >= 1, got {spec_tokens}")
+            spec_tokens = next_bucket(min(spec_tokens, SPEC_TOKENS_MAX))
+            draft = self._resident.get(draft_model_id)
+            if draft is None:
+                raise ModelNotLoadedError(f"draft model {draft_model_id} is not loaded")
         ids = np.asarray(input_ids, np.int32)
         if ids.ndim != 2 or not ids.size:
             raise RuntimeError_(f"input_ids must be (batch, seq), got {ids.shape}")
@@ -461,11 +523,25 @@ class TorchModelRuntime(BaseRuntime):
         if b_bucket != b:  # padding rows decode junk that is sliced off
             ids = np.pad(ids, ((0, b_bucket - b), (0, 0)))
             lengths = np.pad(lengths, (0, b_bucket - b), constant_values=1)
-        toks = generation.generate(
-            loaded.module, cfg, torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(lengths), new_bucket, temperature=temperature,
-            top_k=top_k, seed=seed,
-        )
+        if draft is not None and not self._spec_admit(model_id, draft_model_id):
+            # sustained low acceptance: the draft is pure overhead; plain
+            # greedy decode gives the same tokens until the pair re-auditions
+            draft = None
+        dev_ids = torch.from_numpy(ids).to(self.device)
+        if draft is not None:
+            from tfservingcache_tpu_torch.models.speculative import speculative_generate
+
+            toks, rounds = speculative_generate(
+                loaded.model_def, loaded.module, draft.model_def, draft.module, dev_ids,
+                prompt_lengths=torch.from_numpy(lengths), max_new_tokens=new_bucket,
+                spec_tokens=spec_tokens, return_rounds=True,
+            )
+            self._spec_observe(model_id, draft_model_id, new_bucket, rounds)
+        else:
+            toks = generation.generate(
+                loaded.module, cfg, dev_ids, torch.from_numpy(lengths), new_bucket,
+                temperature=temperature, top_k=top_k, seed=seed,
+            )
         return toks.cpu().numpy()[:b, :max_new_tokens]
 
     # -- continuous-decode slot surface (runtime/batcher.py) ----------------
@@ -622,11 +698,8 @@ class TorchModelRuntime(BaseRuntime):
         from tfservingcache_tpu_torch.models import generation
 
         if state.paged:
-            arena = {"k": state.k, "v": state.v}
-            if state.scales is not None:
-                arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
             row = torch.from_numpy(state.block_tables[idx].copy()).to(self.device)
-            generation.paged_insert(arena, pk, pv, row, state.page_tokens)
+            generation.paged_insert(_arena(state), pk, pv, row, state.page_tokens)
             return
         generation.slot_insert(state.k, state.v, pk, pv, idx)
 
@@ -655,13 +728,10 @@ class TorchModelRuntime(BaseRuntime):
         if state.paged:
             if _PAGECHECK:
                 _check_trash_unreachable(state)
-            arena = {"k": state.k, "v": state.v}
-            if state.scales is not None:
-                arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
             tables = torch.from_numpy(state.block_tables.copy()).to(dev)
             pos = torch.from_numpy(state.pos.copy()).to(dev)
             tok, pos, toks = generation.paged_decode_chunk(
-                loaded.module, cfg, arena, tables, tok, pos, active, gen, temps, topks,
+                loaded.module, cfg, _arena(state), tables, tok, pos, active, gen, temps, topks,
                 chunk, state.page_tokens, state.kernel,
             )
         else:
@@ -675,10 +745,159 @@ class TorchModelRuntime(BaseRuntime):
         state.pos = np.array(pos.cpu().numpy(), dtype=np.int32)
         return toks.cpu().numpy().astype(np.int32)
 
+    def slot_attach_draft(self, state: SlotDecodeState, draft_id: ModelId,
+                          spec_tokens: int = 4) -> SlotDecodeState:
+        """Attach ``draft_id``'s decode state to ``state`` for in-engine
+        speculative rounds (reference :2811-2868): the draft's own paged
+        arena with the target's slot count, page size, arena dtype and
+        kernel flag (auto-sized like the target's), pinned on
+        ``state.spec_draft`` so it lives and dies with the target state (it
+        is NOT registered in ``_slot_states``). Idempotent for the same
+        draft. The draft must be resident, a transformer_lm and share the
+        target's vocabulary; the target state must be paged.
+        ``spec_tokens`` is clamped to {1, 2, 4, 8}."""
+        if state.spec_draft is not None and state.spec_draft_id == draft_id:
+            return state.spec_draft
+        if not state.paged:
+            raise RuntimeError_(
+                "in-engine speculation requires a paged slot state "
+                "(serving.kv_page_tokens > 0)"
+            )
+        loaded = self._resident.get(state.model_id)
+        draft = self._resident.get(draft_id)
+        if loaded is None or draft is None:
+            missing = state.model_id if loaded is None else draft_id
+            raise ModelNotLoadedError(f"model {missing} is not loaded")
+        if draft.model_def.family != "transformer_lm":
+            raise RuntimeError_(
+                "continuous speculation supports transformer_lm drafts "
+                f"only, not {draft.model_def.family!r}"
+            )
+        if draft.model_def.config["vocab_size"] != loaded.model_def.config["vocab_size"]:
+            raise RuntimeError_(
+                "draft and target must share a vocabulary: "
+                f"{draft.model_def.config['vocab_size']} vs "
+                f"{loaded.model_def.config['vocab_size']}"
+            )
+        if spec_tokens < 1:
+            raise RuntimeError_(f"spec_tokens must be >= 1, got {spec_tokens}")
+        d_st = self._build_slot_state(
+            draft, draft_id, state.slots, state.page_tokens, 0, state.arena_dtype, state.kernel,
+        )
+        # host mirrors alias the target's: both caches always sit at the
+        # same accepted positions, so one array serves both censuses
+        d_st.tok, d_st.pos, d_st.active = state.tok, state.pos, state.active
+        state.spec_draft_id = draft_id
+        state.spec_draft = d_st
+        state.spec_tokens = next_bucket(min(int(spec_tokens), SPEC_TOKENS_MAX))
+        return d_st
+
+    def slot_decode_spec_round(self, state: SlotDecodeState) -> tuple[np.ndarray, np.ndarray]:
+        """One speculative draft/verify round for every active lane — the
+        spec counterpart of ``slot_decode_chunk`` (reference :2871-2928):
+        host mirrors to the device once, one sync at the end. Requires an
+        attached draft. -> (toks (S, spec+1), accept (S,)): lane ``s``
+        emitted ``toks[s, :accept[s]]`` (0 for frozen lanes). Raises
+        ModelNotLoadedError naming whichever half of the pair was evicted;
+        then nothing was updated."""
+        from tfservingcache_tpu_torch.models.speculative import paged_spec_round
+
+        d_st = state.spec_draft
+        if d_st is None:
+            raise RuntimeError_("no draft attached (slot_attach_draft)")
+        loaded = self._resident.get(state.model_id)
+        if loaded is None:
+            raise ModelNotLoadedError(f"model {state.model_id} is not loaded")
+        d_loaded = self._resident.get(d_st.model_id)
+        if d_loaded is None:
+            raise ModelNotLoadedError(f"draft model {d_st.model_id} is not loaded")
+        # admission may have rebound the target's mirrors: re-alias first
+        d_st.tok, d_st.pos, d_st.active = state.tok, state.pos, state.active
+        state.chunk_counter += 1
+        if _PAGECHECK:
+            _check_trash_unreachable(state)
+            _check_trash_unreachable(d_st)
+        dev = self.device
+        gen = None
+        if (state.temps > 0).any():  # host mirror: every-lane-greedy draws nothing
+            gen = torch.Generator(device=dev).manual_seed(state.chunk_counter)
+        tok, pos, toks, accept = paged_spec_round(
+            loaded.module, loaded.model_def.config, d_loaded.module, d_loaded.model_def.config,
+            _arena(state), _arena(d_st),
+            torch.from_numpy(state.block_tables.copy()).to(dev),
+            torch.from_numpy(d_st.block_tables.copy()).to(dev),
+            torch.from_numpy(state.tok.astype(np.int64)).to(dev),
+            torch.from_numpy(state.pos.copy()).to(dev),
+            torch.from_numpy(state.active.copy()).to(dev), gen,
+            torch.from_numpy(state.temps.copy()).to(dev),
+            torch.from_numpy(state.topks.copy()).to(dev),
+            state.spec_tokens, state.page_tokens, state.kernel,
+        )
+        # np.array (a writable copy): the scheduler writes these mirrors
+        state.tok = np.array(tok.cpu().numpy(), dtype=np.int32)
+        state.pos = np.array(pos.cpu().numpy(), dtype=np.int32)
+        d_st.tok, d_st.pos = state.tok, state.pos
+        return (toks.cpu().numpy().astype(np.int32),
+                np.array(accept.cpu().numpy(), dtype=np.int32))
+
+    # -- speculative health gate (reference :3105-3170) ---------------------
+    def _spec_admit(self, target: ModelId, draft: ModelId) -> bool:
+        """Should this request (or engine round) run its draft? False once
+        sustained low acceptance disabled the pair; every
+        SPEC_REPROBE_EVERY-th gated call re-auditions the draft."""
+        with self._spec_lock:
+            st = self._spec_health.get((target, draft))
+            if st is None or not st["disabled"]:
+                return True
+            st["skipped"] += 1
+            return st["skipped"] % SPEC_REPROBE_EVERY == 0
+
+    def _spec_observe(self, target: ModelId, draft: ModelId, emitted: int, rounds: int,
+                      engine: str = "solo") -> None:
+        """Record one speculative generate's (or engine boundary's)
+        acceptance and flip the pair's disabled flag on a sustained low
+        streak. ``engine`` labels the cumulative counters."""
+        tpr = emitted / max(1, rounds)
+        with self._spec_lock:
+            self.spec_rounds[engine] += int(rounds)
+            self.spec_emitted[engine] += int(emitted)
+        if not (self.is_loaded(target) and self.is_loaded(draft)):
+            # either half unloaded mid-generate: recording would resurrect
+            # the pair entry unload() just pruned
+            return
+        with self._spec_lock:
+            st = self._spec_health.setdefault(
+                (target, draft), {"low_streak": 0, "disabled": False, "skipped": 0})
+            if tpr >= SPEC_MIN_TOKENS_PER_ROUND:
+                if st["disabled"]:
+                    log.info("draft %s re-enabled for %s (%.2f tokens/round)", draft, target, tpr)
+                st.update(low_streak=0, disabled=False, skipped=0)
+                return
+            st["low_streak"] += 1
+            if not st["disabled"] and st["low_streak"] >= SPEC_DISABLE_AFTER:
+                st["disabled"] = True
+                st["skipped"] = 0
+                log.warning(
+                    "draft %s auto-disabled for %s: %d consecutive generates below %.1f "
+                    "tokens/round (last %.2f); falling back to plain decode (re-audition "
+                    "every %d requests)", draft, target, SPEC_DISABLE_AFTER,
+                    SPEC_MIN_TOKENS_PER_ROUND, tpr, SPEC_REPROBE_EVERY,
+                )
+
+    def _spec_forget(self, model_id: ModelId) -> None:
+        """Drop the acceptance history of every pair ``model_id`` is in,
+        in either role."""
+        with self._spec_lock:
+            for pair in [p for p in self._spec_health if model_id in p]:
+                del self._spec_health[pair]
+
     # -- residency ----------------------------------------------------------
     def _on_evict(self, model_id: ModelId, entry: LRUEntry[LoadedModel]) -> None:
         self._set_state(model_id, ModelState.UNLOADING)
+        # the slot state (and a draft state attached to it) goes with the model
         self.drop_slot_state(model_id)
+        # acceptance history dies with either half of a pair
+        self._spec_forget(model_id)
         # only the LRU's reference goes: an in-flight predict holding the
         # LoadedModel keeps its tensors alive until it finishes
         self._set_state(model_id, ModelState.END)
@@ -690,6 +909,9 @@ class TorchModelRuntime(BaseRuntime):
 
     def unload(self, model_id: ModelId) -> None:
         self._resident.remove(model_id, run_callback=True)
+        # _on_evict prunes the spec pairs only of a RESIDENT model; an
+        # unload of a non-resident id must drop them too (reference :2986)
+        self._spec_forget(model_id)
 
     def is_loaded(self, model_id: ModelId) -> bool:
         return self._resident.get(model_id, touch=False) is not None

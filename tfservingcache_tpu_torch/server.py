@@ -39,7 +39,9 @@ class CacheNode:
             load_timeout_s=cfg.serving.load_timeout_s,
         )
         self.engine = engine
-        self.backend = LocalServingBackend(self.manager, generator=engine)
+        self.backend = LocalServingBackend(
+            self.manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
+        )
         self.rest = RestServingServer(self.backend)
         self.rest_port = 0
 
@@ -68,5 +70,7 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
         engine = ContinuousGenerateEngine(
             runtime, slots=cfg.serving.generate_slots,
             chunk_tokens=cfg.serving.generate_chunk_tokens,
+            spec_draft_model=cfg.serving.spec_draft_model,
+            spec_tokens=cfg.serving.spec_tokens,
         )
     return CacheNode(cfg, runtime, engine)
