@@ -14,11 +14,17 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      could take (bound), and one PyTorch library call's time as a yardstick:
      flash attention in bf16 and f32, paged decode attention over bf16,
      int8 and f32 arenas, paged verify attention at T in {1, 5, 9, 256}
-     (with its T = 1 gap to the decode kernel);
+     (with its T = 1 gap to the decode kernel), and the ring-attention carry
+     step from a carried state at the ring phase's hop (a past block, the
+     diagonal, a future block that must leave the carry bit-identical), GQA,
+     ragged lengths down to 1 and f32; then the 4-shard ring on one card
+     against the plain attention, timed beside the flash kernel and SDPA,
+     and the carry kernel's gap to the flash kernel (one body: 0);
   4. artifact — writes a random-weight transformer_lm artifact at the full
-     llama-7b width (depth cut, see --layers) into a temporary store, and
-     two drafts: an exact copy under another name, and a 1-layer model from
-     the target's embed, layer 0 and ln_f;
+     llama-7b width (depth cut, see --layers) into a temporary store, two
+     drafts (an exact copy under another name, and a 1-layer model from the
+     target's embed, layer 0 and ln_f), and the same weights under
+     ``"attention": "ring"``;
   5. serve — builds a cache node on ``cuda`` through ``server.build_node``
      (what ``cli serve`` calls) and sends REST ``:predict`` requests over
      localhost: cold, then warm. Every response is checked (HTTP 200, shape,
@@ -41,7 +47,16 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      launch counters must equal what the engine ran in each continuous arm
      (paged = n_layers x plain decode steps + draft layers x (spec + 1) x
      spec rounds, verify = n_layers x spec rounds) and stay 0 on the solo
-     paths.
+     paths;
+  7. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+     around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
+     group's four shards one after another): cold, then warm, at (1, 4096)
+     (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
+     (bucket 2: no ring divides it, so the flash kernel runs). Every answer
+     is checked against the plain single-device path; the carry kernel's
+     launches must be n_layers x 16 a ring request and the flash kernel's
+     n_layers a fall-through request (+ the load's warm-up forward). One
+     warm (1, 4096) forward is profiled beside the one-card "auto" model's.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -148,6 +163,41 @@ SPEC_TOKENS = 4
 SPEC_INT8_REQUESTS = 8
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
+# B4 ring hops (B, Hq, Hkv, Sq, Sk, D, dtype, rel), each from a carried
+# state: the ring phase's hop at llama-7b width (a (1, 4096) request over 4
+# shards: 1024 rows a shard) as a past block, the diagonal and a future
+# block; GQA (which the kernel takes though the ring's build does not);
+# ragged lengths down to 1; f32
+CARRY_MAIN = (1, 32, 32, 1024, 1024, 128)
+CARRY_HOPS = [
+    (*CARRY_MAIN, "bfloat16", -1024),
+    (*CARRY_MAIN, "bfloat16", 0),
+    (*CARRY_MAIN, "bfloat16", 1024),
+    (1, 32, 8, 1024, 1024, 128, "bfloat16", 0),
+    (1, 32, 32, 64, 64, 128, "bfloat16", 0),
+    (1, 32, 32, 64, 64, 128, "bfloat16", -64),
+    (1, 32, 32, 1, 1, 128, "bfloat16", 0),
+    (1, 32, 32, 1, 1, 128, "bfloat16", -1),
+    (1, 8, 8, 256, 256, 128, "float32", 0),
+    (1, 8, 8, 256, 256, 128, "float32", -256),
+]
+# |kernel - plain| of the normalized hop output acc / l: bf16 as the paged
+# kernels' (both round p to bf16, from f32 p values a few ulps apart and at
+# other points of the online softmax); f32: the same f32 math in another
+# summation order
+CARRY_TOL = {"bfloat16": 2.0**-8, "float32": 1e-4}
+# |kernel m - plain m|: f32 scores (~N(0, 1) here) summed in another order,
+# and the bf16 body's log2 units converted at both ends: a few dozen f32
+# ulps at most
+CARRY_M_TOL = 1e-4
+# the ring phase: a group of RING_SHARDS copies of the card (one card runs
+# the shards one after another), and the request shapes: (1, 4096) is 1024
+# rows a shard, (1, 300) pads to 512, and (1, 2)'s bucket of 2 does not
+# divide by 4, so it falls through to the flash kernel
+RING_SHARDS = 4
+RING_DEVICE = "cuda:0"
+RING_REQUEST_SHAPES = [(1, 4096), (2, 1024), (1, 300), (1, 2)]
+RING_CHAIN = (1, 32, 32, 4096, 128)  # (B, H, Hkv, S, D) of the chained ring on one card
 # every phase runs on device 0: the last line's device count
 CARDS_USED = 1
 
@@ -254,6 +304,26 @@ def attention_bound_ms(b: int, hq: int, hkv: int, s: int, d: int, causal: bool) 
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def carry_bound_ms(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, rel: int,
+                   itemsize: int, f32: bool = False) -> tuple[float, str]:
+    """The larger of bytes / HBM rate and operations / peak rate for one
+    ring hop over THIS hop's mask (row iq sees key ik when iq - ik >= rel).
+    Operations: 4*B*Hq*D per visible (query, key) pair (two FMAs each for
+    q.k and p.v) over the bf16 tensor-core peak, or the f32 peak for f32
+    inputs. Bytes: the q rows that see a key, the K/V rows some row sees,
+    and those rows' carry read and written (acc D f32, m and l f32). A
+    future block needs nothing."""
+    pairs = sum(max(0, min(sk, iq - rel + 1)) for iq in range(sq))
+    rows = min(sq, max(0, sq - max(rel, 0)))
+    keys = min(sk, max(0, sq - rel))
+    flops = 4 * b * hq * d * pairs
+    nbytes = (b * hq * rows * d * itemsize + 2 * b * hkv * keys * d * itemsize
+              + 2 * b * hq * rows * (d + 2) * 4)
+    t_ops = flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def phase_environment() -> None:
@@ -617,6 +687,152 @@ def phase_verify_kernel(seed: int) -> dict:
     }
 
 
+def _empty_carry(b: int, h: int, s: int, d: int):
+    import torch
+
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    return (torch.zeros(b, h, s, d, device="cuda"),
+            torch.full((b, h, s, 1), A.NEG_INF, device="cuda"),
+            torch.zeros(b, h, s, 1, device="cuda"))
+
+
+def phase_carry_kernel(seed: int) -> dict:
+    """flash_attention_carry (B4) vs its plain version on the card at every
+    CARRY_HOPS row, each from a carried state (the plain hop over an earlier
+    block every row sees); the future hop must leave the carry bit-identical.
+    Then the chained ring on one card (RING_CHAIN over RING_SHARDS shards)
+    against attention_reference, timed beside B2 and SDPA at the full shape,
+    and B4's gap to B2 (one hop at rel 0 from an empty carry, normalized as
+    B2 normalizes; one body: 0 expected)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    worst = {}
+    worst_m = 0.0
+    main = None
+    log("flash_attention_carry vs flash_attention_carry_reference (plain) from a carried "
+        f"state, tolerance {CARRY_TOL} on acc / l and {CARRY_M_TOL} on m (max |diff|); no "
+        "PyTorch call computes one hop (library yardstick: the chained ring below)")
+    for (b, hq, hkv, sq, sk, d, dt, rel) in CARRY_HOPS:
+        dtype = getattr(torch, dt)
+
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+        q, k, v, k0, v0 = (rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d),
+                           rnd(b, hkv, sk, d), rnd(b, hkv, sk, d))
+        carry = A.flash_attention_carry_reference(q, k0, v0, *_empty_carry(b, hq, sq, d), -sk)
+        want = A.flash_attention_carry_reference(q, k, v, *carry, rel)
+        got = A.flash_attention_carry(q, k, v, *[t.clone() for t in carry], rel)
+        torch.cuda.synchronize()
+        err = ((got[0] / got[2].clamp_min(1e-30)) - (want[0] / want[2].clamp_min(1e-30))
+               ).abs().max().item()
+        m_err = (got[1] - want[1]).abs().max().item()
+        blind = max(0, min(rel, sq))  # rows 0 .. rel - 1 see no key of this hop
+        kept = all(torch.equal(g[:, :, :blind], c[:, :, :blind]) for g, c in zip(got, carry))
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        worst_m = max(worst_m, m_err)
+        scratch = [t.clone() for t in carry]  # the timed calls update it in place
+        ms = cuda_ms(lambda: A.flash_attention_carry(q, k, v, *scratch, rel))
+        plain_ms = cuda_ms(lambda: A.flash_attention_carry_reference(q, k, v, *carry, rel),
+                           reps=10, warmup=1)
+        bound, bound_by = carry_bound_ms(b, hq, hkv, sq, sk, d, rel, q.element_size(),
+                                         f32=dtype == torch.float32)
+        share = f"bound/kernel={bound / ms:.3f}" if bound > 0 else "bound 0 (no row sees a key)"
+        log(f"  B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} {dt} rel={rel}: "
+            f"max_abs_err={err:.6g} m_err={m_err:.3g} finite={finite} "
+            f"blind rows kept={kept} ({blind}) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"bound={bound:.4f}ms ({bound_by}) {share}")
+        if not finite or not err <= CARRY_TOL[dt] or not m_err <= CARRY_M_TOL or not kept:
+            raise AssertionError(
+                f"flash_attention_carry disagrees at {(b, hq, hkv, sq, sk, d)} {dt} rel={rel}: "
+                f"max_abs_err {err} (tolerance {CARRY_TOL[dt]}), m {m_err}, blind rows kept "
+                f"{kept}, finite {finite}")
+        if blind == sq and not all(torch.equal(g, c) for g, c in zip(got, carry)):
+            raise AssertionError(f"the future hop rel={rel} changed the carry")
+        if (b, hq, hkv, sq, sk, d) == CARRY_MAIN and dt == "bfloat16" and rel == -sk:
+            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+        del q, k, v, k0, v0, carry, want, got, scratch
+        torch.cuda.empty_cache()
+
+    # the chained ring on one card against the plain attention, B2 and SDPA
+    b, h, hkv, s, d = RING_CHAIN
+    q, k, v = (torch.randn(b, n, s, d, device="cuda", generator=gen).bfloat16()
+               for n in (h, hkv, hkv))
+    before = A.CARRY_LAUNCHES.value
+    out = ring_attention(q, k, v, [RING_DEVICE] * RING_SHARDS)
+    torch.cuda.synchronize()
+    hops = A.CARRY_LAUNCHES.value - before
+    ref = A.attention_reference(q, k, v)
+    chain_err = (out.float() - ref.float()).abs().max().item()
+    del ref
+    torch.cuda.empty_cache()
+    chain_ms = cuda_ms(lambda: ring_attention(q, k, v, [RING_DEVICE] * RING_SHARDS), reps=10)
+    b2_ms = cuda_ms(lambda: A.flash_attention(q, k, v, True), reps=10)
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps=10)
+    prof = device_kernel_ms(lambda: ring_attention(q, k, v, [RING_DEVICE] * RING_SHARDS),
+                            ("flash_attention_carry",))
+    b4_ms = None if prof is None else prof[1][0]
+    bound, bound_by = attention_bound_ms(b, h, hkv, s, d, True)
+    log(f"chained ring on one card: {RING_CHAIN} (B, H, Hkv, S, D) causal over {RING_SHARDS} "
+        f"shards: {hops} carry launches, max |ring - attention_reference| = {chain_err:.6g} "
+        f"(tolerance {ATTN_TOL}); ring {chain_ms:.4f} ms (its B4 launches "
+        f"{'not measured' if b4_ms is None else f'{b4_ms:.4f} ms, torch.profiler'}; the rest "
+        f"is shard copies, the carry's set-up and the normalization), B2 {b2_ms:.4f} ms, "
+        f"SDPA {sdpa_ms:.4f} ms, attention bound {bound:.4f} ms ({bound_by})")
+    if hops != RING_SHARDS**2 or not chain_err <= ATTN_TOL:
+        raise AssertionError(f"chained ring: {hops} launches, max_abs_err {chain_err}")
+    del q, k, v, out
+
+    # B4's gap to B2: one hop at rel 0 from an empty carry, normalized as
+    # B2 normalizes (times the reciprocal of max(l, 1e-30), rounded to bf16)
+    b, hq, hkv, s, d = MAIN_SHAPE
+    q = torch.randn(b, hq, s, d, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, hkv, s, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, hkv, s, d, device="cuda", generator=gen).bfloat16()
+    acc, _m, l = A.flash_attention_carry(q, k, v, *_empty_carry(b, hq, s, d), 0)
+    b4_out = (acc * (1.0 / l.clamp_min(1e-30))).bfloat16()
+    b2_gap = (b4_out.float() - A.flash_attention(q, k, v, True).float()).abs().max().item()
+    log(f"flash_attention_carry at rel 0 from an empty carry vs flash_attention (B2) at "
+        f"{MAIN_SHAPE}: max |diff| {b2_gap:.3g} (one body)")
+    if b2_gap != 0.0:
+        raise AssertionError(f"B4 at rel 0 differs from B2 by {b2_gap}")
+    del q, k, v, acc, l, b4_out
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_carry": {
+            "name": "flash_attention_carry",
+            "route": "cuda",
+            "source": "tfservingcache_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "tfservingcache_tpu/ops/attention.py:393",
+            "launches": 0,
+            "max_abs_err": worst["bfloat16"],
+            **main,
+            "library_ms": sdpa_ms,
+            "library_note": "no PyTorch call computes one hop: SDPA(is_causal) over the whole "
+                            f"{list(RING_CHAIN)} (B, H, Hkv, S, D), beside chain_ms (the ring "
+                            f"of {RING_SHARDS} shards on one card, {RING_SHARDS ** 2} B4 "
+                            "launches) and chain_b2_ms (B2 at that shape)",
+            "shape": list(CARRY_MAIN),
+            "rel": -CARRY_MAIN[4],
+            "max_abs_err_f32": worst["float32"],
+            "max_m_err": worst_m,
+            "chain_shape": list(RING_CHAIN),
+            "chain_ms": chain_ms,
+            "chain_b4_ms": b4_ms,
+            "chain_b2_ms": b2_ms,
+            "chain_max_abs_err": chain_err,
+            "b2_gap": b2_gap,
+        }
+    }
+
+
 def _post(url: str, body: dict, timeout: float) -> tuple[int, dict, float]:
     data = json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, method="POST",
@@ -683,6 +899,14 @@ class Artifact:
         )
         log(f"wrote the drafts: 'copy' (the target, {layers} layers) and 'layer0' "
             f"(embed + layer 0 + ln_f) in {time.monotonic() - t0:.2f}s")
+        # the same weights under "attention": "ring" for the ring phase
+        t0 = time.monotonic()
+        self.ring_id = ModelId("llama7b_ring", 1)
+        registry.save_artifact(
+            os.path.join(self.store, self.ring_id.name, "1"),
+            registry.build("transformer_lm", dict(model_cfg, attention="ring")), params)
+        log(f"wrote '{self.ring_id.name}' (the same weights, \"attention\": \"ring\") in "
+            f"{time.monotonic() - t0:.2f}s")
 
     def node_config(self, name: str, **serving) -> dict:
         return {
@@ -756,33 +980,7 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
             if shape in checked:
                 continue
             checked.add(shape)
-            # the plain path on the card: same weights, same padded input,
-            # attention_reference in every layer
-            padded = np.zeros((next_bucket(shape[0]), next_bucket(shape[1])), np.int32)
-            padded[: shape[0], : shape[1]] = ids
-            with torch.inference_mode():
-                logits = plain_model(
-                    {"input_ids": torch.from_numpy(padded).cuda()},
-                    attention_fn=A.attention_reference,
-                )["logits"]
-                ref = logits[: shape[0], shape[1] - 1, :].cpu().numpy()
-            row_err = np.abs(pred - ref).max(axis=-1)
-            err = float(row_err.max())
-            top2 = np.sort(ref, axis=-1)[:, -2:]
-            margin = top2[:, 1] - top2[:, 0]
-            # a row whose top-2 margin exceeds twice its own disagreement
-            # must keep its argmax; a narrower margin is a bf16 near-tie
-            decided = margin > 2 * row_err
-            agree = pred.argmax(-1) == ref.argmax(-1)
-            log(f"  {shape}: max|logits - plain| = {err:.5g} (tolerance {LOGITS_TOL}); "
-                f"argmax equal {agree.tolist()}; top-2 margins {np.round(margin, 4).tolist()}")
-            if not err <= LOGITS_TOL:
-                raise AssertionError(f"{shape}: logits differ from the plain path by {err}")
-            if not agree[decided].all():
-                raise AssertionError(f"{shape}: argmax differs from the plain path")
-            if not decided.all():
-                log(f"  {shape}: {int((~decided).sum())} row(s) with a top-2 margin under "
-                    "twice their max |diff| (a bf16 near-tie): argmax not binding")
+            padded = _check_logits(plain_model, shape, ids, pred)
             # where a warm request's time goes: the forward on the kernel
             # path (host clock, ends in a sync), the device kernels inside
             # it (profiler), the runtime's whole predict, the reply's JSON
@@ -810,6 +1008,148 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
     finally:
         if node is not None:
             node.close()
+
+
+def _check_logits(plain_model, shape, ids, pred):
+    """A ``:predict`` answer's (B, V) last-token logits against the plain
+    path on the card: the same weights, the same bucket-padded input,
+    attention_reference in every layer. Within LOGITS_TOL, and argmax equal
+    on every row whose top-2 margin exceeds twice its own |diff| (a
+    narrower margin is a bf16 near-tie). -> the padded input."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+
+    padded = np.zeros((next_bucket(shape[0]), next_bucket(shape[1])), np.int32)
+    padded[: shape[0], : shape[1]] = ids
+    with torch.inference_mode():
+        logits = plain_model(
+            {"input_ids": torch.from_numpy(padded).cuda()},
+            attention_fn=A.attention_reference,
+        )["logits"]
+        ref = logits[: shape[0], shape[1] - 1, :].cpu().numpy()
+        del logits
+    row_err = np.abs(pred - ref).max(axis=-1)
+    err = float(row_err.max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    decided = margin > 2 * row_err
+    agree = pred.argmax(-1) == ref.argmax(-1)
+    log(f"  {shape}: max|logits - plain| = {err:.5g} (tolerance {LOGITS_TOL}); "
+        f"argmax equal {agree.tolist()}; top-2 margins {np.round(margin, 4).tolist()}")
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"{shape}: logits differ from the plain path by {err}")
+    if not agree[decided].all():
+        raise AssertionError(f"{shape}: argmax differs from the plain path")
+    if not decided.all():
+        log(f"  {shape}: {int((~decided).sum())} row(s) with a top-2 margin under "
+            "twice their max |diff| (a bf16 near-tie): argmax not binding")
+    return padded
+
+
+def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
+    """REST :predict of the "ring" artifact on a node whose runtime is bound
+    to RING_SHARDS copies of the card (``TorchModelRuntime(devices=...)``
+    behind ``CacheNode``): cold, then warm, at RING_REQUEST_SHAPES. Every
+    answer is checked against the plain single-device path, and the
+    launches must be n_layers x RING_SHARDS^2 carry launches a ring request
+    and n_layers flash launches a fall-through request (+ the load's seq-1
+    warm-up forward, which no ring divides). Then one warm (1, 4096) ring
+    forward's profile beside the same forward of the one-card "auto" model
+    (B2)."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, next_bucket
+    from tfservingcache_tpu_torch.server import CacheNode
+
+    cfg = config_from_dict(art.node_config("ring"))
+    runtime = TorchModelRuntime(cfg.serving, devices=[RING_DEVICE] * RING_SHARDS)
+    node = CacheNode(cfg, runtime)
+    try:
+        port = node.start("127.0.0.1")
+        url = f"http://127.0.0.1:{port}/v1/models/{art.ring_id.name}/versions/1:predict"
+        rng = np.random.default_rng(seed + 5)
+        requests = []
+        for shape in RING_REQUEST_SHAPES:
+            ids = rng.integers(0, art.vocab, size=shape, dtype=np.int64)
+            requests += [(shape, ids) for _ in range(1 + warm_reps)]
+
+        # --- the main path: counters to 0, REST requests, counters read ----
+        A.CARRY_LAUNCHES.reset()
+        A.FLASH_LAUNCHES.reset()
+        results = []
+        for shape, ids in requests:
+            status, body, dt = _post(url, {"instances": ids.tolist()}, timeout=900.0)
+            results.append((shape, ids, status, body, dt))
+        carry, flash = A.CARRY_LAUNCHES.value, A.FLASH_LAUNCHES.value
+        # -------------------------------------------------------------------
+
+        rings = sum(next_bucket(shape[1]) % RING_SHARDS == 0 for shape, _ in requests)
+        falls = len(requests) - rings
+        want_carry = art.layers * RING_SHARDS**2 * rings
+        want_flash = art.layers * (falls + 1)
+        log(f"carry launches on the ring path: {carry} (n_layers {art.layers} x "
+            f"{RING_SHARDS}^2 hops x {rings} ring requests = {want_carry}); flash launches: "
+            f"{flash} (n_layers x ({falls} fall-through requests + the load's warm-up "
+            f"forward) = {want_flash})")
+        if carry != want_carry or flash != want_flash or not carry:
+            raise AssertionError(f"ring phase launches carry {carry} / flash {flash} != "
+                                 f"{want_carry} / {want_flash}")
+        kernels["flash_attention_carry"]["launches"] = carry
+        kernels["flash_attention"]["launches"] += flash
+        log(f"cold ring :predict (fetch + load + first request, shape {requests[0][0]}): "
+            f"{results[0][4] * 1e3:.1f} ms")
+        for shape in RING_REQUEST_SHAPES:
+            warm = [r[4] for r in results if r[0] == shape][1:]
+            kind = "ring" if next_bucket(shape[1]) % RING_SHARDS == 0 else "falls through to B2"
+            log(f"warm ring-node :predict {shape} ({kind}): p50 "
+                f"{statistics.median(warm) * 1e3:.2f} ms over {len(warm)} requests (host "
+                "clock, localhost HTTP, JSON)")
+        checked = set()
+        for shape, ids, status, body, _dt in results:
+            if status != 200:
+                raise AssertionError(f"ring :predict {shape} answered {status}: {body}")
+            pred = np.asarray(body["predictions"], dtype=np.float32)
+            if pred.shape != (shape[0], art.vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"ring :predict {shape}: predictions {pred.shape}, finite="
+                                     f"{bool(np.isfinite(pred).all())}")
+            if shape not in checked:
+                checked.add(shape)
+                _check_logits(art.plain_model, shape, ids, pred)
+        torch.cuda.empty_cache()
+
+        # one warm (1, 4096) forward: the ring module (B4 apart) and the
+        # one-card "auto" model on the same weights (B2)
+        ring_model = runtime._resident.get(art.ring_id, touch=False).module
+        dev_in = {"input_ids": torch.from_numpy(
+            rng.integers(0, art.vocab, size=RING_REQUEST_SHAPES[0], dtype=np.int64)).cuda()}
+        for name, model, matches in (
+                ("ring, 4 shards on one card", ring_model, ("flash_attention_carry",)),
+                ("one-card auto (B2)", art.plain_model, ("flash_fwd_kernel",))):
+            def forward():
+                with torch.inference_mode():
+                    model(dev_in)
+                torch.cuda.synchronize()
+
+            fwd_ms = host_ms(forward, reps=3)
+            prof = device_kernel_ms(lambda: model(dev_in), matches)
+            if prof is None:
+                log(f"  (1, 4096) forward, {name}: {fwd_ms:.2f} ms host clock; device time "
+                    "not measured (the profiler saw none)")
+                continue
+            busy, (attn,) = prof
+            log(f"  (1, 4096) forward, {name}: {fwd_ms:.2f} ms host clock; device kernels "
+                f"{busy:.2f} ms (busy share {busy / fwd_ms:.3f}, torch.profiler); "
+                f"{matches[0]} {attn:.3f} ms = {attn / busy:.3f} of device time, "
+                f"{attn / art.layers:.4f} ms a layer")
+        log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        node.close()
 
 
 def _teacher_forced_logits(plain_model, prompt, tokens):
@@ -1238,6 +1578,7 @@ def main(argv: list[str] | None = None) -> int:
         kernels = phase_kernels(args.seed)
         kernels.update(phase_paged_kernel(args.seed))
         kernels.update(phase_verify_kernel(args.seed))
+        kernels.update(phase_carry_kernel(args.seed))
     with Phase("artifact"):
         art = Artifact(layers, args.seed)
     try:
@@ -1245,6 +1586,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_serve(art, args.seed, args.warm, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
+        with Phase("ring"):
+            phase_ring(art, args.seed, args.warm, kernels)
     finally:
         art.close()
 

@@ -12,7 +12,8 @@ Tolerances, on N(0, 1) inputs:
   - paged decode, f32 arena: 1e-5; int8 arena: 1e-5 (both sides dequantize
     to the same f32 values); bf16 arena: 2**-8 (both round p to bf16, at
     other points of the online softmax: p differs by a bf16 ulp, the output
-    is a convex mix of N(0, 1) values).
+    is a convex mix of N(0, 1) values);
+  - ring carry step (B4): see test_carry_kernel_matches_plain_version.
 """
 
 import pytest
@@ -250,3 +251,109 @@ def test_verify_kernel_matches_plain_version(card, case):
     if t_q == 1:  # one body: the decode kernel at T = 1, bit for bit
         dec = A.paged_decode_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
         assert torch.equal(dec, got)
+
+
+def _carry_case(card, b, hq, hkv, sq, sk, d, dtype, seed):
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) ~ N(0, 1), and a carried state:
+    the plain version's hop over an earlier block every row sees."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=card, generator=gen).to(dtype)
+
+    q, k, v, k0, v0 = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d), \
+        rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    acc = torch.zeros(b, hq, sq, d, device=card)
+    m = torch.full((b, hq, sq, 1), A.NEG_INF, device=card)
+    l = torch.zeros(b, hq, sq, 1, device=card)
+    acc, m, l = A.flash_attention_carry_reference(q, k0, v0, acc, m, l, -sk)
+    return q, k, v, acc, m, l
+
+
+CARRY_CASES = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, rel, causal)
+    (1, 4, 4, 256, 256, 128, torch.bfloat16, -256, True),   # a past block
+    (1, 4, 4, 256, 256, 128, torch.bfloat16, 0, True),      # the diagonal
+    (1, 4, 4, 256, 256, 128, torch.bfloat16, 256, True),    # a future block
+    (2, 8, 2, 200, 130, 64, torch.bfloat16, 37, True),      # GQA, ragged, frontier mid-tile
+    (1, 4, 2, 64, 64, 192, torch.bfloat16, -64, True),
+    (1, 2, 2, 1, 1, 256, torch.bfloat16, 0, True),
+    (1, 2, 2, 1, 1, 128, torch.bfloat16, -1, True),
+    (1, 4, 4, 96, 160, 128, torch.bfloat16, 50, False),     # no causal mask: rel ignored
+    (1, 4, 4, 130, 200, 128, torch.float32, 0, True),
+    (1, 2, 1, 64, 64, 64, torch.float32, -64, True),
+    (1, 2, 2, 1, 1, 128, torch.float32, 0, True),
+]
+
+
+@pytest.mark.parametrize("case", CARRY_CASES)
+def test_carry_kernel_matches_plain_version(card, case):
+    """B4 against ``flash_attention_carry_reference`` from a carried state.
+    Tolerances: the normalized output acc / l 2**-8 in bf16 (both sides
+    round p to bf16, from f32 p values a few ulps apart and at other points
+    of the online softmax), 1e-5 in f32; m 1e-4 (f32 scores summed in
+    another order, the bf16 body's log2 units converted at both ends). Rows
+    that see no key of the hop (r < rel) keep their carry bit for bit."""
+    b, hq, hkv, sq, sk, d, dtype, rel, causal = case
+    q, k, v, acc, m, l = _carry_case(card, b, hq, hkv, sq, sk, d, dtype, seed=sum(case[:6]))
+    want = A.flash_attention_carry_reference(q, k, v, acc, m, l, rel, causal)
+    before = A.CARRY_LAUNCHES.value
+    got = A.attention_carry(q, k, v, acc.clone(), m.clone(), l.clone(), rel, causal)
+    torch.cuda.synchronize()
+    assert A.CARRY_LAUNCHES.value == before + 1
+    tol = 2.0**-8 if dtype == torch.bfloat16 else 1e-5
+    norm = got[0] / got[2].clamp_min(1e-30)
+    want_norm = want[0] / want[2].clamp_min(1e-30)
+    assert (norm - want_norm).abs().max().item() <= tol
+    assert (got[1] - want[1]).abs().max().item() <= 1e-4
+    blind = max(0, min(rel, sq)) if causal else 0  # rows 0 .. rel - 1 see nothing
+    for g, old in zip(got, (acc, m, l)):
+        assert torch.equal(g[:, :, :blind], old[:, :, :blind])
+
+
+def test_carry_kernel_at_rel_0_from_an_empty_carry_is_the_flash_kernel(card):
+    """One body: B4 at rel = 0, Sq = Sk, from an empty carry, normalized as
+    B2 normalizes (times the reciprocal of max(l, 1e-30), rounded to bf16),
+    equals B2's output bit for bit."""
+    for (b, hq, hkv, s, d) in [(1, 8, 8, 256, 128), (2, 8, 2, 200, 64)]:
+        gen = torch.Generator(device=card).manual_seed(s)
+        q = torch.randn(b, hq, s, d, device=card, generator=gen).bfloat16()
+        k = torch.randn(b, hkv, s, d, device=card, generator=gen).bfloat16()
+        v = torch.randn(b, hkv, s, d, device=card, generator=gen).bfloat16()
+        acc = torch.zeros(b, hq, s, d, device=card)
+        m = torch.full((b, hq, s, 1), A.NEG_INF, device=card)
+        l = torch.zeros(b, hq, s, 1, device=card)
+        acc, m, l = A.flash_attention_carry(q, k, v, acc, m, l, 0)
+        out = (acc * (1.0 / l.clamp_min(1e-30))).bfloat16()
+        assert torch.equal(out, A.flash_attention(q, k, v, True))
+
+
+def test_ring_on_one_card_matches_attention_reference(card):
+    """A 4-shard ring over [cuda:0] * 4: 16 B4 launches, the output within
+    the flash kernel's bf16 tolerance of the plain attention."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    q, k, v = (torch.randn(1, 8, 512, 128, device=card, generator=gen).bfloat16()
+               for _ in range(3))
+    from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
+
+    before = A.CARRY_LAUNCHES.value
+    out = ring_attention(q, k, v, [card] * 4)
+    torch.cuda.synchronize()
+    assert A.CARRY_LAUNCHES.value == before + 16
+    ref = A.attention_reference(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-5
+
+
+def test_carry_dispatch_raises_on_what_the_kernel_does_not_take(card):
+    q = torch.randn(1, 4, 128, 96, device=card).bfloat16()
+    acc = torch.zeros(1, 4, 128, 96, device=card)
+    m = torch.full((1, 4, 128, 1), A.NEG_INF, device=card)
+    l = torch.zeros(1, 4, 128, 1, device=card)
+    before = A.CARRY_LAUNCHES.value
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attention_carry(q, q, q, acc, m, l, 0)
+    q64 = torch.randn(1, 4, 128, 64, device=card).bfloat16()
+    acc64 = torch.zeros(1, 4, 128, 64, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        A.attention_carry(q64, q64, q64, acc64.bfloat16(), m, l, 0)
+    assert A.CARRY_LAUNCHES.value == before

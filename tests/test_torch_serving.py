@@ -220,10 +220,11 @@ def test_runtime_without_a_device_needs_cuda(monkeypatch):
 
 def test_port_serves_without_importing_jax(tmp_path):
     """The port's whole serving path — ``:predict``, ``:generate`` on the
-    continuous paged engine with speculative rounds, and a solo
-    ``"draft_model"`` request — in a fresh interpreter (this test process has
-    JAX loaded by the harness): neither ``jax`` nor the JAX package may enter
-    ``sys.modules``."""
+    continuous paged engine with speculative rounds, a solo
+    ``"draft_model"`` request, and a ring ``:predict`` on a node whose
+    runtime is bound to a 4-copy CPU group — in a fresh interpreter (this
+    test process has JAX loaded by the harness): neither ``jax`` nor the JAX
+    package may enter ``sys.modules``."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
         sys.path.insert(0, {str(ROOT)!r})
@@ -267,6 +268,27 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert resp.status == 200
             assert len(json.loads(resp.read())["tokens"][0]) == 4
         assert "tfservingcache_tpu_torch.models.speculative" in sys.modules
+        node.close()
+        registry.export_artifact("transformer_lm", store, name="ring",
+                                 config={dict(SMALL, n_kv_heads=4, dtype="bfloat16",
+                                              attention="ring")!r}, device="cpu")
+        from tfservingcache_tpu_torch.parallel import ring_attention
+        hops = []
+        real_carry = ring_attention.attention_carry
+        ring_attention.attention_carry = lambda *a: hops.append(a[6]) or real_carry(*a)
+        cfg = config_from_dict({{"mesh": {{"chips_per_group": 4}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_ring")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        port = node.start("127.0.0.1")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{{port}}/v1/models/ring/versions/1:predict",
+            data=json.dumps({{"instances": [list(range(1, 9))]}}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+            assert len(json.loads(resp.read())["predictions"][0]) == 512
+        assert len(hops) == 2 * 16  # 2 layers x 4^2 ring hops
         node.close()
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "tfservingcache_tpu") or m.startswith(("jax.", "tfservingcache_tpu.")))

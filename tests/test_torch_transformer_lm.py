@@ -130,5 +130,10 @@ def test_out_of_range_ids_follow_the_reference_gather():
 
 
 def test_ring_attention_config_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
+    """"ring" is ported, but as in the reference only with n_heads ==
+    n_kv_heads (SMALL groups 4 heads over 2); a mode the port does not know
+    is refused too."""
+    with pytest.raises(ValueError, match="requires n_heads == n_kv_heads"):
         treg.build("transformer_lm", dict(_cfg("float32"), attention="ring"))
+    with pytest.raises(ValueError, match="not ported"):
+        treg.build("transformer_lm", dict(_cfg("float32"), attention="paged"))

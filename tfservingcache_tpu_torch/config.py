@@ -92,11 +92,24 @@ class CacheNodePorts:
 
 
 @dataclass
+class MeshConfig:
+    """Device groups (the reference's ``mesh`` section). Only the in-process
+    group size is ported: with ``chips_per_group > 1`` the node serves from
+    one group of that many devices driven by this process (a ``"ring"``
+    model splits its sequence over them). The reference's cross-process
+    fields (coordinator, num_processes, process_id, worker_addrs) and its
+    axis_names/data_parallel are logged as unknown keys and ignored."""
+
+    chips_per_group: int = 1
+
+
+@dataclass
 class Config:
     serving: ServingConfig = field(default_factory=ServingConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     model_provider: ModelProviderConfig = field(default_factory=ModelProviderConfig)
     cache_node: CacheNodePorts = field(default_factory=CacheNodePorts)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def _apply_mapping(cfg: Any, data: Mapping[str, Any], path: str = "") -> None:

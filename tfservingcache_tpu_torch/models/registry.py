@@ -101,6 +101,15 @@ class ModelDef:
     default_outputs: list[str] | None = None
     # float params are cast to this dtype when the artifact is written
     store_param_dtype: str | None = None
+    # the reference's mesh-axis partition rules (param path regex -> axes);
+    # a rule naming an axis is tensor parallelism, which the port does not
+    # have yet: a group runtime refuses such a family
+    partition_rules: dict[str, tuple] = field(default_factory=dict)
+    # group-aware module factory (the reference's bind_mesh): families whose
+    # forward itself needs the serving device group (ring attention) set
+    # it, and a group runtime builds ``bind_group(group)(params)`` in place
+    # of ``make_module(params)``; None = the family ignores the group
+    bind_group: Callable[[tuple[torch.device, ...]], Callable[[Any], torch.nn.Module]] | None = None
 
 
 _REGISTRY: dict[str, Callable[[dict[str, Any]], ModelDef]] = {}

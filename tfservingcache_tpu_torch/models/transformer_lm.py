@@ -8,7 +8,9 @@ arithmetic and rounding points:
     the gain cast to that dtype;
   - RoPE rotates interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``;
   - attention goes through ``ops.attention.attention`` (the flash kernel on
-    CUDA), GQA without repeating K/V;
+    CUDA), GQA without repeating K/V; with ``"attention": "ring"`` and a
+    bound device group it goes through ``parallel.ring_attention`` (the
+    carry kernel on CUDA) where the reference rings;
   - the output projection is the tied ``embed.T``; logits are f32.
 """
 
@@ -23,6 +25,7 @@ from torch import nn
 
 from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
 from tfservingcache_tpu_torch.ops.attention import attention
+from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
 
 DEFAULT_CONFIG: dict[str, Any] = {
     "vocab_size": 2048,
@@ -34,8 +37,11 @@ DEFAULT_CONFIG: dict[str, Any] = {
     "max_seq": 1024,
     "rope_theta": 10000.0,
     "dtype": "bfloat16",
-    # "auto" = flash kernel on CUDA / plain attention elsewhere; "ring"
-    # (context parallelism) is not ported yet
+    # "auto" = flash kernel on CUDA / plain attention elsewhere. "ring" =
+    # context parallelism: on a runtime bound to a device group the sequence
+    # is split over the group and K/V blocks rotate around it
+    # (parallel/ring_attention.py, the carry kernel on CUDA) — for
+    # long-context models whose attention working set exceeds one device
     "attention": "auto",
 }
 
@@ -78,12 +84,16 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Attention(nn.Module):
-    def __init__(self, p: dict, cfg: dict) -> None:
+    def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...] | None = None) -> None:
         super().__init__()
         self.n_heads, self.n_kv = cfg["n_heads"], cfg["n_kv_heads"]
         self.theta = cfg["rope_theta"]
         self.wq, self.wk = _param(p["wq"]), _param(p["wk"])
         self.wv, self.wo = _param(p["wv"]), _param(p["wo"])
+        # the ring's device group: only a "ring" model bound to a group of
+        # more than one device rings
+        ring = cfg.get("attention") == "ring" and group is not None and len(group) > 1
+        self.ring_group = tuple(group) if ring else None
 
     def forward(self, x: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
         b, s, d_model = x.shape
@@ -95,7 +105,13 @@ class Attention(nn.Module):
         positions = torch.arange(s, device=x.device)
         q = rope(q, positions, self.theta)
         k = rope(k, positions, self.theta)
-        out = attention_fn(q, k, v, True)                                # (b,h,s,hd)
+        if self.ring_group is not None and s % len(self.ring_group) == 0:
+            # context parallelism: the sequence split over the group's
+            # devices, K/V rotating around it — a bucket the ring does not
+            # divide (shorter than the group) falls through to attention_fn
+            out = ring_attention(q, k, v, self.ring_group, causal=True)
+        else:
+            out = attention_fn(q, k, v, True)                            # (b,h,s,hd)
         out = out.transpose(1, 2).reshape(b, s, d_model)
         return out @ self.wo.to(dt)
 
@@ -113,9 +129,9 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, p: dict, cfg: dict) -> None:
+    def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...] | None = None) -> None:
         super().__init__()
-        self.attn = Attention(p["attn"], cfg)
+        self.attn = Attention(p["attn"], cfg, group)
         self.mlp = MLP(p["mlp"])
         self.ln1, self.ln2 = _param(p["ln1"]), _param(p["ln2"])
 
@@ -126,13 +142,17 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """``forward({"input_ids": (B, S) ints}) -> {"logits": (B, S, V) f32}``.
-    ``attention_fn`` swaps the attention op (the plain path for checks)."""
+    ``attention_fn`` swaps the attention op (the plain path for checks).
+    ``group`` binds a ``"ring"`` model to a device group (the reference's
+    ``make_apply(mesh)``): the weights and everything but attention stay
+    where ``params`` lie, each ring hop runs on its shard's device."""
 
-    def __init__(self, params: dict, cfg: dict) -> None:
+    def __init__(self, params: dict, cfg: dict,
+                 group: tuple[torch.device, ...] | None = None) -> None:
         super().__init__()
         self.dtype = getattr(torch, cfg["dtype"])
         self.embed = _param(params["embed"])
-        self.layers = nn.ModuleList(Block(p, cfg) for p in params["layers"])
+        self.layers = nn.ModuleList(Block(p, cfg, group) for p in params["layers"])
         self.ln_f = _param(params["ln_f"])
 
     def forward(
@@ -176,13 +196,21 @@ def params_from_jax(tree: Any) -> dict:
 @register("transformer_lm", DEFAULT_CONFIG)
 def build(config: dict) -> ModelDef:
     cfg = config
-    if cfg.get("attention", "auto") != "auto":
+    mode = cfg.get("attention", "auto")
+    if mode not in ("auto", "ring"):
+        raise ValueError(f"attention={mode!r} is not ported (only 'auto' and 'ring')")
+    ring = mode == "ring"
+    if ring and cfg["n_heads"] != cfg["n_kv_heads"]:
         raise ValueError(
-            f"attention={cfg['attention']!r} is not ported yet (only 'auto')"
+            "attention='ring' requires n_heads == n_kv_heads (the ring "
+            "rotates full K/V blocks; grouped-KV ring is not implemented)"
         )
 
     def make_module(params: Any) -> nn.Module:
         return TransformerLM(params, cfg)
+
+    def bind_group(group: tuple[torch.device, ...]) -> Callable[[Any], nn.Module]:
+        return lambda params: TransformerLM(params, cfg, group)
 
     def init(gen: torch.Generator) -> dict:
         """Random params in the reference's layout: N(0, 1/fan_in) weights in
@@ -225,6 +253,23 @@ def build(config: dict) -> ModelDef:
         b = dyn_sizes.get("batch", logits.shape[0])
         return logits[:b, s - 1, :]
 
+    if ring:
+        # context parallelism owns the group for the SEQUENCE; no weight is
+        # sharded (the reference replicates them: everything -> ())
+        partition_rules: dict[str, tuple] = {r".*": ()}
+    else:
+        # the reference's Megatron-style tensor parallelism over the "model"
+        # axis; the port has no tensor parallelism yet, so a group runtime
+        # refuses these rules (runtime/model_runtime.py)
+        partition_rules = {
+            "embed": (None, "model"),
+            r"layers/\d+/attn/w[qkv]": (None, "model"),
+            r"layers/\d+/attn/wo": ("model", None),
+            r"layers/\d+/mlp/w[13]": (None, "model"),
+            r"layers/\d+/mlp/w2": ("model", None),
+            r".*ln.*": (None,),
+        }
+
     return ModelDef(
         family="transformer_lm",
         config=cfg,
@@ -240,4 +285,7 @@ def build(config: dict) -> ModelDef:
         },
         default_outputs=["last_token_logits"],
         store_param_dtype=cfg["dtype"],
+        partition_rules=partition_rules,
+        # a ring model needs its serving group inside the forward
+        bind_group=bind_group if ring else None,
     )

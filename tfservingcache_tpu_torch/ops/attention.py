@@ -20,6 +20,14 @@ Counterpart of ``tfservingcache_tpu/ops/attention.py``:
     (``paged_verify_attention_kernel``) or runs ``paged_verify_attention``.
     The decode and verify kernels are one CUDA body behind two kernel names
     (``ops/csrc/paged_attention.cu``); the decode kernel is its T = 1 case.
+  - ``attention_carry`` is one hop of ring attention
+    (``parallel/ring_attention.py``): local q ``(B, H, Sq, D)`` against one
+    K/V block ``(B, Hkv, Sk, D)`` with the online-softmax state ``acc``
+    ``(B, H, Sq, D)`` / ``m``, ``l`` ``(B, H, Sq, 1)`` carried in f32 and
+    returned unnormalized. On a CUDA tensor it launches the carry kernel
+    (``flash_attention_carry``, B2's body in ``ops/csrc/flash_attention.cu``
+    under its own kernel name, updating the carry in place); on a CPU tensor
+    it runs ``flash_attention_carry_reference``.
 There is no fallback: on a CUDA tensor a kernel that does not take the
 arguments, fails to build or fails to launch raises.
 """
@@ -63,6 +71,7 @@ class LaunchCounter:
 FLASH_LAUNCHES = LaunchCounter()
 PAGED_LAUNCHES = LaunchCounter()
 VERIFY_LAUNCHES = LaunchCounter()
+CARRY_LAUNCHES = LaunchCounter()
 
 
 def attention_reference(
@@ -102,6 +111,10 @@ def _load(name: str) -> ctypes.CDLL:
             lib.tpusc_flash_attention_fwd.restype = i
             lib.tpusc_flash_attention_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             lib.tpusc_flash_attention_fwd_f32.restype = i
+            lib.tpusc_flash_attention_carry.argtypes = [
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
+            ]
+            lib.tpusc_flash_attention_carry.restype = i
         else:
             lib.tpusc_paged_attention.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p,
@@ -187,6 +200,153 @@ def attention(
     if q.device.type == "cuda":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return attention_reference(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# Ring-attention carry step (context parallelism)
+# ---------------------------------------------------------------------------
+
+def flash_attention_carry_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    acc: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    rel: int,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring hop, the plain version of the carry kernel: operation for
+    operation the reference's ``_block_attend`` (parallel/ring_attention.py
+    :30-56) with the carry kernel's two guards (attention.py:361-365), p = 0
+    where a score is masked and alpha = exp(min(m_prev - m_new, 0)), so a
+    row that sees no key of the hop keeps its state. Scores are f32 products
+    of the input dtype (computed from f32 copies, which is exact for bf16)
+    divided by sqrt(D); with ``causal`` local row iq sees local key ik when
+    iq - ik >= rel (rel = k_off - q_off in global positions); p is cast to
+    v's dtype before p.v, which sums in f32. Query head h reads K/V head
+    h // (H / Hkv). q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Sk, D)``, acc
+    ``(B, H, Sq, D)`` f32, m/l ``(B, H, Sq, 1)`` f32 -> the new (acc, m, l),
+    unnormalized; the inputs are not written."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    s = torch.einsum("bkgqd,bkKd->bkgqK", qg, k.float()) / math.sqrt(d)
+    if causal:
+        iq = torch.arange(sq, device=q.device)[:, None]
+        ik = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(iq - ik < rel, NEG_INF)
+    m_prev = m.reshape(b, hkv, g, sq, 1)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new), torch.zeros_like(s))
+    alpha = torch.exp(torch.clamp(m_prev - m_new, max=0.0))
+    l_new = alpha * l.reshape(b, hkv, g, sq, 1) + p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqK,bkKd->bkgqd", p.to(v.dtype).float(), v.float())
+    acc_new = acc.reshape(b, hkv, g, sq, d) * alpha + pv
+    return (acc_new.reshape(b, h, sq, d), m_new.reshape(b, h, sq, 1),
+            l_new.reshape(b, h, sq, 1))
+
+
+_CARRY_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def flash_attention_carry(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    acc: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    rel: int,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA carry kernel (B4, ``ops/csrc/flash_attention.cu``) on the
+    current stream: the contract of ``flash_attention_carry_reference`` at
+    any Sq, Sk >= 1, with the carry UPDATED IN PLACE (the ring owns it) and
+    returned. A row that sees no key of the hop is neither read nor written,
+    so its carry stays bit-identical; blocks of rows that see nothing return
+    at once. q/k/v are contiguous, 16-byte aligned CUDA tensors of one
+    dtype, bf16 or f32, with head_dim in ``KERNEL_HEAD_DIMS``; acc/m/l are
+    contiguous, aligned f32 tensors on the same device. Raises on anything
+    else, CPU tensors included."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("acc", acc), ("m", m), ("l", l)):
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"flash_attention_carry: {name} is on {t.device}, needs a CUDA tensor"
+            )
+        if t.device != q.device:
+            raise ValueError("flash_attention_carry: all tensors must be on one device")
+        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention_carry: {name} must be a contiguous, 16-byte aligned 4-d tensor"
+            )
+    if q.dtype not in _CARRY_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention_carry: q/k/v are {q.dtype}/{k.dtype}/{v.dtype}, the kernel "
+            "takes one dtype, bfloat16 or float32"
+        )
+    if any(t.dtype != torch.float32 for t in (acc, m, l)):
+        raise ValueError("flash_attention_carry: the carry acc/m/l must be float32")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_carry: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    if k.shape != (b, hkv, sk, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention_carry: k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not "
+            f"match q {tuple(q.shape)}"
+        )
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if acc.shape != q.shape or m.shape != (b, hq, sq, 1) or l.shape != m.shape:
+        raise ValueError(
+            f"flash_attention_carry: carry acc {tuple(acc.shape)} / m {tuple(m.shape)} / "
+            f"l {tuple(l.shape)} does not match q {tuple(q.shape)}"
+        )
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention_carry: batch*heads {b * hq} exceeds the grid's 65535")
+    # rel <= -Sk shows every key to every row (no causal mask); rel >= Sq
+    # shows none: clamping keeps the kernel's int in range
+    rel = max(-sk, min(int(rel), sq)) if causal else -sk
+    lib = _load("flash_attention")
+    if sq == 0 or sk == 0:
+        return acc, m, l
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.tpusc_flash_attention_carry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, hq, hkv, sq, sk, d, rel, _CARRY_DTYPES[q.dtype], stream,
+        )
+    _check_launch(lib, rc, "flash_attention_carry")
+    CARRY_LAUNCHES.add()
+    return acc, m, l
+
+
+def attention_carry(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    acc: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    rel: int,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Carry-step dispatch. It replaces the reference's ``_pick_impl`` gate
+    (ring_attention.py:101-114), which runs the einsum body off the TPU and
+    whenever the local sequence is no multiple of 128: a CUDA call runs the
+    carry kernel at any Sq, Sk >= 1 and raises on what it does not take
+    (head_dim outside ``KERNEL_HEAD_DIMS``, heads that do not group); a CPU
+    call runs ``flash_attention_carry_reference``. The kernel updates the
+    carry in place and the plain version returns new tensors: callers use
+    the returned triple."""
+    if q.device.type == "cuda":
+        return flash_attention_carry(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     acc, m, l, rel, causal)
+    return flash_attention_carry_reference(q, k, v, acc, m, l, rel, causal)
 
 
 # ---------------------------------------------------------------------------

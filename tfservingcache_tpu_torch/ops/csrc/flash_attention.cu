@@ -1,9 +1,11 @@
-// Flash attention forward for Hopper (sm_90a): bf16 in / bf16 out, and
-// f32 in / f32 out.
+// Flash attention forward (B2) and the ring-attention carry step (B4) for
+// Hopper (sm_90a): bf16 and f32 inputs. The bf16 kernels share one device
+// body under two kernel names, so that profiles split them; the f32
+// kernels are two bodies (see the f32 section).
 //
-// Replaces the Pallas TPU kernel `flash_attention`
-// (tfservingcache_tpu/ops/attention.py:211, bodies `_flash_kernel` :75 and
-// `_flash_streamed_kernel` :143). Same arithmetic:
+// B2, `flash_fwd_kernel` / `flash_fwd_f32_kernel`: replaces the Pallas TPU
+// kernel `flash_attention` (tfservingcache_tpu/ops/attention.py:211, bodies
+// `_flash_kernel` :75 and `_flash_streamed_kernel` :143). Same arithmetic:
 //   - scores q.k^T in f32 (bf16 tensor-core products, f32 accumulation),
 //     scaled by 1/sqrt(D);
 //   - online softmax over K tiles in f32 (running max m, running sum l);
@@ -15,28 +17,58 @@
 // The TPU version splits into a VMEM-resident and a streamed kernel; here
 // one kernel streams K/V tiles through shared memory for every length.
 //
+// B4, `flash_attention_carry_kernel` / `flash_attention_carry_f32_kernel`:
+// replaces the Pallas TPU kernel `flash_attention_carry` (attention.py:393,
+// body `_flash_carry_kernel` :323), one hop of ring attention: local Q
+// (Sq rows) against one K/V block (Sk keys) with the online-softmax state
+// carried in f32 from hop to hop. It is B2's body with three changes:
+//   - the state (acc, m, l) is loaded from the carry instead of starting at
+//     zeros / NEG_INF, and written back unnormalized (m in natural units;
+//     the bf16 body works in log2 units and converts at both ends);
+//   - the mask is the runtime offset rel = k_off - q_off: local row r sees
+//     local key c when r - c >= rel (no causal mask = rel <= -Sk), and the
+//     K loop stops at the Pallas predicate q_last - j*BN >= rel
+//     (attention.py:375-378); a block wholly above the frontier returns at
+//     once, reading and writing nothing;
+//   - the reference's two guards: p = 0 where a score is masked, and
+//     alpha = exp(min(m_prev - m_new, 0)) (attention.py:361-365). A row that
+//     sees no key of the hop (r < rel) is neither read nor written, so its
+//     carry stays bit-identical.
+// The carry is updated in place (the ring owns it). At rel = 0, Sq = Sk,
+// from an empty carry, B4 runs B2's instructions on B2's values, so its
+// state normalized as B2 normalizes equals B2's output bit for bit.
+//
 // Bound on this card: causal prefill at serving lengths does 2*S*S*D flops
 // per head against 4*S*D bytes of q/k/v/o, so above S ~ 600 it is bound by
-// tensor-core operations, below that by memory. This first version aims at
-// being simple and right: one block of 4 warps per (batch*head, 64 query
-// rows), K and V^T tiles staged through padded (bank-conflict free) shared
-// memory with plain 16-byte loads, bf16 mma.sync m16n8k16 for both products,
-// scores and the output accumulator in registers. No wgmma/TMA, no
-// double-buffered copy pipeline yet.
+// tensor-core operations, below that by memory. A ring hop at the serving
+// shape (32 heads, Sq = Sk = 1024, D 128, a past block) does 17.2 GFLOP
+// against ~59 MB, more than half of it the f32 carry read and written: the
+// two bounds are within 2% (~0.018 ms each). The design keeps the score
+// matrix in registers and touches the carry once per row (a hop never
+// stores scores or p); it does nothing yet to shrink the carry's bytes or
+// to reach wgmma's rate. This first version aims at being simple and
+// right: one block of 4 warps per (batch*head, 64 query rows), K and V^T
+// tiles staged through padded (bank-conflict free) shared memory with plain
+// 16-byte loads, bf16 mma.sync m16n8k16 for both products, scores and the
+// output accumulator in registers. No wgmma/TMA, no double-buffered copy
+// pipeline yet.
 //
-// f32 inputs take a second, plain SIMT kernel with the reference's f32
-// rounding: f32 scores, p kept in f32 for the p.v product (the reference's
+// f32 inputs take plain SIMT kernels with the reference's f32 rounding: f32
+// scores, p kept in f32 for the p.v product (the reference's
 // `p.astype(v.dtype)` is a no-op there), f32 out. One block of 4 warps per
 // (batch*head, 16 query rows); each K/V tile of 32 keys sits in shared
 // memory; a lane scores one key of the tile with FMAs, the warp takes the
 // tile's max and sum with shuffles, and each lane accumulates D/32 output
 // columns. No tensor cores (no TF32), so f32 is exact to the reference's
-// rounding up to summation order.
+// rounding up to summation order. B4's f32 kernel is B2's with the carry
+// changes above, written out apart from it: sharing one template moved
+// B2's register allocation (on the card: 0.085 -> 0.124 ms at
+// (1,8,8,256,128) causal, outputs bitwise equal).
 //
-// Entry points: tpusc_flash_attention_fwd (bf16) and
-// tpusc_flash_attention_fwd_f32 (plain C, loaded with ctypes). Each
-// launches on the given stream, allocates nothing and returns
-// cudaGetLastError() of the launch.
+// Entry points: tpusc_flash_attention_fwd (bf16),
+// tpusc_flash_attention_fwd_f32 and tpusc_flash_attention_carry (either
+// dtype); plain C, loaded with ctypes. Each launches on the given stream,
+// allocates nothing and returns cudaGetLastError() of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,10 +143,16 @@ __device__ __forceinline__ void load_rows_transposed(bf16* dst, const bf16* __re
   }
 }
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     bf16* __restrict__ o, int Hq, int Hkv, int S, float scale_log2) {
+// The bf16 body: one block's 64 query rows of (batch*head) blockIdx.y
+// against the K/V tiles they see. B2 (CARRY = false) starts from an empty
+// state and writes the normalized bf16 output o; B4 (CARRY = true, masked by
+// rel) loads and stores the f32 carry acc_io / m_io / l_io in place.
+template <int D, bool CAUSAL, bool CARRY>
+__device__ __forceinline__ void flash_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                                           float* __restrict__ acc_io, float* __restrict__ m_io,
+                                           float* __restrict__ l_io, int Hq, int Hkv, int Sq, int Sk,
+                                           int rel, float scale_log2) {
   constexpr int BN = Tile<D>::BLOCK_N;
   constexpr int QS = Tile<D>::QK_STRIDE;
   constexpr int VS = Tile<D>::VT_STRIDE;
@@ -137,11 +175,24 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const int kvh = h / (Hq / Hkv);
   // the longest causal blocks are scheduled first
   const int q_start = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;
-  const bf16* qp = q + (size_t)bh * S * D;
-  const bf16* kp = k + ((size_t)b * Hkv + kvh) * S * D;
-  const bf16* vp = v + ((size_t)b * Hkv + kvh) * S * D;
 
-  load_rows<D, BLOCK_M, QS>(sQ, qp, q_start, S);
+  int n_blocks = (Sk + BN - 1) / BN;
+  if constexpr (CARRY) {
+    // K tile j is read only if the block's last row sees its first key,
+    // q_last - j*BN >= rel; visibility grows toward key 0, so the tiles
+    // read are a prefix, and tile 0 holds every seeing row's key 0
+    const int q_last = min(q_start + BLOCK_M, Sq) - 1;
+    if (q_last < rel) return;  // wholly above the frontier: read and write nothing
+    n_blocks = min(n_blocks, (q_last - rel) / BN + 1);
+  } else if (CAUSAL) {
+    n_blocks = min(n_blocks, (q_start + BLOCK_M + BN - 1) / BN);
+  }
+
+  const bf16* qp = q + (size_t)bh * Sq * D;
+  const bf16* kp = k + ((size_t)b * Hkv + kvh) * Sk * D;
+  const bf16* vp = v + ((size_t)b * Hkv + kvh) * Sk * D;
+
+  load_rows<D, BLOCK_M, QS>(sQ, qp, q_start, Sq);
 
   float acc[NT_O][4];
 #pragma unroll
@@ -150,14 +201,32 @@ __global__ void __launch_bounds__(NUM_THREADS)
   float l[2] = {0.f, 0.f};          // running sum of f32 p
   const int row_lo = q_start + warp * 16 + g;
 
-  int n_blocks = (S + BN - 1) / BN;
-  if (CAUSAL) n_blocks = min(n_blocks, (q_start + BLOCK_M + BN - 1) / BN);
+  if constexpr (CARRY) {
+    // rows that see a key of this hop (r >= rel) take their carried state;
+    // the others are never written back. Every thread reads before the
+    // loop's first barrier; the stores come after the last one.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row_lo + half * 8;
+      if (r >= Sq || r < rel) continue;
+      const size_t row = (size_t)bh * Sq + r;
+      const float* ap = acc_io + row * D + t * 2;
+#pragma unroll
+      for (int nt = 0; nt < NT_O; ++nt) {
+        const float2 a2 = *reinterpret_cast<const float2*>(ap + nt * 8);
+        acc[nt][2 * half] = a2.x;
+        acc[nt][2 * half + 1] = a2.y;
+      }
+      m[half] = m_io[row] * LOG2E;  // natural units -> the body's log2 units
+      l[half] = l_io[row];
+    }
+  }
 
   for (int j = 0; j < n_blocks; ++j) {
     const int k_start = j * BN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D, BN, QS>(sK, kp, k_start, S);
-    load_rows_transposed<D, BN, VS>(sVt, vp, k_start, S);
+    load_rows<D, BN, QS>(sK, kp, k_start, Sk);
+    load_rows_transposed<D, BN, VS>(sVt, vp, k_start, Sk);
     __syncthreads();
 
     // s = q k^T for this warp's 16 rows x BN keys
@@ -188,7 +257,12 @@ __global__ void __launch_bounds__(NUM_THREADS)
       for (int e = 0; e < 4; ++e) {
         const int r = row_lo + (e >> 1) * 8;
         const int c = k_start + nt * 8 + t * 2 + (e & 1);
-        const bool ok = c < S && (!CAUSAL || c <= r);
+        bool ok;
+        if constexpr (CARRY) {
+          ok = c < Sk && r - c >= rel;
+        } else {
+          ok = c < Sk && (!CAUSAL || c <= r);
+        }
         const float val = ok ? s[nt][e] * scale_log2 : NEG_INF;
         s[nt][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
@@ -199,14 +273,25 @@ __global__ void __launch_bounds__(NUM_THREADS)
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m[i] - mx[i]);
+      if constexpr (CARRY) {
+        alpha[i] = exp2f(fminf(m[i] - mx[i], 0.f));
+      } else {
+        alpha[i] = exp2f(m[i] - mx[i]);
+      }
       m[i] = mx[i];
     }
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e >> 1]);
+        float p;
+        if constexpr (CARRY) {
+          // a masked score is no probability, even while the row's max is
+          // still NEG_INF (exp(NEG_INF - NEG_INF) would be 1)
+          p = s[nt][e] <= 0.5f * NEG_INF ? 0.f : exp2f(s[nt][e] - m[e >> 1]);
+        } else {
+          p = exp2f(s[nt][e] - m[e >> 1]);
+        }
         s[nt][e] = p;
         sum[e >> 1] += p;
       }
@@ -242,18 +327,52 @@ __global__ void __launch_bounds__(NUM_THREADS)
     }
   }
 
-  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
-  bf16* op = o + (size_t)bh * S * D;
+  if constexpr (CARRY) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row_lo + half * 8;
-    if (r >= S) continue;
+    for (int half = 0; half < 2; ++half) {
+      const int r = row_lo + half * 8;
+      if (r >= Sq || r < rel) continue;
+      const size_t row = (size_t)bh * Sq + r;
+      float* ap = acc_io + row * D + t * 2;
 #pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      *reinterpret_cast<uint32_t*>(op + (size_t)r * D + nt * 8 + t * 2) =
-          pack_bf16x2(acc[nt][2 * half] * inv[half], acc[nt][2 * half + 1] * inv[half]);
+      for (int nt = 0; nt < NT_O; ++nt) {
+        *reinterpret_cast<float2*>(ap + nt * 8) = make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      }
+      if (t == 0) {
+        m_io[row] = m[half] / LOG2E;
+        l_io[row] = l[half];
+      }
+    }
+  } else {
+    const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+    bf16* op = o + (size_t)bh * Sq * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row_lo + half * 8;
+      if (r >= Sq) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT_O; ++nt) {
+        *reinterpret_cast<uint32_t*>(op + (size_t)r * D + nt * 8 + t * 2) =
+            pack_bf16x2(acc[nt][2 * half] * inv[half], acc[nt][2 * half + 1] * inv[half]);
+      }
     }
   }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     bf16* __restrict__ o, int Hq, int Hkv, int S, float scale_log2) {
+  flash_body<D, CAUSAL, false>(q, k, v, o, nullptr, nullptr, nullptr, Hq, Hkv, S, S, 0, scale_log2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_attention_carry_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, float* __restrict__ acc,
+                                 float* __restrict__ m, float* __restrict__ l, int Hq, int Hkv, int Sq,
+                                 int Sk, int rel, float scale_log2) {
+  flash_body<D, true, true>(q, k, v, nullptr, acc, m, l, Hq, Hkv, Sq, Sk, rel, scale_log2);
 }
 
 template <int D, bool CAUSAL>
@@ -279,7 +398,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
 }
 
 
-// ---- f32 inputs: plain SIMT kernel ----------------------------------------
+// ---- f32 inputs: plain SIMT kernels ---------------------------------------
 
 constexpr int F32_ROWS = 16;  // query rows per block (4 per warp)
 constexpr int F32_KEYS = 32;  // keys per K/V tile: one per lane when scoring
@@ -398,6 +517,123 @@ __global__ void __launch_bounds__(NUM_THREADS)
   }
 }
 
+// B4's f32 kernel: the f32 B2 kernel above with the carry loaded and stored
+// (m in natural units, as the carry keeps it), the rel mask, the K loop cut
+// at the frontier and the reference's two guards. It is a body of its own:
+// one template shared with B2 moved ptxas's register allocation of B2's
+// D = 128 causal instantiation (more spills, 47% slower on the card).
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_attention_carry_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v, float* __restrict__ acc_io,
+                                     float* __restrict__ m_io, float* __restrict__ l_io, int Hq,
+                                     int Hkv, int Sq, int Sk, int rel, float scale) {
+  constexpr int E = D / 32;                     // output columns per lane: lane + 32 * e
+  constexpr int RPW = F32_ROWS / NUM_WARPS;     // query rows per warp
+  constexpr int KS = TileF32<D>::K_STRIDE;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + F32_ROWS * D;
+  float* sV = sK + F32_KEYS * KS;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;  // b * Hq + h
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * F32_ROWS;  // longest blocks first
+
+  // the K tiles the block's last row sees (a prefix, as in the bf16 body)
+  const int q_last = min(q_start + F32_ROWS, Sq) - 1;
+  if (q_last < rel) return;  // wholly above the frontier: read and write nothing
+  const int n_tiles = min((Sk + F32_KEYS - 1) / F32_KEYS, (q_last - rel) / F32_KEYS + 1);
+
+  const float* qp = q + (size_t)bh * Sq * D;
+  const float* kp = k + ((size_t)b * Hkv + kvh) * Sk * D;
+  const float* vp = v + ((size_t)b * Hkv + kvh) * Sk * D;
+
+  for (int c = threadIdx.x; c < F32_ROWS * D; c += NUM_THREADS) {
+    const int r = c / D;
+    sQ[c] = q_start + r < Sq ? qp[(size_t)(q_start + r) * D + c % D] : 0.f;
+  }
+
+  // rows that see a key of this hop (row >= rel) take their carried state;
+  // the others are never written back. Every thread reads before the
+  // loop's first barrier; the stores come after the last one.
+  float m[RPW], l[RPW], acc[RPW][E];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+    const int row = q_start + warp * RPW + i;
+    if (row < Sq && row >= rel) {
+      const size_t ri = (size_t)bh * Sq + row;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] = acc_io[ri * D + lane + 32 * e];
+      m[i] = m_io[ri];
+      l[i] = l_io[ri];
+    }
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k_start = j * F32_KEYS;
+    __syncthreads();  // every warp is done with the previous tile
+    for (int c = threadIdx.x; c < F32_KEYS * D; c += NUM_THREADS) {
+      const int r = c / D;
+      const int col = c % D;
+      const bool ok = k_start + r < Sk;
+      sK[r * KS + col] = ok ? kp[(size_t)(k_start + r) * D + col] : 0.f;
+      sV[r * D + col] = ok ? vp[(size_t)(k_start + r) * D + col] : 0.f;
+    }
+    __syncthreads();
+
+    const int key = k_start + lane;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int row_local = warp * RPW + i;
+      const int row = q_start + row_local;
+      const float* qr = sQ + row_local * D;
+      const float* kr = sK + lane * KS;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      s = (key < Sk && row - key >= rel) ? s * scale : NEG_INF;
+      const float m_new = fmaxf(m[i], warp_max(s));
+      // the reference's two guards (attention.py:361-365)
+      const float alpha = expf(fminf(m[i] - m_new, 0.f));
+      const float p = s <= 0.5f * NEG_INF ? 0.f : expf(s - m_new);
+      l[i] = alpha * l[i] + warp_sum(p);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+#pragma unroll 4
+      for (int jj = 0; jj < F32_KEYS; ++jj) {
+        const float pj = __shfl_sync(0xffffffffu, p, jj);
+        const float* vr = sV + jj * D + lane;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(pj, vr[32 * e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int row = q_start + warp * RPW + i;
+    if (row >= Sq || row < rel) continue;
+    const size_t ri = (size_t)bh * Sq + row;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc_io[ri * D + lane + 32 * e] = acc[i][e];
+    if (lane == 0) {
+      m_io[ri] = m[i];
+      l_io[ri] = l[i];
+    }
+  }
+}
+
 template <int D, bool CAUSAL>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                        int S, cudaStream_t stream) {
@@ -417,6 +653,36 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v, void* o, i
                          int S, int causal, cudaStream_t stream) {
   return causal ? launch_f32<D, true>(q, k, v, o, B, Hq, Hkv, S, stream)
                 : launch_f32<D, false>(q, k, v, o, B, Hq, Hkv, S, stream);
+}
+
+// One B4 hop: the bf16 or the f32 kernel over (query tiles, B * Hq).
+template <int D>
+cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+                         int B, int Hq, int Hkv, int Sq, int Sk, int rel, int f32,
+                         cudaStream_t stream) {
+  cudaError_t err;
+  if (f32) {
+    constexpr size_t smem = TileF32<D>::SMEM_BYTES;
+    err = cudaFuncSetAttribute(flash_attention_carry_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + F32_ROWS - 1) / F32_ROWS, B * Hq);
+    flash_attention_carry_f32_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,
+        rel, 1.f / sqrtf((float)D));
+  } else {
+    constexpr size_t smem = Tile<D>::SMEM_BYTES;
+    err = cudaFuncSetAttribute(flash_attention_carry_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * Hq);
+    flash_attention_carry_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,
+        rel, LOG2E / sqrtf((float)D));
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -447,6 +713,24 @@ int tpusc_flash_attention_fwd_f32(const void* q, const void* k, const void* v, v
     case 128: return (int)launch_f32_d<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 192: return (int)launch_f32_d<192>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 256: return (int)launch_f32_d<256>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One ring hop, updating the carry in place. q: (B, Hq, Sq, D); k, v:
+// (B, Hkv, Sk, D), bf16 (f32 == 0) or f32 (f32 == 1); acc: (B, Hq, Sq, D)
+// f32; m, l: (B, Hq, Sq) f32; all contiguous on the device, 16-byte
+// aligned. Local row r sees local key c when r - c >= rel. D in {64, 128,
+// 192, 256}; Hq % Hkv == 0. Returns 0 or the CUDA error code of the launch.
+int tpusc_flash_attention_carry(const void* q, const void* k, const void* v, void* acc, void* m,
+                                void* l, int B, int Hq, int Hkv, int Sq, int Sk, int D, int rel,
+                                int f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return (int)launch_carry<64>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
+    case 128: return (int)launch_carry<128>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
+    case 192: return (int)launch_carry<192>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
+    case 256: return (int)launch_carry<256>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

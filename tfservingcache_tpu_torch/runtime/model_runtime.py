@@ -17,6 +17,19 @@ O(log) distinct shapes.
 The runtime runs on ``cuda`` unless constructed with ``device="cpu"``; with
 no card and no explicit device it raises. Forwards run eagerly under
 ``torch.inference_mode()``.
+
+A runtime constructed with ``devices=[...]`` is bound to that device group
+(the reference's runtime on a chip-group mesh). ``devices[0]`` is the
+leader: params load onto it alone, and a family with a ``bind_group``
+factory (a ``"ring"`` transformer_lm) builds its module bound to the group,
+so that each forward splits attention's sequence over the group's devices.
+The reference replicates a ring model's weights on every chip of the group
+(partition rule ``{".*": ()}``) and computes the projections redundantly on
+each; the port computes them once on the leader and shards only attention,
+with the same output. Everything else (``:generate``, the slot surface)
+runs on the leader as before: the reference's generation never rings. A
+family whose partition rules shard a weight (tensor parallelism) is refused
+on a group of more than one device.
 """
 
 from __future__ import annotations
@@ -253,12 +266,33 @@ def _arena(state: SlotDecodeState) -> dict:
     return arena
 
 
+def _shards_weights(rules: Mapping[str, tuple]) -> bool:
+    """Do partition rules place any weight axis on a mesh axis (tensor
+    parallelism), rather than replicate everything?"""
+    return any(any(ax is not None for ax in axes) for axes in rules.values())
+
+
 class TorchModelRuntime(BaseRuntime):
     def __init__(
-        self, cfg: ServingConfig | None = None, device: str | torch.device | None = None
+        self,
+        cfg: ServingConfig | None = None,
+        device: str | torch.device | None = None,
+        devices: list[str | torch.device] | None = None,
     ) -> None:
         super().__init__()
         self.cfg = cfg or ServingConfig()
+        # the device group (None = one device); its first device leads
+        self.group: tuple[torch.device, ...] | None = None
+        if devices is not None:
+            group = tuple(resolve_device(d) for d in devices)
+            if not group:
+                raise RuntimeError_("a device group needs at least one device")
+            if device is not None and resolve_device(device) != group[0]:
+                raise RuntimeError_(
+                    f"device {device!r} is not the group's leader {group[0]} (devices[0])"
+                )
+            self.group = group
+            device = group[0]
         self.device = resolve_device(device)
         self._resident: LRUCache[ModelId, LoadedModel] = LRUCache(
             self.cfg.hbm_capacity_bytes,
@@ -307,6 +341,14 @@ class TorchModelRuntime(BaseRuntime):
             self._set_state(mid, ModelState.LOADING)
             on_cuda = self.device.type == "cuda"
             model_def, host_params = load_artifact(model.path, pin_memory=on_cuda)
+            grouped = self.group is not None and len(self.group) > 1
+            if (grouped and model_def.bind_group is None
+                    and _shards_weights(model_def.partition_rules)):
+                raise RuntimeError_(
+                    f"tensor parallelism over a group: later slice ({model_def.family} "
+                    f"declares partition rules that shard its weights; this runtime's "
+                    f"group has {len(self.group)} devices)"
+                )
             # async copies out of the page-locked buffer, one sync at the end
             params = _tree_map(
                 lambda t: t.to(self.device, non_blocking=True), host_params
@@ -314,9 +356,11 @@ class TorchModelRuntime(BaseRuntime):
             if on_cuda:
                 torch.cuda.current_stream(self.device).synchronize()
             del host_params
-            loaded = LoadedModel(
-                model_def, model_def.make_module(params).eval(), tree_nbytes(params)
-            )
+            if self.group is not None and model_def.bind_group is not None:
+                module = model_def.bind_group(self.group)(params)
+            else:
+                module = model_def.make_module(params)
+            loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params))
             self._warmup(loaded)
             self._resident.put(mid, loaded.nbytes, loaded)
             self._set_state(mid, ModelState.AVAILABLE)
@@ -930,10 +974,12 @@ class TorchModelRuntime(BaseRuntime):
         return d.input_spec, out_spec, d.method_name
 
     def check(self) -> None:
-        """Health probe: the device must answer a trivial computation."""
-        x = torch.ones(8, device=self.device)
-        if float(x.sum()) != 8.0:
-            raise RuntimeError_("device smoke computation returned wrong result")
+        """Health probe: every device of the runtime must answer a trivial
+        computation."""
+        for dev in dict.fromkeys(self.group or (self.device,)):
+            x = torch.ones(8, device=dev)
+            if float(x.sum()) != 8.0:
+                raise RuntimeError_(f"device smoke computation on {dev} returned wrong result")
 
     @property
     def hbm_bytes_in_use(self) -> int:
