@@ -7,7 +7,9 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      packages exist (information only); exits non-zero without a CUDA device
      or outside a checkout of the repo;
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
-     with nvcc, one process per source, all started together;
+     with nvcc, one process per source, all started together; prints ptxas's
+     registers, spills and warnings, and checks that the bf16 flash kernel's
+     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
   3. kernels — each kernel against its plain PyTorch version on the card at
      the main paths' shapes and a few edge shapes, with the stated
      tolerance; CUDA-event times (warm, median), the least time the card
@@ -19,7 +21,8 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      diagonal, a future block that must leave the carry bit-identical), GQA,
      ragged lengths down to 1 and f32; then the 4-shard ring on one card
      against the plain attention, timed beside the flash kernel and SDPA,
-     and the carry kernel's gap to the flash kernel (one body: 0);
+     and the carry kernel's gap to the flash kernel (two bodies: within
+     ATTN_TOL);
   4. artifact — writes a random-weight transformer_lm artifact at the full
      llama-7b width (depth cut, see --layers) into a temporary store, two
      drafts (an exact copy under another name, and a 1-layer model from the
@@ -342,15 +345,41 @@ def phase_environment() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build() -> None:
+def sass_counts(lib_path, kernel: str, opcodes: tuple[str, ...]) -> dict[str, int]:
+    """How many instructions of each opcode the SASS of every function
+    whose name contains ``kernel`` holds (``cuobjdump -sass`` of the built
+    library, found beside nvcc)."""
+    from tfservingcache_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = dict.fromkeys(opcodes, 0)
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in opcodes:
+                counts[op] += f" {op}" in line
+    return counts
+
+
+def phase_build() -> dict:
     from tfservingcache_tpu_torch.ops import _build
 
     paths = _build.build()
     for name, path in paths.items():
         log(f"built {name}: {os.path.relpath(path, ROOT)}")
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 log(f"  ptxas: {line.strip()}")
+    # the bf16 flash kernel (B2) is built on wgmma and TMA
+    sass = sass_counts(paths["flash_attention"], "flash_fwd_kernel", ("HGMMA", "UTMALDG"))
+    log(f"flash_fwd_kernel SASS: {sass} (HGMMA: wgmma, UTMALDG: TMA loads)")
+    if not all(sass.values()):
+        raise AssertionError(f"flash_fwd_kernel SASS lacks wgmma or TMA: {sass}")
+    return sass
 
 
 def phase_kernels(seed: int) -> dict:
@@ -704,7 +733,8 @@ def phase_carry_kernel(seed: int) -> dict:
     Then the chained ring on one card (RING_CHAIN over RING_SHARDS shards)
     against attention_reference, timed beside B2 and SDPA at the full shape,
     and B4's gap to B2 (one hop at rel 0 from an empty carry, normalized as
-    B2 normalizes; one body: 0 expected)."""
+    B2 normalizes): B4's mma.sync body and B2's wgmma kernel round p at
+    other points of the online softmax, so the gap is held to ATTN_TOL."""
     import torch
     import torch.nn.functional as F
 
@@ -800,9 +830,9 @@ def phase_carry_kernel(seed: int) -> dict:
     b4_out = (acc * (1.0 / l.clamp_min(1e-30))).bfloat16()
     b2_gap = (b4_out.float() - A.flash_attention(q, k, v, True).float()).abs().max().item()
     log(f"flash_attention_carry at rel 0 from an empty carry vs flash_attention (B2) at "
-        f"{MAIN_SHAPE}: max |diff| {b2_gap:.3g} (one body)")
-    if b2_gap != 0.0:
-        raise AssertionError(f"B4 at rel 0 differs from B2 by {b2_gap}")
+        f"{MAIN_SHAPE}: max |diff| {b2_gap:.3g} (tolerance {ATTN_TOL})")
+    if not b2_gap <= ATTN_TOL:
+        raise AssertionError(f"B4 at rel 0 differs from B2 by {b2_gap} > {ATTN_TOL}")
     del q, k, v, acc, l, b4_out
     torch.cuda.empty_cache()
     return {
@@ -1573,9 +1603,10 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     with Phase("build"):
-        phase_build()
+        sass = phase_build()
     with Phase("kernels"):
         kernels = phase_kernels(args.seed)
+        kernels["flash_attention"]["sass"] = sass
         kernels.update(phase_paged_kernel(args.seed))
         kernels.update(phase_verify_kernel(args.seed))
         kernels.update(phase_carry_kernel(args.seed))

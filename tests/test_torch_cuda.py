@@ -29,6 +29,24 @@ SHAPES = [  # (B, Hq, Hkv, S, D)
     (1, 4, 2, 300, 192),
     (1, 2, 2, 130, 256),
     (1, 2, 1, 1, 128),
+    # the bf16 kernel's pipeline: S = 4096 with few heads (the two-stage K/V
+    # ring wraps 16-32 times), lengths at the 64/128-row tile edges, GQA
+    # g = 4 and 8, every head_dim; in the last four B*Hq*ceil(S/128) is at
+    # least the card's SM count: 128-row tiles on two consumer warpgroups
+    # (D = 256 keeps one)
+    (1, 2, 2, 4096, 64),
+    (1, 2, 1, 4096, 128),
+    (1, 4, 4, 127, 128),
+    (1, 4, 4, 128, 128),
+    (1, 4, 4, 129, 128),
+    (1, 8, 2, 256, 128),
+    (1, 16, 2, 300, 64),
+    (1, 4, 4, 256, 192),
+    (1, 4, 1, 512, 256),
+    (1, 8, 8, 4096, 64),
+    (2, 16, 4, 1024, 128),
+    (1, 32, 4, 1024, 192),
+    (1, 16, 16, 1200, 256),
 ]
 
 
@@ -54,6 +72,20 @@ def test_flash_kernel_matches_plain_version(card, shape, causal):
     ref = A.attention_reference(q, k, v, causal)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= 2.0**-5
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4, 1000, 128), (2, 16, 4, 1024, 128), (1, 4, 1, 300, 256)])
+def test_flash_kernel_is_deterministic(card, shape):
+    """Two launches on the same inputs give the same bits (no atomics, one
+    fixed order of the K tiles and of every reduction)."""
+    b, hq, hkv, s, d = shape
+    gen = torch.Generator(device=card).manual_seed(2)
+    q = torch.randn(b, hq, s, d, device=card, generator=gen).bfloat16()
+    k = torch.randn(b, hkv, s, d, device=card, generator=gen).bfloat16()
+    v = torch.randn(b, hkv, s, d, device=card, generator=gen).bfloat16()
+    for causal in (True, False):
+        first = A.flash_attention(q, k, v, causal)
+        assert torch.equal(A.flash_attention(q, k, v, causal), first)
 
 
 def test_dispatch_launches_the_kernel_past_the_gate(card):
@@ -310,10 +342,12 @@ def test_carry_kernel_matches_plain_version(card, case):
         assert torch.equal(g[:, :, :blind], old[:, :, :blind])
 
 
-def test_carry_kernel_at_rel_0_from_an_empty_carry_is_the_flash_kernel(card):
-    """One body: B4 at rel = 0, Sq = Sk, from an empty carry, normalized as
-    B2 normalizes (times the reciprocal of max(l, 1e-30), rounded to bf16),
-    equals B2's output bit for bit."""
+def test_carry_kernel_at_rel_0_from_an_empty_carry_is_close_to_the_flash_kernel(card):
+    """B4 at rel = 0, Sq = Sk, from an empty carry, normalized as B2
+    normalizes (times the reciprocal of max(l, 1e-30), rounded to bf16), is
+    within the flash tolerance (2**-5) of B2's output. The two are separate
+    bodies (B2 wgmma with 128-key tiles, B4 mma.sync with 64-key tiles), so
+    p is rounded at other points of the online softmax."""
     for (b, hq, hkv, s, d) in [(1, 8, 8, 256, 128), (2, 8, 2, 200, 64)]:
         gen = torch.Generator(device=card).manual_seed(s)
         q = torch.randn(b, hq, s, d, device=card, generator=gen).bfloat16()
@@ -324,7 +358,8 @@ def test_carry_kernel_at_rel_0_from_an_empty_carry_is_the_flash_kernel(card):
         l = torch.zeros(b, hq, s, 1, device=card)
         acc, m, l = A.flash_attention_carry(q, k, v, acc, m, l, 0)
         out = (acc * (1.0 / l.clamp_min(1e-30))).bfloat16()
-        assert torch.equal(out, A.flash_attention(q, k, v, True))
+        b2 = A.flash_attention(q, k, v, True)
+        assert (out.float() - b2.float()).abs().max().item() <= 2.0**-5
 
 
 def test_ring_on_one_card_matches_attention_reference(card):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (the same pattern as the JAX
 package's ``native/`` tier). Libraries land in ``ops/_build/`` keyed by a
-hash of the source and the flags, so an edited kernel rebuilds and an
-unchanged one loads at once. Nothing here runs at import time: the package
+hash of the source, every ``csrc`` header and source it could include, and
+the flags, so an edited kernel or header rebuilds and an unchanged one
+loads at once. Nothing here runs at import time: the package
 imports on machines without ``nvcc`` or a card.
 """
 
@@ -50,9 +51,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library lives: keyed by its source, every
+    ``*.cu`` / ``*.cuh`` in ``CSRC_DIR`` (what an ``#include`` can reach),
+    and ``NVCC_FLAGS``."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for path in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:

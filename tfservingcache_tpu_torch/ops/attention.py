@@ -25,9 +25,9 @@ Counterpart of ``tfservingcache_tpu/ops/attention.py``:
     K/V block ``(B, Hkv, Sk, D)`` with the online-softmax state ``acc``
     ``(B, H, Sq, D)`` / ``m``, ``l`` ``(B, H, Sq, 1)`` carried in f32 and
     returned unnormalized. On a CUDA tensor it launches the carry kernel
-    (``flash_attention_carry``, B2's body in ``ops/csrc/flash_attention.cu``
-    under its own kernel name, updating the carry in place); on a CPU tensor
-    it runs ``flash_attention_carry_reference``.
+    (``flash_attention_carry``, an ``mma.sync`` body in
+    ``ops/csrc/flash_attention.cu``, updating the carry in place); on a CPU
+    tensor it runs ``flash_attention_carry_reference``.
 There is no fallback: on a CUDA tensor a kernel that does not take the
 arguments, fails to build or fails to launch raises.
 """

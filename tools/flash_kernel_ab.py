@@ -3,13 +3,16 @@
 
 Builds every given ``flash_attention.cu`` with the port's nvcc flags, loads
 the libraries side by side in one process and, for the flash kernel (B2) at
-its serving shapes (bf16 (2,32,32,1024,128) and (1,32,32,4096,128), f32
-(1,8,8,256,128), causal) and, where a source has it, the carry kernel (B4;
-one bf16 and one f32 hop at rel 0):
-  - checks each build's output against the first build's, bit for bit;
+every ``chip_smoke.KERNEL_SHAPES`` row in bf16 and ``KERNEL_SHAPES_F32`` in
+f32, causal and not, and, where a source has it, the carry kernel (B4; one
+bf16 and one f32 hop at rel 0):
+  - checks each build's output against the first build's, bit for bit, and
+    prints the max |diff| to it and, for B2, to ``attention_reference``;
   - times each build in turns, first to last then last to first (CUDA
     events, median of 25 launches, chip_smoke.cuda_ms), so that two
     versions are compared only within one run on one card;
+  - for bf16 B2, the host time of one call of the C entry (ctypes included,
+    no sync: what a forward pays on the host for each launch);
   - prints each build's ptxas registers and spills for every kernel.
 
 Run on a machine with the card, from the root of a checkout, e.g. against
@@ -30,8 +33,6 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-B2_CASES = [((2, 32, 32, 1024, 128), "bfloat16"), ((1, 32, 32, 4096, 128), "bfloat16"),
-            ((1, 8, 8, 256, 128), "float32")]
 B4_CASES = [((1, 32, 32, 1024, 128), "bfloat16"), ((1, 8, 8, 256, 128), "float32")]
 
 
@@ -59,6 +60,8 @@ def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
                 regs = next((x.strip() for x in lines[k + 1:k + 4] if "Used" in x), "")
                 spill = next((x.strip() for x in lines[k + 1:k + 4] if "spill" in x), "")
                 print(f"{label} ptxas {name}: {regs}; {spill}")
+            elif "warning" in line:
+                print(f"{label} {line.strip()}")
         lib = ctypes.CDLL(out)
         for fn in (lib.tpusc_flash_attention_fwd, lib.tpusc_flash_attention_fwd_f32):
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -70,20 +73,50 @@ def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def compare(libs: dict[str, ctypes.CDLL], run, what: str) -> None:
+def compare(libs: dict[str, ctypes.CDLL], run, what: str, ref=None, timed=None) -> None:
     """``run(lib)`` launches once and returns its outputs; checks every
-    library's against the first's and times all of them in turns."""
+    library's against the first's (and its first output against ``ref``)
+    and times ``timed(lib)`` (default ``run``) for all of them in turns."""
     import torch
 
     from chip_smoke import cuda_ms
 
     labels = list(libs)
-    first = run(libs[labels[0]])
+    outs = {lb: run(libs[lb]) for lb in labels}
     torch.cuda.synchronize()
-    equal = {lb: all(torch.equal(a, b) for a, b in zip(run(libs[lb]), first)) for lb in labels}
-    times = [(lb, cuda_ms(lambda: run(libs[lb]))) for lb in labels + labels[::-1]]
-    print(f"{what}: outputs equal to {labels[0]}: {equal}; in turns: "
+    first = outs[labels[0]]
+    checks = []
+    for lb in labels:
+        equal = all(torch.equal(a, b) for a, b in zip(outs[lb], first))
+        diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs[lb], first))
+        line = f"{lb} bitwise equal {equal}, max |diff| {diff:.4g}"
+        if ref is not None:
+            line += f", to attention_reference {(outs[lb][0].float() - ref.float()).abs().max().item():.4g}"
+        checks.append(line)
+    del outs, first
+    timed = timed or run
+    times = [(lb, cuda_ms(lambda: timed(libs[lb]))) for lb in labels + labels[::-1]]
+    print(f"{what}: against {labels[0]}: " + "; ".join(checks) + "; in turns: "
           + ", ".join(f"{lb} {t:.4f} ms" for lb, t in times), flush=True)
+
+
+def host_us(libs: dict[str, ctypes.CDLL], call, reps: int = 200) -> str:
+    """Host microseconds of one ``call(lib)`` (launch only, no sync), in
+    turns."""
+    import time
+
+    import torch
+
+    res = []
+    for lb in list(libs) + list(libs)[::-1]:
+        call(libs[lb])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call(libs[lb])
+        res.append(f"{lb} {(time.perf_counter() - t0) / reps * 1e6:.1f} us")
+        torch.cuda.synchronize()
+    return ", ".join(res)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -93,7 +126,8 @@ def main(argv: list[str] | None = None) -> int:
     sys.path.insert(0, ROOT)
     import torch
 
-    from chip_smoke import nvidia_smi_line
+    from chip_smoke import KERNEL_SHAPES, KERNEL_SHAPES_F32, nvidia_smi_line
+    from tfservingcache_tpu_torch.ops.attention import attention_reference
 
     if not torch.cuda.is_available():
         raise SystemExit("flash_kernel_ab: no CUDA device")
@@ -104,20 +138,30 @@ def main(argv: list[str] | None = None) -> int:
     libs = build(args.sources, tempfile.mkdtemp(prefix="flash_ab_", dir=_build.BUILD_DIR))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for (b, hq, hkv, s, d), dt in B2_CASES:
+    b2_cases = ([(shape, "bfloat16", c) for shape in KERNEL_SHAPES for c in (True, False)]
+                + [(shape, "float32", c) for shape in KERNEL_SHAPES_F32 for c in (True, False)])
+    for (b, hq, hkv, s, d), dt, causal in b2_cases:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, n, s, d, device="cuda", generator=gen).to(dtype)
                    for n in (hq, hkv, hkv))
+        o = torch.empty_like(q)
+
+        def launch(lib):
+            fn = lib.tpusc_flash_attention_fwd if dt == "bfloat16" else lib.tpusc_flash_attention_fwd_f32
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, s, d,
+                    int(causal), stream)
+            assert rc == 0, rc
 
         def fwd(lib):
-            o = torch.empty_like(q)
-            fn = lib.tpusc_flash_attention_fwd if dt == "bfloat16" else lib.tpusc_flash_attention_fwd_f32
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, s, d, 1,
-                    stream)
-            assert rc == 0, rc
-            return (o,)
+            launch(lib)
+            return (o.clone(),)
 
-        compare(libs, fwd, f"B2 {(b, hq, hkv, s, d)} {dt} causal")
+        what = f"B2 {(b, hq, hkv, s, d)} {dt} causal={causal}"
+        compare(libs, fwd, what, ref=attention_reference(q, k, v, causal), timed=launch)
+        if dt == "bfloat16" and causal:
+            print(f"{what}: host time of one call: {host_us(libs, launch)}", flush=True)
+        del q, k, v, o
+        torch.cuda.empty_cache()
     carry_libs = {lb: lib for lb, lib in libs.items() if hasattr(lib, "tpusc_flash_attention_carry")}
     for (b, h, hkv, s, d), dt in B4_CASES if carry_libs else ():
         dtype = getattr(torch, dt)
