@@ -9,14 +9,18 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
      with nvcc, one process per source, all started together; prints ptxas's
      registers, spills and warnings, and checks that the bf16 flash kernel's
-     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
+     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), that the paged
+     kernels' SASS holds cp.async (LDGSTS) and mma.sync (HMMA), and that
+     the built paged kernels use no local memory (no spills:
+     ``cuobjdump -res-usage``);
   3. kernels — each kernel against its plain PyTorch version on the card at
      the main paths' shapes and a few edge shapes, with the stated
      tolerance; CUDA-event times (warm, median), the least time the card
      could take (bound), and one PyTorch library call's time as a yardstick:
      flash attention in bf16 and f32, paged decode attention over bf16,
      int8 and f32 arenas, paged verify attention at T in {1, 5, 9, 256}
-     (with its T = 1 gap to the decode kernel), and the ring-attention carry
+     (with its T = 1 gap to the decode kernel), each paged row with the
+     page-axis split the wrappers chose, and the ring-attention carry
      step from a carried state at the ring phase's hop (a past block, the
      diagonal, a future block that must leave the carry bit-identical), GQA,
      ragged lengths down to 1 and f32; then the 4-shard ring on one card
@@ -365,6 +369,41 @@ def sass_counts(lib_path, kernel: str, opcodes: tuple[str, ...]) -> dict[str, in
     return counts
 
 
+def resource_usage(lib_path, kernel: str) -> dict:
+    """What ptxas allotted every function whose name contains ``kernel``,
+    read from the built library (``cuobjdump -res-usage``, found beside
+    nvcc), so it holds whether or not this run compiled it: how many there
+    are, the most registers one uses, and the stack frame and local memory
+    bytes summed over them, with the functions that have either. A spill
+    lives in the stack frame, so 0 stack and 0 local bytes is 0 spills."""
+    from tfservingcache_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    usage = {"functions": 0, "max_registers": 0, "stack_bytes": 0, "local_bytes": 0,
+             "with_stack_or_local": []}
+    name = None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+            continue
+        if name is None or kernel not in name or "REG:" not in line:
+            name = None
+            continue
+        fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+        usage["functions"] += 1
+        usage["max_registers"] = max(usage["max_registers"], int(fields["REG"]))
+        stack, local = int(fields.get("STACK", 0)), int(fields.get("LOCAL", 0))
+        usage["stack_bytes"] += stack
+        usage["local_bytes"] += local
+        if stack or local:
+            usage["with_stack_or_local"].append(name)
+        name = None
+    return usage
+
+
 def phase_build() -> dict:
     from tfservingcache_tpu_torch.ops import _build
 
@@ -379,7 +418,21 @@ def phase_build() -> dict:
     log(f"flash_fwd_kernel SASS: {sass} (HGMMA: wgmma, UTMALDG: TMA loads)")
     if not all(sass.values()):
         raise AssertionError(f"flash_fwd_kernel SASS lacks wgmma or TMA: {sass}")
-    return sass
+    # the paged kernels (B1, B3) stage K/V with cp.async (LDGSTS) and run
+    # mma.sync (HMMA) on bf16 pages, and use no local memory (no spills)
+    paged = {}
+    for kernel in ("paged_decode_attention_kernel", "paged_verify_attention_kernel"):
+        paged[kernel] = sass_counts(paths["paged_attention"], kernel, ("LDGSTS", "HMMA"))
+        log(f"{kernel} SASS: {paged[kernel]} (LDGSTS: cp.async, HMMA: mma.sync)")
+        if not all(paged[kernel].values()):
+            raise AssertionError(f"{kernel} SASS lacks cp.async or mma.sync: {paged[kernel]}")
+    usage = resource_usage(paths["paged_attention"], "paged_")
+    log(f"paged kernels, registers and local memory (cuobjdump -res-usage): {usage}")
+    if not usage["functions"]:
+        raise AssertionError("cuobjdump -res-usage reports no paged kernel")
+    if usage["stack_bytes"] or usage["local_bytes"]:
+        raise AssertionError(f"the paged kernels use local memory (spills): {usage}")
+    return {"flash_attention": sass, "paged_attention": {**paged, "resources": usage}}
 
 
 def phase_kernels(seed: int) -> dict:
@@ -518,6 +571,13 @@ def paged_bound_ms(pos, hq, hkv, d, pt, kv_itemsize, q_itemsize, quantized, t_q=
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def paged_plan(A, q, kp, tables) -> list[int]:
+    """[n_splits, pages_per_split] of the launch the paged wrappers make
+    for these arguments."""
+    plan = A.paged_launch_plan(q, kp, tables)
+    return [plan["n_splits"], plan["pages_per_split"]]
+
+
 def phase_paged_kernel(seed: int) -> dict:
     """paged_decode_attention_kernel vs its plain version on the card, for
     bf16 and int8 arenas at every shape and an f32 arena at the first."""
@@ -575,9 +635,11 @@ def phase_paged_kernel(seed: int) -> dict:
             bound, bound_by = paged_bound_ms(pos_h.tolist(), hq, hkv, d, pt, kv_item,
                                              q.element_size(), arena == "int8",
                                              f32=arena == "float32")
+            splits = paged_plan(A, q, kp, tables)
             log(
                 f"  S={lanes} Hq={hq} Hkv={hkv} D={d} pt={pt} max_pos={max_pos} "
-                f"(live rows {int(pos_h.sum()) + lanes}) {arena}: max_abs_err={err:.6g} "
+                f"(live rows {int(pos_h.sum()) + lanes}) {arena} splits={splits}: "
+                f"max_abs_err={err:.6g} "
                 f"finite={finite} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
                 f"sdpa_on_gathered={lib_ms:.4f}ms bound={bound:.4f}ms ({bound_by}) "
                 f"bound/kernel={bound / ms:.3f}"
@@ -589,7 +651,7 @@ def phase_paged_kernel(seed: int) -> dict:
                 )
             if shape == PAGED_MAIN and arena == "bfloat16":
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+                        "bound_by": bound_by, "library_ms": lib_ms, "splits": splits}
             del out, ref, kd, vd, kp, vp, plain_k, plain_v
         del kp32, vp32
         torch.cuda.empty_cache()
@@ -677,9 +739,10 @@ def phase_verify_kernel(seed: int) -> dict:
             bound, bound_by = paged_bound_ms(pos_h.tolist(), hq, hkv, d, pt, kv_item,
                                              q.element_size(), arena == "int8", t_q=t_q,
                                              max_keys=max_keys, f32=arena == "float32")
+            splits = paged_plan(A, q, kp, tables)
             log(
                 f"  S={lanes} Hq={hq} Hkv={hkv} D={d} pt={pt} max_pos={max_pos} T={t_q}"
-                f"{' (lane 0 past its table)' if overrun else ''} {arena}: "
+                f"{' (lane 0 past its table)' if overrun else ''} {arena} splits={splits}: "
                 f"max_abs_err={err:.6g} finite={finite}{gap} kernel={ms:.4f}ms "
                 f"plain={plain_ms:.4f}ms sdpa_on_gathered={lib_ms:.4f}ms "
                 f"bound={bound:.4f}ms ({bound_by}) bound/kernel={bound / ms:.3f}"
@@ -691,7 +754,7 @@ def phase_verify_kernel(seed: int) -> dict:
                 )
             if shape == VERIFY_MAIN and arena == "bfloat16":
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+                        "bound_by": bound_by, "library_ms": lib_ms, "splits": splits}
             del out, ref, kd, vd, kp, vp, plain_k, plain_v
         del kp32, vp32
         torch.cuda.empty_cache()
@@ -1241,7 +1304,8 @@ def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
             rt.slot_decode_chunk(st, chunk)  # ends in a device-to-host copy
 
         ms = host_ms(one_chunk, reps=3)
-        prof = device_kernel_ms(one_chunk, ("paged_decode_attention_kernel",))
+        # the name family: the kernel and, with the page axis split, its combine kernel
+        prof = device_kernel_ms(one_chunk, ("paged_decode_attention",))
     finally:
         for lane in range(st.slots):
             st.release_pages(lane)
@@ -1280,7 +1344,7 @@ def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600) -
 
         ms = host_ms(one_round, reps=3)
         prof = device_kernel_ms(
-            one_round, ("paged_decode_attention_kernel", "paged_verify_attention_kernel"))
+            one_round, ("paged_decode_attention", "paged_verify_attention"))
     finally:
         for lane in range(st.slots):
             st.release_pages(lane)
@@ -1606,9 +1670,11 @@ def main(argv: list[str] | None = None) -> int:
         sass = phase_build()
     with Phase("kernels"):
         kernels = phase_kernels(args.seed)
-        kernels["flash_attention"]["sass"] = sass
+        kernels["flash_attention"]["sass"] = sass["flash_attention"]
         kernels.update(phase_paged_kernel(args.seed))
         kernels.update(phase_verify_kernel(args.seed))
+        for name in ("paged_decode_attention", "paged_verify_attention"):
+            kernels[name]["sass"] = sass["paged_attention"]
         kernels.update(phase_carry_kernel(args.seed))
     with Phase("artifact"):
         art = Artifact(layers, args.seed)

@@ -9,15 +9,22 @@ Tolerances, on N(0, 1) inputs:
   - flash, bf16: 2**-5 absolute (one bf16 ulp at |x| in [4, 8); the kernel
     rounds p to bf16 before p.v, the plain version keeps f32);
   - flash, f32: 1e-5 absolute (same f32 math, other summation order);
-  - paged decode, f32 arena: 1e-5; int8 arena: 1e-5 (both sides dequantize
-    to the same f32 values); bf16 arena: 2**-8 (both round p to bf16, at
-    other points of the online softmax: p differs by a bf16 ulp, the output
-    is a convex mix of N(0, 1) values);
+  - paged decode and verify, f32 arena: 1e-5; int8 arena: 1e-5 (both sides
+    dequantize to the same f32 values), against the plain version; bf16
+    arena: 2**-10 against ``paged_reference.paged_split_reference`` under
+    the launch's own plan and chunking (``_kernel_reference``), which rounds
+    p to bf16 where the kernel does: against the running max of each key
+    chunk a warp takes. The plain version rounds the normalized p instead,
+    a different rounding by up to a bf16 unit roundoff (2**-8) of each p;
+    the reference leaves the kernel only f32 rounding, and the rare p that
+    f32 noise moves across a bf16 rounding midpoint, whose effect
+    ``paged_reference.flip_bound`` bounds and the bar adds (``_bf16_off``);
   - ring carry step (B4): see test_carry_kernel_matches_plain_version.
 """
 
 import pytest
 import torch
+from paged_reference import kernel_walk, paged_split_reference
 
 from tfservingcache_tpu_torch.ops import attention as A
 
@@ -144,6 +151,28 @@ def test_flash_kernel_f32_matches_plain_version(card, shape, causal):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+BF16_PAGED_TOL = 2.0**-10
+
+
+def _kernel_reference(q, kp, vp, tables, pos, pt, ks=None, vs=None, splits=None):
+    """The paged kernels' arithmetic under the plan a launch with these
+    arguments takes (``A.paged_launch_plan``), in plain PyTorch, with the
+    bound on what f32 noise can flip in its bf16 roundings of p
+    (``paged_reference.flip_bound``; zero off bf16 pages)."""
+    plan = A.paged_launch_plan(q, kp, tables, splits)
+    rows = q.shape[2] * (q.shape[1] // kp.shape[1])
+    return paged_split_reference(q, kp, vp, tables, pos, pt, plan["n_splits"],
+                                 plan["pages_per_split"], ks, vs, walk=kernel_walk(plan, rows),
+                                 with_bound=True)
+
+
+def _bf16_off(got, held) -> float:
+    """How far ``got`` is from the kernel reference ``held = (out, flip
+    bound)``, beyond what a flipped bf16 rounding of p explains."""
+    want, flips = held
+    return ((got - want).abs() - flips).max().item()
+
+
 def _paged_case(card, lanes, hq, hkv, d, pt, pps, seed):
     """Scattered arena, ragged pos, table slots past each lane's live pages
     on the trash page (the layout tests/test_paged_kernel.py builds)."""
@@ -182,18 +211,20 @@ def test_paged_kernel_matches_plain_version(card, case, arena):
         vp, vs = _quantize_kv_rows(vp)
         want = A.paged_decode_attention(q, A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs),
                                         tables, pos, pt)
-        tol = 1e-5
     else:
         dt = getattr(torch, arena)
         q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
         want = A.paged_decode_attention(q, kp, vp, tables, pos, pt)
-        tol = 1e-5 if arena == "float32" else 2.0**-8
+    tol = 1e-5  # f32 and int8 arenas, against the plain version
     before = A.PAGED_LAUNCHES.value
     got = A.paged_attention(q, kp, vp, tables, pos, pt, ks, vs)  # the dispatch
     torch.cuda.synchronize()
     assert A.PAGED_LAUNCHES.value == before + 1
     assert got.dtype == torch.float32 and got.shape == (lanes, hq, 1, d)
-    assert (got - want).abs().max().item() <= tol
+    if arena == "bfloat16":
+        assert _bf16_off(got, _kernel_reference(q, kp, vp, tables, pos, pt)) <= BF16_PAGED_TOL
+    else:
+        assert (got - want).abs().max().item() <= tol
     off = A.paged_attention(q, kp, vp, tables, pos, pt, ks, vs, kernel=False)
     assert A.PAGED_LAUNCHES.value == before + 1  # kernel=False: the plain path
     assert torch.equal(off, want)
@@ -265,18 +296,20 @@ def test_verify_kernel_matches_plain_version(card, case):
         vp, vs = _quantize_kv_rows(vp)
         want = A.paged_verify_attention(q, A.dequantize_pages(kp, ks),
                                         A.dequantize_pages(vp, vs), tables, pos, pt)
-        tol = 1e-5
     else:
         dt = getattr(torch, arena)
         q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
         want = A.paged_verify_attention(q, kp, vp, tables, pos, pt)
-        tol = 1e-5 if arena == "float32" else 2.0**-8
+    tol = 1e-5  # f32 and int8 arenas, against the plain version
     before = A.VERIFY_LAUNCHES.value
     got = A.paged_attention_verify(q, kp, vp, tables, pos, pt, ks, vs)  # the dispatch
     torch.cuda.synchronize()
     assert A.VERIFY_LAUNCHES.value == before + 1
     assert got.dtype == torch.float32 and got.shape == (lanes, hq, t_q, d)
-    assert (got - want).abs().max().item() <= tol
+    if arena == "bfloat16":
+        assert _bf16_off(got, _kernel_reference(q, kp, vp, tables, pos, pt)) <= BF16_PAGED_TOL
+    else:
+        assert (got - want).abs().max().item() <= tol
     off = A.paged_attention_verify(q, kp, vp, tables, pos, pt, ks, vs, kernel=False)
     assert A.VERIFY_LAUNCHES.value == before + 1  # kernel=False: the plain path
     assert torch.equal(off, want)
@@ -392,3 +425,150 @@ def test_carry_dispatch_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="float32"):
         A.attention_carry(q64, q64, q64, acc64.bfloat16(), m, l, 0)
     assert A.CARRY_LAUNCHES.value == before
+
+
+# ---- grids past 65535 (B * Hq for B2 and B4, lanes for the paged kernels) ----
+
+BIG_BH = (4096, 16, 16, 8, 64)  # (B, Hq, Hkv, S, D): B * Hq = 65536 with a short S
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_takes_65536_batch_heads(card, dtype):
+    b, hq, hkv, s, d = BIG_BH
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn(b, n, s, d, device=card, generator=gen).to(dtype) for n in (hq, hkv, hkv))
+    out = A.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    ref = A.attention_reference(q, k, v, True)
+    tol = 2.0**-5 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_carry_kernel_takes_65536_batch_heads(card, dtype):
+    b, hq, hkv, s, d = BIG_BH
+    q, k, v, acc, m, l = _carry_case(card, b, hq, hkv, s, s, d, dtype, seed=12)
+    want = A.flash_attention_carry_reference(q, k, v, acc, m, l, 0)
+    got = A.flash_attention_carry(q, k, v, acc.clone(), m.clone(), l.clone(), 0)
+    torch.cuda.synchronize()
+    tol = 2.0**-8 if dtype == torch.bfloat16 else 1e-5
+    norm = got[0] / got[2].clamp_min(1e-30)
+    assert (norm - want[0] / want[2].clamp_min(1e-30)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_paged_kernels_take_more_than_65535_lanes(card, verify):
+    """70000 lanes, Hq = Hkv = 1, D = 64, one 16-token page a lane."""
+    lanes, pt = 70000, 16
+    gen = torch.Generator(device=card).manual_seed(13)
+    t_q = 3 if verify else 1
+    tables = torch.arange(1, lanes + 1, device=card, dtype=torch.int32)[:, None]
+    pos = torch.randint(0, pt - t_q + 1, (lanes,), device=card, generator=gen).int()
+    kp, vp = (torch.randn(lanes + 1, 1, pt, 64, device=card, generator=gen).bfloat16()
+              for _ in range(2))
+    q = torch.randn(lanes, 1, t_q, 64, device=card, generator=gen).bfloat16()
+    fn = A.paged_verify_attention_kernel if verify else A.paged_decode_attention_kernel
+    got = fn(q, kp, vp, tables, pos, page_tokens=pt)
+    torch.cuda.synchronize()
+    assert _bf16_off(got, _kernel_reference(q, kp, vp, tables, pos, pt)) <= BF16_PAGED_TOL
+
+
+# ---- the paged kernels' page-axis split ----
+
+SPLIT_CASES = [  # (lanes, Hq, Hkv, D, page_tokens, pages_per_slot, T)
+    (3, 8, 2, 128, 16, 9, 1),
+    (4, 4, 4, 64, 8, 12, 5),
+    (2, 16, 2, 256, 16, 6, 5),
+    (3, 4, 1, 192, 32, 5, 9),
+    (2, 8, 8, 128, 16, 5, 80),  # two row tiles on the mma path
+]
+
+
+def _arena_for(card, case, arena, seed):
+    lanes, hq, hkv, d, pt, pps, t_q = case
+    q, kp, vp, tables, pos = _verify_case(card, lanes, hq, hkv, d, pt, pps, t_q, seed)
+    pos[1 % lanes] = 1  # a lane whose frontier ends in the first page: later splits see nothing
+    ks = vs = None
+    if arena == "int8":
+        from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+
+        q = q.bfloat16()
+        kp, ks = _quantize_kv_rows(kp)
+        vp, vs = _quantize_kv_rows(vp)
+        plain = (A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs))
+    else:
+        dt = getattr(torch, arena)
+        q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+        plain = (kp, vp)
+    return q, kp, vp, tables, pos, ks, vs, plain
+
+
+@pytest.mark.parametrize("arena", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_kernels_under_every_split_match_the_plain_version(card, case, arena):
+    """B1 (T = 1 rows of the case) and B3 with the page axis forced into 1, 2
+    and pps splits, against the plain version (f32, int8) or the kernels'
+    arithmetic under that split (bf16; module docstring's tolerances); two
+    calls give the same bits, and B3 at T = 1 is B1 bit for bit under every
+    split."""
+    lanes, hq, hkv, d, pt, pps, t_q = case
+    q, kp, vp, tables, pos, ks, vs, plain = _arena_for(card, case, arena, seed=sum(case))
+    q1 = q[:, :, :1].contiguous()
+
+    def off(got, q_in, splits):
+        if arena == "bfloat16":
+            return _bf16_off(got, _kernel_reference(q_in, kp, vp, tables, pos, pt, splits=splits))
+        want = A.paged_verify_attention(q_in, *plain, tables, pos, pt)
+        return (got - want).abs().max().item()
+
+    tol = BF16_PAGED_TOL if arena == "bfloat16" else 1e-5
+    for splits in (1, 2, pps):
+        got = A._paged_kernel(True, q, kp, vp, tables, pos, ks, vs, pt, splits=splits)
+        again = A._paged_kernel(True, q, kp, vp, tables, pos, ks, vs, pt, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert off(got, q, splits) <= tol, splits
+        assert torch.equal(got, again), splits
+        dec = A._paged_kernel(False, q1, kp, vp, tables, pos, ks, vs, pt, splits=splits)
+        ver = A._paged_kernel(True, q1, kp, vp, tables, pos, ks, vs, pt, splits=splits)
+        assert off(dec, q1, splits) <= tol, splits
+        assert torch.equal(dec, ver), splits
+
+
+@pytest.mark.parametrize("arena", ["bfloat16", "int8"])
+def test_paged_dispatches_add_no_host_sync(card, arena):
+    """Each paged dispatch, warm, under torch.cuda.set_sync_debug_mode("error"):
+    the split plan reads shapes, never pos, so nothing waits on the card."""
+    case = (8, 32, 32, 128, 16, 20, 5)
+    q, kp, vp, tables, pos, ks, vs, _ = _arena_for(card, case, arena, seed=21)
+    q1 = q[:, :, :1].contiguous()
+    A.paged_attention(q1, kp, vp, tables, pos, 16, ks, vs)
+    A.paged_attention_verify(q, kp, vp, tables, pos, 16, ks, vs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A.paged_attention(q1, kp, vp, tables, pos, 16, ks, vs)
+        A.paged_attention_verify(q, kp, vp, tables, pos, 16, ks, vs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q_dtype, kv_dtype, want", [
+    (torch.bfloat16, torch.bfloat16, (True, 64, 16)),
+    (torch.bfloat16, torch.int8, (False, 16, 4)),
+    (torch.float32, torch.float32, (False, 16, 4)),
+    (torch.float32, torch.bfloat16, (False, 16, 4)),
+])
+def test_paged_launch_plan_reads_the_kernel_tiling(card, q_dtype, kv_dtype, want):
+    """The plan takes its path and row tile from the library
+    (tpusc_paged_tiling): bf16 q over bf16 pages runs mma.sync on 64-row
+    tiles, every other pair SIMT on 16-row tiles."""
+    q = torch.zeros(8, 32, 5, 128, device=card, dtype=q_dtype)
+    kp = torch.zeros(3, 32, 16, 128, device=card).to(kv_dtype)
+    tables = torch.zeros(8, 69, device=card, dtype=torch.int32)
+    plan = A.paged_launch_plan(q, kp, tables)
+    assert (plan["mma"], plan["row_tile"], plan["unit"]) == want
+    n, per = A.paged_split_plan(8, 32, 5, 69, 16, torch.cuda.get_device_properties(0).multi_processor_count,
+                                want[1], A.SPLIT_BLOCKS_PER_SM["mma" if want[0] else "simt"])
+    assert (plan["n_splits"], plan["pages_per_split"]) == (n, per)

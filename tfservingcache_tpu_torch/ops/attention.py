@@ -35,6 +35,7 @@ arguments, fails to build or fails to launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -117,9 +118,11 @@ def _load(name: str) -> ctypes.CDLL:
             lib.tpusc_flash_attention_carry.restype = i
         else:
             lib.tpusc_paged_attention.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, p,
             ]
             lib.tpusc_paged_attention.restype = i
+            lib.tpusc_paged_tiling.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.tpusc_paged_tiling.restype = i
         lib.tpusc_cuda_error_string.argtypes = [i]
         lib.tpusc_cuda_error_string.restype = ctypes.c_char_p
         lib._tpusc_bound = True
@@ -168,8 +171,6 @@ def flash_attention(
         raise ValueError(f"flash_attention: k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention: batch*heads {b * hq} exceeds the grid's 65535")
     lib = _load("flash_attention")
     out = torch.empty_like(q)
     if s == 0:
@@ -306,8 +307,6 @@ def flash_attention_carry(
             f"flash_attention_carry: carry acc {tuple(acc.shape)} / m {tuple(m.shape)} / "
             f"l {tuple(l.shape)} does not match q {tuple(q.shape)}"
         )
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention_carry: batch*heads {b * hq} exceeds the grid's 65535")
     # rel <= -Sk shows every key to every row (no causal mask); rel >= Sq
     # shows none: clamping keeps the kernel's int in range
     rel = max(-sk, min(int(rel), sq)) if causal else -sk
@@ -426,6 +425,89 @@ def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return pages.float() * scales[..., None]
 
 
+# The paged kernels' page-axis split (ops/csrc/paged_attention.cu): a grid
+# of lanes x KV heads x row tiles under SPLIT_BLOCKS_PER_SM[path] blocks an
+# SM is split into as many runs of pages as keep it at or under that many
+# blocks, and no split gets fewer keys than SPLIT_MIN_KEYS (a split pays a
+# pipeline prologue and a combine row). An mma.sync block (bf16 q over bf16
+# pages) holds ~100 KiB of staged K/V, so two fit an SM: a grid past one
+# such wave runs a ragged second one. The SIMT path's blocks are bound by
+# their own math over ragged lanes, so finer splits pay up to eight an SM
+# (tools/paged_split_sweep.py and tools/paged_kernel_ab.py on an H100;
+# PERF.md section 6). The row tile and the path are the kernel library's
+# (tpusc_paged_tiling), read by paged_launch_plan.
+SPLIT_BLOCKS_PER_SM = {"mma": 2, "simt": 8}
+SPLIT_MIN_KEYS = 128
+
+
+def paged_split_plan(
+    lanes: int, hkv: int, rows: int, pps: int, page_tokens: int, sm_count: int,
+    row_tile: int, blocks_per_sm: int,
+) -> tuple[int, int]:
+    """How the paged kernels split the page axis: -> (n_splits,
+    pages_per_split), with ``1 <= n_splits <= pps`` and ``(n_splits - 1) *
+    pages_per_split < pps <= n_splits * pages_per_split``. From shapes
+    alone (``rows`` = T * g folded query rows, ``row_tile`` the rows a
+    block holds), never from ``pos``: the plan needs no device read, so a
+    paged call adds no host sync. The most splits that keep the grid at or
+    under ``blocks_per_sm`` blocks an SM, each of at least
+    ``SPLIT_MIN_KEYS`` keys; one when the unsplit grid is already there."""
+    args = (lanes, hkv, rows, pps, page_tokens, sm_count, row_tile, blocks_per_sm)
+    if not all(type(a) is int for a in args):
+        raise TypeError("paged_split_plan takes ints (shapes), got "
+                        f"{[type(a).__name__ for a in args]}")
+    if min(args) < 1:
+        raise ValueError(f"paged_split_plan: every size must be >= 1, got {args}")
+    blocks = lanes * hkv * -(-rows // row_tile)
+    target = blocks_per_sm * sm_count
+    if blocks >= target:
+        return 1, pps
+    most = max(1, min(pps, pps * page_tokens // SPLIT_MIN_KEYS))
+    return _even_split(pps, min(target // blocks, most))
+
+
+def _even_split(pps: int, n_splits: int) -> tuple[int, int]:
+    per = -(-pps // n_splits)
+    return -(-pps // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_tiling(q_type: int, kv_type: int) -> tuple[bool, int, int]:
+    """(mma path, row tile, rows a warp owns) of a (q, page) type pair, as
+    the kernel library states them."""
+    lib = _load("paged_attention")
+    tiling = (ctypes.c_int * 3)()
+    _check_launch(lib, lib.tpusc_paged_tiling(q_type, kv_type, tiling), "paged_attention tiling")
+    return bool(tiling[0]), tiling[1], tiling[2]
+
+
+def paged_launch_plan(
+    q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor, splits: int | None = None,
+) -> dict:
+    """The launch the paged wrappers make for these arguments (q ``(S, Hq,
+    T, D)`` and pages on one CUDA device): ``{"mma", "row_tile", "unit",
+    "n_splits", "pages_per_split"}``, the tiling from the kernel library and
+    the split from ``paged_split_plan`` (``splits`` forces the number of
+    splits, for tests). Reads shapes and dtypes only."""
+    s_lanes, hq, t_q, _ = q.shape
+    hkv, pt = k_pages.shape[1], k_pages.shape[2]
+    pps = tables.shape[1]
+    mma, row_tile, unit = _paged_tiling(_PAGED_Q_TYPES[q.dtype], _PAGED_KV_TYPES[k_pages.dtype])
+    if splits is None:
+        n_splits, per = paged_split_plan(
+            s_lanes, hkv, t_q * (hq // hkv), pps, pt, _sm_count(q.device.index or 0),
+            row_tile, SPLIT_BLOCKS_PER_SM["mma" if mma else "simt"])
+    else:
+        n_splits, per = _even_split(pps, max(1, min(int(splits), pps)))
+    return {"mma": mma, "row_tile": row_tile, "unit": unit, "n_splits": n_splits,
+            "pages_per_split": per}
+
+
 _PAGED_Q_TYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGED_KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
@@ -440,10 +522,13 @@ def _paged_kernel(
     k_scale: torch.Tensor | None,
     v_scale: torch.Tensor | None,
     page_tokens: int,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Check the arguments of the paged verify kernel (``verify``) or the
     paged decode kernel (one body, ``ops/csrc/paged_attention.cu``) and
-    launch it on the current stream. -> f32 ``(S, Hq, T, D)``."""
+    launch it on the current stream, with the page axis split as
+    ``paged_launch_plan`` says (``splits`` forces the number of splits, for
+    tests). Reads nothing back from the device. -> f32 ``(S, Hq, T, D)``."""
     what = "paged_verify_attention" if verify else "paged_decode_attention"
     fn = f"{what}_kernel"
     quantized = k_scale is not None
@@ -494,19 +579,29 @@ def _paged_kernel(
     if quantized and (k_scale.shape != k_pages.shape[:3] or v_scale.shape != k_scale.shape
                       or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise ValueError(f"{fn}: scales must be f32 (n_pages, Hkv, pt)")
-    if s_lanes > 65535:
-        raise ValueError(f"{fn}: {s_lanes} lanes exceed the grid's 65535")
     lib = _load("paged_attention")
     out = torch.empty((s_lanes, hq, t_q, d), dtype=torch.float32, device=q.device)
     if s_lanes == 0:
         return out
+    pps = tables.shape[1]
+    plan = paged_launch_plan(q, k_pages, tables, splits)
+    n_splits, per = plan["n_splits"], plan["pages_per_split"]
+    part_ml = part_acc = None
+    if n_splits > 1:  # scratch for the combine kernel: (rows, splits, 2) and (rows, splits, D)
+        part_ml = torch.empty((s_lanes * hq * t_q, n_splits, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((s_lanes * hq * t_q, n_splits, d), dtype=torch.float32,
+                               device=q.device)
     args = [
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        s_lanes, hq, hkv, d, pt, tables.shape[1], n_pages,
+        part_ml.data_ptr() if part_ml is not None else None,
+        part_acc.data_ptr() if part_acc is not None else None,
+        s_lanes, hq, hkv, d, pt, pps, n_pages,
         _PAGED_Q_TYPES[q.dtype], _PAGED_KV_TYPES[k_pages.dtype], t_q, int(verify),
+        n_splits, per,
     ]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -528,7 +623,8 @@ def paged_decode_attention_kernel(
 ) -> torch.Tensor:
     """The CUDA paged decode kernel (``ops/csrc/paged_attention.cu``) on the
     current stream: the contract of ``paged_decode_attention``, in
-    one pass over the live K/V rows of each lane. q ``(S, Hq, 1, D)`` is
+    one pass over the live K/V rows of each lane (split along the page axis
+    as ``paged_launch_plan`` says, the splits merged by a second kernel). q ``(S, Hq, 1, D)`` is
     bf16 or f32; pages are bf16, f32 or int8 (int8 with
     ``k_scale``/``v_scale`` ``(n_pages, Hkv, pt)`` f32); tables ``(S, pps)``
     and pos ``(S,)`` are int32 device tensors the kernel reads itself.
@@ -554,7 +650,8 @@ def paged_verify_attention_kernel(
     current stream: the contract of ``paged_verify_attention`` for any
     T >= 1 query positions per lane, q ``(S, Hq, T, D)`` -> f32
     ``(S, Hq, T, D)``, each lane's live K/V rows read once per tile of
-    query rows. The arguments are those of
+    folded query rows (64 on the mma.sync path, 16 on the SIMT path: once
+    for a spec round). The arguments are those of
     ``paged_decode_attention_kernel``, with the same checks; it runs the
     decode kernel's body, so the two agree bit for bit at T = 1. Raises on a
     CPU tensor."""

@@ -687,7 +687,7 @@ __device__ __forceinline__ void load_rows_transposed(bf16* dst, const bf16* __re
   }
 }
 
-// One block's 64 query rows of (batch*head) blockIdx.y against the K/V
+// One block's 64 query rows of one (batch*head) against the K/V
 // tiles they see, masked by rel, the f32 carry acc_io / m_io / l_io loaded
 // and stored in place.
 template <int D>
@@ -712,12 +712,14 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread within the group
 
-  const int bh = blockIdx.y;  // b * Hq + h
+  // blockIdx.x = bh * q_tiles + tile, bh = b * Hq + h (no 65535 limit on
+  // B * Hq); the longest causal blocks of a (batch, head) are scheduled first
+  const int q_tiles = (Sq + BLOCK_M - 1) / BLOCK_M;
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  // the longest causal blocks are scheduled first
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;
+  const int q_start = (q_tiles - 1 - blockIdx.x % q_tiles) * BLOCK_M;
 
   // K tile j is read only if the block's last row sees its first key,
   // q_last - j*BN >= rel; visibility grows toward key 0, so the tiles read
@@ -906,11 +908,12 @@ __global__ void __launch_bounds__(NUM_THREADS)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;  // b * Hq + h
+  const int q_tiles = (S + F32_ROWS - 1) / F32_ROWS;
+  const int bh = blockIdx.x / q_tiles;  // blockIdx.x = bh * q_tiles + tile, bh = b * Hq + h
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * F32_ROWS;  // longest causal blocks first
+  const int q_start = (q_tiles - 1 - blockIdx.x % q_tiles) * F32_ROWS;  // longest causal blocks first
   const float* qp = q + (size_t)bh * S * D;
   const float* kp = k + ((size_t)b * Hkv + kvh) * S * D;
   const float* vp = v + ((size_t)b * Hkv + kvh) * S * D;
@@ -1007,11 +1010,12 @@ __global__ void __launch_bounds__(NUM_THREADS)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;  // b * Hq + h
+  const int q_tiles = (Sq + F32_ROWS - 1) / F32_ROWS;
+  const int bh = blockIdx.x / q_tiles;  // blockIdx.x = bh * q_tiles + tile, bh = b * Hq + h
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * F32_ROWS;  // longest blocks first
+  const int q_start = (q_tiles - 1 - blockIdx.x % q_tiles) * F32_ROWS;  // longest blocks first
 
   // the K tiles the block's last row sees (a prefix, as in the bf16 body)
   const int q_last = min(q_start + F32_ROWS, Sq) - 1;
@@ -1109,7 +1113,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + F32_ROWS - 1) / F32_ROWS, B * Hq);
+  const long long blocks = (long long)((S + F32_ROWS - 1) / F32_ROWS) * B * Hq;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   flash_fwd_f32_kernel<D, CAUSAL><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), Hq, Hkv, S, 1.f / sqrtf((float)D));
@@ -1123,7 +1129,7 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v, void* o, i
                 : launch_f32<D, false>(q, k, v, o, B, Hq, Hkv, S, stream);
 }
 
-// One B4 hop: the bf16 or the f32 kernel over (query tiles, B * Hq).
+// One B4 hop: the bf16 or the f32 kernel over B * Hq * query tiles, flat in x.
 template <int D>
 cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc, void* m, void* l,
                          int B, int Hq, int Hkv, int Sq, int Sk, int rel, int f32,
@@ -1134,7 +1140,9 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc,
     err = cudaFuncSetAttribute(flash_attention_carry_f32_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + F32_ROWS - 1) / F32_ROWS, B * Hq);
+    const long long blocks = (long long)((Sq + F32_ROWS - 1) / F32_ROWS) * B * Hq;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)blocks);
     flash_attention_carry_f32_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,
@@ -1144,7 +1152,9 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc,
     err = cudaFuncSetAttribute(flash_attention_carry_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * Hq);
+    const long long blocks = (long long)((Sq + BLOCK_M - 1) / BLOCK_M) * B * Hq;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)blocks);
     flash_attention_carry_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,

@@ -36,19 +36,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B4_CASES = [((1, 32, 32, 1024, 128), "bfloat16"), ((1, 8, 8, 256, 128), "float32")]
 
 
-def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
-    """One nvcc per source, all started together; -> {label: library}."""
+def compile_all(sources: list[str], workdir: str,
+                defines: list[list[str]] | None = None) -> dict[str, ctypes.CDLL]:
+    """One nvcc per source with the port's flags (and, per source, the
+    given ``NAME=VALUE`` macro definitions), all started together; prints
+    each build's ptxas registers, spills and warnings per kernel.
+    -> {label: loaded library}."""
     from tfservingcache_tpu_torch.ops import _build
 
+    defines = defines or [[] for _ in sources]
     procs = {}
-    for n, src in enumerate(sources):
-        label = f"{n}:{os.path.basename(src)}"
+    for n, (src, defs) in enumerate(zip(sources, defines)):
+        label = f"{n}:{os.path.basename(src)}" + "".join(f"[{d}]" for d in defs)
         out = os.path.join(workdir, f"lib{n}.so")
         procs[label] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o", out, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     libs = {}
-    p, i = ctypes.c_void_p, ctypes.c_int
     for label, (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -62,14 +66,21 @@ def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
                 print(f"{label} ptxas {name}: {regs}; {spill}")
             elif "warning" in line:
                 print(f"{label} {line.strip()}")
-        lib = ctypes.CDLL(out)
+        libs[label] = ctypes.CDLL(out)
+    return libs
+
+
+def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
+    """``compile_all`` with the flash entry points' C signatures set."""
+    libs = compile_all(sources, workdir)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
         for fn in (lib.tpusc_flash_attention_fwd, lib.tpusc_flash_attention_fwd_f32):
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
         if hasattr(lib, "tpusc_flash_attention_carry"):
             lib.tpusc_flash_attention_carry.argtypes = [p] * 6 + [i] * 8 + [p]
             lib.tpusc_flash_attention_carry.restype = i
-        libs[label] = lib
     return libs
 
 
