@@ -8,11 +8,11 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      or outside a checkout of the repo;
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
      with nvcc, one process per source, all started together; prints ptxas's
-     registers, spills and warnings, and checks that the bf16 flash kernel's
-     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), that the paged
-     kernels' SASS holds cp.async (LDGSTS) and mma.sync (HMMA), and that
-     the built paged kernels use no local memory (no spills:
-     ``cuobjdump -res-usage``);
+     registers, spills and warnings, and checks that the bf16 flash and
+     carry kernels' SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), that
+     the paged kernels' SASS holds cp.async (LDGSTS) and mma.sync (HMMA),
+     and that the built paged and carry kernels use no local memory (no
+     spills: ``cuobjdump -res-usage``);
   3. kernels — each kernel against its plain PyTorch version on the card at
      the main paths' shapes and a few edge shapes, with the stated
      tolerance; CUDA-event times (warm, median), the least time the card
@@ -25,8 +25,8 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      diagonal, a future block that must leave the carry bit-identical), GQA,
      ragged lengths down to 1 and f32; then the 4-shard ring on one card
      against the plain attention, timed beside the flash kernel and SDPA,
-     and the carry kernel's gap to the flash kernel (two bodies: within
-     ATTN_TOL);
+     and the carry kernel's gap to the flash kernel (two kernels of one
+     design: within ATTN_TOL);
   4. artifact — writes a random-weight transformer_lm artifact at the full
      llama-7b width (depth cut, see --layers) into a temporary store, two
      drafts (an exact copy under another name, and a 1-layer model from the
@@ -270,10 +270,9 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_kernel_ms(fn, matches: tuple[str, ...] = ()) -> tuple[float, list[float]] | None:
-    """(sum of device kernel time, [the part in kernels whose name contains
-    each of ``matches``]) of one ``fn()`` under ``torch.profiler``, in ms;
-    None when the profiler records no device time on this machine."""
+def device_kernels(fn) -> dict[str, float]:
+    """{kernel name: device ms} of one warm ``fn()`` under ``torch.profiler``
+    (empty when the profiler records no device time on this machine)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,15 +282,22 @@ def device_kernel_ms(fn, matches: tuple[str, ...] = ()) -> tuple[float, list[flo
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    total_us = 0.0
-    matched_us = [0.0] * len(matches)
-    for row in prof.key_averages():  # kernel rows only: CPU ops would double-count
-        if row.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += row.self_device_time_total
-            for i, m in enumerate(matches):
-                if m in row.key:
-                    matched_us[i] += row.self_device_time_total
-    return (total_us / 1e3, [u / 1e3 for u in matched_us]) if total_us > 0 else None
+    # kernel rows only: CPU ops would double-count
+    return {row.key: row.self_device_time_total / 1e3 for row in prof.key_averages()
+            if row.device_type == torch.autograd.DeviceType.CUDA and row.self_device_time_total > 0}
+
+
+def device_kernel_ms(fn, matches: tuple[str, ...] = (),
+                     kernels: dict[str, float] | None = None) -> tuple[float, list[float]] | None:
+    """(sum of device kernel time, [the part in kernels whose name contains
+    each of ``matches``]) of one ``fn()`` (or of ``kernels``, a
+    ``device_kernels`` result), in ms; None when the profiler records no
+    device time on this machine."""
+    kernels = device_kernels(fn) if kernels is None else kernels
+    if not kernels:
+        return None
+    return (sum(kernels.values()),
+            [sum(ms for name, ms in kernels.items() if m in name) for m in matches])
 
 
 def device_busy_ms(fn) -> float | None:
@@ -432,7 +438,22 @@ def phase_build() -> dict:
         raise AssertionError("cuobjdump -res-usage reports no paged kernel")
     if usage["stack_bytes"] or usage["local_bytes"]:
         raise AssertionError(f"the paged kernels use local memory (spills): {usage}")
-    return {"flash_attention": sass, "paged_attention": {**paged, "resources": usage}}
+    # the bf16 carry kernel (B4) is built on B2's design (wgmma, TMA), and
+    # neither carry kernel (bf16, f32) uses local memory
+    carry_sass = sass_counts(paths["flash_attention"], "flash_attention_carry_kernel",
+                             ("HGMMA", "UTMALDG"))
+    log(f"flash_attention_carry_kernel SASS: {carry_sass} (HGMMA: wgmma, UTMALDG: TMA loads)")
+    if not all(carry_sass.values()):
+        raise AssertionError(f"flash_attention_carry_kernel SASS lacks wgmma or TMA: {carry_sass}")
+    carry_usage = resource_usage(paths["flash_attention"], "flash_attention_carry")
+    log(f"carry kernels, registers and local memory (cuobjdump -res-usage): {carry_usage}")
+    if not carry_usage["functions"]:
+        raise AssertionError("cuobjdump -res-usage reports no carry kernel")
+    if carry_usage["stack_bytes"] or carry_usage["local_bytes"]:
+        raise AssertionError(f"the carry kernels use local memory (spills): {carry_usage}")
+    return {"flash_attention": sass,
+            "flash_attention_carry": {**carry_sass, "resources": carry_usage},
+            "paged_attention": {**paged, "resources": usage}}
 
 
 def phase_kernels(seed: int) -> dict:
@@ -796,8 +817,8 @@ def phase_carry_kernel(seed: int) -> dict:
     Then the chained ring on one card (RING_CHAIN over RING_SHARDS shards)
     against attention_reference, timed beside B2 and SDPA at the full shape,
     and B4's gap to B2 (one hop at rel 0 from an empty carry, normalized as
-    B2 normalizes): B4's mma.sync body and B2's wgmma kernel round p at
-    other points of the online softmax, so the gap is held to ATTN_TOL."""
+    B2 normalizes): two kernels of one design, held to B2's own ATTN_TOL.
+    Every row prints its bound over the kernel's time."""
     import torch
     import torch.nn.functional as F
 
@@ -1230,7 +1251,8 @@ def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
                 torch.cuda.synchronize()
 
             fwd_ms = host_ms(forward, reps=3)
-            prof = device_kernel_ms(lambda: model(dev_in), matches)
+            by_kernel = device_kernels(lambda: model(dev_in))
+            prof = device_kernel_ms(None, matches, by_kernel)
             if prof is None:
                 log(f"  (1, 4096) forward, {name}: {fwd_ms:.2f} ms host clock; device time "
                     "not measured (the profiler saw none)")
@@ -1240,6 +1262,9 @@ def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
                 f"{busy:.2f} ms (busy share {busy / fwd_ms:.3f}, torch.profiler); "
                 f"{matches[0]} {attn:.3f} ms = {attn / busy:.3f} of device time, "
                 f"{attn / art.layers:.4f} ms a layer")
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+            log("    largest kernels: " + "; ".join(
+                f"{ms / busy:.3f} {key[:60]}" for key, ms in top))
         log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     finally:
         node.close()
@@ -1676,6 +1701,7 @@ def main(argv: list[str] | None = None) -> int:
         for name in ("paged_decode_attention", "paged_verify_attention"):
             kernels[name]["sass"] = sass["paged_attention"]
         kernels.update(phase_carry_kernel(args.seed))
+        kernels["flash_attention_carry"]["sass"] = sass["flash_attention_carry"]
     with Phase("artifact"):
         art = Artifact(layers, args.seed)
     try:

@@ -4,8 +4,10 @@ same numpy inputs.
 
 The carry step's plain version is held to the Pallas carry kernel
 ``flash_attention_carry`` run in interpret mode, at Sq = Sk = 256 (the
-kernel takes multiples of 128), rel in {-256, -128, 0, 128, 256}, causal and
-full, GQA g in {1, 2}, from an empty and from a carried state. Tolerances:
+kernel takes multiples of 128), rel in {-256, -128, 0, 128, 256} and one row
+either side of a 128-row tile edge ({-129, -127, 127, 129}: where the CUDA
+kernel's masks and skipped tiles change), causal and full, GQA g in {1, 2},
+from an empty and from a carried state. Tolerances:
 f32 2e-5 (absolute and relative: the same math, summed in another order,
 and the Pallas kernel multiplies by 1/sqrt(D) where the plain version
 divides by sqrt(D); measured ~2e-6). bf16: the normalized output acc / l
@@ -34,7 +36,7 @@ from tfservingcache_tpu_torch.parallel import mesh as tmesh
 from tfservingcache_tpu_torch.parallel import ring_attention as tring
 
 B, KV_HEADS, SEQ, HEAD_DIM = 1, 2, 256, 64
-RELS = (-256, -128, 0, 128, 256)
+RELS = (-256, -128, 0, 128, 256, -129, -127, 127, 129)
 
 
 def _hop_inputs(group: int, carried: bool, seed: int):

@@ -25,9 +25,10 @@ Counterpart of ``tfservingcache_tpu/ops/attention.py``:
     K/V block ``(B, Hkv, Sk, D)`` with the online-softmax state ``acc``
     ``(B, H, Sq, D)`` / ``m``, ``l`` ``(B, H, Sq, 1)`` carried in f32 and
     returned unnormalized. On a CUDA tensor it launches the carry kernel
-    (``flash_attention_carry``, an ``mma.sync`` body in
-    ``ops/csrc/flash_attention.cu``, updating the carry in place); on a CPU
-    tensor it runs ``flash_attention_carry_reference``.
+    (``flash_attention_carry``: bf16 on the flash kernel's TMA + wgmma
+    design, f32 SIMT, in ``ops/csrc/flash_attention.cu``, updating the
+    carry in place); on a CPU tensor it runs
+    ``flash_attention_carry_reference``.
 There is no fallback: on a CUDA tensor a kernel that does not take the
 arguments, fails to build or fails to launch raises.
 """
@@ -268,8 +269,10 @@ def flash_attention_carry(
     current stream: the contract of ``flash_attention_carry_reference`` at
     any Sq, Sk >= 1, with the carry UPDATED IN PLACE (the ring owns it) and
     returned. A row that sees no key of the hop is neither read nor written,
-    so its carry stays bit-identical; blocks of rows that see nothing return
-    at once. q/k/v are contiguous, 16-byte aligned CUDA tensors of one
+    so its carry stays bit-identical; the bf16 kernel deals only the query
+    tiles some row of which sees a key (a hop none sees launches one block
+    that returns at once), the f32 kernel's blocks of blind rows return at
+    once. q/k/v are contiguous, 16-byte aligned CUDA tensors of one
     dtype, bf16 or f32, with head_dim in ``KERNEL_HEAD_DIMS``; acc/m/l are
     contiguous, aligned f32 tensors on the same device. Raises on anything
     else, CPU tensors included."""

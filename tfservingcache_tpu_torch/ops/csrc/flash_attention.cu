@@ -51,22 +51,34 @@
 // replaces the Pallas TPU kernel `flash_attention_carry` (attention.py:393,
 // body `_flash_carry_kernel` :323), one hop of ring attention: local Q
 // (Sq rows) against one K/V block (Sk keys) with the online-softmax state
-// carried in f32 from hop to hop. The bf16 kernel is a plain mma.sync body
-// (one block of 4 warps per (batch*head, 64 query rows), K and V^T tiles
-// staged through padded shared memory with 16-byte loads, m16n8k16 for both
-// products; no wgmma or TMA yet) with B2's arithmetic and three changes:
-//   - the state (acc, m, l) is loaded from the carry instead of starting at
-//     zeros / NEG_INF, and written back unnormalized (m in natural units;
-//     the body works in log2 units and converts at both ends);
+// carried in f32 from hop to hop. The bf16 kernel is B2's design (persistent
+// grid, producer warpgroup, TMA, wgmma for both products) with these
+// changes:
+//   - the grid walks only the live query tiles: those whose last row sees a
+//     key of the block. They are a suffix of the tiles (counted on the host
+//     from rel, no sync), dealt longest first in B2's snake order; a hop no
+//     row sees launches one block that returns at once, reading and writing
+//     nothing. A tile reads the K tiles up to the Pallas predicate
+//     q_last - j*BN >= rel (attention.py:375-378); a warpgroup none of
+//     whose rows sees a tile keeps the barriers' count and skips its math;
+//   - the state (acc, m, l) starts the tile instead of zeros / NEG_INF: the
+//     producer loads the tile's f32 acc into shared memory with TMA (a 3-D
+//     f32 map, 32-column panels, 128-byte swizzle) before its Q, so the next
+//     tile's carry is in flight while the consumers finish this one; they
+//     move it into their accumulator fragments at the tile's start and free
+//     the buffer. m and l come from global memory. The new state leaves from
+//     the fragments after the last P.V, unnormalized, in 8-byte stores (m in
+//     natural units; the body works in log2 units and converts at both
+//     ends). Only rows that see a key (r >= rel) are written, so a blind
+//     row's carry stays bit-identical (-0.0 included). The block stages no
+//     output, so the carry's buffer fits where B2's output staging was (one
+//     consumer warpgroup for D > 128);
 //   - the mask is the runtime offset rel = k_off - q_off: local row r sees
-//     local key c when r - c >= rel (no causal mask = rel <= -Sk), and the
-//     K loop stops at the Pallas predicate q_last - j*BN >= rel
-//     (attention.py:375-378); a block wholly above the frontier returns at
-//     once, reading and writing nothing;
-//   - the reference's two guards: p = 0 where a score is masked, and
-//     alpha = exp(min(m_prev - m_new, 0)) (attention.py:361-365). A row that
-//     sees no key of the hop (r < rel) is neither read nor written, so its
-//     carry stays bit-identical.
+//     local key c when r - c >= rel (no causal mask = rel <= -Sk). It runs
+//     only on a tile past Sk's end or one the warpgroup's first row does
+//     not wholly see; a masked score is -inf, so p = 0 exactly even while
+//     the row's max is NEG_INF, and alpha = exp2(min(m_prev - m_new, 0)):
+//     the reference's two guards (attention.py:361-365).
 // The carry is updated in place (the ring owns it). A ring hop at the
 // serving shape (32 heads, Sq = Sk = 1024, D 128, a past block) does 17.2
 // GFLOP against ~59 MB, more than half of it the f32 carry read and
@@ -89,14 +101,24 @@
 // tpusc_flash_attention_fwd_f32 and tpusc_flash_attention_carry (either
 // dtype); plain C, loaded with ctypes. Each launches on the given stream,
 // allocates nothing and returns cudaGetLastError() of the launch. The bf16
-// entry encodes its four tensor maps with libcuda's
-// cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint (no link to
-// libcuda).
+// entries encode their tensor maps with libcuda's cuTensorMapEncodeTiled,
+// taken through cudaGetDriverEntryPoint (no link to libcuda).
+//
+// Built with -DTPUSC_CARRY_LOADS_ONLY=1 (tools/flash_kernel_ab.py
+// SOURCE:TPUSC_CARRY_LOADS_ONLY=1), the bf16 carry kernel streams Q, K and V
+// through its barriers and loads and stores the carry, but skips both
+// products and the softmax: an ablation that tells the memory pipeline's
+// time from the compute's. Its outputs are not attention.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>  // INFINITY
 #include <stdint.h>
+
+#ifndef TPUSC_CARRY_LOADS_ONLY
+#define TPUSC_CARRY_LOADS_ONLY 0
+#endif
 
 namespace {
 
@@ -128,6 +150,20 @@ struct HopperTile {
   // 1024 of slack to align the tiles to the swizzle's 1024-byte period,
   // then Q, the K stages, the V stages, the output and the barriers
   static constexpr size_t SMEM_BYTES = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (2 + 3 * STAGES);
+  static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may use");
+};
+
+// B4's block: B2's tiles, plus the f32 carry of a tile's BM rows in shared
+// memory (D/32 panels of 32 columns, 128-byte swizzled), and no output
+// staging (its output leaves from registers)
+template <int D, int CONSUMERS>
+struct CarryTile : HopperTile<D, CONSUMERS> {
+  using H = HopperTile<D, CONSUMERS>;
+  static constexpr int STAGES = 2;
+  static constexpr int C_PANEL = 32;  // f32 columns in one 128-byte swizzled row
+  static constexpr uint32_t C_BYTES = H::BM * D * 4;
+  // the slack, Q, the carry, the K stages, the V stages and the barriers
+  static constexpr size_t SMEM_BYTES = 1024 + H::Q_BYTES + C_BYTES + 2 * STAGES * H::KV_BYTES + 8 * (4 + 3 * STAGES);
   static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may use");
 };
 
@@ -170,6 +206,12 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t val) {
@@ -573,19 +615,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// (D, S, BH) bf16 map of a contiguous (BH, S, D) tensor, read in boxes of
-// 64 columns x `rows` rows of one (batch, head), 128-byte swizzled; rows
-// past S are filled with zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows) {
+// (D, S, BH) bf16 (or f32) map of a contiguous (BH, S, D) tensor, read in
+// boxes of one 128-byte row (64 bf16 or 32 f32 columns) x `rows` rows of one
+// (batch, head), 128-byte swizzled; rows past S are filled with zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows, bool f32 = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t elem = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elem, (cuuint64_t)S * D * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool CAUSAL, int CONSUMERS>
@@ -627,249 +671,344 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
                 : launch_hopper<D, false, WIDE>(q, k, v, o, B, Hq, Hkv, S, sms, stream);
 }
 
-// ---- B4, bf16: the mma.sync carry body ------------------------------------
+// ---- B4, bf16: B2's design with the carry ---------------------------------
 
-constexpr int BLOCK_M = 64;          // query rows per block (16 per warp)
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
+// One live work tile of a hop: BM query rows of one (batch, head) of which
+// at least the last sees a key of the block, and the K tiles they read. K
+// tile j is read only if the tile's last row sees its first key,
+// q_last - j*BN >= rel (the Pallas predicate, attention.py:375-378);
+// visibility grows toward key 0, so the tiles read are a prefix. The live
+// tiles are the last `live` query tiles of each (batch, head), numbered
+// longest first.
+template <int BM, int BN>
+__device__ __forceinline__ WorkTile carry_work_tile(int w, int BH, int Hq, int Hkv, int Sq, int Sk, int rel) {
+  WorkTile t;
+  const int n_q = (Sq + BM - 1) / BM;
+  t.q0 = (n_q - 1 - w / BH) * BM;
+  t.bh = w % BH;  // b * Hq + h
+  t.kv_row = (t.bh / Hq) * Hkv + (t.bh % Hq) / (Hq / Hkv);
+  t.n_tiles = min((Sk + BN - 1) / BN, (min(t.q0 + BM, Sq) - 1 - rel) / BN + 1);
+  return t;
+}
 
+// B2's persistent TMA + wgmma kernel over the live tiles of one hop. The
+// producer also loads each tile's f32 carry acc into shared memory (TMA,
+// one tile ahead: the next tile's carry is in flight while this one
+// computes); the consumers move it into their accumulator fragments at the
+// tile's start and store the new carry from them at its end, by row: a row
+// that sees no key of the hop (r < rel) is never written.
+template <int D, int CONSUMERS>
+__global__ void __launch_bounds__(HopperTile<D, CONSUMERS>::THREADS, 1)
+    flash_attention_carry_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_c,
+                                 float* __restrict__ acc_io, float* __restrict__ m_io, float* __restrict__ l_io,
+                                 int BH, int Hq, int Hkv, int Sq, int Sk, int rel, int live, float scale_log2) {
+  using T = CarryTile<D, CONSUMERS>;
+  constexpr int BM = T::BM;
+  constexpr int BN = T::BN;
+  constexpr int ST = T::STAGES;
+  constexpr int PV_N = T::PV_N;
+  constexpr int CHUNKS = D / PV_N;
+  const int total = BH * live;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                   // PANELS x (BM rows x 128 B)
+  const uint32_t sC = sQ + T::Q_BYTES;        // D/32 x (BM rows x 128 B), f32
+  const uint32_t sK = sC + T::C_BYTES;        // ST x PANELS x (BN rows x 128 B)
+  const uint32_t sV = sK + ST * T::KV_BYTES;  // the same for V
+  const uint32_t q_full = sV + ST * T::KV_BYTES;  // then q_empty, c_full, c_empty, k_full[ST], v_full[ST], empty[ST]
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t c_full = q_full + 16;
+  const uint32_t c_empty = q_full + 24;
+  auto k_full = [&](int s) { return q_full + 8u * (4 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (4 + ST + s); };
+  auto empty = [&](int s) { return q_full + 8u * (4 + 2 * ST + s); };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS * WG_THREADS);
+    mbar_init(c_full, 1);
+    mbar_init(c_empty, CONSUMERS * WG_THREADS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMERS * WG_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer warpgroup: one thread keeps the TMA loads in flight
+    if constexpr (CONSUMERS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V tiles loaded so far, over all work tiles: stage it % ST
+      for (int k = 0;; ++k) {
+        const int w = nth_tile(k, total);
+        if (w < 0) break;
+        const WorkTile wt = carry_work_tile<BM, BN>(w, BH, Hq, Hkv, Sq, Sk, rel);
+        // the carry first: the consumers freed its buffer at the last
+        // tile's start, so it loads while they finish that tile
+        mbar_wait(c_empty, (k & 1) ^ 1);
+        mbar_expect_tx(c_full, T::C_BYTES);
+#pragma unroll
+        for (int p = 0; p < D / T::C_PANEL; ++p)
+          tma_load_3d(sC + p * BM * 128, &tm_c, c_full, p * T::C_PANEL, wt.q0, wt.bh);
+        mbar_wait(q_empty, (k & 1) ^ 1);  // the consumers are done with the last tile's Q
+        mbar_expect_tx(q_full, T::Q_BYTES);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p)
+          tma_load_3d(sQ + p * BM * 128, &tm_q, q_full, p * PANEL, wt.q0, wt.bh);
+        for (int j = 0; j < wt.n_tiles; ++j, ++it) {
+          const int s = it % ST;
+          mbar_wait(empty(s), ((it / ST) & 1) ^ 1);  // the first round finds every stage empty
+          mbar_expect_tx(k_full(s), T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load_3d(sK + s * T::KV_BYTES + p * BN * 128, &tm_k, k_full(s), p * PANEL, j * BN, wt.kv_row);
+          mbar_expect_tx(v_full(s), T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load_3d(sV + s * T::KV_BYTES + p * BN * 128, &tm_v, v_full(s), p * PANEL, j * BN, wt.kv_row);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup c: query rows q0 + 64c .. q0 + 64c + 63 of each tile
+    if constexpr (CONSUMERS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / WG_THREADS - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    const int row_in_wg = (tid >> 5) * 16 + (lane >> 2);  // and row_in_wg + 8
+    const uint32_t q_rows = sQ + 64 * c * 128;  // this warpgroup's rows of each Q panel
+
+    float acc[CHUNKS][PV_N / 2];
+    float sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    int it = 0;
+    for (int k = 0;; ++k) {
+      const int w = nth_tile(k, total);
+      if (w < 0) break;
+      const WorkTile wt = carry_work_tile<BM, BN>(w, BH, Hq, Hkv, Sq, Sk, rel);
+      const int wg_row0 = wt.q0 + 64 * c;
+      const int row_lo = wg_row0 + row_in_wg;
+      // the K tiles some row of this warpgroup sees (a prefix): none when
+      // every row is blind (r < rel) or past Sq
+      const int wg_last = min(wg_row0 + 63, Sq - 1);
+      const int wg_tiles = wg_row0 >= Sq || wg_last < rel ? 0 : min(wt.n_tiles, (wg_last - rel) / BN + 1);
+
+      // the carried state: m and l of the rows that see a key (r >= rel)
+      // from global memory (m in the body's log2 units; the carried l sits
+      // in one of a row's four threads), the other rows start empty and are
+      // never stored; acc from the tile's carry in shared memory (16-byte
+      // chunk j of a 128-byte row r at j ^ r % 8), whose buffer is then
+      // free for the next tile's
+      float m[2], l[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row_lo + h * 8;
+        const bool seen = r < Sq && r >= rel;
+        const size_t row = (size_t)wt.bh * Sq + r;
+        m[h] = seen ? m_io[row] * LOG2E : NEG_INF;
+        l[h] = seen && t == 0 ? l_io[row] : 0.f;
+      }
+      mbar_wait(c_full, k & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rb = 64 * c + row_in_wg + h * 8;  // the row within the tile
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch) {
+#pragma unroll
+          for (int jj = 0; jj < PV_N / 8; ++jj) {
+            const int col = ch * PV_N + jj * 8 + t * 2;
+            const float2 a2 = ld_shared_f32x2(sC + (col / T::C_PANEL) * BM * 128 + rb * 128 +
+                                              ((((col % T::C_PANEL) / 4) ^ (rb % 8)) * 16) + (col % 4) * 4);
+            acc[ch][4 * jj + 2 * h] = a2.x;
+            acc[ch][4 * jj + 2 * h + 1] = a2.y;
+          }
+        }
+      }
+      mbar_arrive(c_empty);
+      mbar_wait(q_full, k & 1);
+
+      for (int j = 0; j < wt.n_tiles; ++j, ++it) {
+        const int s = it % ST;
+        const uint32_t parity = (it / ST) & 1;
+        const int k0 = j * BN;
+
+        mbar_wait(k_full(s), parity);
+        if (j >= wg_tiles || TPUSC_CARRY_LOADS_ONLY) {
+          // no row of this warpgroup sees a key of the tile: keep the
+          // barriers' count and skip the math
+          if (j == wt.n_tiles - 1) mbar_arrive(q_empty);
+          mbar_wait(v_full(s), parity);
+          mbar_arrive(empty(s));
+          continue;
+        }
+
+        // s = q k^T: D/16 steps of 16 columns, 4 per 64-column panel
+        const uint32_t k_tile = sK + s * T::KV_BYTES;
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          wgmma_ss(sc, sw128_desc(q_rows + (kk / 4) * BM * 128 + col, 0, 1024),
+                   sw128_desc(k_tile + (kk / 4) * BN * 128 + col, 0, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        if (j == wt.n_tiles - 1) mbar_arrive(q_empty);  // the producer may load the next Q
+
+        // the runtime mask, only on a tile past Sk's end or one that some
+        // row of the warpgroup sees in part: local row r sees key c when
+        // r - c >= rel. A masked score is -inf, so its p is exactly 0 even
+        // while the row's max is still NEG_INF.
+        if (k0 + BN > Sk || wg_row0 - (k0 + BN - 1) < rel) {
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = row_lo + (e >> 1) * 8;
+              const int key = k0 + jj * 8 + t * 2 + (e & 1);
+              if (key >= Sk || r - key < rel) sc[4 * jj + e] = -INFINITY;
+            }
+          }
+        }
+        // online softmax in the log2 domain; a row's four threads share its
+        // max. alpha = exp2(min(m_prev - m_new, 0)): the reference's guard
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+          alpha[h] = exp2_approx(fminf(m[h] - m_new, 0.f));
+          m[h] = m_new;
+          l[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -m[h]));
+          l[h] += sc[i];
+        }
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch)
+#pragma unroll
+          for (int i = 0; i < PV_N / 2; ++i) acc[ch][i] *= alpha[(i >> 1) & 1];
+
+        // acc += bf16(p) v: the score accumulator's layout is the A fragment's
+        uint32_t pa[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        }
+        mbar_wait(v_full(s), parity);
+        const uint32_t v_tile = sV + s * T::KV_BYTES;
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch) fence_regs(acc[ch]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int ch = 0; ch < CHUNKS; ++ch) {
+            wgmma_rs(acc[ch], pa[kk],
+                     sw128_desc(v_tile + (ch * PV_N / PANEL) * BN * 128 + kk * 16 * 128, BN * 128, 1024));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch) fence_regs(acc[ch]);
+        mbar_arrive(empty(s));  // both products have read stage s
+      }
+
+      // the carry back, unnormalized, from the fragments: 8-byte stores of
+      // the rows that see a key (m in natural units, l summed over the
+      // row's four threads); the stores run on while the next tile starts
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = row_lo + h * 8;
+        if (r >= Sq || r < rel) continue;
+        const size_t row = (size_t)wt.bh * Sq + r;
+        float* ap = acc_io + row * D + t * 2;
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch) {
+#pragma unroll
+          for (int jj = 0; jj < PV_N / 8; ++jj)
+            *reinterpret_cast<float2*>(ap + ch * PV_N + jj * 8) =
+                make_float2(acc[ch][4 * jj + 2 * h], acc[ch][4 * jj + 2 * h + 1]);
+        }
+        if (t == 0) {
+          m_io[row] = m[h] / LOG2E;
+          l_io[row] = l[h];
+        }
+      }
+    }
+  }
+}
+
+// The query tiles of BM rows that some row of sees a key of the block: the
+// last `live` of the ceil(Sq/BM), a tile's last row being its most visible.
+int live_q_tiles(int Sq, int rel, int BM) {
+  const int n_q = (Sq + BM - 1) / BM;
+  return n_q - (rel <= 0 ? 0 : rel >= Sq ? n_q : rel / BM);
+}
+
+template <int D, int CONSUMERS>
+cudaError_t launch_carry_hopper(const void* q, const void* k, const void* v, void* acc, void* m, void* l, int B,
+                                int Hq, int Hkv, int Sq, int Sk, int rel, int sms, cudaStream_t stream) {
+  using T = CarryTile<D, CONSUMERS>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_c;
+  if (!encode_map(&tm_q, q, D, Sq, B * Hq, T::BM) || !encode_map(&tm_k, k, D, Sk, B * Hkv, T::BN) ||
+      !encode_map(&tm_v, v, D, Sk, B * Hkv, T::BN) || !encode_map(&tm_c, acc, D, Sq, B * Hq, T::BM, true))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_carry_kernel<D, CONSUMERS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int live = live_q_tiles(Sq, rel, T::BM);
+  const long long tiles = (long long)B * Hq * live;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // a hop that no row sees launches one block, which returns at once
+  const int grid = (int)(tiles < 1 ? 1 : tiles < sms ? tiles : sms);
+  kernel<<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(
+      tm_q, tm_k, tm_v, tm_c, static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), B * Hq, Hq, Hkv,
+      Sq, Sk, rel, live, LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// Two consumer warpgroups (128-row tiles) or one, as B2 chooses, counting
+// only the live 128-row tiles; one for D > 128, where two with the carry's
+// buffer would need more shared memory than a block may use.
 template <int D>
-struct Tile {
-  static constexpr int BLOCK_N = D <= 128 ? 64 : 32;  // keys per K/V tile
-  static constexpr int QK_STRIDE = D + 8;             // smem row pitch of Q and K (bf16)
-  static constexpr int VT_STRIDE = BLOCK_N + 8;       // smem row pitch of V^T (bf16)
-  static constexpr size_t SMEM_BYTES =
-      sizeof(bf16) * (size_t)(BLOCK_M * QK_STRIDE + BLOCK_N * QK_STRIDE + D * VT_STRIDE);
-};
-
-__device__ __forceinline__ uint32_t ld_smem_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a(16x16, row-major) * b(16x8, col-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Rows [row0, row0 + ROWS) of a (S, D) row-major matrix into smem with row
-// pitch STRIDE; rows at or past S are zero-filled.
-template <int D, int ROWS, int STRIDE>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int row0, int S) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NUM_THREADS) {
-    const int r = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + col) = val;
-  }
-}
-
-// The same rows of V, stored transposed (D x ROWS, pitch STRIDE) so that the
-// p.v product reads its B operand as contiguous bf16 pairs. Consecutive
-// threads take consecutive keys, so the transposed stores do not conflict.
-template <int D, int ROWS, int STRIDE>
-__device__ __forceinline__ void load_rows_transposed(bf16* dst, const bf16* __restrict__ src, int row0,
-                                                     int S) {
-  constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NUM_THREADS) {
-    const int r = c % ROWS;
-    const int col = (c / ROWS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    const bf16* v = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * STRIDE + r] = v[i];
-  }
-}
-
-// One block's 64 query rows of one (batch*head) against the K/V
-// tiles they see, masked by rel, the f32 carry acc_io / m_io / l_io loaded
-// and stored in place.
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_attention_carry_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, float* __restrict__ acc_io,
-                                 float* __restrict__ m_io, float* __restrict__ l_io, int Hq, int Hkv, int Sq,
-                                 int Sk, int rel, float scale_log2) {
-  constexpr int BN = Tile<D>::BLOCK_N;
-  constexpr int QS = Tile<D>::QK_STRIDE;
-  constexpr int VS = Tile<D>::VT_STRIDE;
-  constexpr int NT_S = BN / 8;  // n-tiles of the score block
-  constexpr int NT_O = D / 8;   // n-tiles of the output block
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BLOCK_M * QS;
-  bf16* sVt = sK + BN * QS;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-
-  // blockIdx.x = bh * q_tiles + tile, bh = b * Hq + h (no 65535 limit on
-  // B * Hq); the longest causal blocks of a (batch, head) are scheduled first
-  const int q_tiles = (Sq + BLOCK_M - 1) / BLOCK_M;
-  const int bh = blockIdx.x / q_tiles;
-  const int b = bh / Hq;
-  const int h = bh % Hq;
-  const int kvh = h / (Hq / Hkv);
-  const int q_start = (q_tiles - 1 - blockIdx.x % q_tiles) * BLOCK_M;
-
-  // K tile j is read only if the block's last row sees its first key,
-  // q_last - j*BN >= rel; visibility grows toward key 0, so the tiles read
-  // are a prefix, and tile 0 holds every seeing row's key 0
-  const int q_last = min(q_start + BLOCK_M, Sq) - 1;
-  if (q_last < rel) return;  // wholly above the frontier: read and write nothing
-  const int n_blocks = min((Sk + BN - 1) / BN, (q_last - rel) / BN + 1);
-
-  const bf16* qp = q + (size_t)bh * Sq * D;
-  const bf16* kp = k + ((size_t)b * Hkv + kvh) * Sk * D;
-  const bf16* vp = v + ((size_t)b * Hkv + kvh) * Sk * D;
-
-  load_rows<D, BLOCK_M, QS>(sQ, qp, q_start, Sq);
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};  // running max (log2 units), rows g and g + 8
-  float l[2] = {0.f, 0.f};          // running sum of f32 p
-  const int row_lo = q_start + warp * 16 + g;
-
-  // rows that see a key of this hop (r >= rel) take their carried state;
-  // the others are never written back. Every thread reads before the
-  // loop's first barrier; the stores come after the last one.
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row_lo + half * 8;
-    if (r >= Sq || r < rel) continue;
-    const size_t row = (size_t)bh * Sq + r;
-    const float* ap = acc_io + row * D + t * 2;
-#pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      const float2 a2 = *reinterpret_cast<const float2*>(ap + nt * 8);
-      acc[nt][2 * half] = a2.x;
-      acc[nt][2 * half + 1] = a2.y;
-    }
-    m[half] = m_io[row] * LOG2E;  // natural units -> the body's log2 units
-    l[half] = l_io[row];
-  }
-
-  for (int j = 0; j < n_blocks; ++j) {
-    const int k_start = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D, BN, QS>(sK, kp, k_start, Sk);
-    load_rows_transposed<D, BN, VS>(sVt, vp, k_start, Sk);
-    __syncthreads();
-
-    // s = q k^T for this warp's 16 rows x BN keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* qa = sQ + (warp * 16 + g) * QS + kk * 16 + t * 2;
-      uint32_t a[4];
-      a[0] = ld_smem_u32(qa);
-      a[1] = ld_smem_u32(qa + 8 * QS);
-      a[2] = ld_smem_u32(qa + 8);
-      a[3] = ld_smem_u32(qa + 8 * QS + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const bf16* kb = sK + (nt * 8 + g) * QS + kk * 16 + t * 2;
-        uint32_t bb[2] = {ld_smem_u32(kb), ld_smem_u32(kb + 8)};
-        mma_16816(s[nt], a, bb);
-      }
-    }
-
-    // scale, mask, online-softmax update (log2 domain)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row_lo + (e >> 1) * 8;
-        const int c = k_start + nt * 8 + t * 2 + (e & 1);
-        const bool ok = c < Sk && r - c >= rel;
-        const float val = ok ? s[nt][e] * scale_log2 : NEG_INF;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(fminf(m[i] - mx[i], 0.f));
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // a masked score is no probability, even while the row's max is
-        // still NEG_INF (exp(NEG_INF - NEG_INF) would be 1)
-        const float p = s[nt][e] <= 0.5f * NEG_INF ? 0.f : exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = alpha[i] * l[i] + sum[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-
-    // acc += bf16(p) v: the score accumulator's layout is the A operand's
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        const bf16* vb = sVt + (nt * 8 + g) * VS + kk * 16 + t * 2;
-        uint32_t bb[2] = {ld_smem_u32(vb), ld_smem_u32(vb + 8)};
-        mma_16816(acc[nt], a, bb);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row_lo + half * 8;
-    if (r >= Sq || r < rel) continue;
-    const size_t row = (size_t)bh * Sq + r;
-    float* ap = acc_io + row * D + t * 2;
-#pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      *reinterpret_cast<float2*>(ap + nt * 8) = make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
-    }
-    if (t == 0) {
-      m_io[row] = m[half] / LOG2E;
-      l_io[row] = l[half];
-    }
-  }
+cudaError_t launch_carry_bf16(const void* q, const void* k, const void* v, void* acc, void* m, void* l, int B,
+                              int Hq, int Hkv, int Sq, int Sk, int rel, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  constexpr int WIDE = D <= 128 ? 2 : 1;
+  const bool narrow = (long long)B * Hq * live_q_tiles(Sq, rel, 128) < sms;
+  return narrow ? launch_carry_hopper<D, 1>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream)
+                : launch_carry_hopper<D, WIDE>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream);
 }
 
 // ---- f32 inputs: plain SIMT kernels ---------------------------------------
 
+constexpr int NUM_WARPS = 4;
+constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int F32_ROWS = 16;  // query rows per block (4 per warp)
 constexpr int F32_KEYS = 32;  // keys per K/V tile: one per lane when scoring
 
@@ -1129,7 +1268,8 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v, void* o, i
                 : launch_f32<D, false>(q, k, v, o, B, Hq, Hkv, S, stream);
 }
 
-// One B4 hop: the bf16 or the f32 kernel over B * Hq * query tiles, flat in x.
+// One B4 hop: the f32 kernel over B * Hq * query tiles, flat in x, or the
+// bf16 persistent kernel.
 template <int D>
 cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc, void* m, void* l,
                          int B, int Hq, int Hkv, int Sq, int Sk, int rel, int f32,
@@ -1147,20 +1287,9 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc,
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,
         rel, 1.f / sqrtf((float)D));
-  } else {
-    constexpr size_t smem = Tile<D>::SMEM_BYTES;
-    err = cudaFuncSetAttribute(flash_attention_carry_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (long long)((Sq + BLOCK_M - 1) / BLOCK_M) * B * Hq;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const dim3 grid((unsigned)blocks);
-    flash_attention_carry_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Hq, Hkv, Sq, Sk,
-        rel, LOG2E / sqrtf((float)D));
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  return launch_carry_bf16<D>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, stream);
 }
 
 }  // namespace

@@ -4,13 +4,15 @@
 Builds every given ``flash_attention.cu`` with the port's nvcc flags, loads
 the libraries side by side in one process and, for the flash kernel (B2) at
 every ``chip_smoke.KERNEL_SHAPES`` row in bf16 and ``KERNEL_SHAPES_F32`` in
-f32, causal and not, and, where a source has it, the carry kernel (B4; one
-bf16 and one f32 hop at rel 0):
+f32, causal and not, and, where a source has it, the carry kernel (B4) at
+every ``B4_CASES`` hop from one carried state:
   - checks each build's output against the first build's, bit for bit, and
     prints the max |diff| to it and, for B2, to ``attention_reference``;
   - times each build in turns, first to last then last to first (CUDA
     events, median of 25 launches, chip_smoke.cuda_ms), so that two
-    versions are compared only within one run on one card;
+    versions are compared only within one run on one card (a B4 hop is
+    timed on a scratch carry that each launch updates in place, without
+    the reset that the bitwise check does);
   - for bf16 B2, the host time of one call of the C entry (ctypes included,
     no sync: what a forward pays on the host for each launch);
   - prints each build's ptxas registers and spills for every kernel.
@@ -20,6 +22,10 @@ an earlier commit:
 
     git show <commit>:tfservingcache_tpu_torch/ops/csrc/flash_attention.cu > old_flash.cu
     python3 tools/flash_kernel_ab.py old_flash.cu tfservingcache_tpu_torch/ops/csrc/flash_attention.cu
+
+A source may carry one macro definition, ``FILE:NAME=VALUE``: e.g.
+``SRC:TPUSC_CARRY_LOADS_ONLY=1`` builds B4's loads-only ablation beside
+``SRC``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,17 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-B4_CASES = [((1, 32, 32, 1024, 128), "bfloat16"), ((1, 8, 8, 256, 128), "float32")]
+# B4 hops (B, Hq, Hkv, Sq, Sk, D), dtype, rel: the ring phase's hop
+# (chip_smoke.CARRY_MAIN) as a past block, the diagonal and a future block,
+# the GQA row, and f32 at rel 0 and a past block
+B4_CASES = [
+    ((1, 32, 32, 1024, 1024, 128), "bfloat16", -1024),
+    ((1, 32, 32, 1024, 1024, 128), "bfloat16", 0),
+    ((1, 32, 32, 1024, 1024, 128), "bfloat16", 1024),
+    ((1, 32, 8, 1024, 1024, 128), "bfloat16", 0),
+    ((1, 8, 8, 256, 256, 128), "float32", 0),
+    ((1, 8, 8, 256, 256, 128), "float32", -256),
+]
 
 
 def compile_all(sources: list[str], workdir: str,
@@ -70,9 +86,21 @@ def compile_all(sources: list[str], workdir: str,
     return libs
 
 
-def build(sources: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
-    """``compile_all`` with the flash entry points' C signatures set."""
-    libs = compile_all(sources, workdir)
+def parse_sources(specs: list[str]) -> tuple[list[str], list[list[str]]]:
+    """``FILE[:NAME=VALUE]`` specs -> (files, macro definitions per file)."""
+    files, defines = [], []
+    for spec in specs:
+        path, _, define = spec.partition(":")
+        files.append(path)
+        defines.append([define] if define else [])
+    return files, defines
+
+
+def build(specs: list[str], workdir: str) -> dict[str, ctypes.CDLL]:
+    """``compile_all`` of ``FILE[:NAME=VALUE]`` specs with the flash entry
+    points' C signatures set."""
+    files, defines = parse_sources(specs)
+    libs = compile_all(files, workdir, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib in libs.values():
         for fn in (lib.tpusc_flash_attention_fwd, lib.tpusc_flash_attention_fwd_f32):
@@ -132,13 +160,17 @@ def host_us(libs: dict[str, ctypes.CDLL], call, reps: int = 200) -> str:
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("sources", nargs="+", help="flash_attention.cu files to compare")
+    parser.add_argument("sources", nargs="+",
+                        help="flash_attention.cu files to compare, each FILE[:NAME=VALUE]")
     args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
 
     from chip_smoke import KERNEL_SHAPES, KERNEL_SHAPES_F32, nvidia_smi_line
-    from tfservingcache_tpu_torch.ops.attention import attention_reference
+    from tfservingcache_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention_carry_reference,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("flash_kernel_ab: no CUDA device")
@@ -174,23 +206,35 @@ def main(argv: list[str] | None = None) -> int:
         del q, k, v, o
         torch.cuda.empty_cache()
     carry_libs = {lb: lib for lb, lib in libs.items() if hasattr(lib, "tpusc_flash_attention_carry")}
-    for (b, h, hkv, s, d), dt in B4_CASES if carry_libs else ():
+    for (b, h, hkv, sq, sk, d), dt, rel in B4_CASES if carry_libs else ():
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(b, n, s, d, device="cuda", generator=gen).to(dtype)
-                   for n in (h, hkv, hkv))
-        acc, m, l = (torch.empty(b, h, s, n, device="cuda") for n in (d, 1, 1))
+        q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+        k, v, k0, v0 = (torch.randn(b, hkv, sk, d, device="cuda", generator=gen).to(dtype)
+                        for _ in range(4))
+        empty = (torch.zeros(b, h, sq, d, device="cuda"),
+                 torch.full((b, h, sq, 1), -1e30, device="cuda"),
+                 torch.zeros(b, h, sq, 1, device="cuda"))
+        # the carried state: a hop over an earlier block every row sees
+        carry = flash_attention_carry_reference(q, k0, v0, *empty, -sk)
+        io = [t.clone() for t in carry]
+        scratch = [t.clone() for t in carry]
 
-        def hop(lib):
-            acc.zero_()
-            m.fill_(-1e30)
-            l.zero_()
+        def launch(lib, tensors=scratch):
+            acc, m, l = tensors
             rc = lib.tpusc_flash_attention_carry(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                l.data_ptr(), b, h, hkv, s, s, d, 0, int(dt == "float32"), stream)
+                l.data_ptr(), b, h, hkv, sq, sk, d, rel, int(dt == "float32"), stream)
             assert rc == 0, rc
-            return acc.clone(), l.clone()
 
-        compare(carry_libs, hop, f"B4 {(b, h, hkv, s, s, d)} {dt} rel 0 (with the carry's reset)")
+        def hop(lib):
+            for t, c in zip(io, carry):
+                t.copy_(c)
+            launch(lib, io)
+            return tuple(t.clone() for t in io)
+
+        compare(carry_libs, hop, f"B4 {(b, h, hkv, sq, sk, d)} {dt} rel {rel}", timed=launch)
+        del q, k, v, k0, v0, empty, carry, io, scratch
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -43,16 +43,6 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def parse_sources(specs: list[str]) -> tuple[list[str], list[list[str]]]:
-    """``FILE[:NAME=VALUE]`` specs -> (files, macro definitions per file)."""
-    files, defines = [], []
-    for spec in specs:
-        path, _, define = spec.partition(":")
-        files.append(path)
-        defines.append([define] if define else [])
-    return files, defines
-
-
 def bind(libs: dict[str, ctypes.CDLL], sources: list[str]) -> dict[str, tuple[ctypes.CDLL, bool]]:
     """Set each library's C signature. -> {label: (library, takes the split)}."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -78,7 +68,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from chip_smoke import (PAGED_MAIN, PAGED_SHAPES, VERIFY_SHAPES, _paged_arena, cuda_ms,
                             nvidia_smi_line)
-    from flash_kernel_ab import compile_all
+    from flash_kernel_ab import compile_all, parse_sources
     from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
     from tfservingcache_tpu_torch.ops import _build
     from tfservingcache_tpu_torch.ops import attention as A
