@@ -19,8 +19,10 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      could take (bound), and one PyTorch library call's time as a yardstick:
      flash attention in bf16 and f32, paged decode attention over bf16,
      int8 and f32 arenas, paged verify attention at T in {1, 5, 9, 256}
-     (with its T = 1 gap to the decode kernel), each paged row with the
-     page-axis split the wrappers chose, and the ring-attention carry
+     (with its T = 1 gap to the decode kernel) and at the chunked-prefill
+     shape (one lane, T = 256 from starts 0, 256 and 768, bf16 / int8 / f32
+     pages), each paged row with the page-axis split the wrappers chose,
+     and the ring-attention carry
      step from a carried state at the ring phase's hop (a past block, the
      diagonal, a future block that must leave the carry bit-identical), GQA,
      ragged lengths down to 1 and f32; then the 4-shard ring on one card
@@ -38,7 +40,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      finite, agreement with the plain path on the card), and the flash
      kernel's launch counter must show the path went through it (every
      request's forward and the load's warm-up forward);
-  6. generate — REST ``:generate`` on the same artifact in seven arms: (a)
+  6. generate — REST ``:generate`` on the same artifact in eleven arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -48,13 +50,24 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      ``"draft_model"`` requests; (g) (d) over an int8 arena, on 8 of the
      prompts, so that accepted int8 verify rows decide served tokens (the
      1-layer draft of (e) has every proposal rejected, which leaves only
-     position 0 of each verify pass served). Every response is checked against the
+     position 0 of each verify pass served); (h) (a) with chunked prefill
+     (``prefill_chunk_tokens`` 256: B3 at T = 256 on one lane, a chunk per
+     boundary), tokens as (a)'s up to near-ties; (i) the same over an int8
+     arena on 8 prompts, as (c)'s; (j) a 512-token system prompt before 16
+     distinct suffixes, then 2 exact repeats, with ``kv_share_prefix_bytes``
+     (shared pages, suffix-only prefills, exact hits with no prefill), then
+     the same prompts with sharing off, tokens equal up to near-ties, a full
+     reclaim of the index's pages after the drain; (k) the solo path's
+     prefix cache (``prefix_cache_bytes``) on a "coalesce" node: two-turn
+     conversations, plain and ``"draft_model"``, turn 2 hitting turn 1's
+     entry, against a cache-off node. Every response is checked against the
      plain path on the card (teacher-forced logits), the page census must
-     be green after each arm (both arenas with a draft), and the kernels'
-     launch counters must equal what the engine ran in each continuous arm
-     (paged = n_layers x plain decode steps + draft layers x (spec + 1) x
-     spec rounds, verify = n_layers x spec rounds) and stay 0 on the solo
-     paths;
+     be green after each arm (both arenas with a draft, the index's holds
+     counted), and the kernels' launch counters must equal what the engine
+     ran in each continuous arm (paged = n_layers x plain decode steps +
+     draft layers x (spec + 1) x spec rounds, verify = n_layers x (spec
+     rounds + prefill chunks), the chunks also counted from the prompts)
+     and stay 0 on the solo paths;
   7. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
@@ -158,6 +171,12 @@ VERIFY_SHAPES = [
     (8, 32, 32, 128, 16, 1088, 256, ("bfloat16", "int8"), False),
 ]
 VERIFY_MAIN = (8, 32, 32, 128, 16, 1088, 5)
+# paged verify at the chunked-prefill shape of arms (h)/(i): ONE lane, T =
+# PREFILL_CHUNK queries at start = 0, 256, 768 (a 1024-token prompt's first,
+# second and last chunk), over bf16, int8 and f32 arenas
+PREFILL_CHUNK = 256
+PREFILL_KERNEL = (32, 32, 128, 16)  # (Hq, Hkv, D, page_tokens)
+PREFILL_STARTS = (0, 256, 768)
 # :generate phase: 16 single-row greedy requests from 8 client threads,
 # prompt lengths seeded-random in [64, 1024], 64 new tokens each
 GEN_REQUESTS = 16
@@ -166,6 +185,18 @@ GEN_PROMPT_RANGE = (64, 1024)
 GEN_NEW_TOKENS = 64
 # draft tokens per speculative round in arms (d)-(g)
 SPEC_TOKENS = 4
+# arm (i), chunked prefill over an int8 arena, runs the first 8 prompts
+CHUNKED_INT8_REQUESTS = 8
+# arm (j): one seeded system prompt before every request's own suffix, then
+# exact repeats of earlier prompts
+SHARED_PREFIX_TOKENS = 512
+SHARED_SUFFIX_RANGE = (16, 256)
+SHARED_REPEATS = 2
+SHARE_BYTES = 256 << 20
+# arm (k): the solo path's prefix cache, a two-turn conversation (turn 2 =
+# turn 1's prompt + its tokens + TURN2_NEW_TOKENS new ones)
+PREFIX_CACHE_BYTES = 1 << 30
+TURN2_NEW_TOKENS = 32
 # arm (g), the exact-copy draft over an int8 arena, runs the first 8 prompts
 SPEC_INT8_REQUESTS = 8
 # :predict request shapes; (1, 300) pads to the 512 bucket
@@ -800,6 +831,93 @@ def phase_verify_kernel(seed: int) -> dict:
     }
 
 
+def phase_prefill_kernel(seed: int) -> list[dict]:
+    """paged_verify_attention_kernel (B3) at the chunked-prefill shape: one
+    lane, T = PREFILL_CHUNK queries at each of PREFILL_STARTS, bf16 / int8 /
+    f32 pages, against its plain version at PAGED_TOL (bf16: times the
+    largest |v|, see below), with its time, the
+    plain version's, SDPA on K/V gathered to dense with the (T, L) mask
+    (gather excluded), the bound and the split the wrappers chose. -> one
+    record per row."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(seed + 6)
+    cgen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    hq, hkv, d, pt = PREFILL_KERNEL
+    t_q = PREFILL_CHUNK
+    rows = []
+    log(f"paged_verify_attention at the chunked-prefill shape: 1 lane, Hq={hq} Hkv={hkv} "
+        f"D={d} pt={pt} T={t_q}, tolerance {PAGED_TOL}; yardstick as above")
+    for start in PREFILL_STARTS:
+        pps = (start + t_q) // pt
+        n_pages = pps + 1
+        tables = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(1, pps).int().cuda()
+        pos = torch.tensor([start], dtype=torch.int32, device="cuda")
+        kp32 = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
+        vp32 = torch.randn(n_pages, hkv, pt, d, generator=cgen, device="cuda")
+        q32 = torch.randn(1, hq, t_q, d, generator=cgen, device="cuda")
+        for arena in ("bfloat16", "int8", "float32"):
+            ks = vs = None
+            if arena == "int8":
+                q = q32.bfloat16()
+                kp, ks = _quantize_kv_rows(kp32)
+                vp, vs = _quantize_kv_rows(vp32)
+                plain_k, plain_v = A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs)
+                kv_item, dense_dt = 1, torch.bfloat16
+            else:
+                dt = getattr(torch, arena)
+                q, kp, vp = q32.to(dt), kp32.to(dt), vp32.to(dt)
+                plain_k, plain_v = kp, vp
+                kv_item, dense_dt = kp.element_size(), dt
+            out = A.paged_verify_attention_kernel(q, kp, vp, tables, pos, ks, vs, page_tokens=pt)
+            torch.cuda.synchronize()
+            ref = A.paged_verify_attention(q, plain_k, plain_v, tables, pos, pt)
+            err = (out - ref).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            ms = cuda_ms(lambda: A.paged_verify_attention_kernel(
+                q, kp, vp, tables, pos, ks, vs, page_tokens=pt))
+            plain_ms = cuda_ms(lambda: A.paged_verify_attention(
+                q, plain_k, plain_v, tables, pos, pt), reps=5, warmup=1)
+            kd = A.paged_gather_kv(plain_k, tables, pt).to(dense_dt)
+            vd = A.paged_gather_kv(plain_v, tables, pt).to(dense_dt)
+            q_pos = start + torch.arange(t_q, device="cuda")
+            mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+                    <= q_pos[:, None])[None, None]                         # (1, 1, T, L)
+            qd = q.to(dense_dt)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+            bound, bound_by = paged_bound_ms([start], hq, hkv, d, pt, kv_item, q.element_size(),
+                                             arena == "int8", t_q=t_q, max_keys=pps * pt,
+                                             f32=arena == "float32")
+            # bf16 pages: both sides round each p to bf16, at other points,
+            # so the gap is up to PAGED_TOL of the largest |v| a row mixes;
+            # the 8-lane rows mix hundreds of keys into outputs under 1, but
+            # a chunk from start 0 has queries that see a handful of keys
+            tol = PAGED_TOL[arena]
+            if arena == "bfloat16":
+                tol *= max(1.0, plain_v.abs().max().item())
+            splits = paged_plan(A, q, kp, tables)
+            log(f"  start={start} (keys {start + t_q}) {arena} splits={splits}: "
+                f"max_abs_err={err:.6g} (tolerance {tol:.4g}) finite={finite} kernel={ms:.4f}ms "
+                f"plain={plain_ms:.4f}ms sdpa_on_gathered={lib_ms:.4f}ms "
+                f"bound={bound:.4f}ms ({bound_by}) bound/kernel={bound / ms:.3f}")
+            if not finite or not err <= tol:
+                raise AssertionError(
+                    f"paged_verify_attention disagrees at the prefill shape start={start} "
+                    f"{arena}: max_abs_err {err} > {tol} or non-finite")
+            rows.append({"start": start, "arena": arena, "max_abs_err": err, "tolerance": tol,
+                         "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                         "bound_by": bound_by, "splits": splits})
+            del out, ref, kd, vd, kp, vp, plain_k, plain_v
+        del kp32, vp32
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _empty_carry(b: int, h: int, s: int, d: int):
     import torch
 
@@ -1390,14 +1508,20 @@ def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600) -
         f"{verify / layers:.4f} ms a launch")
 
 
-def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: int = 0):
+def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: int = 0,
+                    repeats=()):
     """One continuous-engine arm on a fresh node: a warm-up request, the
-    concurrent greedy burst, optionally an unseeded top_k=1 request. Every
-    response checked; the census must be green (on both arenas with a
-    draft) and the kernels' launches must equal what the engine ran:
-    paged = n_layers x plain decode steps + draft_layers x (spec + 1) x
-    spec rounds, verify = n_layers x spec rounds. -> (node, its :generate
-    url, the arm's paged launches, its verify launches, greedy tokens)."""
+    concurrent greedy burst, then ``repeats`` one after another, optionally
+    an unseeded top_k=1 request. Every response checked; the census must be
+    green (on both arenas with a draft; with the index's holds counted when
+    prefix sharing is on, and then a full reclaim must hand back every
+    page) and the kernels' launches must equal what the engine ran: paged =
+    n_layers x plain decode steps + draft_layers x (spec + 1) x spec rounds,
+    verify = n_layers x (spec rounds + prefill chunks), where the prefill
+    chunks are also counted from the prompts: ceil(p / chunk) of every
+    prompt longer than the chunk (none with a draft, whose engine prefills
+    in one dispatch). -> (node, its :generate url, the arm's paged
+    launches, its verify launches, greedy tokens of prompts + repeats)."""
     import numpy as np
 
     from tfservingcache_tpu_torch.config import config_from_dict
@@ -1412,15 +1536,19 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
     n_new = GEN_NEW_TOKENS
     bodies = [{"input_ids": [p.tolist()], "max_new_tokens": n_new} for p in prompts]
+    warm_prompt = prompts[0][:32]
+    peak = _watch_page_stats(node.runtime)
     # --- the main path: counters to 0, the arm's requests, counters read ---
     A.PAGED_LAUNCHES.reset()
     A.VERIFY_LAUNCHES.reset()
     t0 = time.monotonic()
-    warm = _post(url, {"input_ids": [prompts[0][:32].tolist()], "max_new_tokens": 8}, 900.0)
+    warm = _post(url, {"input_ids": [warm_prompt.tolist()], "max_new_tokens": 8}, 900.0)
     cold_s = time.monotonic() - t0
     t0 = time.monotonic()
     results = _post_many(url, bodies, GEN_CLIENTS)
     wall = time.monotonic() - t0
+    results += [_post(url, {"input_ids": [p.tolist()], "max_new_tokens": n_new}, 900.0)
+                for p in repeats]
     top1_res = None
     if top1:
         top1_res = _post(url, dict(bodies[0], temperature=0.8, top_k=1), 900.0)
@@ -1428,24 +1556,32 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     verify = A.VERIFY_LAUNCHES.value
     # ------------------------------------------------------------------------
     eng = node.engine
+    size = eng.prefill_chunk_tokens
+    sent = [warm_prompt, *prompts, *repeats] + ([prompts[0]] if top1 else [])
+    want_chunks = 0 if draft_layers or not size else sum(
+        -(-len(p) // size) for p in sent if len(p) > size)
     expected = art.layers * eng.decode_steps + draft_layers * (spec + 1) * eng.spec_rounds
-    expected_verify = art.layers * eng.spec_rounds
+    expected_verify = art.layers * (eng.spec_rounds + eng.prefill_chunks)
     log(f"  [{name}] paged kernel launches: {launches} (n_layers {art.layers} x decode steps "
         f"{eng.decode_steps} + draft layers {draft_layers} x (spec + 1) x spec rounds "
         f"{eng.spec_rounds} = {expected}); verify kernel launches: {verify} (n_layers "
-        f"{art.layers} x spec rounds = {expected_verify}); chunks {eng.chunks}, admitted "
-        f"{eng.admitted}, mean lanes per plain decode step "
+        f"{art.layers} x (spec rounds {eng.spec_rounds} + prefill chunks {eng.prefill_chunks}) "
+        f"= {expected_verify}; prefill chunks from the prompts at chunk {size}: {want_chunks}); "
+        f"chunks {eng.chunks}, admitted {eng.admitted}, mean lanes per plain decode step "
         f"{eng.lane_steps / max(1, eng.decode_steps):.2f} (warm-up request included)")
     if launches != expected or launches == 0 or verify != expected_verify:
         raise AssertionError(f"[{name}] launches paged {launches} / verify {verify} != "
                              f"{expected} / {expected_verify}")
+    if eng.prefill_chunks != want_chunks:
+        raise AssertionError(f"[{name}] {eng.prefill_chunks} prefill chunks, the prompts "
+                             f"need {want_chunks}")
     if draft_layers and not verify:
         raise AssertionError(f"[{name}] no speculative round ran")
     if warm[0] != 200:
         raise AssertionError(f"[{name}] warm-up :generate answered {warm[0]}: {warm[1]}")
     greedy = []
     worst = 0.0
-    for p, (status, body, _dt) in zip(prompts, results):
+    for p, (status, body, _dt) in zip([*prompts, *repeats], results):
         if status != 200:
             raise AssertionError(f"[{name}] :generate answered {status}: {body}")
         toks = np.asarray(body["tokens"])
@@ -1457,9 +1593,11 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     st = node.runtime._slot_states[art.model_id]
     for s in (st, st.spec_draft) if draft_layers else (st,):
         s.check_page_conservation()
+        if s.prefix_index is not None:
+            _check_drained_with_index(node.runtime, s, name, peak)
         if sorted(s.free_pages) != list(range(1, s.arena_pages + 1)):
             raise AssertionError(f"[{name}] pages of {s.model_id} still held after the drain")
-    lat = [dt for *_, dt in results]
+    lat = [dt for *_, dt in results[:len(prompts)]]
     log(f"  [{name}] {len(prompts)} requests x {n_new} tokens from {GEN_CLIENTS} clients: "
         f"wall {wall * 1e3:.1f} ms, {len(prompts) * n_new / wall:.1f} generated tok/s, "
         f"per-request p50 {statistics.median(lat) * 1e3:.1f} ms (host clock, localhost HTTP); "
@@ -1492,9 +1630,96 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
             log(f"  [{name}] top_k=1 at t=0.8 equals greedy ({n_new} tokens)")
     if draft_layers:
         _spec_round_breakdown(node.runtime, art.model_id, art.layers)
+    elif size:
+        _prefill_chunk_breakdown(node.runtime, art.model_id, art.layers, size)
     else:
         _decode_chunk_breakdown(node.runtime, art.model_id, art.layers)
     return node, url, launches, verify, greedy
+
+
+def _watch_page_stats(rt) -> dict:
+    """Wrap ``rt.slot_decode_chunk`` so that the scheduler thread records the
+    arena's ``page_stats()`` before every decode chunk (host bookkeeping
+    only) and keep the record with the most shared pages. -> that record,
+    filled in as the arm runs."""
+    peak: dict = {}
+    real = rt.slot_decode_chunk
+
+    def watched(state, chunk):
+        stats = state.page_stats()
+        if stats["shared"] >= peak.get("shared", -1):
+            peak.clear()
+            peak.update(stats)
+        return real(state, chunk)
+
+    rt.slot_decode_chunk = watched
+    return peak
+
+
+def _check_drained_with_index(rt, st, name, peak) -> None:
+    """After a drain with prefix sharing on: every page free or held by the
+    index alone (census green), then a full reclaim hands every page back."""
+    stats = st.page_stats()
+    idx = st.prefix_index
+    log(f"  [{name}] after the drain: {stats} (index: {len(idx.held_pages())} pages held, "
+        f"{idx.total_bytes} bytes, lookups {idx.hits} hits / {idx.exact_hits} exact / "
+        f"{idx.misses} misses); peak before a decode chunk {peak}")
+    if stats["shared"] or stats["private"] or stats["free"] + stats["cached"] != st.arena_pages:
+        raise AssertionError(f"[{name}] drained arena {stats}: free + cached != "
+                             f"{st.arena_pages}")
+    freed = rt.reclaim_prefix_pages(st, st.arena_pages)
+    st.check_page_conservation()
+    log(f"  [{name}] reclaim_prefix_pages(state, {st.arena_pages}) freed {freed} pages; "
+        f"{len(st.free_pages)} of {st.arena_pages} free")
+    if freed != stats["cached"]:
+        raise AssertionError(f"[{name}] reclaim freed {freed} of {stats['cached']} cached pages")
+
+
+def _prefill_chunk_breakdown(rt, model_id, layers: int, chunk: int,
+                             prompt_tokens: int = 1024) -> None:
+    """A warm chunked prefill of one ``prompt_tokens``-token prompt on a lane
+    of the idle engine's state (``slot_prefill_chunk`` chunk by chunk, the
+    last chunk's logits read back): host clock, device kernel time under
+    torch.profiler and the verify kernel's (B3) share and ms a launch,
+    beside a one-dispatch prefill of the same prompt (``slot_prefill``,
+    plain einsum attention as in the reference). Hands every page back."""
+    import numpy as np
+    import torch
+
+    st = rt._slot_states[model_id]
+    prompt = np.random.default_rng(1).integers(0, 32000, prompt_tokens).astype(np.int32)
+    if not st.reserve_pages(0, prompt_tokens + 8):
+        raise AssertionError("arena too small for the prefill breakdown")
+    n_chunks = -(-prompt_tokens // chunk)
+    try:
+        def chunked():
+            for start in range(0, prompt_tokens, chunk):
+                last = rt.slot_prefill_chunk(model_id, st, 0, prompt[start:start + chunk],
+                                             start, chunk)
+            last.cpu()
+
+        ms = host_ms(chunked, reps=3)
+        prof = device_kernel_ms(chunked, ("paged_verify_attention",))
+
+        def monolithic():
+            rt.slot_prefill(model_id, prompt, 0.0, 0, 0)
+            torch.cuda.synchronize()
+
+        mono_ms = host_ms(monolithic, reps=3)
+    finally:
+        st.release_pages(0)
+    st.check_page_conservation()
+    what = (f"  warm chunked prefill ({prompt_tokens} tokens in {n_chunks} chunks of {chunk}, "
+            f"{st.arena_dtype or 'model dtype'} arena): {ms:.2f} ms host clock "
+            f"({ms / n_chunks:.2f} ms a chunk); one-dispatch prefill of the same prompt "
+            f"{mono_ms:.2f} ms")
+    if prof is None:
+        log(f"{what}; device time not measured (the profiler saw none)")
+        return
+    busy, (verify,) = prof
+    log(f"{what}; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, torch.profiler); "
+        f"verify kernel (B3) {verify:.3f} ms = {verify / busy:.3f} of device time, "
+        f"{verify / (n_chunks * layers):.4f} ms a launch (T = {chunk})")
 
 
 def _compare_to_plain_arm(art, name, prompts, plain, spec_toks, tol) -> None:
@@ -1523,7 +1748,10 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     path, (c) continuous engine over an int8 arena, (d) (a) with speculative
     rounds drafted by an exact copy of the target, (e) (c) with rounds
     drafted by the 1-layer draft, (f) two solo "draft_model" requests, (g)
-    (d) over an int8 arena on the first SPEC_INT8_REQUESTS prompts."""
+    (d) over an int8 arena on the first SPEC_INT8_REQUESTS prompts, (h) (a)
+    with chunked prefill, (i) (c) with chunked prefill on the first
+    CHUNKED_INT8_REQUESTS prompts, (j) shared-prefix prompts with sharing on
+    and off, (k) the solo path's prefix cache over two-turn conversations."""
     import numpy as np
 
     from tfservingcache_tpu_torch.ops import attention as A
@@ -1616,11 +1844,166 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
             raise AssertionError(f"[{name}] {per_round:.3f} tokens per lane-round < "
                                  f"0.8 x (spec + 1) = {0.8 * (SPEC_TOKENS + 1)}")
         _compare_to_plain_arm(art, name, few, int8_greedy, spec8_greedy, LOGITS_TOL_INT8)
+        node.close()
+        node = None
+        # (h) chunked prefill over a bf16 arena: every prompt past the chunk
+        # prefills PREFILL_CHUNK tokens a boundary through B3 at T = chunk
+        name = "h: chunked prefill, bf16 arena"
+        node, _url, n, v, chunked_greedy = _continuous_arm(
+            art, name, {"prefill_chunk_tokens": PREFILL_CHUNK}, prompts, LOGITS_TOL, top1=False)
+        launches += n
+        verify += v
+        if not node.engine.prefill_chunks:
+            raise AssertionError(f"[{name}] no prefill chunk ran")
+        _compare_to_plain_arm(art, name, prompts, plain_greedy, chunked_greedy, LOGITS_TOL)
+        node.close()
+        node = None
+        # (i) the same over an int8 arena: B3 on its SIMT path at T = chunk
+        name = "i: chunked prefill, int8 arena"
+        few = prompts[:CHUNKED_INT8_REQUESTS]
+        node, _url, n, v, chunked8_greedy = _continuous_arm(
+            art, name, {"prefill_chunk_tokens": PREFILL_CHUNK, "kv_arena_dtype": "int8"}, few,
+            LOGITS_TOL_INT8, top1=False)
+        launches += n
+        verify += v
+        if not node.engine.prefill_chunks:
+            raise AssertionError(f"[{name}] no prefill chunk ran")
+        _compare_to_plain_arm(art, name, few, int8_greedy, chunked8_greedy, LOGITS_TOL_INT8)
+        node.close()
+        node = None
+        n, v = _shared_prefix_arms(art, seed)
+        launches += n
+        verify += v
+        _solo_prefix_arm(art, prompts)
     finally:
         if node is not None:
             node.close()
     kernels["paged_decode_attention"]["launches"] = launches
     kernels["paged_verify_attention"]["launches"] = verify
+
+
+def _shared_prefix_arms(art, seed: int) -> tuple[int, int]:
+    """(j) shared prefix over a bf16 arena (``kv_share_prefix_bytes``):
+    GEN_REQUESTS prompts of one seeded SHARED_PREFIX_TOKENS-token system
+    prompt + a distinct seeded suffix from GEN_CLIENTS clients, then
+    SHARED_REPEATS exact repeats of earlier prompts (no prefill at all);
+    then the same prompts on a node with sharing off, whose tokens the
+    sharing arm must equal up to near-ties. Prints the hits by kind, the
+    prefill tokens saved and the arena's page split at its peak. -> (paged,
+    verify) launches of both arms."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    system = rng.integers(0, art.vocab, SHARED_PREFIX_TOKENS)
+    lo, hi = SHARED_SUFFIX_RANGE
+    prompts = [np.concatenate([system, rng.integers(0, art.vocab, int(n))])
+               for n in rng.integers(lo, hi + 1, GEN_REQUESTS)]
+    repeats = [prompts[int(i)] for i in rng.choice(GEN_REQUESTS, SHARED_REPEATS, replace=False)]
+    log(f"(j) prompts: a {SHARED_PREFIX_TOKENS}-token system prompt + suffixes of "
+        f"{[len(p) - SHARED_PREFIX_TOKENS for p in prompts]} tokens, then {SHARED_REPEATS} "
+        "exact repeats")
+    name = "j: shared prefix, bf16 arena"
+    node = None
+    try:
+        node, _url, n1, v1, shared = _continuous_arm(
+            art, name, {"kv_share_prefix_bytes": SHARE_BYTES}, prompts, LOGITS_TOL, top1=False,
+            repeats=repeats)
+        eng = node.engine
+        sent = [prompts[0][:32], *prompts, *repeats]
+        total = sum(len(p) for p in sent)
+        log(f"  [{name}] prefix hits: exact {eng.prefix_hits_exact}, shared "
+            f"{eng.prefix_hits_shared}, dense {eng.prefix_hits_dense}; prefill tokens "
+            f"{eng.prefill_tokens} of {total} prompt tokens ({total - eng.prefill_tokens} "
+            f"saved, {(total - eng.prefill_tokens) / total:.3f})")
+        if eng.prefix_hits_exact < 1 or eng.prefix_hits_shared < 1:
+            raise AssertionError(f"[{name}] hits exact {eng.prefix_hits_exact} / shared "
+                                 f"{eng.prefix_hits_shared}: want at least one of each")
+        node.close()
+        node = None
+        off = "j0: sharing off, bf16 arena"
+        node, _url, n2, v2, plain = _continuous_arm(
+            art, off, {}, prompts, LOGITS_TOL, top1=False, repeats=repeats)
+        _compare_to_plain_arm(art, name, [*prompts, *repeats], plain, shared, LOGITS_TOL)
+    finally:
+        if node is not None:
+            node.close()
+    return n1 + n2, v1 + v2
+
+
+def _solo_prefix_arm(art, prompts) -> None:
+    """(k) the solo path's prefix cache (``prefix_cache_bytes``) on a
+    "coalesce" node: a greedy two-turn conversation (turn 2 = turn 1's
+    prompt + its GEN_NEW_TOKENS tokens + TURN2_NEW_TOKENS new ones) whose
+    turn 2 must hit turn 1's entry, then the same with the 1-layer
+    ``"draft_model"``; every turn's tokens equal a cache-off node's up to
+    near-ties and pass the teacher-forced check, and no paged kernel runs
+    (the solo path keeps dense caches)."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    name = "k: solo prefix cache"
+    rng = np.random.default_rng(len(prompts))
+    turns = {}
+    hits = {}
+    lookups = []  # (kind, turn, hit) on the cache-on node
+    for arm, serving in (("on", {"prefix_cache_bytes": PREFIX_CACHE_BYTES}), ("off", {})):
+        node = build_node(config_from_dict(art.node_config(f"k_{arm}", **serving)), device="cuda")
+        try:
+            url = (f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/"
+                   "versions/1:generate")
+            A.PAGED_LAUNCHES.reset()
+            A.VERIFY_LAUNCHES.reset()
+            for kind, first, extra in (("plain", prompts[3], {}),
+                                       ("draft_model", prompts[4],
+                                        {"draft_model": "layer0", "spec_tokens": SPEC_TOKENS})):
+                new = turns.setdefault((kind, "new"),
+                                       rng.integers(0, art.vocab, TURN2_NEW_TOKENS))
+                out = []
+                prompt = first
+                for turn in range(2):
+                    t0 = time.monotonic()
+                    status, body, _dt = _post(url, {"input_ids": [prompt.tolist()],
+                                                    "max_new_tokens": GEN_NEW_TOKENS, **extra},
+                                              900.0)
+                    dt = time.monotonic() - t0
+                    if status != 200:
+                        raise AssertionError(f"[{name}] {arm} {kind} turn {turn + 1} answered "
+                                             f"{status}: {body}")
+                    toks = np.asarray(body["tokens"])[0]
+                    pc = node.runtime._prefix_cache
+                    if pc is not None:
+                        lookups.append((kind, turn + 1, pc.hits - sum(h for *_, h in lookups)))
+                    worst = _check_greedy(art, prompt, toks, LOGITS_TOL, name)
+                    log(f"  [{name}] cache {arm}, {kind}, turn {turn + 1} (prompt {len(prompt)} "
+                        f"tokens): {dt * 1e3:.1f} ms host clock, teacher-forced max gap "
+                        f"{worst:.4f}")
+                    out.append((prompt, toks))
+                    prompt = np.concatenate([prompt, toks, new])
+                turns[(kind, arm)] = out
+            if A.PAGED_LAUNCHES.value or A.VERIFY_LAUNCHES.value:
+                raise AssertionError(f"[{name}] the solo path launched paged kernels")
+            pc = node.runtime._prefix_cache
+            hits[arm] = None if pc is None else (pc.hits, pc.misses, len(pc), pc.total_bytes)
+        finally:
+            node.close()
+    log(f"  [{name}] prefix cache (hits, misses, entries, bytes): {hits['on']}; hits by "
+        f"(path, turn): {lookups}")
+    want = [("plain", 1, 0), ("plain", 2, 1), ("draft_model", 1, 0), ("draft_model", 2, 1)]
+    if lookups != want or hits["on"][:2] != (2, 2):
+        raise AssertionError(f"[{name}] want a miss at turn 1 and a hit at turn 2 on both "
+                             f"paths: {lookups}, {hits['on']}")
+    for kind in ("plain", "draft_model"):
+        on, off = turns[(kind, "on")], turns[(kind, "off")]
+        # turn 1 runs the same path cache on or off; turn 2's prompt follows
+        # each node's own turn 1, so compare it only when turn 1 agreed
+        _compare_to_plain_arm(art, f"{name}, {kind}, turn 1", [on[0][0]], [off[0][1]],
+                              [on[0][1]], LOGITS_TOL)
+        if np.array_equal(on[0][1], off[0][1]):
+            _compare_to_plain_arm(art, f"{name}, {kind}, turn 2", [on[1][0]], [off[1][1]],
+                                  [on[1][1]], LOGITS_TOL)
 
 
 def _solo_draft_arm(art, prompts):
@@ -1698,6 +2081,8 @@ def main(argv: list[str] | None = None) -> int:
         kernels["flash_attention"]["sass"] = sass["flash_attention"]
         kernels.update(phase_paged_kernel(args.seed))
         kernels.update(phase_verify_kernel(args.seed))
+        kernels["paged_verify_attention"]["prefill_shape"] = [1, *PREFILL_KERNEL, PREFILL_CHUNK]
+        kernels["paged_verify_attention"]["prefill_rows"] = phase_prefill_kernel(args.seed)
         for name in ("paged_decode_attention", "paged_verify_attention"):
             kernels[name]["sass"] = sass["paged_attention"]
         kernels.update(phase_carry_kernel(args.seed))

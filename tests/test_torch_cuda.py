@@ -608,3 +608,105 @@ def test_paged_launch_plan_reads_the_kernel_tiling(card, q_dtype, kv_dtype, want
     n, per = A.paged_split_plan(8, 32, 5, 69, 16, torch.cuda.get_device_properties(0).multi_processor_count,
                                 want[1], A.SPLIT_BLOCKS_PER_SM["mma" if want[0] else "simt"])
     assert (plan["n_splits"], plan["pages_per_split"]) == (n, per)
+
+
+def _verify_against_plain(q, kp, vp, tables, pos, pt, ks=None, vs=None):
+    """One verify dispatch against the plain version (f32 / int8 pages at
+    1e-5) or, on bf16 pages, the kernel reference (module docstring)."""
+    before = A.VERIFY_LAUNCHES.value
+    got = A.paged_attention_verify(q, kp, vp, tables, pos, pt, ks, vs)
+    torch.cuda.synchronize()
+    assert A.VERIFY_LAUNCHES.value == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    if kp.dtype == torch.bfloat16:
+        assert _bf16_off(got, _kernel_reference(q, kp, vp, tables, pos, pt)) <= BF16_PAGED_TOL
+        return
+    if ks is not None:
+        kp, vp = A.dequantize_pages(kp, ks), A.dequantize_pages(vp, vs)
+    assert (got - A.paged_verify_attention(q, kp, vp, tables, pos, pt)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("arena", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("start", [0, 256, 768])
+def test_verify_kernel_at_the_prefill_chunk_shape(card, start, arena):
+    """B3 at a chunked prefill's shape at llama-7b width: ONE lane,
+    (Hq, Hkv, D, page_tokens) = (32, 32, 128, 16), T = 256 queries from
+    ``start`` over shuffled pages holding start + 256 keys."""
+    gen = torch.Generator().manual_seed(start + 7)
+    hq, hkv, d, pt, t_q = 32, 32, 128, 16, 256
+    pps = (start + t_q) // pt
+    tables = (torch.randperm(pps, generator=gen) + 1).reshape(1, pps).int().to(card)
+    pos = torch.tensor([start], dtype=torch.int32, device=card)
+    kp = torch.randn(pps + 1, hkv, pt, d, generator=gen).to(card)
+    vp = torch.randn(pps + 1, hkv, pt, d, generator=gen).to(card)
+    q = torch.randn(1, hq, t_q, d, generator=gen).to(card)
+    if arena == "int8":
+        from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+
+        (kq, ks), (vq, vs) = _quantize_kv_rows(kp), _quantize_kv_rows(vp)
+        _verify_against_plain(q.bfloat16(), kq, vq, tables, pos, pt, ks, vs)
+    else:
+        dt = getattr(torch, arena)
+        _verify_against_plain(q.to(dt), kp.to(dt), vp.to(dt), tables, pos, pt)
+
+
+@pytest.mark.parametrize("arena_dtype", ["", "int8"])
+def test_paged_prefill_chunk_on_the_card_matches_the_plain_path(card, arena_dtype):
+    """``generation.paged_prefill_chunk`` on the card (B3 at T = 256, one
+    launch a layer) against the same chunks through the plain path, on a
+    2-layer bf16 model with head_dim 128: every chunk's last logits within
+    0.125 (chip_smoke's LOGITS_TOL: attention rounding through the layers,
+    logits ~N(0, 1)) with argmax equal where the top-2 margin exceeds twice
+    the gap, layer 0's written rows bit for bit (no attention before them;
+    the trash page aside), and a warm chunk adds no host sync."""
+    from tfservingcache_tpu_torch.models import generation as G
+    from tfservingcache_tpu_torch.models import registry
+
+    model_def = registry.build("transformer_lm", {
+        "vocab_size": 512, "d_model": 256, "n_layers": 2, "n_heads": 2, "n_kv_heads": 2,
+        "d_ff": 512, "max_seq": 1024, "dtype": "bfloat16"})
+    cfg = model_def.config
+    params = model_def.init(torch.Generator(device=card).manual_seed(0))
+
+    def to_bf16(tree):
+        if isinstance(tree, dict):
+            return {k: to_bf16(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_bf16(v) for v in tree]
+        return tree.to(torch.bfloat16)
+
+    model = model_def.make_module(to_bf16(params)).eval()
+    pt, chunk, p = 16, 256, 600
+    pps = cfg["max_seq"] // pt
+    arenas = [G.init_paged_cache(cfg, 48, pt, arena_dtype, card) for _ in range(2)]
+    gen = torch.Generator().manual_seed(1)
+    table = torch.zeros(1, pps, dtype=torch.int32)
+    table[0, :-(-p // pt)] = torch.randperm(47, generator=gen)[:-(-p // pt)] + 1
+    table = table.to(card)
+    prompt = torch.randint(0, 512, (p,), generator=gen)
+    for start in range(0, p, chunk):
+        n = min(chunk, p - start)
+        toks = torch.zeros(1, chunk, dtype=torch.int64)
+        toks[0, :n] = prompt[start:start + n]
+        toks, s0 = toks.to(card), torch.tensor([start], dtype=torch.int32, device=card)
+        before = A.VERIFY_LAUNCHES.value
+        if start == chunk:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = G.paged_prefill_chunk(model, cfg, arenas[0], table, toks, s0, n, pt, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert A.VERIFY_LAUNCHES.value == before + cfg["n_layers"]
+        want = G.paged_prefill_chunk(model, cfg, arenas[1], table, toks, s0, n, pt, False)
+        assert A.VERIFY_LAUNCHES.value == before + cfg["n_layers"]
+        gap = (got - want).abs().max().item()
+        assert gap <= 0.125
+        top2 = want.topk(2, dim=-1).values
+        if (top2[0, 0] - top2[0, 1]).item() > 2 * gap:
+            assert int(got.argmax()) == int(want.argmax())
+    # page 0 (the trash page) excluded: it takes every pad row past the
+    # reservation, several writes to one slot in one scatter, and which of
+    # them lands last is unspecified on the card
+    for name in arenas[0]:
+        assert torch.equal(arenas[0][name][0, 1:], arenas[1][name][0, 1:]), name

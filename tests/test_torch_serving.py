@@ -221,7 +221,8 @@ def test_runtime_without_a_device_needs_cuda(monkeypatch):
 def test_port_serves_without_importing_jax(tmp_path):
     """The port's whole serving path — ``:predict``, ``:generate`` on the
     continuous paged engine with speculative rounds, a solo
-    ``"draft_model"`` request, and a ring ``:predict`` on a node whose
+    ``"draft_model"`` request, chunked prefill, shared-prefix pages and the
+    solo prefix cache, and a ring ``:predict`` on a node whose
     runtime is bound to a 4-copy CPU group — in a fresh interpreter (this
     test process has JAX loaded by the harness): neither ``jax`` nor the JAX
     package may enter ``sys.modules``."""
@@ -268,6 +269,30 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert resp.status == 200
             assert len(json.loads(resp.read())["tokens"][0]) == 4
         assert "tfservingcache_tpu_torch.models.speculative" in sys.modules
+        node.close()
+        # the KV-reuse knobs: chunked prefill, shared-prefix pages, the solo
+        # path's prefix cache
+        cfg = config_from_dict({{"serving": {{"generate_engine": "continuous",
+                                             "kv_page_tokens": 4,
+                                             "prefill_chunk_tokens": 4,
+                                             "kv_share_prefix_bytes": 1 << 20,
+                                             "prefix_cache_bytes": 1 << 24}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_kv")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        port = node.start("127.0.0.1")
+        url = f"http://127.0.0.1:{{port}}/v1/models/lm/versions/1:generate"
+        for body in ({{"input_ids": [list(range(1, 12))], "max_new_tokens": 4}},) * 2 + (
+                {{"input_ids": [list(range(1, 20))], "max_new_tokens": 4, "seed": 1}},
+                {{"input_ids": [list(range(1, 30))], "max_new_tokens": 4, "seed": 1}}):
+            req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200
+                assert len(json.loads(resp.read())["tokens"][0]) == 4
+        eng = node.engine
+        assert eng.prefill_chunks == 3 and eng.prefix_hits_exact == 1, vars(eng)
+        assert node.runtime._prefix_cache.hits == 1  # the second seeded (solo) request
         node.close()
         registry.export_artifact("transformer_lm", store, name="ring",
                                  config={dict(SMALL, n_kv_heads=4, dtype="bfloat16",

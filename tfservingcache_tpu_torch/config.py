@@ -42,6 +42,31 @@ class ServingConfig:
     # usable arena pages; 0 auto-sizes to slots x ceil(max_seq / page_tokens)
     # (int8 arenas grow to the same byte budget)
     kv_arena_pages: int = 0
+    # Cross-request shared-prefix KV over the paged arena
+    # (runtime/prefix_cache.py PagePrefixIndex): byte budget of arena pages
+    # the radix prefix index may hold for reuse. 0 = off (default). > 0 (with
+    # kv_page_tokens > 0) makes admission map the longest page-aligned
+    # indexed prompt prefix read-only into a new row's block table (no
+    # prefill over it, no page copy) and reserve only the private suffix +
+    # max_new pages; an exact repeat of an indexed prompt skips the prefill.
+    # A page a lane would write into is copied first; index-held pages are
+    # reclaimed under admission pressure before a request blocks.
+    kv_share_prefix_bytes: int = 0
+    # Chunked prefill for generate_engine=continuous over a paged arena:
+    # 0 (default) prefills each admitted prompt in one dispatch. > 0 splits
+    # a cold prompt longer than this into chunks of this many tokens
+    # (clamped up to a power of two), written straight into the lane's pages
+    # one chunk per scheduler boundary while the other lanes keep decoding.
+    # Shared-prefix hits and engines with a draft attached keep the
+    # one-dispatch prefill.
+    prefill_chunk_tokens: int = 0
+    # Prefix KV cache for the solo :generate path (B = 1 requests):
+    # byte budget of device memory for reusable prompt-prefix K/V
+    # (runtime/prefix_cache.py PrefixCache). 0 = off (default). A hit
+    # prefills only the suffix; each request stores its prompt + completion
+    # rows for the next turn. The continuous engine's admission prefill
+    # reuses entries too (it never inserts).
+    prefix_cache_bytes: int = 0
     # paged decode attention through the CUDA kernel (False = the plain path)
     kv_paged_kernel: bool = True
     # "" = the model dtype; "int8" = quantized pages with per-row f32 scales

@@ -14,7 +14,13 @@ with the same arithmetic and rounding points, reusing the port's
     card;
   - a speculative round's verify pass (``_paged_verify_step``, driven by
     ``models/speculative.py``) forwards T positions per lane through
-    ``ops.attention.paged_attention_verify`` — the CUDA paged verify kernel.
+    ``ops.attention.paged_attention_verify`` — the CUDA paged verify kernel;
+    a chunk of a chunked prefill (``paged_prefill_chunk``) is the same step
+    on one lane at T = chunk;
+  - the KV-reuse layer: the solo prefix cache continues from cached rows
+    (``generate_from_cache``, ``slot_prefill_from_cache``), and the shared
+    prefix of a paged arena is gathered (``paged_gather_prefix``) and
+    copied on write (``page_copy``).
 
 The JAX functions are pure and donate their buffers; here the cache and the
 arena are updated IN PLACE (index assignment under ``torch.inference_mode``).
@@ -224,16 +230,40 @@ def _forward_cached_dyn(model: torch.nn.Module, input_ids: torch.Tensor, cache: 
     return _logits(model, x)
 
 
+def _decode_loop(model: torch.nn.Module, cfg: dict, cache: dict, tok: torch.Tensor,
+                 pos: torch.Tensor, gen: torch.Generator, temperature: float, top_k: int,
+                 max_new_tokens: int, write_last: bool) -> torch.Tensor:
+    """The solo decode loop shared by ``generate`` and ``generate_from_cache``
+    (the reference's ``_decode_scan`` :85): ``tok (B,)`` is the first
+    emitted token, at ``pos`` and not yet in the cache; each step forwards
+    the last token and samples the next from ``gen``, so the plain and
+    from-cache paths draw the same stream under one seed. The reference's
+    scan also forwards the LAST emitted token (its result discarded); that
+    forward runs only with ``write_last``, for a caller that keeps the cache
+    (its row at ``pos + max_new_tokens - 1`` is then written).
+    -> (B, max_new_tokens) ids."""
+    toks = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits = _forward_cached_dyn(model, tok[:, None], cache, pos, cfg)
+        tok = _sample(logits[:, 0], gen, temperature, top_k)
+        toks.append(tok)
+        pos = pos + 1
+    if write_last:
+        _forward_cached_dyn(model, tok[:, None], cache, pos, cfg)
+    return torch.stack(toks, dim=1).int()
+
+
 @torch.inference_mode()
 def generate(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor,
              prompt_lengths: torch.Tensor, max_new_tokens: int, temperature: float = 0.0,
-             top_k: int = 0, seed: int = 0) -> torch.Tensor:
+             top_k: int = 0, seed: int = 0, return_cache: bool = False):
     """Generate ``max_new_tokens`` per row of ``input_ids`` (B, S prompt,
     right-padded; ``prompt_lengths`` the true lengths) -> (B, max_new_tokens)
     ids (reference :925 with the ``_generate_jit``/``_decode_scan`` body,
     :85-146). Draws come from a generator seeded with ``seed``: the same
-    seed gives the same tokens. The reference's scan also runs one forward
-    past the last emitted token whose result it discards; it is skipped."""
+    seed gives the same tokens. ``return_cache`` also returns the final K/V
+    ``(layers, B, n_kv, S + max_new_tokens, hd)``, valid for the whole
+    prompt + completion (the prefix cache stores it)."""
     b, s = input_ids.shape
     if s + max_new_tokens > cfg["max_seq"]:
         raise ValueError(
@@ -247,14 +277,47 @@ def generate(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor,
                                                                       device=dev), cfg)
     last = logits[torch.arange(b, device=dev), lengths - 1]
     tok = _sample(last, gen, temperature, top_k)
-    toks = [tok]
-    pos = lengths
-    for _ in range(max_new_tokens - 1):
-        logits = _forward_cached_dyn(model, tok[:, None], cache, pos, cfg)
-        tok = _sample(logits[:, 0], gen, temperature, top_k)
-        toks.append(tok)
-        pos = pos + 1
-    return torch.stack(toks, dim=1).int()
+    toks = _decode_loop(model, cfg, cache, tok, lengths, gen, temperature, top_k,
+                        max_new_tokens, return_cache)
+    return (toks, cache["k"], cache["v"]) if return_cache else toks
+
+
+def _cache_from_prefix(cfg: dict, cached_k: torch.Tensor, cached_v: torch.Tensor,
+                       max_len: int) -> dict:
+    """A fresh ``(layers, 1, n_kv, max_len, hd)`` cache whose first rows are
+    the cached prefix's (cast to the model dtype)."""
+    cache = init_cache(cfg, cached_k.shape[1], max_len, cached_k.device)
+    l_pad = cached_k.shape[3]
+    cache["k"][:, :, :, :l_pad] = cached_k.to(cache["k"].dtype)
+    cache["v"][:, :, :, :l_pad] = cached_v.to(cache["v"].dtype)
+    return cache
+
+
+@torch.inference_mode()
+def generate_from_cache(model: torch.nn.Module, cfg: dict, suffix_ids: torch.Tensor,
+                        suffix_len: int, cached_k: torch.Tensor, cached_v: torch.Tensor,
+                        cached_len: int, max_new_tokens: int, temperature: float = 0.0,
+                        top_k: int = 0, seed: int = 0, return_cache: bool = False):
+    """Continue a B = 1 generate from a cached prompt prefix (reference
+    ``generate_from_cache`` :976 / ``_generate_from_cache_jit`` :153): copy
+    the prefix rows ``cached_k/v (layers, 1, n_kv, Lpad, hd)`` in, prefill
+    only ``suffix_ids (1, S')`` (the prompt tokens after the ``cached_len``
+    valid rows, padded; ``suffix_len`` true), then ``generate``'s decode
+    loop under the same seed discipline. Rows past ``cached_len`` are junk
+    the suffix prefill and the decode steps overwrite before any query sees
+    them. -> ids (1, max_new_tokens) [, k, v]."""
+    s_pad = suffix_ids.shape[1]
+    dev = suffix_ids.device
+    cache = _cache_from_prefix(cfg, cached_k, cached_v,
+                               cached_k.shape[3] + s_pad + max_new_tokens)
+    start = torch.full((1,), int(cached_len), dtype=torch.long, device=dev)
+    logits = _forward_cached_dyn(model, suffix_ids, cache, start, cfg)
+    last = logits[:, int(suffix_len) - 1]
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    tok = _sample(last, gen, temperature, top_k)
+    toks = _decode_loop(model, cfg, cache, tok, start + int(suffix_len), gen, temperature,
+                        top_k, max_new_tokens, return_cache)
+    return (toks, cache["k"], cache["v"]) if return_cache else toks
 
 
 @torch.inference_mode()
@@ -268,9 +331,37 @@ def slot_prefill(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor, pro
     cache = init_cache(cfg, 1, input_ids.shape[1], dev)
     logits = _forward_cached_dyn(model, input_ids, cache,
                                  torch.zeros(1, dtype=torch.long, device=dev), cfg)
-    last = logits[:, prompt_len - 1]
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return _sample(last, gen, temperature, top_k), cache["k"], cache["v"], last
+    last = logits[:, prompt_len - 1].clone()  # not a view that pins every row's logits
+    return sample_logits(last, temperature, top_k, seed), cache["k"], cache["v"], last
+
+
+@torch.inference_mode()
+def slot_prefill_from_cache(model: torch.nn.Module, cfg: dict, suffix_ids: torch.Tensor,
+                            suffix_len: int, cached_k: torch.Tensor, cached_v: torch.Tensor,
+                            cached_len: int, temperature: float, top_k: int, seed: int):
+    """Admission prefill continuing from cached prefix rows
+    (``_slot_prefill_from_cache_jit`` :261): copy the prefix rows, prefill
+    only the suffix, sample the first token as ``slot_prefill`` does. ->
+    (first token (1,), k, v ``(layers, 1, n_kv, Lpad + S'_pad, hd)``, last
+    logits (1, V) f32)."""
+    dev = suffix_ids.device
+    cache = _cache_from_prefix(cfg, cached_k, cached_v, cached_k.shape[3] + suffix_ids.shape[1])
+    start = torch.full((1,), int(cached_len), dtype=torch.long, device=dev)
+    logits = _forward_cached_dyn(model, suffix_ids, cache, start, cfg)
+    last = logits[:, int(suffix_len) - 1].clone()
+    return sample_logits(last, temperature, top_k, seed), cache["k"], cache["v"], last
+
+
+@torch.inference_mode()
+def sample_logits(last: torch.Tensor, temperature: float, top_k: int,
+                  seed: int) -> torch.Tensor:
+    """Sample a first token from last-position logits ``(1, V)`` f32 with a
+    generator seeded with ``seed`` (``_sample_logits_jit`` :304): the draw
+    ``slot_prefill`` makes after its forward, so an exact shared-prefix hit
+    or a chunked prefill samples the token a monolithic prefill of the same
+    prompt samples under the same seed. -> (1,)."""
+    gen = torch.Generator(device=last.device).manual_seed(int(seed))
+    return _sample(last, gen, temperature, top_k)
 
 
 @torch.inference_mode()
@@ -311,8 +402,9 @@ def paged_insert(arena: dict, pk: torch.Tensor, pv: torch.Tensor, table_row: tor
     """Scatter one admitted request's prefill K/V ``(layers, 1, n_kv, P_pad,
     hd)`` into its reserved pages IN PLACE (``_paged_insert_jit`` :654):
     logical row ``r`` goes to page ``table_row[r // page_tokens]`` offset
-    ``r % page_tokens``; rows below ``base`` (a shared-prefix boundary, 0
-    here) go to the trash page. An int8 arena quantizes the rows first."""
+    ``r % page_tokens``; rows below ``base`` (the shared-prefix boundary: those
+    rows live in pages mapped read-only, and a suffix prefill produced junk
+    there) go to the trash page. An int8 arena quantizes the rows first."""
     p_pad = pk.shape[3]
     pps = table_row.shape[0]
     dev = pk.device
@@ -332,6 +424,33 @@ def paged_insert(arena: dict, pk: torch.Tensor, pv: torch.Tensor, table_row: tor
         arena["v_scale"][:, pages, :, offs] = v_s
     arena["k"][:, pages, :, offs, :] = kv.to(arena["k"].dtype)
     arena["v"][:, pages, :, offs, :] = vv.to(arena["v"].dtype)
+
+
+@torch.inference_mode()
+def paged_gather_prefix(arena: dict, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather ``n`` full shared-prefix pages into the dense ``(layers, 1,
+    n_kv, n * page_tokens, hd)`` rows ``slot_prefill_from_cache`` takes
+    (``_paged_gather_prefix_jit`` :697). Read-only on the arena. An int8
+    arena is dequantized to f32 rows here."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
+    k, v = arena["k"][:, idx], arena["v"][:, idx]          # (L, n, n_kv, pt, hd)
+    if "k_scale" in arena:
+        k = k.float() * arena["k_scale"][:, idx][..., None]
+        v = v.float() * arena["v_scale"][:, idx][..., None]
+    layers, n, n_kv, pt, hd = k.shape
+    k = k.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None]
+    v = v.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None]
+    return k, v
+
+
+@torch.inference_mode()
+def page_copy(arena: dict, src: int, dst: int) -> None:
+    """Copy arena page ``src`` to ``dst`` IN PLACE, with an int8 arena's
+    scales (``_page_copy_jit`` :718): copy-on-write, and the index's
+    pristine copy of a published boundary page."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in arena:
+            arena[name][:, dst] = arena[name][:, src]
 
 
 def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: dict,
@@ -396,6 +515,24 @@ def _paged_verify_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, ar
     operation for operation. -> logits (S, T, V) f32."""
     return _paged_step(model, cfg, toks, arena, tables, pos, page_tokens, kernel,
                        paged_attention_verify)
+
+
+@torch.inference_mode()
+def paged_prefill_chunk(model: torch.nn.Module, cfg: dict, arena: dict,
+                        table_row: torch.Tensor, toks: torch.Tensor, start: torch.Tensor,
+                        real_len: int, page_tokens: int, kernel: bool) -> torch.Tensor:
+    """One fixed-size prefill chunk written straight into a lane's reserved
+    pages (``_paged_prefill_chunk_jit`` :612, chunked prefill): the verify
+    step on one lane at T = C (``toks (1, C)``, zero-padded past
+    ``real_len`` real tokens; ``table_row (1, pps)`` and ``start (1,)``
+    int32 device tensors, ``start`` the position of ``toks[:, 0]``). K/V
+    rows land at start .. start + C - 1 through the lane's table (pad rows
+    past the reservation go to the trash page) and every real query attends
+    over every row written before it, through the paged verify dispatch: B3
+    at T = C on the card. -> the last real token's logits (1, V) f32, on the
+    device."""
+    logits = _paged_verify_step(model, cfg, toks, arena, table_row, start, page_tokens, kernel)
+    return logits[:, min(max(int(real_len) - 1, 0), toks.shape[1] - 1)].clone()
 
 
 @torch.inference_mode()

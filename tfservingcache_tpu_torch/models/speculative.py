@@ -3,10 +3,11 @@ tokens per round, the target model verifies them in ONE multi-position
 forward.
 
 Counterpart of ``tfservingcache_tpu/models/speculative.py`` (transformer_lm
-targets and drafts; the prefix-cache composition of the solo path is not
-ported). Two paths:
+targets and drafts). Two paths:
   - solo (``speculative_generate``): dense per-request caches through
-    ``_forward_cached_dyn``, plain torch ops;
+    ``_forward_cached_dyn``, plain torch ops; with the prefix cache it
+    returns the target's K/V (``return_cache``) and starts the target's
+    prefill from cached prefix rows (``cached_kv``);
   - the continuous engine (``paged_spec_round``): one round for every lane
     of a paged slot state — the draft's spec+1 decode steps over its own
     arena (the paged decode kernel on the card), then the target's verify
@@ -32,6 +33,7 @@ from typing import Any
 import torch
 
 from tfservingcache_tpu_torch.models.generation import (
+    _cache_from_prefix,
     _forward_cached_dyn,
     _paged_forward_step,
     _paged_verify_step,
@@ -47,10 +49,12 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 def _spec_decode_loop(model_t: torch.nn.Module, model_d: torch.nn.Module, cfg_t: dict,
                       cfg_d: dict, cache_t: dict, cache_d: dict, first: torch.Tensor,
                       prompt_len: torch.Tensor, spec: int,
-                      max_new_tokens: int) -> tuple[torch.Tensor, int]:
+                      max_new_tokens: int):
     """The draft-propose / target-verify loop (reference :48-129) as a Python
     loop over rounds, caches updated in place. -> (out (B, max_new_tokens),
-    rounds)."""
+    rounds, final_tok, final_idx): the last round's carry and its EMITTED
+    index (unclamped; past max_new_tokens - 1 when the last round
+    overshot, see ``_writeback_final``)."""
     b = first.shape[0]
     dev = first.device
     # one spare column takes every dropped write (the reference's OOB drop)
@@ -59,6 +63,7 @@ def _spec_decode_loop(model_t: torch.nn.Module, model_d: torch.nn.Module, cfg_t:
     n_done = torch.ones((b,), dtype=torch.long, device=dev)
     jrange = torch.arange(spec + 1, device=dev)[None, :]
     cur_tok = first
+    final_idx = torch.zeros((b,), dtype=torch.long, device=dev)  # `first` is emitted index 0
     rounds = 0
     while bool((n_done < max_new_tokens).any()):
         # cur_tok is the accepted token AT position pos, not yet in either cache
@@ -89,11 +94,26 @@ def _spec_decode_loop(model_t: torch.nn.Module, model_d: torch.nn.Module, cfg_t:
         valid = (jrange <= a[:, None]) & (idx < max_new_tokens)
         out.scatter_(1, torch.where(valid, idx, torch.full_like(idx, max_new_tokens)), e)
         cur_tok = g_at_a
+        final_idx = n_done + a
         n_done = torch.clamp(n_done + a + 1, max=max_new_tokens)
         rounds += 1
     # rounds is the acceptance-health signal: a well-aligned draft emits
     # ~spec+1 tokens per round
-    return out[:, :max_new_tokens], rounds
+    return out[:, :max_new_tokens], rounds, cur_tok, final_idx
+
+
+def _writeback_final(model_t: torch.nn.Module, cfg_t: dict, cache_t: dict,
+                     final_tok: torch.Tensor, final_idx: torch.Tensor,
+                     prompt_len: torch.Tensor, max_new_tokens: int) -> None:
+    """One (B, 1) target forward so that the LAST completion position's K/V
+    row is valid (reference :132): every other emitted token was the input
+    of a later verify chunk, so its row is written already. When the last
+    round overshot max_new_tokens the carry was never emitted, and the true
+    last token's row is already right: the forward then goes one row PAST
+    the kept range (the slack rows every spec cache has)."""
+    overshoot = (final_idx > max_new_tokens - 1).long()
+    _forward_cached_dyn(model_t, final_tok[:, None], cache_t,
+                        prompt_len + max_new_tokens - 1 + overshoot, cfg_t)
 
 
 @torch.inference_mode()
@@ -107,12 +127,19 @@ def speculative_generate(
     max_new_tokens: int = 32,
     spec_tokens: int = 4,
     return_rounds: bool = False,
+    return_cache: bool = False,
+    cached_kv: tuple | None = None,
 ):
     """Greedy decode of the TARGET model accelerated by the draft (reference
-    :411-499, without ``return_cache``/``cached_kv``). ``input_ids (B, S)``
-    on the models' device, right-padded; ``prompt_lengths`` the true
-    lengths. -> (B, max_new_tokens) int32, and the verify-round count when
-    ``return_rounds``."""
+    :411-499). ``input_ids (B, S)`` on the models' device, right-padded;
+    ``prompt_lengths`` the true lengths. -> (B, max_new_tokens) int32, then
+    the verify-round count when ``return_rounds``, then the target's K/V
+    when ``return_cache`` (B = 1: rows valid for the whole prompt +
+    completion, after a final writeback forward). ``cached_kv = (suffix_ids,
+    suffix_len, k, v, cached_len)`` (B = 1) starts the TARGET's prefill from
+    cached prefix rows instead of the full prompt; the draft still prefills
+    all of ``input_ids``. The emitted sequence is the same greedy decode
+    either way."""
     for md, role in ((model_def_t, "target"), (model_def_d, "draft")):
         if md.family not in ("transformer_lm", "moe_lm"):
             raise ValueError(
@@ -138,20 +165,38 @@ def speculative_generate(
             f"prompt {s} + max_new_tokens {max_new_tokens} exceeds max_seq "
             f"{model_def_t.config['max_seq']}"
         )
+    if (return_cache or cached_kv is not None) and b != 1:
+        raise ValueError("cached-prefix speculative decoding and return_cache are B=1 only")
     cfg_t, cfg_d = model_def_t.config, model_def_d.config
     # slack for chunk writes past the last emitted position (stale rows are
     # masked off and finished examples keep writing while others drain)
-    max_len = s + max_new_tokens + spec_tokens + 1
-    cache_t = init_cache(cfg_t, b, max_len, dev)
-    cache_d = init_cache(cfg_d, b, max_len, dev)
+    slack = max_new_tokens + spec_tokens + 1
     zeros = torch.zeros((b,), dtype=torch.long, device=dev)
-    logits_t = _forward_cached_dyn(model_t, input_ids, cache_t, zeros, cfg_t)
+    if cached_kv is None:
+        cache_t = init_cache(cfg_t, b, s + slack, dev)
+        logits_t = _forward_cached_dyn(model_t, input_ids, cache_t, zeros, cfg_t)
+        last = logits_t[torch.arange(b, device=dev), lengths - 1]
+    else:
+        # target: the prefix rows copied in, only the suffix prefilled
+        suffix_ids, suffix_len, ck, cv, cached_len = cached_kv
+        suffix_ids = torch.as_tensor(suffix_ids).to(dev)
+        cache_t = _cache_from_prefix(cfg_t, ck, cv, ck.shape[3] + suffix_ids.shape[1] + slack)
+        start = torch.full((1,), int(cached_len), dtype=torch.long, device=dev)
+        logits_t = _forward_cached_dyn(model_t, suffix_ids, cache_t, start, cfg_t)
+        last = logits_t[:, int(suffix_len) - 1]
+    cache_d = init_cache(cfg_d, b, s + slack, dev)
     _forward_cached_dyn(model_d, input_ids, cache_d, zeros, cfg_d)
-    first = _greedy(logits_t[torch.arange(b, device=dev), lengths - 1])
-    out, rounds = _spec_decode_loop(model_t, model_d, cfg_t, cfg_d, cache_t, cache_d, first,
-                                    lengths, spec_tokens, max_new_tokens)
-    out = out.int()
-    return (out, rounds) if return_rounds else out
+    first = _greedy(last)
+    out, rounds, final_tok, final_idx = _spec_decode_loop(
+        model_t, model_d, cfg_t, cfg_d, cache_t, cache_d, first, lengths, spec_tokens,
+        max_new_tokens)
+    res = (out.int(),)
+    if return_rounds:
+        res += (rounds,)
+    if return_cache:
+        _writeback_final(model_t, cfg_t, cache_t, final_tok, final_idx, lengths, max_new_tokens)
+        res += (cache_t["k"], cache_t["v"])
+    return res[0] if len(res) == 1 else res
 
 
 @torch.inference_mode()

@@ -5,11 +5,19 @@ Counterpart of the base protocol of ``tfservingcache_tpu/runtime/batcher.py``
 :1820-2272), selected with ``serving.generate_engine: "continuous"``. Each
 model gets a scheduler thread over a fixed number of lanes (the runtime's
 ``SlotDecodeState``). At every chunk boundary it:
-  - admits pending rows FIFO into free lanes: a whole-prompt
-    ``slot_prefill`` samples the row's first token; on a paged arena the
-    row's prompt + max_new budget is reserved first, a row that needs more
-    pages than the arena has fails, and a row the free list cannot cover
-    yet waits at the head of the queue;
+  - admits pending rows FIFO into free lanes: a whole-prompt prefill
+    samples the row's first token; on a paged arena the row's prompt +
+    max_new budget is reserved first, a row that needs more pages than the
+    arena has fails, and a row the free list cannot cover yet waits at the
+    head of the queue. With ``serving.kv_share_prefix_bytes`` the arena's
+    radix index maps an indexed prompt prefix read-only into the row's
+    table (only the suffix is prefilled; an exact repeat is not prefilled
+    at all, its boundary page copied on write), each cold admission
+    publishes its prompt's pages, and cold index pages are reclaimed before
+    a row blocks. With ``serving.prefill_chunk_tokens`` a cold prompt longer
+    than the chunk enters a PREFILLING lane instead, and every such lane
+    advances one chunk per boundary (B3 at T = chunk) while the others
+    decode;
   - advances every active lane by one decode chunk, clamped to
     ``max(1, min(chunk_tokens, next_bucket(max_remaining)))`` — or, with a
     draft model attached (``serving.spec_draft_model``), by one speculative
@@ -18,10 +26,9 @@ model gets a scheduler thread over a fixed number of lanes (the runtime's
     prefill and inside a chunk or round, and gives their pages back.
 Seeded and malformed requests go to ``runtime.generate`` (the solo path).
 
-Not ported yet: chunked prefill, shared-prefix KV, conversation KV,
-priority classes and preemption, crash recovery (a scheduler exception
-fails the in-flight and queued rows and drops the slot state), token
-streaming, metrics and the flight recorder.
+Not ported yet: conversation KV, priority classes and preemption, crash
+recovery (a scheduler exception fails the in-flight and queued rows and
+drops the slot state), token streaming, metrics and the flight recorder.
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ class _ContinuousReq:
     done: threading.Event = field(default_factory=threading.Event)
     tokens: list[int] = field(default_factory=list)
     error: BaseException | None = None
+    # chunked-prefill carry (reference :749): prompt tokens written so far
+    # (None = not PREFILLING) and the first-token seed drawn at admission
+    pf_pos: int | None = None
+    pf_seed: int = 0
 
 
 class _ContinuousScheduler:
@@ -165,8 +176,9 @@ class _ContinuousScheduler:
         self._fail(doomed, RuntimeError_("continuous generate engine closed"))
 
     def _step(self, rt: TorchModelRuntime, state, lanes: list):
-        """One chunk boundary: admit into free lanes, then advance all
-        active lanes by one chunk or one speculative round. Runs only on
+        """One chunk boundary: admit into free lanes, advance every
+        PREFILLING lane by one prefill chunk, then advance all decoding
+        lanes by one chunk or one speculative round. Runs only on
         self.thread."""
         eng = self.engine
         eos = rt.eos_id_of(self.model_id)
@@ -198,6 +210,8 @@ class _ContinuousScheduler:
                     )
                     req.done.set()
                     continue
+                plan = None
+                share = state.prefix_index is not None
                 if state.paged:
                     # the whole prompt + max_new budget up front, so a
                     # decoding row never starves for a page; with a draft
@@ -216,12 +230,32 @@ class _ContinuousScheduler:
                         req.done.set()
                         continue
                     idx = free[-1]  # the lane free.pop() hands out below
-                    ok = state.reserve_pages(idx, budget)
+                    shared_pages: list[int] = []
+                    cow_headroom = 0
+                    if share:
+                        plan = rt.shared_prefix_plan(state, prompt)
+                        if plan is not None:
+                            # map the indexed prefix read-only, reserve only
+                            # the private rest; an exact hit with a mid-page
+                            # tail also needs one page in hand for the CoW of
+                            # its boundary page (its first decode write)
+                            shared_pages = plan.mapped_pages()
+                            if plan.kind == "exact" and plan.tail_len > 0:
+                                cow_headroom = 1
+                    ok = state.reserve_pages(idx, budget, shared_pages, cow_headroom)
+                    if not ok and share:
+                        # page pressure: cold index-only pages lose to a live
+                        # admission (the plan's own pages protected), or
+                        # sharing would turn blocking into a deadlock
+                        want = (max(0, need - len(shared_pages)) + cow_headroom
+                                - len(state.free_pages))
+                        if want > 0 and rt.reclaim_prefix_pages(state, want, shared_pages):
+                            ok = state.reserve_pages(idx, budget, shared_pages, cow_headroom)
                     if ok and d_st is not None:
                         # the draft arena mirrors the reservation, capped at
-                        # its own table (its auto-sized arena covers every
-                        # lane's full table, so this succeeds whenever the
-                        # lane is free)
+                        # its own table, all private (it has no index; its
+                        # auto-sized arena covers every lane's full table, so
+                        # this succeeds whenever the lane is free)
                         d_budget = min(budget, d_st.pages_per_slot * d_st.page_tokens)
                         if not d_st.reserve_pages(idx, d_budget):
                             state.release_pages(idx)
@@ -229,19 +263,40 @@ class _ContinuousScheduler:
                     if not ok:
                         # arena exhausted: the row waits at the head of the
                         # queue (FIFO kept); retirements below free pages for
-                        # the next boundary. need <= arena_pages, so an idle
-                        # engine always admits it.
+                        # the next boundary. need <= arena_pages, and an idle
+                        # engine's pages are free or reclaimable, so it
+                        # always admits it.
                         with self.cv:
                             self.pending.appendleft(req)
                         break
                     reserved = idx
                 seed = secrets.randbits(31)
-                tok, pk, pv = rt.slot_prefill(
-                    self.model_id, prompt, req.temperature, req.top_k, seed=seed,
+                if (reserved is not None and eng.prefill_chunk_tokens > 0 and plan is None
+                        and d_st is None and p > eng.prefill_chunk_tokens):
+                    # chunked prefill (reference :1227-1263): pages reserved,
+                    # nothing written yet. The lane sits inactive with pos
+                    # past its table, so a decode chunk's frozen rewrite of
+                    # it lands on the trash page, never on the rows the
+                    # chunks fill; _prefill_phase advances it one chunk per
+                    # boundary. Shared hits and draft engines keep the
+                    # one-dispatch prefill.
+                    idx = free.pop()
+                    req.pf_pos = 0
+                    req.pf_seed = seed
+                    state.active[idx] = False
+                    state.pos[idx] = state.pages_per_slot * state.page_tokens
+                    state.temps[idx] = req.temperature
+                    state.topks[idx] = req.top_k
+                    lanes[idx] = req
+                    eng.admitted += 1
+                    continue
+                tok, pk, pv, kind, last = rt.slot_prefill_shared(
+                    self.model_id, state, prompt, req.temperature, req.top_k, seed, plan,
                 )
                 d_pk = d_pv = None
                 if d_st is not None and reserved is not None:
                     # greedy draft prefill: only the draft's K/V rows matter
+                    # (also on an exact target hit: the draft has no index)
                     _, d_pk, d_pv = rt.slot_prefill(state.spec_draft_id, prompt, 0.0, 0,
                                                     seed=seed)
             except BaseException as e:  # noqa: BLE001 - out of pending, not yet in lanes
@@ -251,6 +306,15 @@ class _ContinuousScheduler:
                 raise
             req.tokens.append(int(tok))
             eng.admitted += 1
+            if kind == "exact":
+                eng.prefix_hits_exact += 1  # no prefill at all
+            elif kind == "shared":
+                eng.prefix_hits_shared += 1
+                eng.prefill_tokens += p - plan.covered
+            else:  # "dense" (a prefix-cache hit; counted whole, as the reference does) or "miss"
+                if kind == "dense":
+                    eng.prefix_hits_dense += 1
+                eng.prefill_tokens += p
             if (eos is not None and int(tok) == eos) or remaining <= 1:
                 # done at prefill: the lane was never used
                 if reserved is not None:
@@ -258,7 +322,23 @@ class _ContinuousScheduler:
                 req.done.set()
                 continue
             idx = free.pop()
-            rt.slot_admit(state, idx, pk, pv)
+            if pk is None:
+                # exact hit: the prompt's K/V is in the mapped pages, nothing
+                # to insert. Its first decode write (pos = p) lands inside
+                # the SHARED boundary page, which is copied now, while the
+                # headroom page reserved for it is still free
+                if plan.tail_len > 0:
+                    rt.slot_cow(state, idx, plan.n_full)
+            elif kind == "shared":
+                # suffix-only insert: rows below the boundary stay in the
+                # read-only mapped pages (their scatter goes to the trash page)
+                rt.slot_admit(state, idx, pk, pv, base_tokens=plan.covered)
+            else:
+                rt.slot_admit(state, idx, pk, pv)
+            if share and pk is not None:
+                # publish this lane's prompt pages for later same-prefix
+                # admissions (an exact hit is indexed already)
+                rt.shared_prefix_publish(state, idx, prompt, last)
             if d_pk is not None:
                 rt.slot_admit(d_st, idx, d_pk, d_pv)  # the draft lane rides the same index
             state.tok[idx] = int(tok)
@@ -267,7 +347,9 @@ class _ContinuousScheduler:
             state.temps[idx] = req.temperature
             state.topks[idx] = req.top_k
             lanes[idx] = req
-        live = [r for r in lanes if r is not None]
+        if state is not None and eng.prefill_chunk_tokens > 0:
+            self._prefill_phase(rt, state, lanes, eos)
+        live = [r for r in lanes if r is not None and r.pf_pos is None]
         if not live:
             return state
         # the pow2 cover of the largest remaining budget trims the overshoot
@@ -283,6 +365,24 @@ class _ContinuousScheduler:
             and any(r is not None and float(state.temps[i]) <= 0.0
                     for i, r in enumerate(lanes))
         )
+        if state.paged:
+            # copy-on-write safety net (reference :1448-1469): no lane may
+            # write a page it does not own alone. Admission already copied
+            # the one shareable write target (an exact hit's boundary page)
+            # and a chunk only advances into the lane's private pages, so
+            # this never fires by design; a spec round writes rows at
+            # pos..pos+spec, so every page of that span is covered
+            span = state.spec_tokens if use_spec else 0
+            for cidx, creq in enumerate(lanes):
+                if creq is None:
+                    continue
+                first = int(state.pos[cidx]) // state.page_tokens
+                last = min((int(state.pos[cidx]) + span) // state.page_tokens,
+                           state.pages_per_slot - 1)
+                for slot in range(first, last + 1):
+                    pg = int(state.block_tables[cidx, slot])
+                    if pg and int(state.page_refs[pg]) > 1:
+                        rt.slot_cow(state, cidx, slot)
         accept = None
         if use_spec:
             try:
@@ -304,7 +404,7 @@ class _ContinuousScheduler:
             eng.accepted += int(accept.sum())
         eng.chunks += 1
         for idx, req in enumerate(lanes):
-            if req is None:
+            if req is None or req.pf_pos is not None:
                 continue
             # a round emits a variable prefix per lane (the accepted draft
             # run + the verify's correction token); a chunk emits `chunk`
@@ -328,6 +428,42 @@ class _ContinuousScheduler:
             rt._spec_observe(self.model_id, state.spec_draft_id, int(accept.sum()), len(live),
                              engine="continuous")
         return state
+
+    def _prefill_phase(self, rt: TorchModelRuntime, state, lanes: list, eos) -> None:
+        """Advance every PREFILLING lane by exactly ONE chunk (reference
+        :1658-1720). The last chunk samples the row's first token under the
+        seed drawn at admission (a monolithic prefill's draw), publishes
+        the prompt's pages when sharing is on, and activates the lane for
+        the next decode chunk, or retires it on EOS / max_new == 1."""
+        eng = self.engine
+        size = eng.prefill_chunk_tokens
+        for idx, req in enumerate(lanes):
+            if req is None or req.pf_pos is None:
+                continue
+            prompt = req.prompt
+            p = prompt.shape[0]
+            n = min(size, p - req.pf_pos)
+            last = rt.slot_prefill_chunk(self.model_id, state, idx,
+                                         prompt[req.pf_pos:req.pf_pos + n], req.pf_pos, size)
+            req.pf_pos += n
+            eng.prefill_chunks += 1
+            if req.pf_pos < p:
+                continue
+            tok = rt.sample_first_token(last, req.temperature, req.top_k, req.pf_seed)
+            eng.prefill_tokens += p
+            req.pf_pos = None
+            req.tokens.append(int(tok))
+            if state.prefix_index is not None:
+                # the publish a one-dispatch cold prefill makes, at the last chunk
+                rt.shared_prefix_publish(state, idx, prompt, last)
+            if (eos is not None and int(tok) == eos) or req.max_new <= 1:
+                lanes[idx] = None
+                _release(state, state.spec_draft, idx)
+                req.done.set()
+                continue
+            state.tok[idx] = int(tok)
+            state.pos[idx] = p
+            state.active[idx] = True
 
 
 def _detach(state) -> None:
@@ -362,6 +498,8 @@ class ContinuousGenerateEngine:
         paged_kernel: bool | None = None,
         spec_draft_model: str | None = None,
         spec_tokens: int | None = None,
+        share_prefix_bytes: int | None = None,
+        prefill_chunk_tokens: int | None = None,
     ) -> None:
         self.runtime = runtime
         self.slots = max(1, int(slots))
@@ -369,15 +507,21 @@ class ContinuousGenerateEngine:
         self.wait_timeout_s = wait_timeout_s
         # slot_decode_state's knobs; one left None defers to the runtime's
         # ServingConfig (kv_page_tokens, kv_arena_pages, kv_arena_dtype,
-        # kv_paged_kernel)
+        # kv_paged_kernel, kv_share_prefix_bytes: 0 = sharing off)
         knobs = {"page_tokens": page_tokens, "arena_pages": arena_pages,
-                 "arena_dtype": arena_dtype, "paged_kernel": paged_kernel}
+                 "arena_dtype": arena_dtype, "paged_kernel": paged_kernel,
+                 "share_prefix_bytes": share_prefix_bytes}
         self.state_knobs = {k: v for k, v in knobs.items() if v is not None}
         # in-engine speculative decoding: None defers to the ServingConfig
         # (serving.spec_draft_model / serving.spec_tokens), "" = off; the
         # draft is "name" (newest resident version) or "name@version"
         self.spec_draft_model = None if spec_draft_model is None else str(spec_draft_model)
         self.spec_tokens = None if spec_tokens is None else int(spec_tokens)
+        # chunked prefill: None defers to serving.prefill_chunk_tokens, 0 =
+        # off; clamped UP to a power of two (reference :1948)
+        pf = (int(runtime.cfg.prefill_chunk_tokens) if prefill_chunk_tokens is None
+              else int(prefill_chunk_tokens))
+        self.prefill_chunk_tokens = next_bucket(pf) if pf > 0 else 0
         self._lock = threading.Lock()
         self._scheds: dict[ModelId, _ContinuousScheduler] = {}  # guarded-by: _lock
         self._closed = False  # guarded-by: _lock
@@ -389,6 +533,11 @@ class ContinuousGenerateEngine:
         self.spec_rounds = 0   # speculative rounds (each also counts in chunks)
         self.drafted = 0       # spec_tokens x active lanes, summed over rounds
         self.accepted = 0      # tokens the rounds emitted (accepted + correction)
+        self.prefill_chunks = 0      # chunked-prefill chunks run (each n_layers B3 launches)
+        self.prefill_tokens = 0      # prompt tokens prefilled (shared and exact hits skip theirs)
+        self.prefix_hits_exact = 0   # radix hits of a whole prompt: no prefill
+        self.prefix_hits_shared = 0  # radix hits of a page-aligned prefix: suffix prefill
+        self.prefix_hits_dense = 0   # prefix-cache (serving.prefix_cache_bytes) hits
 
     def _sched(self, model_id: ModelId) -> _ContinuousScheduler:
         with self._lock:

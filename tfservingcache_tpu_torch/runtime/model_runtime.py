@@ -2,10 +2,16 @@
 
 Counterpart of ``tfservingcache_tpu/runtime/model_runtime.py`` for the
 ``:predict`` and ``:generate`` paths: the solo ``generate`` (greedy
-speculative with ``draft_model_id``) and the slot surface the continuous
-engine (``runtime/batcher.py``) drives, over a dense slot array or a paged
-KV arena (``SlotDecodeState``), with an optional draft state for
-speculative rounds (``slot_attach_draft`` / ``slot_decode_spec_round``).
+speculative with ``draft_model_id``; B = 1 requests through the prefix KV
+cache with ``serving.prefix_cache_bytes``) and the slot surface the
+continuous engine (``runtime/batcher.py``) drives, over a dense slot array
+or a paged KV arena (``SlotDecodeState``), with an optional draft state for
+speculative rounds (``slot_attach_draft`` / ``slot_decode_spec_round``), a
+radix prefix index whose pages lanes share read-only
+(``serving.kv_share_prefix_bytes``: ``shared_prefix_plan``,
+``slot_prefill_shared``, ``slot_cow``, ``shared_prefix_publish``,
+``reclaim_prefix_pages``) and chunked prefill into a lane's pages
+(``slot_prefill_chunk`` / ``sample_first_token``).
 A load reads ``params.bin`` in one sequential read into page-locked host
 memory, copies every leaf to the device and wraps them in
 the family's ``nn.Module``; resident models live in a byte-budgeted LRU
@@ -53,6 +59,12 @@ from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
     ModelNotLoadedError,
     RuntimeError_,
+)
+from tfservingcache_tpu_torch.runtime.prefix_cache import (
+    PagePrefixIndex,
+    PrefixCache,
+    PrefixEntry,
+    SharedPrefixPlan,
 )
 from tfservingcache_tpu_torch.types import Model, ModelId, ModelState
 
@@ -156,13 +168,20 @@ class SlotDecodeState:
     block_tables: np.ndarray | None = None   # (S, pages_per_slot) i32
     free_pages: list = field(default_factory=list)
     lane_pages: dict = field(default_factory=dict)  # lane -> [page ids]
-    page_refs: np.ndarray | None = None      # (arena_pages + 1,) i32 owners per page
+    # shared-prefix KV (reference :690-698): page_refs[pg] counts every owner
+    # of a page, the lanes that map it and the prefix index's own holds. A
+    # lane may write a page only while it owns it alone; a first write into
+    # a page with refs > 1 goes through copy-on-write (cow_page +
+    # generation.page_copy). Invariant (check_page_conservation): every
+    # usable page is free or has refs > 0, and refs match the census.
+    page_refs: np.ndarray | None = None      # (arena_pages + 1,) i32
+    prefix_index: PagePrefixIndex | None = None
     # in-engine speculative decoding (reference :703-712): the draft model's
     # own SlotDecodeState rides on the target's — same slot count and
-    # page_tokens, its own arena/tables/free list/census — so every
-    # scheduler reserve/release mirrors 1:1 onto the draft arena. Its
-    # tok/pos/active host mirrors alias the target's (both caches advance
-    # through the same accepted positions). None = spec off.
+    # page_tokens, its own arena/tables/free list/census, no prefix index —
+    # so every scheduler reserve/release mirrors 1:1 onto the draft arena.
+    # Its tok/pos/active host mirrors alias the target's (both caches
+    # advance through the same accepted positions). None = spec off.
     spec_draft_id: ModelId | None = None
     spec_draft: SlotDecodeState | None = None
     spec_tokens: int = 0             # draft proposals per verify round
@@ -174,15 +193,27 @@ class SlotDecodeState:
     def pages_needed(self, tokens: int) -> int:
         return -(-int(tokens) // self.page_tokens)
 
-    def reserve_pages(self, lane: int, tokens: int) -> bool:
+    def lane_capacity(self, lane: int) -> int:
+        """Token capacity reserved for ``lane`` (page-granular)."""
+        return len(self.lane_pages.get(lane, ())) * self.page_tokens
+
+    def reserve_pages(self, lane: int, tokens: int, shared_pages: list | tuple = (),
+                      cow_headroom: int = 0) -> bool:
         """Reserve pages for ``tokens`` (the row's prompt + max_new budget,
-        so a decoding row never starves) and point the lane's block table
-        at them. False when the free list cannot cover it: the caller
-        blocks admission and retries after retirements."""
+        so a decoding row never starves) and point the lane's block table at
+        them (reference :725). ``shared_pages`` are resident prefix pages
+        mapped READ-ONLY at the front of the row (a refcount bump, no
+        allocation); only the private remainder comes off the free list,
+        plus ``cow_headroom`` pages that must be free but stay there for an
+        immediately following ``cow_page``. False when the free list cannot
+        cover it: the caller blocks admission and retries after
+        retirements."""
         need = self.pages_needed(tokens)
-        if need > len(self.free_pages):
+        priv = max(0, need - len(shared_pages))
+        if priv + cow_headroom > len(self.free_pages):
             return False
-        pages = [self.free_pages.pop() for _ in range(need)]
+        pages = [int(pg) for pg in shared_pages]
+        pages += [self.free_pages.pop() for _ in range(priv)]
         for pg in pages:
             self.page_refs[pg] += 1
         self.lane_pages[lane] = pages
@@ -191,8 +222,10 @@ class SlotDecodeState:
         return True
 
     def release_pages(self, lane: int) -> None:
-        """Drop a retired or failed lane's pages back on the free list and
-        park the lane on the trash page (zeroed table row), so its frozen
+        """Drop a retired or failed lane's page references — a page goes
+        back on the free list only when its LAST owner lets go (shared
+        prefix pages stay for their other lanes and the index) — and park
+        the lane on the trash page (zeroed table row), so its frozen
         in-chunk rewrites never touch a recycled page's next owner."""
         for pg in self.lane_pages.pop(lane, None) or ():
             n = int(self.page_refs[pg]) - 1
@@ -202,22 +235,59 @@ class SlotDecodeState:
         if self.block_tables is not None:
             self.block_tables[lane, :] = 0
 
+    def cow_page(self, lane: int, slot: int) -> tuple[int, int] | None:
+        """Host half of copy-on-write (reference :772): swap ``lane``'s
+        block-table entry at ``slot`` to a fresh free page and move the
+        lane's reference onto it. -> (src, dst) for the device page copy,
+        or None when the free list is empty (admission reserves
+        cow_headroom so that the protocol never gets there)."""
+        if not self.free_pages:
+            return None
+        src = int(self.block_tables[lane, slot])
+        dst = self.free_pages.pop()
+        self.page_refs[dst] = 1
+        self.block_tables[lane, slot] = dst
+        self.lane_pages[lane][slot] = dst
+        n = int(self.page_refs[src]) - 1
+        self.page_refs[src] = max(n, 0)
+        if n <= 0:
+            # the "shared" page had one owner after all: recycle it
+            self.free_pages.append(src)
+        return src, dst
+
     def page_stats(self) -> dict:
-        """Distinct-page split of the arena (trash page 0 excluded). Without
-        shared prefixes every referenced page is private to one lane."""
-        used = {pg for pages in self.lane_pages.values() for pg in pages}
-        return {"free": len(self.free_pages), "cached": 0, "shared": 0, "private": len(used)}
+        """Distinct-page split of the arena (trash page 0 excluded, reference
+        :793): ``free`` on the free list, ``cached`` held only by the prefix
+        index (reclaimable under admission pressure), ``shared`` mapped by a
+        lane and at least one other owner, ``private`` owned by one lane
+        alone. A shared page counts once however many lanes read it."""
+        lane_refs: dict[int, int] = {}
+        for pages in self.lane_pages.values():
+            for pg in pages:
+                lane_refs[pg] = lane_refs.get(pg, 0) + 1
+        held = self.prefix_index.held_pages() if self.prefix_index is not None else {}
+        shared = sum(1 for pg, n in lane_refs.items() if n > 1 or pg in held)
+        return {
+            "free": len(self.free_pages),
+            "cached": sum(1 for pg in held if pg not in lane_refs),
+            "shared": shared,
+            "private": len(lane_refs) - shared,
+        }
 
     def check_page_conservation(self) -> None:
-        """Assert the refcount invariant over the whole arena: every usable
-        page is exactly one of free or referenced, ``page_refs`` agrees with
-        the lanes' census, page 0 is never handed out. Host-only."""
+        """Assert the refcount invariant over the whole arena (reference
+        :816): every usable page is exactly one of free or referenced,
+        ``page_refs`` agrees with the census of lane references plus the
+        prefix index's holds, page 0 is never handed out. Host-only."""
         if not self.paged:
             return
         census = np.zeros(self.arena_pages + 1, np.int64)
         for pages in self.lane_pages.values():
             for pg in pages:
                 census[pg] += 1
+        if self.prefix_index is not None:
+            for pg, n in self.prefix_index.held_pages().items():
+                census[pg] += n
         free = set(self.free_pages)
         assert len(free) == len(self.free_pages), "duplicate free-list pages"
         assert 0 not in free, "trash page on the free list"
@@ -311,6 +381,10 @@ class TorchModelRuntime(BaseRuntime):
         self.spec_rounds: collections.Counter = collections.Counter()  # guarded-by: _spec_lock
         self.spec_emitted: collections.Counter = collections.Counter()  # guarded-by: _spec_lock
         self._spec_lock = threading.Lock()
+        # the solo path's prefix KV cache (serving.prefix_cache_bytes, 0 = off)
+        self._prefix_cache: PrefixCache | None = None
+        if self.cfg.prefix_cache_bytes > 0:
+            self._prefix_cache = PrefixCache(self.cfg.prefix_cache_bytes)
 
     # -- load ---------------------------------------------------------------
     def ensure_loaded(self, model: Model) -> str:
@@ -571,22 +645,115 @@ class TorchModelRuntime(BaseRuntime):
             # sustained low acceptance: the draft is pure overhead; plain
             # greedy decode gives the same tokens until the pair re-auditions
             draft = None
-        dev_ids = torch.from_numpy(ids).to(self.device)
+        # B = 1 requests go through the prefix cache when it is on
+        # (reference :1937-1990; the port has no multi-process group, so the
+        # hit is always decided here)
+        prefix_capable = self._prefix_cache is not None and ids.shape[0] == 1
         if draft is not None:
-            from tfservingcache_tpu_torch.models.speculative import speculative_generate
-
-            toks, rounds = speculative_generate(
-                loaded.model_def, loaded.module, draft.model_def, draft.module, dev_ids,
-                prompt_lengths=torch.from_numpy(lengths), max_new_tokens=new_bucket,
-                spec_tokens=spec_tokens, return_rounds=True,
-            )
+            toks, rounds = self._speculative(loaded, draft, model_id, ids, lengths, new_bucket,
+                                             max_new_tokens, spec_tokens, prefix_capable)
             self._spec_observe(model_id, draft_model_id, new_bucket, rounds)
+        elif prefix_capable:
+            toks = self._prefix_generate(loaded, model_id, ids, int(lengths[0]), new_bucket,
+                                         max_new_tokens, temperature, top_k, seed)
         else:
             toks = generation.generate(
-                loaded.module, cfg, dev_ids, torch.from_numpy(lengths), new_bucket,
-                temperature=temperature, top_k=top_k, seed=seed,
+                loaded.module, cfg, torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(lengths), new_bucket, temperature=temperature, top_k=top_k,
+                seed=seed,
+            ).cpu().numpy()
+        return toks[:b, :max_new_tokens]
+
+    # -- the solo path's prefix cache (reference :3173-3334) ----------------
+    def _prefix_generate(self, loaded: LoadedModel, model_id: ModelId, ids: np.ndarray,
+                         prompt_len: int, new_bucket: int, max_new: int, temperature: float,
+                         top_k: int, seed: int) -> np.ndarray:
+        """B = 1 generate through the prefix cache: reuse the longest cached
+        token prefix's K/V rows, prefill only the suffix, and store the
+        prompt + completion rows for the next turn. The same math at the
+        same positions and the same generator stream as the plain path; the
+        suffix-only prefill is another matmul shape, so on the card a
+        near-tied argmax can break the other way between hit and miss."""
+        from tfservingcache_tpu_torch.models import generation
+
+        cfg = loaded.model_def.config
+        prompt = ids[0, :prompt_len]
+        hit = self._prefix_cache.lookup(model_id, prompt)
+        if hit is None:
+            toks, k_full, v_full = generation.generate(
+                loaded.module, cfg, torch.from_numpy(ids).to(self.device),
+                torch.tensor([prompt_len]), new_bucket, temperature=temperature, top_k=top_k,
+                seed=seed, return_cache=True,
             )
-        return toks.cpu().numpy()[:b, :max_new_tokens]
+        else:
+            suffix, suffix_len = self._prefix_suffix(ids, prompt_len, hit)
+            toks, k_full, v_full = generation.generate_from_cache(
+                loaded.module, cfg, torch.from_numpy(suffix).to(self.device), suffix_len,
+                hit.k, hit.v, hit.valid_len, new_bucket, temperature=temperature, top_k=top_k,
+                seed=seed, return_cache=True,
+            )
+        return self._prefix_store(model_id, prompt, prompt_len, max_new, toks, k_full, v_full)
+
+    @staticmethod
+    def _prefix_suffix(ids: np.ndarray, prompt_len: int,
+                       hit: PrefixEntry) -> tuple[np.ndarray, int]:
+        """(suffix ids padded to a power of two, true suffix length) after
+        ``hit``'s rows."""
+        suffix_len = prompt_len - hit.valid_len
+        suffix = np.zeros((1, next_bucket(suffix_len)), np.int32)
+        suffix[0, :suffix_len] = ids[0, hit.valid_len:prompt_len]
+        return suffix, suffix_len
+
+    def _prefix_store(self, model_id: ModelId, prompt: np.ndarray, prompt_len: int,
+                      max_new: int, toks: torch.Tensor, k_full: torch.Tensor,
+                      v_full: torch.Tensor) -> np.ndarray:
+        """Read the tokens back and insert the prompt + completion rows for
+        the next turn. The entry stops at the TRUE max_new (the
+        bucket-padding generations never reach the client, so the next
+        turn's prompt diverges there) and at the power-of-two FLOOR of the
+        valid rows (reference :3281), copied out of the request's cache so
+        the rest of it is freed."""
+        host = toks.cpu().numpy()
+        valid = prompt_len + max_new
+        l_store = 1 << (valid.bit_length() - 1)
+        if l_store >= 16:
+            entry_tokens = np.concatenate([prompt, host[0, :max_new]])
+            self._prefix_cache.insert(
+                model_id, entry_tokens[:l_store],
+                k_full[:, :, :, :l_store].clone(), v_full[:, :, :, :l_store].clone(), l_store,
+            )
+        return host
+
+    def _speculative(self, loaded: LoadedModel, draft: LoadedModel, model_id: ModelId,
+                     ids: np.ndarray, lengths: np.ndarray, new_bucket: int, max_new: int,
+                     spec_tokens: int, prefix_capable: bool) -> tuple[np.ndarray, int]:
+        """Speculative decoding, prefix-cache aware (reference :3296): with
+        the cache on and B = 1 the TARGET's prefill starts from the cached
+        prefix rows and the completion is stored back, so a draft-assisted
+        conversation pays the target's prefill only for its new tokens from
+        turn 2. -> (host tokens, verify rounds)."""
+        from tfservingcache_tpu_torch.models.speculative import speculative_generate
+
+        dev_ids = torch.from_numpy(ids).to(self.device)
+        common = dict(max_new_tokens=new_bucket, spec_tokens=spec_tokens, return_rounds=True)
+        if not prefix_capable:
+            toks, rounds = speculative_generate(
+                loaded.model_def, loaded.module, draft.model_def, draft.module, dev_ids,
+                prompt_lengths=torch.from_numpy(lengths), **common)
+            return toks.cpu().numpy(), int(rounds)
+        prompt_len = int(lengths[0])
+        prompt = ids[0, :prompt_len]
+        hit = self._prefix_cache.lookup(model_id, prompt)
+        cached_kv = None
+        if hit is not None:
+            suffix, suffix_len = self._prefix_suffix(ids, prompt_len, hit)
+            cached_kv = (torch.from_numpy(suffix), suffix_len, hit.k, hit.v, hit.valid_len)
+        toks, rounds, k_full, v_full = speculative_generate(
+            loaded.model_def, loaded.module, draft.model_def, draft.module, dev_ids,
+            prompt_lengths=torch.tensor([prompt_len]), return_cache=True, cached_kv=cached_kv,
+            **common)
+        return self._prefix_store(model_id, prompt, prompt_len, max_new, toks, k_full,
+                                  v_full), int(rounds)
 
     # -- continuous-decode slot surface (runtime/batcher.py) ----------------
     def eos_id_of(self, model_id: ModelId) -> int | None:
@@ -616,13 +783,15 @@ class TorchModelRuntime(BaseRuntime):
         arena_pages: int | None = None,
         arena_dtype: str | None = None,
         paged_kernel: bool | None = None,
+        share_prefix_bytes: int | None = None,
     ) -> SlotDecodeState:
         """Create-or-get the model's slot state (reference :2018). The knobs
         default to the ServingConfig's; ``page_tokens == 0`` keeps the dense
         slot array, ``> 0`` allocates the paged arena (``arena_pages == 0``
         auto-sizes to slots x ceil(max_seq / page_tokens); an int8 arena
-        grows to the same byte budget). An existing state wins. Allocation
-        runs under a per-model once-guard, not under the map lock."""
+        grows to the same byte budget) and, with ``share_prefix_bytes > 0``,
+        its radix prefix index. An existing state wins. Allocation runs
+        under a per-model once-guard, not under the map lock."""
         self._lm(model_id)
         with self._slot_lock:
             st = self._slot_states.get(model_id)
@@ -636,7 +805,7 @@ class TorchModelRuntime(BaseRuntime):
                 return st
             st = self._build_slot_state(
                 self._lm(model_id), model_id, slots, page_tokens, arena_pages,
-                arena_dtype, paged_kernel,
+                arena_dtype, paged_kernel, share_prefix_bytes,
             )
             with self._slot_lock:
                 st = self._slot_states.setdefault(model_id, st)
@@ -652,6 +821,7 @@ class TorchModelRuntime(BaseRuntime):
         arena_pages: int | None,
         arena_dtype: str | None,
         paged_kernel: bool | None,
+        share_prefix_bytes: int | None = 0,
     ) -> SlotDecodeState:
         from tfservingcache_tpu_torch.models import generation
 
@@ -663,6 +833,8 @@ class TorchModelRuntime(BaseRuntime):
             arena_dtype = str(self.cfg.kv_arena_dtype or "")
         if paged_kernel is None:
             paged_kernel = bool(self.cfg.kv_paged_kernel)
+        if share_prefix_bytes is None:
+            share_prefix_bytes = int(self.cfg.kv_share_prefix_bytes)
         cfg = loaded.model_def.config
         max_seq = int(cfg["max_seq"])
         common = dict(
@@ -694,12 +866,18 @@ class TorchModelRuntime(BaseRuntime):
             scales = None
             if "k_scale" in arena:
                 scales = {"k": arena["k_scale"], "v": arena["v_scale"]}
+            prefix_index = None
+            if share_prefix_bytes and share_prefix_bytes > 0:
+                # one page's bytes over K, V and an int8 arena's scales
+                page_nbytes = sum(t.nbytes for t in arena.values()) // (usable + 1)
+                prefix_index = PagePrefixIndex(page_tokens, page_nbytes, int(share_prefix_bytes))
             return SlotDecodeState(
                 k=arena["k"], v=arena["v"], scales=scales, arena_dtype=arena_dtype,
                 page_tokens=page_tokens, arena_pages=usable, pages_per_slot=pps,
                 block_tables=np.zeros((slots, pps), np.int32),
                 free_pages=list(range(1, usable + 1)),
                 page_refs=np.zeros((usable + 1,), np.int32),
+                prefix_index=prefix_index,
                 **common,
             )
         cache = generation.init_cache(cfg, slots, max_seq, self.device)
@@ -713,37 +891,229 @@ class TorchModelRuntime(BaseRuntime):
         self, model_id: ModelId, prompt: np.ndarray, temperature: float, top_k: int,
         seed: int,
     ) -> tuple[int, torch.Tensor, torch.Tensor]:
-        """Admission prefill of one request (reference :2232, no prefix
-        cache): the prompt through a ``(1, P_bucket)`` prefill and its first
-        token sampled from a generator seeded with ``seed``.
-        -> (first token, k, v), k/v ready for slot_admit."""
+        """Admission prefill of one request (reference :2232): the prompt
+        through a ``(1, P_bucket)`` prefill (reusing a prefix-cache hit's
+        rows when one exists; the engine never inserts) and its first token
+        sampled from a generator seeded with ``seed``. -> (first token, k,
+        v), k/v ready for slot_admit."""
+        tok, pk, pv, _hit, _last = self._slot_prefill_impl(model_id, prompt, temperature,
+                                                           top_k, seed)
+        return tok, pk, pv
+
+    def _slot_prefill_impl(
+        self, model_id: ModelId, prompt: np.ndarray, temperature: float, top_k: int,
+        seed: int,
+    ) -> tuple[int, torch.Tensor, torch.Tensor, bool, torch.Tensor]:
+        """slot_prefill's body (reference :2251-2313), also returning whether
+        the prefix cache hit and the last-position logits (1, V) f32 on the
+        device, which the shared-prefix publisher caches for exact
+        re-admissions."""
         from tfservingcache_tpu_torch.models import generation
 
         loaded = self._lm(model_id)
         cfg = loaded.model_def.config
+        max_seq = int(cfg["max_seq"])
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         p = prompt.shape[0]
-        s_pad = next_bucket(p)
-        if s_pad > int(cfg["max_seq"]):
-            s_pad = p  # bucket overshoot: exact size (same rule as generate)
-        ids = np.zeros((1, s_pad), np.int32)
-        ids[0, :p] = prompt
-        tok, pk, pv, _last = generation.slot_prefill(
-            loaded.module, cfg, torch.from_numpy(ids).to(self.device), p,
-            temperature, top_k, seed,
+        hit = None
+        if self._prefix_cache is not None:
+            hit = self._prefix_cache.lookup(model_id, prompt)
+            if hit is not None and hit.k.shape[3] + next_bucket(p - hit.valid_len) > max_seq:
+                hit = None  # the padded hit would overflow the lane
+        if hit is not None:
+            suffix, suffix_len = self._prefix_suffix(prompt[None, :], p, hit)
+            tok, pk, pv, last = generation.slot_prefill_from_cache(
+                loaded.module, cfg, torch.from_numpy(suffix).to(self.device), suffix_len,
+                hit.k, hit.v, hit.valid_len, temperature, top_k, seed,
+            )
+        else:
+            s_pad = next_bucket(p)
+            if s_pad > max_seq:
+                s_pad = p  # bucket overshoot: exact size (same rule as generate)
+            ids = np.zeros((1, s_pad), np.int32)
+            ids[0, :p] = prompt
+            tok, pk, pv, last = generation.slot_prefill(
+                loaded.module, cfg, torch.from_numpy(ids).to(self.device), p,
+                temperature, top_k, seed,
+            )
+        return int(tok[0]), pk, pv, hit is not None, last
+
+    # -- chunked prefill over the paged arena (reference :2317-2385) --------
+    def slot_prefill_chunk(self, model_id: ModelId, state: SlotDecodeState, lane: int,
+                           tokens: np.ndarray, start: int, chunk_size: int) -> torch.Tensor:
+        """Write one prefill chunk into ``lane``'s reserved pages and return
+        the chunk's last REAL token's logits (1, V) f32, left on the device
+        (only the last chunk's are read, by ``sample_first_token``). The
+        chunk is zero-padded to ``chunk_size``: pad rows land past the
+        prompt end inside the reservation (or on the trash page past it) and
+        decode writes each of them before any query reads it."""
+        from tfservingcache_tpu_torch.models import generation
+
+        loaded = self._lm(model_id)
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        t = tokens.shape[0]
+        if not 0 < t <= chunk_size:
+            raise ValueError(f"prefill chunk of {t} tokens outside (0, {chunk_size}]")
+        toks = np.zeros((1, chunk_size), np.int32)
+        toks[0, :t] = tokens
+        dev = self.device
+        return generation.paged_prefill_chunk(
+            loaded.module, loaded.model_def.config, _arena(state),
+            torch.from_numpy(state.block_tables[lane:lane + 1].copy()).to(dev),
+            torch.from_numpy(toks).to(dev), torch.tensor([start], dtype=torch.int32).to(dev),
+            t, state.page_tokens, state.kernel,
         )
-        return int(tok[0]), pk, pv
+
+    def sample_first_token(self, last: torch.Tensor, temperature: float, top_k: int,
+                           seed: int) -> int:
+        """A request's first token from prefill-final logits (1, V) under its
+        own seed: the draw ``slot_prefill`` makes, so a chunked prefill and
+        an exact shared-prefix hit give a monolithic prefill's first token
+        under the same seed (reference :2365)."""
+        from tfservingcache_tpu_torch.models import generation
+
+        return int(generation.sample_logits(last, temperature, top_k, seed)[0])
+
+    # -- shared-prefix KV over the paged arena (reference :2387-2577) -------
+    def shared_prefix_plan(self, state: SlotDecodeState,
+                           prompt: np.ndarray) -> SharedPrefixPlan | None:
+        """Longest viable page-aligned shared prefix of ``prompt`` from the
+        state's radix index (None when sharing is off or nothing matches).
+        The suffix prefill pads to a power of two, and covered + that
+        bucket must fit the lane: mapped pages are shed (each moves
+        ``page_tokens`` tokens back into the suffix) until it does."""
+        if state.prefix_index is None:
+            return None
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        p = prompt.shape[0]
+        plan = state.prefix_index.lookup(prompt)
+        if plan is None or plan.kind == "exact":
+            return plan
+        while plan.n_full > 0 and plan.covered + next_bucket(p - plan.covered) > state.max_seq:
+            plan.pages.pop()
+            plan.n_full -= 1
+        return plan if plan.n_full > 0 else None
+
+    def slot_prefill_shared(
+        self, model_id: ModelId, state: SlotDecodeState, prompt: np.ndarray,
+        temperature: float, top_k: int, seed: int, plan: SharedPrefixPlan | None,
+    ) -> tuple[int, torch.Tensor | None, torch.Tensor | None, str, torch.Tensor]:
+        """Admission prefill with shared-prefix reuse -> (first token, pk,
+        pv, kind, last logits). ``plan.kind == "exact"``: no prefill — the
+        first token is sampled from the publisher's cached logits under THIS
+        request's seed; pk/pv are None and the caller skips slot_admit.
+        ``"shared"``: gather the mapped full pages to dense rows and prefill
+        only the suffix. ``plan is None``: the full (or dense prefix-cache)
+        prefill; kind ``"dense"`` on a prefix-cache hit, ``"miss"``
+        otherwise."""
+        from tfservingcache_tpu_torch.models import generation
+
+        if plan is None:
+            tok, pk, pv, hit, last = self._slot_prefill_impl(model_id, prompt, temperature,
+                                                             top_k, seed)
+            return tok, pk, pv, ("dense" if hit else "miss"), last
+        loaded = self._lm(model_id)
+        if plan.kind == "exact":
+            return self.sample_first_token(plan.logits, temperature, top_k, seed), None, None, \
+                "exact", plan.logits
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        covered = plan.covered
+        ck, cv = generation.paged_gather_prefix(_arena(state), plan.pages)
+        suffix_len = prompt.shape[0] - covered
+        suffix = np.zeros((1, next_bucket(suffix_len)), np.int32)
+        suffix[0, :suffix_len] = prompt[covered:]
+        tok, pk, pv, last = generation.slot_prefill_from_cache(
+            loaded.module, loaded.model_def.config, torch.from_numpy(suffix).to(self.device),
+            suffix_len, ck, cv, covered, temperature, top_k, seed,
+        )
+        return int(tok[0]), pk, pv, "shared", last
+
+    def slot_cow(self, state: SlotDecodeState, lane: int, slot: int) -> None:
+        """Copy-on-write: give ``lane`` a private copy of the page behind its
+        block-table ``slot`` before its first write lands there. Raises when
+        no page is free (admission reserves cow_headroom so that it never
+        does)."""
+        from tfservingcache_tpu_torch.models import generation
+
+        swap = state.cow_page(lane, slot)
+        if swap is None:
+            raise RuntimeError_(
+                f"CoW for lane {lane} slot {slot}: free list empty "
+                "(cow_headroom was not reserved?)"
+            )
+        generation.page_copy(_arena(state), *swap)
+
+    def shared_prefix_publish(self, state: SlotDecodeState, lane: int, prompt: np.ndarray,
+                              last_logits: torch.Tensor | None) -> None:
+        """After admitting ``lane``, publish its prompt's pages into the radix
+        index. Full page chunks are indexed IN PLACE (the index increfs the
+        lane's own pages; the lane only writes past the prompt). A part-filled
+        boundary page is copied at once into a free page for the index (the
+        lane keeps decoding into its original), so the indexed copy stays
+        pristine and neither side ever needs CoW against the other. Nothing
+        is published when no page is shareable, and the tail is dropped when
+        no page is free for its copy."""
+        from tfservingcache_tpu_torch.models import generation
+
+        idx = state.prefix_index
+        if idx is None:
+            return
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        p = prompt.shape[0]
+        pt = state.page_tokens
+        n_full = p // pt
+        tail_len = p - n_full * pt
+        lane_pg = state.lane_pages.get(lane)
+        if lane_pg is None or len(lane_pg) < state.pages_needed(p):
+            return
+        boundary = None
+        if tail_len and last_logits is not None and state.free_pages:
+            boundary = state.free_pages.pop()
+            generation.page_copy(_arena(state), lane_pg[n_full], boundary)
+        added, released = idx.insert(prompt, lane_pg[:n_full], boundary, last_logits,
+                                     state.page_refs)
+        for pg in added:
+            state.page_refs[pg] += 1
+        for pg in released:
+            n = int(state.page_refs[pg]) - 1
+            state.page_refs[pg] = max(n, 0)
+            if n <= 0:
+                state.free_pages.append(pg)
+        if boundary is not None and boundary not in added:
+            state.free_pages.append(boundary)  # the index declined the tail
+
+    def reclaim_prefix_pages(self, state: SlotDecodeState, want_pages: int,
+                             protect: list | tuple = ()) -> int:
+        """Admission pressure: evict cold index-only prefix pages (no lane
+        maps them; never ``protect``, the blocked request's own plan pages)
+        back onto the free list, so a live admission never loses a page to
+        cold cache. -> how many pages were freed."""
+        if state.prefix_index is None:
+            return 0
+        released = state.prefix_index.reclaim(state.page_refs, want_pages,
+                                              frozenset(int(p) for p in protect))
+        freed = 0
+        for pg in released:
+            n = int(state.page_refs[pg]) - 1
+            state.page_refs[pg] = max(n, 0)
+            if n <= 0:
+                state.free_pages.append(pg)
+                freed += 1
+        return freed
 
     def slot_admit(self, state: SlotDecodeState, idx: int, pk: torch.Tensor,
-                   pv: torch.Tensor) -> None:
+                   pv: torch.Tensor, base_tokens: int = 0) -> None:
         """Copy an admitted request's prefill K/V into lane ``idx`` in place
         (reference :2737). A paged state must have the lane's pages reserved
-        first: the insert scatters through the lane's block-table row."""
+        first: the insert scatters through the lane's block-table row.
+        ``base_tokens`` is the shared-prefix boundary: rows below it belong
+        to read-only shared pages and go to the trash page."""
         from tfservingcache_tpu_torch.models import generation
 
         if state.paged:
             row = torch.from_numpy(state.block_tables[idx].copy()).to(self.device)
-            generation.paged_insert(_arena(state), pk, pv, row, state.page_tokens)
+            generation.paged_insert(_arena(state), pk, pv, row, state.page_tokens,
+                                    base=int(base_tokens))
             return
         generation.slot_insert(state.k, state.v, pk, pv, idx)
 
@@ -938,6 +1308,9 @@ class TorchModelRuntime(BaseRuntime):
     # -- residency ----------------------------------------------------------
     def _on_evict(self, model_id: ModelId, entry: LRUEntry[LoadedModel]) -> None:
         self._set_state(model_id, ModelState.UNLOADING)
+        if self._prefix_cache is not None:
+            # an unloaded model's prefix K/V must not outlive it on the card
+            self._prefix_cache.drop_model(model_id)
         # the slot state (and a draft state attached to it) goes with the model
         self.drop_slot_state(model_id)
         # acceptance history dies with either half of a pair
@@ -989,5 +1362,7 @@ class TorchModelRuntime(BaseRuntime):
 
     def close(self) -> None:
         self._resident.clear()
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
         with self._slot_lock:
             self._slot_states.clear()

@@ -111,5 +111,7 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
             chunk_tokens=cfg.serving.generate_chunk_tokens,
             spec_draft_model=cfg.serving.spec_draft_model,
             spec_tokens=cfg.serving.spec_tokens,
+            share_prefix_bytes=cfg.serving.kv_share_prefix_bytes,
+            prefill_chunk_tokens=cfg.serving.prefill_chunk_tokens,
         )
     return CacheNode(cfg, runtime, engine)

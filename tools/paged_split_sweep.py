@@ -10,11 +10,14 @@ line gives every split's two times, the best split, and the split
 The rows are the decode step and the spec round at llama-7b width at 1 to
 8 lanes (the engine's occupancy), the same at a long context, and GQA
 g = 4; lanes' positions as ``chip_smoke._paged_arena`` draws them (lane 0
-at max_pos, the others uniform in [max_pos / 4, max_pos]).
+at max_pos, the others uniform in [max_pos / 4, max_pos]). With
+``--prefill`` the rows are instead a chunked prefill's verify call: one
+lane at T = 256 from pos 0, 256 and 768, over bf16, int8 and f32 pages,
+under up to 16 splits.
 
 Run on a machine with the card, from the root of a checkout:
 
-    python3 tools/paged_split_sweep.py
+    python3 tools/paged_split_sweep.py [--prefill]
 """
 
 from __future__ import annotations
@@ -25,9 +28,13 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLITS = (1, 2, 3, 4, 6, 8)
+PREFILL_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
-def rows() -> list[tuple]:
+def rows(prefill: bool = False) -> list[tuple]:
+    if prefill:
+        return [(1, 32, 32, 128, 16, start, 256, arena)
+                for arena in ("bfloat16", "int8", "float32") for start in (0, 256, 768)]
     out = []
     for arena in ("bfloat16", "int8"):
         for t_q in (1, 5):
@@ -45,6 +52,7 @@ def main() -> int:
     from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
     from tfservingcache_tpu_torch.ops import attention as A
 
+    prefill = "--prefill" in sys.argv[1:]
     if not torch.cuda.is_available():
         raise SystemExit("paged_split_sweep: no CUDA device")
     print(nvidia_smi_line(), flush=True)
@@ -52,7 +60,7 @@ def main() -> int:
           flush=True)
     gen = torch.Generator().manual_seed(7)
     cgen = torch.Generator(device="cuda").manual_seed(7)
-    for lanes, hq, hkv, d, pt, max_pos, t_q, arena in rows():
+    for lanes, hq, hkv, d, pt, max_pos, t_q, arena in rows(prefill):
         kp32, vp32, tables_h, pos_h = _paged_arena(gen, cgen, lanes, hkv, d, pt, max_pos, t_q=t_q)
         q = torch.randn(lanes, hq, t_q, d, generator=cgen, device="cuda").bfloat16()
         tables, pos = tables_h.cuda(), pos_h.cuda()
@@ -60,10 +68,12 @@ def main() -> int:
         if arena == "int8":
             kp, ks = _quantize_kv_rows(kp32)
             vp, vs = _quantize_kv_rows(vp32)
+        elif arena == "float32":
+            q, kp, vp = q.float(), kp32, vp32
         else:
             kp, vp = kp32.bfloat16(), vp32.bfloat16()
         pps = tables.shape[1]
-        splits = [n for n in SPLITS if n <= pps]
+        splits = [n for n in (PREFILL_SPLITS if prefill else SPLITS) if n <= pps]
         verify = t_q > 1
 
         def call(n):
