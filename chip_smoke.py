@@ -40,7 +40,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      finite, agreement with the plain path on the card), and the flash
      kernel's launch counter must show the path went through it (every
      request's forward and the load's warm-up forward);
-  6. generate — REST ``:generate`` on the same artifact in eleven arms: (a)
+  6. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -60,14 +60,32 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      reclaim of the index's pages after the drain; (k) the solo path's
      prefix cache (``prefix_cache_bytes``) on a "coalesce" node: two-turn
      conversations, plain and ``"draft_model"``, turn 2 hitting turn 1's
-     entry, against a cache-off node. Every response is checked against the
-     plain path on the card (teacher-forced logits), the page census must
-     be green after each arm (both arenas with a draft, the index's holds
-     counted), and the kernels' launch counters must equal what the engine
-     ran in each continuous arm (paged = n_layers x plain decode steps +
-     draft layers x (spec + 1) x spec rounds, verify = n_layers x (spec
-     rounds + prefill chunks), the chunks also counted from the prompts)
-     and stay 0 on the solo paths;
+     entry, against a cache-off node; (l) two-turn conversations from 8
+     clients with the conversation tier (``conversation_kv_bytes`` 256 MiB
+     over a 2 GiB disk level): every turn 2 resumes from its parked turn 1
+     (some from disk), prefilling only its new suffix + 1 token, the
+     resumed pages equal the parked ones bit for bit; (l0) the same prompts
+     with the tier off, tokens equal up to near-ties; (l1) (l) again on a
+     fresh node without the park watch (its device copies, synchronize and
+     page compares), for the turn-2 latency and the scheduler thread's
+     seconds in parks and resumes; (l8) 4 conversations over an int8 arena; (m) priority: 8 "low" rows fill a 160-page arena,
+     2 "high" rows arrive after the first chunk, are admitted before every
+     queued low row and preempt (park) a low lane, whose tokens equal an
+     uncontended node's (m0) up to near-ties; (n) ``?stream=true``: 4
+     engine streams, a seeded and a ``"draft_model"`` stream, each a frame
+     a token + a done frame equal to the buffered answer, a 2-row stream
+     refused; (o) ``kill_engine`` after 6 boundaries under 8 requests (one
+     streamed) on the (n) node and, as the conversations' third turns, on
+     the (l) node: every row answers, equal to an unkilled run up to
+     near-ties, recovered = rows in flight + queued, and on (l) every
+     admission resumes from the parked turn 2. Every response is checked
+     against the plain path on the card (teacher-forced logits), the page
+     census must be green after each arm (both arenas with a draft, the
+     index's holds counted) with no park failure, and the kernels' launch
+     counters must equal what the engine ran in each continuous arm (paged
+     = n_layers x plain decode steps + draft layers x (spec + 1) x spec
+     rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
+     also counted from the prompts) and stay 0 on the solo paths;
   7. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
@@ -199,6 +217,31 @@ PREFIX_CACHE_BYTES = 1 << 30
 TURN2_NEW_TOKENS = 32
 # arm (g), the exact-copy draft over an int8 arena, runs the first 8 prompts
 SPEC_INT8_REQUESTS = 8
+# arms (l), (l0), (l8): two-turn conversations from CONV_CLIENTS clients
+# (turn 2 = turn 1's prompt + its tokens + CONV_SUFFIX_RANGE new ones) on a
+# node with a CONV_KV_BYTES host tier over a CONV_KV_DISK_BYTES disk level;
+# (l8) runs the first CONV_INT8_CONVERSATIONS over an int8 arena
+CONV_CLIENTS = 8
+CONV_PROMPT_RANGE = (256, 1024)
+CONV_SUFFIX_RANGE = (32, 128)
+CONV_KV_BYTES = 256 << 20
+CONV_KV_DISK_BYTES = 2 << 30
+CONV_INT8_CONVERSATIONS = 4
+# the history a park and a resume are timed at, with its resume suffix
+PARK_HISTORY = 1024
+PARK_SUFFIX = 32
+# arm (m): PRIO_LOW "low" rows fill an arena of PRIO_ARENA_PAGES pages
+# (about four of their reservations); PRIO_HIGH "high" rows arrive after the
+# first decode chunk
+PRIO_LOW, PRIO_LOW_PROMPT, PRIO_LOW_NEW = 8, 512, 128
+PRIO_HIGH, PRIO_HIGH_PROMPT, PRIO_HIGH_NEW = 2, 256, 32
+PRIO_ARENA_PAGES = 160
+# arm (n): single-row streams on the continuous engine
+STREAMS = 4
+# arm (o): kill_engine after this many scheduler boundaries, under
+# KILL_REQUESTS greedy requests in flight
+KILL_AFTER = 6
+KILL_REQUESTS = 8
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
 # B4 ring hops (B, Hq, Hkv, Sq, Sk, D, dtype, rel), each from a carried
@@ -1751,7 +1794,9 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     (d) over an int8 arena on the first SPEC_INT8_REQUESTS prompts, (h) (a)
     with chunked prefill, (i) (c) with chunked prefill on the first
     CHUNKED_INT8_REQUESTS prompts, (j) shared-prefix prompts with sharing on
-    and off, (k) the solo path's prefix cache over two-turn conversations."""
+    and off, (k) the solo path's prefix cache over two-turn conversations,
+    (l) / (l0) / (l8) conversation park and resume, (m) / (m0) priority and
+    preemption, (n) streams and (o) crash recovery."""
     import numpy as np
 
     from tfservingcache_tpu_torch.ops import attention as A
@@ -1875,6 +1920,9 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
         launches += n
         verify += v
         _solo_prefix_arm(art, prompts)
+        launches += _conversation_arms(art, seed)
+        launches += _priority_arm(art, seed)
+        launches += _stream_and_kill_arms(art, prompts)
     finally:
         if node is not None:
             node.close()
@@ -2050,6 +2098,605 @@ def _solo_draft_arm(art, prompts):
         f"{emitted / rounds:.3f} tokens a round; {res[0][2] * 1e3:.1f} / {res[1][2] * 1e3:.1f} "
         f"ms; engine counters and paged/verify launches unchanged ({paged}, {verify})")
     return node
+
+
+def _gen_node(art, name, **serving):
+    """A fresh continuous node like arm (a)'s (8 slots, chunk 8, pages of
+    16) with ``serving`` on top, and one warm request (32 tokens, 8 new)
+    through it, so that the cold load stays out of the arm's numbers. The
+    nodes of arms (l)-(o) share one disk cache, so that the artifact is
+    copied once for all of them (the card's machine counts every byte the
+    run writes). -> (node, its :generate url)."""
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.server import build_node
+
+    cfg = config_from_dict(art.node_config(
+        "slo", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+        kv_page_tokens=16, **serving))
+    node = build_node(cfg, device="cuda")
+    url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
+    status, body, _dt = _post(url, {"input_ids": [list(range(1, 33))], "max_new_tokens": 8},
+                              900.0)
+    if status != 200:
+        node.close()
+        raise AssertionError(f"[{name}] warm-up :generate answered {status}: {body}")
+    return node, url
+
+
+class _Counted:
+    """The paged and verify launches and the engine's decode steps over a
+    window: counters to 0 at ``__enter__``, read at ``__exit__``; ``check``
+    holds paged = n_layers x plain decode steps and verify = 0 (these arms
+    run neither rounds nor chunked prefill)."""
+
+    def __init__(self, art, eng, name):
+        self.art, self.eng, self.name = art, eng, name
+
+    def __enter__(self):
+        from tfservingcache_tpu_torch.ops import attention as A
+
+        A.PAGED_LAUNCHES.reset()
+        A.VERIFY_LAUNCHES.reset()
+        self.steps0 = self.eng.decode_steps
+        return self
+
+    def __exit__(self, *exc):
+        from tfservingcache_tpu_torch.ops import attention as A
+
+        self.paged, self.verify = A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value
+        self.steps = self.eng.decode_steps - self.steps0
+        return False
+
+    def check(self) -> int:
+        want = self.art.layers * self.steps
+        log(f"  [{self.name}] paged kernel launches {self.paged} (n_layers {self.art.layers} x "
+            f"plain decode steps {self.steps} = {want}); verify launches {self.verify}")
+        if self.paged != want or not self.paged or self.verify:
+            raise AssertionError(f"[{self.name}] launches paged {self.paged} / verify "
+                                 f"{self.verify} != {want} / 0")
+        return self.paged
+
+
+class _ParkWatch:
+    """Wraps a runtime's ``park_lane`` and ``slot_resume_prefill`` (host
+    bookkeeping around the real calls): every park's history length, pages,
+    bytes and host ms, with a device copy of the lane's pages at the park;
+    every resume's (p, covered, n_pages) and host ms (synchronized), and
+    whether the pages it wrote equal the copy taken at the park bit for bit
+    (``torch.equal``, values and int8 scales)."""
+
+    def __init__(self, rt):
+        import torch
+
+        from tfservingcache_tpu_torch.models import generation as G
+        from tfservingcache_tpu_torch.runtime.model_runtime import _arena
+
+        self.parks: list[tuple] = []    # (key, history len, pages, nbytes, ms)
+        self.resumes: list[tuple] = []  # (key, p, covered, n_pages, ms)
+        self.mismatches = 0
+        self._snap: dict[bytes, dict] = {}
+        self.real_park, self.real_resume = rt.park_lane, rt.slot_resume_prefill
+
+        def park(state, lane, history):
+            t0 = time.monotonic()
+            parked = self.real_park(state, lane, history)
+            ms = (time.monotonic() - t0) * 1e3
+            if parked is not None:
+                n = parked.pages_k.shape[1]
+                rows = G.pages_export(_arena(state), state.lane_pages[lane][:n])
+                self._snap[parked.history.tobytes()] = {k: t.clone() for k, t in rows.items()}
+                self.parks.append((_key(history), len(history), n, parked.nbytes, ms))
+            return parked
+
+        def resume(model_id, state, lane, prompt, parked, covered, n_pages, *rest):
+            t0 = time.monotonic()
+            out = self.real_resume(model_id, state, lane, prompt, parked, covered, n_pages,
+                                   *rest)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3
+            rows = G.pages_export(_arena(state), state.lane_pages[lane][:n_pages])
+            want = self._snap.get(parked.history.tobytes())
+            if want is None or not all(torch.equal(t, want[k][:, :n_pages])
+                                       for k, t in rows.items()):
+                self.mismatches += 1
+            self.resumes.append((_key(prompt), len(prompt), covered, n_pages, ms))
+            return out
+
+        rt.park_lane, rt.slot_resume_prefill = park, resume
+
+
+def _key(prompt) -> bytes:
+    import numpy as np
+
+    return bytes(np.asarray(prompt[:8], np.int32))
+
+
+def _check_answers(art, name, prompts, results, n_new, tol) -> list:
+    """Every answer 200 with (1, n_new) in-vocab tokens that pass the
+    teacher-forced check. -> the token rows."""
+    import numpy as np
+
+    rows = []
+    for p, (status, body, _dt) in zip(prompts, results):
+        if status != 200:
+            raise AssertionError(f"[{name}] :generate answered {status}: {body}")
+        toks = np.asarray(body["tokens"])
+        if toks.shape != (1, n_new) or not ((toks >= 0) & (toks < art.vocab)).all():
+            raise AssertionError(f"[{name}] tokens {toks.shape} out of shape or vocab")
+        _check_greedy(art, p, toks[0], tol, name)
+        rows.append(toks[0])
+    return rows
+
+
+def _check_drained(node, art, name) -> None:
+    st = node.runtime._slot_states[art.model_id]
+    st.check_page_conservation()
+    if sorted(st.free_pages) != list(range(1, st.arena_pages + 1)):
+        raise AssertionError(f"[{name}] pages still held after the drain")
+    if node.engine.park_failures:
+        raise AssertionError(f"[{name}] {node.engine.park_failures} parks failed")
+
+
+def _conversation_turns(art, node, url, name, firsts, seconds=None, suffixes=None, conv=True,
+                        tol=LOGITS_TOL):
+    """Turn 1 of every conversation from CONV_CLIENTS clients, then every
+    turn 2 (``seconds``, or turn 1's prompt + its tokens + ``suffixes``),
+    each answer checked. -> (turn-1 tokens, turn-2 prompts, turn-2 tokens,
+    turn-2 host seconds a request, the launch window, the engine's prefill
+    tokens over turn 2)."""
+    import numpy as np
+
+    eng = node.engine
+
+    def bodies(prompts):
+        return [{"input_ids": [p.tolist()], "max_new_tokens": GEN_NEW_TOKENS,
+                 **({"conversation_id": f"conv{i}"} if conv else {})}
+                for i, p in enumerate(prompts)]
+
+    with _Counted(art, eng, name) as counted:
+        res1 = _post_many(url, bodies(firsts), CONV_CLIENTS)
+        t1 = _check_answers(art, name, firsts, res1, GEN_NEW_TOKENS, tol)
+        if seconds is None:
+            seconds = [np.concatenate([p, t, s]) for p, t, s in zip(firsts, t1, suffixes)]
+        pf0 = eng.prefill_tokens
+        res2 = _post_many(url, bodies(seconds), CONV_CLIENTS)
+        prefilled = eng.prefill_tokens - pf0
+    t2 = _check_answers(art, name, seconds, res2, GEN_NEW_TOKENS, tol)
+    return t1, seconds, t2, [dt for *_, dt in res2], counted, prefilled
+
+
+def _conversation_arms(art, seed: int) -> int:
+    """(l) two-turn conversations with the conversation tier (host + disk),
+    then (o) on the same node: the third turns under kill_engine; (l0) the
+    same prompts with the tier off; (l1) (l) on a fresh node without the
+    park watch, for its latency; (l8) the first conversations over an int8
+    arena. -> the paged launches of the arms."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 11)
+    lo, hi = CONV_PROMPT_RANGE
+    firsts = [rng.integers(0, art.vocab, int(n)) for n in rng.integers(lo, hi + 1, CONV_CLIENTS)]
+    suffixes = [rng.integers(0, art.vocab, int(n))
+                for n in rng.integers(CONV_SUFFIX_RANGE[0], CONV_SUFFIX_RANGE[1] + 1, CONV_CLIENTS)]
+    thirds = [rng.integers(0, art.vocab, 16) for _ in range(CONV_CLIENTS)]
+    log(f"(l) turn-1 prompts {[len(p) for p in firsts]}, turn-2 suffixes "
+        f"{[len(s) for s in suffixes]}, {GEN_NEW_TOKENS} new tokens a turn")
+    tier = {"conversation_kv_bytes": CONV_KV_BYTES,
+            "conversation_kv_disk_bytes": CONV_KV_DISK_BYTES}
+    launches = 0
+    name = "l: conversation park/resume, bf16 arena"
+    node, url = _gen_node(art, "l", conversation_kv_dir=os.path.join(art.work, "conv_kv_l"),
+                          **tier)
+    try:
+        eng, rt = node.engine, node.runtime
+        watch = _ParkWatch(rt)
+        t1, seconds, t2, lat_l, counted, prefilled = _conversation_turns(
+            art, node, url, name, firsts, suffixes=suffixes)
+        launches += counted.check()
+        stats = eng.conversation_tier.stats()
+        resumed = {k: (p, c) for k, p, c, _n, _ms in watch.resumes}
+        log(f"  [{name}] tier {stats}; engine parks {eng.parks}, resumes {eng.resumes}, park "
+            f"failures {eng.park_failures}; turn-2 prefill tokens {prefilled} of "
+            f"{sum(len(p) for p in seconds)} prompt tokens")
+        if eng.resumes != CONV_CLIENTS or stats["hits"] + stats["spilled_hits"] != CONV_CLIENTS:
+            raise AssertionError(f"[{name}] {eng.resumes} resumes, tier {stats}: every turn 2 "
+                                 "must resume")
+        if stats["spilled_hits"] < 1:
+            raise AssertionError(f"[{name}] no turn 2 resumed from disk: {stats}")
+        want_pf = 0
+        for p1, p2, sfx in zip(firsts, seconds, suffixes):
+            p, covered = resumed[_key(p2)]
+            # the parked history is turn 1's prompt + its tokens but the last
+            if p != len(p2) or covered != len(p1) + GEN_NEW_TOKENS - 1 or \
+                    p - covered != len(sfx) + 1 or p - covered > len(sfx) + 16:
+                raise AssertionError(f"[{name}] resume of a {len(p2)}-token turn 2 covered "
+                                     f"{covered} (want {len(p1) + GEN_NEW_TOKENS - 1})")
+            want_pf += p - covered
+        if prefilled != want_pf or watch.mismatches:
+            raise AssertionError(f"[{name}] turn-2 prefill {prefilled} != {want_pf}, or "
+                                 f"{watch.mismatches} resumes wrote other pages than parked")
+        _check_drained(node, art, name)
+        st = rt._slot_states[art.model_id]
+        park_ms, resume_ms, page_nbytes = _time_park_resume(art, rt, st, watch, rng)
+        parked_bytes = sum(nb for *_, nb, _ms in watch.parks)
+        log(f"  [{name}] {len(watch.parks)} parks, {parked_bytes} bytes parked "
+            f"({page_nbytes} bytes a page), {stats['spilled_bytes']} bytes spilled to disk "
+            f"({stats['spills']} spills); resumed pages equal the parked pages bit for bit "
+            f"({len(watch.resumes)} resumes); park of a {PARK_HISTORY}-token history "
+            f"{park_ms:.2f} ms, resume with a {PARK_SUFFIX}-token suffix {resume_ms:.2f} ms "
+            "(host clock, synchronized, median of 3)")
+        launches += _kill_arm(art, node, url, "o: crash recovery, (l) node",
+                              [np.concatenate([p, t, s]) for p, t, s in zip(seconds, t2, thirds)],
+                              watch=watch)
+    finally:
+        node.close()
+    name0 = "l0: conversation tier off"
+    node, url = _gen_node(art, "l0")
+    try:
+        t1_0, _s, t2_0, lat_0, counted, _pf = _conversation_turns(
+            art, node, url, name0, firsts, seconds=seconds, conv=False)
+        launches += counted.check()
+        _check_drained(node, art, name0)
+    finally:
+        node.close()
+    _compare_to_plain_arm(art, f"{name}, turn 1", firsts, t1_0, t1, LOGITS_TOL)
+    _compare_to_plain_arm(art, f"{name}, turn 2", seconds, t2_0, t2, LOGITS_TOL)
+    log(f"  [{name}] turn-2 p50 {statistics.median(lat_l) * 1e3:.1f} ms with the park watch "
+        f"against {statistics.median(lat_0) * 1e3:.1f} ms with the tier off (host clock, "
+        f"localhost HTTP, {CONV_CLIENTS} clients)")
+    name1 = "l1: conversation park/resume, no park watch"
+    node, url = _gen_node(art, "l1", conversation_kv_dir=os.path.join(art.work, "conv_kv_l1"),
+                          **tier)
+    try:
+        eng = node.engine
+        _t1, seconds1, _t2, lat_1, counted, prefilled = _conversation_turns(
+            art, node, url, name1, firsts, suffixes=suffixes)
+        launches += counted.check()
+        want_pf = sum(len(sfx) + 1 for sfx in suffixes)
+        if eng.resumes != CONV_CLIENTS or prefilled != want_pf:
+            raise AssertionError(f"[{name1}] {eng.resumes} resumes, turn-2 prefill "
+                                 f"{prefilled} != {want_pf}")
+        _check_drained(node, art, name1)
+        stats = eng.conversation_tier.stats()
+        log(f"  [{name1}] turn-2 p50 {statistics.median(lat_1) * 1e3:.1f} ms against "
+            f"{statistics.median(lat_0) * 1e3:.1f} ms with the tier off (host clock, localhost "
+            f"HTTP, {CONV_CLIENTS} clients; turn-2 prompts of the same lengths, "
+            f"{sum(len(p) for p in seconds1)} tokens); scheduler thread, every lane waiting: "
+            f"{eng.park_s * 1e3:.1f} ms in {eng.parks} parks, {eng.resume_s * 1e3:.1f} ms in "
+            f"{eng.resumes} resumes and their lookups (host clock, both turns); "
+            f"{stats['spills']} spills, {stats['spilled_hits']} resumes from disk")
+    finally:
+        node.close()
+    name8 = "l8: conversation park/resume, int8 arena"
+    few = CONV_INT8_CONVERSATIONS
+    node, url = _gen_node(art, "l8", kv_arena_dtype="int8",
+                          conversation_kv_dir=os.path.join(art.work, "conv_kv_l8"), **tier)
+    try:
+        eng = node.engine
+        watch8 = _ParkWatch(node.runtime)
+        _t1, _s, _t2, lat_8, counted, prefilled = _conversation_turns(
+            art, node, url, name8, firsts[:few], suffixes=suffixes[:few], tol=LOGITS_TOL_INT8)
+        launches += counted.check()
+        if eng.resumes != few or watch8.mismatches:
+            raise AssertionError(f"[{name8}] {eng.resumes} resumes of {few}, "
+                                 f"{watch8.mismatches} resumed pages unlike the parked ones")
+        _check_drained(node, art, name8)
+        st = node.runtime._slot_states[art.model_id]
+        page8 = _page_nbytes(st)
+        ratio = page8 / page_nbytes
+        hd = st.k.shape[-1]
+        want = (hd + 4) / (2 * hd)  # an int8 row + its f32 scale against a bf16 row
+        log(f"  [{name8}] {eng.resumes} resumes, pages equal the parked ones bit for bit "
+            f"(values and scales); {sum(nb for *_, nb, _ms in watch8.parks)} bytes parked in "
+            f"{len(watch8.parks)} parks, {page8} bytes a page = {ratio:.3f} of bf16's; turn-2 "
+            f"p50 {statistics.median(lat_8) * 1e3:.1f} ms; tier {eng.conversation_tier.stats()}")
+        if abs(ratio - want) > 1e-9:
+            raise AssertionError(f"[{name8}] an int8 page parks {ratio:.4f} of a bf16 page, "
+                                 f"not {want:.4f}")
+    finally:
+        node.close()
+    return launches
+
+
+def _page_nbytes(st) -> int:
+    """Bytes one arena page parks (K, V and an int8 arena's scales)."""
+    n = st.arena_pages + 1
+    return sum(t.nbytes for t in (st.k, st.v, *(st.scales or {}).values())) // n
+
+
+def _time_park_resume(art, rt, st, watch, rng) -> tuple[float, float, int]:
+    """Host ms (synchronized) of one park of a PARK_HISTORY-token history and
+    one resume of it with a PARK_SUFFIX-token suffix on the idle engine's
+    state, median of 3 (the rows are whatever earlier rows left: timing
+    only); every page handed back. -> (park ms, resume ms, page bytes)."""
+    import numpy as np
+    import torch
+
+    history = rng.integers(0, art.vocab, PARK_HISTORY).astype(np.int32)
+    prompt = np.concatenate([history, rng.integers(0, art.vocab, PARK_SUFFIX)]).astype(np.int32)
+    parks, resumes = [], []
+    for _ in range(3):
+        if not (st.reserve_pages(0, len(prompt) + 16) and st.reserve_pages(1, len(prompt) + 16)):
+            raise AssertionError("the idle arena cannot hold two park/resume lanes")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            parked = watch.real_park(st, 0, history)
+            parks.append((time.monotonic() - t0) * 1e3)
+            covered, n_pages = rt.plan_conversation_resume(st, prompt, parked)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            watch.real_resume(art.model_id, st, 1, prompt, parked, covered, n_pages, 0.0, 0, 0)
+            torch.cuda.synchronize()
+            resumes.append((time.monotonic() - t0) * 1e3)
+        finally:
+            st.release_pages(0)
+            st.release_pages(1)
+    st.check_page_conservation()
+    return statistics.median(parks), statistics.median(resumes), _page_nbytes(st)
+
+
+def _post_stream(url: str, body: dict, timeout: float = 900.0):
+    """POST ``body`` to ``url?stream=true`` and read the SSE frames as they
+    come. -> (status, frames or the error body, seconds to the first frame,
+    seconds in all, Content-Type)."""
+    req = urllib.request.Request(url + "?stream=true", data=json.dumps(body).encode(),
+                                 method="POST", headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    first = None
+    frames = []
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            ctype = resp.headers.get("Content-Type")
+            for line in iter(resp.readline, b""):
+                if line.startswith(b"data: "):
+                    if first is None:
+                        first = time.monotonic() - t0
+                    frames.append(json.loads(line[6:]))
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), None, time.monotonic() - t0, None
+    return status, frames, first, time.monotonic() - t0, ctype
+
+
+def _stream_tokens(name, res, n_new) -> list:
+    """A stream's token frames, checked: 200, text/event-stream, one frame a
+    token, then one done frame whose row equals them. -> the done frame's
+    matrix."""
+    status, frames, _first, _total, ctype = res
+    if status != 200 or ctype != "text/event-stream":
+        raise AssertionError(f"[{name}] stream answered {status} ({ctype}): {frames}")
+    toks = [f.get("token") for f in frames[:-1]]
+    done = frames[-1]
+    if (len(toks) != n_new or None in toks or not done.get("done")
+            or done["tokens"][0] != toks):
+        raise AssertionError(f"[{name}] frames: {len(toks)} token frames of {n_new}, last "
+                             f"{done}")
+    return done["tokens"]
+
+
+def _stream_and_kill_arms(art, prompts) -> int:
+    """(n) ``?stream=true`` on an (a) node: STREAMS single-row greedy streams
+    on the engine, a seeded stream on the solo path and a "draft_model"
+    stream, each against the buffered answer to the same request, and a
+    2-row stream refused with 400; then (o) on the same node: kill_engine
+    under KILL_REQUESTS greedy requests. -> the paged launches."""
+    import numpy as np
+
+    name = "n: ?stream=true"
+    launches = 0
+    node, url = _gen_node(art, "n")
+    try:
+        eng = node.engine
+        bodies = [{"input_ids": [p.tolist()], "max_new_tokens": GEN_NEW_TOKENS}
+                  for p in prompts[:STREAMS]]
+        buffered = _check_answers(art, name, prompts[:STREAMS],
+                                  _post_many(url, bodies, STREAMS), GEN_NEW_TOKENS, LOGITS_TOL)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with _Counted(art, eng, name) as counted, ThreadPoolExecutor(STREAMS) as pool:
+            streams = list(pool.map(lambda b: _post_stream(url, b), bodies))
+        launches += counted.check()
+        streamed = [np.asarray(_stream_tokens(name, r, GEN_NEW_TOKENS)[0]) for r in streams]
+        _compare_to_plain_arm(art, f"{name}, streamed vs buffered", prompts[:STREAMS], buffered,
+                              streamed, LOGITS_TOL)
+        for label, body in (
+                ("seeded, solo", {"input_ids": [prompts[1].tolist()],
+                                  "max_new_tokens": GEN_NEW_TOKENS, "temperature": 0.8,
+                                  "top_k": 40, "seed": 7}),
+                ("draft_model", {"input_ids": [prompts[2].tolist()],
+                                 "max_new_tokens": GEN_NEW_TOKENS, "draft_model": "layer0",
+                                 "spec_tokens": SPEC_TOKENS})):
+            status, want, _dt = _post(url, body, 900.0)
+            res = _post_stream(url, body)
+            got = _stream_tokens(f"{name}, {label}", res, GEN_NEW_TOKENS)
+            if status != 200 or got != want["tokens"]:
+                raise AssertionError(f"[{name}] {label} stream's done frame differs from the "
+                                     "buffered answer")
+            streams.append(res)
+        status, err, *_ = _post_stream(url, {"input_ids": [[1, 2], [3, 4]],
+                                             "max_new_tokens": 4})
+        if status != 400 or "single-row" not in err.get("error", ""):
+            raise AssertionError(f"[{name}] a 2-row stream answered {status}: {err}")
+        first = [r[2] * 1e3 for r in streams]
+        total = [r[3] * 1e3 for r in streams]
+        log(f"  [{name}] {len(streams)} streams ({STREAMS} engine, seeded solo, draft_model): "
+            f"frames = {GEN_NEW_TOKENS} tokens + 1 done frame each, done frames equal the "
+            f"buffered answers (engine streams up to near-ties); first frame / whole request "
+            f"ms (host clock): " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(first, total))
+            + "; a 2-row stream answered 400")
+        _check_drained(node, art, name)
+        launches += _kill_arm(art, node, url, "o: crash recovery, (a) node",
+                              prompts[:KILL_REQUESTS])
+    finally:
+        node.close()
+    return launches
+
+
+def _kill_arm(art, node, url, name, prompts, watch=None) -> int:
+    """(o) the requests unkilled, then again with ``kill_engine`` armed
+    (``after`` KILL_AFTER boundaries, ``count`` 1), one of them streamed:
+    every answer 200, tokens equal the unkilled run's up to near-ties, the
+    streamed row's frames equal its answer, the engine's recovered count =
+    the rows in flight + queued at the crash, the census green after the
+    drain. With ``watch`` (the (l) node: each prompt extends a conversation
+    parked at its turn 2) the killed run is sent with the conversation ids:
+    every admission resumes, and a row's prefill over all its admissions
+    stays below one cold prefill of its prompt. -> paged launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from tfservingcache_tpu_torch.lab import faults
+    from tfservingcache_tpu_torch.runtime import batcher as B
+
+    eng = node.engine
+    bodies = [{"input_ids": [p.tolist()], "max_new_tokens": GEN_NEW_TOKENS} for p in prompts]
+    plain = _check_answers(art, name, prompts, _post_many(url, bodies, len(bodies)),
+                           GEN_NEW_TOKENS, LOGITS_TOL)
+    if watch is not None:
+        bodies = [dict(b, conversation_id=f"conv{i}") for i, b in enumerate(bodies)]
+        n_resumes = len(watch.resumes)
+    caught: list[int] = []
+    real_triage = B._ContinuousScheduler._triage
+
+    def triage(sched, inflight, queued, err):
+        caught.append(sum(not r.done.is_set() for r in inflight + queued))
+        return real_triage(sched, inflight, queued, err)
+
+    recovered0, resumes0, pf0 = eng.recovered, eng.resumes, eng.prefill_tokens
+    B._ContinuousScheduler._triage = triage
+    faults.arm([faults.FaultSpec(kind="kill_engine", after=KILL_AFTER, count=1)])
+    try:
+        with _Counted(art, eng, name) as counted, ThreadPoolExecutor(len(bodies)) as pool:
+            stream = pool.submit(_post_stream, url, bodies[0])
+            results = list(pool.map(lambda b: _post(url, b, timeout=900.0), bodies[1:]))
+            stream = stream.result()
+        fired = faults.snapshot()[0]["fired"]
+    finally:
+        faults.disarm()
+        B._ContinuousScheduler._triage = real_triage
+    launches = counted.check()
+    streamed = np.asarray(_stream_tokens(name, stream, GEN_NEW_TOKENS))
+    killed = [streamed[0]] + _check_answers(art, name, prompts[1:], results, GEN_NEW_TOKENS,
+                                            LOGITS_TOL)
+    _check_greedy(art, prompts[0], streamed[0], LOGITS_TOL, name)
+    recovered = eng.recovered - recovered0
+    if fired != 1 or caught != [recovered] or not recovered:
+        raise AssertionError(f"[{name}] fired {fired}, rows in flight + queued at the crash "
+                             f"{caught}, recovered {recovered}")
+    _compare_to_plain_arm(art, f"{name}, killed vs unkilled", prompts, plain, killed,
+                          LOGITS_TOL)
+    _check_drained(node, art, name)
+    msg = ""
+    if watch is not None:
+        per_row: dict[bytes, int] = {}
+        for k, p, covered, _n, _ms in watch.resumes[n_resumes:]:
+            per_row[k] = per_row.get(k, 0) + p - covered
+        prefilled = eng.prefill_tokens - pf0
+        resumes = eng.resumes - resumes0
+        worst = max(per_row.get(_key(p), len(p)) / len(p) for p in prompts)
+        if (resumes != len(prompts) + recovered or sum(per_row.values()) != prefilled
+                or worst >= 1.0):
+            raise AssertionError(f"[{name}] {resumes} resumes for {len(prompts)} rows + "
+                                 f"{recovered} recoveries, prefill {prefilled} vs "
+                                 f"{sum(per_row.values())}, worst row {worst:.3f} of a cold "
+                                 "prefill")
+        msg = (f"; every admission resumed from the parked turn 2 ({resumes} resumes), "
+               f"{prefilled} prefill tokens over both admissions of all rows against "
+               f"{sum(len(p) for p in prompts)} for one cold prefill each (worst row "
+               f"{worst:.3f} of its cold prefill)")
+    log(f"  [{name}] kill_engine after {KILL_AFTER} boundaries: {caught[0]} rows in flight or "
+        f"queued at the crash, all recovered; {len(prompts)} answers 200, the streamed row's "
+        f"frames equal its answer; census green" + msg)
+    return launches
+
+
+def _priority_arm(art, seed: int) -> int:
+    """(m) priority and preemption on a PRIO_ARENA_PAGES-page arena:
+    PRIO_LOW "low" rows, then after the first decode chunk PRIO_HIGH
+    "high" rows. Each high row is admitted before every low row still
+    queued; at least one lane is preempted, none more than the engine's
+    preempt_limit; the preempted rows resume from their parks and their
+    tokens equal an uncontended node's up to near-ties; census green. ->
+    paged launches (both nodes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    name = "m: priority and preemption"
+    rng = np.random.default_rng(seed + 13)
+    lows = [rng.integers(0, art.vocab, PRIO_LOW_PROMPT) for _ in range(PRIO_LOW)]
+    highs = [rng.integers(0, art.vocab, PRIO_HIGH_PROMPT) for _ in range(PRIO_HIGH)]
+    low_bodies = [{"input_ids": [p.tolist()], "max_new_tokens": PRIO_LOW_NEW, "priority": "low"}
+                  for p in lows]
+    high_bodies = [{"input_ids": [p.tolist()], "max_new_tokens": PRIO_HIGH_NEW,
+                    "priority": "high"} for p in highs]
+    node, url = _gen_node(art, "m", kv_arena_pages=PRIO_ARENA_PAGES)
+    try:
+        eng, rt = node.engine, node.runtime
+        watch = _ParkWatch(rt)
+        admitted: dict[bytes, float] = {}
+        real_prefill = rt.slot_prefill_shared
+
+        def prefill(model_id, state, prompt, *rest):
+            admitted.setdefault(_key(prompt), time.monotonic())
+            return real_prefill(model_id, state, prompt, *rest)
+
+        rt.slot_prefill_shared = prefill
+        with _Counted(art, eng, name) as counted, ThreadPoolExecutor(PRIO_LOW + PRIO_HIGH) as pool:
+            chunks0 = eng.chunks
+            low_f = [pool.submit(_post, url, b, 900.0) for b in low_bodies]
+            t_end = time.monotonic() + 600
+            while eng.chunks == chunks0 and time.monotonic() < t_end:
+                time.sleep(0.001)
+            t_high = time.monotonic()
+            high_f = [pool.submit(_post, url, b, 900.0) for b in high_bodies]
+            low_res = [f.result() for f in low_f]
+            high_res = [f.result() for f in high_f]
+        launches = counted.check()
+        low_toks = _check_answers(art, name, lows, low_res, PRIO_LOW_NEW, LOGITS_TOL)
+        _check_answers(art, name, highs, high_res, PRIO_HIGH_NEW, LOGITS_TOL)
+        queued = [k for k in map(_key, lows) if admitted[k] > t_high]
+        high_at = [admitted[_key(p)] for p in highs]
+        per_row: dict[bytes, int] = {}
+        for k, *_ in watch.parks:
+            per_row[k] = per_row.get(k, 0) + 1
+        preempted = [i for i, p in enumerate(lows) if _key(p) in per_row]
+        log(f"  [{name}] {len(queued)} low rows still queued when the high rows came; "
+            f"preemptions {eng.preemptions} (per preempted row {sorted(per_row.values())}, "
+            f"limit {eng.preempt_limit}), resumes {eng.resumes}; preemption parks "
+            f"{eng.preempt_park_s * 1e3:.1f} ms in all (host clock); park failures "
+            f"{eng.park_failures}")
+        if not queued or max(high_at) >= min(admitted[k] for k in queued):
+            raise AssertionError(f"[{name}] a queued low row was admitted before a high row "
+                                 f"({len(queued)} queued)")
+        if eng.preemptions < 1 or max(per_row.values()) > eng.preempt_limit or watch.mismatches:
+            raise AssertionError(f"[{name}] preemptions {eng.preemptions}, per row {per_row}, "
+                                 f"{watch.mismatches} resumes wrote other pages than parked")
+        if eng.resumes != sum(per_row.values()):
+            raise AssertionError(f"[{name}] {eng.resumes} resumes for {per_row} preemptions")
+        _check_drained(node, art, name)
+        lat = {c: [r[2] for r in res] for c, res in (("low", low_res), ("high", high_res))}
+        log(f"  [{name}] p50 high {statistics.median(lat['high']) * 1e3:.1f} ms, low "
+            f"{statistics.median(lat['low']) * 1e3:.1f} ms (host clock, localhost HTTP)")
+    finally:
+        node.close()
+    name0 = "m0: the preempted rows uncontended"
+    node, url = _gen_node(art, "m0")
+    try:
+        with _Counted(art, node.engine, name0) as counted:
+            alone = _check_answers(art, name0, [lows[i] for i in preempted],
+                                   [_post(url, low_bodies[i], 900.0) for i in preempted],
+                                   PRIO_LOW_NEW, LOGITS_TOL)
+        launches += counted.check()
+        _check_drained(node, art, name0)
+    finally:
+        node.close()
+    _compare_to_plain_arm(art, f"{name}, preempted rows vs uncontended",
+                          [lows[i] for i in preempted], alone,
+                          [low_toks[i] for i in preempted], LOGITS_TOL)
+    return launches
 
 
 def main(argv: list[str] | None = None) -> int:

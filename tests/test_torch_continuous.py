@@ -181,7 +181,9 @@ def test_seeded_and_malformed_requests_take_the_solo_path(store):
 
 
 def test_scheduler_failure_fails_the_rows_and_drops_the_state(store, monkeypatch):
-    trt = TorchModelRuntime(ServingConfig(), device="cpu")
+    """With recovery off (``serving.generate_recovery: false``) a scheduler
+    failure fails every row and drops the slot state."""
+    trt = TorchModelRuntime(ServingConfig(generate_recovery=False), device="cpu")
     tmid = ModelId("lm", 1)
     trt.ensure_loaded(Model(identifier=tmid, path=str(store / "lm" / "1")))
     eng = ContinuousGenerateEngine(trt, slots=2, chunk_tokens=4, page_tokens=PT, arena_pages=16)
@@ -201,6 +203,45 @@ def test_scheduler_failure_fails_the_rows_and_drops_the_state(store, monkeypatch
         eng.close()
         with pytest.raises(RuntimeError_, match="closed"):
             eng.generate(tmid, np.ones((1, 4), np.int32), max_new_tokens=2)
+    finally:
+        eng.close()
+        trt.close()
+
+
+def test_scheduler_failure_with_recovery_requeues_the_rows(store, monkeypatch):
+    """With recovery on (the default) a failed step drops the slot state and
+    requeues its rows on a fresh scheduler, which re-prefills prompt + the
+    tokens emitted so far: the answer equals an undisturbed one. A failure
+    at every step fails the rows once each used its recoveries."""
+    trt = TorchModelRuntime(ServingConfig(), device="cpu")
+    tmid = ModelId("lm", 1)
+    trt.ensure_loaded(Model(identifier=tmid, path=str(store / "lm" / "1")))
+    eng = ContinuousGenerateEngine(trt, slots=2, chunk_tokens=4, page_tokens=PT, arena_pages=16)
+    ids, lens = _ragged(rows=3, seed=2)
+    try:
+        want = eng.generate(tmid, ids, prompt_lengths=lens, max_new_tokens=10)
+        real = trt.slot_decode_chunk
+        calls = []
+
+        def flaky(state, chunk):
+            calls.append(chunk)
+            if len(calls) == 2:
+                raise RuntimeError("device fault")
+            return real(state, chunk)
+
+        monkeypatch.setattr(trt, "slot_decode_chunk", flaky)
+        got = eng.generate(tmid, ids, prompt_lengths=lens, max_new_tokens=10)
+        np.testing.assert_array_equal(got, want)
+        assert eng.recovered == 3
+        trt._slot_states[tmid].check_page_conservation()
+
+        def boom(state, chunk):
+            raise RuntimeError("device fault")
+
+        monkeypatch.setattr(trt, "slot_decode_chunk", boom)
+        with pytest.raises(RuntimeError, match="device fault"):
+            eng.generate(tmid, np.ones((1, 4), np.int32), max_new_tokens=6)
+        assert eng.recovered == 3 + eng.max_recoveries
     finally:
         eng.close()
         trt.close()
@@ -293,7 +334,7 @@ def test_rest_generate_matches_jax_runtime(store, tmp_path, engine):
         status, seeded = _post(url, {"input_ids": ids.tolist(), "prompt_lengths": lens,
                                      "max_new_tokens": 7, "temperature": 0.9, "seed": 4})
         assert status == 200 and np.asarray(seeded["tokens"]).shape == (3, 7)
-        # validated and ignored, as the reference does without the tiers
+        # served: a conversation id (inert without the tier) and a class
         assert _post(url, {"input_ids": [[1, 2]], "max_new_tokens": 2,
                            "conversation_id": "c1", "priority": "high"})[0] == 200
         for body in ({"input_ids": []}, {"input_ids": "x"}, {},
@@ -308,7 +349,18 @@ def test_rest_generate_matches_jax_runtime(store, tmp_path, engine):
         assert _post(url, None, raw=b"{nope")[0] == 400
         # "draft_model" is served now: an unknown draft is 404
         assert _post(url, {"input_ids": [[1]], "draft_model": "d"})[0] == 404
-        assert _post(url + "?stream=true", {"input_ids": [[1]]})[0] == 501
+        # ?stream=true answers 200 with SSE frames ending in the buffered body
+        body = {"input_ids": ids[:1].tolist(), "prompt_lengths": lens[:1], "max_new_tokens": 7}
+        status, buffered = _post(url, body)
+        assert status == 200
+        req = urllib.request.Request(url + "?stream=true", data=json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200 and resp.headers["Content-Type"] == "text/event-stream"
+            frames = [json.loads(line[6:]) for line in resp.read().split(b"\n")
+                      if line.startswith(b"data: ")]
+        assert frames[-1] == {"done": True, "tokens": buffered["tokens"]}
+        assert [f["token"] for f in frames[:-1]] == buffered["tokens"][0]
         assert _post(url.replace(":generate", ":classify"), {"input_ids": [[1]]})[0] == 501
     finally:
         jrt.close()

@@ -22,6 +22,7 @@ Tolerances, on N(0, 1) inputs:
   - ring carry step (B4): see test_carry_kernel_matches_plain_version.
 """
 
+import numpy as np
 import pytest
 import torch
 from paged_reference import kernel_walk, paged_split_reference
@@ -710,3 +711,129 @@ def test_paged_prefill_chunk_on_the_card_matches_the_plain_path(card, arena_dtyp
     # them lands last is unspecified on the card
     for name in arenas[0]:
         assert torch.equal(arenas[0][name][0, 1:], arenas[1][name][0, 1:]), name
+
+
+CARD_LM = {"vocab_size": 512, "d_model": 256, "n_layers": 2, "n_heads": 2, "n_kv_heads": 2,
+           "d_ff": 512, "max_seq": 256, "dtype": "bfloat16"}
+
+
+@pytest.mark.parametrize("arena_dtype", ["", "int8"])
+def test_pages_export_import_bit_identical_on_the_card(card, arena_dtype):
+    """``pages_export`` of random arena pages on the card, through the host
+    (``host_pages``), a blob (``pack_parked`` / ``unpack_parked``) and back
+    (``device_pages``), then ``pages_import`` into other pages: every
+    buffer (values, and an int8 arena's scales) equal bit for bit."""
+    from tfservingcache_tpu_torch.cache import conversation_kv as ckv
+    from tfservingcache_tpu_torch.models import generation as G
+
+    arena = G.init_paged_cache(CARD_LM, 24, 16, arena_dtype, card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for name, t in arena.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, device=card, generator=gen))
+        else:
+            t.copy_(torch.randn(t.shape, device=card, generator=gen))
+    src, dst = [3, 7, 1, 12], [20, 21, 22, 23]
+    rows = G.pages_export(arena, src)
+    k, dt = ckv.host_pages(rows["k"])
+    v, _ = ckv.host_pages(rows["v"])
+    scales = {n: rows[n].cpu().numpy() for n in ("k_scale", "v_scale") if n in rows}
+    parked = ckv.unpack_parked(ckv.pack_parked(ckv.ParkedConversation(
+        model_id="lm@1", history=np.arange(60, dtype=np.int32), pages_k=k, pages_v=v,
+        k_scale=scales.get("k_scale"), v_scale=scales.get("v_scale"), page_tokens=16,
+        page_dtype=dt)))
+    payload = {"k": ckv.device_pages(parked.pages_k, parked.page_dtype, card),
+               "v": ckv.device_pages(parked.pages_v, parked.page_dtype, card)}
+    if arena_dtype == "int8":
+        payload["k_scale"] = ckv.device_pages(parked.k_scale, "float32", card)
+        payload["v_scale"] = ckv.device_pages(parked.v_scale, "float32", card)
+    assert all(t.is_cuda for t in payload.values())
+    G.pages_import(arena, dst, payload)
+    torch.cuda.synchronize()
+    for name, t in arena.items():
+        assert torch.equal(t[:, dst], t[:, src]), name
+
+
+@pytest.mark.parametrize("arena_dtype", ["", "int8"])
+def test_park_and_resume_on_the_card(card, tmp_path, arena_dtype):
+    """A lane parked on the card (``park_lane``), packed and unpacked, then
+    resumed into another lane (``slot_resume_prefill``): the resumed pages
+    equal the parked ones bit for bit, and the suffix prefill's rows land
+    after them."""
+    from tfservingcache_tpu_torch.cache import conversation_kv as ckv
+    from tfservingcache_tpu_torch.config import ServingConfig
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, _arena
+    from tfservingcache_tpu_torch.types import Model, ModelId
+
+    registry.export_artifact("transformer_lm", str(tmp_path), name="lm", config=CARD_LM)
+    mid = ModelId("lm", 1)
+    rt = TorchModelRuntime(ServingConfig(), device="cuda")
+    rt.ensure_loaded(Model(identifier=mid, path=str(tmp_path / "lm" / "1")))
+    try:
+        st = rt.slot_decode_state(mid, 2, page_tokens=16, arena_pages=40, arena_dtype=arena_dtype)
+        prompt = np.random.default_rng(0).integers(0, 512, 100).astype(np.int32)
+        assert st.reserve_pages(0, 120)
+        _tok, pk, pv = rt.slot_prefill(mid, prompt, 0.0, 0, 0)
+        rt.slot_admit(st, 0, pk, pv)
+        parked = rt.park_lane(st, 0, prompt)
+        assert parked.pages_k.shape[1] == 7
+        src = list(st.lane_pages[0][:7])
+        parked = ckv.unpack_parked(ckv.pack_parked(parked))
+        assert st.reserve_pages(1, 120)
+        longer = np.concatenate([prompt, [1, 2, 3]]).astype(np.int32)
+        covered, n_pages = rt.plan_conversation_resume(st, longer, parked)
+        assert (covered, n_pages) == (100, 7)
+        tok, pk2, pv2, _last = rt.slot_resume_prefill(mid, st, 1, longer, parked, covered,
+                                                      n_pages, 0.0, 0, 0)
+        rt.slot_admit(st, 1, pk2, pv2, base_tokens=covered)
+        torch.cuda.synchronize()
+        dst = st.lane_pages[1][:7]
+        for name, t in _arena(st).items():
+            # page 6 holds rows 96..111: 96..99 parked, 100..102 the suffix's
+            assert torch.equal(t[:, dst[:6]], t[:, src[:6]]), name
+            assert torch.equal(t[:, dst[6], :, :4], t[:, src[6], :, :4]), name
+        assert 0 <= tok < 512
+        for lane in (0, 1):
+            st.release_pages(lane)
+        st.check_page_conservation()
+    finally:
+        rt.close()
+
+
+def test_one_sse_request_through_the_server_on_the_card(card, tmp_path):
+    """``:generate?stream=true`` through ``build_node`` on the card: a token
+    frame a token, the done frame equal to the buffered answer, and the
+    paged kernel launched for the streamed decode."""
+    import json
+    import urllib.request
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.server import build_node
+
+    registry.export_artifact("transformer_lm", str(tmp_path / "store"), name="lm",
+                             config=CARD_LM)
+    node = build_node(config_from_dict({
+        "serving": {"generate_engine": "continuous", "generate_slots": 4,
+                    "kv_page_tokens": 16},
+        "cache": {"base_dir": str(tmp_path / "cache")},
+        "model_provider": {"base_dir": str(tmp_path / "store")},
+        "cache_node": {"rest_port": 0}}))
+    url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/lm/versions/1:generate"
+    body = json.dumps({"input_ids": [list(range(1, 40))], "max_new_tokens": 12}).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                    timeout=300) as resp:
+            want = json.loads(resp.read())["tokens"]
+        before = A.PAGED_LAUNCHES.value
+        req = urllib.request.Request(url + "?stream=true", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.headers["Content-Type"] == "text/event-stream"
+            frames = [json.loads(line[6:]) for line in resp.read().split(b"\n")
+                      if line.startswith(b"data: ")]
+        assert frames[-1] == {"done": True, "tokens": want}
+        assert [f["token"] for f in frames[:-1]] == want[0]
+        assert A.PAGED_LAUNCHES.value > before
+    finally:
+        node.close()

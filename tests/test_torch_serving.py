@@ -221,7 +221,8 @@ def test_runtime_without_a_device_needs_cuda(monkeypatch):
 def test_port_serves_without_importing_jax(tmp_path):
     """The port's whole serving path — ``:predict``, ``:generate`` on the
     continuous paged engine with speculative rounds, a solo
-    ``"draft_model"`` request, chunked prefill, shared-prefix pages and the
+    ``"draft_model"`` request, a streamed answer, a conversation parked and
+    resumed, chunked prefill, shared-prefix pages and the
     solo prefix cache, and a ring ``:predict`` on a node whose
     runtime is bound to a 4-copy CPU group — in a fresh interpreter (this
     test process has JAX loaded by the harness): neither ``jax`` nor the JAX
@@ -240,7 +241,10 @@ def test_port_serves_without_importing_jax(tmp_path):
                                  device="cpu")
         cfg = config_from_dict({{"serving": {{"generate_engine": "continuous",
                                              "kv_page_tokens": 16,
-                                             "spec_draft_model": "dr"}},
+                                             "spec_draft_model": "dr",
+                                             "conversation_kv_bytes": 1 << 24,
+                                             "conversation_kv_dir":
+                                                 {str(tmp_path / "conv_kv")!r}}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
                                 "model_provider": {{"base_dir": store}},
                                 "cache_node": {{"rest_port": 0}}}})
@@ -269,6 +273,28 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert resp.status == 200
             assert len(json.loads(resp.read())["tokens"][0]) == 4
         assert "tfservingcache_tpu_torch.models.speculative" in sys.modules
+        # a streamed answer (SSE over chunked transfer), then a two-turn
+        # conversation parked in and resumed from the conversation tier
+        url = f"http://127.0.0.1:{{port}}/v1/models/lm/versions/1:generate"
+        req = urllib.request.Request(
+            url + "?stream=true",
+            data=json.dumps({{"input_ids": [[1, 2, 3]], "max_new_tokens": 4}}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.headers["Content-Type"] == "text/event-stream"
+            frames = [json.loads(line[6:]) for line in resp.read().split(b"\\n")
+                      if line.startswith(b"data: ")]
+        assert len(frames) == 5 and frames[-1]["done"], frames
+        turn = [1, 2, 3, 4, 5]
+        for _ in range(2):
+            req = urllib.request.Request(url, data=json.dumps({{
+                "input_ids": [turn], "max_new_tokens": 4, "conversation_id": "c"}}).encode(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                turn = turn + json.loads(resp.read())["tokens"][0] + [6]
+        assert node.engine.parks == 2 and node.engine.resumes == 1, vars(node.engine)
+        for mod in ("cache.conversation_kv", "lab.faults"):
+            assert "tfservingcache_tpu_torch." + mod in sys.modules
         node.close()
         # the KV-reuse knobs: chunked prefill, shared-prefix pages, the solo
         # path's prefix cache

@@ -461,7 +461,21 @@ def test_rest_draft_model_contract(store, tmp_path):
         assert status == 400 and "temperature 0" in out["error"]
         for spec in (0, "abc"):
             assert _post(url, dict(body, draft_model="draft", spec_tokens=spec))[0] == 400
-        assert _post(url + "?stream=true", dict(body, draft_model="draft"))[0] == 501
+        # a "draft_model" stream replays the finished row: SSE frames, then
+        # the done frame equal to the buffered body
+        one = {"input_ids": ids[:1].tolist(), "prompt_lengths": lens[:1], "max_new_tokens": 9,
+               "draft_model": "draft"}
+        status, buffered = _post(url, one)
+        assert status == 200
+        req = urllib.request.Request(url + "?stream=true", data=json.dumps(one).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200 and resp.headers["Content-Type"] == "text/event-stream"
+            frames = [json.loads(line[6:]) for line in resp.read().split(b"\n")
+                      if line.startswith(b"data: ")]
+        assert frames[-1] == {"done": True, "tokens": buffered["tokens"]}
+        assert [f["token"] for f in frames[:-1]] == buffered["tokens"][0]
+        assert _post(url + "?stream=true", dict(body, draft_model="draft"))[0] == 400  # 2 rows
     finally:
         jrt.close()
         node.close()

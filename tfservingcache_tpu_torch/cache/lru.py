@@ -64,6 +64,10 @@ class LRUCache(Generic[K, V]):
         with self._lock:
             return list(reversed(self._entries.keys()))
 
+    def items_lru_first(self) -> list[tuple[K, LRUEntry[V]]]:
+        with self._lock:
+            return list(self._entries.items())
+
     # -- core ---------------------------------------------------------------
     def get(self, key: K, touch: bool = True) -> V | None:
         with self._lock:

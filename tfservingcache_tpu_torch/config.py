@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -91,6 +93,33 @@ class ServingConfig:
     # high; the runtime's acceptance health gate (_spec_admit) disables a
     # pair that sustains low acceptance and re-auditions it periodically.
     spec_tokens: int = 4
+    # Crash recovery for generate_engine=continuous (runtime/batcher.py): when
+    # a scheduler step raises (a device failure, an eviction mid-decode, an
+    # injected kill), its in-flight and queued rows move to a fresh
+    # scheduler thread instead of failing; admission re-prefills each
+    # interrupted row's prompt + the tokens it already emitted, so greedy
+    # streams continue token for token. false fails every row, as before.
+    generate_recovery: bool = True
+    # Crashes a row may survive; it fails on the next one (a prompt that
+    # crashes the engine every time must not respawn schedulers forever).
+    generate_max_recoveries: int = 2
+    # Conversation KV tier for generate_engine=continuous over a paged arena
+    # (cache/conversation_kv.py): host-memory byte budget for PARKED decode
+    # state. A :generate request carrying a conversation_id copies its lane's
+    # live pages (raw arena dtype, int8 with its scales) to host at
+    # retirement; the conversation's next turn writes them back into fresh
+    # pages and prefills only the suffix. 0 = off (default).
+    conversation_kv_bytes: int = 0
+    # Disk level under the host budget: the coldest parked conversations
+    # spill to conversation_kv_dir instead of being dropped; a resume that
+    # finds its turn on disk promotes it back to host. 0 = no spill.
+    conversation_kv_disk_bytes: int = 0
+    # Directory of spilled conversation blobs (one file per conversation,
+    # written to a temporary name and renamed), under the process's temporary
+    # directory by default. The tier deletes its own files when it closes,
+    # and the directory only when the tier made it and it is left empty.
+    conversation_kv_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "tpusc_conv_kv"))
 
 
 @dataclass

@@ -20,7 +20,10 @@ with the same arithmetic and rounding points, reusing the port's
   - the KV-reuse layer: the solo prefix cache continues from cached rows
     (``generate_from_cache``, ``slot_prefill_from_cache``), and the shared
     prefix of a paged arena is gathered (``paged_gather_prefix``) and
-    copied on write (``page_copy``).
+    copied on write (``page_copy``);
+  - conversation parking: a lane's raw pages are gathered for the host
+    (``pages_export``) and written back into fresh pages at resume
+    (``pages_import``).
 
 The JAX functions are pure and donate their buffers; here the cache and the
 arena are updated IN PLACE (index assignment under ``torch.inference_mode``).
@@ -451,6 +454,29 @@ def page_copy(arena: dict, src: int, dst: int) -> None:
     for name in ("k", "v", "k_scale", "v_scale"):
         if name in arena:
             arena[name][:, dst] = arena[name][:, src]
+
+
+@torch.inference_mode()
+def pages_export(arena: dict, pages: list[int]) -> dict:
+    """Gather ``n`` arena pages' RAW rows for conversation parking
+    (``_pages_export_jit`` :737): ``{"k", "v"[, "k_scale", "v_scale"]}``
+    in page layout ``(layers, n, n_kv, page_tokens[, hd])``, in the arena's
+    dtype. An int8 arena's values and scales come back as they are, never
+    dequantized, so that an import writes the same bits back. Read-only on
+    the arena (a gather copies)."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
+    return {name: t.index_select(1, idx) for name, t in arena.items()}
+
+
+@torch.inference_mode()
+def pages_import(arena: dict, pages: list[int], payload: dict) -> None:
+    """Write parked page payloads (``pages_export``'s layout and dtype) into
+    the arena pages ``pages`` IN PLACE (``_pages_import_jit`` :754): one
+    batched index copy along the page axis per buffer, values and int8
+    scales, so a park followed by an import leaves every page bit-identical."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
+    for name, t in arena.items():
+        t.index_copy_(1, idx, payload[name].to(t.dtype))
 
 
 def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: dict,

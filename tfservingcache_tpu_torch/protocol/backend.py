@@ -4,13 +4,21 @@
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
+from collections.abc import Iterator
+from dataclasses import dataclass, field
 
 
 @dataclass
 class RestResponse:
     status: int
     body: bytes  # JSON
+    content_type: str = "application/json"
+    headers: dict[str, str] = field(default_factory=dict)
+    # a streamed reply (``:generate?stream=true``): byte frames the server
+    # writes one by one over chunked transfer, after the status and headers.
+    # Those ship before the first frame, so a request that cannot stream
+    # must fail before the backend returns.
+    token_stream: Iterator[bytes] | None = None
 
 
 class BackendError(Exception):

@@ -6,14 +6,18 @@ answered in-process: ensure the model is servable, run it on the runtime
 encode the outputs.
 
 Methods are synchronous; the REST server runs each request on its own
-thread.
+thread. A streamed ``:generate`` returns at once with an iterator of SSE
+frames, fed by the generate running on a thread of its own.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import queue
 import secrets
+import threading
+from collections.abc import Callable, Iterator
 from typing import Any, Mapping
 
 import numpy as np
@@ -134,26 +138,13 @@ class LocalServingBackend(ServingBackend):
             raise BackendError(str(e), 400) from e
         return RestResponse(status=200, body=body)
 
-    def _rest_generate(self, model_id: ModelId, payload: dict,
-                       query: dict[str, str]) -> RestResponse:
-        """tpusc extension verb ``:generate`` — KV-cached decoding
-        (reference local_backend.py:689-927).
-
-        Body: {"input_ids": [[...]], "prompt_lengths": [...]?,
-               "max_new_tokens": N?, "temperature": t?, "top_k": k?, "seed": s?,
-               "draft_model": "name" | {"name", "version"?}?, "spec_tokens": K?,
-               "conversation_id": "..."?, "priority": "high"|"normal"|"low"?}
-        Response: {"tokens": [[...]]}, (rows, max_new_tokens) new tokens.
-
-        Without a "seed" or a "draft_model", a request runs on the continuous
-        engine when one is configured; a seeded request runs on the solo
-        path, reproducibly. A "draft_model" request runs greedy speculative
-        decoding on the solo path (``runtime.generate(draft_model_id=...)``):
-        an unknown draft is 404, a malformed one or a bad version 400,
-        temperature > 0 with a draft 400. "conversation_id" and "priority"
-        are validated as the reference validates them and then ignored (the
-        conversation tier and priority classes are later slices).
-        ``?stream=true`` answers 501 (a later slice)."""
+    def _prepare_generate(self, model_id: ModelId, payload: dict):
+        """Validate a ``:generate`` payload and build its runner (reference
+        local_backend.py:689-872). -> ``(run, rows)``: ``run(on_token=None)``
+        ensures the model(s) and runs the whole generate, returning the
+        padded token matrix; ``rows`` is the request's row count. Client
+        input is validated HERE, before a streamed reply ships its status
+        line; an error inside ``run`` ends a stream with an error frame."""
         ids = payload.get("input_ids")
         if not isinstance(ids, list) or not ids:
             raise BackendError('"input_ids" must be a non-empty 2-D list', 400)
@@ -161,12 +152,15 @@ class LocalServingBackend(ServingBackend):
         conv_id = payload.get("conversation_id")
         if conv_id is not None and (not isinstance(conv_id, str) or not conv_id):
             raise BackendError('"conversation_id" must be a non-empty string', 400)
-        if payload.get("priority", "normal") not in ("high", "normal", "low"):
+        priority = payload.get("priority", "normal")
+        if priority not in ("high", "normal", "low"):
             raise BackendError('"priority" must be one of "high", "normal", "low"', 400)
-        if str(query.get("stream", "")).strip().lower() in _STREAM_ON:
-            raise BackendError("?stream=true is not served by this port yet", 501)
+        try:
+            rows = int(np.atleast_2d(np.asarray(ids)).shape[0])
+        except (ValueError, TypeError):
+            rows = len(ids)  # ragged rows: run()'s own int32 conversion answers 400
 
-        def attempt() -> np.ndarray:
+        def attempt(on_token) -> np.ndarray:
             self._ensure(model_id)
             if draft_mid is not None:
                 self._ensure(draft_mid)
@@ -184,7 +178,9 @@ class LocalServingBackend(ServingBackend):
                 seed = int(payload["seed"]) if "seed" in payload else None
                 arr = np.asarray(ids, np.int32)
                 if self._generator is not None and draft_mid is None:
-                    return self._generator.generate(model_id, arr, seed=seed, **kwargs)
+                    return self._generator.generate(
+                        model_id, arr, seed=seed, conversation_id=conv_id, priority=priority,
+                        on_token=on_token, **kwargs)
                 return self.manager.runtime.generate(
                     model_id, arr, seed=seed if seed is not None else secrets.randbits(31),
                     draft_model_id=draft_mid,
@@ -197,15 +193,61 @@ class LocalServingBackend(ServingBackend):
             except TimeoutError as e:
                 raise BackendError(str(e), 504) from e
 
-        try:
-            tokens = attempt()
-        except ModelNotLoadedError:
-            # LRU eviction raced between ensure and generate: reload once
+        def run(on_token: Callable[[int], None] | None = None) -> np.ndarray:
             try:
-                tokens = attempt()
-            except ModelNotLoadedError as e:
-                raise BackendError(str(e), 400) from e
-        return RestResponse(status=200, body=json.dumps({"tokens": tokens.tolist()}).encode())
+                return attempt(on_token)
+            except ModelNotLoadedError:
+                # LRU eviction raced between ensure and generate: reload once
+                try:
+                    return attempt(on_token)
+                except ModelNotLoadedError as e:
+                    raise BackendError(str(e), 400) from e
+
+        return run, rows
+
+    def _rest_generate(self, model_id: ModelId, payload: dict,
+                       query: dict[str, str]) -> RestResponse:
+        """tpusc extension verb ``:generate`` — KV-cached decoding
+        (reference local_backend.py:874-927).
+
+        Body: {"input_ids": [[...]], "prompt_lengths": [...]?,
+               "max_new_tokens": N?, "temperature": t?, "top_k": k?, "seed": s?,
+               "draft_model": "name" | {"name", "version"?}?, "spec_tokens": K?,
+               "conversation_id": "..."?, "priority": "high"|"normal"|"low"?}
+        Response: {"tokens": [[...]]}, (rows, max_new_tokens) new tokens.
+
+        Without a "seed" or a "draft_model", a request runs on the continuous
+        engine when one is configured; a seeded request runs on the solo
+        path, reproducibly. A "draft_model" request runs greedy speculative
+        decoding on the solo path (``runtime.generate(draft_model_id=...)``):
+        an unknown draft is 404, a malformed one or a bad version 400,
+        temperature > 0 with a draft 400. "conversation_id" parks the row's
+        decode state at retirement and resumes the conversation's next turn
+        from it (``serving.conversation_kv_bytes`` > 0, continuous engine);
+        "priority" orders the engine's admission by class and lets a higher
+        class preempt a lower decoding lane. Both are ignored elsewhere.
+
+        ``?stream=true`` (single-row requests only; more rows answer 400
+        before any 200) answers with Server-Sent Events: a ``{"token": t}``
+        frame per token as the engine samples it, then ``{"done": true,
+        "tokens": [[...]]}`` carrying the buffered body's matrix, or an
+        ``{"error": ...}`` frame when the generate fails after the 200. The
+        solo, seeded and "draft_model" paths replay the finished row as
+        frames. The port bounds no request end to end (the engine's wait
+        timeout bounds the wait for rows), streams included."""
+        stream = str(query.get("stream", "")).strip().lower() in _STREAM_ON
+        run, rows = self._prepare_generate(model_id, payload)
+        if not stream:
+            tokens = run()
+            return RestResponse(status=200,
+                                body=json.dumps({"tokens": tokens.tolist()}).encode())
+        if rows != 1:
+            raise BackendError("?stream=true requires a single-row request", 400)
+        return RestResponse(
+            status=200, body=b"", content_type="text/event-stream",
+            headers={"Cache-Control": "no-cache"},
+            token_stream=_sse_frames(_stream_events(run)),
+        )
 
     def _draft_model(self, spec: Any) -> ModelId | None:
         """The body's "draft_model" — a name or {"name", "version"?} —
@@ -304,3 +346,51 @@ class LocalServingBackend(ServingBackend):
             },
         }
         return RestResponse(status=200, body=json.dumps(out).encode())
+
+
+def _stream_events(run: Callable) -> Iterator[tuple[str, Any]]:
+    """Run a prepared generate on a thread of its own; yield ``("tok", t)``
+    as the engine samples each token, then ``("end", rows)``. The engine's
+    ``on_token`` fires on its scheduler thread, so a queue is the seam. A
+    path with no callback emits nothing until it finishes, so the finished
+    row is replayed as tokens: every path speaks the same frames. A failed
+    generate raises here, after the frames already sent. Closing the
+    iterator (the client went away) leaves the generate to finish."""
+    q: queue.Queue = queue.Queue()
+
+    def worker() -> None:
+        try:
+            out = run(lambda t: q.put(("tok", int(t))))
+            q.put(("end", np.atleast_2d(np.asarray(out)).tolist()))
+        except BaseException as e:  # noqa: BLE001 - forwarded to the client
+            q.put(("err", e))
+
+    threading.Thread(target=worker, daemon=True, name="tpusc-generate-stream").start()
+    streamed = 0
+    while True:
+        kind, val = q.get()
+        if kind == "tok":
+            streamed += 1
+            yield kind, val
+        elif kind == "end":
+            if streamed == 0 and val and val[0]:
+                for t in val[0]:
+                    yield "tok", int(t)
+            yield kind, val
+            return
+        else:
+            raise val
+
+
+def _sse_frames(events: Iterator[tuple[str, Any]]) -> Iterator[bytes]:
+    """``_stream_events`` as SSE byte frames; a failure after the status
+    line can only end the stream with an error frame."""
+    try:
+        for kind, val in events:
+            if kind == "tok":
+                yield b'data: {"token": %d}\n\n' % val
+            else:
+                yield b"data: " + json.dumps({"done": True, "tokens": val}).encode() + b"\n\n"
+    except Exception as e:  # noqa: BLE001 - the status already shipped
+        log.warning("generate stream aborted: %s", e)
+        yield b"data: " + json.dumps({"error": str(e) or type(e).__name__}).encode() + b"\n\n"

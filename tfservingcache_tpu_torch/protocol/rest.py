@@ -8,7 +8,11 @@ The URL contract is the reference's:
   - no match        -> 404 ``{"Status": "Error", "Message": "Not found"}``;
   - missing version -> 400 ``{"Status": "Error", "Message": "Model version must be provided"}``;
   - backend errors  -> their HTTP status with ``{"error": message}``.
-``GET /healthz`` answers ``{"status": "ok"}``.
+``GET /healthz`` answers ``{"status": "ok"}``. A reply that carries a token
+stream (``:generate?stream=true``) goes out as ``text/event-stream`` over
+chunked transfer, one flushed chunk a frame (reference rest.py:343-379); a
+client that disconnects stops the drain, and the generate finishes on its
+own.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qsl
 
-from tfservingcache_tpu_torch.protocol.backend import BackendError, ServingBackend
+from tfservingcache_tpu_torch.protocol.backend import BackendError, RestResponse, ServingBackend
 
 log = logging.getLogger("tpusc_torch.rest")
 
@@ -65,26 +69,25 @@ class RestServingServer:
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
-    def handle(self, method: str, path: str, body: bytes) -> tuple[int, bytes]:
-        """One request -> (HTTP status, JSON body)."""
+    def handle(self, method: str, path: str, body: bytes) -> RestResponse:
+        """One request -> its reply (a JSON body, or a token stream)."""
         path, _, raw_query = path.partition("?")
         query = dict(parse_qsl(raw_query))
         if path == "/healthz":
-            return 200, b'{"status": "ok"}'
+            return RestResponse(200, b'{"status": "ok"}')
         parsed = parse_model_url(path)
         if parsed is None:
-            return 404, _error_body("Not found")
+            return RestResponse(404, _error_body("Not found"))
         name, version, verb = parsed
         if version is None:  # the cache node serves versioned URLs only
-            return 400, _error_body("Model version must be provided")
+            return RestResponse(400, _error_body("Model version must be provided"))
         try:
-            resp = self.backend.handle_rest(method, name, version, verb, body, query)
+            return self.backend.handle_rest(method, name, version, verb, body, query)
         except BackendError as e:
-            return e.http_status, json.dumps({"error": str(e)}).encode()
+            return RestResponse(e.http_status, json.dumps({"error": str(e)}).encode())
         except Exception as e:  # noqa: BLE001 - a server answers 500, keeps serving
             log.exception("unhandled REST error for %s", path)
-            return 500, json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
-        return resp.status, resp.body
+            return RestResponse(500, json.dumps({"error": f"{type(e).__name__}: {e}"}).encode())
 
     def _handler(self) -> type[BaseHTTPRequestHandler]:
         server = self
@@ -95,16 +98,38 @@ class RestServingServer:
             def _serve(self, method: str) -> None:
                 length = int(self.headers.get("Content-Length") or 0)
                 if length > MAX_BODY_BYTES:
-                    status, body = 413, _error_body("request body too large")
+                    resp = RestResponse(413, _error_body("request body too large"))
                     self.close_connection = True
                 else:
                     payload = self.rfile.read(length) if length else b""
-                    status, body = server.handle(method, self.path, payload)
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
+                    resp = server.handle(method, self.path, payload)
+                self.send_response(resp.status)
+                self.send_header("Content-Type", resp.content_type)
+                for k, v in resp.headers.items():
+                    self.send_header(k, v)
+                if resp.token_stream is None:
+                    self.send_header("Content-Length", str(len(resp.body)))
+                    self.end_headers()
+                    self.wfile.write(resp.body)
+                    return
+                self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
-                self.wfile.write(body)
+                self._drain(resp.token_stream)
+
+            def _drain(self, frames) -> None:
+                """Write each frame as one chunk and flush it, then the last
+                chunk. A client gone mid-stream ends the drain quietly."""
+                try:
+                    for frame in frames:
+                        self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+                        self.wfile.flush()
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:
+                    log.info("generate stream client disconnected mid-stream")
+                    self.close_connection = True
+                finally:
+                    frames.close()
 
             def do_GET(self) -> None:  # noqa: N802 - http.server's naming
                 self._serve("GET")

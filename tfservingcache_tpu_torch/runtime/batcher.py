@@ -1,20 +1,24 @@
 """Iteration-level continuous batching for ``:generate``.
 
-Counterpart of the base protocol of ``tfservingcache_tpu/runtime/batcher.py``
-(``ContinuousGenerateEngine`` and its per-model scheduler, :699-1543 and
-:1820-2272), selected with ``serving.generate_engine: "continuous"``. Each
-model gets a scheduler thread over a fixed number of lanes (the runtime's
+Counterpart of ``tfservingcache_tpu/runtime/batcher.py``
+(``ContinuousGenerateEngine`` and its per-model scheduler, :692-2284),
+selected with ``serving.generate_engine: "continuous"``. Each model gets a
+scheduler thread over a fixed number of lanes (the runtime's
 ``SlotDecodeState``). At every chunk boundary it:
-  - admits pending rows FIFO into free lanes: a whole-prompt prefill
-    samples the row's first token; on a paged arena the row's prompt +
-    max_new budget is reserved first, a row that needs more pages than the
-    arena has fails, and a row the free list cannot cover yet waits at the
-    head of the queue. With ``serving.kv_share_prefix_bytes`` the arena's
-    radix index maps an indexed prompt prefix read-only into the row's
-    table (only the suffix is prefilled; an exact repeat is not prefilled
-    at all, its boundary page copied on write), each cold admission
-    publishes its prompt's pages, and cold index pages are reclaimed before
-    a row blocks. With ``serving.prefill_chunk_tokens`` a cold prompt longer
+  - admits pending rows into free lanes by (priority class, submit order):
+    traffic of one class is exact FIFO. A whole-prompt prefill samples the
+    row's first token; on a paged arena the row's prompt + max_new budget is
+    reserved first, a row that needs more pages than the arena has fails,
+    and a row the free list cannot cover yet waits at the head of the queue.
+    A row of a higher class that cannot reserve its pages preempts instead:
+    the lowest-class, newest decoding lane is parked (its pages copied to
+    host) and requeued, up to ``preempt_limit`` times a row. An admitted
+    row resumes from parked pages where it can, in this order: its own
+    preemption park, then the conversation tier (``conversation_id`` with
+    ``serving.conversation_kv_bytes``), then the arena's radix index
+    (``serving.kv_share_prefix_bytes``: an indexed prefix mapped read-only,
+    an exact repeat not prefilled at all), and only the suffix is
+    prefilled. With ``serving.prefill_chunk_tokens`` a cold prompt longer
     than the chunk enters a PREFILLING lane instead, and every such lane
     advances one chunk per boundary (B3 at T = chunk) while the others
     decode;
@@ -23,12 +27,19 @@ model gets a scheduler thread over a fixed number of lanes (the runtime's
     draft model attached (``serving.spec_draft_model``), by one speculative
     draft/verify round in which each lane accepts a variable-length prefix;
   - retires rows the moment they emit EOS or reach their max_new, at the
-    prefill and inside a chunk or round, and gives their pages back.
+    prefill and inside a chunk or round; a row with a conversation id parks
+    its pages in the engine's tier, then every row gives its pages back.
+Each emitted token goes to the row's ``on_token`` callback (the SSE stream).
+When a step raises, the slot state is dropped and, with
+``serving.generate_recovery``, the in-flight and queued rows move to a fresh
+scheduler (each re-prefills its prompt + the tokens it emitted) until a row
+has survived ``serving.generate_max_recoveries`` crashes; without it every
+row fails. ``lab.faults`` fires its ``engine_step`` hook at the top of each
+step (``kill_engine``, ``freeze_scheduler``).
 Seeded and malformed requests go to ``runtime.generate`` (the solo path).
 
-Not ported yet: conversation KV, priority classes and preemption, crash
-recovery (a scheduler exception fails the in-flight and queued rows and
-drops the slot state), token streaming, metrics and the flight recorder.
+Not ported: the reference's metrics, flight recorder, per-tenant ledger and
+trace annotations (the observability slice).
 """
 
 from __future__ import annotations
@@ -39,14 +50,21 @@ import secrets
 import threading
 import time
 from dataclasses import dataclass, field
+from typing import Any, Callable
 
 import numpy as np
 
+from tfservingcache_tpu_torch.cache.conversation_kv import ConversationKVTier
+from tfservingcache_tpu_torch.lab import faults as lab_faults
 from tfservingcache_tpu_torch.runtime.base import ModelNotLoadedError, RuntimeError_
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, next_bucket
 from tfservingcache_tpu_torch.types import ModelId
 
 log = logging.getLogger("tpusc_torch.batcher")
+
+# priority classes (REST "priority", default normal): admission and
+# preemption compare ranks, and the smaller rank wins pages
+PRIORITY_RANKS = {"high": 0, "normal": 1, "low": 2}
 
 
 @dataclass
@@ -57,13 +75,50 @@ class _ContinuousReq:
     max_new: int
     temperature: float
     top_k: int
+    enqueue_t: float = field(default_factory=time.monotonic)
     done: threading.Event = field(default_factory=threading.Event)
     tokens: list[int] = field(default_factory=list)
     error: BaseException | None = None
-    # chunked-prefill carry (reference :749): prompt tokens written so far
-    # (None = not PREFILLING) and the first-token seed drawn at admission
+    admitted_t: float | None = None
+    first_tok_t: float | None = None
+    # crashes this row survived (scheduler thread only); past the engine's
+    # max_recoveries it fails
+    recoveries: int = 0
+    # park at retirement, resume at admission (None = neither)
+    conversation_id: str | None = None
+    # tokens run through prefill over the row's life, every admission
+    # (resumes and crash replays) included
+    prefill_tokens: int = 0
+    resumes: int = 0                      # admissions that resumed from parked pages
+    # admission order: min (rank, seq); seq is engine-monotonic and survives
+    # preemption and crash requeues
+    priority: str = "normal"
+    rank: int = 1
+    seq: int = 0
+    # per-token stream callback (single-row requests); one that raises is
+    # dropped, never kills the scheduler
+    on_token: Callable[[int], None] | None = None
+    preemptions: int = 0                  # times parked off its lane
+    # the ParkedConversation of a preemption, checked at re-admission before
+    # the conversation tier
+    preempt_parked: Any = None
+    # chunked-prefill carry (reference :749): tokens of pf_prompt written so
+    # far (None = not PREFILLING), the prompt being written (a recovered
+    # row's emitted tokens included) and the first-token seed drawn at
+    # admission
     pf_pos: int | None = None
+    pf_prompt: np.ndarray | None = None
     pf_seed: int = 0
+
+
+def _history(req: _ContinuousReq) -> np.ndarray:
+    """The tokens whose K/V rows a retiring or preempted lane holds: the
+    prompt + every emitted token but the last (the step that emits token j
+    writes the row of token j - 1, so the last one's row was never
+    written)."""
+    if len(req.tokens) > 1:
+        return np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+    return req.prompt
 
 
 class _ContinuousScheduler:
@@ -94,6 +149,35 @@ class _ContinuousScheduler:
             if r.error is None and not r.done.is_set():
                 r.error = err
                 r.done.set()
+
+    def _triage(self, inflight: list[_ContinuousReq], queued: list[_ContinuousReq],
+                err: BaseException) -> list[_ContinuousReq]:
+        """Crash triage (reference :803): survivors (requeued into the
+        replacement scheduler, interrupted rows first, so their order holds)
+        and doomed rows (recovery off, or past a row's recovery budget),
+        which fail with ``err``. Each survivor counts once in
+        ``engine.recovered``."""
+        eng = self.engine
+        if not eng.recovery:
+            self._fail(inflight + queued, err)
+            return []
+        survivors: list[_ContinuousReq] = []
+        doomed: list[_ContinuousReq] = []
+        for r in inflight + queued:
+            if r.done.is_set():
+                continue
+            r.recoveries += 1
+            if r.recoveries > eng.max_recoveries:
+                doomed.append(r)
+                continue
+            # a row caught mid chunked prefill restarts from chunk 0 (the
+            # crashed state's pages are gone)
+            r.pf_pos = None
+            r.pf_prompt = None
+            survivors.append(r)
+        eng.recovered += len(survivors)
+        self._fail(doomed, err)
+        return survivors
 
     def _resolve_draft_id(self, rt: TorchModelRuntime, name: str) -> ModelId | None:
         """The ``spec_draft_model`` knob ("name" or "name@version") as a
@@ -161,19 +245,36 @@ class _ContinuousScheduler:
                     break
             try:
                 state = self._step(rt, state, lanes)
-            except Exception as e:  # noqa: BLE001 - the rows get the error
-                # eviction mid-decode or a device failure: the slot state may
-                # hold poisoned K/V, so it is dropped, and every in-flight
-                # and queued row fails with the error (no respawn here)
+            except Exception as e:  # noqa: BLE001 - triage the rows
+                # eviction mid-decode, a device failure or an injected kill:
+                # the slot state may hold poisoned K/V, so it is dropped.
+                # With recovery on, the in-flight and queued rows move to a
+                # FRESH scheduler, where admission re-prefills prompt +
+                # tokens emitted so far; the rest fail with the error.
                 log.exception("continuous scheduler for %s failed", self.model_id)
                 with self.cv:
-                    failed = [r for r in lanes if r is not None] + list(self.pending)
+                    inflight = [r for r in lanes if r is not None]
+                    queued = list(self.pending)
                     self.pending.clear()
                 lanes = [None] * self.engine.slots
-                self._fail(failed, e)
+                survivors = self._triage(inflight, queued, e)
                 rt.drop_slot_state(self.model_id)
                 state = None
+                if survivors:
+                    if self.engine._respawn(self, survivors) is not None:
+                        return  # the replacement owns the model and the rows
+                    self._fail(survivors, e)  # engine closing: nowhere to requeue
         self._fail(doomed, RuntimeError_("continuous generate engine closed"))
+
+    def _pop_next(self) -> _ContinuousReq | None:
+        """The pending row with the least (rank, seq): class first, FIFO
+        inside a class (reference :1005). One class is the queue's head."""
+        with self.cv:
+            if not self.pending:
+                return None
+            best, req = min(enumerate(self.pending), key=lambda e: (e[1].rank, e[1].seq))
+            del self.pending[best]
+            return req
 
     def _step(self, rt: TorchModelRuntime, state, lanes: list):
         """One chunk boundary: admit into free lanes, advance every
@@ -181,6 +282,9 @@ class _ContinuousScheduler:
         lanes by one chunk or one speculative round. Runs only on
         self.thread."""
         eng = self.engine
+        # kill_engine raises here (the organic failure path through _loop);
+        # freeze_scheduler sleeps this thread. Disarmed: one bool read.
+        lab_faults.fire("engine_step", model=str(self.model_id))
         eos = rt.eos_id_of(self.model_id)
         free = [i for i, r in enumerate(lanes) if r is None]
         if state is not None:
@@ -189,10 +293,9 @@ class _ContinuousScheduler:
             # draft's headroom iff the draft is on)
             self._spec_setup(rt, state, lanes)
         while free:
-            with self.cv:
-                if not self.pending:
-                    break
-                req = self.pending.popleft()
+            req = self._pop_next()
+            if req is None:
+                break
             reserved = None
             d_st = None
             try:
@@ -202,8 +305,13 @@ class _ContinuousScheduler:
                     self._spec_setup(rt, state, lanes)
                 d_st = state.spec_draft
                 prompt = req.prompt
+                remaining = req.max_new - len(req.tokens)
+                if req.tokens:
+                    # a crash-recovered or preempted row: re-prefill prompt +
+                    # the tokens emitted so far, so the next token continues
+                    # the stream where it broke
+                    prompt = np.concatenate([prompt, np.asarray(req.tokens, np.int32)])
                 p = prompt.shape[0]
-                remaining = req.max_new
                 if p + remaining > state.max_seq:
                     req.error = RuntimeError_(
                         f"prompt {p} + max_new_tokens {remaining} exceeds max_seq {state.max_seq}"
@@ -211,6 +319,7 @@ class _ContinuousScheduler:
                     req.done.set()
                     continue
                 plan = None
+                resume = None  # (parked, covered, n_pages)
                 share = state.prefix_index is not None
                 if state.paged:
                     # the whole prompt + max_new budget up front, so a
@@ -230,9 +339,12 @@ class _ContinuousScheduler:
                         req.done.set()
                         continue
                     idx = free[-1]  # the lane free.pop() hands out below
+                    t0 = time.monotonic()
+                    resume = self._resume_plan(rt, state, req, prompt)
+                    eng.resume_s += time.monotonic() - t0
                     shared_pages: list[int] = []
                     cow_headroom = 0
-                    if share:
+                    if share and resume is None:
                         plan = rt.shared_prefix_plan(state, prompt)
                         if plan is not None:
                             # map the indexed prefix read-only, reserve only
@@ -242,7 +354,7 @@ class _ContinuousScheduler:
                             shared_pages = plan.mapped_pages()
                             if plan.kind == "exact" and plan.tail_len > 0:
                                 cow_headroom = 1
-                    ok = state.reserve_pages(idx, budget, shared_pages, cow_headroom)
+                    ok = self._reserve(state, d_st, idx, budget, shared_pages, cow_headroom)
                     if not ok and share:
                         # page pressure: cold index-only pages lose to a live
                         # admission (the plan's own pages protected), or
@@ -250,39 +362,44 @@ class _ContinuousScheduler:
                         want = (max(0, need - len(shared_pages)) + cow_headroom
                                 - len(state.free_pages))
                         if want > 0 and rt.reclaim_prefix_pages(state, want, shared_pages):
-                            ok = state.reserve_pages(idx, budget, shared_pages, cow_headroom)
-                    if ok and d_st is not None:
-                        # the draft arena mirrors the reservation, capped at
-                        # its own table, all private (it has no index; its
-                        # auto-sized arena covers every lane's full table, so
-                        # this succeeds whenever the lane is free)
-                        d_budget = min(budget, d_st.pages_per_slot * d_st.page_tokens)
-                        if not d_st.reserve_pages(idx, d_budget):
-                            state.release_pages(idx)
-                            ok = False
+                            ok = self._reserve(state, d_st, idx, budget, shared_pages,
+                                               cow_headroom)
+                    while not ok:
+                        # priority preemption: a higher class that still
+                        # cannot reserve parks the lowest-class decoding lane
+                        # and requeues it, then retries; one victim may not
+                        # free enough
+                        vidx = self._pick_victim(lanes, req)
+                        if vidx is None or not self._preempt(rt, state, lanes, vidx):
+                            break
+                        free.insert(0, vidx)  # free[-1] (the lane reserved) stays
+                        ok = self._reserve(state, d_st, idx, budget, shared_pages,
+                                           cow_headroom)
                     if not ok:
-                        # arena exhausted: the row waits at the head of the
-                        # queue (FIFO kept); retirements below free pages for
-                        # the next boundary. need <= arena_pages, and an idle
-                        # engine's pages are free or reclaimable, so it
-                        # always admits it.
+                        # arena exhausted: the row waits at the head of its
+                        # class (its seq keeps its place); retirements free
+                        # pages for the next boundary. need <= arena_pages,
+                        # and an idle engine's pages are free or
+                        # reclaimable, so it always admits it.
                         with self.cv:
                             self.pending.appendleft(req)
                         break
                     reserved = idx
                 seed = secrets.randbits(31)
-                if (reserved is not None and eng.prefill_chunk_tokens > 0 and plan is None
-                        and d_st is None and p > eng.prefill_chunk_tokens):
+                if (reserved is not None and eng.prefill_chunk_tokens > 0 and resume is None
+                        and plan is None and d_st is None and p > eng.prefill_chunk_tokens):
                     # chunked prefill (reference :1227-1263): pages reserved,
                     # nothing written yet. The lane sits inactive with pos
                     # past its table, so a decode chunk's frozen rewrite of
                     # it lands on the trash page, never on the rows the
                     # chunks fill; _prefill_phase advances it one chunk per
-                    # boundary. Shared hits and draft engines keep the
-                    # one-dispatch prefill.
+                    # boundary. Resumes, shared hits and draft engines keep
+                    # the one-dispatch prefill.
                     idx = free.pop()
+                    req.pf_prompt = prompt
                     req.pf_pos = 0
                     req.pf_seed = seed
+                    req.admitted_t = time.monotonic()
                     state.active[idx] = False
                     state.pos[idx] = state.pages_per_slot * state.page_tokens
                     state.temps[idx] = req.temperature
@@ -290,13 +407,25 @@ class _ContinuousScheduler:
                     lanes[idx] = req
                     eng.admitted += 1
                     continue
-                tok, pk, pv, kind, last = rt.slot_prefill_shared(
-                    self.model_id, state, prompt, req.temperature, req.top_k, seed, plan,
-                )
+                if resume is not None:
+                    # suffix-only prefill over the re-imported parked pages
+                    t0 = time.monotonic()
+                    tok, pk, pv, last = rt.slot_resume_prefill(
+                        self.model_id, state, reserved, prompt, resume[0], resume[1],
+                        resume[2], req.temperature, req.top_k, seed,
+                    )
+                    eng.resume_s += time.monotonic() - t0
+                    kind = "resume"
+                    req.preempt_parked = None
+                else:
+                    tok, pk, pv, kind, last = rt.slot_prefill_shared(
+                        self.model_id, state, prompt, req.temperature, req.top_k, seed, plan,
+                    )
                 d_pk = d_pv = None
                 if d_st is not None and reserved is not None:
                     # greedy draft prefill: only the draft's K/V rows matter
-                    # (also on an exact target hit: the draft has no index)
+                    # (on an exact or resumed target too: the draft has
+                    # neither an index nor parked pages)
                     _, d_pk, d_pv = rt.slot_prefill(state.spec_draft_id, prompt, 0.0, 0,
                                                     seed=seed)
             except BaseException as e:  # noqa: BLE001 - out of pending, not yet in lanes
@@ -304,19 +433,34 @@ class _ContinuousScheduler:
                     _release(state, d_st, reserved)
                 self._fail([req], e)
                 raise
-            req.tokens.append(int(tok))
+            now = time.monotonic()
+            req.admitted_t = now
+            if req.first_tok_t is None:
+                # a recovered row keeps its first-token stamp: the client saw
+                # its first token before the crash
+                req.first_tok_t = now
+            self._emit(req, int(tok))
             eng.admitted += 1
             if kind == "exact":
                 eng.prefix_hits_exact += 1  # no prefill at all
+                n_pf = 0
+            elif kind == "resume":
+                eng.resumes += 1
+                req.resumes += 1
+                n_pf = p - resume[1]
             elif kind == "shared":
                 eng.prefix_hits_shared += 1
-                eng.prefill_tokens += p - plan.covered
+                n_pf = p - plan.covered
             else:  # "dense" (a prefix-cache hit; counted whole, as the reference does) or "miss"
                 if kind == "dense":
                     eng.prefix_hits_dense += 1
-                eng.prefill_tokens += p
+                n_pf = p
+            req.prefill_tokens += n_pf
+            eng.prefill_tokens += n_pf
             if (eos is not None and int(tok) == eos) or remaining <= 1:
-                # done at prefill: the lane was never used
+                # done at prefill: the lane was never used, and its pages
+                # hold no K/V of this row (the insert comes below), so
+                # nothing is parked
                 if reserved is not None:
                     _release(state, d_st, reserved)
                 req.done.set()
@@ -329,6 +473,10 @@ class _ContinuousScheduler:
                 # headroom page reserved for it is still free
                 if plan.tail_len > 0:
                     rt.slot_cow(state, idx, plan.n_full)
+            elif kind == "resume":
+                # suffix-only insert: the rows below the resume boundary hold
+                # the parked bytes already
+                rt.slot_admit(state, idx, pk, pv, base_tokens=resume[1])
             elif kind == "shared":
                 # suffix-only insert: rows below the boundary stay in the
                 # read-only mapped pages (their scatter goes to the trash page)
@@ -411,7 +559,7 @@ class _ContinuousScheduler:
             n_emit = chunk if accept is None else int(accept[idx])
             for j in range(n_emit):
                 t = int(toks[idx, j])
-                req.tokens.append(t)
+                self._emit(req, t)
                 if (eos is not None and t == eos) or len(req.tokens) >= req.max_new:
                     # retire now: the chunk's later steps for this row were
                     # overshoot (< chunk, the waste continuous batching
@@ -420,7 +568,7 @@ class _ContinuousScheduler:
                     state.active[idx] = False
                     lanes[idx] = None
                     if state.paged:
-                        _release(state, state.spec_draft, idx)
+                        self._retire_pages(rt, state, idx, req)
                     req.done.set()
                     break
         if accept is not None:
@@ -429,18 +577,135 @@ class _ContinuousScheduler:
                              engine="continuous")
         return state
 
+    def _resume_plan(self, rt: TorchModelRuntime, state, req: _ContinuousReq,
+                     prompt: np.ndarray) -> tuple | None:
+        """(parked, covered, n_pages) when ``req`` can resume from parked
+        pages (reference :1100-1129): its own preemption park first (it
+        covers prompt + every emitted token but the last), then its
+        conversation's parked turn. The tier lookup peeks, so a lane that
+        crashes mid-decode can resume again from the same ancestor."""
+        eng = self.engine
+        if req.preempt_parked is not None:
+            plan = rt.plan_conversation_resume(state, prompt, req.preempt_parked)
+            if plan is not None:
+                return (req.preempt_parked, *plan)
+        if req.conversation_id and eng.conversation_tier is not None:
+            parked, _outcome = eng.conversation_tier.get(req.conversation_id,
+                                                         str(self.model_id))
+            if parked is not None:
+                plan = rt.plan_conversation_resume(state, prompt, parked)
+                if plan is not None:
+                    return (parked, *plan)
+        return None
+
+    @staticmethod
+    def _reserve(state, d_st, idx: int, budget: int, shared_pages: list,
+                 cow_headroom: int) -> bool:
+        """Reserve ``idx``'s pages, and the draft arena's mirror of them (its
+        pages all private, capped at its own table; its auto-sized arena
+        covers every lane's table, so that succeeds whenever the lane is
+        free). False with nothing held when either cannot."""
+        if not state.reserve_pages(idx, budget, shared_pages, cow_headroom):
+            return False
+        if d_st is not None and not d_st.reserve_pages(
+                idx, min(budget, d_st.pages_per_slot * d_st.page_tokens)):
+            state.release_pages(idx)
+            return False
+        return True
+
+    def _retire_pages(self, rt: TorchModelRuntime, state, idx: int,
+                      req: _ContinuousReq) -> None:
+        """Give a retiring row's pages back (the draft lane's too), parking
+        them first when the row carries a conversation id and the engine has
+        a tier (reference :1599): the export needs the lane's mapping. A
+        failed park logs and goes on."""
+        eng = self.engine
+        if req.conversation_id and eng.conversation_tier is not None:
+            t0 = time.monotonic()
+            try:
+                parked = rt.park_lane(state, idx, _history(req))
+                if parked is not None:
+                    eng.conversation_tier.put(req.conversation_id, parked)
+                    eng.parks += 1
+            except Exception:  # noqa: BLE001 - parking is best-effort
+                eng.park_failures += 1
+                log.warning("conversation park failed for %s", req.conversation_id,
+                            exc_info=True)
+            eng.park_s += time.monotonic() - t0
+        _release(state, state.spec_draft, idx)
+
+    @staticmethod
+    def _emit(req: _ContinuousReq, tok: int) -> None:
+        """Append one emitted token and fire the row's stream callback. A
+        callback that raises is dropped after one failure: a dead client
+        connection must not take the scheduler thread down."""
+        req.tokens.append(tok)
+        cb = req.on_token
+        if cb is not None:
+            try:
+                cb(tok)
+            except Exception:  # noqa: BLE001 - client callback, not engine state
+                req.on_token = None
+
+    def _pick_victim(self, lanes: list, req: _ContinuousReq) -> int | None:
+        """The preemption target for ``req`` (reference :1722): the
+        decoding lane of the largest rank strictly above the arrival's, the
+        newest submit of it — admission's order reversed. PREFILLING lanes
+        and lanes out of preemption budget are exempt."""
+        best = None
+        for li, lreq in enumerate(lanes):
+            if lreq is None or lreq.pf_pos is not None or lreq.rank <= req.rank:
+                continue
+            if lreq.preemptions >= self.engine.preempt_limit:
+                continue
+            if best is None or (lreq.rank, lreq.seq) > (lanes[best].rank, lanes[best].seq):
+                best = li
+        return best
+
+    def _preempt(self, rt: TorchModelRuntime, state, lanes: list, vidx: int) -> bool:
+        """Park one decoding lane and requeue its row (reference :1745). The
+        parked pages are COPIES: the lane releases its pages through the
+        free list as at retirement, so the census stays exact. False when
+        the lane cannot be parked (a dense state, a failed export): the
+        caller stops hunting victims."""
+        eng = self.engine
+        victim = lanes[vidx]
+        t0 = time.monotonic()
+        try:
+            parked = rt.park_lane(state, vidx, _history(victim))
+        except Exception:  # noqa: BLE001 - the lane keeps running
+            eng.park_failures += 1
+            log.warning("preemption park failed for lane %d of %s", vidx, self.model_id,
+                        exc_info=True)
+            return False
+        if parked is None:
+            return False
+        victim.preempt_parked = parked
+        victim.preemptions += 1
+        state.active[vidx] = False
+        _release(state, state.spec_draft, vidx)
+        lanes[vidx] = None
+        with self.cv:
+            self.pending.append(victim)
+        eng.preemptions += 1
+        eng.preempt_park_s += time.monotonic() - t0
+        log.info("preempted lane %d of %s (class=%s, %d tokens emitted, preemption %d/%d)",
+                 vidx, self.model_id, victim.priority, len(victim.tokens), victim.preemptions,
+                 eng.preempt_limit)
+        return True
+
     def _prefill_phase(self, rt: TorchModelRuntime, state, lanes: list, eos) -> None:
         """Advance every PREFILLING lane by exactly ONE chunk (reference
         :1658-1720). The last chunk samples the row's first token under the
         seed drawn at admission (a monolithic prefill's draw), publishes
         the prompt's pages when sharing is on, and activates the lane for
-        the next decode chunk, or retires it on EOS / max_new == 1."""
+        the next decode chunk, or retires it on EOS / its last token."""
         eng = self.engine
         size = eng.prefill_chunk_tokens
         for idx, req in enumerate(lanes):
             if req is None or req.pf_pos is None:
                 continue
-            prompt = req.prompt
+            prompt = req.pf_prompt
             p = prompt.shape[0]
             n = min(size, p - req.pf_pos)
             last = rt.slot_prefill_chunk(self.model_id, state, idx,
@@ -450,15 +715,20 @@ class _ContinuousScheduler:
             if req.pf_pos < p:
                 continue
             tok = rt.sample_first_token(last, req.temperature, req.top_k, req.pf_seed)
+            if req.first_tok_t is None:
+                req.first_tok_t = time.monotonic()
+            req.prefill_tokens += p
             eng.prefill_tokens += p
             req.pf_pos = None
-            req.tokens.append(int(tok))
+            req.pf_prompt = None
+            remaining = req.max_new - len(req.tokens)
+            self._emit(req, int(tok))
             if state.prefix_index is not None:
                 # the publish a one-dispatch cold prefill makes, at the last chunk
                 rt.shared_prefix_publish(state, idx, prompt, last)
-            if (eos is not None and int(tok) == eos) or req.max_new <= 1:
+            if (eos is not None and int(tok) == eos) or remaining <= 1:
                 lanes[idx] = None
-                _release(state, state.spec_draft, idx)
+                self._retire_pages(rt, state, idx, req)
                 req.done.set()
                 continue
             state.tok[idx] = int(tok)
@@ -474,7 +744,7 @@ def _detach(state) -> None:
 
 
 def _release(state, d_st, idx: int) -> None:
-    """Give a retired or failed lane's pages back, the draft lane's too."""
+    """Give a lane's pages back, the draft lane's too."""
     state.release_pages(idx)
     if d_st is not None:
         d_st.release_pages(idx)
@@ -482,9 +752,10 @@ def _release(state, d_st, idx: int) -> None:
 
 class ContinuousGenerateEngine:
     """Continuous batching for ``:generate`` (``serving.generate_engine:
-    "continuous"``): one scheduler thread and one slot state per model.
-    Explicitly seeded requests (a reproducible solo stream), non-LM
-    families and malformed parameters go to ``runtime.generate``."""
+    "continuous"``): one scheduler thread and one slot state per model, and
+    one conversation tier for the engine (parked turns survive scheduler
+    crashes). Explicitly seeded requests (a reproducible solo stream),
+    non-LM families and malformed parameters go to ``runtime.generate``."""
 
     def __init__(
         self,
@@ -502,6 +773,7 @@ class ContinuousGenerateEngine:
         prefill_chunk_tokens: int | None = None,
     ) -> None:
         self.runtime = runtime
+        cfg = runtime.cfg
         self.slots = max(1, int(slots))
         self.chunk_tokens = max(1, int(chunk_tokens))
         self.wait_timeout_s = wait_timeout_s
@@ -519,12 +791,30 @@ class ContinuousGenerateEngine:
         self.spec_tokens = None if spec_tokens is None else int(spec_tokens)
         # chunked prefill: None defers to serving.prefill_chunk_tokens, 0 =
         # off; clamped UP to a power of two (reference :1948)
-        pf = (int(runtime.cfg.prefill_chunk_tokens) if prefill_chunk_tokens is None
+        pf = (int(cfg.prefill_chunk_tokens) if prefill_chunk_tokens is None
               else int(prefill_chunk_tokens))
         self.prefill_chunk_tokens = next_bucket(pf) if pf > 0 else 0
+        # crash recovery (serving.generate_recovery / generate_max_recoveries,
+        # read from the ServingConfig only): the budget is per row
+        self.recovery = bool(cfg.generate_recovery)
+        self.max_recoveries = max(0, int(cfg.generate_max_recoveries))
+        # the conversation tier (serving.conversation_kv_bytes & co., read
+        # from the ServingConfig only; 0 bytes = off)
+        self.conversation_tier = None
+        if int(cfg.conversation_kv_bytes) > 0:
+            self.conversation_tier = ConversationKVTier(
+                int(cfg.conversation_kv_bytes),
+                disk_capacity_bytes=int(cfg.conversation_kv_disk_bytes),
+                disk_dir=str(cfg.conversation_kv_dir),
+            )
+        # preemptions a row may take; past it the row decodes to its end
+        # whatever class arrives (bounded starvation)
+        self.preempt_limit = 2
         self._lock = threading.Lock()
         self._scheds: dict[ModelId, _ContinuousScheduler] = {}  # guarded-by: _lock
         self._closed = False  # guarded-by: _lock
+        # engine-monotonic submit sequence: the FIFO half of (rank, seq)
+        self._seq = 0  # guarded-by: _lock
         # counters (scheduler threads write, tests and chip_smoke.py read)
         self.admitted = 0
         self.chunks = 0
@@ -534,10 +824,23 @@ class ContinuousGenerateEngine:
         self.drafted = 0       # spec_tokens x active lanes, summed over rounds
         self.accepted = 0      # tokens the rounds emitted (accepted + correction)
         self.prefill_chunks = 0      # chunked-prefill chunks run (each n_layers B3 launches)
-        self.prefill_tokens = 0      # prompt tokens prefilled (shared and exact hits skip theirs)
+        self.prefill_tokens = 0      # prompt tokens prefilled (hits and resumes skip theirs)
         self.prefix_hits_exact = 0   # radix hits of a whole prompt: no prefill
         self.prefix_hits_shared = 0  # radix hits of a page-aligned prefix: suffix prefill
         self.prefix_hits_dense = 0   # prefix-cache (serving.prefix_cache_bytes) hits
+        self.resumes = 0             # admissions from parked pages (preemption or tier)
+        self.parks = 0               # conversations parked at retirement
+        self.park_failures = 0       # parks (retirement or preemption) that raised
+        self.preemptions = 0         # lanes parked off for a higher class
+        self.preempt_park_s = 0.0    # host seconds in preemption parks
+        # host seconds the scheduler thread spends, every lane waiting, in
+        # retirement parks (the copy to host and the tier's put, with any
+        # spill it makes) and in resumes (the plan with the tier's lookup
+        # and any read-back from disk, and the import with the suffix
+        # prefill's launch)
+        self.park_s = 0.0
+        self.resume_s = 0.0
+        self.recovered = 0           # rows requeued by crash recovery (once a crash)
 
     def _sched(self, model_id: ModelId) -> _ContinuousScheduler:
         with self._lock:
@@ -548,6 +851,34 @@ class ContinuousGenerateEngine:
                 s = self._scheds[model_id] = _ContinuousScheduler(self, model_id)
             return s
 
+    def _respawn(self, old: _ContinuousScheduler,
+                 survivors: list[_ContinuousReq]) -> _ContinuousScheduler | None:
+        """Crash recovery, from ``old``'s dying thread (reference :2031):
+        swap in a fresh scheduler for the model and requeue the surviving
+        rows in order. None when the engine is closing or ``old`` was
+        already replaced; the caller then fails the rows."""
+        with self._lock:
+            if self._closed or self._scheds.get(old.model_id) is not old:
+                return None
+            fresh = self._scheds[old.model_id] = _ContinuousScheduler(self, old.model_id)
+        with old.cv:
+            # a submit that raced the swap through a stale reference may
+            # have queued rows on the corpse: carry them over, and stop it
+            # so that later stale submits raise
+            old.stopped = True
+            late = list(old.pending)
+            old.pending.clear()
+        rows = survivors + late
+        try:
+            fresh.submit(rows)
+        except RuntimeError_ as e:  # closed between the swap and the submit
+            fresh._fail(rows, e)
+            return None
+        log.warning("continuous scheduler for %s respawned after a crash: %d rows requeued "
+                    "(%d interrupted mid-decode)", old.model_id, len(rows),
+                    sum(1 for r in survivors if r.tokens))
+        return fresh
+
     def generate(
         self,
         model_id: ModelId,
@@ -557,9 +888,28 @@ class ContinuousGenerateEngine:
         temperature: float = 0.0,
         top_k: int = 0,
         seed: int | None = None,
-    ) -> np.ndarray:
+        return_stats: bool = False,
+        conversation_id: str | None = None,
+        priority: str = "normal",
+        on_token: Callable[[int], None] | None = None,
+    ):
         """(rows, max_new_tokens) int32, rows zero-padded after an EOS
-        (reference batcher.py:2070)."""
+        (reference batcher.py:2070). ``return_stats`` also returns a dict a
+        row: ttft_s, admission_wait_s, tokens, prefill_tokens, priority,
+        preemptions (the reference's) and resumes.
+
+        ``priority`` ("high" | "normal" | "low") orders admission by class,
+        then FIFO, and lets a higher class preempt a lower decoding lane
+        when the arena is full; ignored on the solo path. ``on_token`` gets
+        each emitted token the moment the scheduler appends it (single-row
+        requests only; on the solo path the finished row is replayed through
+        it). ``conversation_id`` parks the row's decode state at retirement
+        and resumes the conversation's next turn from it; a multi-row call
+        parks row r under ``"{id}#r{r}"``. A no-op without the tier, and on
+        the solo path."""
+        rank = PRIORITY_RANKS.get(str(priority or "normal"))
+        if rank is None:
+            raise ValueError(f"unknown priority {priority!r} (expected high|normal|low)")
         ids = np.asarray(input_ids, np.int32)
         solo = (
             seed is not None
@@ -584,17 +934,35 @@ class ContinuousGenerateEngine:
             ):
                 solo = True
         if solo:
-            return self.runtime.generate(
+            out = self.runtime.generate(
                 model_id, ids, prompt_lengths=prompt_lengths,
                 max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
                 seed=seed if seed is not None else secrets.randbits(31),
             )
+            if on_token is not None and out.ndim == 2 and out.shape[0] == 1:
+                # the stream's frames on the solo path: the finished row
+                # replayed (a solo dispatch has no per-token boundary)
+                for t in out[0, :max_new_tokens].tolist():
+                    try:
+                        on_token(int(t))
+                    except Exception:  # noqa: BLE001 - client callback
+                        break
+            return (out, None) if return_stats else out
+        cid = str(conversation_id) if conversation_id else None
+        with self._lock:
+            seq0 = self._seq
+            self._seq += rows
         reqs = [
             _ContinuousReq(
                 prompt=ids[r, : lengths[r]].copy(),
                 max_new=int(max_new_tokens),
                 temperature=float(temperature),
                 top_k=int(top_k),
+                conversation_id=None if cid is None else (cid if rows == 1 else f"{cid}#r{r}"),
+                priority=str(priority or "normal"),
+                rank=rank,
+                seq=seq0 + r,
+                on_token=on_token if rows == 1 else None,
             )
             for r in range(rows)
         ]
@@ -610,10 +978,25 @@ class ContinuousGenerateEngine:
         for i, r in enumerate(reqs):
             t = np.asarray(r.tokens[:max_new_tokens], np.int32)
             out[i, : t.shape[0]] = t
-        return out
+        if not return_stats:
+            return out
+        stats = [
+            {
+                "ttft_s": (r.first_tok_t or r.enqueue_t) - r.enqueue_t,
+                "admission_wait_s": (r.admitted_t or r.enqueue_t) - r.enqueue_t,
+                "tokens": len(r.tokens[:max_new_tokens]),
+                "prefill_tokens": r.prefill_tokens,
+                "priority": r.priority,
+                "preemptions": r.preemptions,
+                "resumes": r.resumes,
+            }
+            for r in reqs
+        ]
+        return out, stats
 
     def close(self) -> None:
-        """Fail the pending rows and join the scheduler threads."""
+        """Fail the pending rows, join the scheduler threads and drop the
+        conversation tier."""
         with self._lock:
             self._closed = True
             scheds = list(self._scheds.values())
@@ -624,3 +1007,5 @@ class ContinuousGenerateEngine:
                 s.cv.notify_all()
         for s in scheds:
             s.thread.join(timeout=30.0)
+        if self.conversation_tier is not None:
+            self.conversation_tier.close()

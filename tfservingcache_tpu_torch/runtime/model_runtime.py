@@ -10,8 +10,9 @@ speculative rounds (``slot_attach_draft`` / ``slot_decode_spec_round``), a
 radix prefix index whose pages lanes share read-only
 (``serving.kv_share_prefix_bytes``: ``shared_prefix_plan``,
 ``slot_prefill_shared``, ``slot_cow``, ``shared_prefix_publish``,
-``reclaim_prefix_pages``) and chunked prefill into a lane's pages
-(``slot_prefill_chunk`` / ``sample_first_token``).
+``reclaim_prefix_pages``), chunked prefill into a lane's pages
+(``slot_prefill_chunk`` / ``sample_first_token``) and conversation parking
+(``park_lane``, ``plan_conversation_resume``, ``slot_resume_prefill``).
 A load reads ``params.bin`` in one sequential read into page-locked host
 memory, copies every leaf to the device and wraps them in
 the family's ``nn.Module``; resident models live in a byte-budgeted LRU
@@ -52,6 +53,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from tfservingcache_tpu_torch.cache.conversation_kv import (
+    ParkedConversation,
+    device_pages,
+    host_pages,
+)
 from tfservingcache_tpu_torch.cache.lru import LRUEntry, LRUCache
 from tfservingcache_tpu_torch.config import ServingConfig
 from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, load_artifact
@@ -1100,6 +1106,118 @@ class TorchModelRuntime(BaseRuntime):
                 state.free_pages.append(pg)
                 freed += 1
         return freed
+
+    # -- conversation KV park / resume (reference :2583-2736) -----------------
+    def park_lane(self, state: SlotDecodeState, lane: int,
+                  history: np.ndarray) -> ParkedConversation | None:
+        """Export a lane's live pages for parking (cache/conversation_kv.py):
+        host copies of the pages covering ``history`` (the token prefix whose
+        K/V rows the lane holds), raw arena dtype plus an int8 arena's
+        scales, never dequantized. Read-only on the arena: the caller still
+        releases the lane's pages, so the census never counts a parked page.
+        None when there is nothing to park: a dense state, an empty history,
+        or a reservation that no longer covers it."""
+        from tfservingcache_tpu_torch.models import generation
+
+        if not state.paged:
+            return None
+        history = np.asarray(history, np.int32).reshape(-1)
+        if history.shape[0] <= 0:
+            return None
+        n = state.pages_needed(history.shape[0])
+        pages = state.lane_pages.get(lane)
+        if pages is None or len(pages) < n or n == 0:
+            return None
+        rows = generation.pages_export(_arena(state), pages[:n])
+        k, dtype = host_pages(rows["k"])
+        v, _ = host_pages(rows["v"])
+        return ParkedConversation(
+            model_id=str(state.model_id),
+            history=history.copy(),
+            pages_k=k,
+            pages_v=v,
+            k_scale=rows["k_scale"].cpu().numpy() if "k_scale" in rows else None,
+            v_scale=rows["v_scale"].cpu().numpy() if "v_scale" in rows else None,
+            page_tokens=state.page_tokens,
+            page_dtype=dtype,
+        )
+
+    def plan_conversation_resume(self, state: SlotDecodeState, prompt: np.ndarray,
+                                 parked: ParkedConversation | None) -> tuple[int, int] | None:
+        """Can ``prompt`` resume from ``parked``? -> (covered, n_pages): the
+        longest common token prefix of the parked history and the prompt
+        (at least one suffix token is left to prefill) and the parked pages
+        that cover it. ``covered`` need not be page-aligned: the suffix
+        insert overwrites the boundary page's stale tail. Whole pages are
+        shed while covered + the suffix's power-of-two bucket would overflow
+        the lane. None when nothing resumes: another page size, arena layout
+        or dtype, scales on one side only, a first token that differs, or a
+        trim that shed everything."""
+        if parked is None or not state.paged:
+            return None
+        if int(parked.page_tokens) != state.page_tokens:
+            return None
+        shape = tuple(parked.pages_k.shape)
+        arena = tuple(state.k.shape)
+        if len(shape) != 5 or shape[0] != arena[0] or shape[2:] != arena[2:]:
+            return None
+        if parked.page_dtype != str(state.k.dtype).removeprefix("torch."):
+            return None
+        if (state.scales is None) != (parked.k_scale is None):
+            return None
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        p = prompt.shape[0]
+        hist = np.asarray(parked.history, np.int32).reshape(-1)
+        m = min(p - 1, hist.shape[0])
+        if m <= 0:
+            return None
+        eq = hist[:m] == prompt[:m]
+        covered = m if eq.all() else int(np.argmax(~eq))
+        # never resume past the pages actually parked
+        covered = min(covered, int(shape[1]) * state.page_tokens)
+        while covered > 0 and covered + next_bucket(p - covered) > state.max_seq:
+            covered = (state.pages_needed(covered) - 1) * state.page_tokens
+        if covered <= 0:
+            return None
+        return covered, state.pages_needed(covered)
+
+    def slot_resume_prefill(
+        self, model_id: ModelId, state: SlotDecodeState, lane: int, prompt: np.ndarray,
+        parked: ParkedConversation, covered: int, n_pages: int, temperature: float,
+        top_k: int, seed: int,
+    ) -> tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Resume admission prefill: write the parked pages into the first
+        ``n_pages`` of ``lane``'s freshly reserved private pages (one batched
+        index copy a buffer), gather the covered prefix to dense rows and
+        prefill only the suffix -> (first token, pk, pv, last logits), pk/pv
+        ready for ``slot_admit(..., base_tokens=covered)``. The first token
+        is drawn as a full prefill draws it under the same seed, over the
+        same K/V rows."""
+        from tfservingcache_tpu_torch.models import generation
+
+        loaded = self._lm(model_id)
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        p = prompt.shape[0]
+        pages = state.lane_pages[lane][:n_pages]
+        arena = _arena(state)
+        dev = state.k.device
+        payload = {
+            "k": device_pages(parked.pages_k[:, :n_pages], parked.page_dtype, dev),
+            "v": device_pages(parked.pages_v[:, :n_pages], parked.page_dtype, dev),
+        }
+        if state.scales is not None:
+            payload["k_scale"] = device_pages(parked.k_scale[:, :n_pages], "float32", dev)
+            payload["v_scale"] = device_pages(parked.v_scale[:, :n_pages], "float32", dev)
+        generation.pages_import(arena, pages, payload)
+        ck, cv = generation.paged_gather_prefix(arena, pages)
+        suffix_len = p - covered
+        suffix = np.zeros((1, next_bucket(suffix_len)), np.int32)
+        suffix[0, :suffix_len] = prompt[covered:]
+        tok, pk, pv, last = generation.slot_prefill_from_cache(
+            loaded.module, loaded.model_def.config, torch.from_numpy(suffix).to(dev),
+            suffix_len, ck, cv, covered, temperature, top_k, seed,
+        )
+        return int(tok[0]), pk, pv, last
 
     def slot_admit(self, state: SlotDecodeState, idx: int, pk: torch.Tensor,
                    pv: torch.Tensor, base_tokens: int = 0) -> None:
