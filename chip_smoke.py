@@ -86,7 +86,25 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      = n_layers x plain decode steps + draft layers x (spec + 1) x spec
      rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
      also counted from the prompts) and stay 0 on the solo paths;
-  7. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  7. observe — the observability layer on a served continuous node (the
+     shared disk cache of arms (l)-(o)), configured as ``cli serve``
+     configures it (``server.configure_observability``): after a warm-up,
+     the recorder and the ledger are reset, then arm (a)'s schedule (16
+     requests x 64 tokens from 8 clients) and 4 ``:predict`` requests. The
+     scrape (parsed here with the standard library) must count exactly those
+     requests, with ``gen_kv_pages_used`` back at 0; ``/monitoring/engine``
+     must hold one row with a chunk per chunk the engine dispatched, and the
+     paged kernel's launches must be n_layers x the rows' summed chunk;
+     ``/monitoring/tenants`` must attribute every emitted token; and there
+     is a ``rest`` trace root per request. Then ``POST
+     /monitoring/profiler?duration_s=2&label=smoke`` runs during a second
+     burst with a ``:predict`` inside the window: its Chrome trace must name
+     the paged decode kernel and the flash kernel, and each
+     ``tpusc.decode_chunk`` range's kernels give one chunk's device time,
+     printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
+     the trace is deleted after the check. The burst's tok/s is printed
+     beside arm (a)'s;
+  8. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -112,11 +130,13 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -242,6 +262,11 @@ STREAMS = 4
 # KILL_REQUESTS greedy requests in flight
 KILL_AFTER = 6
 KILL_REQUESTS = 8
+# the observe phase: :predict requests beside the burst, the profiler window
+OBSERVE_PREDICTS = 4
+PROFILE_S = 2.0
+# generated tok/s of each continuous arm's burst, by arm name
+ARM_TOK_S: dict[str, float] = {}
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
 # B4 ring hops (B, Hq, Hkv, Sq, Sk, D, dtype, rel), each from a carried
@@ -1641,6 +1666,7 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
         if sorted(s.free_pages) != list(range(1, s.arena_pages + 1)):
             raise AssertionError(f"[{name}] pages of {s.model_id} still held after the drain")
     lat = [dt for *_, dt in results[:len(prompts)]]
+    ARM_TOK_S[name] = len(prompts) * n_new / wall
     log(f"  [{name}] {len(prompts)} requests x {n_new} tokens from {GEN_CLIENTS} clients: "
         f"wall {wall * 1e3:.1f} ms, {len(prompts) * n_new / wall:.1f} generated tok/s, "
         f"per-request p50 {statistics.median(lat) * 1e3:.1f} ms (host clock, localhost HTTP); "
@@ -1786,6 +1812,15 @@ def _compare_to_plain_arm(art, name, prompts, plain, spec_toks, tol) -> None:
         "requests; every divergence starts at a near-tie of the plain path")
 
 
+def _gen_prompts(art, seed: int) -> list:
+    """Arm (a)'s GEN_REQUESTS prompts (lengths in GEN_PROMPT_RANGE)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    lo, hi = GEN_PROMPT_RANGE
+    return [rng.integers(0, art.vocab, int(n)) for n in rng.integers(lo, hi + 1, GEN_REQUESTS)]
+
+
 def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     """REST :generate: (a) continuous engine over a bf16 arena, (b) the solo
     path, (c) continuous engine over an int8 arena, (d) (a) with speculative
@@ -1801,9 +1836,7 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
 
     from tfservingcache_tpu_torch.ops import attention as A
 
-    rng = np.random.default_rng(seed + 2)
-    lo, hi = GEN_PROMPT_RANGE
-    prompts = [rng.integers(0, art.vocab, int(n)) for n in rng.integers(lo, hi + 1, GEN_REQUESTS)]
+    prompts = _gen_prompts(art, seed)
     log(f"prompt lengths {[len(p) for p in prompts]}, {GEN_NEW_TOKENS} new tokens each")
     node = None
     launches = verify = 0
@@ -2699,6 +2732,228 @@ def _priority_arm(art, seed: int) -> int:
     return launches
 
 
+def _scrape(base: str) -> dict:
+    """The node's exposition, parsed with the standard library:
+    {(sample name, sorted (label, value) pairs): value}."""
+    with urllib.request.urlopen(base + "/monitoring/prometheus/metrics", timeout=120) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        pairs = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', labels)))
+        out[(name, pairs)] = float(value)
+    return out
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _chunk_kernel_ms(events: list) -> tuple[list[tuple[float, float, int]], str]:
+    """Each ``tpusc.decode_chunk`` range of a Chrome trace (the scheduler
+    thread's dispatch of one decode chunk, through its device-to-host copy)
+    -> ([(range ms on the host clock, device ms of the chunk's kernels,
+    their count)], how the kernels were matched). A launch record inside
+    the range (same thread) names its kernel by correlation id;
+    a trace without launch records falls back to the kernels that ran
+    wholly inside the range."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kernel_us = {e["args"]["correlation"]: e["dur"] for e in kernels
+                 if "correlation" in e.get("args", {})}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})]
+    ranges = [r for r in events
+              if r.get("cat") == "user_annotation" and r.get("name") == "tpusc.decode_chunk"]
+    how = "correlated launches" if launches else "kernels inside the range"
+    out = []
+    for r in ranges:
+        t0, t1 = r["ts"], r["ts"] + r["dur"]
+        if launches:
+            ran = [kernel_us[e["args"]["correlation"]] for e in launches
+                   if e.get("tid") == r.get("tid") and t0 <= e["ts"] <= t1
+                   and e["args"]["correlation"] in kernel_us]
+        else:
+            ran = [k["dur"] for k in kernels if t0 <= k["ts"] and k["ts"] + k["dur"] <= t1]
+        if ran:
+            out.append((r["dur"] / 1e3, sum(ran) / 1e3, len(ran)))
+    return out, how
+
+
+def phase_observe(art: Artifact, seed: int) -> None:
+    """(p) The observability layer on a served continuous node, configured
+    as ``cli serve`` configures it: scrape, engine rows, tenants and traces
+    against what the burst ran, then a profiler capture over a second burst
+    (module docstring, phase 7)."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node, configure_observability
+    from tfservingcache_tpu_torch.utils.accounting import LEDGER
+    from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+    from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+    name = "p: observe"
+    profiles = os.path.join(art.work, "profiles")
+    conf = art.node_config("slo", generate_engine="continuous", generate_slots=8,
+                           generate_chunk_tokens=8, kv_page_tokens=16)
+    conf["observability"] = {"flight_dir": os.path.join(art.work, "flight")}
+    cfg = config_from_dict(conf)
+    configure_observability(cfg)
+    node = build_node(cfg, device="cuda")
+    try:
+        node.rest.profiler_base_dir = profiles
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}"
+        model = f"{base}/v1/models/{art.model_id.name}/versions/1"
+        prompts = _gen_prompts(art, seed)
+        bodies = [{"input_ids": [p.tolist()], "max_new_tokens": GEN_NEW_TOKENS} for p in prompts]
+        rng = np.random.default_rng(seed + 9)
+        preds = [{"instances": rng.integers(0, art.vocab, (1, 128)).tolist()}
+                 for _ in range(OBSERVE_PREDICTS)]
+        # the cold load and the first prefill and predict stay out of the window
+        for url, body in ((f"{model}:generate", {"input_ids": [list(range(1, 33))],
+                                                 "max_new_tokens": 8}),
+                          (f"{model}:predict", preds[0])):
+            status, out, _dt = _post(url, body, 900.0)
+            if status != 200:
+                raise AssertionError(f"[{name}] warm-up answered {status}: {out}")
+        RECORDER.clear()
+        LEDGER.clear()
+        TRACER.clear()
+        before = _scrape(base)
+        chunks0 = node.engine.chunks
+        # --- the main path: counters to 0, the burst, counters read --------
+        A.PAGED_LAUNCHES.reset()
+        A.VERIFY_LAUNCHES.reset()
+        A.FLASH_LAUNCHES.reset()
+        t0 = time.monotonic()
+        results = _post_many(f"{model}:generate", bodies, GEN_CLIENTS)
+        wall = time.monotonic() - t0
+        answers = [_post(f"{model}:predict", body, 900.0) for body in preds]
+        paged, verify, flash = (A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value,
+                                A.FLASH_LAUNCHES.value)
+        # --------------------------------------------------------------------
+        chunks = node.engine.chunks - chunks0
+        for status, out, _dt in results + answers:
+            if status != 200:
+                raise AssertionError(f"[{name}] a request answered {status}: {out}")
+        for _s, out, _dt in results:
+            toks = np.asarray(out["tokens"])
+            if toks.shape != (1, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < art.vocab)).all():
+                raise AssertionError(f"[{name}] tokens {toks.shape} out of shape or vocab")
+        after = _scrape(base)
+
+        def delta(sample, **labels):
+            key = (sample, tuple(sorted(labels.items())))
+            return after.get(key, 0.0) - before.get(key, 0.0)
+
+        got = {
+            "requests": delta("tfservingcache_proxy_requests_total", protocol="rest"),
+            "failures": delta("tfservingcache_proxy_failures_total", protocol="rest"),
+            "generate ok": delta("tpusc_request_duration_seconds_count", protocol="rest",
+                                 verb="generate", outcome="ok", route="local"),
+            "predict ok": delta("tpusc_request_duration_seconds_count", protocol="rest",
+                                verb="predict", outcome="ok", route="local"),
+            "admissions": delta("tpusc_gen_admission_wait_seconds_count", engine="continuous"),
+        }
+        want = {"requests": len(bodies) + len(preds), "failures": 0,
+                "generate ok": len(bodies), "predict ok": len(preds), "admissions": len(bodies)}
+        idle = {"gen_kv_pages_used": after[("tpusc_gen_kv_pages_used", ())],
+                "requests_in_flight": after[("tpusc_requests_in_flight",
+                                             (("protocol", "rest"),))]}
+        log(f"  [{name}] scrape deltas {got} (want {want}); idle gauges {idle}")
+        if got != want or any(idle.values()):
+            raise AssertionError(f"[{name}] scrape {got} / idle {idle} != {want} / 0")
+        snap = _get_json(base + "/monitoring/engine?n=4096&reset=0")
+        steps = snap["models"][str(art.model_id)]["steps"]
+        rows = [s for s in steps if s["chunk"] > 0]
+        want_paged = art.layers * sum(s["chunk"] for s in rows)
+        log(f"  [{name}] /monitoring/engine: {len(steps)} rows, {len(rows)} with a chunk "
+            f"(engine chunks {chunks}); paged launches {paged} (n_layers {art.layers} x "
+            f"summed chunk {sum(s['chunk'] for s in rows)} = {want_paged}); verify {verify}; "
+            f"flash {flash} (n_layers x {len(preds)} predicts); admitted "
+            f"{sum(s['admitted'] for s in steps)}, retired {sum(s['retired'] for s in steps)}; "
+            f"window {snap['models'][str(art.model_id)]['window']}")
+        if (len(rows) != chunks or paged != want_paged or verify
+                or flash != art.layers * len(preds)
+                or sum(s["admitted"] for s in steps) != len(bodies)
+                or sum(s["retired"] for s in steps) != len(bodies)):
+            raise AssertionError(f"[{name}] engine rows / launches disagree with the burst")
+        tenant = _get_json(base + "/monitoring/tenants")["tenants"][str(art.model_id)]
+        tokens = tenant["totals"]["tokens_out"]
+        roots = _get_json(base + "/monitoring/traces?n=1000")["traces"]
+        log(f"  [{name}] /monitoring/tenants: tokens_out {tokens}, decode step seconds "
+            f"{tenant['totals']['decode_step_seconds']}; /monitoring/traces: {len(roots)} roots")
+        if tokens != len(bodies) * GEN_NEW_TOKENS:
+            raise AssertionError(f"[{name}] the ledger attributes {tokens} tokens, the burst "
+                                 f"emitted {len(bodies) * GEN_NEW_TOKENS}")
+        if sorted({r["name"] for r in roots}) != ["rest"] or len(roots) != len(bodies) + len(preds):
+            raise AssertionError(f"[{name}] {len(roots)} trace roots for "
+                                 f"{len(bodies) + len(preds)} requests")
+        step_ms = sorted(s["step_ms"] for s in rows)
+        p50, p90 = (float(np.percentile(step_ms, q)) for q in (50, 90))
+        tok_s = len(bodies) * GEN_NEW_TOKENS / wall
+        # the profiler over a second burst, a :predict inside the window
+        answer: dict = {}
+
+        def capture():
+            req = urllib.request.Request(
+                f"{base}/monitoring/profiler?duration_s={PROFILE_S}&label=smoke", method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    answer["reply"] = (resp.status, json.loads(resp.read()))
+            except urllib.error.HTTPError as e:
+                answer["reply"] = (e.code, json.loads(e.read()))
+
+        prof = threading.Thread(target=capture)
+        prof.start()
+        time.sleep(0.3)
+        burst = threading.Thread(target=lambda: answer.setdefault(
+            "burst", _post_many(f"{model}:generate", bodies[:GEN_CLIENTS], GEN_CLIENTS)))
+        burst.start()
+        answer["predict"] = _post(f"{model}:predict", preds[1], 900.0)
+        prof.join()
+        burst.join()
+        status, reply = answer["reply"]
+        if status != 200:
+            raise AssertionError(f"[{name}] the profiler answered {status}: {reply}")
+        if answer["predict"][0] != 200 or any(r[0] != 200 for r in answer["burst"]):
+            raise AssertionError(f"[{name}] a request in the profiled burst failed")
+        trace = reply["trace"]
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        found = {k: any(k in n for n in names)
+                 for k in ("paged_decode_attention_kernel", "flash_fwd_kernel")}
+        per_chunk, how = _chunk_kernel_ms(events)
+        log(f"  [{name}] profiler: {os.path.getsize(trace)} bytes of Chrome trace, "
+            f"{len(names)} kernel names, {found}; {len(per_chunk)} decode-chunk ranges ({how})")
+        os.remove(trace)
+        shutil.rmtree(profiles, ignore_errors=True)
+        if not all(found.values()):
+            raise AssertionError(f"[{name}] the trace misses a kernel: {found}")
+        if not per_chunk:
+            raise AssertionError(f"[{name}] no decode-chunk range with kernels in the trace")
+        host_c, dev_c, n_c = (statistics.median(x) for x in zip(*per_chunk))
+        log(f"  [{name}] step_ms of the unprofiled burst (flight recorder, host clock of a "
+            f"boundary): p50 {p50:.3f} ms, p90 {p90:.3f} ms over {len(rows)} chunks; one decode "
+            f"chunk in the profiled burst: {dev_c:.3f} ms of device kernels ({n_c:.0f} kernels) "
+            f"in a {host_c:.3f} ms dispatch range (medians over {len(per_chunk)} chunks, "
+            f"torch.profiler)")
+        arm_a = ARM_TOK_S.get("a: bf16 arena")
+        log(f"  [{name}] {len(bodies)} requests x {GEN_NEW_TOKENS} tokens from {GEN_CLIENTS} "
+            f"clients with the layer configured: {tok_s:.1f} generated tok/s; arm (a) in this "
+            f"call: {arm_a:.1f} tok/s" if arm_a else
+            f"  [{name}] {tok_s:.1f} generated tok/s (arm (a) did not run in this call)")
+    finally:
+        node.close()
+        RECORDER.configure(flight_dir="")  # dumps stop with the node
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -2741,6 +2996,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_serve(art, args.seed, args.warm, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
+        with Phase("observe"):
+            phase_observe(art, args.seed)
         with Phase("ring"):
             phase_ring(art, args.seed, args.warm, kernels)
     finally:

@@ -224,9 +224,11 @@ def test_port_serves_without_importing_jax(tmp_path):
     ``"draft_model"`` request, a streamed answer, a conversation parked and
     resumed, chunked prefill, shared-prefix pages and the
     solo prefix cache, and a ring ``:predict`` on a node whose
-    runtime is bound to a 4-copy CPU group — in a fresh interpreter (this
-    test process has JAX loaded by the harness): neither ``jax`` nor the JAX
-    package may enter ``sys.modules``."""
+    runtime is bound to a 4-copy CPU group — and a scrape of the node's
+    metrics and monitoring endpoints, in a fresh interpreter (this test
+    process has JAX loaded by the harness): neither ``jax`` nor the JAX
+    package, nor ``prometheus_client`` or ``aiohttp``, may enter
+    ``sys.modules``."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
         sys.path.insert(0, {str(ROOT)!r})
@@ -295,6 +297,15 @@ def test_port_serves_without_importing_jax(tmp_path):
         assert node.engine.parks == 2 and node.engine.resumes == 1, vars(node.engine)
         for mod in ("cache.conversation_kv", "lab.faults"):
             assert "tfservingcache_tpu_torch." + mod in sys.modules
+        base = f"http://127.0.0.1:{{port}}"
+        with urllib.request.urlopen(base + "/monitoring/prometheus/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        assert 'tfservingcache_proxy_requests_total{{protocol="rest"}} 6.0' in text, text
+        assert 'tpusc_kv_resume_total{{outcome="hit"}} 1.0' in text
+        assert "tpusc_gen_kv_pages_used 0.0" in text
+        for path in ("/monitoring/engine?reset=0", "/monitoring/traces", "/monitoring/tenants"):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                assert resp.status == 200 and json.loads(resp.read())
         node.close()
         # the KV-reuse knobs: chunked prefill, shared-prefix pages, the solo
         # path's prefix cache
@@ -341,8 +352,9 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert len(json.loads(resp.read())["predictions"][0]) == 512
         assert len(hops) == 2 * 16  # 2 layers x 4^2 ring hops
         node.close()
+        banned = ("jax", "tfservingcache_tpu", "prometheus_client", "aiohttp")
         bad = sorted(m for m in sys.modules
-                     if m in ("jax", "tfservingcache_tpu") or m.startswith(("jax.", "tfservingcache_tpu.")))
+                     if m in banned or m.startswith(tuple(b + "." for b in banned)))
         print("FORBIDDEN", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -363,6 +375,8 @@ def test_cli_serve_answers_and_stops_on_sigterm(tmp_path, store):
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(store)},
         "cache_node": {"rest_port": port},
+        "observability": {"flight_dir": str(tmp_path / "flight")},
+        "logging": {"fmt": "json"},
     }))
     proc = subprocess.Popen(
         [sys.executable, "-m", "tfservingcache_tpu_torch.cli", "serve", "--config", str(cfg_path)],
@@ -389,6 +403,45 @@ def test_cli_serve_answers_and_stops_on_sigterm(tmp_path, store):
             proc.kill()
             raise
     assert rc == 0
+    # logging.fmt json: one JSON object a line
+    lines = [json.loads(line) for line in proc.stdout.read().splitlines() if line.startswith("{")]
+    assert any(rec["logger"] == "tpusc_torch.cli" and rec["level"] == "info" for rec in lines)
+
+
+def test_profiler_capture_writes_a_chrome_trace(tmp_path):
+    """``POST /monitoring/profiler`` takes a real ``torch.profiler`` capture
+    (CPU activity here) into ``<base>/<label>/``, in a fresh interpreter
+    with a timeout of its own: the capture's native state stays out of the
+    test process."""
+    script = textwrap.dedent(f"""
+        import json, os, sys, urllib.request
+        sys.path.insert(0, {str(ROOT)!r})
+        from tfservingcache_tpu_torch.config import config_from_dict
+        from tfservingcache_tpu_torch.server import build_node
+        cfg = config_from_dict({{"cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
+                                "model_provider": {{"base_dir": {str(tmp_path)!r}}},
+                                "cache_node": {{"rest_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        node.rest.profiler_base_dir = {str(tmp_path / "profiles")!r}
+        port = node.start("127.0.0.1")
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{port}}/monitoring/profiler?duration_s=0.2&label=cpu",
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                body = json.loads(resp.read())
+            print("ANSWER", json.dumps(body))
+        finally:
+            node.close()
+    """)
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
+    body = json.loads(r.stdout.split("ANSWER ", 1)[1])
+    assert body["status"] == "ok" and body["dir"] == str(tmp_path / "profiles" / "cpu")
+    assert os.path.dirname(body["trace"]) == body["dir"]
+    with open(body["trace"]) as fh:
+        assert "traceEvents" in json.load(fh)
 
 
 def test_manager_versions_health_and_stale_reload(tmp_path, store):

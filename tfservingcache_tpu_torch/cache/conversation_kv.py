@@ -27,9 +27,12 @@ without ``ml_dtypes``, which the port does not use, so bf16 pages are held
 here as their ``uint16`` bit pattern with ``page_dtype == "bfloat16"``; the
 header still names them ``"bfloat16"``.
 
-The reference's flight-recorder notes and metrics are not ported (they
-belong to the observability slice), nor is ``adopt`` (a conversation
-handed over by another node: it comes with migration between nodes).
+The tier feeds ``tpusc_kv_parked_bytes{host,disk}``,
+``tpusc_kv_parked_conversations``, ``tpusc_kv_resume{hit,spilled,miss}`` and
+``tpusc_evictions_total{conversation_kv_host,conversation_kv_disk}``, and
+hands its stats row to the flight recorder on every change. ``adopt`` (a
+conversation handed over by another node) comes with migration between
+nodes.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from tfservingcache_tpu_torch.cache.lru import CapacityError, LRUCache, LRUEntry
+from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
 
 log = logging.getLogger("tpusc_torch.conversation_kv")
 
@@ -202,7 +206,9 @@ class ConversationKVTier:
         capacity_bytes: int,
         disk_capacity_bytes: int = 0,
         disk_dir: str | None = None,
+        metrics: Any = None,
     ) -> None:
+        self.metrics = metrics
         self.capacity_bytes = max(0, int(capacity_bytes))
         self.disk_capacity_bytes = max(0, int(disk_capacity_bytes))
         self.disk_dir = disk_dir
@@ -229,6 +235,7 @@ class ConversationKVTier:
         if self._spill:
             self._made_dir = not os.path.isdir(disk_dir)
             os.makedirs(disk_dir, exist_ok=True)
+        self._update_gauges()
 
     # -- core ---------------------------------------------------------------
     def put(self, conversation_id: str, parked: ParkedConversation) -> None:
@@ -248,6 +255,7 @@ class ConversationKVTier:
         self.disk.remove(key, run_callback=True)
         with self._stats_lock:
             self._parked_total += 1
+        self._update_gauges()
 
     def get(self, conversation_id: str, model_id: str,
             touch: bool = True) -> tuple[ParkedConversation | None, str]:
@@ -270,6 +278,7 @@ class ConversationKVTier:
                 log.warning("parked-KV read-back failed for %s: %s", key, e)
                 self.disk.remove(key, run_callback=True)
                 self._count("miss")
+                self._update_gauges()
                 return None, "miss"
             # promote host-ward (may itself spill a colder conversation);
             # drop the disk copy so bytes are never counted twice
@@ -279,6 +288,7 @@ class ConversationKVTier:
             except CapacityError:
                 pass  # serve it anyway; too big to re-park
             self._count("spilled")
+            self._update_gauges()
             return parked, "spilled"
         self._count("miss")
         return None, "miss"
@@ -287,6 +297,7 @@ class ConversationKVTier:
         key = (str(model_id), str(conversation_id))
         self.host.remove(key, run_callback=False)
         self.disk.remove(key, run_callback=True)
+        self._update_gauges()
 
     def drop_model(self, model_id: str) -> None:
         """Forget every conversation parked for a model (unload path)."""
@@ -295,10 +306,17 @@ class ConversationKVTier:
             self.host.remove(key, run_callback=False)
         for key in [k for k in self.disk.keys_mru_first() if k[0] == mid]:
             self.disk.remove(key, run_callback=True)
+        self._update_gauges()
 
     # -- eviction / spill ---------------------------------------------------
     def _on_evict_host(self, key: ConvKey, entry: LRUEntry[ParkedConversation]) -> None:
+        """A host entry pushed out by a newer park: spilled to disk when the
+        tier has a disk level, else dropped. Counted as a host eviction
+        either way (reference :298-325)."""
+        if self.metrics is not None:
+            self.metrics.evictions.labels("conversation_kv_host").inc()
         if not self._spill or self._closed.is_set():
+            self._update_gauges()
             return
         blob = pack_parked(entry.payload)
         name = hashlib.sha256(f"{key[0]}\x00{key[1]}".encode()).hexdigest()[:24]
@@ -316,18 +334,22 @@ class ConversationKVTier:
                     os.unlink(leftover)
                 except OSError:
                     pass
+            self._update_gauges()
             return
         with self._stats_lock:
             self._spills += 1
             self._spilled_bytes += len(blob)
+        self._update_gauges()
         log.info("parked conversation %s spilled host->disk (%d bytes)", key[1], len(blob))
 
-    @staticmethod
-    def _on_evict_disk(key: ConvKey, entry: LRUEntry[str]) -> None:
+    def _on_evict_disk(self, key: ConvKey, entry: LRUEntry[str]) -> None:
         try:
             os.unlink(entry.payload)
         except OSError:
             pass
+        if self.metrics is not None:
+            self.metrics.evictions.labels("conversation_kv_disk").inc()
+        self._update_gauges()
 
     def _count(self, outcome: str) -> None:
         with self._stats_lock:
@@ -337,6 +359,8 @@ class ConversationKVTier:
                 self._spilled_hits += 1
             else:
                 self._misses += 1
+        if self.metrics is not None:
+            self.metrics.kv_resume.labels(outcome).inc()
 
     # -- introspection ------------------------------------------------------
     def stats(self) -> dict[str, Any]:
@@ -380,9 +404,20 @@ class ConversationKVTier:
     def __len__(self) -> int:
         return len(self.host) + len(self.disk)
 
+    def _update_gauges(self) -> None:
+        """``tpusc_kv_parked_bytes{host,disk}`` and
+        ``tpusc_kv_parked_conversations``, and the stats row the flight
+        recorder's snapshot carries."""
+        if self.metrics is not None:
+            self.metrics.kv_parked_bytes.labels("host").set(self.host.total_bytes)
+            self.metrics.kv_parked_bytes.labels("disk").set(self.disk.total_bytes)
+            self.metrics.kv_parked_conversations.set(len(self.host) + len(self.disk))
+        RECORDER.note_conversation_kv(self.stats())
+
     def clear(self) -> None:
         self.host.clear()
         self.disk.clear()
+        self._update_gauges()
 
     def close(self) -> None:
         """Drop every parked conversation and delete the tier's own spill
@@ -398,3 +433,4 @@ class ConversationKVTier:
                 os.rmdir(self.disk_dir)
             except OSError:
                 pass  # something else lives there now
+        self._update_gauges()

@@ -116,6 +116,15 @@ class ModelDiskCache:
     def ensure_free_bytes(self, n: int) -> list[ModelId]:
         return self.lru.ensure_free_bytes(n)
 
+    def size_of(self, model_id: ModelId) -> int | None:
+        """On-disk artifact bytes (None if absent)."""
+        model = self.lru.get(model_id, touch=False)
+        return None if model is None else model.size_on_disk
+
+    @property
+    def total_bytes(self) -> int:
+        return self.lru.total_bytes
+
     def list_models(self) -> list[ModelId]:
         return self.lru.keys_mru_first()
 

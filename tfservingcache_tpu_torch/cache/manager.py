@@ -1,6 +1,6 @@
 """CacheManager — per-node JIT load orchestration (counterpart of
-``tfservingcache_tpu/cache/manager.py``; ledger, fault-injection, peer and
-streaming fetch and metrics are not ported in this slice).
+``tfservingcache_tpu/cache/manager.py``; fault injection, peer and streaming
+fetch are not ported yet).
 
   - HIT: artifact on disk and model resident in the runtime;
   - STALE: artifact on disk, model not resident -> reload without re-fetch;
@@ -9,6 +9,11 @@ streaming fetch and metrics are not ported in this slice).
 Per-model singleflight: concurrent misses on different models proceed in
 parallel, concurrent requests for one model share one fetch and load. A
 cold-load deadline (``serving.load_timeout_s``) bounds fetch + load.
+
+Observability (reference manager.py:129-209, :330-355): the
+``ensure_servable`` and ``provider_fetch`` spans, the ``tfservingcache_cache*``
+counters and histograms, ``tpusc_reload_source{tier}``, the disk-cache
+bytes gauge, and the tenant ledger's ``note_load`` and disk levels.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from tfservingcache_tpu_torch.cache.disk_cache import ModelDiskCache
 from tfservingcache_tpu_torch.cache.providers.base import ModelNotFoundError, ModelProvider
 from tfservingcache_tpu_torch.runtime.base import BaseRuntime, LoadTimeoutError
 from tfservingcache_tpu_torch.types import Model, ModelId, ModelState
+from tfservingcache_tpu_torch.utils.accounting import LEDGER
+from tfservingcache_tpu_torch.utils.metrics import Metrics
+from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.cachemanager")
 
@@ -33,8 +41,10 @@ class CacheManager:
         disk_cache: ModelDiskCache,
         runtime: BaseRuntime,
         load_timeout_s: float | None = None,
+        metrics: Metrics | None = None,
     ) -> None:
         self.provider = provider
+        self.metrics = metrics
         self.disk_cache = disk_cache
         self.runtime = runtime
         self.load_timeout_s = load_timeout_s or None
@@ -49,25 +59,57 @@ class CacheManager:
         self._load_workers_lock = threading.Lock()
         self.max_load_workers = 64
         # a model evicted from disk must not keep serving from the device
-        disk_cache.add_evict_callback(self.runtime.unload_and_discard)
+        disk_cache.add_evict_callback(self._on_disk_evict)
+
+    def _on_disk_evict(self, model_id: ModelId) -> None:
+        self.runtime.unload_and_discard(model_id)
+        self._sync_disk_ledger()
+
+    def _sync_disk_ledger(self) -> None:
+        """Stamp per-tenant disk-cache levels into the cost ledger
+        (owner-scoped: several managers in one process never zero each
+        other's artifacts)."""
+        levels: dict[str, float] = {}
+        for mid in self.disk_cache.list_models():
+            nbytes = self.disk_cache.size_of(mid)
+            if nbytes:
+                levels[str(mid)] = float(nbytes)
+        LEDGER.gauge_sync("disk_bytes", levels, owner=f"disk:{id(self)}")
 
     def ensure_servable(self, model_id: ModelId) -> Model:
-        """Hit/stale/miss decision + fetch/load; blocks until AVAILABLE."""
+        """Hit/stale/miss decision + fetch/load; blocks until AVAILABLE
+        (reference manager.py:131-209)."""
+        m = self.metrics
+        label = None
+        if m is not None:
+            label = m.model_label(model_id.name, model_id.version)
+            m.cache_total.labels(label).inc()
+        t0 = time.monotonic()
+        # fast path outside the lock: fully warm
         model = self.disk_cache.get(model_id)
         if model is not None and self.runtime.is_loaded(model_id):
+            if m is not None:
+                m.cache_hits.labels(label).inc()
+                m.reload_source.labels("hbm").inc()
+                m.cache_duration.labels(label).observe(time.monotonic() - t0)
+            LEDGER.note_load(str(model_id), "hbm", time.monotonic() - t0)
             return model
-        t0 = time.monotonic()
         deadline = t0 + self.load_timeout_s if self.load_timeout_s else None
-        with self.disk_cache.fetch_lock(model_id):  # per-model singleflight
+        with TRACER.span("ensure_servable", model=str(model_id)) as span, \
+                self.disk_cache.fetch_lock(model_id):  # per-model singleflight
             model = self.disk_cache.get(model_id)
             if model is not None:
+                hit = True
+                source = "hbm"  # another waiter finished the work
                 if not self.runtime.is_loaded(model_id):
                     log.info("stale %s: artifact cached, reloading runtime", model_id)
-                    self._with_deadline(
+                    source = self._with_deadline(
                         lambda: self.runtime.ensure_loaded(model), deadline,
                         f"reload {model_id}",
                     )
             else:
+                hit = False
+                source = "store"
                 model = self._with_deadline(
                     lambda: self._fetch(model_id), deadline, f"fetch {model_id}"
                 )
@@ -75,6 +117,14 @@ class CacheManager:
                     lambda: self.runtime.ensure_loaded(model), deadline,
                     f"load {model_id}",
                 )
+            span.attrs["reload_source"] = source
+            if m is not None:
+                (m.cache_hits if hit else m.cache_misses).labels(label).inc()
+                m.reload_source.labels(source).inc()
+                m.cache_duration.labels(label).observe(time.monotonic() - t0)
+                m.disk_bytes_in_use.set(self.disk_cache.total_bytes)
+            LEDGER.note_load(str(model_id), source, time.monotonic() - t0)
+            self._sync_disk_ledger()
         log.info("servable %s in %.2fs", model_id, time.monotonic() - t0)
         return model
 
@@ -126,12 +176,17 @@ class CacheManager:
     def _fetch(self, model_id: ModelId) -> Model:
         """MISS path: size -> evict-to-fit -> provider fetch -> index."""
         t0 = time.monotonic()
-        size = self.provider.model_size(model_id.name, model_id.version)
-        self.disk_cache.ensure_free_bytes(size)
-        model = self.provider.load_model(
-            model_id.name, model_id.version, self.disk_cache.model_path(model_id)
-        )
+        with TRACER.span("provider_fetch", model=str(model_id)):
+            size = self.provider.model_size(model_id.name, model_id.version)
+            self.disk_cache.ensure_free_bytes(size)
+            model = self.provider.load_model(
+                model_id.name, model_id.version, self.disk_cache.model_path(model_id)
+            )
         self.disk_cache.put(model)
+        if self.metrics is not None:
+            self.metrics.cache_fetch_duration.labels(
+                self.metrics.model_label(model_id.name, model_id.version)
+            ).observe(time.monotonic() - t0)
         log.info("fetched %s (%d bytes) in %.2fs",
                  model_id, model.size_on_disk, time.monotonic() - t0)
         return model

@@ -1,5 +1,6 @@
 """Command line: ``python -m tfservingcache_tpu_torch.cli serve --config <json>``
-runs a single-GPU cache node until SIGINT/SIGTERM."""
+runs a single-GPU cache node until SIGINT/SIGTERM. Logging follows the
+config's ``logging`` section (``level``, ``fmt`` text | json)."""
 
 from __future__ import annotations
 
@@ -8,14 +9,15 @@ import logging
 import signal
 import threading
 
-from tfservingcache_tpu_torch.config import load_config
-from tfservingcache_tpu_torch.server import build_node
+from tfservingcache_tpu_torch.config import Config, load_config
+from tfservingcache_tpu_torch.server import build_node, configure_observability
+from tfservingcache_tpu_torch.utils.logging import setup_logging
 
 log = logging.getLogger("tpusc_torch.cli")
 
 
-def serve(config_path: str | None) -> int:
-    cfg = load_config(config_path)
+def serve(cfg: Config) -> int:
+    configure_observability(cfg)
     node = build_node(cfg)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -36,10 +38,9 @@ def main(argv: list[str] | None = None) -> int:
     srv.add_argument("--config", default=None,
                      help="path to a JSON (or YAML) config; serving.device picks the device")
     args = parser.parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
-    )
-    return serve(args.config)
+    cfg = load_config(args.config)
+    setup_logging(cfg.logging.level, cfg.logging.fmt)
+    return serve(cfg)
 
 
 if __name__ == "__main__":

@@ -158,12 +158,79 @@ class MeshConfig:
 
 
 @dataclass
+class MetricsConfig:
+    """Prometheus exposition (utils/metrics.py)."""
+
+    model_labels: bool = False         # per-model:version labels
+    path: str = "/monitoring/prometheus/metrics"
+    # the reference's scrape-merge of sidecar exporters into this node's
+    # exposition; the port refuses a non-empty list until it has the merge
+    scrape_targets: list[str] = field(default_factory=list)
+    # cardinality guard for model_labels: after this many distinct
+    # name:version values, NEW tenants fold into the "__other__" bucket
+    max_model_labels: int = 512
+
+
+@dataclass
+class TracingConfig:
+    """Always-on request tracing (utils/tracing.py)."""
+
+    capacity: int = 256                # completed traces kept in the ring
+    # tail sampling: traces slower than this survive in a separate bounded
+    # buffer even after fast traffic wraps the main ring; 0 disables
+    slow_threshold_ms: float = 1000.0
+    slow_capacity: int = 64
+
+
+@dataclass
+class ObservabilityConfig:
+    """Engine flight recorder (utils/flight_recorder.py) and tenant ledger
+    (utils/accounting.py). The per-step rings always record; these knobs
+    govern the anomaly-dump spool and the ledger."""
+
+    # Spool dir for anomaly dumps (SLO breach, page-exhaustion blocking,
+    # engine-thread crash); "" disables dumps, the rings keep recording.
+    # Under the process's temporary directory by default, where the
+    # reference has the fixed /tmp/tpusc_flight: the spool deletes dumps
+    # past max_dumps, so two processes must not share one by accident.
+    flight_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "tpusc_flight"))
+    # Per-model step-ring capacity (a boundary per entry).
+    ring_entries: int = 4096
+    # Spool bound: oldest dump files beyond this count are deleted.
+    max_dumps: int = 16
+    # Rate limit for recurring triggers (page exhaustion); SLO-breach dumps
+    # dedup per trace id instead.
+    dump_cooldown_s: float = 60.0
+    # master switch for the cost-attribution ledger
+    tenant_accounting: bool = True
+    # noisy-neighbor detector: a tenant holding at least this share of the
+    # engine step-time window while OTHER tenants sit queued triggers one
+    # "noisy_neighbor" flight dump (deduped by the recorder cooldown)
+    noisy_neighbor_share: float = 0.8
+    # sliding window the share is computed over
+    noisy_neighbor_window_s: float = 5.0
+    # windows with less than this much total step time never fire
+    noisy_neighbor_min_step_s: float = 0.25
+
+
+@dataclass
+class LoggingConfig:
+    level: str = "info"
+    fmt: str = "text"                  # text | json
+
+
+@dataclass
 class Config:
     serving: ServingConfig = field(default_factory=ServingConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     model_provider: ModelProviderConfig = field(default_factory=ModelProviderConfig)
     cache_node: CacheNodePorts = field(default_factory=CacheNodePorts)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    observability: ObservabilityConfig = field(default_factory=ObservabilityConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
 
 
 def _apply_mapping(cfg: Any, data: Mapping[str, Any], path: str = "") -> None:

@@ -7,11 +7,15 @@ encode the outputs.
 
 Methods are synchronous; the REST server runs each request on its own
 thread. A streamed ``:generate`` returns at once with an iterator of SSE
-frames, fed by the generate running on a thread of its own.
+frames, fed by the generate running on a thread of its own (in the
+request's trace context). Every resolved request stamps its trace root with
+the model and ``route="local"``; every SSE frame written counts in
+``tpusc_gen_stream_frames{protocol="sse"}`` (reference :215, :987).
 """
 
 from __future__ import annotations
 
+import contextvars
 import json
 import logging
 import queue
@@ -33,6 +37,7 @@ from tfservingcache_tpu_torch.runtime.base import (
     RuntimeError_,
 )
 from tfservingcache_tpu_torch.types import ModelId, ModelState
+from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.backend")
 
@@ -79,6 +84,9 @@ class LocalServingBackend(ServingBackend):
         except (KeyError, ModelNotFoundError) as e:
             raise BackendError(str(e), 404) from e
         model_id = ModelId(model_name, resolved)
+        # the trace view and the duration histogram read the model and the
+        # route from the root span
+        TRACER.annotate_root(model=str(model_id), route="local")
         if method == "GET" and verb is None:
             return self._rest_status(model_id)
         if method == "GET" and verb == "metadata":
@@ -246,7 +254,9 @@ class LocalServingBackend(ServingBackend):
         return RestResponse(
             status=200, body=b"", content_type="text/event-stream",
             headers={"Cache-Control": "no-cache"},
-            token_stream=_sse_frames(_stream_events(run)),
+            # the generate's thread runs in this request's trace context
+            token_stream=_sse_frames(_stream_events(run, contextvars.copy_context()),
+                                     self.manager.metrics),
         )
 
     def _draft_model(self, spec: Any) -> ModelId | None:
@@ -348,7 +358,7 @@ class LocalServingBackend(ServingBackend):
         return RestResponse(status=200, body=json.dumps(out).encode())
 
 
-def _stream_events(run: Callable) -> Iterator[tuple[str, Any]]:
+def _stream_events(run: Callable, ctx: contextvars.Context) -> Iterator[tuple[str, Any]]:
     """Run a prepared generate on a thread of its own; yield ``("tok", t)``
     as the engine samples each token, then ``("end", rows)``. The engine's
     ``on_token`` fires on its scheduler thread, so a queue is the seam. A
@@ -365,7 +375,8 @@ def _stream_events(run: Callable) -> Iterator[tuple[str, Any]]:
         except BaseException as e:  # noqa: BLE001 - forwarded to the client
             q.put(("err", e))
 
-    threading.Thread(target=worker, daemon=True, name="tpusc-generate-stream").start()
+    threading.Thread(target=ctx.run, args=(worker,), daemon=True,
+                     name="tpusc-generate-stream").start()
     streamed = 0
     while True:
         kind, val = q.get()
@@ -382,11 +393,14 @@ def _stream_events(run: Callable) -> Iterator[tuple[str, Any]]:
             raise val
 
 
-def _sse_frames(events: Iterator[tuple[str, Any]]) -> Iterator[bytes]:
-    """``_stream_events`` as SSE byte frames; a failure after the status
-    line can only end the stream with an error frame."""
+def _sse_frames(events: Iterator[tuple[str, Any]], metrics: Any = None) -> Iterator[bytes]:
+    """``_stream_events`` as SSE byte frames, each token frame and the done
+    frame counted; a failure after the status line can only end the stream
+    with an error frame."""
     try:
         for kind, val in events:
+            if metrics is not None:
+                metrics.gen_stream_frames.labels("sse").inc()
             if kind == "tok":
                 yield b'data: {"token": %d}\n\n' % val
             else:

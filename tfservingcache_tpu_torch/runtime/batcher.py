@@ -38,8 +38,21 @@ row fails. ``lab.faults`` fires its ``engine_step`` hook at the top of each
 step (``kill_engine``, ``freeze_scheduler``).
 Seeded and malformed requests go to ``runtime.generate`` (the solo path).
 
-Not ported: the reference's metrics, flight recorder, per-tenant ledger and
-trace annotations (the observability slice).
+Observability, at the reference's sites: one flight-recorder ring entry per
+boundary (``RECORDER.record`` with all 16 ``STEP_FIELDS``; ``step_ms`` is the
+boundary's host wall time, and a prefill-only boundary records chunk 0),
+``LEDGER.note_step`` and the page/arena levels, the per-row phase clocks
+(queue, prefill, decode, respond) into ``tpusc_request_phase_seconds`` and
+the recorder's phase notes at the end of a generate, and the
+``tpusc_gen_*`` families (slots, admission wait, oldest queued age, wasted
+steps, KV pages with their watermark, page waste, prefix hits by kind,
+preemptions, prefill chunks), ``tpusc_batcher_queue_depth{generate}`` and
+``tpusc_requests_recovered{reason}``. An engine crash and a row blocked on
+page exhaustion each write a flight dump (when dumps are configured). A row
+that finishes is released after its boundary is recorded. Each decode chunk
+and speculative round runs inside a ``torch.profiler.record_function`` range
+(``tpusc.decode_chunk``, ``tpusc.spec_round``), so a profile ties its
+kernels to the boundary.
 """
 
 from __future__ import annotations
@@ -53,12 +66,16 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from tfservingcache_tpu_torch.cache.conversation_kv import ConversationKVTier
 from tfservingcache_tpu_torch.lab import faults as lab_faults
 from tfservingcache_tpu_torch.runtime.base import ModelNotLoadedError, RuntimeError_
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, next_bucket
 from tfservingcache_tpu_torch.types import ModelId
+from tfservingcache_tpu_torch.utils.accounting import LEDGER
+from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+from tfservingcache_tpu_torch.utils.tracing import TRACER, current_ids
 
 log = logging.getLogger("tpusc_torch.batcher")
 
@@ -81,6 +98,9 @@ class _ContinuousReq:
     error: BaseException | None = None
     admitted_t: float | None = None
     first_tok_t: float | None = None
+    finish_t: float | None = None
+    prefill_s: float = 0.0                # prefill seconds, the phase clock's
+    prefix_hit: bool = False              # the last admission reused parked or shared KV
     # crashes this row survived (scheduler thread only); past the engine's
     # max_recoveries it fails
     recoveries: int = 0
@@ -141,6 +161,8 @@ class _ContinuousScheduler:
             if self.stopped:
                 raise RuntimeError_("continuous generate engine is closed")
             self.pending.extend(reqs)
+            if self.engine.metrics is not None:
+                self.engine.metrics.batcher_queue_depth.labels("generate").inc(len(reqs))
             self.cv.notify()
 
     @staticmethod
@@ -156,25 +178,33 @@ class _ContinuousScheduler:
         replacement scheduler, interrupted rows first, so their order holds)
         and doomed rows (recovery off, or past a row's recovery budget),
         which fail with ``err``. Each survivor counts once in
-        ``engine.recovered``."""
+        ``engine.recovered`` and in ``tpusc_requests_recovered{reason}``
+        (``mid_decode`` for an interrupted row, ``queued`` for a row that
+        only changes queues)."""
         eng = self.engine
+        if queued and eng.metrics is not None:
+            # survivors count again at their re-submit
+            eng.metrics.batcher_queue_depth.labels("generate").dec(len(queued))
         if not eng.recovery:
             self._fail(inflight + queued, err)
             return []
         survivors: list[_ContinuousReq] = []
         doomed: list[_ContinuousReq] = []
-        for r in inflight + queued:
-            if r.done.is_set():
-                continue
-            r.recoveries += 1
-            if r.recoveries > eng.max_recoveries:
-                doomed.append(r)
-                continue
-            # a row caught mid chunked prefill restarts from chunk 0 (the
-            # crashed state's pages are gone)
-            r.pf_pos = None
-            r.pf_prompt = None
-            survivors.append(r)
+        for reason, rows in (("mid_decode", inflight), ("queued", queued)):
+            for r in rows:
+                if r.done.is_set():
+                    continue
+                r.recoveries += 1
+                if r.recoveries > eng.max_recoveries:
+                    doomed.append(r)
+                    continue
+                # a row caught mid chunked prefill restarts from chunk 0 (the
+                # crashed state's pages are gone)
+                r.pf_pos = None
+                r.pf_prompt = None
+                survivors.append(r)
+                if eng.metrics is not None:
+                    eng.metrics.requests_recovered.labels(reason).inc()
         eng.recovered += len(survivors)
         self._fail(doomed, err)
         return survivors
@@ -258,13 +288,22 @@ class _ContinuousScheduler:
                     self.pending.clear()
                 lanes = [None] * self.engine.slots
                 survivors = self._triage(inflight, queued, e)
+                RECORDER.dump(
+                    "engine_crash", model=str(self.model_id), error=repr(e),
+                    failed_rows=len(inflight) + len(queued) - len(survivors),
+                    recovered_rows=len(survivors),
+                )
                 rt.drop_slot_state(self.model_id)
                 state = None
+                self.engine._set_active(self.model_id, 0)
+                self.engine._set_pages(self.model_id, 0, 0)
                 if survivors:
                     if self.engine._respawn(self, survivors) is not None:
                         return  # the replacement owns the model and the rows
                     self._fail(survivors, e)  # engine closing: nowhere to requeue
         self._fail(doomed, RuntimeError_("continuous generate engine closed"))
+        self.engine._set_active(self.model_id, 0)
+        self.engine._set_pages(self.model_id, 0, 0)
 
     def _pop_next(self) -> _ContinuousReq | None:
         """The pending row with the least (rank, seq): class first, FIFO
@@ -274,19 +313,36 @@ class _ContinuousScheduler:
                 return None
             best, req = min(enumerate(self.pending), key=lambda e: (e[1].rank, e[1].seq))
             del self.pending[best]
+            if self.engine.metrics is not None:
+                self.engine.metrics.batcher_queue_depth.labels("generate").dec()
             return req
 
     def _step(self, rt: TorchModelRuntime, state, lanes: list):
         """One chunk boundary: admit into free lanes, advance every
         PREFILLING lane by one prefill chunk, then advance all decoding
         lanes by one chunk or one speculative round. Runs only on
-        self.thread."""
+        self.thread. The rows that finish are released after the boundary
+        is recorded (or fails), so a client that has its answer finds its
+        last boundary in the flight recorder and the gauges."""
+        finished: list[_ContinuousReq] = []
+        try:
+            return self._advance(rt, state, lanes, finished)
+        finally:
+            for r in finished:
+                r.done.set()
+
+    def _advance(self, rt: TorchModelRuntime, state, lanes: list,
+                 finished: list[_ContinuousReq]):
         eng = self.engine
         # kill_engine raises here (the organic failure path through _loop);
         # freeze_scheduler sleeps this thread. Disarmed: one bool read.
         lab_faults.fire("engine_step", model=str(self.model_id))
+        step_t0 = time.monotonic()
         eos = rt.eos_id_of(self.model_id)
         free = [i for i, r in enumerate(lanes) if r is None]
+        # this boundary's tallies, for the ring entry and the ledger
+        admitted_n = retired_n = prefix_hits_n = tokens_in_n = 0
+        prefill_s_sum = 0.0
         if state is not None:
             # attach/detach before admission, so every row admitted below
             # sees the final spec configuration (its budget has the
@@ -383,8 +439,16 @@ class _ContinuousScheduler:
                         # reclaimable, so it always admits it.
                         with self.cv:
                             self.pending.appendleft(req)
+                            if eng.metrics is not None:
+                                eng.metrics.batcher_queue_depth.labels("generate").inc()
+                        RECORDER.dump(
+                            "page_exhaustion", model=str(self.model_id),
+                            needed_pages=need, free_pages=len(state.free_pages),
+                            arena_pages=state.arena_pages,
+                        )
                         break
                     reserved = idx
+                pf0 = time.monotonic()
                 seed = secrets.randbits(31)
                 if (reserved is not None and eng.prefill_chunk_tokens > 0 and resume is None
                         and plan is None and d_st is None and p > eng.prefill_chunk_tokens):
@@ -399,13 +463,18 @@ class _ContinuousScheduler:
                     req.pf_prompt = prompt
                     req.pf_pos = 0
                     req.pf_seed = seed
-                    req.admitted_t = time.monotonic()
+                    now = time.monotonic()
+                    req.admitted_t = now
                     state.active[idx] = False
                     state.pos[idx] = state.pages_per_slot * state.page_tokens
                     state.temps[idx] = req.temperature
                     state.topks[idx] = req.top_k
                     lanes[idx] = req
                     eng.admitted += 1
+                    admitted_n += 1
+                    if eng.metrics is not None:
+                        eng.metrics.gen_admission_wait.labels("continuous").observe(
+                            max(0.0, now - req.enqueue_t))
                     continue
                 if resume is not None:
                     # suffix-only prefill over the re-imported parked pages
@@ -434,13 +503,28 @@ class _ContinuousScheduler:
                 self._fail([req], e)
                 raise
             now = time.monotonic()
+            req.prefill_s = now - pf0
             req.admitted_t = now
             if req.first_tok_t is None:
                 # a recovered row keeps its first-token stamp: the client saw
                 # its first token before the crash
                 req.first_tok_t = now
+            req.prefix_hit = kind != "miss"
             self._emit(req, int(tok))
             eng.admitted += 1
+            admitted_n += 1
+            prefill_s_sum += req.prefill_s
+            tokens_in_n += p
+            m = eng.metrics
+            if req.prefix_hit:
+                prefix_hits_n += 1
+                if m is not None:
+                    # exact = no prefill; resume = parked pages re-imported;
+                    # shared = a radix partial hit or a prefix-cache reuse
+                    m.gen_prefix_hits.labels(
+                        "continuous", kind if kind in ("exact", "resume") else "shared").inc()
+            if m is not None:
+                m.gen_admission_wait.labels("continuous").observe(max(0.0, now - req.enqueue_t))
             if kind == "exact":
                 eng.prefix_hits_exact += 1  # no prefill at all
                 n_pf = 0
@@ -462,8 +546,11 @@ class _ContinuousScheduler:
                 # hold no K/V of this row (the insert comes below), so
                 # nothing is parked
                 if reserved is not None:
+                    self._observe_waste(state, reserved, req)
                     _release(state, d_st, reserved)
-                req.done.set()
+                req.finish_t = now
+                finished.append(req)
+                retired_n += 1
                 continue
             idx = free.pop()
             if pk is None:
@@ -495,10 +582,26 @@ class _ContinuousScheduler:
             state.temps[idx] = req.temperature
             state.topks[idx] = req.top_k
             lanes[idx] = req
+        if admitted_n:
+            eng._set_active(self.model_id, sum(r is not None for r in lanes))
+        pf_chunks = 0
         if state is not None and eng.prefill_chunk_tokens > 0:
-            self._prefill_phase(rt, state, lanes, eos)
+            pf_chunks, pf_toks, pf_s, pf_retired = self._prefill_phase(rt, state, lanes, eos,
+                                                                       finished)
+            retired_n += pf_retired
+            prefill_s_sum += pf_s
+            tokens_in_n += pf_toks
+            if pf_retired:
+                eng._set_active(self.model_id, sum(r is not None for r in lanes))
+        self._update_page_gauge(state)
         live = [r for r in lanes if r is not None and r.pf_pos is None]
         if not live:
+            if admitted_n or retired_n or pf_chunks:
+                # a prefill-only boundary (every admitted row done at its
+                # first token, or every lane still PREFILLING): a ring entry
+                # with no chunk dispatched
+                self._record_step(state, 0, 0, admitted_n, retired_n, 0, step_t0,
+                                  prefix_hits_n, prefill_s_sum, tokens_in_n)
             return state
         # the pow2 cover of the largest remaining budget trims the overshoot
         max_remaining = max(r.max_new - len(r.tokens) for r in live)
@@ -534,7 +637,8 @@ class _ContinuousScheduler:
         accept = None
         if use_spec:
             try:
-                toks, accept = rt.slot_decode_spec_round(state)
+                with torch.profiler.record_function("tpusc.spec_round"):
+                    toks, accept = rt.slot_decode_spec_round(state)
             except ModelNotLoadedError as e:
                 if not rt.is_loaded(self.model_id):
                     raise
@@ -543,14 +647,21 @@ class _ContinuousScheduler:
                 log.info("continuous spec detach model=%s (%s)", self.model_id, e)
                 _detach(state)
         if accept is None:
-            toks = rt.slot_decode_chunk(state, chunk)
+            with torch.profiler.record_function("tpusc.decode_chunk"):
+                toks = rt.slot_decode_chunk(state, chunk)
             eng.decode_steps += chunk
             eng.lane_steps += chunk * len(live)
         else:
             eng.spec_rounds += 1
             eng.drafted += state.spec_tokens * len(live)
             eng.accepted += int(accept.sum())
+            # a round emits up to spec_tokens + 1 tokens a lane: that is its chunk
+            chunk = state.spec_tokens + 1
         eng.chunks += 1
+        now = time.monotonic()
+        wasted = 0
+        drafted = state.spec_tokens * len(live) if accept is not None else 0
+        accepted = int(accept.sum()) if accept is not None else 0
         for idx, req in enumerate(lanes):
             if req is None or req.pf_pos is not None:
                 continue
@@ -565,17 +676,84 @@ class _ContinuousScheduler:
                     # overshoot (< chunk, the waste continuous batching
                     # bounds); under spec this drops accepted tokens past a
                     # mid-round EOS
+                    wasted += n_emit - (j + 1)
                     state.active[idx] = False
                     lanes[idx] = None
                     if state.paged:
                         self._retire_pages(rt, state, idx, req)
-                    req.done.set()
+                    req.finish_t = now
+                    finished.append(req)
+                    retired_n += 1
                     break
+        if wasted and eng.metrics is not None:
+            eng.metrics.gen_wasted_steps.labels("continuous").inc(wasted)
         if accept is not None:
             # acceptance health: one verify round per active lane
-            rt._spec_observe(self.model_id, state.spec_draft_id, int(accept.sum()), len(live),
+            rt._spec_observe(self.model_id, state.spec_draft_id, accepted, len(live),
                              engine="continuous")
+        eng._set_active(self.model_id, sum(r is not None for r in lanes))
+        self._update_page_gauge(state)
+        self._record_step(state, chunk, len(live), admitted_n, retired_n, wasted, step_t0,
+                          prefix_hits_n, prefill_s_sum, tokens_in_n, drafted=drafted,
+                          accepted=accepted, emitted=accepted if accept is not None else None)
         return state
+
+    def _record_step(self, state, chunk: int, active: int, admitted: int, retired: int,
+                     wasted: int, step_t0: float, prefix_hits: int = 0, prefill_s: float = 0.0,
+                     tokens_in: int = 0, drafted: int = 0, accepted: int = 0,
+                     emitted: int | None = None) -> None:
+        """One flight-recorder ring entry per boundary, the ledger's step,
+        and the oldest-queued-age gauge (reference :1543-1597; admission
+        wait is observed only at admission, so a row starving behind page
+        exhaustion shows here first). ``step_ms`` is the boundary's host
+        wall time, from the fault hook's return to now."""
+        eng = self.engine
+        with self.cv:
+            depth = len(self.pending)
+            oldest_t = self.pending[0].enqueue_t if depth else None
+        wait_ms = 0.0 if oldest_t is None else max(0.0, (time.monotonic() - oldest_t) * 1e3)
+        if eng.metrics is not None:
+            eng.metrics.gen_oldest_queued_age.labels("continuous").set(wait_ms / 1e3)
+        paged = state is not None and state.paged
+        shared = state.page_stats()["shared"] if paged else 0
+        now = time.monotonic()
+        # the whole boundary lands on this tenant (a scheduler is
+        # single-model); tokens_out = one first token per admission + the
+        # tokens that reached live rows (the overshoot is the engine's cost)
+        LEDGER.note_step(
+            str(self.model_id), "continuous",
+            prefill_s=prefill_s,
+            decode_s=max(0.0, (now - step_t0) - prefill_s),
+            tokens_in=tokens_in,
+            tokens_out=admitted + max(0, (active * chunk if emitted is None else emitted) - wasted),
+            queue_depth=depth,
+        )
+        RECORDER.record(
+            str(self.model_id), "continuous",
+            step_ms=(now - step_t0) * 1e3,
+            chunk=chunk, active=active, admitted=admitted, retired=retired,
+            pages_used=state.arena_pages - len(state.free_pages) if paged else 0,
+            pages_free=len(state.free_pages) if paged else 0,
+            wasted=wasted, queue_depth=depth, oldest_wait_ms=wait_ms,
+            pages_shared=shared, prefix_hits=prefix_hits,
+            drafted=drafted, accepted=accepted,
+        )
+
+    def _update_page_gauge(self, state) -> None:
+        """Distinct pages held (shared + private: a prefix page mapped by
+        N lanes counts once, index-only pages are reclaimable and left out)."""
+        if state is not None and state.paged:
+            ps = state.page_stats()
+            self.engine._set_pages(self.model_id, ps["shared"] + ps["private"],
+                                   state.arena_pages, ps["shared"])
+
+    def _observe_waste(self, state, idx: int, req: _ContinuousReq) -> None:
+        """``tpusc_gen_kv_page_waste_tokens`` of a retiring row: reserved
+        capacity minus the tokens that occupied it (prompt + emitted)."""
+        if self.engine.metrics is not None and state.paged:
+            cap = state.lane_capacity(idx)
+            used = req.prompt.shape[0] + len(req.tokens)
+            self.engine.metrics.gen_kv_page_waste.observe(max(0, cap - min(used, cap)))
 
     def _resume_plan(self, rt: TorchModelRuntime, state, req: _ContinuousReq,
                      prompt: np.ndarray) -> tuple | None:
@@ -620,6 +798,7 @@ class _ContinuousScheduler:
         a tier (reference :1599): the export needs the lane's mapping. A
         failed park logs and goes on."""
         eng = self.engine
+        self._observe_waste(state, idx, req)
         if req.conversation_id and eng.conversation_tier is not None:
             t0 = time.monotonic()
             try:
@@ -687,36 +866,56 @@ class _ContinuousScheduler:
         lanes[vidx] = None
         with self.cv:
             self.pending.append(victim)
+            if eng.metrics is not None:
+                eng.metrics.batcher_queue_depth.labels("generate").inc()
+        if eng.metrics is not None:
+            eng.metrics.gen_preemptions.labels(victim.priority).inc()
         eng.preemptions += 1
         eng.preempt_park_s += time.monotonic() - t0
+        # every preemption leaves a phase note with its park's cost
+        RECORDER.note_phases(str(self.model_id), "continuous",
+                             {"preempt_park": time.monotonic() - t0})
         log.info("preempted lane %d of %s (class=%s, %d tokens emitted, preemption %d/%d)",
                  vidx, self.model_id, victim.priority, len(victim.tokens), victim.preemptions,
                  eng.preempt_limit)
         return True
 
-    def _prefill_phase(self, rt: TorchModelRuntime, state, lanes: list, eos) -> None:
+    def _prefill_phase(self, rt: TorchModelRuntime, state, lanes: list, eos,
+                       finished: list[_ContinuousReq]) -> tuple[int, int, float, int]:
         """Advance every PREFILLING lane by exactly ONE chunk (reference
         :1658-1720). The last chunk samples the row's first token under the
         seed drawn at admission (a monolithic prefill's draw), publishes
         the prompt's pages when sharing is on, and activates the lane for
-        the next decode chunk, or retires it on EOS / its last token."""
+        the next decode chunk, or retires it on EOS / its last token.
+        -> (chunks run, tokens written, prefill seconds, rows retired)."""
         eng = self.engine
         size = eng.prefill_chunk_tokens
+        chunks = toks_in = retired = 0
+        prefill_s = 0.0
         for idx, req in enumerate(lanes):
             if req is None or req.pf_pos is None:
                 continue
             prompt = req.pf_prompt
             p = prompt.shape[0]
+            t0 = time.monotonic()
             n = min(size, p - req.pf_pos)
             last = rt.slot_prefill_chunk(self.model_id, state, idx,
                                          prompt[req.pf_pos:req.pf_pos + n], req.pf_pos, size)
             req.pf_pos += n
+            dt = time.monotonic() - t0
+            req.prefill_s += dt
+            prefill_s += dt
+            toks_in += n
+            chunks += 1
             eng.prefill_chunks += 1
+            if eng.metrics is not None:
+                eng.metrics.gen_prefill_chunks.inc()
             if req.pf_pos < p:
                 continue
             tok = rt.sample_first_token(last, req.temperature, req.top_k, req.pf_seed)
+            now = time.monotonic()
             if req.first_tok_t is None:
-                req.first_tok_t = time.monotonic()
+                req.first_tok_t = now
             req.prefill_tokens += p
             eng.prefill_tokens += p
             req.pf_pos = None
@@ -729,11 +928,14 @@ class _ContinuousScheduler:
             if (eos is not None and int(tok) == eos) or remaining <= 1:
                 lanes[idx] = None
                 self._retire_pages(rt, state, idx, req)
-                req.done.set()
+                req.finish_t = now
+                finished.append(req)
+                retired += 1
                 continue
             state.tok[idx] = int(tok)
             state.pos[idx] = p
             state.active[idx] = True
+        return chunks, toks_in, prefill_s, retired
 
 
 def _detach(state) -> None:
@@ -771,8 +973,10 @@ class ContinuousGenerateEngine:
         spec_tokens: int | None = None,
         share_prefix_bytes: int | None = None,
         prefill_chunk_tokens: int | None = None,
+        metrics: Any = None,
     ) -> None:
         self.runtime = runtime
+        self.metrics = metrics
         cfg = runtime.cfg
         self.slots = max(1, int(slots))
         self.chunk_tokens = max(1, int(chunk_tokens))
@@ -806,6 +1010,7 @@ class ContinuousGenerateEngine:
                 int(cfg.conversation_kv_bytes),
                 disk_capacity_bytes=int(cfg.conversation_kv_disk_bytes),
                 disk_dir=str(cfg.conversation_kv_dir),
+                metrics=metrics,
             )
         # preemptions a row may take; past it the row decodes to its end
         # whatever class arrives (bounded starvation)
@@ -815,6 +1020,11 @@ class ContinuousGenerateEngine:
         self._closed = False  # guarded-by: _lock
         # engine-monotonic submit sequence: the FIFO half of (rank, seq)
         self._seq = 0  # guarded-by: _lock
+        # occupied lanes and (used, total, shared) pages per model, summed
+        # into the node-wide gauges
+        self._active: dict[ModelId, int] = {}  # guarded-by: _lock
+        self._pages: dict[ModelId, tuple[int, int, int]] = {}  # guarded-by: _lock
+        self.peak_active = 0
         # counters (scheduler threads write, tests and chip_smoke.py read)
         self.admitted = 0
         self.chunks = 0
@@ -842,6 +1052,39 @@ class ContinuousGenerateEngine:
         self.resume_s = 0.0
         self.recovered = 0           # rows requeued by crash recovery (once a crash)
 
+    def _set_active(self, model_id: ModelId, n: int) -> None:
+        with self._lock:
+            if n:
+                self._active[model_id] = n
+            else:
+                self._active.pop(model_id, None)
+            total = sum(self._active.values())
+            self.peak_active = max(self.peak_active, total)
+        if self.metrics is not None:
+            # per model with model_labels, one all_models total otherwise
+            label = self.metrics.model_label(model_id.name, model_id.version)
+            self.metrics.gen_slots_active.labels(label).set(
+                n if self.metrics.model_labels else total)
+
+    def _set_pages(self, model_id: ModelId, used: int, total: int, shared: int = 0) -> None:
+        with self._lock:
+            if total:
+                self._pages[model_id] = (used, total, shared)
+            else:
+                self._pages.pop(model_id, None)
+            used_sum = sum(u for u, _, _ in self._pages.values())
+            total_sum = sum(t for _, t, _ in self._pages.values())
+            shared_sum = sum(sh for _, _, sh in self._pages.values())
+        peak = RECORDER.observe_watermark("gen_kv_pages_used", float(used_sum))
+        # the tenant's distinct-page level and the arena's, stamped together
+        LEDGER.gauge_set(str(model_id), "kv_pages", used)
+        LEDGER.note_arena(used_sum)
+        if self.metrics is not None:
+            self.metrics.gen_kv_pages_used.set(used_sum)
+            self.metrics.gen_kv_pages_total.set(total_sum)
+            self.metrics.gen_kv_pages_used_peak.set(peak)
+            self.metrics.gen_kv_pages_shared.set(shared_sum)
+
     def _sched(self, model_id: ModelId) -> _ContinuousScheduler:
         with self._lock:
             if self._closed:
@@ -868,6 +1111,9 @@ class ContinuousGenerateEngine:
             old.stopped = True
             late = list(old.pending)
             old.pending.clear()
+        if late and self.metrics is not None:
+            # counted at their first submit; fresh.submit counts them again
+            self.metrics.batcher_queue_depth.labels("generate").dec(len(late))
         rows = survivors + late
         try:
             fresh.submit(rows)
@@ -978,6 +1224,7 @@ class ContinuousGenerateEngine:
         for i, r in enumerate(reqs):
             t = np.asarray(r.tokens[:max_new_tokens], np.int32)
             out[i, : t.shape[0]] = t
+        self._observe_phases(model_id, reqs, str(priority or "normal"))
         if not return_stats:
             return out
         stats = [
@@ -993,6 +1240,46 @@ class ContinuousGenerateEngine:
             for r in reqs
         ]
         return out, stats
+
+    def _observe_phases(self, model_id: ModelId, reqs: list[_ContinuousReq],
+                        priority: str) -> None:
+        """Each row's phase clocks (reference :2207-2260), from the caller's
+        thread once every row is done: queue ends where the row's prefill
+        starts, decode runs first token -> finish, respond is the wait for
+        batch-mates plus the output's assembly. They go into
+        ``tpusc_request_phase_seconds`` and the recorder's phase notes; the
+        worst row's land on the request's trace root."""
+        end_t = time.monotonic()
+        ids_ctx = current_ids()
+        worst: dict[str, float] = {}
+        for r in reqs:
+            admitted = r.admitted_t or r.enqueue_t
+            finish = r.finish_t or admitted
+            phases = {
+                "queue": max(0.0, admitted - r.enqueue_t - r.prefill_s),
+                "prefill": r.prefill_s,
+                "decode": max(0.0, finish - (r.first_tok_t or admitted)),
+                "respond": max(0.0, end_t - finish),
+            }
+            if self.metrics is not None:
+                for ph, v in phases.items():
+                    self.metrics.observe_phase(ph, "continuous", r.priority, v)
+            for ph, v in phases.items():
+                if v > worst.get(ph, -1.0):
+                    worst[ph] = v
+            RECORDER.note_phases(str(model_id), "continuous", phases,
+                                 trace_id=ids_ctx[0] if ids_ctx else None)
+        TRACER.annotate(
+            gen_engine="continuous",
+            gen_admission_wait_ms=round(
+                1e3 * max((r.admitted_t or r.enqueue_t) - r.enqueue_t for r in reqs), 3),
+            gen_prefix_hits=sum(1 for r in reqs if r.prefix_hit),
+        )
+        TRACER.annotate_root(
+            priority=priority,
+            ttft_ms=round(1e3 * max((r.first_tok_t or r.enqueue_t) - r.enqueue_t for r in reqs), 3),
+            **{f"phase_{ph}_ms": round(v * 1e3, 3) for ph, v in worst.items()},
+        )
 
     def close(self) -> None:
         """Fail the pending rows, join the scheduler threads and drop the

@@ -37,6 +37,16 @@ with the same output. Everything else (``:generate``, the slot surface)
 runs on the leader as before: the reference's generation never rings. A
 family whose partition rules shard a weight (tensor parallelism) is refused
 on a group of more than one device.
+
+Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
+``load`` span with ``artifact_read`` and ``device_transfer`` children (the
+reference's XLA compile spans have no counterpart), a predict under
+``infer`` and a solo generate under ``generate``; loads and evictions
+re-stamp ``tpusc_hbm_bytes_in_use{group}`` (``torch.cuda.memory_allocated``
+on a card, the resident parameter bytes on the CPU), its ``_peak`` twin
+through the flight recorder's watermark, ``tpusc_models_resident`` and the
+tenant ledger's device levels. The prefix cache, the arena's size and the
+speculative acceptance feed their families.
 """
 
 from __future__ import annotations
@@ -73,6 +83,9 @@ from tfservingcache_tpu_torch.runtime.prefix_cache import (
     SharedPrefixPlan,
 )
 from tfservingcache_tpu_torch.types import Model, ModelId, ModelState
+from tfservingcache_tpu_torch.utils.accounting import LEDGER
+from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.runtime")
 
@@ -354,9 +367,11 @@ class TorchModelRuntime(BaseRuntime):
         cfg: ServingConfig | None = None,
         device: str | torch.device | None = None,
         devices: list[str | torch.device] | None = None,
+        metrics: Any = None,
     ) -> None:
         super().__init__()
         self.cfg = cfg or ServingConfig()
+        self.metrics = metrics
         # the device group (None = one device); its first device leads
         self.group: tuple[torch.device, ...] | None = None
         if devices is not None:
@@ -417,10 +432,16 @@ class TorchModelRuntime(BaseRuntime):
         mid = model.identifier
         self._set_state(mid, ModelState.START)
         t0 = time.monotonic()
+        with TRACER.span("load", model=str(mid), tier="disk"):
+            self._load_traced(model, mid, t0)
+        self._update_gauges()
+
+    def _load_traced(self, model: Model, mid: ModelId, t0: float) -> None:
         try:
             self._set_state(mid, ModelState.LOADING)
             on_cuda = self.device.type == "cuda"
-            model_def, host_params = load_artifact(model.path, pin_memory=on_cuda)
+            with TRACER.span("artifact_read"):
+                model_def, host_params = load_artifact(model.path, pin_memory=on_cuda)
             grouped = self.group is not None and len(self.group) > 1
             if (grouped and model_def.bind_group is None
                     and _shards_weights(model_def.partition_rules)):
@@ -430,17 +451,19 @@ class TorchModelRuntime(BaseRuntime):
                     f"group has {len(self.group)} devices)"
                 )
             # async copies out of the page-locked buffer, one sync at the end
-            params = _tree_map(
-                lambda t: t.to(self.device, non_blocking=True), host_params
-            )
-            if on_cuda:
-                torch.cuda.current_stream(self.device).synchronize()
+            with TRACER.span("device_transfer"):
+                params = _tree_map(
+                    lambda t: t.to(self.device, non_blocking=True), host_params
+                )
+                if on_cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
             del host_params
             if self.group is not None and model_def.bind_group is not None:
                 module = model_def.bind_group(self.group)(params)
             else:
                 module = model_def.make_module(params)
             loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params))
+            TRACER.annotate(hbm_bytes=loaded.nbytes)
             self._warmup(loaded)
             self._resident.put(mid, loaded.nbytes, loaded)
             self._set_state(mid, ModelState.AVAILABLE)
@@ -503,7 +526,7 @@ class TorchModelRuntime(BaseRuntime):
                 f"output_filter names unknown outputs {unknown_out} for {model_id} "
                 f"(available: {sorted(out_spec) + sorted(derived)})"
             )
-        with torch.inference_mode():
+        with TRACER.span("infer", model=str(model_id)), torch.inference_mode():
             dev_in = {
                 name: torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
                 for name, arr in padded.items()
@@ -655,19 +678,22 @@ class TorchModelRuntime(BaseRuntime):
         # (reference :1937-1990; the port has no multi-process group, so the
         # hit is always decided here)
         prefix_capable = self._prefix_cache is not None and ids.shape[0] == 1
-        if draft is not None:
-            toks, rounds = self._speculative(loaded, draft, model_id, ids, lengths, new_bucket,
-                                             max_new_tokens, spec_tokens, prefix_capable)
-            self._spec_observe(model_id, draft_model_id, new_bucket, rounds)
-        elif prefix_capable:
-            toks = self._prefix_generate(loaded, model_id, ids, int(lengths[0]), new_bucket,
-                                         max_new_tokens, temperature, top_k, seed)
-        else:
-            toks = generation.generate(
-                loaded.module, cfg, torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(lengths), new_bucket, temperature=temperature, top_k=top_k,
-                seed=seed,
-            ).cpu().numpy()
+        with TRACER.span("generate", model=str(model_id), tokens=new_bucket, batch=b,
+                         draft=str(draft_model_id) if draft_model_id else ""):
+            if draft is not None:
+                toks, rounds = self._speculative(loaded, draft, model_id, ids, lengths,
+                                                 new_bucket, max_new_tokens, spec_tokens,
+                                                 prefix_capable)
+                self._spec_observe(model_id, draft_model_id, new_bucket, rounds)
+            elif prefix_capable:
+                toks = self._prefix_generate(loaded, model_id, ids, int(lengths[0]), new_bucket,
+                                             max_new_tokens, temperature, top_k, seed)
+            else:
+                toks = generation.generate(
+                    loaded.module, cfg, torch.from_numpy(ids).to(self.device),
+                    torch.from_numpy(lengths), new_bucket, temperature=temperature,
+                    top_k=top_k, seed=seed,
+                ).cpu().numpy()
         return toks[:b, :max_new_tokens]
 
     # -- the solo path's prefix cache (reference :3173-3334) ----------------
@@ -698,7 +724,14 @@ class TorchModelRuntime(BaseRuntime):
                 hit.k, hit.v, hit.valid_len, new_bucket, temperature=temperature, top_k=top_k,
                 seed=seed, return_cache=True,
             )
-        return self._prefix_store(model_id, prompt, prompt_len, max_new, toks, k_full, v_full)
+        out = self._prefix_store(model_id, prompt, prompt_len, max_new, toks, k_full, v_full)
+        TRACER.annotate(prefix_hit=hit is not None,
+                        prefix_rows=0 if hit is None else hit.valid_len)
+        if self.metrics is not None:
+            (self.metrics.prefix_cache_hits if hit is not None
+             else self.metrics.prefix_cache_misses).inc()
+            self.metrics.prefix_cache_bytes.set(self._prefix_cache.total_bytes)
+        return out
 
     @staticmethod
     def _prefix_suffix(ids: np.ndarray, prompt_len: int,
@@ -816,7 +849,22 @@ class TorchModelRuntime(BaseRuntime):
             with self._slot_lock:
                 st = self._slot_states.setdefault(model_id, st)
                 self._slot_init_guards.pop(model_id, None)
+            self._note_arena_bytes(st)
             return st
+
+    @staticmethod
+    def _arena_label(state: SlotDecodeState) -> str:
+        return state.arena_dtype or str(state.k.dtype).removeprefix("torch.")
+
+    def _note_arena_bytes(self, state: SlotDecodeState) -> None:
+        """``tpusc_gen_kv_arena_bytes{dtype}`` of a freshly built paged
+        arena: pages plus an int8 arena's scales (reference :2188)."""
+        if self.metrics is None or not state.page_tokens:
+            return
+        nbytes = state.k.nbytes + state.v.nbytes
+        if state.scales is not None:
+            nbytes += sum(t.nbytes for t in state.scales.values())
+        self.metrics.gen_kv_arena_bytes.labels(dtype=self._arena_label(state)).set(nbytes)
 
     def _build_slot_state(
         self,
@@ -891,7 +939,9 @@ class TorchModelRuntime(BaseRuntime):
 
     def drop_slot_state(self, model_id: ModelId) -> None:
         with self._slot_lock:
-            self._slot_states.pop(model_id, None)
+            st = self._slot_states.pop(model_id, None)
+        if st is not None and st.page_tokens and self.metrics is not None:
+            self.metrics.gen_kv_arena_bytes.labels(dtype=self._arena_label(st)).set(0)
 
     def slot_prefill(
         self, model_id: ModelId, prompt: np.ndarray, temperature: float, top_k: int,
@@ -926,6 +976,9 @@ class TorchModelRuntime(BaseRuntime):
             hit = self._prefix_cache.lookup(model_id, prompt)
             if hit is not None and hit.k.shape[3] + next_bucket(p - hit.valid_len) > max_seq:
                 hit = None  # the padded hit would overflow the lane
+            if self.metrics is not None:
+                (self.metrics.prefix_cache_hits if hit is not None
+                 else self.metrics.prefix_cache_misses).inc()
         if hit is not None:
             suffix, suffix_len = self._prefix_suffix(prompt[None, :], p, hit)
             tok, pk, pv, last = generation.slot_prefill_from_cache(
@@ -1393,6 +1446,11 @@ class TorchModelRuntime(BaseRuntime):
         with self._spec_lock:
             self.spec_rounds[engine] += int(rounds)
             self.spec_emitted[engine] += int(emitted)
+        if self.metrics is not None:
+            label = self.metrics.model_label(target.name, target.version)
+            self.metrics.spec_tokens_per_round.labels(model=label).set(round(tpr, 3))
+            self.metrics.spec_accepted_tokens.labels(engine=engine).inc(int(emitted))
+            self.metrics.spec_rounds.labels(engine=engine).inc(int(rounds))
         if not (self.is_loaded(target) and self.is_loaded(draft)):
             # either half unloaded mid-generate: recording would resurrect
             # the pair entry unload() just pruned
@@ -1415,6 +1473,8 @@ class TorchModelRuntime(BaseRuntime):
                     "every %d requests)", draft, target, SPEC_DISABLE_AFTER,
                     SPEC_MIN_TOKENS_PER_ROUND, tpr, SPEC_REPROBE_EVERY,
                 )
+                if self.metrics is not None:
+                    self.metrics.spec_draft_autodisabled.inc()
 
     def _spec_forget(self, model_id: ModelId) -> None:
         """Drop the acceptance history of every pair ``model_id`` is in,
@@ -1440,6 +1500,9 @@ class TorchModelRuntime(BaseRuntime):
             lock = self._load_locks.get(model_id)
             if lock is not None and not lock.locked():
                 del self._load_locks[model_id]
+        if self.metrics is not None:
+            self.metrics.evictions.labels("hbm").inc()
+        self._update_gauges()
         log.info("unloaded %s (freed %d device bytes)", model_id, entry.size_bytes)
 
     def unload(self, model_id: ModelId) -> None:
@@ -1477,6 +1540,27 @@ class TorchModelRuntime(BaseRuntime):
         if self.device.type == "cuda":
             return torch.cuda.memory_allocated(self.device)
         return self._resident.total_bytes
+
+    def _update_gauges(self) -> None:
+        """Re-stamp the residency gauges after a load or an eviction
+        (reference :3404-3427): every resident tenant's device level in the
+        ledger (the just-evicted zeroed by the owner-scoped sweep), the
+        device bytes in use with their scrape-interval peak, and the
+        resident count."""
+        LEDGER.gauge_sync(
+            "hbm_bytes",
+            {str(mid): float(e.size_bytes) for mid, e in self._resident.items_lru_first()},
+            owner=f"hbm:{id(self)}",
+        )
+        in_use = self.hbm_bytes_in_use
+        # a port node serves one device group: group label "0"
+        peak = RECORDER.observe_watermark("hbm_bytes:g0", float(in_use))
+        if self.metrics is None:
+            return
+        group = "0"
+        self.metrics.hbm_bytes_in_use.labels(group).set(in_use)
+        self.metrics.hbm_bytes_peak.labels(group).set(peak)
+        self.metrics.models_resident.labels(group).set(len(self._resident))
 
     def close(self) -> None:
         self._resident.clear()

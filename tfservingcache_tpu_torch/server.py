@@ -4,7 +4,12 @@
 
 provider -> disk cache -> runtime -> cache manager -> backend -> REST server,
 plus the continuous generate engine when ``serving.generate_engine`` is
-``"continuous"``.
+``"continuous"``. The node owns one ``Metrics`` and hands it down.
+
+``configure_observability`` applies the config to the process-wide
+``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
+server.py:325-348); ``cli serve`` calls it before building the node. A node
+built without it records all the same, and writes no dump.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ from tfservingcache_tpu_torch.protocol.rest import RestServingServer
 from tfservingcache_tpu_torch.runtime.base import RuntimeError_
 from tfservingcache_tpu_torch.runtime.batcher import ContinuousGenerateEngine
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
+from tfservingcache_tpu_torch.utils.accounting import LEDGER
+from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+from tfservingcache_tpu_torch.utils.metrics import Metrics
+from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.server")
 
@@ -32,20 +41,22 @@ class CacheNode:
     disk cache + runtime behind a REST server."""
 
     def __init__(self, cfg: Config, runtime: TorchModelRuntime,
-                 engine: ContinuousGenerateEngine | None = None) -> None:
+                 engine: ContinuousGenerateEngine | None = None,
+                 metrics: Metrics | None = None) -> None:
         self.cfg = cfg
+        self.metrics = metrics
         self.provider = create_provider(cfg.model_provider)
         self.disk_cache = ModelDiskCache(cfg.cache.base_dir, cfg.cache.disk_capacity_bytes)
         self.runtime = runtime
         self.manager = CacheManager(
             self.provider, self.disk_cache, runtime,
-            load_timeout_s=cfg.serving.load_timeout_s,
+            load_timeout_s=cfg.serving.load_timeout_s, metrics=metrics,
         )
         self.engine = engine
         self.backend = LocalServingBackend(
             self.manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
         )
-        self.rest = RestServingServer(self.backend)
+        self.rest = RestServingServer(self.backend, metrics, metrics_path=cfg.metrics.path)
         self.rest_port = 0
 
     def start(self, host: str = "0.0.0.0") -> int:
@@ -93,17 +104,49 @@ def node_group(device: str | torch.device, chips_per_group: int) -> list[torch.d
     return list(groups[0])
 
 
+def configure_observability(cfg: Config) -> None:
+    """Apply ``tracing``, ``observability`` and ``logging`` to the
+    process-wide tracer, flight recorder and tenant ledger, and hook the
+    recorder's SLO-breach dump to the tracer's slow retention (reference
+    server.py:325-348). Dumps arm only here, with ``flight_dir``."""
+    TRACER.configure(
+        capacity=cfg.tracing.capacity,
+        slow_threshold_s=cfg.tracing.slow_threshold_ms / 1000.0,
+        slow_capacity=cfg.tracing.slow_capacity,
+    )
+    RECORDER.configure(
+        flight_dir=cfg.observability.flight_dir or None,
+        ring_entries=cfg.observability.ring_entries,
+        max_dumps=cfg.observability.max_dumps,
+        dump_cooldown_s=cfg.observability.dump_cooldown_s,
+    )
+    RECORDER.install_slow_hook(TRACER)
+    LEDGER.configure(
+        enabled=cfg.observability.tenant_accounting,
+        noisy_share=cfg.observability.noisy_neighbor_share,
+        noisy_window_s=cfg.observability.noisy_neighbor_window_s,
+        noisy_min_step_s=cfg.observability.noisy_neighbor_min_step_s,
+    )
+
+
 def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNode:
     """A ``CacheNode`` on ``device`` (default: ``cfg.serving.device``, which
     defaults to ``cuda``; a missing card raises rather than falling back).
     With ``mesh.chips_per_group`` > 1 its runtime is bound to one device
     group (``node_group``)."""
+    if cfg.metrics.scrape_targets:
+        raise ValueError(
+            "metrics.scrape_targets: the scrape-merge of sidecar exporters is not "
+            "ported yet (it comes with the router and fleet plane)")
     device = device or cfg.serving.device
+    metrics = Metrics(model_labels=cfg.metrics.model_labels,
+                      max_model_labels=cfg.metrics.max_model_labels)
     if cfg.mesh.chips_per_group > 1:
         runtime = TorchModelRuntime(
-            cfg.serving, devices=node_group(device, cfg.mesh.chips_per_group))
+            cfg.serving, devices=node_group(device, cfg.mesh.chips_per_group),
+            metrics=metrics)
     else:
-        runtime = TorchModelRuntime(cfg.serving, device=device)
+        runtime = TorchModelRuntime(cfg.serving, device=device, metrics=metrics)
     engine = None
     if cfg.serving.generate_engine == "continuous":
         engine = ContinuousGenerateEngine(
@@ -113,5 +156,6 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
             spec_tokens=cfg.serving.spec_tokens,
             share_prefix_bytes=cfg.serving.kv_share_prefix_bytes,
             prefill_chunk_tokens=cfg.serving.prefill_chunk_tokens,
+            metrics=metrics,
         )
-    return CacheNode(cfg, runtime, engine)
+    return CacheNode(cfg, runtime, engine, metrics)
