@@ -3,9 +3,10 @@
 
 Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
 
-  1. environment — torch/CUDA versions, the card (nvidia-smi), which optional
-     packages exist (information only); exits non-zero without a CUDA device
-     or outside a checkout of the repo;
+  1. environment — torch/CUDA versions, the card (nvidia-smi), g++'s version
+     (the native host tier's compiler), which optional packages exist
+     (information only); exits non-zero without a CUDA device or outside a
+     checkout of the repo;
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
      with nvcc, one process per source, all started together; prints ptxas's
      registers, spills and warnings, and checks that the bf16 flash and
@@ -39,8 +40,25 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      localhost: cold, then warm. Every response is checked (HTTP 200, shape,
      finite, agreement with the plain path on the card), and the flash
      kernel's launch counter must show the path went through it (every
-     request's forward and the load's warm-up forward);
-  6. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
+     request's forward and the load's warm-up forward); each reply is the
+     native encoder's body of its logits byte for byte, timed beside
+     ``json.dumps``;
+  6. batch — the batchers (``serving.batch_window_ms``) on the same artifact
+     and disk cache, over the native host tier (``native_available()``):
+     16 closed-loop clients post 128 seeded, distinct (1, 128) ``:predict``
+     requests to a node with batching off, then to one with
+     ``batch_window_ms`` 1 and ``batch_max_size`` 64, off/on/off/on. Each
+     arm logs QPS, p50, the runtime's device calls and rows, the coalesced
+     batches; flash launches = n_layers x device calls, fewer device calls
+     than requests with batching on, and every answer passes the serve
+     phase's logits check. Then 8 concurrent unseeded greedy ``:generate``
+     requests (prompts 96-128, 32 new) on the batching node's coalescer
+     and a seeded one: at least one coalesced batch of 2 or more, the
+     seeded request solo, every token passing the teacher-forced check, no
+     paged or verify launch, and the scrape's
+     ``tpusc_coalesced_requests_total{kind="generate"}`` equal to the
+     coalescer's count;
+  7. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -86,7 +104,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      = n_layers x plain decode steps + draft layers x (spec + 1) x spec
      rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
      also counted from the prompts) and stay 0 on the solo paths;
-  7. observe — the observability layer on a served continuous node (the
+  8. observe — the observability layer on a served continuous node (the
      shared disk cache of arms (l)-(o)), configured as ``cli serve``
      configures it (``server.configure_observability``): after a warm-up,
      the recorder and the ledger are reset, then arm (a)'s schedule (16
@@ -104,7 +122,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
      the trace is deleted after the check. The burst's tok/s is printed
      beside arm (a)'s;
-  8. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  9. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -175,6 +193,7 @@ PAGED_TOL = {"bfloat16": 2.0**-8, "int8": 1e-4, "float32": 1e-4}
 # default preset's GQA width, and a length that is no multiple of a tile
 KERNEL_SHAPES = [
     (1, 32, 32, 128, 128),
+    (16, 32, 32, 128, 128),  # the batch phase's coalesced (1, 128) requests, bucket 16
     (2, 32, 32, 1024, 128),
     (1, 32, 32, 4096, 128),
     (4, 8, 4, 1024, 64),
@@ -269,6 +288,18 @@ PROFILE_S = 2.0
 ARM_TOK_S: dict[str, float] = {}
 # :predict request shapes; (1, 300) pads to the 512 bucket
 REQUEST_SHAPES = [(1, 128), (2, 1024), (1, 300)]
+# the batch phase: BATCH_CLIENTS closed-loop clients, each posting
+# BATCH_REQUESTS seeded, distinct BATCH_SHAPE requests, to a node with
+# batching off and one with it on (batch_window_ms 1, batch_max_size 64),
+# in the arms' order; then BATCH_GEN_REQUESTS concurrent unseeded greedy
+# :generate requests (prompts in one 128 bucket) + 1 seeded one
+BATCH_CLIENTS = 16
+BATCH_REQUESTS = 8
+BATCH_SHAPE = (1, 128)
+BATCH_ARMS = ("off", "on", "off", "on")
+BATCH_GEN_REQUESTS = 8
+BATCH_GEN_PROMPT_RANGE = (96, 128)
+BATCH_GEN_NEW_TOKENS = 32
 # B4 ring hops (B, Hq, Hkv, Sq, Sk, D, dtype, rel), each from a carried
 # state: the ring phase's hop at llama-7b width (a (1, 4096) request over 4
 # shards: 1024 rows a shard) as a past block, the diagonal and a future
@@ -447,6 +478,11 @@ def phase_environment() -> None:
         log(f"optional package {mod}: {'present' if found else 'absent'} (not needed)")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    # the native host tier's compiler (std::to_chars for floats needs GCC 11+)
+    gxx = shutil.which("g++")
+    version = "not found" if gxx is None else subprocess.run(
+        [gxx, "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    log(f"g++: {version}")
     log(f"device 0: {torch.cuda.get_device_name(0)}; devices: {torch.cuda.device_count()}")
     log(f"nvidia-smi: {nvidia_smi_line()}")
     # plain-version matmuls in full f32 (both TF32 switches off, stated)
@@ -1133,8 +1169,10 @@ def phase_carry_kernel(seed: int) -> dict:
     }
 
 
-def _post(url: str, body: dict, timeout: float) -> tuple[int, dict, float]:
-    data = json.dumps(body).encode()
+def _post_raw(url: str, data: bytes, timeout: float = 900.0) -> tuple[int, bytes, float]:
+    """POST ``data`` (a JSON body already encoded); -> (status, the reply's
+    bytes, seconds). Nothing is parsed, so a client costs the server's
+    process no JSON work inside a timed window."""
     req = urllib.request.Request(url, data=data, method="POST",
                                  headers={"Content-Type": "application/json"})
     t0 = time.monotonic()
@@ -1143,7 +1181,12 @@ def _post(url: str, body: dict, timeout: float) -> tuple[int, dict, float]:
             status, raw = resp.status, resp.read()
     except urllib.error.HTTPError as e:
         status, raw = e.code, e.read()
-    dt = time.monotonic() - t0  # the client's own JSON parse stays outside
+    return status, raw, time.monotonic() - t0
+
+
+def _post(url: str, body: dict, timeout: float) -> tuple[int, dict, float]:
+    # the client's own JSON parse stays outside the seconds
+    status, raw, dt = _post_raw(url, json.dumps(body).encode(), timeout)
     return status, json.loads(raw), dt
 
 
@@ -1227,7 +1270,7 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
 
     from tfservingcache_tpu_torch.config import config_from_dict
     from tfservingcache_tpu_torch.ops import attention as A
-    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+    from tfservingcache_tpu_torch.protocol import codec
     from tfservingcache_tpu_torch.server import build_node
 
     model_id, vocab, layers, plain_model = art.model_id, art.vocab, art.layers, art.plain_model
@@ -1293,11 +1336,19 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
 
             fwd_ms = host_ms(forward)
             predict_ms = host_ms(lambda: node.runtime.predict(model_id, {"input_ids": ids}))
-            t0 = time.monotonic()
-            json.dumps({"predictions": pred.tolist()})
-            enc_ms = (time.monotonic() - t0) * 1e3
+            # the reply: the node's bytes against the native encoder's body
+            # of the same logits, and both encoders timed on them
+            served = _post_raw(url, json.dumps({"instances": ids.tolist()}).encode())[1]
+            native_body = codec.encode_predict_json_bytes({"last_token_logits": pred}, True)
+            if served != native_body:
+                raise AssertionError(f"{shape}: the served body is not the native encoder's")
+            native_ms = host_ms(lambda: codec.encode_predict_json_bytes(
+                {"last_token_logits": pred}, True))
+            dumps_ms = host_ms(lambda: json.dumps({"predictions": pred.tolist()}).encode())
             log(f"  {shape} breakdown: forward {fwd_ms:.2f} ms, runtime.predict (pad + H2D "
-                f"+ forward + D2H) {predict_ms:.2f} ms, JSON encode {enc_ms:.2f} ms")
+                f"+ forward + D2H) {predict_ms:.2f} ms; the {pred.shape} f32 reply: native "
+                f"encoder {native_ms:.3f} ms (the served body byte for byte, "
+                f"{len(served)} bytes), json.dumps {dumps_ms:.3f} ms")
             busy = device_busy_ms(lambda: plain_model(dev_in))
             if busy is None:
                 log(f"  {shape} device busy share: not measured (the profiler saw no device time)")
@@ -1308,6 +1359,212 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
     finally:
         if node is not None:
             node.close()
+
+
+class _DeviceCalls:
+    """Counts a node runtime's ``predict`` or ``generate`` calls and their
+    rows (and a generate's seed), through an instance attribute that
+    shadows the method."""
+
+    def __init__(self, runtime, method: str) -> None:
+        self.runtime, self.method = runtime, method
+        self.real = getattr(runtime, method)
+        self.lock = threading.Lock()
+        self.calls, self.rows, self.seeds = 0, 0, []
+
+    def __enter__(self) -> "_DeviceCalls":
+        def counted(model_id, inputs, *a, **kw):
+            arr = inputs["input_ids"] if isinstance(inputs, dict) else inputs
+            with self.lock:
+                self.calls += 1
+                self.rows += int(arr.shape[0])
+                self.seeds.append(kw.get("seed"))
+            return self.real(model_id, inputs, *a, **kw)
+
+        setattr(self.runtime, self.method, counted)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        delattr(self.runtime, self.method)
+        return False
+
+
+def phase_batch(art: Artifact, seed: int, kernels: dict) -> None:
+    """The batchers on the serve phase's artifact and disk cache: warm
+    (1, 128) ``:predict`` from BATCH_CLIENTS closed-loop clients against a
+    node with batching off and one with it on, in turns (BATCH_ARMS); then
+    concurrent ``:generate`` on the batching node's coalescer. The clients
+    share the node's process, as the JAX package's bench clients do, and
+    like them read raw bytes in the timed window."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from tfservingcache_tpu_torch import native
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    if not native.native_available():
+        raise AssertionError("the native host tier is not built: the codec would run json")
+    log(f"native host tier: {native.active_path()} ({native.library_path().name}, "
+        f"built by g++ from {native.SOURCE.name})")
+    model_id, layers, vocab = art.model_id, art.layers, art.vocab
+    nodes = {}
+    try:
+        for arm, window in (("off", 0.0), ("on", 1.0)):
+            cfg = config_from_dict(art.node_config(
+                "serve", batch_window_ms=window, batch_max_size=64))
+            node = build_node(cfg, device="cuda")
+            base = f"http://127.0.0.1:{node.start('127.0.0.1')}"
+            nodes[arm] = (node, base)
+            url = f"{base}/v1/models/{model_id.name}/versions/1:predict"
+            # the load and one concurrent round stay out of the arms
+            settle = [json.dumps({"instances": [[i + 1] * BATCH_SHAPE[1]]}).encode()
+                      for i in range(BATCH_CLIENTS)]
+            for data in settle[:1]:
+                _post_raw(url, data)
+            with ThreadPoolExecutor(max_workers=BATCH_CLIENTS) as pool:
+                for status, body, _dt in pool.map(lambda b: _post_raw(url, b), settle):
+                    if status != 200:
+                        raise AssertionError(f"[batch {arm}] warm-up answered {status}: {body}")
+        rng = np.random.default_rng(seed + 12)
+        flash_total = 0
+        summary = {}
+        for turn, arm in enumerate(BATCH_ARMS):
+            node, base = nodes[arm]
+            url = f"{base}/v1/models/{model_id.name}/versions/1:predict"
+            ids = rng.integers(0, vocab, (BATCH_CLIENTS * BATCH_REQUESTS, BATCH_SHAPE[1]))
+            bodies = [json.dumps({"instances": ids[i: i + 1].tolist()}).encode()
+                      for i in range(len(ids))]
+            mb = node.backend._predictor
+            b0, r0 = getattr(mb, "batches", 0), getattr(mb, "batched_requests", 0)
+            with _DeviceCalls(node.runtime, "predict") as dev:
+                # --- the path: counters to 0, the arm's requests, read ----------
+                # (the clients read raw bytes: the replies are parsed below)
+                A.FLASH_LAUNCHES.reset()
+                t0 = time.monotonic()
+                with ThreadPoolExecutor(max_workers=BATCH_CLIENTS) as pool:
+                    raw = list(pool.map(lambda b: _post_raw(url, b), bodies))
+                wall = time.monotonic() - t0
+                launches = A.FLASH_LAUNCHES.value
+                # ---------------------------------------------------------------
+            results = [(status, json.loads(body), dt) for status, body, dt in raw]
+            batches = getattr(mb, "batches", 0) - b0
+            batched = getattr(mb, "batched_requests", 0) - r0
+            lat = sorted(dt * 1e3 for *_, dt in results)
+            p50 = statistics.median(lat)
+            qps = len(bodies) / wall
+            log(f"  [batch {arm}, turn {turn}] {len(bodies)} (1,128) :predict from "
+                f"{BATCH_CLIENTS} clients in {wall:.3f} s: {qps:.2f} QPS, p50 {p50:.2f} / p90 "
+                f"{lat[int(0.9 * (len(lat) - 1))]:.2f} / max {lat[-1]:.2f} ms (host clock); "
+                f"device calls {dev.calls} ({dev.rows / dev.calls:.2f} rows a call), "
+                f"coalesced batches {batches} holding {batched} requests"
+                f"{f' ({batched / batches:.2f} a batch)' if batches else ''}, flash launches "
+                f"{launches} (n_layers {layers} x device calls = {layers * dev.calls})")
+            if launches != layers * dev.calls:
+                raise AssertionError(f"[batch {arm}] flash launches {launches} != "
+                                     f"{layers} x {dev.calls} device calls")
+            if dev.rows != len(bodies):
+                raise AssertionError(f"[batch {arm}] {dev.rows} rows reached the runtime, "
+                                     f"{len(bodies)} were sent")
+            if arm == "on" and not dev.calls < len(bodies):
+                raise AssertionError(f"[batch on] {dev.calls} device calls for {len(bodies)} "
+                                     "requests: nothing coalesced")
+            if arm == "off" and dev.calls != len(bodies):
+                raise AssertionError(f"[batch off] {dev.calls} device calls != {len(bodies)}")
+            flash_total += launches
+            for status, body, _dt in results:
+                if status != 200:
+                    raise AssertionError(f"[batch {arm}] :predict answered {status}: {body}")
+            pred = np.asarray([body["predictions"][0] for _s, body, _dt in results], np.float32)
+            if pred.shape != (len(bodies), vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"[batch {arm}] predictions {pred.shape}, finite="
+                                     f"{bool(np.isfinite(pred).all())}")
+            for lo in range(0, len(bodies), BATCH_CLIENTS):  # every answer, 16 at a time
+                hi = lo + BATCH_CLIENTS
+                _check_logits(art.plain_model, (hi - lo, BATCH_SHAPE[1]), ids[lo:hi], pred[lo:hi])
+            summary.setdefault(arm, []).append((qps, p50, dev.calls / len(bodies)))
+        for arm, rows in summary.items():
+            log(f"  [batch {arm}] QPS {[round(q, 2) for q, _p, _c in rows]}, p50 ms "
+                f"{[round(p, 2) for _q, p, _c in rows]}, device calls a request "
+                f"{[round(c, 3) for _q, _p, c in rows]} ({nvidia_smi_line()})")
+        kernels["flash_attention"]["launches"] += flash_total
+        kernels["flash_attention"]["launches_batch_phase"] = flash_total
+        _coalesced_generate(art, seed, nodes["on"])
+    finally:
+        for node, _base in nodes.values():
+            node.close()
+
+
+def _coalesced_generate(art: Artifact, seed: int, node_base) -> None:
+    """BATCH_GEN_REQUESTS concurrent unseeded greedy ``:generate`` requests
+    (prompts in one bucket, BATCH_GEN_NEW_TOKENS new each) on the batching
+    node's coalescer, then a seeded request, which runs solo. Every answer
+    passes the teacher-forced check; no paged or verify kernel runs (the
+    solo path decodes without one); the scrape counts the coalescer's
+    requests."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.batcher import GenerateCoalescer
+
+    node, base = node_base
+    gc = node.backend._generator
+    if not isinstance(gc, GenerateCoalescer):
+        raise AssertionError(f"the batching node's generator is {type(gc).__name__}")
+    url = f"{base}/v1/models/{art.model_id.name}/versions/1:generate"
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(1, art.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(BATCH_GEN_PROMPT_RANGE[0], BATCH_GEN_PROMPT_RANGE[1] + 1,
+                                     BATCH_GEN_REQUESTS + 1)]
+    bodies = [{"input_ids": [p.tolist()], "max_new_tokens": BATCH_GEN_NEW_TOKENS}
+              for p in prompts[:-1]]
+    seeded = {"input_ids": [prompts[-1].tolist()], "max_new_tokens": BATCH_GEN_NEW_TOKENS,
+              "seed": 1234}
+    b0, r0 = gc.batches, gc.batched_requests
+    with _DeviceCalls(node.runtime, "generate") as dev:
+        # --- the path: counters to 0, the requests, counters read ----------
+        A.PAGED_LAUNCHES.reset()
+        A.VERIFY_LAUNCHES.reset()
+        A.FLASH_LAUNCHES.reset()
+        t0 = time.monotonic()
+        results = _post_many(url, bodies, len(bodies))
+        wall = time.monotonic() - t0
+        seeded_result = _post(url, seeded, 900.0)
+        paged, verify = A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value
+        flash = A.FLASH_LAUNCHES.value
+        # -------------------------------------------------------------------
+    batches, batched = gc.batches - b0, gc.batched_requests - r0
+    p50 = statistics.median(dt for *_, dt in results) * 1e3
+    log(f"  [batch generate] {len(bodies)} concurrent greedy requests (prompts "
+        f"{min(len(p) for p in prompts)}-{max(len(p) for p in prompts)}, "
+        f"{BATCH_GEN_NEW_TOKENS} new): {len(bodies) * BATCH_GEN_NEW_TOKENS / wall:.1f} tok/s, "
+        f"p50 {p50:.1f} ms (host clock); device calls {dev.calls - 1} + 1 seeded, rows "
+        f"{dev.rows}; coalesced batches {batches} holding {batched} requests; paged "
+        f"{paged} / verify {verify} / flash {flash} launches ({nvidia_smi_line()})")
+    if batches < 1 or batched < 2:
+        raise AssertionError("[batch generate] no coalesced batch of 2 or more requests")
+    if paged or verify:
+        raise AssertionError(f"[batch generate] paged {paged} / verify {verify} launches != 0")
+    if dev.seeds[-1] != 1234 or dev.calls - 1 + batched - batches != len(bodies):
+        raise AssertionError(f"[batch generate] the seeded request did not run solo "
+                             f"(seeds {dev.seeds}, {dev.calls} calls)")
+    worst = 0.0
+    for prompt, (status, body, _dt) in zip(prompts, [*results, seeded_result]):
+        if status != 200:
+            raise AssertionError(f"[batch generate] answered {status}: {body}")
+        tokens = np.asarray(body["tokens"][0], np.int64)
+        if tokens.shape != (BATCH_GEN_NEW_TOKENS,):
+            raise AssertionError(f"[batch generate] tokens {tokens.shape}")
+        worst = max(worst, _check_greedy(art, prompt, tokens, LOGITS_TOL, "[batch generate]"))
+    log(f"  [batch generate] every token within {worst:.4f} of its position's plain max "
+        f"logit (tolerance {LOGITS_TOL}, teacher-forced)")
+    scrape = _scrape(base)
+    counted = scrape.get(("tpusc_coalesced_requests_total", (("kind", "generate"),)))
+    if counted != gc.batched_requests:
+        raise AssertionError(f"[batch generate] scrape counts {counted} coalesced requests, "
+                             f"the coalescer {gc.batched_requests}")
 
 
 def _check_logits(plain_model, shape, ids, pred):
@@ -1337,8 +1594,13 @@ def _check_logits(plain_model, shape, ids, pred):
     margin = top2[:, 1] - top2[:, 0]
     decided = margin > 2 * row_err
     agree = pred.argmax(-1) == ref.argmax(-1)
-    log(f"  {shape}: max|logits - plain| = {err:.5g} (tolerance {LOGITS_TOL}); "
-        f"argmax equal {agree.tolist()}; top-2 margins {np.round(margin, 4).tolist()}")
+    if len(agree) > 4:  # many rows (the batch phase): one summary line
+        log(f"  {shape}: max|logits - plain| = {err:.5g} (tolerance {LOGITS_TOL}); argmax "
+            f"equal on {int(agree.sum())} of {len(agree)} rows; smallest top-2 margin "
+            f"{float(margin.min()):.4f}")
+    else:
+        log(f"  {shape}: max|logits - plain| = {err:.5g} (tolerance {LOGITS_TOL}); "
+            f"argmax equal {agree.tolist()}; top-2 margins {np.round(margin, 4).tolist()}")
     if not err <= LOGITS_TOL:
         raise AssertionError(f"{shape}: logits differ from the plain path by {err}")
     if not agree[decided].all():
@@ -2994,6 +3256,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         with Phase("serve"):
             phase_serve(art, args.seed, args.warm, kernels)
+        with Phase("batch"):
+            phase_batch(art, args.seed, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
         with Phase("observe"):

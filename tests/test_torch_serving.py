@@ -11,11 +11,13 @@ exactly; see tests/test_torch_transformer_lm.py).
 import base64
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -162,6 +164,24 @@ def test_rest_error_contract(tmp_path, store):
                     {"input_ids": [[1]], "draft_model": "ghost"})[0] == 404
 
 
+def test_rest_server_listens_with_the_references_backlog(tmp_path, store):
+    """The stdlib server's listen backlog is the reference's (aiohttp's
+    ``TCPSite`` default, 128), not socketserver's 5: with 16 concurrent
+    clients the smaller queue dropped connects, which waited a second for
+    their retry. 32 concurrent requests all answer."""
+    import inspect
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aiohttp.web_runner import TCPSite
+
+    want = inspect.signature(TCPSite.__init__).parameters["backlog"].default
+    with serving(tmp_path, store) as (node, url):
+        assert node.rest._httpd.request_queue_size == want == 128
+        with ThreadPoolExecutor(32) as pool:
+            got = list(pool.map(lambda _i: call(f"{url}/healthz"), range(32)))
+    assert got == [(200, {"status": "ok"})] * 32
+
+
 def test_output_filter_and_base64_encoding(tmp_path, store):
     ids = np.random.default_rng(2).integers(0, 512, size=(2, 5)).astype(np.int32)
     with serving(tmp_path, store) as (_node, url):
@@ -223,7 +243,8 @@ def test_port_serves_without_importing_jax(tmp_path):
     continuous paged engine with speculative rounds, a solo
     ``"draft_model"`` request, a streamed answer, a conversation parked and
     resumed, chunked prefill, shared-prefix pages and the
-    solo prefix cache, and a ring ``:predict`` on a node whose
+    solo prefix cache, the batchers on a ``batch_window_ms`` node over the
+    native host tier, and a ring ``:predict`` on a node whose
     runtime is bound to a 4-copy CPU group — and a scrape of the node's
     metrics and monitoring endpoints, in a fresh interpreter (this test
     process has JAX loaded by the harness): neither ``jax`` nor the JAX
@@ -330,6 +351,29 @@ def test_port_serves_without_importing_jax(tmp_path):
         eng = node.engine
         assert eng.prefill_chunks == 3 and eng.prefix_hits_exact == 1, vars(eng)
         assert node.runtime._prefix_cache.hits == 1  # the second seeded (solo) request
+        node.close()
+        # the batchers (batch_window_ms > 0) and the native host tier: a
+        # 70-token body the native parser extracts, a native-encoded reply
+        cfg = config_from_dict({{"serving": {{"batch_window_ms": 1}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_batch")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        port = node.start("127.0.0.1")
+        for verb, body in (("predict", {{"instances": [list(range(1, 71))]}}),
+                           ("generate", {{"input_ids": [list(range(1, 71))],
+                                          "max_new_tokens": 4}})):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{port}}/v1/models/lm/versions/1:{{verb}}",
+                data=json.dumps(body).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200 and json.loads(resp.read())
+        from tfservingcache_tpu_torch import native
+        from tfservingcache_tpu_torch.runtime.batcher import GenerateCoalescer, MicroBatcher
+        assert native.active_path() == "native"
+        assert isinstance(node.backend._predictor, MicroBatcher)
+        assert isinstance(node.backend._generator, GenerateCoalescer)
+        assert type(node.disk_cache.lru).__name__ == "NativeLRUCache"
         node.close()
         registry.export_artifact("transformer_lm", store, name="ring",
                                  config={dict(SMALL, n_kv_heads=4, dtype="bfloat16",
@@ -442,6 +486,150 @@ def test_profiler_capture_writes_a_chrome_trace(tmp_path):
     assert os.path.dirname(body["trace"]) == body["dir"]
     with open(body["trace"]) as fh:
         assert "traceEvents" in json.load(fh)
+
+
+def _post_raw(url: str, body: dict) -> bytes:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        assert resp.status == 200
+        return resp.read()
+
+
+def _reference_bodies(tmp_path, store, verb: str, bodies: list) -> list[bytes]:
+    """The reference node's REST answers to ``bodies`` on "lmb", all in
+    flight at once: its ``LocalServingBackend`` with ``batch_window_ms`` 1
+    over a CPU runtime."""
+    import asyncio
+
+    from tfservingcache_tpu.cache.disk_cache import ModelDiskCache as JDiskCache
+    from tfservingcache_tpu.cache.manager import CacheManager as JManager
+    from tfservingcache_tpu.cache.providers.disk import DiskModelProvider as JProvider
+    from tfservingcache_tpu.config import ServingConfig as JServingConfig
+    from tfservingcache_tpu.protocol.local_backend import LocalServingBackend as JBackend
+    from tfservingcache_tpu.runtime.model_runtime import TPUModelRuntime
+
+    mgr = JManager(JProvider(str(store)),
+                   JDiskCache(str(tmp_path / "ref_cache"), capacity_bytes=1 << 30),
+                   TPUModelRuntime(JServingConfig(platform="cpu")))
+    backend = JBackend(mgr, batch_window_ms=1.0)
+
+    async def main():
+        return await asyncio.gather(*(
+            backend.handle_rest("POST", "lmb", 1, verb, json.dumps(b).encode())
+            for b in bodies))
+
+    try:
+        return [r.body for r in asyncio.run(main())]
+    finally:
+        backend.close()
+        mgr.close()
+
+
+def _gated_port_bodies(node, url: str, method: str, kind: str, bodies: list,
+                       inflight: int) -> list[bytes]:
+    """POST every body at once to a port node whose runtime ``method``
+    blocks until ``inflight`` batches are inside it and every other request
+    is queued behind them (the node's batcher queue-depth gauge): the rest
+    must then coalesce. -> the reply bodies in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    gate, lock, entered = threading.Event(), threading.Lock(), [0, 0]
+    real = getattr(node.runtime, method)
+
+    def gated(model_id, input_ids, *a, **kw):
+        with lock:
+            entered[0] += 1
+            entered[1] += int(np.asarray(input_ids["input_ids"] if isinstance(input_ids, dict)
+                                         else input_ids).shape[0])
+        assert gate.wait(120)
+        return real(model_id, input_ids, *a, **kw)
+
+    setattr(node.runtime, method, gated)  # shadows the method for this node
+    depth = node.metrics.batcher_queue_depth.labels(kind)
+    try:
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futs = [pool.submit(_post_raw, url, b) for b in bodies]
+            deadline = time.monotonic() + 120
+            while not (entered[0] == inflight and entered[1] + depth.value == len(bodies)):
+                assert time.monotonic() < deadline, (entered, depth.value)
+                time.sleep(0.001)
+            gate.set()
+            return [f.result() for f in futs]
+    finally:
+        gate.set()
+        delattr(node.runtime, method)
+
+
+_NUM = re.compile(rb"-?(?:[0-9][0-9.eE+-]*|Infinity)|NaN")
+
+
+def _same_text_where_equal(port_body: bytes, ref_body: bytes) -> int:
+    """The bodies have one envelope, and every number whose f32 value is the
+    same in both is the same text. -> how many numbers were equal."""
+    assert _NUM.sub(b"#", port_body) == _NUM.sub(b"#", ref_body)
+    equal = 0
+    for p, r in zip(_NUM.findall(port_body), _NUM.findall(ref_body)):
+        if np.float32(float(p)) == np.float32(float(r)):
+            assert p == r
+            equal += 1
+    return equal
+
+
+def test_batching_nodes_answer_like_the_reference(tmp_path, store):
+    """A port node and a reference node, both with ``batch_window_ms`` 1,
+    serve the bf16 artifact. Concurrent ``:predict`` requests coalesce on
+    the port (its runtime held until 4 batches are inside and the rest
+    queue) and answer within 2**-4 of the reference, argmax equal off
+    near-ties; concurrent greedy ``:generate`` requests of one bucket
+    coalesce into one solo-path generate and emit the reference's tokens up
+    to bf16 near-ties. Every reply's text equals the reference's wherever
+    the values are equal, and is the reference codec's encoding of the
+    port's own outputs byte for byte."""
+    from tfservingcache_tpu.protocol import codec as jcodec
+
+    rng = np.random.default_rng(5)
+    predict = [{"instances": rng.integers(0, 512, (1, 80)).tolist()} for _ in range(8)]
+    generate = [{"input_ids": [rng.integers(1, 512, int(n)).tolist()], "max_new_tokens": 6}
+                for n in rng.integers(17, 33, 8)]  # one seq bucket (32)
+    with serving(tmp_path, store, batch_window_ms=1) as (node, url):
+        base = f"{url}/v1/models/lmb/versions/1"
+        _post_raw(base + ":predict", predict[0])  # cold load outside the gated window
+        port_pred = _gated_port_bodies(node, base + ":predict", "predict", "predict",
+                                       predict, inflight=4)
+        port_gen = _gated_port_bodies(node, base + ":generate", "generate", "generate",
+                                      generate, inflight=2)
+        mb, gc = node.backend._predictor, node.backend._generator
+        assert mb.batches >= 1 and gc.batches >= 1
+        scrape = node.metrics.render().decode()
+    assert f'tpusc_coalesced_requests_total{{kind="generate"}} {float(gc.batched_requests)}' in scrape
+    ref_pred = _reference_bodies(tmp_path, store, "predict", predict)
+    ref_gen = _reference_bodies(tmp_path, store, "generate", generate)
+
+    equal = 0
+    for pb, rb in zip(port_pred, ref_pred):
+        got = np.asarray(json.loads(pb)["predictions"], np.float32)
+        want = np.asarray(json.loads(rb)["predictions"], np.float32)
+        diff = np.abs(got - want)
+        assert got.shape == want.shape == (1, 512) and diff.max() <= 2.0**-4
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * diff.max(axis=-1)
+        assert (got.argmax(-1) == want.argmax(-1))[decided].all()
+        assert jcodec.encode_predict_json_bytes({"last_token_logits": got}, True) == pb
+        equal += _same_text_where_equal(pb, rb)
+    assert equal  # some logits are the same value in both, and the same text
+
+    model, params = jreg.load_artifact(str(store / "lmb" / "1"))
+    for body, pb, rb in zip(generate, port_gen, ref_gen):
+        got, want = json.loads(pb)["tokens"][0], json.loads(rb)["tokens"][0]
+        if got == want:
+            assert pb == rb
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = np.asarray([body["input_ids"][0] + want[:i]], np.int32)
+        logits = np.asarray(model.apply(params, {"input_ids": jnp.asarray(seq)})["logits"])[0, -1]
+        top = logits.max()
+        assert top - logits[got[i]] <= 2.0**-3 and top - logits[want[i]] <= 2.0**-3, (
+            f"generate diverges at token {i} off a near-tie")
 
 
 def test_manager_versions_health_and_stale_reload(tmp_path, store):

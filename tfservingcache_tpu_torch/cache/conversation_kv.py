@@ -7,7 +7,7 @@ so half the bytes of bf16 pages) and its token history are copied into this
 byte-budgeted tier instead of being dropped. The conversation's next turn
 re-imports the pages into fresh arena pages and prefills only the suffix.
 
-Two levels, each a byte-budgeted LRU (the port's ``cache/lru.py``): host
+Two levels, each a byte-budgeted LRU (``native.make_lru_cache``): host
 memory holds ``ParkedConversation`` payloads, and its evict callback IS the
 spill: the coldest conversation is packed into a flat blob (``pack_parked``)
 and written to a file under ``disk_dir``, held by a second LRU whose evict
@@ -49,7 +49,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from tfservingcache_tpu_torch.cache.lru import CapacityError, LRUCache, LRUEntry
+from tfservingcache_tpu_torch.cache.lru import CapacityError, LRUEntry
+from tfservingcache_tpu_torch.native import make_lru_cache
 from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
 
 log = logging.getLogger("tpusc_torch.conversation_kv")
@@ -214,12 +215,10 @@ class ConversationKVTier:
         self.disk_dir = disk_dir
         self.enabled = self.capacity_bytes > 0
         # host level: payload = ParkedConversation
-        self.host: LRUCache[ConvKey, ParkedConversation] = LRUCache(
-            max(1, self.capacity_bytes), self._on_evict_host)
+        self.host = make_lru_cache(max(1, self.capacity_bytes), self._on_evict_host)
         # disk level: payload = blob path; the evict callback deletes the file
         self._spill = self.enabled and self.disk_capacity_bytes > 0 and disk_dir is not None
-        self.disk: LRUCache[ConvKey, str] = LRUCache(
-            max(1, self.disk_capacity_bytes), self._on_evict_disk)
+        self.disk = make_lru_cache(max(1, self.disk_capacity_bytes), self._on_evict_disk)
         self._closed = threading.Event()
         self._stats_lock = threading.Lock()
         self._hits = 0           # guarded-by: _stats_lock

@@ -1,6 +1,6 @@
 """Disk artifact cache: versioned model dirs under a byte-budgeted LRU
-(counterpart of ``tfservingcache_tpu/cache/disk_cache.py``, on the
-pure-Python LRU).
+(counterpart of ``tfservingcache_tpu/cache/disk_cache.py``; the index is
+``native.make_lru_cache``'s, the C++ LRU when it is built).
 
 Layout is ``<base_dir>/<name>/<version>/...``. The index is rebuilt from disk
 at startup, and eviction removes the artifact's directory tree on a
@@ -17,7 +17,8 @@ import threading
 from contextlib import contextmanager
 from typing import Callable, Iterator
 
-from tfservingcache_tpu_torch.cache.lru import LRUCache, LRUEntry
+from tfservingcache_tpu_torch.cache.lru import LRUEntry
+from tfservingcache_tpu_torch.native import make_lru_cache
 from tfservingcache_tpu_torch.types import Model, ModelId
 
 log = logging.getLogger("tpusc_torch.disk_cache")
@@ -43,7 +44,7 @@ class ModelDiskCache:
         # every subscriber (a runtime's unload) hears of an eviction: a
         # model whose artifact is gone must not stay resident
         self._evict_callbacks: list[Callable[[ModelId], None]] = []
-        self.lru: LRUCache[ModelId, Model] = LRUCache(capacity_bytes, self._evict)
+        self.lru = make_lru_cache(capacity_bytes, self._evict)
         # Per-model mutexes shared by eviction and (re)load: a deferred evict
         # rmtree must not race a concurrent re-fetch writing the same path.
         self._key_locks: dict[ModelId, threading.Lock] = {}

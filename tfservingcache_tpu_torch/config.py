@@ -31,10 +31,17 @@ class ServingConfig:
     load_timeout_s: float = 30.0
     # "cuda" (the default) or "cpu"; a missing card with "cuda" raises
     device: str = "cuda"
+    # micro-batching (runtime/batcher.py): 0 (default) = off; > 0 turns on
+    # MicroBatcher for :predict and GenerateCoalescer for :generate.
+    # Batches form while earlier ones hold the device (no timed window), so
+    # the value is an on/off switch. batch_max_size caps a :predict batch's
+    # rows (a :generate batch's at min(batch_max_size, 32))
+    batch_window_ms: float = 0.0
+    batch_max_size: int = 64
     # :generate engine: "continuous" runs unseeded requests on the slotted
-    # continuous engine (runtime/batcher.py); "coalesce" (the reference's
-    # default name) runs every request on the solo path, since the port has
-    # no coalescer yet
+    # continuous engine (runtime/batcher.py); "coalesce" (the default)
+    # coalesces concurrent unseeded requests into one solo-path generate
+    # when batch_window_ms > 0, and runs each request solo otherwise
     generate_engine: str = "coalesce"
     generate_slots: int = 8                # continuous-engine lanes per model
     generate_chunk_tokens: int = 8         # decode steps per scheduler boundary

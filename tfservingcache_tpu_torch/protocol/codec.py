@@ -1,5 +1,5 @@
 """The REST ``:predict`` JSON codec (the JSON half of
-``tfservingcache_tpu/protocol/codec.py``, on the standard library's ``json``).
+``tfservingcache_tpu/protocol/codec.py``).
 
 Requests: row format ``{"instances": [row, ...]}`` (a row is a value or
 ``{name: value}``) or columnar ``{"inputs": value-or-{name: value}}``;
@@ -7,6 +7,12 @@ Requests: row format ``{"instances": [row, ...]}`` (a row is a value or
 objects are raw little-endian tensors. Responses: ``{"predictions": ...}``
 (row) or ``{"outputs": ...}`` (columnar); ``"output_encoding": "base64"``
 answers columnar with each tensor as ``{"b64", "dtype", "shape"}``.
+
+The native tier (``native/``) does the heavy JSON where it is built: request
+bodies are parsed with dense numeric arrays extracted straight into numpy
+(``loads_request``), and numeric outputs are written from their buffers
+(``encode_predict_json_bytes``), in the shortest round-trip text of their
+dtype, byte for byte the reference's body. ``json`` takes the rest.
 """
 
 from __future__ import annotations
@@ -17,9 +23,22 @@ from typing import Any, Mapping
 
 import numpy as np
 
+from tfservingcache_tpu_torch import native
+
 
 class CodecError(ValueError):
     pass
+
+
+def loads_request(body: bytes):
+    """A JSON request body parsed: the native parser (dense numeric subtrees
+    arrive as numpy arrays), or ``json.loads`` where the library is not
+    built or declines the body. Raises ValueError (``JSONDecodeError`` is
+    one) on a malformed body either way."""
+    parsed = native.json_parse_request(body)
+    if parsed is not None:
+        return parsed
+    return json.loads(body)
 
 
 def _json_to_value(obj: Any) -> Any:
@@ -63,6 +82,13 @@ def _binary_tensor_to_array(spec: Mapping[str, Any], dtype: np.dtype | None = No
 
 
 def _value_to_array(value: Any, dtype: np.dtype | None) -> np.ndarray:
+    if isinstance(value, np.ndarray):
+        # extracted by the native parser: the list path's dtype rules
+        if dtype is not None:
+            return value.astype(dtype) if value.dtype != dtype else value
+        if value.dtype == np.float64:
+            return value.astype(np.float32)
+        return value
     if _is_binary_spec(value):
         return _binary_tensor_to_array(value, dtype)
     if isinstance(value, list) and value and all(_is_binary_spec(v) for v in value):
@@ -123,6 +149,12 @@ def decode_predict_json(
 
     if "instances" in body:
         instances = body["instances"]
+        if isinstance(instances, np.ndarray):
+            # extracted by the native parser: a dense numeric "instances"
+            # array is the single-input row format already stacked
+            if instances.size == 0:
+                raise CodecError('"instances" must be a non-empty list')
+            return {only_name: _value_to_array(instances, input_dtypes.get(only_name))}, signature
         if not isinstance(instances, list) or not instances:
             raise CodecError('"instances" must be a non-empty list')
         if isinstance(instances[0], dict) and "b64" not in instances[0]:
@@ -158,9 +190,30 @@ def _array_to_json(arr: np.ndarray) -> Any:
             return str(v)
 
         return enc(arr.tolist())
-    if arr.dtype == np.float16:
+    if arr.dtype.name in _HALF_DTYPES:
         arr = arr.astype(np.float32)
     return arr.tolist()
+
+
+# float16, and bfloat16 by name: numpy has no bfloat16 of its own, and an
+# array of one (from ml_dtypes) names its dtype so
+_HALF_DTYPES = frozenset(("float16", "bfloat16"))
+# what the native encoder writes; halfs are upcast to f32 first
+_NATIVE_JSON_DTYPES = frozenset(
+    ("float32", "float64", "int32", "int64", "bool", "uint8", *_HALF_DTYPES))
+
+
+def _native_json_supported(arr: np.ndarray) -> bool:
+    return arr.dtype.name in _NATIVE_JSON_DTYPES and arr.dtype.isnative
+
+
+def _native_array_json(arr: np.ndarray) -> bytes | None:
+    """Native JSON text of a numeric array; None -> the Python path."""
+    if arr.dtype.name in _HALF_DTYPES:
+        arr = arr.astype(np.float32)  # as _array_to_json upcasts
+    if arr.dtype == object or arr.dtype.kind not in "fiub":
+        return None
+    return native.json_encode_array(arr)
 
 
 def _array_to_b64_json(arr: np.ndarray) -> dict[str, Any]:
@@ -215,5 +268,28 @@ def encode_predict_json(
 def encode_predict_json_bytes(
     outputs: Mapping[str, np.ndarray], row_format: bool, encoding: str = "json"
 ) -> bytes:
-    """The ``:predict`` response body as bytes."""
+    """The ``:predict`` response body as bytes (reference codec.py:362-407).
+
+    Columnar bodies whose every output the native encoder takes, and
+    row-format bodies of one such output, are written by the native encoder
+    and spliced into the envelope; everything else (string outputs,
+    row-format multi-output bodies, base64, no native library) is
+    ``json.dumps`` of ``encode_predict_json``."""
+    out = {n: np.asarray(a) for n, a in outputs.items()}
+    if encoding == "json" and out:
+        if not row_format and all(_native_json_supported(a) for a in out.values()):
+            # checked first, so that a body with one string output does not
+            # pay the native encode of a large tensor and the fallback too
+            pieces = {n: _native_array_json(a) for n, a in out.items()}
+            if all(p is not None for p in pieces.values()):
+                if len(pieces) == 1:
+                    (body,) = pieces.values()
+                    return b'{"outputs": ' + body + b"}"
+                inner = b", ".join(json.dumps(n).encode() + b": " + p for n, p in pieces.items())
+                return b'{"outputs": {' + inner + b"}}"
+        elif len(out) == 1:
+            (arr,) = out.values()
+            body = _native_array_json(arr)
+            if body is not None:
+                return b'{"predictions": ' + body + b"}"
     return json.dumps(encode_predict_json(outputs, row_format, encoding)).encode()

@@ -2,8 +2,11 @@
 (counterpart of ``tfservingcache_tpu/protocol/local_backend.py``: ``:predict``,
 ``:generate``, model status and metadata). The request is decoded and
 answered in-process: ensure the model is servable, run it on the runtime
-(or, for ``:generate``, on the continuous engine when one is configured),
-encode the outputs.
+(through ``MicroBatcher`` when ``batch_window_ms > 0``; for ``:generate``
+on the continuous engine when one is configured, else through
+``GenerateCoalescer`` when batching is on), encode the outputs. Request
+bodies are parsed and numeric replies written by the native tier where it
+is built (``codec.loads_request``, ``codec.encode_predict_json_bytes``).
 
 Methods are synchronous; the REST server runs each request on its own
 thread. A streamed ``:generate`` returns at once with an iterator of SSE
@@ -36,6 +39,7 @@ from tfservingcache_tpu_torch.runtime.base import (
     ModelNotLoadedError,
     RuntimeError_,
 )
+from tfservingcache_tpu_torch.runtime.batcher import GenerateCoalescer, MicroBatcher
 from tfservingcache_tpu_torch.types import ModelId, ModelState
 from tfservingcache_tpu_torch.utils.tracing import TRACER
 
@@ -51,14 +55,33 @@ _STREAM_ON = ("1", "true", "yes", "on")
 
 class LocalServingBackend(ServingBackend):
     def __init__(self, manager: CacheManager, generator: Any = None,
-                 spec_draft_model: str = "") -> None:
+                 spec_draft_model: str = "", batch_window_ms: float = 0.0,
+                 batch_max_size: int = 64) -> None:
         self.manager = manager
-        # the continuous engine (runtime/batcher.py) when
-        # serving.generate_engine == "continuous"; None = the solo path
-        self._generator = generator
+        # batch_window_ms > 0 turns the batchers on (batches form while the
+        # device is busy: no timed window, the knob is the switch; reference
+        # local_backend.py:96-124). Up to 4 forwards overlap one another's
+        # pad/H2D/D2H; a generate holds the card far longer, so 2 of them.
+        if batch_window_ms > 0:
+            self._predictor = MicroBatcher(
+                manager.runtime, max_batch=batch_max_size, metrics=manager.metrics,
+                max_inflight=4,
+            )
+            self._generator = GenerateCoalescer(
+                manager.runtime, max_batch=min(batch_max_size, 32), metrics=manager.metrics,
+                max_inflight=2,
+            )
+        else:
+            self._predictor = manager.runtime
+            self._generator = None
+        # the continuous engine (serving.generate_engine == "continuous")
+        # replaces whichever generator batching picked
+        if generator is not None:
+            self._generator = generator
         # serving.spec_draft_model: the engine attaches the draft only while
-        # it is resident, so :generate ensures it beside the target
-        self._spec_draft_name = str(spec_draft_model or "")
+        # it is resident, so :generate ensures it beside the target ("" =
+        # nothing to ensure, as without the engine)
+        self._spec_draft_name = str(spec_draft_model or "") if generator is not None else ""
 
     def _ensure(self, model_id: ModelId) -> None:
         try:
@@ -96,7 +119,8 @@ class LocalServingBackend(ServingBackend):
         if method != "POST" or verb not in ("predict", "generate"):
             raise BackendError(f"unsupported {method} {verb or ''} request", 405)
         try:
-            payload = json.loads(body or b"{}")
+            # the native parser extracts dense numeric arrays as numpy
+            payload = codec.loads_request(body or b"{}")
         except ValueError as e:
             raise BackendError(f"invalid JSON body: {e}", 400) from e
         if not isinstance(payload, dict):
@@ -127,7 +151,7 @@ class LocalServingBackend(ServingBackend):
             except codec.CodecError as e:
                 raise BackendError(str(e), 400) from e
             try:
-                return self.manager.runtime.predict(model_id, arrays, out_filter or None)
+                return self._predictor.predict(model_id, arrays, out_filter or None)
             except ModelNotLoadedError:
                 raise
             except RuntimeError_ as e:
@@ -154,7 +178,12 @@ class LocalServingBackend(ServingBackend):
         input is validated HERE, before a streamed reply ships its status
         line; an error inside ``run`` ends a stream with an error frame."""
         ids = payload.get("input_ids")
-        if not isinstance(ids, list) or not ids:
+        if isinstance(ids, np.ndarray):
+            # extracted by the native parser; float arrays stay admissible,
+            # as on the list path (the int32 conversion truncates either way)
+            if ids.size == 0 or ids.dtype.kind not in "iuf":
+                raise BackendError('"input_ids" must be a non-empty 2-D list of token ids', 400)
+        elif not isinstance(ids, list) or not ids:
             raise BackendError('"input_ids" must be a non-empty 2-D list', 400)
         draft_mid = self._draft_model(payload.get("draft_model"))
         conv_id = payload.get("conversation_id")
@@ -167,12 +196,13 @@ class LocalServingBackend(ServingBackend):
             rows = int(np.atleast_2d(np.asarray(ids)).shape[0])
         except (ValueError, TypeError):
             rows = len(ids)  # ragged rows: run()'s own int32 conversion answers 400
+        gen = self._generator
 
         def attempt(on_token) -> np.ndarray:
             self._ensure(model_id)
             if draft_mid is not None:
                 self._ensure(draft_mid)
-            elif self._generator is not None:
+            elif gen is not None:
                 self._ensure_engine_draft(model_id)
             try:
                 # inside the try: malformed params ("max_new_tokens": "abc")
@@ -185,8 +215,13 @@ class LocalServingBackend(ServingBackend):
                 )
                 seed = int(payload["seed"]) if "seed" in payload else None
                 arr = np.asarray(ids, np.int32)
-                if self._generator is not None and draft_mid is None:
-                    return self._generator.generate(
+                if isinstance(gen, GenerateCoalescer) and draft_mid is None:
+                    # the coalescer has neither priority classes, a
+                    # conversation tier nor a live token callback: a stream
+                    # replays the finished row (_stream_events)
+                    return gen.generate(model_id, arr, seed=seed, **kwargs)
+                if gen is not None and draft_mid is None:
+                    return gen.generate(
                         model_id, arr, seed=seed, conversation_id=conv_id, priority=priority,
                         on_token=on_token, **kwargs)
                 return self.manager.runtime.generate(
@@ -224,14 +259,17 @@ class LocalServingBackend(ServingBackend):
                "conversation_id": "..."?, "priority": "high"|"normal"|"low"?}
         Response: {"tokens": [[...]]}, (rows, max_new_tokens) new tokens.
 
-        Without a "seed" or a "draft_model", a request runs on the continuous
-        engine when one is configured; a seeded request runs on the solo
-        path, reproducibly. A "draft_model" request runs greedy speculative
-        decoding on the solo path (``runtime.generate(draft_model_id=...)``):
-        an unknown draft is 404, a malformed one or a bad version 400,
-        temperature > 0 with a draft 400. "conversation_id" parks the row's
-        decode state at retirement and resumes the conversation's next turn
-        from it (``serving.conversation_kv_bytes`` > 0, continuous engine);
+        Without a "draft_model", a request runs on the continuous engine when
+        one is configured, else through the coalescer when batching is on
+        (``batch_window_ms > 0``: concurrent unseeded requests with one key
+        share one solo-path generate), else on the solo path; a seeded
+        request runs solo on each, reproducibly. A "draft_model" request
+        runs greedy speculative decoding on the solo path
+        (``runtime.generate(draft_model_id=...)``): an unknown draft is 404,
+        a malformed one or a bad version 400, temperature > 0 with a draft
+        400. "conversation_id" parks the row's decode state at retirement
+        and resumes the conversation's next turn from it
+        (``serving.conversation_kv_bytes`` > 0, continuous engine);
         "priority" orders the engine's admission by class and lets a higher
         class preempt a lower decoding lane. Both are ignored elsewhere.
 
@@ -240,9 +278,9 @@ class LocalServingBackend(ServingBackend):
         frame per token as the engine samples it, then ``{"done": true,
         "tokens": [[...]]}`` carrying the buffered body's matrix, or an
         ``{"error": ...}`` frame when the generate fails after the 200. The
-        solo, seeded and "draft_model" paths replay the finished row as
-        frames. The port bounds no request end to end (the engine's wait
-        timeout bounds the wait for rows), streams included."""
+        coalescer, solo, seeded and "draft_model" paths replay the finished
+        row as frames. The port bounds no request end to end (the engine's
+        wait timeout bounds the wait for rows), streams included."""
         stream = str(query.get("stream", "")).strip().lower() in _STREAM_ON
         run, rows = self._prepare_generate(model_id, payload)
         if not stream:

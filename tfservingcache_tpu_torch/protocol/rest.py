@@ -124,6 +124,16 @@ def parse_model_url(path: str) -> tuple[str, int | None, str | None] | None:
     return m.group("name"), (int(version) if version is not None else None), verb
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """The stdlib threading server listening with the reference's backlog:
+    aiohttp's ``TCPSite`` listens with 128 pending connections, socketserver
+    with 5, and a burst of more concurrent connects than the backlog loses
+    SYNs that clients retry only after a second."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
 class RestServingServer:
     def __init__(
         self,
@@ -136,7 +146,7 @@ class RestServingServer:
         self.metrics = metrics
         self.metrics_path = metrics_path
         self.port: int | None = None
-        self._httpd: ThreadingHTTPServer | None = None
+        self._httpd: _HTTPServer | None = None
         self._thread: threading.Thread | None = None
         # captures are confined under one base dir; a client picks only a
         # label. The default lies under the process's temporary directory
@@ -384,8 +394,7 @@ class RestServingServer:
         port. Returns the bound port. Called on the main thread with a card
         present, it first readies the profiler for the endpoint."""
         _prime_profiler()
-        httpd = ThreadingHTTPServer((host, port), self._handler())
-        httpd.daemon_threads = True
+        httpd = _HTTPServer((host, port), self._handler())
         self._httpd = httpd
         self.port = httpd.server_address[1]
         self._thread = threading.Thread(

@@ -1,9 +1,15 @@
-"""Iteration-level continuous batching for ``:generate``.
+"""The batchers of the port (counterpart of
+``tfservingcache_tpu/runtime/batcher.py``).
 
-Counterpart of ``tfservingcache_tpu/runtime/batcher.py``
-(``ContinuousGenerateEngine`` and its per-model scheduler, :692-2284),
-selected with ``serving.generate_engine: "continuous"``. Each model gets a
-scheduler thread over a fixed number of lanes (the runtime's
+``MicroBatcher`` (``:predict``) and ``GenerateCoalescer`` (``:generate`` on
+the solo path) run when ``serving.batch_window_ms > 0``, as in the
+reference (:69-697): concurrent requests with one key coalesce into one
+runtime call while earlier calls of that key hold its gate.
+
+``ContinuousGenerateEngine`` is iteration-level continuous batching for
+``:generate`` (the reference's engine and its per-model scheduler,
+:692-2284), selected with ``serving.generate_engine: "continuous"``. Each
+model gets a scheduler thread over a fixed number of lanes (the runtime's
 ``SlotDecodeState``). At every chunk boundary it:
   - admits pending rows into free lanes by (priority class, submit order):
     traffic of one class is exact FIFO. A whole-prompt prefill samples the
@@ -63,21 +69,597 @@ import secrets
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
 from tfservingcache_tpu_torch.cache.conversation_kv import ConversationKVTier
 from tfservingcache_tpu_torch.lab import faults as lab_faults
-from tfservingcache_tpu_torch.runtime.base import ModelNotLoadedError, RuntimeError_
+from tfservingcache_tpu_torch.runtime.base import BaseRuntime, ModelNotLoadedError, RuntimeError_
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime, next_bucket
 from tfservingcache_tpu_torch.types import ModelId
 from tfservingcache_tpu_torch.utils.accounting import LEDGER
 from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+from tfservingcache_tpu_torch.utils.lockcheck import lockchecked
 from tfservingcache_tpu_torch.utils.tracing import TRACER, current_ids
 
 log = logging.getLogger("tpusc_torch.batcher")
+
+
+# -- micro-batching on :predict and coalescing on :generate -------------------
+# (reference batcher.py:69-697; serving.batch_window_ms > 0 turns both on)
+
+
+@lockchecked
+class _Gate:
+    """A counted gate admitting up to ``limit`` concurrent holders: leaders
+    block once ``limit`` batches of a key are in flight, and arrivals join
+    the blocked leader's batch, while ``limit`` batches overlap host codec,
+    transfer and compute."""
+
+    _tpusc_guarded = {"in_use": "_count"}
+
+    def __init__(self, limit: int) -> None:
+        self._sem = threading.BoundedSemaphore(limit)
+        self._count = threading.Lock()
+        self.in_use = 0
+
+    def __enter__(self) -> "_Gate":
+        self._sem.acquire()
+        with self._count:
+            self.in_use += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with self._count:
+            self.in_use -= 1
+        self._sem.release()
+
+
+@lockchecked
+class _GateMap:
+    """Per-key device gates with bounded growth (shared by MicroBatcher and
+    GenerateCoalescer). Pruning keeps only in-use gates; losing an idle gate
+    costs a coalescing opportunity, never correctness."""
+
+    _tpusc_guarded = {"_gates": "_lock"}
+
+    def __init__(self, max_entries: int = 4096, limit: int = 4) -> None:
+        self._lock = threading.Lock()
+        self._gates: dict[tuple, _Gate] = {}
+        self._max = max_entries
+        self._limit = max(1, limit)
+
+    def get(self, key: tuple) -> _Gate:
+        with self._lock:
+            gate = self._gates.get(key)
+            if gate is None:
+                if len(self._gates) > self._max:
+                    self._gates = {k: g for k, g in self._gates.items() if g.in_use}
+                gate = self._gates.setdefault(key, _Gate(self._limit))
+            return gate
+
+
+@dataclass
+class _Slot:
+    inputs: Mapping[str, np.ndarray]
+    rows: int
+    done: threading.Event = field(default_factory=threading.Event)
+    result: dict[str, np.ndarray] | None = None
+    error: BaseException | None = None
+
+
+@dataclass
+class _Pending:
+    slots: list[_Slot] = field(default_factory=list)
+    rows: int = 0
+    closed: bool = False                  # no further joiners
+
+
+@lockchecked
+class MicroBatcher:
+    """Continuous micro-batching for ``:predict``. Batches of one (model,
+    non-batch shape, filter) key pass a per-key gate; the first arrival
+    leads the next batch, and while earlier batches hold the gate later
+    arrivals join the leader's pending batch. When the gate admits the
+    leader, the batch closes and runs as ONE ``runtime.predict``, its
+    outputs split back by each caller's row count. So the accumulation
+    window is the device's own busy time: sequential traffic passes an idle
+    gate at once, and saturating traffic coalesces without a timed window.
+
+    Models whose inputs lack a named "batch" axis, or with an output reduced
+    over the batch, run solo. ``max_batch`` is a hard cap on a batch's
+    rows; a request of ``max_batch`` rows or more runs solo."""
+
+    _tpusc_guarded = {
+        "_pending": "_lock",
+        "_axes_cache": "_lock",
+        "_out_axes_cache": "_lock",
+    }
+
+    def __init__(
+        self,
+        runtime: BaseRuntime,
+        max_batch: int = 64,
+        wait_timeout_s: float = 600.0,
+        metrics=None,
+        max_inflight: int = 4,
+    ) -> None:
+        self.runtime = runtime
+        self.max_batch = max_batch
+        # generous: a follower may sit behind the leader's cold load
+        self.wait_timeout_s = wait_timeout_s
+        self.metrics = metrics
+        self._lock = threading.Lock()
+        self._pending: dict[tuple, _Pending] = {}
+        self._gates = _GateMap(limit=max_inflight)
+        # signature() is static per loaded model: the derived axis maps are
+        # cached so the hot path does not rebuild them per request
+        self._axes_cache: dict[ModelId, dict[str, int] | None] = {}
+        self._out_axes_cache: dict[ModelId, dict[str, int | None]] = {}
+        self.batches = 0
+        self.batched_requests = 0
+
+    # -- key/axis helpers ---------------------------------------------------
+    def _batch_axes(self, model_id: ModelId) -> dict[str, int] | None:
+        """Input name -> axis index of its named "batch" axis; None when any
+        input OR output lacks one. An output with no batch axis is reduced
+        over the batch: coalescing would compute it across other callers'
+        rows (a wrong answer and a cross-request leak), so such models run
+        solo."""
+        with self._lock:
+            if model_id in self._axes_cache:
+                return self._axes_cache[model_id]
+        input_spec, output_spec, _ = self.runtime.signature(model_id)
+        axes: dict[str, int] | None = {}
+        for name, spec in input_spec.items():
+            ax = [i for i, n in spec.dynamic_axes() if n == "batch"]
+            if not ax:
+                axes = None
+                break
+            axes[name] = ax[0]
+        if axes is not None:
+            for spec in output_spec.values():
+                if not any(n == "batch" for _, n in spec.dynamic_axes()):
+                    axes = None
+                    break
+        out_axes: dict[str, int | None] = {}
+        for name, spec in output_spec.items():
+            batch_axes = [a for a, n in spec.dynamic_axes() if n == "batch"]
+            out_axes[name] = batch_axes[0] if batch_axes else None
+        with self._lock:
+            if len(self._axes_cache) > 4096:  # bound growth across tenants
+                self._axes_cache.clear()
+                self._out_axes_cache.clear()
+            self._axes_cache[model_id] = axes
+            self._out_axes_cache[model_id] = out_axes
+        return axes
+
+    def _key(
+        self,
+        model_id: ModelId,
+        inputs: Mapping[str, np.ndarray],
+        axes: Mapping[str, int],
+        output_filter: list[str] | None,
+    ) -> tuple | None:
+        """Batchable only when every input's batch-axis row count agrees and
+        all non-batch dims match across joiners (exact-shape coalescing)."""
+        if set(inputs) != set(axes):
+            return None  # wrong input set: runtime.predict raises cleanly
+        rows = None
+        sig = []
+        for name in sorted(inputs):
+            arr = np.asarray(inputs[name])
+            ax = axes.get(name)
+            if ax is None or arr.ndim <= ax:
+                return None
+            if rows is None:
+                rows = arr.shape[ax]
+            elif arr.shape[ax] != rows:
+                return None
+            rest = tuple(d for i, d in enumerate(arr.shape) if i != ax)
+            sig.append((name, str(arr.dtype), rest))
+        return (model_id, tuple(sig), tuple(output_filter or ()))
+
+    def _gate(self, key: tuple) -> _Gate:
+        return self._gates.get(key)
+
+    # -- core ---------------------------------------------------------------
+    def predict(
+        self,
+        model_id: ModelId,
+        inputs: Mapping[str, np.ndarray],
+        output_filter: list[str] | None = None,
+    ) -> dict[str, np.ndarray]:
+        axes = self._batch_axes(model_id)
+        key = self._key(model_id, inputs, axes, output_filter) if axes else None
+        if key is None:
+            return self.runtime.predict(model_id, inputs, output_filter)
+
+        first = sorted(inputs)[0]
+        rows = int(np.asarray(inputs[first]).shape[axes[first]])
+        if rows >= self.max_batch:
+            # at or over the cap on its own: run solo, never join a batch
+            return self.runtime.predict(model_id, inputs, output_filter)
+        slot = _Slot(inputs=inputs, rows=rows)
+        with self._lock:
+            pend = self._pending.get(key)
+            if pend is not None and pend.rows + rows > self.max_batch:
+                # the cap is hard: the full batch keeps its leader, and this
+                # request starts (and leads) a fresh one
+                pend.closed = True
+                self._pending.pop(key, None)
+                pend = None
+            leader = pend is None
+            if leader:
+                pend = _Pending()
+                self._pending[key] = pend
+            pend.slots.append(slot)
+            pend.rows += rows
+            if pend.rows >= self.max_batch:
+                pend.closed = True
+                self._pending.pop(key, None)
+        if self.metrics is not None:
+            self.metrics.batcher_queue_depth.labels("predict").inc()
+
+        if not leader:
+            if not slot.done.wait(self.wait_timeout_s):
+                raise TimeoutError(f"batched predict for {model_id} timed out")
+            if slot.error is not None:
+                raise slot.error
+            assert slot.result is not None
+            return slot.result
+
+        # the leader takes the per-key gate: while earlier batches hold it,
+        # every arrival joins THIS batch; an idle gate passes at once
+        with self._gate(key):
+            with self._lock:
+                if not pend.closed:
+                    pend.closed = True
+                    self._pending.pop(key, None)
+            slots = pend.slots
+            # the batch leaves the queue the moment its leader holds the gate
+            if self.metrics is not None:
+                self.metrics.batcher_queue_depth.labels("predict").dec(len(slots))
+            try:
+                if len(slots) == 1:
+                    out = self.runtime.predict(model_id, slot.inputs, output_filter)
+                    slot.result = out
+                    return out
+                with TRACER.span("microbatch", model=str(model_id), requests=len(slots),
+                                 rows=pend.rows):
+                    cat = {
+                        name: np.concatenate(
+                            [np.asarray(s.inputs[name]) for s in slots], axis=axes[name])
+                        for name in slots[0].inputs
+                    }
+                    out = self.runtime.predict(model_id, cat, output_filter)
+                    self.batches += 1
+                    self.batched_requests += len(slots)
+                    if self.metrics is not None:
+                        self.metrics.coalesced_batches.labels("predict").inc()
+                        self.metrics.coalesced_requests.labels("predict").inc(len(slots))
+                    self._scatter(model_id, slots, out)
+                assert slot.result is not None
+                return slot.result
+            except BaseException as e:
+                for s in slots:
+                    if s is not slot and s.result is None and s.error is None:
+                        s.error = e
+                        s.done.set()
+                raise
+            finally:
+                for s in slots:
+                    if s is not slot:
+                        s.done.set()
+
+    def _scatter(self, model_id: ModelId, slots: list[_Slot],
+                 out: dict[str, np.ndarray]) -> None:
+        """Split batched outputs back per caller by row ranges. An output
+        without its batch axis, or whose batch length disagrees with the
+        total row count, means the model's spec lies about its output: the
+        whole batch fails rather than hand callers each other's rows."""
+        with self._lock:
+            out_axes = dict(self._out_axes_cache.get(model_id, {}))
+        offsets = []
+        start = 0
+        for s in slots:
+            offsets.append((start, start + s.rows))
+            start += s.rows
+
+        for name, arr in out.items():
+            ax = out_axes.get(name)
+            a = np.asarray(arr)
+            if ax is None or a.ndim <= ax or a.shape[ax] != start:
+                raise ValueError(
+                    f"batched output {name!r} of {model_id} has shape {a.shape}, "
+                    f"expected batch axis {ax} of length {start}; refusing to "
+                    f"scatter (would leak rows across requests)"
+                )
+
+        for i, s in enumerate(slots):
+            lo, hi = offsets[i]
+            s.result = {
+                name: np.take(arr, range(lo, hi), axis=out_axes[name])
+                for name, arr in out.items()
+            }
+
+
+@dataclass
+class _GenSlot:
+    ids: np.ndarray                       # (rows, s_i) int32 prompts
+    lengths: np.ndarray                   # (rows,) true prompt lengths
+    max_new: int
+    enqueue_t: float = field(default_factory=time.monotonic)
+    done: threading.Event = field(default_factory=threading.Event)
+    result: np.ndarray | None = None
+    error: BaseException | None = None
+
+
+@dataclass
+class _GenPending:
+    slots: list[_GenSlot] = field(default_factory=list)
+    rows: int = 0
+    closed: bool = False
+
+
+@lockchecked
+class GenerateCoalescer:
+    """Coalescing for ``:generate`` (the solo path's engine when
+    ``serving.batch_window_ms > 0``): MicroBatcher's gate design, so
+    sequential traffic pays nothing and concurrent traffic coalesces into
+    one solo-path ``runtime.generate`` a batch.
+
+    Key: (model, prompt-seq bucket, new-token bucket, temperature, top_k):
+    the runtime pads to the same buckets, and one call samples every row
+    with one temperature/top_k. Requests with an explicit ``seed`` never
+    coalesce (their contract is a reproducible solo stream), nor do non-
+    ``transformer_lm`` families (``moe_lm``'s expert capacity is computed
+    over the whole batch) or malformed ``prompt_lengths`` (the runtime's
+    error must fail only that request)."""
+
+    _tpusc_guarded = {"_pending": "_lock"}
+
+    def __init__(
+        self,
+        runtime: BaseRuntime,
+        max_batch: int = 32,
+        wait_timeout_s: float = 600.0,
+        metrics=None,
+        max_inflight: int = 2,
+    ) -> None:
+        self.runtime = runtime
+        self.max_batch = max_batch
+        self.wait_timeout_s = wait_timeout_s
+        self.metrics = metrics
+        self._lock = threading.Lock()
+        self._pending: dict[tuple, _GenPending] = {}
+        # a generate runs long: 2 in flight overlap host prep with decode
+        # without piling long jobs behind each other
+        self._gates = _GateMap(limit=max_inflight)
+        self.batches = 0
+        self.batched_requests = 0
+
+    def _gate(self, key: tuple) -> _Gate:
+        return self._gates.get(key)
+
+    def generate(
+        self,
+        model_id: ModelId,
+        input_ids: np.ndarray,
+        prompt_lengths: list[int] | None = None,
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int | None = None,
+    ) -> np.ndarray:
+        ids = np.asarray(input_ids, np.int32)
+        family = getattr(self.runtime, "family_of", lambda _m: None)(model_id)
+        if ids.ndim == 2 and family == "transformer_lm":
+            # an oversized prompt fails AT SUBMIT (as the continuous engine
+            # does), not in the leader's drain after its joiners waited
+            max_seq = getattr(self.runtime, "max_seq_of", lambda _m: None)(model_id)
+            if max_seq is not None and ids.shape[1] + max_new_tokens > max_seq:
+                raise ValueError(
+                    f"prompt {ids.shape[1]} + max_new_tokens "
+                    f"{max_new_tokens} exceeds max_seq {max_seq}"
+                )
+        if (
+            seed is not None
+            or ids.ndim != 2
+            or ids.shape[0] >= self.max_batch
+            or family != "transformer_lm"
+        ):
+            # seeded: a reproducible solo stream; malformed shapes: the
+            # runtime raises its own clean error; other families never
+            # co-batch
+            return self.runtime.generate(
+                model_id, ids, prompt_lengths=prompt_lengths,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, seed=seed if seed is not None else secrets.randbits(31),
+            )
+        rows, s = ids.shape
+        if prompt_lengths is None:
+            lengths = np.full((rows,), s, np.int32)
+        else:
+            lengths = np.asarray(prompt_lengths, np.int32)
+            if lengths.shape != (rows,) or (lengths < 1).any() or (lengths > s).any():
+                # invalid per-request params fail ONLY this request
+                return self.runtime.generate(
+                    model_id, ids, prompt_lengths=prompt_lengths,
+                    max_new_tokens=max_new_tokens, temperature=temperature,
+                    top_k=top_k, seed=secrets.randbits(31),
+                )
+        key = (
+            model_id, next_bucket(s), next_bucket(max_new_tokens),
+            float(temperature), int(top_k),
+        )
+        slot = _GenSlot(ids=ids, lengths=lengths, max_new=max_new_tokens)
+        with self._lock:
+            pend = self._pending.get(key)
+            if pend is not None and pend.rows + rows > self.max_batch:
+                pend.closed = True
+                self._pending.pop(key, None)
+                pend = None
+            leader = pend is None
+            if leader:
+                pend = _GenPending()
+                self._pending[key] = pend
+            pend.slots.append(slot)
+            pend.rows += rows
+            if pend.rows >= self.max_batch:
+                pend.closed = True
+                self._pending.pop(key, None)
+        if self.metrics is not None:
+            self.metrics.batcher_queue_depth.labels("generate").inc()
+
+        if not leader:
+            if not slot.done.wait(self.wait_timeout_s):
+                raise TimeoutError(f"batched generate for {model_id} timed out")
+            if slot.error is not None:
+                raise slot.error
+            assert slot.result is not None
+            return slot.result
+
+        with self._gate(key):
+            with self._lock:
+                if not pend.closed:
+                    pend.closed = True
+                    self._pending.pop(key, None)
+            slots = pend.slots
+            if self.metrics is not None:
+                self.metrics.batcher_queue_depth.labels("generate").dec(len(slots))
+                # the head-of-line stall, on the metric the continuous
+                # engine records its slot wait on: decoding starts for every
+                # joiner the moment its leader holds the gate
+                now = time.monotonic()
+                for sl in slots:
+                    self.metrics.gen_admission_wait.labels("coalesce").observe(
+                        max(0.0, now - sl.enqueue_t))
+            try:
+                if len(slots) == 1:
+                    dev_t0 = time.monotonic()
+                    out = self.runtime.generate(
+                        model_id, slot.ids, prompt_lengths=list(slot.lengths),
+                        max_new_tokens=slot.max_new, temperature=temperature,
+                        top_k=top_k, seed=secrets.randbits(31),
+                    )
+                    dev_t1 = time.monotonic()
+                    slot.result = out
+                    wasted = self._observe_waste(model_id, [slot], slot.max_new)
+                    self._finish_drain(model_id, [slot], slot.max_new, dev_t0, dev_t1, wasted)
+                    return out
+                with TRACER.span("generate_coalesce", model=str(model_id),
+                                 requests=len(slots), rows=pend.rows):
+                    s_max = max(sl.ids.shape[1] for sl in slots)
+                    cat = np.concatenate(
+                        [np.pad(sl.ids, ((0, 0), (0, s_max - sl.ids.shape[1]))) for sl in slots])
+                    cat_len = np.concatenate([sl.lengths for sl in slots])
+                    batch_max_new = max(sl.max_new for sl in slots)
+                    dev_t0 = time.monotonic()
+                    toks = self.runtime.generate(
+                        model_id, cat, prompt_lengths=list(cat_len),
+                        max_new_tokens=batch_max_new, temperature=temperature,
+                        top_k=top_k, seed=secrets.randbits(31),
+                    )
+                    dev_t1 = time.monotonic()
+                    self.batches += 1
+                    self.batched_requests += len(slots)
+                    if self.metrics is not None:
+                        self.metrics.coalesced_batches.labels("generate").inc()
+                        self.metrics.coalesced_requests.labels("generate").inc(len(slots))
+                    lo = 0
+                    for sl in slots:
+                        hi = lo + sl.ids.shape[0]
+                        sl.result = toks[lo:hi, : sl.max_new]
+                        lo = hi
+                    wasted = self._observe_waste(model_id, slots, batch_max_new)
+                    self._finish_drain(model_id, slots, batch_max_new, dev_t0, dev_t1, wasted)
+                assert slot.result is not None
+                return slot.result
+            except BaseException as e:
+                for sl in slots:
+                    if sl is not slot and sl.result is None and sl.error is None:
+                        sl.error = e
+                        sl.done.set()
+                raise
+            finally:
+                for sl in slots:
+                    if sl is not slot:
+                        sl.done.set()
+
+    def _observe_waste(self, model_id: ModelId, slots: list[_GenSlot],
+                       batch_max_new: int) -> int:
+        """Padded-step accounting after the drain: the batch decoded
+        ``next_bucket(batch_max_new)`` steps for EVERY row, so a row past
+        its EOS (when the model declares one) or its own max_new burned
+        steps until the drain. An estimate where the runtime fell back to
+        exact sizes on a bucket overshoot. -> the wasted steps (the flight
+        ring records them too)."""
+        eos = getattr(self.runtime, "eos_id_of", lambda _m: None)(model_id)
+        steps = next_bucket(batch_max_new)
+        wasted = 0
+        for sl in slots:
+            if sl.result is None:
+                continue
+            for row in np.asarray(sl.result):
+                useful = row.shape[0]
+                if eos is not None:
+                    hits = np.flatnonzero(row == eos)
+                    if hits.size:
+                        useful = int(hits[0]) + 1
+                wasted += steps - useful
+        if wasted > 0 and self.metrics is not None:
+            self.metrics.gen_wasted_steps.labels("coalesce").inc(wasted)
+        return wasted
+
+    def _finish_drain(self, model_id: ModelId, slots: list[_GenSlot], batch_max_new: int,
+                      dev_t0: float, dev_t1: float, wasted: int) -> None:
+        """The flight-ring entry, ledger step and phase clocks of one batch
+        drain, the coalescer's counterpart of the continuous engine's chunk
+        boundary: every member admits at the gate and retires at the drain.
+        Phases: queue = the gate stall, decode = the batched generate
+        (prefill is not separable inside it), respond = the scatter."""
+        end_t = time.monotonic()
+        rows = sum(sl.ids.shape[0] for sl in slots)
+        # the batched call's wall time lands on the tenant as decode;
+        # tokens_out leaves out the padded-step waste
+        LEDGER.note_step(
+            str(model_id), "coalesce",
+            decode_s=max(0.0, dev_t1 - dev_t0),
+            tokens_in=sum(sl.ids.shape[0] * sl.ids.shape[1] for sl in slots),
+            tokens_out=max(0, rows * next_bucket(batch_max_new) - wasted),
+        )
+        RECORDER.record(
+            str(model_id), "coalesce",
+            step_ms=(dev_t1 - dev_t0) * 1e3,
+            chunk=next_bucket(batch_max_new),
+            active=rows, admitted=len(slots), retired=len(slots),
+            wasted=wasted,
+        )
+        ids_ctx = current_ids()
+        for sl in slots:
+            phases = {
+                "queue": max(0.0, dev_t0 - sl.enqueue_t),
+                "decode": dev_t1 - dev_t0,
+                "respond": max(0.0, end_t - dev_t1),
+            }
+            if self.metrics is not None:
+                for ph, v in phases.items():
+                    # the coalescer has no priority classes: class normal
+                    self.metrics.observe_phase(ph, "coalesce", "normal", v)
+            RECORDER.note_phases(str(model_id), "coalesce", phases,
+                                 trace_id=ids_ctx[0] if ids_ctx else None)
+        first_t = min(sl.enqueue_t for sl in slots)
+        TRACER.annotate_root(
+            priority="normal",
+            # the first token materializes when the whole batch lands
+            ttft_ms=round(max(0.0, dev_t1 - first_t) * 1e3, 3),
+            phase_queue_ms=round(max(0.0, dev_t0 - first_t) * 1e3, 3),
+            phase_decode_ms=round((dev_t1 - dev_t0) * 1e3, 3),
+            phase_respond_ms=round(max(0.0, end_t - dev_t1) * 1e3, 3),
+        )
 
 # priority classes (REST "priority", default normal): admission and
 # preemption compare ranks, and the smaller rank wins pages

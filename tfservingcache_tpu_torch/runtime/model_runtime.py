@@ -68,9 +68,10 @@ from tfservingcache_tpu_torch.cache.conversation_kv import (
     device_pages,
     host_pages,
 )
-from tfservingcache_tpu_torch.cache.lru import LRUEntry, LRUCache
+from tfservingcache_tpu_torch.cache.lru import LRUEntry
 from tfservingcache_tpu_torch.config import ServingConfig
 from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, load_artifact
+from tfservingcache_tpu_torch.native import make_lru_cache
 from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
     ModelNotLoadedError,
@@ -385,7 +386,7 @@ class TorchModelRuntime(BaseRuntime):
             self.group = group
             device = group[0]
         self.device = resolve_device(device)
-        self._resident: LRUCache[ModelId, LoadedModel] = LRUCache(
+        self._resident = make_lru_cache(
             self.cfg.hbm_capacity_bytes,
             on_evict=self._on_evict,
             max_items=self.cfg.max_concurrent_models,

@@ -4,7 +4,9 @@
 
 provider -> disk cache -> runtime -> cache manager -> backend -> REST server,
 plus the continuous generate engine when ``serving.generate_engine`` is
-``"continuous"``. The node owns one ``Metrics`` and hands it down.
+``"continuous"``; ``serving.batch_window_ms > 0`` puts the backend's
+batchers in front of the runtime. The node owns one ``Metrics`` and hands
+it down.
 
 ``configure_observability`` applies the config to the process-wide
 ``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
@@ -55,6 +57,8 @@ class CacheNode:
         self.engine = engine
         self.backend = LocalServingBackend(
             self.manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
+            batch_window_ms=cfg.serving.batch_window_ms,
+            batch_max_size=cfg.serving.batch_max_size,
         )
         self.rest = RestServingServer(self.backend, metrics, metrics_path=cfg.metrics.path)
         self.rest_port = 0

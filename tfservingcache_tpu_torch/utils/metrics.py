@@ -330,6 +330,16 @@ class Metrics:
             "(tier = hbm | host | disk | store | peer)",
             ["tier"], registry=r,
         )
+        # the batchers (runtime/batcher.py): how often requests coalesce and
+        # how many ride each device call (kind = predict | generate)
+        self.coalesced_batches = Counter(
+            "tpusc_coalesced_batches", "Multi-request device calls",
+            ["kind"], registry=r,
+        )
+        self.coalesced_requests = Counter(
+            "tpusc_coalesced_requests", "Requests served via a coalesced call",
+            ["kind"], registry=r,
+        )
         # continuous engine (runtime/batcher.py); model label only with
         # metrics.model_labels, else one all_models series
         self.gen_slots_active = Gauge(
