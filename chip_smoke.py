@@ -58,7 +58,24 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      paged or verify launch, and the scrape's
      ``tpusc_coalesced_requests_total{kind="generate"}`` equal to the
      coalescer's count;
-  7. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
+  7. surface — the serving surface on the same disk cache: half_plus_two
+     (BASELINE.json config #1) ``:predict`` and ``:regress`` through
+     /versions/1 and /labels/stable, exactly 0.5 x + 2; the artifact mapped
+     as ``version_labels`` {llama7b: {canary: 1}} on a continuous paged node:
+     warm (1, 128) ``:predict`` through /labels/canary (the serve phase's
+     logits check), 4 greedy ``:generate`` requests through the label, token
+     for token those of /versions/1 (and within the teacher-forced check),
+     an unmapped label's 412, with the flash kernel's launches = n_layers x
+     labelled predicts and the paged kernel's = n_layers x the engine's
+     decode steps; then 10 mnist_cnn tenants (BASELINE.json config #2, seeds
+     0-9) on a node that holds 3: 3 round-robin rounds of ``:classify`` (8
+     images each, flat tf.Example features), every round reloading every
+     tenant (the manager's reload and eviction counts printed), scores within
+     2**-7 of the plain forward, cold / reload / warm p50s. Where ``grpc``
+     and ``google.protobuf`` import, the same requests go over Predict
+     (``version_label``), GenerateStream, Regress and Classify and must equal
+     the REST replies; elsewhere one line says that gRPC was not driven;
+  8. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -104,7 +121,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      = n_layers x plain decode steps + draft layers x (spec + 1) x spec
      rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
      also counted from the prompts) and stay 0 on the solo paths;
-  8. observe — the observability layer on a served continuous node (the
+  9. observe — the observability layer on a served continuous node (the
      shared disk cache of arms (l)-(o)), configured as ``cli serve``
      configures it (``server.configure_observability``): after a warm-up,
      the recorder and the ledger are reset, then arm (a)'s schedule (16
@@ -122,7 +139,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
      the trace is deleted after the check. The burst's tok/s is printed
      beside arm (a)'s;
-  9. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  10. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -1257,7 +1274,7 @@ class Artifact:
             "cache": {"base_dir": os.path.join(self.work, f"cache_{name}"),
                       "disk_capacity_bytes": 4 * self.nbytes},
             "model_provider": {"type": "disk", "base_dir": self.store},
-            "cache_node": {"rest_port": 0},
+            "cache_node": {"rest_port": 0, "grpc_port": 0},
         }
 
     def close(self) -> None:
@@ -1609,6 +1626,337 @@ def _check_logits(plain_model, shape, ids, pred):
         log(f"  {shape}: {int((~decided).sum())} row(s) with a top-2 margin under "
             "twice their max |diff| (a bf16 near-tie): argmax not binding")
     return padded
+
+
+SURFACE_TENANTS = 10       # mnist_cnn copies, seeds 0..9 (BASELINE.json config #2)
+SURFACE_CACHE = 3          # the mnist node's resident models (the config's cache size)
+SURFACE_ROUNDS = 3         # round-robin :classify rounds over the tenants
+SURFACE_IMAGES = 8         # images a :classify request
+SURFACE_GEN = 4            # greedy :generate requests through the label
+SURFACE_NEW_TOKENS = 32
+SURFACE_TOL = 2.0**-7      # mnist scores against the plain forward (tests/test_torch_families.py)
+
+
+def phase_surface(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
+    """The serving surface of BASELINE.json configs #1 and #2 and the LM on
+    the serve phase's disk cache: half_plus_two ``:predict`` / ``:regress``
+    through /versions/1 and /labels/stable (exactly 0.5 x + 2); the
+    llama-7b-width LM mapped as ``version_labels`` {llama7b: {canary: 1}}: a
+    warm (1, 128) ``:predict`` through /labels/canary (the serve phase's
+    logits check), SURFACE_GEN greedy ``:generate`` requests through the
+    label on a continuous paged node, token for token those of /versions/1,
+    and an unmapped label's 412; then SURFACE_TENANTS mnist_cnn tenants on a
+    node that holds SURFACE_CACHE, ``:classify`` round robin, every round
+    reloading every tenant, scores against the plain forward. Where
+    ``grpc`` and ``google.protobuf`` import, the same requests go over
+    Predict, Classify, Regress and GenerateStream and must answer as REST
+    did. B2's and B1's launches are read over the phase's requests."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    name = art.model_id.name
+    registry.export_artifact("half_plus_two", art.store, name="hpt", version=1)
+    tenants = [f"mnist{i}" for i in range(SURFACE_TENANTS)]
+    for i, tenant in enumerate(tenants):
+        registry.export_artifact("mnist_cnn", art.store, name=tenant, version=1, seed=i)
+    rng = np.random.default_rng(seed + 14)
+    nodes = []
+    try:
+        lm = build_node(config_from_dict(art.node_config(
+            "serve", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+            kv_page_tokens=16, version_labels={name: {"canary": 1}, "hpt": {"stable": 1}})),
+            device="cuda")
+        nodes.append(lm)
+        base = f"http://127.0.0.1:{lm.start('127.0.0.1')}/v1/models"
+        grpc_on = lm.grpc is not None  # build_node starts gRPC where grpcio and protobuf import
+        ids = rng.integers(0, art.vocab, size=(1, 128), dtype=np.int64)
+        prompts = [rng.integers(1, art.vocab, int(n)).astype(np.int32)
+                   for n in rng.integers(64, 257, SURFACE_GEN)]
+        xs = rng.standard_normal(8).astype(np.float32)
+        # the cold load and the engine's first dispatch stay out of the phase
+        for url, body in ((f"{base}/{name}/versions/1:predict", {"instances": ids.tolist()}),
+                          (f"{base}/{name}/versions/1:generate",
+                           {"input_ids": [prompts[0].tolist()], "max_new_tokens": 8}),
+                          (f"{base}/hpt/versions/1:predict", {"instances": [0.0]})):
+            status, body, _dt = _post(url, body, 900.0)
+            if status != 200:
+                raise AssertionError(f"[surface] warm-up {url} answered {status}: {body}")
+
+        # --- the path: counters to 0, the phase's requests, counters read ---
+        # (after the LM's gRPC requests; the mnist tenants run no attention)
+        A.FLASH_LAUNCHES.reset()
+        A.PAGED_LAUNCHES.reset()
+        A.VERIFY_LAUNCHES.reset()
+        steps0 = lm.engine.decode_steps
+        hpt = {}
+        for ref in ("versions/1", "labels/stable"):
+            hpt[ref] = (_post(f"{base}/hpt/{ref}:predict", {"instances": xs.tolist()}, 900.0),
+                        _post(f"{base}/hpt/{ref}:regress",
+                              {"examples": [{"x": float(x)} for x in xs]}, 900.0))
+        predicts = [_post(f"{base}/{name}/labels/canary:predict", {"instances": ids.tolist()},
+                          900.0) for _ in range(1 + warm_reps)]
+        gen = {ref: [_post(f"{base}/{name}/{ref}:generate",
+                           {"input_ids": [p.tolist()], "max_new_tokens": SURFACE_NEW_TOKENS},
+                           900.0) for p in prompts]
+               for ref in ("labels/canary", "versions/1")}
+        unmapped = _post_raw(f"{base}/{name}/labels/nope:predict",
+                             json.dumps({"instances": ids.tolist()}).encode())
+
+        want_y = 0.5 * xs + np.float32(2.0)
+        for ref, ((ps, pb, _), (rs, rb, _)) in hpt.items():
+            pred = np.asarray(pb.get("predictions"), np.float32)
+            vals = np.asarray(rb.get("results"), np.float32)
+            if ps != 200 or rs != 200 or not (np.array_equal(pred, want_y)
+                                              and np.array_equal(vals, want_y)):
+                raise AssertionError(f"[surface] half_plus_two via {ref}: {ps} {pb} / {rs} {rb}")
+        log(f"  [surface] half_plus_two :predict and :regress via /versions/1 and "
+            f"/labels/stable: {len(xs)} values each, exactly 0.5 x + 2")
+        for status, body, _dt in predicts:
+            if status != 200:
+                raise AssertionError(f"[surface] labelled :predict answered {status}: {body}")
+        pred = np.asarray(predicts[-1][1]["predictions"], np.float32)
+        _check_logits(art.plain_model, ids.shape, ids, pred)
+        for ref, results in gen.items():
+            for status, body, _dt in results:
+                if status != 200:
+                    raise AssertionError(f"[surface] :generate via {ref} answered {status}: {body}")
+        label_toks = [r[1]["tokens"][0] for r in gen["labels/canary"]]
+        version_toks = [r[1]["tokens"][0] for r in gen["versions/1"]]
+        if label_toks != version_toks:
+            raise AssertionError("[surface] :generate through /labels/canary differs from "
+                                 "/versions/1")
+        worst = max(_check_greedy(art, p, np.asarray(t), LOGITS_TOL, "[surface generate]")
+                    for p, t in zip(prompts, label_toks))
+        if unmapped[0] != 412:
+            raise AssertionError(f"[surface] unmapped label answered {unmapped[0]}: {unmapped[1]}")
+        log(f"  [surface] /labels/nope:predict answered 412: {unmapped[1].decode()}")
+        log(f"  [surface] {SURFACE_GEN} greedy :generate via /labels/canary equal to "
+            f"/versions/1 token for token ({SURFACE_NEW_TOKENS} new each; largest teacher-forced "
+            f"gap {worst:.4f}, tolerance {LOGITS_TOL})")
+        lat = {"predict": [dt for *_, dt in predicts[1:]],
+               "generate": [dt for ref in gen.values() for *_, dt in ref]}
+        log(f"  [surface] warm p50: labelled (1, 128) :predict "
+            f"{statistics.median(lat['predict']) * 1e3:.2f} ms over {len(lat['predict'])}, "
+            f":generate ({SURFACE_NEW_TOKENS} new) "
+            f"{statistics.median(lat['generate']) * 1e3:.2f} ms over {len(lat['generate'])} "
+            f"(host clock, localhost HTTP; {nvidia_smi_line()})")
+        grpc_predicts = 0
+        if grpc_on:
+            grpc_predicts = _surface_grpc_lm(art, lm, ids, pred, prompts, label_toks, xs,
+                                             want_y, warm_reps, lat["predict"])
+        else:
+            log("  [surface] gRPC surface not driven: grpcio or protobuf is not installed on "
+                "this machine (the node serves REST only); REST carried every check")
+        flash, paged, verify = (A.FLASH_LAUNCHES.value, A.PAGED_LAUNCHES.value,
+                                A.VERIFY_LAUNCHES.value)
+        steps = lm.engine.decode_steps - steps0
+        # --------------------------------------------------------------------
+        predicts_run = 1 + warm_reps + grpc_predicts
+        log(f"  [surface] launches over the LM's requests: flash_attention {flash} (n_layers "
+            f"{art.layers} x {predicts_run} labelled predicts = {art.layers * predicts_run}), "
+            f"paged_decode_attention {paged} (n_layers x decode steps {steps} = "
+            f"{art.layers * steps}), paged_verify_attention {verify}")
+        if flash != art.layers * predicts_run or paged != art.layers * steps or not paged \
+                or verify:
+            raise AssertionError(f"[surface] launches flash {flash} / paged {paged} / verify "
+                                 f"{verify}")
+        kernels["flash_attention"]["launches"] += flash
+        kernels["flash_attention"]["launches_surface_phase"] = flash
+        kernels["paged_decode_attention"]["launches"] += paged
+        kernels["paged_decode_attention"]["launches_surface_phase"] = paged
+
+        mcfg = art.node_config("serve", max_concurrent_models=SURFACE_CACHE)
+        mcfg["cache"]["disk_capacity_bytes"] += sum(  # room for every tenant on disk
+            os.path.getsize(os.path.join(art.store, t, "1", "params.bin")) for t in tenants)
+        mn = build_node(config_from_dict(mcfg), device="cuda")
+        nodes.append(mn)
+        mbase = f"http://127.0.0.1:{mn.start('127.0.0.1')}/v1/models"
+        m = mn.metrics
+        images = rng.random((SURFACE_IMAGES, 28, 28, 1), dtype=np.float32)
+        body = json.dumps({"examples": [{"image": img.reshape(-1).tolist()}
+                                        for img in images]}).encode()
+        plain = {}
+        for tenant in tenants:
+            model_def, params = registry.load_artifact(os.path.join(art.store, tenant, "1"))
+            module = model_def.make_module({k: {n: t.cuda() for n, t in v.items()}
+                                            for k, v in params.items()}).eval()
+            with torch.inference_mode():
+                logits = module({"image": torch.from_numpy(images).cuda()})["logits"]
+            logits = logits.double().cpu().numpy()
+            e = np.exp(logits - logits.max(-1, keepdims=True))
+            plain[tenant] = e / e.sum(-1, keepdims=True)
+
+        def reloads() -> tuple[float, float, float, float]:
+            return (m.reload_source.labels("store").value, m.reload_source.labels("disk").value,
+                    m.reload_source.labels("hbm").value, m.evictions.labels("hbm").value)
+
+        times: dict[str, list[float]] = {"cold": [], "reload": [], "warm": []}
+        worst = 0.0
+        first = reloads()
+        for rnd in range(SURFACE_ROUNDS):
+            r0 = reloads()
+            for tenant in tenants:
+                status, raw, dt = _post_raw(f"{mbase}/{tenant}/versions/1:classify", body)
+                if status != 200:
+                    raise AssertionError(f"[surface] {tenant} :classify answered {status}: {raw}")
+                times["cold" if rnd == 0 else "reload"].append(dt)
+                rows = json.loads(raw)["results"]
+                scores = np.asarray([[s for _l, s in row] for row in rows])
+                if [[lab for lab, _s in row] for row in rows] != [
+                        [str(j) for j in range(10)]] * SURFACE_IMAGES:
+                    raise AssertionError(f"[surface] {tenant} :classify labels {rows[0]}")
+                err = float(np.abs(scores - plain[tenant]).max())
+                worst = max(worst, err)
+                if not err <= SURFACE_TOL:
+                    raise AssertionError(f"[surface] {tenant} scores differ from the plain "
+                                         f"forward by {err}")
+            r1 = reloads()
+            loads = (r1[0] - r0[0]) + (r1[1] - r0[1])
+            log(f"  [surface] mnist round {rnd}: {loads:.0f} reloads (store {r1[0] - r0[0]:.0f}, "
+                f"disk {r1[1] - r0[1]:.0f}), hbm hits {r1[2] - r0[2]:.0f}, evictions "
+                f"{r1[3] - r0[3]:.0f}")
+            if loads != SURFACE_TENANTS or r1[2] != r0[2]:
+                raise AssertionError(f"[surface] round {rnd} reloaded {loads} of "
+                                     f"{SURFACE_TENANTS} tenants")
+        for _ in range(warm_reps):  # the last tenant is resident: warm hits
+            status, raw, dt = _post_raw(f"{mbase}/{tenants[-1]}/versions/1:classify", body)
+            times["warm"].append(dt)
+        last = reloads()
+        log(f"  [surface] {SURFACE_TENANTS} mnist_cnn tenants, cache of {SURFACE_CACHE}, "
+            f"{SURFACE_ROUNDS} rounds of :classify ({SURFACE_IMAGES} images): evictions "
+            f"{last[3] - first[3]:.0f}, reloads from store {last[0] - first[0]:.0f} and disk "
+            f"{last[1] - first[1]:.0f}; scores within {worst:.3g} of the plain forward "
+            f"(tolerance {SURFACE_TOL}); p50 cold (store fetch + load) "
+            f"{statistics.median(times['cold']) * 1e3:.2f} ms, reload (disk + load) "
+            f"{statistics.median(times['reload']) * 1e3:.2f} ms, warm "
+            f"{statistics.median(times['warm']) * 1e3:.2f} ms (host clock, localhost HTTP; "
+            f"{nvidia_smi_line()})")
+        if grpc_on:
+            _surface_grpc_mnist(mn, tenants[-1], images, body, mbase)
+    finally:
+        for node in nodes:
+            node.close()
+
+
+def _surface_grpc_lm(art, node, ids, rest_pred, prompts, rest_toks, xs, want_y,
+                     warm_reps, rest_lat) -> int:
+    """The surface phase's LM and half_plus_two requests over gRPC:
+    Predict with ``version_label`` canary (logits equal to the REST
+    reply's, then ``warm_reps`` timed beside REST's p50), an unmapped label
+    (FAILED_PRECONDITION), GenerateStream (a frame a token, the tokens REST
+    answered), half_plus_two Predict and Regress (0.5 x + 2). -> the LM
+    Predicts it made."""
+    import grpc
+    import numpy as np
+
+    from tfservingcache_tpu_torch.protocol import codec
+    from tfservingcache_tpu_torch.protocol.grpc_client import ServingStub, make_channel
+    from tfservingcache_tpu_torch.protocol.grpc_server import PREDICTION_SERVICE
+    from tfservingcache_tpu_torch.protocol.protos import tf_serving_pb2 as sv
+
+    log(f"  [surface] gRPC: grpcio {grpc.__version__}, on :{node.grpc_port}")
+    channel = make_channel(f"127.0.0.1:{node.grpc_port}")
+    try:
+        stub = ServingStub(channel)
+        req = sv.PredictRequest()
+        req.model_spec.name = art.model_id.name
+        req.model_spec.version_label = "canary"
+        req.inputs["input_ids"].CopyFrom(codec.numpy_to_tensorproto(ids.astype(np.int32)))
+        req.output_filter.append("last_token_logits")
+        resp = stub.method(PREDICTION_SERVICE, "Predict")(req, timeout=900)
+        got = codec.tensorproto_to_numpy(resp.outputs["last_token_logits"])
+        if resp.model_spec.version.value != 1 or not np.array_equal(got, rest_pred):
+            raise AssertionError(f"[surface] gRPC Predict via the label: version "
+                                 f"{resp.model_spec.version.value}, max|gRPC - REST| "
+                                 f"{float(np.abs(got - rest_pred).max())}")
+        grpc_lat = []
+        for _ in range(warm_reps):
+            t0 = time.monotonic()
+            stub.method(PREDICTION_SERVICE, "Predict")(req, timeout=900)
+            grpc_lat.append(time.monotonic() - t0)
+        req.model_spec.version_label = "nope"
+        try:
+            stub.method(PREDICTION_SERVICE, "Predict")(req, timeout=900)
+            raise AssertionError("[surface] gRPC Predict of an unmapped label answered")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.FAILED_PRECONDITION:
+                raise AssertionError(f"[surface] unmapped label over gRPC: {e.code()}") from e
+        frames = 0
+        for prompt, want in zip(prompts, rest_toks):
+            sreq = sv.PredictRequest()
+            sreq.model_spec.name = art.model_id.name
+            sreq.model_spec.version_label = "canary"
+            sreq.model_spec.signature_name = "generate"
+            sreq.inputs["input_ids"].CopyFrom(codec.numpy_to_tensorproto(prompt[None]))
+            sreq.inputs["max_new_tokens"].CopyFrom(
+                codec.numpy_to_tensorproto(np.asarray(len(want), np.int32)))
+            out = list(stub.generate_stream()(sreq, timeout=900))
+            toks = [int(codec.tensorproto_to_numpy(f.outputs["token"])) for f in out[:-1]]
+            final = codec.tensorproto_to_numpy(out[-1].outputs["tokens"]).tolist()
+            if toks != want or final != [want]:
+                raise AssertionError("[surface] GenerateStream differs from REST :generate")
+            frames += len(out)
+        hreq = sv.PredictRequest()
+        hreq.model_spec.name = "hpt"
+        hreq.model_spec.version_label = "stable"
+        hreq.inputs["x"].CopyFrom(codec.numpy_to_tensorproto(xs))
+        y = codec.tensorproto_to_numpy(
+            stub.method(PREDICTION_SERVICE, "Predict")(hreq, timeout=900).outputs["y"])
+        rreq = sv.RegressionRequest()
+        rreq.model_spec.name = "hpt"
+        rreq.model_spec.version.value = 1
+        for x in xs:
+            rreq.input.example_list.examples.add().features.feature["x"].float_list.value.append(
+                float(x))
+        vals = [r.value for r in stub.method(PREDICTION_SERVICE, "Regress")(
+            rreq, timeout=900).result.regressions]
+        if not (np.array_equal(y, want_y) and np.array_equal(np.asarray(vals, np.float32),
+                                                             want_y)):
+            raise AssertionError("[surface] half_plus_two over gRPC is not 0.5 x + 2")
+    finally:
+        channel.close()
+    log(f"  [surface] gRPC Predict via version_label canary equal to REST's logits; unmapped "
+        f"label FAILED_PRECONDITION; {len(prompts)} GenerateStream calls ({frames} frames) equal "
+        f"to REST :generate; half_plus_two Predict and Regress exactly 0.5 x + 2")
+    log(f"  [surface] warm (1, 128) labelled Predict p50 over gRPC "
+        f"{statistics.median(grpc_lat) * 1e3:.2f} ms over {len(grpc_lat)}, over REST "
+        f"{statistics.median(rest_lat) * 1e3:.2f} ms over {len(rest_lat)} (host clock, "
+        f"localhost, the client in the node's process; gRPC answers TensorProto bytes, REST "
+        f"JSON text; {nvidia_smi_line()})")
+    return 1 + len(grpc_lat)
+
+
+def _surface_grpc_mnist(node, tenant, images, rest_body, mbase) -> None:
+    """One mnist tenant's :classify over gRPC Classify: the same scores (as
+    f32) as the REST reply to the same examples."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.protocol.grpc_client import ServingStub, make_channel
+    from tfservingcache_tpu_torch.protocol.grpc_server import PREDICTION_SERVICE
+    from tfservingcache_tpu_torch.protocol.protos import tf_serving_pb2 as sv
+
+    status, raw, _dt = _post_raw(f"{mbase}/{tenant}/versions/1:classify", rest_body)
+    rest = [[s for _l, s in row] for row in json.loads(raw)["results"]]
+    channel = make_channel(f"127.0.0.1:{node.grpc_port}")
+    try:
+        req = sv.ClassificationRequest()
+        req.model_spec.name = tenant
+        req.model_spec.version.value = 1
+        for img in images:
+            ex = req.input.example_list.examples.add()
+            ex.features.feature["image"].float_list.value.extend(img.reshape(-1).tolist())
+        resp = ServingStub(channel).method(PREDICTION_SERVICE, "Classify")(req, timeout=900)
+    finally:
+        channel.close()
+    got = [[c.score for c in cls.classes] for cls in resp.result.classifications]
+    if status != 200 or got != rest:
+        raise AssertionError(f"[surface] gRPC Classify differs from REST ({status})")
+    log(f"  [surface] gRPC Classify of {tenant} ({len(images)} images) equal to REST :classify")
 
 
 def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
@@ -2221,8 +2569,8 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
     finally:
         if node is not None:
             node.close()
-    kernels["paged_decode_attention"]["launches"] = launches
-    kernels["paged_verify_attention"]["launches"] = verify
+    kernels["paged_decode_attention"]["launches"] += launches
+    kernels["paged_verify_attention"]["launches"] += verify
 
 
 def _shared_prefix_arms(art, seed: int) -> tuple[int, int]:
@@ -3258,6 +3606,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_serve(art, args.seed, args.warm, kernels)
         with Phase("batch"):
             phase_batch(art, args.seed, kernels)
+        with Phase("surface"):
+            phase_surface(art, args.seed, args.warm, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
         with Phase("observe"):

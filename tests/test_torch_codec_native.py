@@ -267,7 +267,7 @@ def test_malformed_bodies_raise_value_error_and_answer_400(body):
         runtime = FakeRuntime()
         metrics = None
 
-        def resolve_version(self, name, version):
+        def resolve_version(self, name, version, label=None):
             return 1
 
     for window in (0.0, 1.0):

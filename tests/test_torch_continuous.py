@@ -312,7 +312,7 @@ def test_rest_generate_matches_jax_runtime(store, tmp_path, engine):
         "serving": serving,
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(store)},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     port = node.start("127.0.0.1")
@@ -361,7 +361,9 @@ def test_rest_generate_matches_jax_runtime(store, tmp_path, engine):
                       if line.startswith(b"data: ")]
         assert frames[-1] == {"done": True, "tokens": buffered["tokens"]}
         assert [f["token"] for f in frames[:-1]] == buffered["tokens"][0]
-        assert _post(url.replace(":generate", ":classify"), {"input_ids": [[1]]})[0] == 501
+        # :classify is served: a body without "examples" is the reference's 400
+        assert _post(url.replace(":generate", ":classify"), {"input_ids": [[1]]}) == (
+            400, {"error": '"examples" must be a non-empty list'})
     finally:
         jrt.close()
         node.close()

@@ -819,7 +819,7 @@ def test_one_sse_request_through_the_server_on_the_card(card, tmp_path):
                     "kv_page_tokens": 16},
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(tmp_path / "store")},
-        "cache_node": {"rest_port": 0}}))
+        "cache_node": {"rest_port": 0, "grpc_port": 0}}))
     url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/lm/versions/1:generate"
     body = json.dumps({"input_ids": [list(range(1, 40))], "max_new_tokens": 12}).encode()
     try:

@@ -179,7 +179,7 @@ def served(tmp_path_factory):
             "serving": dict(ENGINE, conversation_kv_dir=str(tmp / "port_conv")),
             "cache": {"base_dir": str(tmp / "port_cache")},
             "model_provider": {"base_dir": str(store)},
-            "cache_node": {"rest_port": 0},
+            "cache_node": {"rest_port": 0, "grpc_port": 0},
         })
         node = build_node(cfg, device="cpu")
         try:

@@ -217,7 +217,7 @@ def test_build_node_with_chips_per_group_serves_rest_predict_on_cpu(tmp_path, ri
         "mesh": {"chips_per_group": 4},
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(ring_store)},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     try:
@@ -245,7 +245,7 @@ def test_build_node_with_chips_per_group_serves_rest_predict_on_cpu(tmp_path, ri
 
 
 def test_build_node_group_on_cuda_needs_exactly_one_group_of_cards(monkeypatch):
-    cfg = config_from_dict({"mesh": {"chips_per_group": 4}, "cache_node": {"rest_port": 0}})
+    cfg = config_from_dict({"mesh": {"chips_per_group": 4}, "cache_node": {"rest_port": 0, "grpc_port": 0}})
     with pytest.raises(RuntimeError_, match="CUDA is not available"):
         build_node(cfg, device="cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

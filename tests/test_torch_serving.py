@@ -58,7 +58,7 @@ def serving(tmp_path, store, **serving_cfg):
         "serving": serving_cfg,
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"type": "disk", "base_dir": str(store)},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     port = node.start("127.0.0.1")
@@ -154,8 +154,11 @@ def test_rest_error_contract(tmp_path, store):
                     {"instances": [[1]], "output_filter": ["nope"]})[0] == 400
         assert call(f"{url}/v1/models/lm/versions/1:predict", "POST",
                     {"instances": [[1]], "output_encoding": "xml"})[0] == 400
+        # :classify is served; an example feature the signature lacks is
+        # refused by the runtime, a 500 as the reference answers it
         assert call(f"{url}/v1/models/lm/versions/1:classify", "POST",
-                    {"examples": [{"x": 1}]})[0] == 501
+                    {"examples": [{"x": 1}]}) == (
+            500, {"error": "RuntimeError_: missing inputs ['input_ids'] for lm@1"})
         # "draft_model" is served (speculative decoding on the solo path):
         # a model may draft for itself; an unknown draft is 404
         assert call(f"{url}/v1/models/lm/versions/1:generate", "POST",
@@ -214,7 +217,7 @@ def test_disk_eviction_unloads_the_model(tmp_path, store):
     cfg = config_from_dict({
         "cache": {"base_dir": str(tmp_path / "cache"), "disk_capacity_bytes": int(size * 1.5)},
         "model_provider": {"base_dir": str(store)},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     try:
@@ -270,7 +273,7 @@ def test_port_serves_without_importing_jax(tmp_path):
                                                  {str(tmp_path / "conv_kv")!r}}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
                                 "model_provider": {{"base_dir": store}},
-                                "cache_node": {{"rest_port": 0}}}})
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
         node = build_node(cfg, device="cpu")
         port = node.start("127.0.0.1")
         req = urllib.request.Request(
@@ -337,7 +340,7 @@ def test_port_serves_without_importing_jax(tmp_path):
                                              "prefix_cache_bytes": 1 << 24}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache_kv")!r}}},
                                 "model_provider": {{"base_dir": store}},
-                                "cache_node": {{"rest_port": 0}}}})
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
         node = build_node(cfg, device="cpu")
         port = node.start("127.0.0.1")
         url = f"http://127.0.0.1:{{port}}/v1/models/lm/versions/1:generate"
@@ -357,7 +360,7 @@ def test_port_serves_without_importing_jax(tmp_path):
         cfg = config_from_dict({{"serving": {{"batch_window_ms": 1}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache_batch")!r}}},
                                 "model_provider": {{"base_dir": store}},
-                                "cache_node": {{"rest_port": 0}}}})
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
         node = build_node(cfg, device="cpu")
         port = node.start("127.0.0.1")
         for verb, body in (("predict", {{"instances": [list(range(1, 71))]}}),
@@ -385,7 +388,7 @@ def test_port_serves_without_importing_jax(tmp_path):
         cfg = config_from_dict({{"mesh": {{"chips_per_group": 4}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache_ring")!r}}},
                                 "model_provider": {{"base_dir": store}},
-                                "cache_node": {{"rest_port": 0}}}})
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
         node = build_node(cfg, device="cpu")
         port = node.start("127.0.0.1")
         req = urllib.request.Request(
@@ -409,6 +412,69 @@ def test_port_serves_without_importing_jax(tmp_path):
     assert "FORBIDDEN []" in r.stdout
 
 
+def test_port_serves_rest_without_grpc_or_protobuf(tmp_path):
+    """With ``grpc`` and ``google.protobuf`` made unimportable (a meta-path
+    finder refuses them, as on a machine without ``grpcio`` and
+    ``protobuf``), the port's server, REST server, backend and codec
+    import; ``build_node`` logs one line naming the missing package, leaves
+    ``grpc_port`` None, and the node serves REST ``:predict``,
+    ``/labels/`` and ``:regress``."""
+    script = textwrap.dedent(f"""
+        import importlib.abc, json, logging, sys, urllib.request
+        sys.path.insert(0, {str(ROOT)!r})
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name in ("grpc", "google.protobuf") or name.startswith(
+                        ("grpc.", "google.protobuf.")):
+                    raise ModuleNotFoundError(f"No module named {{name!r}}", name=name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        logging.basicConfig(level=logging.WARNING, stream=sys.stdout, format="LOG %(message)s")
+        from tfservingcache_tpu_torch.protocol import codec, local_backend, rest  # noqa: F401
+        from tfservingcache_tpu_torch.config import config_from_dict
+        from tfservingcache_tpu_torch.models import registry
+        from tfservingcache_tpu_torch.server import build_node
+        store = {str(tmp_path / "store")!r}
+        registry.export_artifact("transformer_lm", store, name="lm",
+                                 config={dict(SMALL, dtype="bfloat16")!r}, device="cpu")
+        registry.export_artifact("half_plus_two", store, name="hpt", device="cpu")
+        cfg = config_from_dict({{"serving": {{"version_labels": {{"hpt": {{"stable": 1}}}}}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        port = node.start("127.0.0.1")
+        try:
+            assert node.grpc is None and node.grpc_port is None
+            def post(path, body):
+                req = urllib.request.Request(f"http://127.0.0.1:{{port}}/v1/models/" + path,
+                                             data=json.dumps(body).encode(), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    assert resp.status == 200
+                    return json.loads(resp.read())
+            assert len(post("lm/versions/1:predict", {{"instances": [[1, 2, 3]]}})[
+                "predictions"][0]) == 512
+            assert post("hpt/labels/stable:predict", {{"instances": [2.0]}}) == {{
+                "predictions": [3.0]}}
+            assert post("hpt/versions/1:regress", {{"examples": [{{"x": 4.0}}]}}) == {{
+                "results": [4.0]}}
+        finally:
+            node.close()
+        bad = sorted(m for m in sys.modules if m == "grpc" or m.startswith(
+            ("grpc.", "google.protobuf")))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout
+    off = [line for line in r.stdout.splitlines() if "gRPC surface off" in line]
+    assert len(off) == 1 and "'grpc'" in off[0], r.stdout
+
+
 def test_cli_serve_answers_and_stops_on_sigterm(tmp_path, store):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -418,7 +484,7 @@ def test_cli_serve_answers_and_stops_on_sigterm(tmp_path, store):
         "serving": {"device": "cpu"},
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(store)},
-        "cache_node": {"rest_port": port},
+        "cache_node": {"rest_port": port, "grpc_port": 0},
         "observability": {"flight_dir": str(tmp_path / "flight")},
         "logging": {"fmt": "json"},
     }))
@@ -464,7 +530,7 @@ def test_profiler_capture_writes_a_chrome_trace(tmp_path):
         from tfservingcache_tpu_torch.server import build_node
         cfg = config_from_dict({{"cache": {{"base_dir": {str(tmp_path / "cache")!r}}},
                                 "model_provider": {{"base_dir": {str(tmp_path)!r}}},
-                                "cache_node": {{"rest_port": 0}}}})
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
         node = build_node(cfg, device="cpu")
         node.rest.profiler_base_dir = {str(tmp_path / "profiles")!r}
         port = node.start("127.0.0.1")
@@ -638,6 +704,7 @@ def test_manager_versions_health_and_stale_reload(tmp_path, store):
     cfg = config_from_dict({
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(store)},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     try:
@@ -693,7 +760,7 @@ def test_config_from_json_file_and_unknown_keys(tmp_path, caplog):
     path.write_text(json.dumps({
         "serving": {"max_concurrent_models": 3, "load_timeout_s": 5, "device": "cpu"},
         "cache": {"disk_capacity_bytes": 1234},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
         "bogus": 1,
     }))
     with caplog.at_level("WARNING"):

@@ -433,7 +433,7 @@ def _node(store, tmp_path, **serving):
         "serving": serving,
         "cache": {"base_dir": str(tmp_path / "cache")},
         "model_provider": {"base_dir": str(store)},
-        "cache_node": {"rest_port": 0},
+        "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     node = build_node(cfg, device="cpu")
     return node, f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/lm/versions/1:generate"

@@ -34,6 +34,24 @@ from tfservingcache_tpu_torch.utils.tracing import TRACER
 log = logging.getLogger("tpusc_torch.cachemanager")
 
 
+class VersionLabelError(LookupError):
+    """A version label with no mapping in ``serving.version_labels``: the
+    request answers 412 (REST) / FAILED_PRECONDITION (gRPC), as TF Serving
+    fails an unmapped label; it never serves the latest version."""
+
+
+def resolve_version_label(version_labels: dict, name: str, label: str) -> int:
+    """``version_labels[name][label]`` as an int, else ``VersionLabelError``
+    (reference manager.py:47-57)."""
+    try:
+        return int(version_labels[name][label])
+    except (KeyError, TypeError, ValueError):
+        raise VersionLabelError(
+            f"version label {label!r} is not mapped for model {name!r} "
+            "(serving.version_labels)"
+        ) from None
+
+
 class CacheManager:
     def __init__(
         self,
@@ -42,12 +60,15 @@ class CacheManager:
         runtime: BaseRuntime,
         load_timeout_s: float | None = None,
         metrics: Metrics | None = None,
+        version_labels: dict | None = None,
     ) -> None:
         self.provider = provider
         self.metrics = metrics
         self.disk_cache = disk_cache
         self.runtime = runtime
         self.load_timeout_s = load_timeout_s or None
+        # {model_name: {label: version}} from serving.version_labels
+        self.version_labels = version_labels or {}
         # resolve_version memo: positive entries cache the provider's
         # latest, negative entries "no such model" briefly
         self._version_cache: dict[str, tuple[int, float]] = {}  # guarded-by: _version_cache_lock
@@ -191,9 +212,14 @@ class CacheManager:
                  model_id, model.size_on_disk, time.monotonic() - t0)
         return model
 
-    def resolve_version(self, name: str, version: int | None) -> int:
-        """A request without a version gets the newest known one: resident
-        first, then disk-cached, then the provider's listing."""
+    def resolve_version(self, name: str, version: int | None,
+                        label: str | None = None) -> int:
+        """A ``label`` resolves through ``version_labels`` or raises
+        ``VersionLabelError``. A request without a version gets the newest
+        known one: resident first, then disk-cached, then the provider's
+        listing."""
+        if label:
+            return resolve_version_label(self.version_labels, name, label)
         if version:
             return version
         loaded = [

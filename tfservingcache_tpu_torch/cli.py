@@ -23,7 +23,9 @@ def serve(cfg: Config) -> int:
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     port = node.start()
-    log.info("cache node serving REST on :%d (device %s)", port, node.runtime.device)
+    log.info("cache node serving REST on :%d, gRPC on %s (device %s)", port,
+             f":{node.grpc_port}" if node.grpc_port is not None else "none",
+             node.runtime.device)
     try:
         stop.wait()
     finally:

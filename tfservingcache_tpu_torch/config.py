@@ -127,6 +127,10 @@ class ServingConfig:
     # and the directory only when the tier made it and it is left empty.
     conversation_kv_dir: str = field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "tpusc_conv_kv"))
+    # ModelSpec.version_label / REST /labels/<label> resolution:
+    # {model_name: {label: version}}. A label with no mapping answers 412
+    # (FAILED_PRECONDITION on gRPC); it never serves the latest version.
+    version_labels: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -146,10 +150,20 @@ class ModelProviderConfig:
 
 
 @dataclass
+class ProxyConfig:
+    """Of the reference's router section, the gRPC message cap, which the
+    cache node's gRPC server and client take as well."""
+
+    grpc_max_message_bytes: int = 16 << 20
+
+
+@dataclass
 class CacheNodePorts:
-    """The cache node's REST port (0 binds an ephemeral port)."""
+    """The cache node's REST and gRPC ports (0 binds an ephemeral port).
+    gRPC listens only where ``grpcio`` imports."""
 
     rest_port: int = 8094
+    grpc_port: int = 8095
 
 
 @dataclass
@@ -232,6 +246,7 @@ class Config:
     serving: ServingConfig = field(default_factory=ServingConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     model_provider: ModelProviderConfig = field(default_factory=ModelProviderConfig)
+    proxy: ProxyConfig = field(default_factory=ProxyConfig)
     cache_node: CacheNodePorts = field(default_factory=CacheNodePorts)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)

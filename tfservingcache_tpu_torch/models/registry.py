@@ -150,7 +150,7 @@ def build(family: str, config: dict[str, Any] | None = None) -> ModelDef:
     return model
 
 
-_BUILTIN_MODULES = ("transformer_lm",)
+_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm")
 
 
 def _load_builtin_families() -> None:
@@ -307,6 +307,25 @@ def _restore_lists(tree: Any) -> Any:
             return [restored[k] for k in sorted(restored, key=int)]
         return restored
     return tree
+
+
+def params_from_jax(tree: Any) -> Any:
+    """A params tree the JAX package built or loaded (numpy or jax leaves,
+    bf16 ones from ``ml_dtypes``) as CPU tensors in the same layout, which
+    is the one every port family's ``make_module`` takes: transformer_lm's
+    ``(in, out)`` weights, half_plus_two's scalars, mnist_cnn's flax tree
+    with HWIO kernels. A bf16 leaf keeps its bits (no ``ml_dtypes`` needed
+    here: its bytes are reinterpreted)."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def export_artifact(

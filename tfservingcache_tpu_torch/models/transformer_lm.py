@@ -23,7 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+from tfservingcache_tpu_torch.models.registry import (  # noqa: F401 - params_from_jax re-exported
+    ModelDef,
+    TensorSpec,
+    params_from_jax,
+    register,
+)
 from tfservingcache_tpu_torch.ops.attention import attention
 from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
 
@@ -169,28 +174,6 @@ class TransformerLM(nn.Module):
         x = rmsnorm(x, self.ln_f)
         # logits in f32 for a stable softmax/argmax downstream
         return {"logits": (x @ self.embed.to(self.dtype).T).float()}
-
-
-def params_from_jax(tree: Any) -> dict:
-    """The reference params pytree (numpy leaves: ``embed``, ``ln_f``,
-    ``layers[i].attn.w{q,k,v,o}``, ``layers[i].mlp.w{1,2,3}``,
-    ``layers[i].ln{1,2}``) as CPU tensors in the module's layout — the
-    same ``(in, out)`` weights, no transpose."""
-    def conv(x: Any) -> Any:
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        if isinstance(x, torch.Tensor):
-            return x
-        import numpy as np
-
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":  # ml_dtypes leaf: reinterpret the bits
-            return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-        return torch.from_numpy(np.array(a))
-
-    return conv(tree)
 
 
 @register("transformer_lm", DEFAULT_CONFIG)

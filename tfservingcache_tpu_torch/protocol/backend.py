@@ -1,5 +1,8 @@
-"""The seam between the REST server and whatever fulfils requests
-(counterpart of ``tfservingcache_tpu/protocol/backend.py``, REST only)."""
+"""The seam between the protocol servers and whatever fulfils requests
+(counterpart of ``tfservingcache_tpu/protocol/backend.py``). The REST server
+calls ``handle_rest``; the gRPC server (``protocol/grpc_server.py``) calls
+the backend's message-shaped methods (``predict``, ``classify``, ...), which
+take and return the TF Serving protobuf messages."""
 
 from __future__ import annotations
 
@@ -21,12 +24,24 @@ class RestResponse:
     token_stream: Iterator[bytes] | None = None
 
 
-class BackendError(Exception):
-    """A request failure with the HTTP status the server answers with."""
+# the gRPC status a failure answers with where its raise site names none
+_GRPC_CODE_OF_HTTP = {
+    400: "INVALID_ARGUMENT", 404: "NOT_FOUND", 405: "UNIMPLEMENTED",
+    412: "FAILED_PRECONDITION", 501: "UNIMPLEMENTED", 503: "UNAVAILABLE",
+    504: "DEADLINE_EXCEEDED",
+}
 
-    def __init__(self, message: str, http_status: int = 500) -> None:
+
+class BackendError(Exception):
+    """A request failure with the HTTP status the REST server answers with
+    and the name of the ``grpc.StatusCode`` the gRPC server answers with
+    (a name, so that raising one needs no ``grpc``)."""
+
+    def __init__(self, message: str, http_status: int = 500,
+                 grpc_code: str | None = None) -> None:
         super().__init__(message)
         self.http_status = http_status
+        self.grpc_code = grpc_code or _GRPC_CODE_OF_HTTP.get(http_status, "INTERNAL")
 
 
 class ServingBackend(abc.ABC):
@@ -38,8 +53,10 @@ class ServingBackend(abc.ABC):
         version: int | None,
         verb: str | None,
         body: bytes,
+        label: str | None = None,
         query: dict[str, str] | None = None,
     ) -> RestResponse:
-        """Serve one parsed model URL. ``verb`` is ``predict``, ``generate``
-        (and the verbs later slices add), ``metadata``, or None for a status
-        GET; ``query`` holds the URL's query parameters."""
+        """Serve one parsed model URL. ``verb`` is ``predict``,
+        ``classify``, ``regress``, ``generate``, ``metadata``, or None for a
+        status GET; ``version`` and ``label`` (a ``/labels/<label>`` URL)
+        exclude each other; ``query`` holds the URL's query parameters."""

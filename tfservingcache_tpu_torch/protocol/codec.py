@@ -1,5 +1,11 @@
-"""The REST ``:predict`` JSON codec (the JSON half of
-``tfservingcache_tpu/protocol/codec.py``).
+"""Tensor wire codecs (counterpart of ``tfservingcache_tpu/protocol/codec.py``):
+the REST ``:predict`` JSON body, and ``TensorProto`` <-> numpy for gRPC.
+
+``TensorProto`` needs ``protobuf``: the two functions import the generated
+module when called, so this module imports without it. bfloat16 travels as
+its 16-bit patterns (``tensor_content`` bytes or the low bits of
+``half_val``), held as ``uint16``; numpy has no bfloat16 of its own, so a
+decoded bf16 tensor widens to float32, which holds every bf16 value exactly.
 
 Requests: row format ``{"instances": [row, ...]}`` (a row is a value or
 ``{name: value}``) or columnar ``{"inputs": value-or-{name: value}}``;
@@ -18,6 +24,7 @@ dtype, byte for byte the reference's body. ``json`` takes the rest.
 from __future__ import annotations
 
 import base64
+import functools
 import json
 from typing import Any, Mapping
 
@@ -28,6 +35,107 @@ from tfservingcache_tpu_torch import native
 
 class CodecError(ValueError):
     pass
+
+
+# ---------------------------------------------------------------------------
+# TensorProto (gRPC)
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _wire_tables() -> tuple:
+    """-> (the generated ``tf_core_pb2``, DataType -> numpy dtype, numpy
+    dtype name -> DataType, DataType -> repeated value field), built at
+    first use."""
+    from tfservingcache_tpu_torch.protocol.protos import tf_core_pb2 as core
+
+    to_np = {
+        core.DT_FLOAT: np.dtype(np.float32), core.DT_DOUBLE: np.dtype(np.float64),
+        core.DT_INT32: np.dtype(np.int32), core.DT_UINT8: np.dtype(np.uint8),
+        core.DT_INT16: np.dtype(np.int16), core.DT_INT8: np.dtype(np.int8),
+        core.DT_INT64: np.dtype(np.int64), core.DT_BOOL: np.dtype(np.bool_),
+        core.DT_UINT16: np.dtype(np.uint16), core.DT_UINT32: np.dtype(np.uint32),
+        core.DT_UINT64: np.dtype(np.uint64), core.DT_HALF: np.dtype(np.float16),
+        core.DT_COMPLEX64: np.dtype(np.complex64),
+        core.DT_COMPLEX128: np.dtype(np.complex128),
+    }
+    from_np = {dt.name: code for code, dt in to_np.items()}
+    from_np["bfloat16"] = core.DT_BFLOAT16
+    fields = {
+        core.DT_FLOAT: "float_val", core.DT_DOUBLE: "double_val",
+        core.DT_INT32: "int_val", core.DT_UINT8: "int_val", core.DT_INT16: "int_val",
+        core.DT_INT8: "int_val", core.DT_INT64: "int64_val", core.DT_BOOL: "bool_val",
+        core.DT_UINT16: "int_val", core.DT_UINT32: "uint32_val",
+        core.DT_UINT64: "uint64_val", core.DT_HALF: "half_val",
+        core.DT_BFLOAT16: "half_val",
+    }
+    return core, to_np, from_np, fields
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def numpy_to_tensorproto(arr: np.ndarray):
+    """Dense encode through ``tensor_content``; strings through
+    ``string_val`` (reference codec.py:65-82). A bfloat16 array (an
+    ``ml_dtypes`` one, named so) ships its 2-byte patterns."""
+    core, _to_np, from_np, _fields = _wire_tables()
+    arr = np.asarray(arr)
+    tp = core.TensorProto()
+    for d in arr.shape:
+        tp.tensor_shape.dim.add(size=int(d))
+    if arr.dtype.kind in ("U", "S", "O"):
+        tp.dtype = core.DT_STRING
+        for item in arr.reshape(-1):
+            tp.string_val.append(item.encode() if isinstance(item, str) else bytes(item))
+        return tp
+    dt = from_np.get(arr.dtype.name) if arr.dtype.isnative else None
+    if dt is None:
+        raise CodecError(f"unsupported numpy dtype {arr.dtype}")
+    tp.dtype = dt
+    tp.tensor_content = np.ascontiguousarray(arr).tobytes()
+    return tp
+
+
+def tensorproto_to_numpy(tp) -> np.ndarray:
+    """A ``TensorProto`` as a numpy array (reference codec.py:85-128):
+    ``tensor_content`` or the dtype's repeated value field, a single value
+    filling the whole shape; a bfloat16 tensor comes back as float32."""
+    core, to_np, _from_np, fields = _wire_tables()
+    if tp.tensor_shape.unknown_rank:
+        raise CodecError("unknown-rank tensors are not supported")
+    shape = tuple(d.size for d in tp.tensor_shape.dim)
+    n = int(np.prod(shape)) if shape else 1
+    if tp.dtype == core.DT_STRING:
+        vals = [bytes(v) for v in tp.string_val]
+        if len(vals) == 1 and n > 1:
+            vals = vals * n
+        return np.array(vals, dtype=object).reshape(shape)
+    bf16 = tp.dtype == core.DT_BFLOAT16
+    np_dtype = np.dtype(np.uint16) if bf16 else to_np.get(tp.dtype)
+    if np_dtype is None:
+        raise CodecError(f"unsupported TensorProto dtype {tp.dtype}")
+    if tp.tensor_content:
+        arr = np.frombuffer(tp.tensor_content, dtype=np_dtype)
+        if arr.size != n:
+            raise CodecError(f"tensor_content holds {arr.size} elements, shape needs {n}")
+        arr = arr.reshape(shape)
+        return _bf16_bits_to_f32(arr) if bf16 else arr.copy()
+    field = fields.get(tp.dtype)
+    if field is None:
+        raise CodecError(f"no value field for dtype {tp.dtype}")
+    raw = list(getattr(tp, field))
+    if field == "half_val":
+        # half and bfloat16 values travel as the low 16 bits of int32s
+        arr = np.array(raw, dtype=np.uint16)
+        arr = _bf16_bits_to_f32(arr) if bf16 else arr.view(np.float16)
+    else:
+        arr = np.array(raw, dtype=np_dtype)
+    if arr.size == 1 and n > 1:
+        arr = np.full(n, arr[0], dtype=arr.dtype)  # single-value fill (TF MakeNdarray)
+    if arr.size != n:
+        raise CodecError(f"{field} holds {arr.size} elements, shape needs {n}")
+    return arr.reshape(shape)
 
 
 def loads_request(body: bytes):

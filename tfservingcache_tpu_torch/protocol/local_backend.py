@@ -1,19 +1,30 @@
-"""LocalServingBackend: the cache node's fulfilment of the REST protocol
-(counterpart of ``tfservingcache_tpu/protocol/local_backend.py``: ``:predict``,
-``:generate``, model status and metadata). The request is decoded and
-answered in-process: ensure the model is servable, run it on the runtime
-(through ``MicroBatcher`` when ``batch_window_ms > 0``; for ``:generate``
-on the continuous engine when one is configured, else through
+"""LocalServingBackend: the cache node's fulfilment of the serving protocol
+(counterpart of ``tfservingcache_tpu/protocol/local_backend.py``). The
+request is decoded and answered in-process: resolve the version (a label
+through ``serving.version_labels``), ensure the model is servable, run it on
+the runtime (through ``MicroBatcher`` when ``batch_window_ms > 0``; for
+``:generate`` on the continuous engine when one is configured, else through
 ``GenerateCoalescer`` when batching is on), encode the outputs. Request
 bodies are parsed and numeric replies written by the native tier where it
 is built (``codec.loads_request``, ``codec.encode_predict_json_bytes``).
 
-Methods are synchronous; the REST server runs each request on its own
-thread. A streamed ``:generate`` returns at once with an iterator of SSE
-frames, fed by the generate running on a thread of its own (in the
-request's trace context). Every resolved request stamps its trace root with
-the model and ``route="local"``; every SSE frame written counts in
-``tpusc_gen_stream_frames{protocol="sse"}`` (reference :215, :987).
+REST verbs: ``:predict``, ``:classify`` and ``:regress`` (over
+``"examples"``), ``:generate``, status and metadata. The gRPC server calls
+the message-shaped methods (``predict``, ``classify``, ``regress``,
+``get_model_metadata``, ``get_model_status``, ``reload_config``,
+``session_run``, ``generate_stream``); they import the generated protobuf
+modules when called, so REST needs neither ``grpc`` nor ``protobuf``.
+``:classify``/``:regress`` over REST build the reference's arrays from the
+JSON examples directly, with the reference's typing of feature lists
+(integers as int64, other numbers as f32, the rest as bytes) and its
+scores, which travel as f32.
+
+Methods are synchronous; each server runs a request on a thread of its own.
+A streamed ``:generate`` (and ``GenerateStream``) is fed by the generate
+running on a thread of its own (in the request's trace context). Every
+resolved request stamps its trace root with the model and ``route="local"``;
+every stream frame written counts in ``tpusc_gen_stream_frames{protocol}``
+(reference :215, :987, :1041).
 """
 
 from __future__ import annotations
@@ -25,11 +36,12 @@ import queue
 import secrets
 import threading
 from collections.abc import Callable, Iterator
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Mapping
 
 import numpy as np
 
-from tfservingcache_tpu_torch.cache.manager import CacheManager
+from tfservingcache_tpu_torch.cache.manager import CacheManager, VersionLabelError
 from tfservingcache_tpu_torch.cache.providers.base import ModelNotFoundError
 from tfservingcache_tpu_torch.models.registry import TensorSpec
 from tfservingcache_tpu_torch.protocol import codec
@@ -47,10 +59,26 @@ log = logging.getLogger("tpusc_torch.backend")
 
 _STATE_NAMES = {s.value: s.name for s in ModelState}
 
-# verbs the reference serves that this port does not yet
-_LATER_VERBS = ("classify", "regress")
-
 _STREAM_ON = ("1", "true", "yes", "on")
+
+# the TensorProto DataType names of the signature dtypes (metadata)
+_DT_NAMES = {
+    "float32": "DT_FLOAT", "float64": "DT_DOUBLE", "int32": "DT_INT32",
+    "int64": "DT_INT64", "uint8": "DT_UINT8", "bool": "DT_BOOL", "float16": "DT_HALF",
+    "bfloat16": "DT_BFLOAT16", "object": "DT_STRING",
+}
+
+
+def _protos():
+    """The generated TF Serving modules (``tf_core_pb2``, ``tf_serving_pb2``),
+    imported by the message-shaped methods only."""
+    from tfservingcache_tpu_torch.protocol.protos import tf_core_pb2, tf_serving_pb2
+
+    return tf_core_pb2, tf_serving_pb2
+
+
+def _label_str(v) -> str:
+    return v.decode() if isinstance(v, bytes) else str(v)
 
 
 class LocalServingBackend(ServingBackend):
@@ -91,7 +119,22 @@ class LocalServingBackend(ServingBackend):
         except LoadTimeoutError as e:
             raise BackendError(str(e), 504) from e
         except RuntimeError_ as e:
-            raise BackendError(str(e), 500) from e
+            raise BackendError(str(e), 500, "FAILED_PRECONDITION") from e
+
+    def _resolve(self, name: str, version: int | None, label: str | None) -> ModelId:
+        """The request's model: a label through ``serving.version_labels``
+        (412 when unmapped), a missing version as the newest known one;
+        stamps the trace root, whose model and route the trace view and the
+        duration histogram read."""
+        try:
+            resolved = self.manager.resolve_version(name, version, label=label)
+        except VersionLabelError as e:
+            raise BackendError(str(e), 412) from e
+        except (KeyError, ModelNotFoundError) as e:
+            raise BackendError(str(e), 404) from e
+        model_id = ModelId(name, resolved)
+        TRACER.annotate_root(model=str(model_id), route="local")
+        return model_id
 
     def handle_rest(
         self,
@@ -100,23 +143,15 @@ class LocalServingBackend(ServingBackend):
         version: int | None,
         verb: str | None,
         body: bytes,
+        label: str | None = None,
         query: dict[str, str] | None = None,
     ) -> RestResponse:
-        try:
-            resolved = self.manager.resolve_version(model_name, version)
-        except (KeyError, ModelNotFoundError) as e:
-            raise BackendError(str(e), 404) from e
-        model_id = ModelId(model_name, resolved)
-        # the trace view and the duration histogram read the model and the
-        # route from the root span
-        TRACER.annotate_root(model=str(model_id), route="local")
+        model_id = self._resolve(model_name, version, label)
         if method == "GET" and verb is None:
             return self._rest_status(model_id)
         if method == "GET" and verb == "metadata":
             return self._rest_metadata(model_id)
-        if method == "POST" and verb in _LATER_VERBS:
-            raise BackendError(f":{verb} is not served by this port yet", 501)
-        if method != "POST" or verb not in ("predict", "generate"):
+        if method != "POST" or verb not in ("predict", "classify", "regress", "generate"):
             raise BackendError(f"unsupported {method} {verb or ''} request", 405)
         try:
             # the native parser extracts dense numeric arrays as numpy
@@ -127,7 +162,9 @@ class LocalServingBackend(ServingBackend):
             raise BackendError("request body must be a JSON object", 400)
         if verb == "generate":
             return self._rest_generate(model_id, payload, query or {})
-        return self._rest_predict(model_id, payload)
+        if verb == "predict":
+            return self._rest_predict(model_id, payload)
+        return self._rest_classify_regress(model_id, verb, payload)
 
     def _rest_predict(self, model_id: ModelId, payload: dict) -> RestResponse:
         # "output_filter" selects outputs by name, derived ones included
@@ -141,8 +178,7 @@ class LocalServingBackend(ServingBackend):
         if encoding not in ("json", "base64"):
             raise BackendError('"output_encoding" must be "json" or "base64"', 400)
 
-        def attempt() -> dict[str, np.ndarray]:
-            self._ensure(model_id)
+        def decode() -> dict[str, np.ndarray]:
             in_spec, _, _ = self.manager.runtime.signature(model_id)
             dtypes = {k: s.np_dtype() for k, s in in_spec.items()}
             default_input = next(iter(dtypes)) if len(dtypes) == 1 else "inputs"
@@ -150,25 +186,36 @@ class LocalServingBackend(ServingBackend):
                 arrays, _sig = codec.decode_predict_json(payload, dtypes, default_input)
             except codec.CodecError as e:
                 raise BackendError(str(e), 400) from e
-            try:
-                return self._predictor.predict(model_id, arrays, out_filter or None)
-            except ModelNotLoadedError:
-                raise
-            except RuntimeError_ as e:
-                raise BackendError(str(e), 400) from e
+            return arrays
 
-        try:
-            outputs = attempt()
-        except ModelNotLoadedError:
-            # LRU eviction raced between ensure and predict: reload once
-            outputs = attempt()
+        outputs = self._predict_sync(model_id, decode, out_filter or None)
         try:
             body = codec.encode_predict_json_bytes(
                 outputs, row_format="instances" in payload, encoding=encoding
             )
         except codec.CodecError as e:
-            raise BackendError(str(e), 400) from e
+            raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
         return RestResponse(status=200, body=body)
+
+    def _predict_sync(self, model_id: ModelId, inputs: Callable[[], Mapping[str, np.ndarray]],
+                      output_filter: list[str] | None) -> dict[str, np.ndarray]:
+        """Ensure, decode (``inputs()``, which may read the loaded model's
+        signature), predict; an LRU eviction that races between ensure and
+        predict reloads once (reference :218-242)."""
+        def attempt() -> dict[str, np.ndarray]:
+            self._ensure(model_id)
+            arrays = inputs()
+            try:
+                return self._predictor.predict(model_id, arrays, output_filter)
+            except ModelNotLoadedError:
+                raise
+            except RuntimeError_ as e:
+                raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
+
+        try:
+            return attempt()
+        except ModelNotLoadedError:
+            return attempt()
 
     def _prepare_generate(self, model_id: ModelId, payload: dict):
         """Validate a ``:generate`` payload and build its runner (reference
@@ -231,7 +278,9 @@ class LocalServingBackend(ServingBackend):
                 )
             except ModelNotLoadedError:
                 raise
-            except (RuntimeError_, ValueError, TypeError) as e:
+            except RuntimeError_ as e:
+                raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
+            except (ValueError, TypeError) as e:
                 raise BackendError(str(e), 400) from e
             except TimeoutError as e:
                 raise BackendError(str(e), 504) from e
@@ -244,7 +293,7 @@ class LocalServingBackend(ServingBackend):
                 try:
                     return attempt(on_token)
                 except ModelNotLoadedError as e:
-                    raise BackendError(str(e), 400) from e
+                    raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
 
         return run, rows
 
@@ -331,10 +380,10 @@ class LocalServingBackend(ServingBackend):
         except Exception:  # noqa: BLE001 - speculation is an optimization
             log.debug("spec draft %s not loaded", self._spec_draft_name, exc_info=True)
 
-    def _rest_status(self, model_id: ModelId) -> RestResponse:
-        """ModelService status: runtime-known versions, else disk-cached
-        versions as START; 404 when neither knows the model."""
-        name, want = model_id.name, model_id.version
+    def _status_rows(self, name: str, want: int) -> list[tuple[int, int]]:
+        """ModelService status as (version, state) rows: the runtime's
+        versions, else the disk-cached ones as START; 404 when neither knows
+        the model (reference :497-521)."""
         rows = [
             (mid.version, int(state))
             for mid, state in sorted(self.manager.runtime.states_for(name).items())
@@ -348,6 +397,9 @@ class LocalServingBackend(ServingBackend):
             ]
         if not rows:
             raise BackendError(f"model {name!r} not found", 404)
+        return rows
+
+    def _rest_status(self, model_id: ModelId) -> RestResponse:
         out = {
             "model_version_status": [
                 {
@@ -355,7 +407,7 @@ class LocalServingBackend(ServingBackend):
                     "state": _STATE_NAMES.get(state, "UNKNOWN"),
                     "status": {"error_code": "OK", "error_message": ""},
                 }
-                for version, state in rows
+                for version, state in self._status_rows(model_id.name, model_id.version)
             ]
         }
         return RestResponse(status=200, body=json.dumps(out).encode())
@@ -394,6 +446,367 @@ class LocalServingBackend(ServingBackend):
             },
         }
         return RestResponse(status=200, body=json.dumps(out).encode())
+
+    # -- :classify / :regress ----------------------------------------------
+    def _rest_classify_regress(self, model_id: ModelId, verb: str,
+                               payload: dict) -> RestResponse:
+        """``{"examples": [{feature: value(s)}, ...]}`` -> ``{"results":
+        [[[label, score], ...], ...]}`` (classify) or ``{"results": [value,
+        ...]}`` (regress), the reference's bodies (:1045-1082) byte for
+        byte: each example's features typed as the reference's
+        ``tf.Example`` would hold them, scores and values as f32."""
+        examples = payload.get("examples")
+        if not isinstance(examples, list) or not examples:
+            raise BackendError('"examples" must be a non-empty list', 400)
+        rows = [_example_features(ex) for ex in examples]
+        if verb == "classify":
+            results = [[[label, float(np.float32(score))] for label, score in row]
+                       for row in self._classify_sync(model_id, rows)]
+        else:
+            results = [float(np.float32(v)) for v in self._regress_sync(model_id, rows)]
+        return RestResponse(status=200, body=json.dumps({"results": results}).encode())
+
+    def _examples_to_inputs(self, rows: list[dict[str, list]],
+                            spec: Mapping[str, TensorSpec]) -> dict[str, np.ndarray]:
+        """Feature rows (one ``{name: value list}`` per example) as named
+        input arrays: a one-value list is its value, columns cast to the
+        signature's dtype (reference :349-385). A feature whose input has a
+        fixed shape past the batch axis (an image) arrives as the flat list
+        a ``tf.Example`` holds; it takes that shape, as TF Serving parses a
+        fixed-length feature (the reference passes it on flat, and the
+        model refuses it: ROADMAP C9)."""
+        if not rows:
+            raise BackendError("Input contains no examples", 400)
+        columns: dict[str, list[Any]] = {}
+        for feats in rows:
+            for fname, val in feats.items():
+                columns.setdefault(fname, []).append(val[0] if len(val) == 1 else val)
+        arrays: dict[str, np.ndarray] = {}
+        for fname, col in columns.items():
+            s = spec.get(fname)
+            try:
+                if s is not None and s.dtype != "object":
+                    arrays[fname] = np.asarray(col, dtype=s.np_dtype())
+                else:
+                    arrays[fname] = np.asarray(col)
+            except ValueError as e:
+                # ragged feature lists across examples: a client error
+                raise BackendError(
+                    f"feature {fname!r} has inconsistent lengths across examples: {e}", 400
+                ) from e
+            fixed = s.norm_shape()[1:] if s is not None else ()
+            arr = arrays[fname]
+            if (fixed and all(isinstance(d, int) for d in fixed) and arr.ndim >= 1
+                    and arr.shape[1:] != fixed
+                    and int(np.prod(arr.shape[1:])) == int(np.prod(fixed))):
+                arrays[fname] = arr.reshape((arr.shape[0], *fixed))
+        return arrays
+
+    def _predict_examples(self, model_id: ModelId, rows: list[dict[str, list]],
+                          wanted) -> dict[str, np.ndarray]:
+        """Ensure, decode the examples against the signature, predict the
+        outputs ``wanted(out_spec)`` names; an eviction that races reloads
+        once. The runtime's own errors pass through, as in the reference."""
+        self._ensure(model_id)
+        in_spec, out_spec, _ = self.manager.runtime.signature(model_id)
+        arrays = self._examples_to_inputs(rows, in_spec)
+        names = wanted(out_spec)
+        try:
+            return self._predictor.predict(model_id, arrays, names)
+        except ModelNotLoadedError:
+            self._ensure(model_id)
+            return self._predictor.predict(model_id, arrays, names)
+
+    def _classify_sync(self, model_id: ModelId,
+                       rows: list[dict[str, list]]) -> list[list[tuple[str, Any]]]:
+        """-> per example, (label, score) for every class (reference
+        :387-424): the scores output, else a float64 softmax of the logits;
+        labels from a ``labels`` output (per example or shared), else the
+        class index."""
+        # the concrete outputs, which a family's default (an LM's
+        # last_token_logits) would otherwise drop
+        outputs = self._predict_examples(
+            model_id, rows,
+            lambda out: [n for n in ("scores", "logits", "labels") if n in out] or None)
+        scores = outputs.get("scores")
+        if scores is None and "logits" in outputs:
+            logits = outputs["logits"].astype(np.float64)
+            e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+            scores = e / e.sum(axis=-1, keepdims=True)
+        if scores is None:
+            raise BackendError(
+                f"model {model_id} has no 'scores'/'logits' output for Classify", 400,
+                "FAILED_PRECONDITION")
+        labels = outputs.get("labels")
+        result = []
+        for i, row in enumerate(np.atleast_2d(scores)):
+            classes = []
+            for j, score in enumerate(row):
+                if labels is None:
+                    label = str(j)
+                elif np.ndim(labels) >= 2:
+                    label = _label_str(labels[i][j])  # per-example label rows
+                else:
+                    label = _label_str(labels[j])     # one shared label vector
+                classes.append((label, float(score)))
+            result.append(classes)
+        return result
+
+    def _regress_sync(self, model_id: ModelId, rows: list[dict[str, list]]) -> list[float]:
+        """-> one value a prediction element (reference :437-453): the
+        signature's ``outputs``, else its first output, asked for by name."""
+        (values,) = self._predict_examples(
+            model_id, rows,
+            lambda out: ["outputs" if "outputs" in out else next(iter(out))]).values()
+        return [float(v) for v in np.asarray(values, np.float64).reshape(-1)]
+
+    # -- the gRPC surface (protobuf messages in and out) --------------------
+    def _model_id(self, spec) -> ModelId:
+        """A request's ModelSpec resolved: ``version_label`` (the
+        ``version_choice`` oneof) through ``serving.version_labels`` or
+        FAILED_PRECONDITION, an unset version as the newest (reference
+        :191-216)."""
+        if not spec.name:
+            raise BackendError("model_spec.name is required", 400)
+        label = (spec.version_label
+                 if spec.WhichOneof("version_choice") == "version_label" else None)
+        return self._resolve(spec.name, spec.version.value or None, label)
+
+    @staticmethod
+    def _stamp(resp, model_id: ModelId):
+        resp.model_spec.name = model_id.name
+        resp.model_spec.version.value = model_id.version
+        return resp
+
+    def _tensor_inputs(self, request) -> dict[str, np.ndarray]:
+        try:
+            return {k: codec.tensorproto_to_numpy(v) for k, v in request.inputs.items()}
+        except codec.CodecError as e:
+            raise BackendError(str(e), 400) from e
+
+    def predict(self, request):
+        """Predict; ``signature_name="generate"`` routes to the generate
+        core (reference :257-282)."""
+        _, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+        inputs = self._tensor_inputs(request)
+        if request.model_spec.signature_name == "generate":
+            return self._predict_generate(model_id, inputs)
+        outputs = self._predict_sync(model_id, lambda: inputs,
+                                     list(request.output_filter) or None)
+        resp = self._stamp(sv.PredictResponse(), model_id)
+        if request.model_spec.signature_name:
+            resp.model_spec.signature_name = request.model_spec.signature_name
+        for name, arr in outputs.items():
+            resp.outputs[name].CopyFrom(codec.numpy_to_tensorproto(arr))
+        return resp
+
+    def _generate_payload(self, inputs: Mapping[str, np.ndarray]) -> dict[str, Any]:
+        """Generate-signature tensors as the REST ``:generate`` body
+        (reference :284-323): ``input_ids`` (2-D), ``prompt_lengths``
+        (1-D), int scalars ``max_new_tokens``/``top_k``/``seed``/
+        ``spec_tokens``, float ``temperature``, string ``conversation_id``/
+        ``priority``."""
+        if "input_ids" not in inputs:
+            raise BackendError('generate signature requires an "input_ids" input tensor', 400)
+        payload: dict[str, Any] = {"input_ids": np.atleast_2d(np.asarray(inputs["input_ids"]))}
+        if "prompt_lengths" in inputs:
+            payload["prompt_lengths"] = [
+                int(x) for x in np.asarray(inputs["prompt_lengths"]).reshape(-1)]
+
+        def scalar(name: str) -> Any:
+            arr = np.asarray(inputs[name]).reshape(-1)
+            if arr.size != 1:
+                raise BackendError(f'generate input "{name}" must be a scalar', 400)
+            return arr[0]
+
+        for key in ("max_new_tokens", "top_k", "seed", "spec_tokens"):
+            if key in inputs:
+                payload[key] = int(scalar(key))
+        if "temperature" in inputs:
+            payload["temperature"] = float(scalar("temperature"))
+        for key in ("conversation_id", "priority"):
+            if key in inputs:
+                v = scalar(key)
+                payload[key] = v.decode("utf-8", "replace") if isinstance(v, bytes) else str(v)
+        return payload
+
+    def _predict_generate(self, model_id: ModelId, inputs: Mapping[str, np.ndarray]):
+        """Predict(signature_name="generate") -> one ``tokens`` (rows,
+        max_new_tokens) int32 output (reference :325-346)."""
+        _, sv = _protos()
+        run, _rows = self._prepare_generate(model_id, self._generate_payload(inputs))
+        tokens = np.asarray(run(), np.int32)
+        resp = self._stamp(sv.PredictResponse(), model_id)
+        resp.model_spec.signature_name = "generate"
+        resp.outputs["tokens"].CopyFrom(codec.numpy_to_tensorproto(tokens))
+        return resp
+
+    def generate_stream(self, request) -> Iterator[Any]:
+        """GenerateStream: Predict(signature_name="generate")'s contract,
+        one PredictResponse a sampled token (scalar int32 ``token``), then
+        one carrying the padded ``tokens`` matrix; single-row requests only
+        (reference :1006-1043)."""
+        _, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+        run, rows = self._prepare_generate(
+            model_id, self._generate_payload(self._tensor_inputs(request)))
+        if rows != 1:
+            raise BackendError("GenerateStream requires a single-row request", 400)
+        m = self.manager.metrics
+        for kind, val in _stream_events(run, contextvars.copy_context()):
+            resp = self._stamp(sv.PredictResponse(), model_id)
+            resp.model_spec.signature_name = "generate"
+            resp.outputs["token" if kind == "tok" else "tokens"].CopyFrom(
+                codec.numpy_to_tensorproto(np.asarray(val, np.int32)))
+            if m is not None:
+                m.gen_stream_frames.labels("grpc").inc()
+            yield resp
+
+    def _proto_features(self, inp) -> list[dict[str, list]]:
+        if inp.WhichOneof("kind") == "example_list_with_context":
+            examples = inp.example_list_with_context.examples
+        else:
+            examples = inp.example_list.examples
+        rows = []
+        for ex in examples:
+            feats: dict[str, list] = {}
+            for fname, feat in ex.features.feature.items():
+                kind = feat.WhichOneof("kind")
+                feats[fname] = list(getattr(feat, kind).value) if kind else []
+            rows.append(feats)
+        return rows
+
+    def classify(self, request):
+        _, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+        resp = self._stamp(sv.ClassificationResponse(), model_id)
+        for row in self._classify_sync(model_id, self._proto_features(request.input)):
+            cls = resp.result.classifications.add()
+            for label, score in row:
+                cls.classes.add(label=label, score=score)
+        return resp
+
+    def regress(self, request):
+        _, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+        resp = self._stamp(sv.RegressionResponse(), model_id)
+        for v in self._regress_sync(model_id, self._proto_features(request.input)):
+            resp.result.regressions.add(value=v)
+        return resp
+
+    def get_model_metadata(self, request):
+        core, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+        self._ensure(model_id)
+        in_spec, out_spec, method = self.manager.runtime.signature(model_id)
+        sig = core.SignatureDef(method_name=method)
+        for target, spec in ((sig.inputs, in_spec), (sig.outputs, out_spec)):
+            for name, s in spec.items():
+                info = target[name]
+                info.name = f"{name}:0"
+                info.dtype = getattr(core, _DT_NAMES.get(s.dtype, "DT_INVALID"))
+                for d in s.norm_shape():
+                    info.tensor_shape.dim.add(size=-1 if isinstance(d, str) else d)
+        resp = self._stamp(sv.GetModelMetadataResponse(), model_id)
+        sdm = sv.SignatureDefMap()
+        sdm.signature_def["serving_default"].CopyFrom(sig)
+        resp.metadata["signature_def"].Pack(sdm)
+        return resp
+
+    def get_model_status(self, request):
+        _, sv = _protos()
+        resp = sv.GetModelStatusResponse()
+        for version, state in self._status_rows(request.model_spec.name,
+                                                request.model_spec.version.value):
+            resp.model_version_status.add(version=version, state=state)
+        return resp
+
+    def reload_config(self, request):
+        """Make every model of the config servable, with the
+        ServableVersionPolicy oneof: ``specific`` versions, the ``latest``
+        N, ``all``, or unset = the latest (reference :523-563). An unknown
+        model answers status NOT_FOUND (5), failed loads INTERNAL (13)."""
+        _, sv = _protos()
+        resp = sv.ReloadConfigResponse()
+        targets: list[ModelId] = []
+        for mc in request.config.model_config_list.config:
+            policy = mc.model_version_policy
+            which = policy.WhichOneof("policy_choice")
+            try:
+                if which == "specific":
+                    versions = [self.manager.resolve_version(mc.name, v or None)
+                                for v in (list(policy.specific.versions) or [0])]
+                elif which == "latest":
+                    n = policy.latest.num_versions or 1
+                    versions = self.manager.available_versions(mc.name)[-n:]
+                elif which == "all":
+                    versions = self.manager.available_versions(mc.name)
+                else:
+                    versions = [self.manager.resolve_version(mc.name, None)]
+            except (KeyError, ModelNotFoundError) as e:
+                resp.status.error_code = 5  # NOT_FOUND
+                resp.status.error_message = str(e)
+                return resp
+            targets.extend(ModelId(mc.name, v) for v in versions)
+        def ensure(mid: ModelId) -> Exception | None:
+            try:
+                self._ensure(mid)
+            except Exception as e:  # noqa: BLE001 - reported in the status
+                return e
+            return None
+
+        errors = []
+        if targets:
+            ctx = contextvars.copy_context()  # the loads' spans join the request's trace
+            with ThreadPoolExecutor(max_workers=min(16, len(targets)),
+                                    thread_name_prefix="tpusc-reload") as pool:
+                errors = [e for e in pool.map(lambda mid: ctx.copy().run(ensure, mid), targets)
+                          if e is not None]
+        if errors:
+            resp.status.error_code = 13  # INTERNAL
+            resp.status.error_message = "; ".join(str(e) for e in errors[:3])
+        return resp
+
+    def session_run(self, request):
+        _, sv = _protos()
+        model_id = self._model_id(request.model_spec)
+
+        def feeds() -> dict[str, np.ndarray]:
+            try:
+                return {f.name.split(":")[0]: codec.tensorproto_to_numpy(f.tensor)
+                        for f in request.feed}
+            except codec.CodecError as e:
+                raise BackendError(str(e), 400) from e
+
+        outputs = self._predict_sync(
+            model_id, feeds, [f.split(":")[0] for f in request.fetch] or None)
+        resp = sv.SessionRunResponse()
+        for name, arr in outputs.items():
+            t = resp.tensor.add()
+            t.name = f"{name}:0"
+            t.tensor.CopyFrom(codec.numpy_to_tensorproto(arr))
+        return resp
+
+
+def _example_features(example: Any) -> dict[str, list]:
+    """One JSON example's features as the reference's ``tf.Example`` holds
+    them (:1054-1068): all-integer values an int64 list, other numbers a
+    float list (f32), anything else a bytes list."""
+    if not isinstance(example, dict):
+        raise BackendError("each example must be a JSON object of features", 400)
+    feats: dict[str, list] = {}
+    for fname, val in example.items():
+        if isinstance(val, np.ndarray):  # extracted by the native parser
+            val = val.tolist()
+        vals = val if isinstance(val, list) else [val]
+        if all(isinstance(v, (int, np.integer)) for v in vals):
+            feats[fname] = [int(v) for v in vals]
+        elif all(isinstance(v, (int, float, np.floating)) for v in vals):
+            feats[fname] = [float(np.float32(v)) for v in vals]
+        else:
+            feats[fname] = [v.encode() if isinstance(v, str) else bytes(v) for v in vals]
+    return feats
 
 
 def _stream_events(run: Callable, ctx: contextvars.Context) -> Iterator[tuple[str, Any]]:

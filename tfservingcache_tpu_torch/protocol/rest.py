@@ -3,10 +3,12 @@
 ``http.server`` so the port needs no web framework.
 
 The URL contract is the reference's:
-  - case-insensitive ``/v1/models/<name>[/versions/<version>]`` with an
-    optional ``:predict`` verb or ``/metadata`` suffix;
+  - case-insensitive ``/v1/models/<name>[/versions/<version>|/labels/<label>]``
+    with an optional verb (``:predict``, ``:classify``, ``:regress``,
+    ``:generate``) or ``/metadata`` suffix; a label resolves through
+    ``serving.version_labels`` (412 when unmapped);
   - no match        -> 404 ``{"Status": "Error", "Message": "Not found"}``;
-  - missing version -> 400 ``{"Status": "Error", "Message": "Model version must be provided"}``;
+  - neither version nor label -> 400 ``{"Status": "Error", "Message": "Model version must be provided"}``;
   - backend errors  -> their HTTP status with ``{"error": message}``.
 ``GET /healthz`` answers ``{"status": "ok"}``. A reply that carries a token
 stream (``:generate?stream=true``) goes out as ``text/event-stream`` over
@@ -62,14 +64,16 @@ log = logging.getLogger("tpusc_torch.rest")
 # caller that sent a traceparent
 TRACE_SUBTREE_HEADER = "x-tpusc-trace"
 
+# the reference's regex (rest.py:52-56): TF Serving's /labels/<label>
+# alternative beside /versions/<version>
 URL_RE = re.compile(
-    r"^/v1/models/(?P<name>[^/]+?)(/versions/(?P<version>[0-9]+))?$", re.I
+    r"^/v1/models/(?P<name>[^/]+?)"
+    r"(/versions/(?P<version>[0-9]+)|/labels/(?P<label>[^/]+?))?$",
+    re.I,
 )
 
 MAX_BODY_BYTES = 256 << 20
 
-# the reference's verbs; :predict and :generate are served here, the rest
-# answer 501
 VERBS = ("predict", "classify", "regress", "generate")
 
 _ON = ("1", "true", "yes", "on")
@@ -105,9 +109,10 @@ def _json(obj, status: int = 200) -> RestResponse:
     return RestResponse(status, json.dumps(obj).encode())
 
 
-def parse_model_url(path: str) -> tuple[str, int | None, str | None] | None:
-    """-> (model_name, version|None, verb|None), or None when unroutable.
-    ``verb`` is a protocol verb, ``metadata``, or None (bare GET = status)."""
+def parse_model_url(path: str) -> tuple[str, int | None, str | None, str | None] | None:
+    """-> (model_name, version|None, verb|None, label|None), or None when
+    unroutable. ``verb`` is a protocol verb, ``metadata``, or None (bare GET
+    = status); ``version`` and ``label`` exclude each other."""
     verb: str | None = None
     if ":" in path:
         path, _, v = path.rpartition(":")
@@ -121,7 +126,8 @@ def parse_model_url(path: str) -> tuple[str, int | None, str | None] | None:
     if not m:
         return None
     version = m.group("version")
-    return m.group("name"), (int(version) if version is not None else None), verb
+    return (m.group("name"), (int(version) if version is not None else None), verb,
+            m.group("label"))
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -255,9 +261,9 @@ class RestServingServer:
         parsed = parse_model_url(path)
         if parsed is None:
             return self._fail(RestResponse(404, _error_body("Not found"))), None, "invalid"
-        name, version, verb = parsed
+        name, version, verb, label = parsed
         verb_label = verb or ("status" if method == "GET" else "invalid")
-        if version is None:  # the cache node serves versioned URLs only
+        if version is None and label is None:  # the node serves versioned URLs only
             return self._fail(RestResponse(
                 400, _error_body("Model version must be provided"))), None, verb_label
         # an inbound W3C context makes the root span join the caller's trace
@@ -266,7 +272,8 @@ class RestServingServer:
         try:
             with remote_parent(remote_ctx), \
                     TRACER.span("rest", path=path, method=method) as sp:
-                resp = self.backend.handle_rest(method, name, version, verb, body, query)
+                resp = self.backend.handle_rest(method, name, version, verb, body,
+                                                label=label, query=query)
         except BackendError as e:
             resp = self._fail(_json({"error": str(e)}, e.http_status))
         except Exception as e:  # noqa: BLE001 - a server answers 500, keeps serving

@@ -2,11 +2,17 @@
 ``tfservingcache_tpu/server.py`` for one group: one device, or with
 ``mesh.chips_per_group`` > 1 one device group driven by this process).
 
-provider -> disk cache -> runtime -> cache manager -> backend -> REST server,
-plus the continuous generate engine when ``serving.generate_engine`` is
-``"continuous"``; ``serving.batch_window_ms > 0`` puts the backend's
-batchers in front of the runtime. The node owns one ``Metrics`` and hands
-it down.
+provider -> disk cache -> runtime -> cache manager -> backend -> REST and
+gRPC servers, plus the continuous generate engine when
+``serving.generate_engine`` is ``"continuous"``; ``serving.batch_window_ms >
+0`` puts the backend's batchers in front of the runtime. The node owns one
+``Metrics`` and hands it down.
+
+The gRPC server starts next to REST where ``grpcio`` and ``protobuf``
+import; without them the node logs one line naming the missing package,
+serves REST alone and ``node.grpc_port`` stays None. Its health service
+reads the node's health, checked at start and every
+``HEALTH_LOOP_PERIOD_S`` after (reference server.py:296-303).
 
 ``configure_observability`` applies the config to the process-wide
 ``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
@@ -17,6 +23,7 @@ built without it records all the same, and writes no dump.
 from __future__ import annotations
 
 import logging
+import threading
 
 import torch
 
@@ -37,10 +44,25 @@ from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.server")
 
+HEALTH_LOOP_PERIOD_S = 30.0  # reference server.py:33
+
+
+def _grpc_server_class():
+    """``GrpcServingServer``, or None (logged once a node) when ``grpcio``
+    or ``protobuf`` does not import."""
+    try:
+        from tfservingcache_tpu_torch.protocol.grpc_server import GrpcServingServer
+    except ImportError as e:
+        log.warning("gRPC surface off: package %r is not installed; serving REST only",
+                    e.name or str(e))
+        return None
+    return GrpcServingServer
+
 
 class CacheNode:
     """One serving host with one device or one device group: provider +
-    disk cache + runtime behind a REST server."""
+    disk cache + runtime behind a REST server and, where ``grpcio`` imports,
+    a gRPC server."""
 
     def __init__(self, cfg: Config, runtime: TorchModelRuntime,
                  engine: ContinuousGenerateEngine | None = None,
@@ -53,6 +75,7 @@ class CacheNode:
         self.manager = CacheManager(
             self.provider, self.disk_cache, runtime,
             load_timeout_s=cfg.serving.load_timeout_s, metrics=metrics,
+            version_labels=cfg.serving.version_labels,
         )
         self.engine = engine
         self.backend = LocalServingBackend(
@@ -62,18 +85,41 @@ class CacheNode:
         )
         self.rest = RestServingServer(self.backend, metrics, metrics_path=cfg.metrics.path)
         self.rest_port = 0
+        grpc_cls = _grpc_server_class()
+        self.grpc = (grpc_cls(self.backend, metrics, cfg.proxy.grpc_max_message_bytes)
+                     if grpc_cls is not None else None)
+        self.grpc_port: int | None = None
+        self._stop_health = threading.Event()
+        self._health_thread: threading.Thread | None = None
 
     def start(self, host: str = "0.0.0.0") -> int:
-        """Bind the REST server (``cache_node.rest_port``, 0 = ephemeral);
-        returns the bound port."""
+        """Bind the REST server (``cache_node.rest_port``) and the gRPC
+        server (``cache_node.grpc_port``), 0 = ephemeral; returns the REST
+        port (the gRPC one is ``grpc_port``)."""
         self.rest_port = self.rest.start(self.cfg.cache_node.rest_port, host)
+        if self.grpc is not None:
+            self.grpc_port = self.grpc.start(self.cfg.cache_node.grpc_port, host)
+            self.grpc.set_health(self.is_healthy())
+            self._health_thread = threading.Thread(
+                target=self._health_loop, name="tpusc-health", daemon=True)
+            self._health_thread.start()
         return self.rest_port
+
+    def _health_loop(self) -> None:
+        while not self._stop_health.wait(HEALTH_LOOP_PERIOD_S):
+            self.grpc.set_health(self.is_healthy())
 
     def is_healthy(self) -> bool:
         return self.manager.is_healthy()
 
     def close(self) -> None:
+        self._stop_health.set()
+        if self._health_thread is not None:
+            self._health_thread.join(timeout=10.0)
+            self._health_thread = None
         self.rest.close()
+        if self.grpc is not None:
+            self.grpc.close()
         if self.engine is not None:  # the engine's threads use the runtime
             self.engine.close()
         self.manager.close()
