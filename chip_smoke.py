@@ -139,7 +139,24 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
      the trace is deleted after the check. The burst's tok/s is printed
      beside arm (a)'s;
-  10. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  10. cluster — the router and cluster plane: three continuous paged nodes
+     on the card, each with a ``Router`` over static discovery (ports 0,
+     127.0.0.1). (A) one replica a key: 6 warm (1, 128) ``:predict`` through
+     every router, each reply byte for byte the ring owner's direct reply and
+     within the serve phase's logits check, every forward on the owner (flash
+     launches = n_layers x (its forwards + the load's warm-up)), local against
+     forwarded p50, and a gRPC Predict through a non-owner router equal to the
+     REST reply; (B) conversation X's two turns through a router, and
+     conversation Y's turn 1 on the owner fetched by the key's second replica
+     over ``FetchParkedConversation``, adopted, and its turn 2 served there:
+     a suffix + 1 prefill, X's turn-2 tokens (up to near-ties),
+     ``migrations_in`` 1, paged launches = n_layers x that node's decode
+     steps; the migrated bytes, fetch and adopt times; (C) two replicas a
+     key, the owner closed: 8 ``:generate`` requests pinned to it through the
+     third node's router all answered by the second replica, the closed
+     peer's health in ``/monitoring/cluster`` below the threshold, rendered
+     by tools/fleet_top.py;
+  11. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -3564,6 +3581,370 @@ def phase_observe(art: Artifact, seed: int) -> None:
         RECORDER.configure(flight_dir="")  # dumps stop with the node
 
 
+CLUSTER_NODES = 3
+CLUSTER_PREDICTS = 6            # warm (1, 128) :predict requests through each router
+CLUSTER_SHAPE = (1, 128)
+CLUSTER_ARENA_BYTES = 512 << 20  # each node's paged arena (pages of 16 tokens)
+CLUSTER_PROMPT = 512            # the conversations' turn-1 prompt
+CLUSTER_SUFFIX = 48             # the new tokens of turn 2
+CLUSTER_NEW_TOKENS = 32
+CLUSTER_DEAD_REQUESTS = 8       # arm C: :generate requests after the first choice is closed
+
+
+def _cluster_nodes(art, layers: int):
+    """CLUSTER_NODES continuous paged nodes on cuda:0, each with its own
+    disk cache and conversation tier under the run's directory, all
+    advertising 127.0.0.1. -> (nodes, their configs)."""
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.server import build_node
+
+    page_bytes = 2 * layers * 32 * 16 * 128 * 2  # K and V, 32 KV heads, 16 tokens, D 128, bf16
+    nodes, cfgs = [], []
+    try:
+        for i in range(CLUSTER_NODES):
+            raw = art.node_config(
+                f"cluster{i}", generate_engine="continuous", generate_slots=8,
+                generate_chunk_tokens=8, kv_page_tokens=16,
+                kv_arena_pages=max(64, CLUSTER_ARENA_BYTES // page_bytes),
+                conversation_kv_bytes=CONV_KV_BYTES,
+                conversation_kv_dir=os.path.join(art.work, f"conv_kv_cluster{i}"))
+            raw["proxy"] = {"rest_port": 0, "grpc_port": 0, "replicas_per_model": 1}
+            raw["discovery"] = {"type": "static", "prefer_localhost": True}
+            raw["cluster"] = {"max_replicas_per_model": 0}
+            cfg = config_from_dict(raw)
+            nodes.append(build_node(cfg, device="cuda"))
+            cfgs.append(cfg)
+            nodes[-1].start("127.0.0.1")
+    except BaseException:
+        for n in nodes:
+            n.close()
+        raise
+    return nodes, cfgs
+
+
+def _cluster_routers(nodes, cfgs, replicas: int):
+    """A Router beside every live node, static discovery listing them all,
+    ``replicas`` ring replicas a key. -> routers (closed by the caller)."""
+    from tfservingcache_tpu_torch.cluster.router import Router
+
+    idents = [f"127.0.0.1:{n.rest_port}:{n.grpc_port or 0}" for n in nodes]
+    routers = []
+    try:
+        for node, cfg in zip(nodes, cfgs):
+            cfg.discovery.nodes = idents
+            cfg.proxy.replicas_per_model = replicas
+            routers.append(Router(cfg, node))
+            routers[-1].start("127.0.0.1")
+        deadline = time.monotonic() + 60
+        while any(r.cluster.node_count != len(nodes) for r in routers):
+            if time.monotonic() > deadline:
+                raise AssertionError("[cluster] the routers never saw every node")
+            time.sleep(0.01)
+    except BaseException:
+        for r in routers:
+            r.close()
+        raise
+    return routers
+
+
+def _ident(node) -> str:
+    return f"127.0.0.1:{node.rest_port}:{node.grpc_port or 0}"
+
+
+def phase_cluster(art: Artifact, seed: int, kernels: dict) -> None:
+    """The router and cluster plane on CLUSTER_NODES continuous paged nodes
+    on the card (serve phase's artifact, llama-7b width), each with a
+    ``Router`` over static discovery: (A) ownership fixed (one replica):
+    CLUSTER_PREDICTS warm (1, 128) ``:predict`` through every router, each
+    reply byte for byte the owner's direct reply and within the serve
+    phase's logits check, every forward on the owner (B2 launches = n_layers
+    x (its forwards + the load's warm-up)), forwarded against local p50, and
+    where grpcio imports a gRPC Predict through a non-owner router equal to
+    the REST reply; (B) conversation X, turns 1 and 2 through a router
+    (affinity); conversation Y on the same prompts, turn 1 on the owner, then
+    node B (the key's second replica) fetches it over
+    ``FetchParkedConversation``, adopts it and serves turn 2 posted to it
+    directly: a suffix + 1 prefill, X's turn-2 tokens (up to near-ties),
+    ``migrations_in`` 1, B1 launches = n_layers x B's decode steps; (C) two
+    replicas a key, the first choice closed: CLUSTER_DEAD_REQUESTS
+    ``:generate`` requests pinned to it through the third node's router all
+    answer 200 from the second replica, whose health in that router's
+    ``/monitoring/cluster`` falls below the threshold, rendered by
+    tools/fleet_top.py. Routers close before their nodes."""
+    import importlib.util as iu
+    import io
+
+    import numpy as np
+
+    from tfservingcache_tpu_torch.cache.conversation_kv import pack_parked
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.protocol import peer_transfer
+    from tfservingcache_tpu_torch.protocol.grpc_client import make_channel
+
+    layers, name = art.layers, art.model_id.name
+    key = art.model_id.key
+    rng = np.random.default_rng(seed + 15)
+    card = nvidia_smi_line()
+    nodes, cfgs = _cluster_nodes(art, layers)
+    routers = []
+    flash_total = paged_total = 0
+    try:
+        routers = _cluster_routers(nodes, cfgs, replicas=1)
+        ring = routers[0].cluster
+        owner_ident = ring.find_nodes_for_key(key)[0].ident
+        second_ident = ring.ring.get_n(key, 2)[1]
+        by_ident = {_ident(n): n for n in nodes}
+        owner, node_b = by_ident[owner_ident], by_ident[second_ident]
+        third = next(n for n in nodes if n is not owner and n is not node_b)
+        log(f"  [cluster] {len(nodes)} nodes on cuda:0, ring owner of {key} {owner_ident}, "
+            f"second replica {second_ident}")
+        predicts = {id(n): 0 for n in nodes}
+        for n in nodes:
+            def counted(*a, _fn=n.runtime.predict, _n=n, **kw):
+                predicts[id(_n)] += 1
+                return _fn(*a, **kw)
+
+            n.runtime.predict = counted
+
+        # --- arm A: routing (counters to 0, every request, counters read) ---
+        A.FLASH_LAUNCHES.reset()
+        rows, lat = [], {"local": [], "forwarded": []}
+        owner_url = f"http://127.0.0.1:{owner.rest_port}/v1/models/{name}/versions/1:predict"
+        for r in routers:
+            url = f"http://127.0.0.1:{r.rest_port}/v1/models/{name}/versions/1:predict"
+            route = "local" if r.node is owner else "forwarded"
+            for _ in range(CLUSTER_PREDICTS):
+                ids = rng.integers(0, art.vocab, size=CLUSTER_SHAPE, dtype=np.int64)
+                body = json.dumps({"instances": ids.tolist()}).encode()
+                status, raw, dt = _post_raw(url, body)
+                d_status, d_raw, _ = _post_raw(owner_url, body)
+                if (status, raw) != (d_status, d_raw) or status != 200:
+                    raise AssertionError(f"[cluster] {route} :predict answered {status} "
+                                         f"({len(raw)} bytes), the owner {d_status}: not equal")
+                lat[route].append(dt)
+                rows.append((ids, raw))
+        launches = A.FLASH_LAUNCHES.value
+        # ------------------------------------------------------------------
+        served = 2 * len(rows)  # each routed request and its direct twin
+        want = layers * (served + 1)  # + the owner's load warm-up forward
+        log(f"  [cluster] arm A: {len(rows)} routed (1, 128) :predict "
+            f"({CLUSTER_PREDICTS} local, {len(rows) - CLUSTER_PREDICTS} forwarded) + "
+            f"{len(rows)} direct to the owner, every reply byte-equal to the owner's; "
+            f"runtime predicts by node {[predicts[id(n)] for n in nodes]} (owner "
+            f"{nodes.index(owner)}); flash_attention launches {launches} (n_layers {layers} "
+            f"x ({served} forwards + the load's warm-up) = {want})")
+        if launches != want:
+            raise AssertionError(f"[cluster] flash launches {launches} != {want}")
+        if predicts[id(owner)] != served or sum(predicts.values()) != served:
+            raise AssertionError(f"[cluster] forwards off the owner: {predicts}")
+        flash_total += launches
+        # the first is the cold load: both p50s over warm requests
+        log(f"  [cluster] warm (1, 128) :predict p50 local "
+            f"{statistics.median(lat['local'][1:] or lat['local']) * 1e3:.2f} ms over "
+            f"{len(lat['local'])}, forwarded {statistics.median(lat['forwarded']) * 1e3:.2f} ms "
+            f"over {len(lat['forwarded'])} (host clock, localhost, one process; {card})")
+        for r in routers:
+            fwd = sum(v for (n, labels), v in _scrape(
+                f"http://127.0.0.1:{r.rest_port}").items()
+                if n == "tpusc_request_duration_seconds_count" and ("route", "forwarded") in labels
+                and ("protocol", "rest") in labels)
+            want_fwd = 0 if r.node is owner else CLUSTER_PREDICTS
+            if fwd != want_fwd:
+                raise AssertionError(f"[cluster] router {_ident(r.node)} counted {fwd} forwarded")
+        for ids, raw in rows:
+            pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+            if pred.shape != (1, art.vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"[cluster] predictions {pred.shape}")
+        for ids, raw in rows[:2] + rows[-2:]:
+            _check_logits(art.plain_model, CLUSTER_SHAPE, ids,
+                          np.asarray(json.loads(raw)["predictions"], dtype=np.float32))
+        grpc_on = all(n.grpc is not None for n in nodes)
+        if grpc_on:
+            flash_total += _cluster_grpc_predict(art, routers, owner, rows[-1])
+        else:
+            log("  [cluster] gRPC not driven: grpcio or protobuf is not installed on this "
+                "machine; REST carried arm A, and arm B needs the gRPC wire")
+            raise AssertionError("[cluster] arm B (migration over gRPC) needs grpcio")
+
+        # --- arm B: migration ---------------------------------------------
+        via = next(r for r in routers if r.node is third)  # a router that forwards
+        gen_url = f"http://127.0.0.1:{via.rest_port}/v1/models/{name}/versions/1:generate"
+        prompt = rng.integers(1, art.vocab, CLUSTER_PROMPT).astype(np.int32)
+        suffix = rng.integers(1, art.vocab, CLUSTER_SUFFIX).astype(np.int32)
+
+        def turn(url, ids, conv):
+            status, body, dt = _post(url, {"input_ids": [ids.tolist()],
+                                           "max_new_tokens": CLUSTER_NEW_TOKENS,
+                                           "conversation_id": conv}, 900.0)
+            if status != 200:
+                raise AssertionError(f"[cluster] :generate ({conv}) answered {status}: {body}")
+            return np.asarray(body["tokens"][0], np.int32), dt
+
+        A.FLASH_LAUNCHES.reset()  # read at the end of arm C
+        A.PAGED_LAUNCHES.reset()
+        owner_steps0 = owner.engine.decode_steps
+        x1, _ = turn(gen_url, prompt, "X")
+        p2 = np.concatenate([prompt, x1, suffix])
+        x2, _ = turn(gen_url, p2, "X")
+        y1, _ = turn(gen_url, prompt, "Y")
+        paged_x = A.PAGED_LAUNCHES.value
+        if not np.array_equal(x1, y1):
+            raise AssertionError("[cluster] two turn 1s of one prompt differ")
+        for ids, toks, what in ((prompt, x1, "X turn 1"), (p2, x2, "X turn 2")):
+            _check_greedy(art, ids, toks, LOGITS_TOL, f"[cluster] {what}")
+        owner_steps = owner.engine.decode_steps - owner_steps0
+        if paged_x != layers * owner_steps:
+            raise AssertionError(f"[cluster] paged launches {paged_x} != n_layers x "
+                                 f"{owner_steps} owner decode steps")
+        if owner.engine.resumes < 1:
+            raise AssertionError("[cluster] X's turn 2 did not resume on the owner")
+        channel = make_channel(f"127.0.0.1:{owner.grpc_port}")
+        try:
+            t0 = time.monotonic()
+            parked = peer_transfer.fetch_parked_from_peer(channel, "Y", art.model_id,
+                                                          timeout_s=300)
+            fetch_s = time.monotonic() - t0
+        finally:
+            channel.close()
+        t0 = time.monotonic()
+        node_b.engine.conversation_tier.adopt("Y", parked)
+        adopt_s = time.monotonic() - t0
+        nbytes = len(pack_parked(parked))
+        b_url = f"http://127.0.0.1:{node_b.rest_port}/v1/models/{name}/versions/1:generate"
+        # B's cold load stays out of the window: a warm-up of another prompt
+        turn(b_url, rng.integers(1, art.vocab, 16).astype(np.int32), "warm")
+        steps0, pf0, res0 = (node_b.engine.decode_steps, node_b.engine.prefill_tokens,
+                             node_b.engine.resumes)
+        A.PAGED_LAUNCHES.reset()
+        y2, y2_s = turn(b_url, p2, "Y")
+        paged_b = A.PAGED_LAUNCHES.value
+        b_steps = node_b.engine.decode_steps - steps0
+        prefilled = node_b.engine.prefill_tokens - pf0
+        stats = node_b.engine.conversation_tier.stats()
+        log(f"  [cluster] arm B: migrated conversation Y ({parked.pages_k.shape[1]} pages, "
+            f"{nbytes} bytes) over FetchParkedConversation in {fetch_s * 1e3:.2f} ms, adopted "
+            f"in {adopt_s * 1e3:.3f} ms; B's turn 2 prefilled {prefilled} tokens (suffix "
+            f"{CLUSTER_SUFFIX} + 1), resumed {node_b.engine.resumes - res0}, migrations_in "
+            f"{stats['migrations_in']}, {y2_s * 1e3:.1f} ms; paged_decode_attention launches "
+            f"{paged_b} (n_layers {layers} x {b_steps} decode steps) (host clock; {card})")
+        if prefilled != CLUSTER_SUFFIX + 1 or node_b.engine.resumes - res0 != 1:
+            raise AssertionError(f"[cluster] B prefilled {prefilled}, not the suffix + 1")
+        if stats["migrations_in"] != 1:
+            raise AssertionError(f"[cluster] migrations_in {stats['migrations_in']}")
+        if paged_b != layers * b_steps:
+            raise AssertionError(f"[cluster] B's paged launches {paged_b} != {layers * b_steps}")
+        if np.array_equal(y2, x2):
+            log("  [cluster] B's turn 2 tokens equal X's turn 2 (served on the owner)")
+        else:
+            gap = _check_greedy(art, p2, y2, LOGITS_TOL, "[cluster] Y turn 2 on B")
+            log(f"  [cluster] B's turn 2 differs from X's at a near-tie (largest teacher-forced "
+                f"gap {gap:.4f} <= {LOGITS_TOL})")
+        paged_total += paged_x + paged_b
+        for n in (owner, node_b):
+            n.runtime._slot_states[art.model_id].check_page_conservation()
+
+        # --- arm C: a dead replica ----------------------------------------
+        for r in routers:
+            r.close()
+        routers = _cluster_routers(nodes, cfgs, replicas=2)
+        via = next(r for r in routers if r.node is third)
+        first, second = via.cluster.find_nodes_for_key(key)
+        if (first.ident, second.ident) != (owner_ident, second_ident):
+            raise AssertionError("[cluster] two replicas are not the owner and B")
+        convs = [c for c in (f"dead{i}" for i in range(1000))
+                 if via.backend._candidates(name, 1, affinity=c)[0].ident == owner_ident]
+        convs = convs[:CLUSTER_DEAD_REQUESTS]
+        dead_router = next(r for r in routers if r.node is owner)
+        dead_router.close()
+        routers.remove(dead_router)
+        owner.close()
+        nodes.remove(owner)
+        gen_url = f"http://127.0.0.1:{via.rest_port}/v1/models/{name}/versions/1:generate"
+        steps0 = node_b.engine.decode_steps
+        A.PAGED_LAUNCHES.reset()
+        dead_lat = []
+        for conv in convs:
+            ids = rng.integers(1, art.vocab, 64).astype(np.int32)
+            toks, dt = turn(gen_url, ids, conv)
+            _check_greedy(art, ids, toks, LOGITS_TOL, f"[cluster] {conv} on the second replica")
+            dead_lat.append(dt)
+        paged_c = A.PAGED_LAUNCHES.value
+        c_steps = node_b.engine.decode_steps - steps0
+        if paged_c != layers * c_steps:
+            raise AssertionError(f"[cluster] arm C paged launches {paged_c} != {layers * c_steps}")
+        paged_total += paged_c
+        snap = _get_json(f"http://127.0.0.1:{via.rest_port}/monitoring/cluster")
+        row = snap["nodes"][owner_ident]
+        log(f"  [cluster] arm C: {len(convs)} :generate pinned to the closed first choice all "
+            f"answered 200 from {second_ident} (p50 {statistics.median(dead_lat) * 1e3:.1f} ms; "
+            f"{card}); the closed peer's health {row['health']} after {row['failures']} failed "
+            f"forwards (threshold {snap['health_threshold']}); paged launches {paged_c} "
+            f"(n_layers x {c_steps})")
+        if not row["health"] < snap["health_threshold"]:
+            raise AssertionError(f"[cluster] the closed peer's health {row['health']}")
+        spec = iu.spec_from_file_location("fleet_top", os.path.join(ROOT, "tools",
+                                                                    "fleet_top.py"))
+        fleet_top = iu.module_from_spec(spec)
+        spec.loader.exec_module(fleet_top)
+        out = io.StringIO()
+        fleet_top.render(snap, out=out)
+        text = out.getvalue()
+        if owner_ident not in text:
+            raise AssertionError("[cluster] fleet_top did not render the closed peer")
+        log("  [cluster] tools/fleet_top.py:\n" + "\n".join(
+            "    " + line for line in text.rstrip().splitlines()))
+        flash_total += A.FLASH_LAUNCHES.value
+    finally:
+        for r in routers:
+            r.close()
+        for n in nodes:
+            n.close()
+    kernels["flash_attention"]["launches"] += flash_total
+    kernels["flash_attention"]["launches_cluster_phase"] = flash_total
+    kernels["paged_decode_attention"]["launches"] += paged_total
+    kernels["paged_decode_attention"]["launches_cluster_phase"] = paged_total
+    log(f"  [cluster] the phase's launches: flash_attention {flash_total}, "
+        f"paged_decode_attention {paged_total}")
+
+
+def _cluster_grpc_predict(art, routers, owner, row) -> int:
+    """A gRPC Predict of arm A's last input through a non-owner router: its
+    logits equal the REST reply's. -> the flash launches it made."""
+    import grpc
+    import numpy as np
+
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.protocol import codec
+    from tfservingcache_tpu_torch.protocol.grpc_client import ServingStub, make_channel
+    from tfservingcache_tpu_torch.protocol.grpc_server import PREDICTION_SERVICE
+    from tfservingcache_tpu_torch.protocol.protos import tf_serving_pb2 as sv
+
+    ids, raw = row
+    rest_pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+    r = next(r for r in routers if r.node is not owner)
+    channel = make_channel(f"127.0.0.1:{r.grpc_port}")
+    A.FLASH_LAUNCHES.reset()
+    try:
+        req = sv.PredictRequest()
+        req.model_spec.name = art.model_id.name
+        req.model_spec.version.value = 1
+        req.inputs["input_ids"].CopyFrom(codec.numpy_to_tensorproto(ids.astype(np.int32)))
+        req.output_filter.append("last_token_logits")
+        resp = ServingStub(channel).method(PREDICTION_SERVICE, "Predict")(req, timeout=900)
+    finally:
+        channel.close()
+    launches = A.FLASH_LAUNCHES.value
+    got = codec.tensorproto_to_numpy(resp.outputs["last_token_logits"])
+    if not np.array_equal(got, rest_pred):
+        raise AssertionError(f"[cluster] gRPC Predict through a router: max|gRPC - REST| "
+                             f"{float(np.abs(got - rest_pred).max())}")
+    if launches != art.layers:
+        raise AssertionError(f"[cluster] the gRPC Predict made {launches} flash launches")
+    log(f"  [cluster] gRPC Predict through router {_ident(r.node)} (grpcio {grpc.__version__}) "
+        f"forwarded to the owner: logits equal to the REST reply's")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -3612,6 +3993,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_generate(art, args.seed, kernels)
         with Phase("observe"):
             phase_observe(art, args.seed)
+        with Phase("cluster"):
+            phase_cluster(art, args.seed, kernels)
         with Phase("ring"):
             phase_ring(art, args.seed, args.warm, kernels)
     finally:

@@ -90,7 +90,10 @@ class RefRest:
             TPUModelRuntime(JServingConfig(platform="cpu"), self.metrics), self.metrics,
             version_labels=LABELS)
         self.backend = JBackend(self.manager)
-        self.rest = JRest(self.backend, self.metrics)
+        # a cache node's server, as the reference's CacheNode builds it: an
+        # unversioned URL serves the latest version (the router's 400 is
+        # held in tests/test_torch_router.py)
+        self.rest = JRest(self.backend, self.metrics, require_version=False)
         try:
             port = self._run(self.rest.start(0, host="127.0.0.1"))
         except BaseException:
@@ -208,8 +211,10 @@ def test_version_labels_resolve_or_fail(served):
                         {"inputs": {"x": [4.0]}})
     assert json.loads(body) == {"outputs": [4.0]}
     same(base, ref.url, "/v1/models/hpt/labels/stable:predict", {"inputs": {"x": [4.0]}})
-    # neither a version nor a label: the reference's 400
-    assert same(base, ref.url, "/v1/models/hpt:predict", {"instances": [1.0]})[0] == 400
+    # neither a version nor a label: a node serves the latest resident
+    # version, as the reference's node does
+    status, body = same(base, ref.url, "/v1/models/hpt:predict", {"instances": [1.0]})
+    assert status == 200 and json.loads(body) == {"predictions": [2.5]}
 
 
 @pytest.mark.parametrize("verb,body", [

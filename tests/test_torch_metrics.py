@@ -36,6 +36,9 @@ PORTED = {
     "tpusc_tenant_tokens", "tpusc_tenant_step_seconds", "tpusc_tenant_kv_page_seconds",
     "tpusc_tenant_byte_seconds", "tpusc_tenant_cold_load_seconds",
     "tpusc_tenant_peer_bytes_served", "tpusc_tenant_dominant_share",
+    "tpusc_assignment_warms", "tpusc_scrape_errors", "tpusc_peer_health_score",
+    "tpusc_peer_status_age_seconds", "tpusc_fleet_model_replicas",
+    "tpusc_model_replicas_target",
 }
 
 

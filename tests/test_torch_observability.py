@@ -37,6 +37,7 @@ from prometheus_client.parser import text_string_to_metric_families
 from tfservingcache_tpu.cache.disk_cache import ModelDiskCache as JDiskCache
 from tfservingcache_tpu.cache.manager import CacheManager as JCacheManager
 from tfservingcache_tpu.cache.providers.disk import DiskModelProvider as JDiskProvider
+from tfservingcache_tpu.cluster.status import NodeStatus as JNodeStatus
 from tfservingcache_tpu.config import ServingConfig as JServingConfig
 from tfservingcache_tpu.lab import faults as jfaults
 from tfservingcache_tpu.models.registry import export_artifact
@@ -368,12 +369,19 @@ def test_the_kill_drill_writes_one_crash_dump(served):
 def test_monitoring_endpoints_answer_like_the_reference(served):
     port, _ref = served
     url = port["url"]
-    for path in ("/monitoring/status", "/monitoring/cluster", "/monitoring/traces?n=x",
+    # a node (no router) has no fleet view: the reference's 404 body
+    for path in ("/monitoring/cluster", "/monitoring/traces?n=x",
                  "/monitoring/traces?min_ms=x", "/monitoring/engine?n=x",
                  "/monitoring/tenants?top=x"):
         status, body = post(url + path, method="GET")
         assert status in (400, 404), path
         assert "error" in json.loads(body)
+    # the node's own status, as a reference node answers it (its collector
+    # is named by the node's bound ports)
+    status, body = post(url + "/monitoring/status", method="GET")
+    st = json.loads(body)
+    assert status == 200 and set(st) == set(JNodeStatus(ident="x").to_dict())
+    assert st["ident"] == port["node"].groups[0].status.ident and "lm##1" in st["models"]
     status, body = post(url + "/monitoring/tenants?top=1", method="GET")
     snap = json.loads(body)
     assert status == 200 and snap["top"] == ["lm@1"]

@@ -253,7 +253,7 @@ def test_build_node_group_on_cuda_needs_exactly_one_group_of_cards(monkeypatch):
     with pytest.raises(RuntimeError_, match="needs 4 CUDA devices, this host has 2"):
         build_node(cfg, device="cuda")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(RuntimeError_, match=r"multi-group nodes: later slice \(router\)"):
+    with pytest.raises(RuntimeError_, match=r"multi-group nodes: later slice \(multi-GPU\)"):
         build_node(cfg, device="cuda")
 
 

@@ -143,8 +143,11 @@ def test_status_and_metadata(tmp_path, store):
 def test_rest_error_contract(tmp_path, store):
     with serving(tmp_path, store) as (_node, url):
         assert call(f"{url}/healthz") == (200, {"status": "ok"})
-        assert call(f"{url}/v1/models/lm:predict", "POST", {"instances": [[1]]}) == (
-            400, {"Status": "Error", "Message": "Model version must be provided"})
+        # a node serves an unversioned URL at the latest version, as the
+        # reference's node does; the 400 is the router's (require_version,
+        # tests/test_torch_router.py)
+        status, body = call(f"{url}/v1/models/lm:predict", "POST", {"instances": [[1]]})
+        assert status == 200 and np.asarray(body["predictions"]).shape == (1, 512)
         assert call(f"{url}/nowhere") == (404, {"Status": "Error", "Message": "Not found"})
         assert call(f"{url}/v1/models/nope/versions/1:predict", "POST",
                     {"instances": [[1]]})[0] == 404

@@ -471,16 +471,21 @@ def test_recoveries_exhaust_and_recovery_off_fails_the_rows(store):
 
 @pytest.mark.parametrize("kind", ["stall_store", "corrupt_peer_chunk", "drop_peer", "bogus"])
 def test_a_fault_kind_without_a_hooked_site_is_refused(kind):
-    """Only kill_engine and freeze_scheduler have a hooked site (the
-    scheduler's step) in the port, so a spec of any other kind, which the
-    reference may accept for a site the port has not yet, is refused
-    instead of arming a fault that never fires."""
+    """The port hooks the scheduler's step (kill_engine, freeze_scheduler)
+    and fleet status ingestion (drop_peer, cluster/status.py). A spec of any
+    other kind, which the reference may accept for a site the port has not
+    yet, is refused instead of arming a fault that never fires; a kind whose
+    site is hooked arms at the reference's site."""
     if kind != "bogus":
         assert jfaults.FaultSpec(kind=kind).site  # a reference kind with its own site
-    with pytest.raises(ValueError, match="unknown fault kind"):
-        faults.FaultSpec(kind=kind)
-    with pytest.raises(ValueError, match="unknown fault kind"):
-        faults.arm_json(json.dumps([{"kind": kind}]))
+    if kind in faults.SITE_OF:
+        assert faults.FaultSpec(kind=kind).site == jfaults.FaultSpec(kind=kind).site
+    else:
+        with pytest.raises(ValueError, match="unknown fault kind"):
+            faults.FaultSpec(kind=kind)
+        with pytest.raises(ValueError, match="unknown fault kind"):
+            faults.arm_json(json.dumps([{"kind": kind}]))
     assert not faults.armed()
     assert {faults.FaultSpec(kind=k).site for k in ("kill_engine", "freeze_scheduler")} == {
         "engine_step"}
+    assert set(faults.SITE_OF) == {"kill_engine", "freeze_scheduler", "drop_peer"}

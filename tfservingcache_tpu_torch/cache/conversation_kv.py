@@ -30,9 +30,9 @@ header still names them ``"bfloat16"``.
 The tier feeds ``tpusc_kv_parked_bytes{host,disk}``,
 ``tpusc_kv_parked_conversations``, ``tpusc_kv_resume{hit,spilled,miss}`` and
 ``tpusc_evictions_total{conversation_kv_host,conversation_kv_disk}``, and
-hands its stats row to the flight recorder on every change. ``adopt`` (a
-conversation handed over by another node) comes with migration between
-nodes.
+hands its stats row to the flight recorder on every change. ``adopt`` lands
+a conversation fetched from another node (``protocol/peer_transfer.py``
+``fetch_parked_from_peer``) and counts it in ``migrations_in``.
 """
 
 from __future__ import annotations
@@ -227,6 +227,7 @@ class ConversationKVTier:
         self._parked_total = 0   # guarded-by: _stats_lock
         self._spills = 0         # guarded-by: _stats_lock
         self._spilled_bytes = 0  # guarded-by: _stats_lock
+        self._migrations_in = 0  # guarded-by: _stats_lock
         # the prefix of this tier's spill files, so that two tiers can share
         # a directory and close() deletes nothing it did not write
         self._tag = f"{os.getpid()}-{os.urandom(4).hex()}"
@@ -291,6 +292,12 @@ class ConversationKVTier:
             return parked, "spilled"
         self._count("miss")
         return None, "miss"
+
+    def adopt(self, conversation_id: str, parked: ParkedConversation) -> None:
+        """Land a conversation migrated from a peer."""
+        self.put(conversation_id, parked)
+        with self._stats_lock:
+            self._migrations_in += 1
 
     def drop(self, conversation_id: str, model_id: str) -> None:
         key = (str(model_id), str(conversation_id))
@@ -363,13 +370,12 @@ class ConversationKVTier:
 
     # -- introspection ------------------------------------------------------
     def stats(self) -> dict[str, Any]:
-        """The reference's stats (less ``migrations_in``: no migration yet),
-        plus ``spilled_bytes`` (blob bytes written to disk over the tier's
-        life)."""
+        """The reference's stats, plus ``spilled_bytes`` (blob bytes
+        written to disk over the tier's life)."""
         with self._stats_lock:
             hits, spilled, misses = self._hits, self._spilled_hits, self._misses
             parked, spills = self._parked_total, self._spills
-            spilled_bytes = self._spilled_bytes
+            spilled_bytes, migrations = self._spilled_bytes, self._migrations_in
         lookups = hits + spilled + misses
         return {
             "enabled": self.enabled,
@@ -383,6 +389,7 @@ class ConversationKVTier:
             "hit_rate": round((hits + spilled) / lookups, 4) if lookups else 0.0,
             "parked_total": parked,
             "spills": spills,
+            "migrations_in": migrations,
             "spilled_bytes": spilled_bytes,
         }
 

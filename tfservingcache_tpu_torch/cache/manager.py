@@ -149,6 +149,23 @@ class CacheManager:
         log.info("servable %s in %.2fs", model_id, time.monotonic() - t0)
         return model
 
+    def residency_warmth(self, model_id: ModelId) -> int:
+        """How warm ``model_id`` is on this node: 3 = resident on the device,
+        1 = artifact on disk, 0 = cold (2, the reference's host tier, is not
+        ported). The router's equal-load tie-break reads it; it never raises
+        and never touches LRU order."""
+        try:
+            if self.runtime.is_loaded(model_id):
+                return 3
+            contains = getattr(self.runtime, "host_tier_contains", None)
+            if contains is not None and contains(model_id):
+                return 2
+            if self.disk_cache.size_of(model_id) is not None:
+                return 1
+        except Exception:  # noqa: BLE001 - advisory only
+            pass
+        return 0
+
     def _with_deadline(self, fn, deadline: float | None, desc: str):
         """Run ``fn`` under the cold-load deadline. A blocking fetch or load
         cannot be interrupted in-thread, so with a deadline the work runs in

@@ -151,10 +151,16 @@ class ModelProviderConfig:
 
 @dataclass
 class ProxyConfig:
-    """Of the reference's router section, the gRPC message cap, which the
-    cache node's gRPC server and client take as well."""
+    """The router's ports and replica count (cluster/router.py); the gRPC
+    message cap is the cache node's and every gRPC client's as well."""
 
+    rest_port: int = 8093
+    grpc_port: int = 8100
+    replicas_per_model: int = 1
     grpc_max_message_bytes: int = 16 << 20
+    # on a membership change, pre-load the owned models already in the
+    # local disk cache (cluster/warmer.py)
+    warm_on_assignment: bool = True
 
 
 @dataclass
@@ -164,6 +170,71 @@ class CacheNodePorts:
 
     rest_port: int = 8094
     grpc_port: int = 8095
+
+
+@dataclass
+class DiscoveryConfig:
+    """How nodes find each other. "" (the default) runs one cache node and
+    no router; static | file | consul | etcd | kubernetes run a router on
+    the proxy ports beside the node."""
+
+    type: str = ""
+    heartbeat_ttl_s: float = 5.0
+    service_name: str = "tpuserve-cache"
+    # static: "host:restPort:grpcPort" idents
+    nodes: list[str] = field(default_factory=list)
+    # file: a JSON {"nodes": [...]} members file, polled
+    path: str = ""
+    poll_interval_s: float = 2.0
+    # consul / etcd HTTP address, or the Kubernetes API URL ("" = in-cluster)
+    address: str = ""
+    namespace: str = ""                # kubernetes ("" = the serviceaccount's)
+    field_selector: str = ""           # kubernetes Endpoints selector
+    # advertise 127.0.0.1 instead of the outbound interface's address
+    prefer_localhost: bool = False
+
+
+@dataclass
+class ClusterConfig:
+    """The fleet status plane (cluster/status.py), peer fetch and
+    load-adaptive replication (cluster/replication.py)."""
+
+    # piggybacked NodeStatus on routed hops + a poll fallback; off, the
+    # router ranks replicas by load and local warmth only
+    status_exchange: bool = True
+    # poll period for peers no routed hop refreshes, and the age under
+    # which a peer is not polled
+    status_poll_interval_s: float = 5.0
+    # an older status is stale: its warmth stops counting and the peer's
+    # health decays
+    status_stale_after_s: float = 15.0
+    # bound on one encoded status (the coldest models are cut first)
+    status_byte_cap: int = 4096
+    status_max_models: int = 64
+    status_max_tenants: int = 8
+    # a node recollects its status at most this often
+    status_min_interval_s: float = 0.25
+    # peers scoring below this lead no replica pair (they stay in the ring)
+    health_threshold: float = 0.5
+    # EWMA weight of forward outcomes
+    health_error_alpha: float = 0.3
+    # latency factor of the health score: ref / (ref + latency EWMA)
+    health_latency_ref_s: float = 1.0
+    # peer fetch of packed models: read, not ported yet (a cold miss goes
+    # to the store, as the reference's does with no host tier)
+    peer_fetch: bool = True
+    peer_fetch_chunk_bytes: int = 2 << 20
+    peer_fetch_max_inflight_per_peer: int = 2
+    peer_fetch_timeout_s: float = 60.0
+    # ceiling of a model's replica count; proxy.replicas_per_model is the
+    # floor. 0 keeps the count static
+    max_replicas_per_model: int = 4
+    # in-flight requests a replica that justify one more:
+    # N = clamp(ceil(ewma / target), base, max)
+    replica_load_target: float = 2.0
+    replica_eval_interval_s: float = 2.0
+    # N shrinks only after this many evaluations in a row want less
+    replica_decay_ticks: int = 3
 
 
 @dataclass
@@ -184,12 +255,15 @@ class MetricsConfig:
 
     model_labels: bool = False         # per-model:version labels
     path: str = "/monitoring/prometheus/metrics"
-    # the reference's scrape-merge of sidecar exporters into this node's
-    # exposition; the port refuses a non-empty list until it has the merge
+    # text-format exporters merged into this node's exposition
+    # (utils/metrics.scrape_and_merge)
     scrape_targets: list[str] = field(default_factory=list)
     # cardinality guard for model_labels: after this many distinct
     # name:version values, NEW tenants fold into the "__other__" bucket
     max_model_labels: int = 512
+    # merge mode: sum counter series with equal labels across sources
+    # instead of keeping the first source's family
+    scrape_sum_counters: bool = False
 
 
 @dataclass
@@ -248,6 +322,8 @@ class Config:
     model_provider: ModelProviderConfig = field(default_factory=ModelProviderConfig)
     proxy: ProxyConfig = field(default_factory=ProxyConfig)
     cache_node: CacheNodePorts = field(default_factory=CacheNodePorts)
+    discovery: DiscoveryConfig = field(default_factory=DiscoveryConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)

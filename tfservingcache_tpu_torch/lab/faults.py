@@ -1,25 +1,27 @@
 """Scenario-lab fault injector: chaos hooks in serving paths (a stdlib copy
 of ``tfservingcache_tpu/lab/faults.py``).
 
-Serving code calls ``fire(site, ...)`` at a hook site. The port hooks one:
+Serving code calls ``fire(site, ...)`` at a hook site. The port hooks two:
 
 * ``engine_step`` — the top of the continuous scheduler's chunk boundary
   (runtime/batcher.py). ``kill_engine`` raises :class:`InjectedFault` there,
   down the same path an organic device failure takes (the scheduler's crash
   triage, requeue and re-prefill); ``freeze_scheduler`` sleeps the scheduler
   thread for ``duration_s`` so that queued rows age.
+* ``status_ingest`` — fleet status ingestion (cluster/status.py
+  ``FleetView.ingest``). ``drop_peer`` swallows the snapshot (``fire``
+  returns None for the payload), so the peer's health decays through the
+  normal staleness path; ``peer`` filters on the snapshot's ident.
 
 The reference's other sites and their kinds wait for the modules that own
-them: ``store_fetch`` (``stall_store``, the cache manager's provider miss),
-``peer_chunk`` (``corrupt_peer_chunk``, the peer-transfer receiver) and
-``status_ingest`` (``drop_peer``, fleet status). A spec naming one of them
-is refused, as is any kind without a hooked site: arming it would succeed
-and it would never fire.
+them: ``store_fetch`` (``stall_store``, the cache manager's provider miss)
+and ``peer_chunk`` (``corrupt_peer_chunk``, the peer-transfer receiver). A
+spec naming one of them is refused, as is any kind without a hooked site:
+arming it would succeed and it would never fire.
 
-Disarmed (the default) every hook is one bool read and a return. The
-reference's ``peer`` filter and ``payload`` pass-through serve only the
-sites not hooked here, and come with them.
-The reference's metrics counter and flight-recorder dumps are not ported.
+Disarmed (the default) every hook is one bool read and a return of the
+payload. The reference's metrics counter and flight-recorder dumps are not
+ported.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ SLEEP_KINDS = ("freeze_scheduler",)
 SITE_OF = {
     "kill_engine": "engine_step",
     "freeze_scheduler": "engine_step",
+    "drop_peer": "status_ingest",
 }
 
 
@@ -52,7 +55,7 @@ class InjectedFault(RuntimeError):
 class FaultSpec:
     """One armed fault. ``after`` skips the first N matching visits (fire on
     visit N+1), ``count`` bounds the firings (0 = unlimited), ``model``
-    filters the site's context when set. ``visits``/``fired`` are tallies
+    and ``peer`` filter the site's context when set. ``visits``/``fired`` are tallies
     owned by the injector's lock."""
 
     kind: str
@@ -60,6 +63,7 @@ class FaultSpec:
     count: int = 1
     duration_s: float = 0.05
     model: str | None = None
+    peer: str | None = None
     visits: int = field(default=0, compare=False)
     fired: int = field(default=0, compare=False)
 
@@ -100,10 +104,11 @@ class FaultInjector:
         with self._lock:
             return [{"kind": s.kind, "visits": s.visits, "fired": s.fired} for s in self._specs]
 
-    def fire(self, site: str, model: str | None = None) -> None:
+    def fire(self, site: str, model: str | None = None, peer: str | None = None,
+             payload: Any = None) -> Any:
         """The armed slow path: apply every matching spec in arming order; a
         kill raises after its bookkeeping, so the firing is counted even
-        though the site dies."""
+        though the site dies. Returns the payload (None once dropped)."""
         to_sleep = 0.0
         to_raise: InjectedFault | None = None
         fired_kinds: list[str] = []
@@ -112,6 +117,8 @@ class FaultInjector:
                 if s.site != site:
                     continue
                 if s.model is not None and s.model != model:
+                    continue
+                if s.peer is not None and s.peer != peer:
                     continue
                 s.visits += 1
                 if s.visits <= s.after or (s.count and s.fired >= s.count):
@@ -123,22 +130,27 @@ class FaultInjector:
                 elif s.kind in KILL_KINDS:
                     to_raise = InjectedFault(
                         f"injected {s.kind} at {site}" + (f" (model={model})" if model else ""))
+                elif s.kind == "drop_peer":
+                    payload = None
         for kind in fired_kinds:
-            log.warning("fault fired: %s at %s model=%s", kind, site, model)
+            log.warning("fault fired: %s at %s model=%s peer=%s", kind, site, model, peer)
         if to_sleep > 0.0:
             time.sleep(to_sleep)
         if to_raise is not None:
             raise to_raise
+        return payload
 
 
 _INJECTOR = FaultInjector()
 
 
-def fire(site: str, model: str | None = None) -> None:
-    """Hook entry point for serving call sites. Disarmed: one attribute read
-    and a return."""
-    if _INJECTOR.armed:
-        _INJECTOR.fire(site, model=model)
+def fire(site: str, model: str | None = None, peer: str | None = None,
+         payload: Any = None) -> Any:
+    """Hook entry point for serving call sites; returns ``payload`` (None
+    when a fault dropped it). Disarmed: one attribute read and a return."""
+    if not _INJECTOR.armed:
+        return payload
+    return _INJECTOR.fire(site, model=model, peer=peer, payload=payload)
 
 
 def arm(specs: list[FaultSpec]) -> None:

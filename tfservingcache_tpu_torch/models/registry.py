@@ -17,6 +17,7 @@ pinned memory, ready for the host-to-device copy). bf16 leaves need no
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 from dataclasses import dataclass, field
@@ -297,6 +298,28 @@ def params_from_manifest(meta: Mapping[str, Any], blob: Any,
             node = node.setdefault(part, {})
         node[parts[-1]] = arr
     return _restore_lists(nested)
+
+
+def resident_bytes_estimate(path: str) -> int | None:
+    """Device bytes of an artifact's params once loaded (None when the
+    manifest is unreadable): the manifest's element counts times each
+    leaf's dtype size (a quantized leaf's original dtype). The assignment
+    warmer sizes its headroom check with it."""
+    try:
+        with open(os.path.join(path, MODEL_JSON)) as f:
+            meta = json.load(f)
+        manifest = (meta.get("params") or {}).get("manifest")
+        if manifest is None:
+            return None
+        total = 0
+        for ent in manifest:
+            n = math.prod(ent["shape"]) if ent["shape"] else 1
+            quant = ent.get("quant")
+            dt = torch_dtype(quant["orig_dtype"] if quant else ent["dtype"])
+            total += n * torch.empty((), dtype=dt).element_size()
+        return total
+    except Exception:  # noqa: BLE001 - estimate only; callers fall back
+        return None
 
 
 def _restore_lists(tree: Any) -> Any:

@@ -24,6 +24,15 @@ class RestResponse:
     token_stream: Iterator[bytes] | None = None
 
 
+# the TF Serving gRPC services (their names need no grpcio: the router
+# builds gRPC calls from them and imports grpc only when one arrives)
+PREDICTION_SERVICE = "tensorflow.serving.PredictionService"
+MODEL_SERVICE = "tensorflow.serving.ModelService"
+SESSION_SERVICE = "tensorflow.serving.SessionService"
+# trailing-metadata key carrying a node's completed span subtree back to a
+# caller that sent a traceparent
+TRACE_SUBTREE_TRAILER = "tpusc-trace"
+
 # the gRPC status a failure answers with where its raise site names none
 _GRPC_CODE_OF_HTTP = {
     400: "INVALID_ARGUMENT", 404: "NOT_FOUND", 405: "UNIMPLEMENTED",

@@ -17,6 +17,16 @@ Every RPC is counted, timed and in-flight-gauged under ``protocol="grpc"``
 and runs in a ``grpc`` span that adopts an inbound ``traceparent``; such a
 call gets its finished span subtree back in the ``tpusc-trace`` trailer.
 Every GenerateStream frame counts in ``tpusc_gen_stream_frames{grpc}``.
+A unary call carrying the ``tpusc-status-want`` metadata gets the node's
+``NodeStatus`` in the ``tpusc-status`` trailer (``status_collector``, the
+fleet status plane). A router's backend that forwards a call re-raises the
+peer's ``grpc.RpcError``: its code and details reach the client as they are.
+
+With a conversation tier attached (``conversation_tier``, the continuous
+engine's), ``tpusc.internal.PeerTransfer/FetchParkedConversation`` streams
+a parked conversation to the node that asks for it
+(``protocol/peer_transfer.py``); the lookup leaves the tier's LRU order as
+it is, and a conversation the tier does not hold answers NOT_FOUND.
 
 The server binds with ``grpc.so_reuseport`` off, so a port another server
 holds raises at ``start`` (ROADMAP C10; the reference binds with the
@@ -34,7 +44,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import grpc
 
-from tfservingcache_tpu_torch.protocol.backend import BackendError
+from tfservingcache_tpu_torch.cluster.status import STATUS_TRAILER, STATUS_WANT_METADATA
+from tfservingcache_tpu_torch.protocol.backend import (
+    MODEL_SERVICE,
+    PREDICTION_SERVICE,
+    SESSION_SERVICE,
+    TRACE_SUBTREE_TRAILER,
+    BackendError,
+)
 from tfservingcache_tpu_torch.protocol.protos import grpc_health_pb2 as health_pb
 from tfservingcache_tpu_torch.protocol.protos import tf_serving_pb2 as sv
 from tfservingcache_tpu_torch.utils.metrics import Metrics
@@ -47,13 +64,6 @@ from tfservingcache_tpu_torch.utils.tracing import (
 
 log = logging.getLogger("tpusc_torch.grpc")
 
-# trailing-metadata key carrying this node's completed span subtree back to
-# a caller that sent a traceparent
-TRACE_SUBTREE_TRAILER = "tpusc-trace"
-
-PREDICTION_SERVICE = "tensorflow.serving.PredictionService"
-MODEL_SERVICE = "tensorflow.serving.ModelService"
-SESSION_SERVICE = "tensorflow.serving.SessionService"
 HEALTH_SERVICE = "grpc.health.v1.Health"
 
 # (service, method) -> (request class, response class), shared by the server
@@ -154,6 +164,11 @@ class GrpcServingServer:
         self.server: grpc.Server | None = None
         self._pool: ThreadPoolExecutor | None = None
         self.port: int | None = None
+        # attached by the node before start: the fleet status plane's
+        # collector (the tpusc-status trailer) and the engine's
+        # conversation tier (FetchParkedConversation)
+        self.status_collector = None
+        self.conversation_tier = None
 
     # -- handler plumbing ---------------------------------------------------
     def _observe(self, verb: str, t0: float, err, sp) -> None:
@@ -167,34 +182,51 @@ class GrpcServingServer:
         m.request_duration.labels("grpc", verb, "ok" if err is None else "error",
                                   route).observe(time.monotonic() - t0)
 
-    def _enter(self, context) -> tuple[float, object]:
+    def _enter(self, context) -> tuple[float, object, bool]:
+        """Count the call; -> (start, inbound trace context, whether the
+        caller wants this node's status)."""
         if self.metrics is not None:
             self.metrics.request_count.labels("grpc").inc()
             self.metrics.requests_in_flight.labels("grpc").inc()
         remote_ctx = None
+        want_status = False
         for key, value in context.invocation_metadata() or ():
             if key == "traceparent":
                 remote_ctx = parse_traceparent(value)
-        return time.monotonic(), remote_ctx
+            elif key == STATUS_WANT_METADATA:
+                want_status = True
+        return time.monotonic(), remote_ctx, want_status
 
     def _unary(self, fn, req_cls, resp_cls):
         verb = fn.__name__.lower().lstrip("_")  # predict / classify / ...
 
         def handler(request, context: grpc.ServicerContext):
-            t0, remote_ctx = self._enter(context)
+            t0, remote_ctx, want_status = self._enter(context)
             sp = err = resp = None
             try:
                 with remote_parent(remote_ctx), TRACER.span("grpc", method=fn.__name__) as sp:
                     resp = fn(request)
             except BackendError as e:
                 err = (_status_code(e), str(e))
+            except grpc.RpcError as e:
+                # a forwarded call's failure: the peer's code, verbatim
+                err = (e.code(), e.details() or "upstream error")
             except Exception as e:  # noqa: BLE001 - a server answers INTERNAL, keeps serving
                 log.exception("unhandled error in %s", fn.__name__)
                 err = (grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
             finally:
                 self._observe(verb, t0, err, sp)
+            # both attachments ride one set_trailing_metadata call
+            trailers = []
             if remote_ctx is not None and sp is not None:
-                context.set_trailing_metadata(((TRACE_SUBTREE_TRAILER, serialize_span(sp)),))
+                trailers.append((TRACE_SUBTREE_TRAILER, serialize_span(sp)))
+            if want_status and self.status_collector is not None:
+                # errors included: a failing answer still proves the peer up
+                blob = self.status_collector.encoded()
+                if blob:
+                    trailers.append((STATUS_TRAILER, blob))
+            if trailers:
+                context.set_trailing_metadata(tuple(trailers))
             if err is not None:
                 context.abort(*err)
             return resp
@@ -220,7 +252,7 @@ class GrpcServingServer:
         """PredictionService/GenerateStream: the backend's
         ``generate_stream`` frames; the span and the duration cover the
         whole drain (reference :307-360)."""
-        t0, remote_ctx = self._enter(context)
+        t0, remote_ctx, _want_status = self._enter(context)
         sp = err = None
         try:
             gen = getattr(self.backend, "generate_stream", None)
@@ -242,6 +274,36 @@ class GrpcServingServer:
             context.set_trailing_metadata(((TRACE_SUBTREE_TRAILER, serialize_span(sp)),))
         if err is not None:
             context.abort(*err)
+
+    def _fetch_parked_kv(self, request: bytes, context: grpc.ServicerContext):
+        """tpusc.internal.PeerTransfer/FetchParkedConversation: stream one
+        parked conversation to the peer that now serves it. NOT_FOUND = not
+        parked here (the asker prefills cold). The lookup does not touch LRU
+        order: an outbound read must not make a conversation look hot."""
+        from tfservingcache_tpu_torch.protocol.peer_transfer import (
+            PeerWireError,
+            decode_kv_request,
+            iter_kv_frames,
+        )
+
+        tier = self.conversation_tier
+        if tier is None:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, "conversation KV tier not enabled")
+        try:
+            conversation, model = decode_kv_request(request)
+        except PeerWireError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        parked, outcome = tier.get(conversation, model, touch=False)
+        if parked is None:
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"conversation {conversation} not parked for {model}")
+        try:
+            with TRACER.span("peer_kv_out", conversation=conversation, model=model,
+                             residency=outcome):
+                yield from iter_kv_frames(parked, conversation, 2 << 20)
+        except PeerWireError as e:
+            log.warning("peer KV stream of %s failed: %s", conversation, e)
+            context.abort(grpc.StatusCode.INTERNAL, str(e))
 
     def _check(self, request, context):
         return health_pb.HealthCheckResponse(status=self.health.status)
@@ -278,6 +340,19 @@ class GrpcServingServer:
             request_deserializer=sv.PredictRequest.FromString,
             response_serializer=sv.PredictResponse.SerializeToString,
         )
+        if self.conversation_tier is not None:
+            from tfservingcache_tpu_torch.protocol.peer_transfer import (
+                PEER_KV_METHOD,
+                PEER_TRANSFER_SERVICE,
+            )
+
+            per_service[PEER_TRANSFER_SERVICE] = {
+                PEER_KV_METHOD: grpc.unary_stream_rpc_method_handler(
+                    self._fetch_parked_kv,
+                    request_deserializer=lambda b: b,
+                    response_serializer=lambda b: b,
+                ),
+            }
         per_service[HEALTH_SERVICE] = {
             "Check": grpc.unary_unary_rpc_method_handler(
                 self._check,

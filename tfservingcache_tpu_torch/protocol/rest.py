@@ -8,7 +8,9 @@ The URL contract is the reference's:
     ``:generate``) or ``/metadata`` suffix; a label resolves through
     ``serving.version_labels`` (412 when unmapped);
   - no match        -> 404 ``{"Status": "Error", "Message": "Not found"}``;
-  - neither version nor label -> 400 ``{"Status": "Error", "Message": "Model version must be provided"}``;
+  - neither version nor label, on a server built with ``require_version``
+    (a router's) -> 400 ``{"Status": "Error", "Message": "Model version must be provided"}``;
+    a node's server passes the URL on and the node serves the latest version;
   - backend errors  -> their HTTP status with ``{"error": message}``.
 ``GET /healthz`` answers ``{"status": "ok"}``. A reply that carries a token
 stream (``:generate?stream=true``) goes out as ``text/event-stream`` over
@@ -22,9 +24,14 @@ Observability (reference rest.py:138-300, 381-415):
   - ``/monitoring/traces`` (``n``, ``min_ms``, ``trace_id``),
     ``/monitoring/engine`` (``n``, ``reset``, ``model``; the flight
     recorder's snapshot plus its ``dumps``) and ``/monitoring/tenants``
-    (``top``, ``dim``, ``model``, ``reset``); ``/monitoring/status`` and
-    ``/monitoring/cluster`` answer the reference's 404 bodies (no fleet
-    plane on this node);
+    (``top``, ``dim``, ``model``, ``reset``); ``/monitoring/status`` is
+    the node's ``NodeStatus`` as a dict (``status_collector``) and
+    ``/monitoring/cluster`` the router's ``FleetView`` snapshot (``fleet``),
+    each the reference's 404 body where the server has none;
+  - with ``metrics_scrape_targets`` the metrics path merges those
+    exporters' text into the node's (``utils/metrics.scrape_and_merge``);
+  - a model request carrying ``x-tpusc-status-want`` (a router's hop) gets
+    the node's encoded status in ``x-tpusc-status``, errors included;
   - ``POST /monitoring/profiler?duration_s=&label=`` captures a
     ``torch.profiler`` trace (CPU, and CUDA when a card is present) for up
     to 60 s into ``<profiler_base_dir>/<label>/`` as a Chrome trace; one
@@ -47,10 +54,11 @@ from collections.abc import Callable, Mapping
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qsl
 
+from tfservingcache_tpu_torch.cluster.status import STATUS_HEADER, STATUS_WANT_HEADER
 from tfservingcache_tpu_torch.protocol.backend import BackendError, RestResponse, ServingBackend
 from tfservingcache_tpu_torch.utils.accounting import LEDGER
 from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
-from tfservingcache_tpu_torch.utils.metrics import CONTENT_TYPE, Metrics
+from tfservingcache_tpu_torch.utils.metrics import CONTENT_TYPE, Metrics, scrape_and_merge
 from tfservingcache_tpu_torch.utils.tracing import (
     TRACER,
     parse_traceparent,
@@ -147,10 +155,23 @@ class RestServingServer:
         metrics: Metrics | None = None,
         metrics_path: str | None = None,
         profiler_base_dir: str | None = None,
+        require_version: bool = False,
+        metrics_scrape_targets: list[str] | None = None,
+        metrics_sum_counters: bool = False,
     ) -> None:
         self.backend = backend
         self.metrics = metrics
         self.metrics_path = metrics_path
+        # a router routes by name##version, so its URLs must name a version
+        # (the reference's proxy 400s without one); a node serves the latest
+        self.require_version = require_version
+        self.metrics_scrape_targets = list(metrics_scrape_targets or [])
+        self.metrics_sum_counters = bool(metrics_sum_counters)
+        # fleet status plane, attached after construction: a node's
+        # collector serves /monitoring/status and the piggyback header, a
+        # router's FleetView serves /monitoring/cluster
+        self.status_collector = None
+        self.fleet = None
         self.port: int | None = None
         self._httpd: _HTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -210,7 +231,11 @@ class RestServingServer:
             # the tenant ledger mirrors into the tpusc_tenant_* families at
             # scrape time, so the engine's hot path never touches them
             LEDGER.publish(self.metrics)
-            return RestResponse(200, self.metrics.render(), content_type=CONTENT_TYPE)
+            body = self.metrics.render()
+            if self.metrics_scrape_targets:
+                body = scrape_and_merge(body, self.metrics_scrape_targets, metrics=self.metrics,
+                                        sum_counters=self.metrics_sum_counters)
+            return RestResponse(200, body, content_type=CONTENT_TYPE)
         if path == "/healthz":
             return RestResponse(200, b'{"status": "ok"}')
         if path == "/monitoring/traces":
@@ -248,9 +273,13 @@ class RestServingServer:
                 reset=query.get("reset", "0").lower() in _ON,
             ))
         if path == "/monitoring/status":
-            return _json({"error": "status exchange not enabled on this server"}, 404)
+            if self.status_collector is None:
+                return _json({"error": "status exchange not enabled on this server"}, 404)
+            return _json(self.status_collector.collect().to_dict())
         if path == "/monitoring/cluster":
-            return _json({"error": "no fleet view on this server (router only)"}, 404)
+            if self.fleet is None:
+                return _json({"error": "no fleet view on this server (router only)"}, 404)
+            return _json(self.fleet.snapshot())
         if path == "/monitoring/profiler" and method == "POST":
             return self._capture_profile(query)
         return None
@@ -263,7 +292,7 @@ class RestServingServer:
             return self._fail(RestResponse(404, _error_body("Not found"))), None, "invalid"
         name, version, verb, label = parsed
         verb_label = verb or ("status" if method == "GET" else "invalid")
-        if version is None and label is None:  # the node serves versioned URLs only
+        if version is None and label is None and self.require_version:
             return self._fail(RestResponse(
                 400, _error_body("Model version must be provided"))), None, verb_label
         # an inbound W3C context makes the root span join the caller's trace
@@ -284,6 +313,11 @@ class RestServingServer:
                 self.metrics.request_failures.labels("rest").inc()
         if remote_ctx is not None and sp is not None:
             resp.headers[TRACE_SUBTREE_HEADER] = serialize_span(sp)
+        if self.status_collector is not None and headers.get(STATUS_WANT_HEADER):
+            # a router's hop: piggyback this node's (cached, capped) status
+            blob = self.status_collector.encoded()
+            if blob:
+                resp.headers[STATUS_HEADER] = blob
         return resp, sp, verb_label
 
     def _fail(self, resp: RestResponse) -> RestResponse:

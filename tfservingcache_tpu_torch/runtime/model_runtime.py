@@ -1518,6 +1518,14 @@ class TorchModelRuntime(BaseRuntime):
     def resident_models(self) -> list[ModelId]:
         return self._resident.keys_mru_first()
 
+    def resident_headroom(self) -> tuple[int | None, int]:
+        """(free resident-model slots, None when uncapped; free bytes of
+        ``hbm_capacity_bytes``): what the assignment warmer may fill without
+        evicting a model that serves."""
+        max_items = self._resident.max_items
+        free_slots = None if max_items is None else max(0, max_items - len(self._resident))
+        return free_slots, max(0, self.cfg.hbm_capacity_bytes - self._resident.total_bytes)
+
     def signature(self, model_id: ModelId):
         loaded = self._resident.get(model_id, touch=False)
         if loaded is None:

@@ -1,6 +1,7 @@
-"""Process wiring: build and run a cache node (counterpart of
-``tfservingcache_tpu/server.py`` for one group: one device, or with
-``mesh.chips_per_group`` > 1 one device group driven by this process).
+"""Process wiring: build and run a cache node, and a router beside it when
+``discovery.type`` is set (counterpart of ``tfservingcache_tpu/server.py``
+for one group: one device, or with ``mesh.chips_per_group`` > 1 one device
+group driven by this process).
 
 provider -> disk cache -> runtime -> cache manager -> backend -> REST and
 gRPC servers, plus the continuous generate engine when
@@ -14,10 +15,20 @@ serves REST alone and ``node.grpc_port`` stays None. Its health service
 reads the node's health, checked at start and every
 ``HEALTH_LOOP_PERIOD_S`` after (reference server.py:296-303).
 
+The node's one group is a ``ServingGroup`` (``node.groups[0]``; ``manager``,
+``backend``, ``rest``, ``grpc`` and the ports are its aliases), the ring
+member a router advertises. With ``cluster.status_exchange`` (the default)
+the group has a ``StatusCollector`` behind ``/monitoring/status`` and the
+status piggyback, named by its ``host:rest:grpc`` ident once the ports are
+bound; with a conversation tier, the gRPC server serves
+``FetchParkedConversation`` from it.
+
 ``configure_observability`` applies the config to the process-wide
 ``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
-server.py:325-348); ``cli serve`` calls it before building the node. A node
-built without it records all the same, and writes no dump.
+server.py:325-348). ``serve`` (what ``cli serve`` runs) calls it, builds and
+starts the node, then a ``cluster.router.Router`` when ``discovery.type`` is
+set, and on stop closes the router before the node. A node built without
+``configure_observability`` records all the same, and writes no dump.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from tfservingcache_tpu_torch.cache.disk_cache import ModelDiskCache
 from tfservingcache_tpu_torch.cache.manager import CacheManager
 from tfservingcache_tpu_torch.cache.providers import create_provider
+from tfservingcache_tpu_torch.cluster.status import StatusCollector
 from tfservingcache_tpu_torch.config import Config
 from tfservingcache_tpu_torch.parallel.mesh import chip_groups
 from tfservingcache_tpu_torch.protocol.local_backend import LocalServingBackend
@@ -40,6 +52,7 @@ from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
 from tfservingcache_tpu_torch.utils.accounting import LEDGER
 from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
 from tfservingcache_tpu_torch.utils.metrics import Metrics
+from tfservingcache_tpu_torch.utils.net import outbound_ip
 from tfservingcache_tpu_torch.utils.tracing import TRACER
 
 log = logging.getLogger("tpusc_torch.server")
@@ -59,6 +72,21 @@ def _grpc_server_class():
     return GrpcServingServer
 
 
+class ServingGroup:
+    """One device group's serving stack (runtime -> manager -> backend ->
+    its REST and gRPC servers): one ring member, addressed by its ports."""
+
+    def __init__(self, index: int, manager: CacheManager, backend, rest, grpc) -> None:
+        self.index = index
+        self.manager = manager
+        self.backend = backend
+        self.rest = rest
+        self.grpc = grpc
+        self.rest_port = 0
+        self.grpc_port: int | None = None
+        self.status: StatusCollector | None = None  # fleet status plane
+
+
 class CacheNode:
     """One serving host with one device or one device group: provider +
     disk cache + runtime behind a REST server and, where ``grpcio`` imports,
@@ -72,38 +100,88 @@ class CacheNode:
         self.provider = create_provider(cfg.model_provider)
         self.disk_cache = ModelDiskCache(cfg.cache.base_dir, cfg.cache.disk_capacity_bytes)
         self.runtime = runtime
-        self.manager = CacheManager(
+        manager = CacheManager(
             self.provider, self.disk_cache, runtime,
             load_timeout_s=cfg.serving.load_timeout_s, metrics=metrics,
             version_labels=cfg.serving.version_labels,
         )
         self.engine = engine
-        self.backend = LocalServingBackend(
-            self.manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
+        backend = LocalServingBackend(
+            manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
             batch_window_ms=cfg.serving.batch_window_ms,
             batch_max_size=cfg.serving.batch_max_size,
         )
-        self.rest = RestServingServer(self.backend, metrics, metrics_path=cfg.metrics.path)
-        self.rest_port = 0
+        rest = RestServingServer(backend, metrics, metrics_path=cfg.metrics.path,
+                                 metrics_scrape_targets=cfg.metrics.scrape_targets,
+                                 metrics_sum_counters=cfg.metrics.scrape_sum_counters)
         grpc_cls = _grpc_server_class()
-        self.grpc = (grpc_cls(self.backend, metrics, cfg.proxy.grpc_max_message_bytes)
-                     if grpc_cls is not None else None)
-        self.grpc_port: int | None = None
+        grpc = (grpc_cls(backend, metrics, cfg.proxy.grpc_max_message_bytes)
+                if grpc_cls is not None else None)
+        if grpc is not None and engine is not None:
+            # conversation KV migration: parked turns served to the peer
+            # that takes the conversation over
+            grpc.conversation_tier = engine.conversation_tier
+        group = ServingGroup(0, manager, backend, rest, grpc)
+        if cfg.cluster.status_exchange:
+            # named group0 until start() binds the ports
+            group.status = StatusCollector(
+                "group0", manager, metrics=metrics,
+                byte_cap=cfg.cluster.status_byte_cap,
+                max_models=cfg.cluster.status_max_models,
+                min_interval_s=cfg.cluster.status_min_interval_s,
+                max_tenants=cfg.cluster.status_max_tenants,
+            )
+            rest.status_collector = group.status
+            if grpc is not None:
+                grpc.status_collector = group.status
+        # multi-group nodes are a later slice: node_group raises for them
+        self.groups: list[ServingGroup] = [group]
         self._stop_health = threading.Event()
         self._health_thread: threading.Thread | None = None
+
+    # group-0 aliases
+    @property
+    def manager(self) -> CacheManager:
+        return self.groups[0].manager
+
+    @property
+    def backend(self) -> LocalServingBackend:
+        return self.groups[0].backend
+
+    @property
+    def rest(self) -> RestServingServer:
+        return self.groups[0].rest
+
+    @property
+    def grpc(self):
+        return self.groups[0].grpc
+
+    @property
+    def rest_port(self) -> int:
+        return self.groups[0].rest_port
+
+    @property
+    def grpc_port(self) -> int | None:
+        return self.groups[0].grpc_port
 
     def start(self, host: str = "0.0.0.0") -> int:
         """Bind the REST server (``cache_node.rest_port``) and the gRPC
         server (``cache_node.grpc_port``), 0 = ephemeral; returns the REST
         port (the gRPC one is ``grpc_port``)."""
-        self.rest_port = self.rest.start(self.cfg.cache_node.rest_port, host)
-        if self.grpc is not None:
-            self.grpc_port = self.grpc.start(self.cfg.cache_node.grpc_port, host)
-            self.grpc.set_health(self.is_healthy())
+        g = self.groups[0]
+        g.rest_port = g.rest.start(self.cfg.cache_node.rest_port, host)
+        if g.grpc is not None:
+            g.grpc_port = g.grpc.start(self.cfg.cache_node.grpc_port, host)
+            g.grpc.set_health(self.is_healthy())
             self._health_thread = threading.Thread(
                 target=self._health_loop, name="tpusc-health", daemon=True)
             self._health_thread.start()
-        return self.rest_port
+        if g.status is not None:
+            # the ring ident peers see, also without a router beside it
+            ident_host = ("127.0.0.1" if self.cfg.discovery.prefer_localhost
+                          else outbound_ip())
+            g.status.ident = f"{ident_host}:{g.rest_port}:{g.grpc_port or 0}"
+        return g.rest_port
 
     def _health_loop(self) -> None:
         while not self._stop_health.wait(HEALTH_LOOP_PERIOD_S):
@@ -148,7 +226,7 @@ def node_group(device: str | torch.device, chips_per_group: int) -> list[torch.d
     groups = chip_groups([torch.device("cuda", i) for i in range(n)], chips_per_group)
     if len(groups) > 1:
         raise RuntimeError_(
-            f"multi-group nodes: later slice (router): {n} CUDA devices form {len(groups)} "
+            f"multi-group nodes: later slice (multi-GPU): {n} CUDA devices form {len(groups)} "
             f"groups of {chips_per_group}"
         )
     return list(groups[0])
@@ -184,10 +262,6 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
     defaults to ``cuda``; a missing card raises rather than falling back).
     With ``mesh.chips_per_group`` > 1 its runtime is bound to one device
     group (``node_group``)."""
-    if cfg.metrics.scrape_targets:
-        raise ValueError(
-            "metrics.scrape_targets: the scrape-merge of sidecar exporters is not "
-            "ported yet (it comes with the router and fleet plane)")
     device = device or cfg.serving.device
     metrics = Metrics(model_labels=cfg.metrics.model_labels,
                       max_model_labels=cfg.metrics.max_model_labels)
@@ -209,3 +283,27 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
             metrics=metrics,
         )
     return CacheNode(cfg, runtime, engine, metrics)
+
+
+def serve(cfg: Config, stop: threading.Event, device: str | None = None) -> None:
+    """Run a cache node, and a router beside it when ``discovery.type`` is
+    set, until ``stop`` is set; the router closes before the node."""
+    configure_observability(cfg)
+    node = build_node(cfg, device)
+    router = None
+    try:
+        port = node.start()
+        log.info("cache node serving REST on :%d, gRPC on %s (device %s)", port,
+                 f":{node.grpc_port}" if node.grpc_port is not None else "none",
+                 node.runtime.device)
+        if cfg.discovery.type:
+            from tfservingcache_tpu_torch.cluster.router import Router
+
+            router = Router(cfg, node)
+            router.start()
+        stop.wait()
+        log.info("shutting down")
+    finally:
+        if router is not None:
+            router.close()
+        node.close()

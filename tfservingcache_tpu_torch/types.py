@@ -2,7 +2,7 @@
 
 ``ModelId`` keys every tier; ``ModelState`` is TF Serving's model version
 lifecycle (START/LOADING/AVAILABLE/UNLOADING/END), tracked in-process by the
-runtime.
+runtime; ``NodeInfo`` names a ring member by ``host:restPort:grpcPort``.
 """
 
 from __future__ import annotations
@@ -44,3 +44,22 @@ class ModelState(enum.IntEnum):
     AVAILABLE = 30
     UNLOADING = 40
     END = 50
+
+
+@dataclass
+class NodeInfo:
+    """A serving peer; its identity string (the ring member) is
+    ``host:restPort:grpcPort``."""
+
+    host: str
+    rest_port: int
+    grpc_port: int
+
+    @property
+    def ident(self) -> str:
+        return f"{self.host}:{self.rest_port}:{self.grpc_port}"
+
+    @classmethod
+    def from_ident(cls, s: str) -> "NodeInfo":
+        host, rest, grpc = s.rsplit(":", 2)
+        return cls(host=host, rest_port=int(rest), grpc_port=int(grpc))

@@ -344,6 +344,35 @@ class FlightRecorder:
         with self._lock:
             return dict(self._conversation_kv) if self._conversation_kv else None
 
+    def engine_stats(self, tail: int = 32) -> dict[str, float]:
+        """Cheap cross-model aggregate for the fleet status plane
+        (cluster/status.py): goodput over the last ``tail`` ring entries,
+        the summed current queue depth and the worst current oldest wait.
+        Builds no per-step dicts, so a status collection stays cheap."""
+        total = wasted = depth = spec_slots = accepted = 0
+        wait_ms = 0.0
+        for ring in list(self._rings.values()):
+            entries = ring.tail(tail)
+            if not entries:
+                continue
+            for e in entries:
+                total += e[4] * e[3]                     # active * chunk
+                wasted += e[9]
+                if len(e) > 15 and e[14]:
+                    spec_slots += e[4] * e[3]
+                    accepted += e[15]
+            last = entries[-1]
+            depth += last[10]
+            wait_ms = max(wait_ms, last[11])
+        return {
+            "goodput": (total - wasted) / total if total else 1.0,
+            "queue_depth": depth,
+            "oldest_wait_ms": wait_ms,
+            # emitted tokens over speculative emission capacity in the
+            # window; 0.0 when no spec round ran
+            "spec_acceptance": accepted / spec_slots if spec_slots else 0.0,
+        }
+
     def snapshot(
         self,
         tail: int = 64,

@@ -7,16 +7,24 @@ names, histogram buckets and counter ``_total`` rule, so dashboards built on
 the reference read a port node unchanged; ``render()`` writes text
 exposition format 0.0.4, as ``prometheus_client.generate_latest`` does, less
 the ``*_created`` timestamp series. A family is registered here only once
-the port fires it: the scrape-merge of sidecar exporters
-(``scrape_and_merge``) and the peer, fleet, group and host-tier families
-come with the modules that fire them.
+the port fires it (the group, host-tier, peer-fetch and fault families come
+with the modules that fire them). ``scrape_and_merge`` folds sidecar
+exporters into a node's exposition with a stdlib copy of
+``prometheus_client``'s text parser, so its output is the reference's.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import re
+import string
 import threading
-from typing import Any
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Iterator, NamedTuple
+
+log = logging.getLogger("tpusc_torch.metrics")
 
 ALL_MODELS = "all_models"
 # Cardinality-overflow bucket: once max_model_labels distinct name:version
@@ -177,6 +185,18 @@ class _Family:
             with self.lock:
                 child = self._children.setdefault(key, _Child(self))
         return child
+
+    def remove(self, *values: Any) -> None:
+        """Drop one labelled series (KeyError when it does not exist)."""
+        key = tuple(str(v) for v in values)
+        with self.lock:
+            del self._children[key]
+
+    def clear(self) -> None:
+        """Drop every labelled series."""
+        with self.lock:
+            if self.labelnames:
+                self._children.clear()
 
     def _only(self) -> _Child:
         if self.labelnames:
@@ -489,6 +509,18 @@ class Metrics:
             registry=r,
             buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
         )
+        self.assignment_warms = Counter(
+            "tpusc_assignment_warms_total",
+            "Models pre-loaded by the ring-assignment warmer",
+            registry=r,
+        )
+        # targets a scrape-merge dropped (unreachable, non-200, unparseable)
+        self.scrape_errors = Counter(
+            "tpusc_scrape_errors",
+            "Sidecar metrics targets dropped from a /metrics merge "
+            "(unreachable, non-200, or unparseable)",
+            registry=r,
+        )
         self.prefix_cache_hits = Counter(
             "tpusc_prefix_cache_hits_total",
             "generate requests that reused a cached prompt-prefix KV",
@@ -503,6 +535,37 @@ class Metrics:
             "tpusc_prefix_cache_bytes",
             "Device bytes held by cached prompt-prefix KV entries",
             registry=r,
+        )
+        # fleet status plane (cluster/status.py): this node's view of its
+        # peers; peer labels are pruned with ring membership
+        self.peer_health_score = Gauge(
+            "tpusc_peer_health_score",
+            "Composite per-peer health in [0,1] as THIS node scores it: "
+            "forward-error EWMA x latency factor x status-staleness decay "
+            "(peers below cluster.health_threshold are deprioritized in "
+            "p2c replica ordering, never hard-dropped)",
+            ["peer"], registry=r,
+        )
+        self.peer_status_age = Gauge(
+            "tpusc_peer_status_age_seconds",
+            "Seconds since this peer's last NodeStatus was received "
+            "(piggybacked on a routed hop or polled)",
+            ["peer"], registry=r,
+        )
+        self.fleet_model_replicas = Gauge(
+            "tpusc_fleet_model_replicas",
+            "Nodes currently advertising this model at this residency tier "
+            "(tier = hbm | host | disk), from the fleet status exchange",
+            ["model", "tier"], registry=r,
+        )
+        # load-adaptive replication (cluster/replication.py)
+        self.model_replicas_target = Gauge(
+            "tpusc_model_replicas_target",
+            "Per-model ring replica count N the replica controller "
+            "currently targets (grows with in-flight load toward "
+            "cluster.max_replicas_per_model, decays to the "
+            "proxy.replicas_per_model floor with hysteresis)",
+            ["model"], registry=r,
         )
         self.spec_draft_autodisabled = Counter(
             "tpusc_spec_draft_autodisabled_total",
@@ -599,3 +662,363 @@ class Metrics:
     def render(self) -> bytes:
         """Text exposition (format 0.0.4) of every family."""
         return self.registry.render()
+
+
+# -- scrape-merge of sidecar exporters ----------------------------------------
+# A copy of ``prometheus_client.parser.text_string_to_metric_families`` (the
+# text format 0.0.4 reader the reference merges with), so that the merged
+# exposition is the reference's byte for byte without the package.
+
+_METRIC_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_RESERVED_LABEL_RE = re.compile(r"^__.*$")
+_METRIC_TYPES = ("counter", "gauge", "summary", "histogram", "gaugehistogram", "unknown",
+                 "info", "stateset")
+_ESCAPES = {"\\\\": "\\", "\\n": "\n", '\\"': '"'}
+_HELP_ESCAPING_RE = re.compile(r"\\[\\n]")
+_ESCAPING_RE = re.compile(r'\\[\\n"]')
+
+
+class Sample(NamedTuple):
+    name: str
+    labels: dict
+    value: float
+    timestamp: float | None = None
+
+
+class ParsedFamily:
+    """One parsed metric family (``prometheus_client``'s ``Metric``)."""
+
+    def __init__(self, name: str, documentation: str, typ: str) -> None:
+        if not name:
+            raise ValueError("metric name cannot be empty")
+        if typ == "untyped":
+            typ = "unknown"
+        if typ not in _METRIC_TYPES:
+            raise ValueError("Invalid metric type: " + typ)
+        self.name, self.documentation, self.type = name, documentation, typ
+        self.samples: list[Sample] = []
+
+
+def _legacy_name(name: str) -> bool:
+    return bool(name) and _METRIC_NAME_RE.match(name) is not None
+
+
+def _escaped(s: str, charpos: int) -> bool:
+    n = 0
+    while charpos > n and s[charpos - 1 - n] == "\\":
+        n += 1
+    return n % 2 == 1
+
+
+def _next_unquoted_char(text: str, chs: str | None, startidx: int = 0) -> int:
+    in_quotes = False
+    if chs is None:
+        chs = string.whitespace
+    for i, c in enumerate(text[startidx:]):
+        if c == '"' and not _escaped(text, startidx + i):
+            in_quotes = not in_quotes
+        if not in_quotes and c in chs:
+            return startidx + i
+    return -1
+
+
+def _split_quoted(text: str, separator: str | None, maxsplit: int = 0) -> list[str]:
+    tokens = [""]
+    x = 0
+    while x < len(text):
+        split_pos = _next_unquoted_char(text, separator, x)
+        if split_pos == -1:
+            tokens[-1] = text[x:]
+            x = len(text)
+            continue
+        if split_pos == x:
+            x += 1
+            continue
+        if maxsplit > 0 and len(tokens) > maxsplit:
+            tokens[-1] = text[x:]
+            break
+        tokens[-1] = text[x:split_pos]
+        x = split_pos + 1
+        tokens.append("")
+    return tokens
+
+
+def _unquote_unescape(text: str) -> tuple[str, bool]:
+    if not text:
+        return text, False
+    quoted = False
+    text = text.strip()
+    if text[0] == '"':
+        if len(text) == 1 or text[-1] != '"':
+            raise ValueError("missing close quote")
+        text = text[1:-1]
+        quoted = True
+    if "\\" in text:
+        text = _ESCAPING_RE.sub(lambda m: _ESCAPES[m.group(0)], text)
+    return text, quoted
+
+
+def _next_term(text: str) -> tuple[str, str, str]:
+    if text[0] == ",":
+        text = text[1:]
+        if not text:
+            return "", "", ""
+        if text[0] == ",":
+            raise ValueError("multiple commas")
+    splitpos = _next_unquoted_char(text, "=,}")
+    if splitpos >= 0 and text[splitpos] == "=":
+        labelname = text[:splitpos]
+        text = text[splitpos + 1:]
+        splitpos = _next_unquoted_char(text, ",}")
+    else:
+        labelname = "__name__"
+    if splitpos == -1:
+        splitpos = len(text)
+    return labelname, text[:splitpos].strip(), text[splitpos:].strip()
+
+
+def _parse_labels(labels_string: str) -> dict[str, str]:
+    labels: dict[str, str] = {}
+    sub = labels_string.strip()
+    try:
+        while sub:
+            name_term, value_term, sub = _next_term(sub)
+            if not value_term:
+                continue
+            label_name, quoted_name = _unquote_unescape(name_term)
+            if not quoted_name and not _legacy_name(label_name):
+                raise ValueError("unquoted UTF-8 metric name")
+            if not value_term or value_term[0] != '"':
+                raise ValueError
+            i = 1
+            while i < len(value_term):
+                i = value_term.index('"', i)
+                if not _escaped(value_term[:i], i):
+                    break
+                i += 1
+            if i + 1 != len(value_term):
+                raise ValueError("unexpected text after quote: " + labels_string)
+            label_value, _ = _unquote_unescape(value_term)
+            if label_name != "__name__" and _RESERVED_LABEL_RE.match(label_name):
+                raise ValueError("Reserved label metric name: " + label_name)
+            if label_name in labels:
+                raise ValueError("invalid line, duplicate label name: " + labels_string)
+            labels[label_name] = label_value
+        return labels
+    except ValueError:
+        raise ValueError("Invalid labels: " + labels_string) from None
+
+
+def _parse_value(value: str) -> float:
+    if value != value.strip() or "_" in value:
+        raise ValueError(f"Invalid value: {value!r}")
+    try:
+        return int(value)
+    except ValueError:
+        return float(value)
+
+
+def _parse_value_and_timestamp(s: str) -> tuple[float, float | None]:
+    s = s.lstrip()
+    separator = " " if " " in s else "\t"
+    values = [v.strip() for v in s.split(separator) if v.strip()]
+    if not values:
+        return float(s), None
+    value = _parse_value(values[0])
+    timestamp = (_parse_value(values[-1]) / 1000) if len(values) > 1 else None
+    return value, timestamp
+
+
+def _parse_sample(text: str) -> Sample:
+    label_start = _next_unquoted_char(text, "{")
+    if label_start == -1 or " # " in text[:label_start]:
+        name_end = _next_unquoted_char(text, " \t")
+        name = text[:name_end].strip()
+        if not _legacy_name(name):
+            raise ValueError("invalid metric name:" + text)
+        return Sample(name, {}, *_parse_value_and_timestamp(text[name_end + 1:]))
+    name = text[:label_start].strip()
+    label_end = _next_unquoted_char(text[label_start:], "}") + label_start
+    labels = _parse_labels(text[label_start + 1:label_end])
+    if not name:
+        if "__name__" not in labels:
+            raise ValueError
+        name = labels.pop("__name__")
+    elif "__name__" in labels:
+        raise ValueError("metric name specified more than once")
+    return Sample(name, labels, *_parse_value_and_timestamp(text[label_end + 1:]))
+
+
+def parse_exposition(text: str) -> Iterator[ParsedFamily]:
+    """The families of a text-format exposition, as
+    ``prometheus_client.parser.text_string_to_metric_families`` yields them
+    (a counter family's name loses ``_total``; a sample no family declared
+    becomes an ``unknown`` family of its own). Raises ValueError on
+    malformed text."""
+    name, documentation, typ = "", "", "untyped"
+    samples: list[Sample] = []
+    allowed: list[str] = []
+
+    def build(name: str, documentation: str, typ: str, samples: list[Sample]) -> ParsedFamily:
+        if typ == "counter":
+            if name.endswith("_total"):
+                name = name[:-6]
+            else:
+                samples = [Sample(s[0] + "_total", *s[1:]) for s in samples]
+        fam = ParsedFamily(name, documentation, typ)
+        fam.samples = samples
+        return fam
+
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("#"):
+            parts = _split_quoted(line, None, 3)
+            if len(parts) < 2:
+                continue
+            candidate, quoted = "", False
+            if len(parts) > 2:
+                if parts[1] not in ("TYPE", "HELP"):
+                    continue
+                candidate, quoted = _unquote_unescape(parts[2])
+                if not quoted and not _legacy_name(candidate):
+                    raise ValueError
+            if parts[1] == "HELP":
+                if candidate != name:
+                    if name != "":
+                        yield build(name, documentation, typ, samples)
+                    name, typ, samples, allowed = candidate, "untyped", [], [candidate]
+                documentation = (_HELP_ESCAPING_RE.sub(lambda m: _ESCAPES[m.group(0)], parts[3])
+                                 if len(parts) == 4 else "")
+            elif parts[1] == "TYPE":
+                if len(parts) < 4:
+                    raise ValueError
+                if candidate != name:
+                    if name != "":
+                        yield build(name, documentation, typ, samples)
+                    name, documentation, samples = candidate, "", []
+                typ = parts[3]
+                allowed = [name + n for n in {
+                    "counter": [""], "gauge": [""], "summary": ["_count", "_sum", ""],
+                    "histogram": ["_count", "_sum", "_bucket"],
+                }.get(typ, [""])]
+        elif line:
+            sample = _parse_sample(line)
+            if sample.name not in allowed:
+                if name != "":
+                    yield build(name, documentation, typ, samples)
+                name, documentation, typ, samples, allowed = "", "", "untyped", [], []
+                yield build(sample[0], "", "untyped", [sample])
+            else:
+                samples.append(sample)
+    if name != "":
+        yield build(name, documentation, typ, samples)
+
+
+def _sample_line(sname: str, litems, value) -> str:
+    labels = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in litems)
+    return f"{sname}{{{labels}}} {value}" if labels else f"{sname} {value}"
+
+
+def _emit_families(families, skip: set[str]) -> tuple[list[str], set[str]]:
+    """Parsed families as exposition text, less those already emitted (the
+    duplicates two exporters share would make Prometheus refuse the page)."""
+    out: list[str] = []
+    emitted: set[str] = set()
+    for fam in families:
+        if fam.name in skip:
+            continue
+        emitted.add(fam.name)
+        out.append(f"# HELP {fam.name} {_escape_help(fam.documentation)}")
+        out.append(f"# TYPE {fam.name} {fam.type}")
+        for s in fam.samples:
+            out.append(_sample_line(s.name, sorted(s.labels.items()), s.value))
+    return out, emitted
+
+
+def _merge_summed(texts: list[str], on_error) -> bytes:
+    """Series-level merge: one HELP/TYPE a family, counter samples with one
+    label set summed across the sources, other samples from the first
+    source (own first)."""
+    fams: dict[str, dict] = {}
+    for text in texts:
+        try:
+            parsed = list(parse_exposition(text))
+        except ValueError as e:
+            on_error(e)
+            continue
+        for fam in parsed:
+            ent = fams.setdefault(fam.name, {"doc": fam.documentation, "type": fam.type,
+                                             "samples": {}})
+            for s in fam.samples:
+                key = (s.name, tuple(sorted(s.labels.items())))
+                cur = ent["samples"].get(key)
+                if cur is None:
+                    ent["samples"][key] = s.value
+                elif ent["type"] == "counter" and not s.name.endswith("_created"):
+                    ent["samples"][key] = cur + s.value
+    out: list[str] = []
+    for name, ent in fams.items():
+        # the parser strips a counter's _total; written back so that a
+        # reader pairs the _total samples with their family again
+        ename = name
+        if ent["type"] == "counter" and all(
+                sname.endswith(("_total", "_created")) for sname, _ in ent["samples"]):
+            ename = name + "_total"
+        out.append(f"# HELP {ename} {_escape_help(ent['doc'])}")
+        out.append(f"# TYPE {ename} {ent['type']}")
+        for (sname, litems), value in ent["samples"].items():
+            out.append(_sample_line(sname, litems, value))
+    return ("\n".join(out) + "\n").encode()
+
+
+def _scrape(url: str, timeout_s: float) -> str:
+    with urllib.request.urlopen(url, timeout=timeout_s) as resp:
+        if resp.status != 200:
+            raise ValueError(f"HTTP {resp.status}")
+        return resp.read().decode("utf-8", errors="replace")
+
+
+def scrape_and_merge(own: bytes, targets: list[str], timeout_s: float = 2.0,
+                     metrics: "Metrics | None" = None, sum_counters: bool = False) -> bytes:
+    """``own`` exposition with each target's merged in (the reference's
+    ``scrape_and_merge``, utils/metrics.py:677). Targets are fetched at
+    once, one thread each, within ``timeout_s``; a family already emitted
+    is dropped from later sources (own first); a target that is down,
+    answers non-200 or does not parse is skipped, logged and counted in
+    ``tpusc_scrape_errors_total``. ``sum_counters`` sums counter series
+    with equal labels across the sources instead."""
+    if not targets:
+        return own
+
+    def fail(what: str, e: Exception) -> None:
+        log.warning("metrics scrape of %s failed: %s", what, e)
+        if metrics is not None:
+            metrics.scrape_errors.inc()
+
+    def fetch(url: str) -> str | None:
+        try:
+            return _scrape(url, timeout_s)
+        except Exception as e:  # noqa: BLE001 - a down sidecar degrades the merge
+            fail(url, e)
+            return None
+
+    with ThreadPoolExecutor(max_workers=len(targets),
+                            thread_name_prefix="tpusc-scrape") as pool:
+        bodies = list(pool.map(fetch, targets))
+    if sum_counters:
+        return _merge_summed([own.decode()] + [b for b in bodies if b is not None],
+                             lambda e: fail("a merge source", e))
+    seen = {f.name for f in parse_exposition(own.decode())}
+    parts = [own.rstrip(b"\n")]
+    for url, body in zip(targets, bodies):
+        if body is None:
+            continue
+        try:
+            lines, emitted = _emit_families(parse_exposition(body), seen)
+        except ValueError as e:
+            fail(url, e)
+            continue
+        seen |= emitted
+        if lines:
+            parts.append("\n".join(lines).encode())
+    return b"\n".join(parts) + b"\n"

@@ -320,6 +320,20 @@ class Tracer:
         if sp is not None:
             (sp.root or sp).attrs.update(attrs)
 
+    def attach_remote(self, parent: Span, payload: str | bytes, **attrs: Any) -> Span | None:
+        """Graft a peer's serialized finished subtree under ``parent`` (a
+        router's ``route`` span), which stitches the two nodes' traces into
+        one; None for a payload that does not decode."""
+        sp = deserialize_span(payload)
+        if sp is None:
+            return None
+        sp.remote = True
+        if not sp.trace_id:
+            sp.trace_id = parent.trace_id
+        sp.attrs.update(attrs)
+        parent.children.append(sp)
+        return sp
+
     def query(
         self,
         n: int = 50,
