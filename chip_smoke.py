@@ -75,7 +75,27 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      and ``google.protobuf`` import, the same requests go over Predict
      (``version_label``), GenerateStream, Regress and Classify and must equal
      the REST replies; elsewhere one line says that gRPC was not driven;
-  8. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
+  8. tier — the pipelined cold load and the host RAM tier on the serve
+     phase's disk cache, with the artifact and its exact copy ``copy``: both
+     loaded with ``cold_load_pipeline: false`` (``copy`` fetched into the
+     disk cache), then pipelined, each load's stages and page-locked memory
+     printed; then a pipelined node whose device holds one model and whose
+     ``cache.host_tier_bytes`` holds both runs llama7b, copy (disk loads,
+     each evicting the other to the tier), llama7b, copy (promotions), a
+     (1, 128) ``:predict`` a step: ``tpusc_reload_source`` must count disk 2
+     and host 2 and nothing else, each promoted reply must be its disk
+     load's byte for byte and pass the serve phase's logits check, and the
+     flash kernel's launches must be n_layers x 6 (4 requests + the disk
+     loads' 2 warm-up forwards; a promotion runs none). Printed beside the
+     card's name and power limit: every load's stages, the copies' GB/s,
+     the overlap ratio, the page-locked staging and peaks (the caching host
+     allocator's and the tier chunks'). Then half_plus_two and two mnist_cnn
+     tenants through a tier of their own (store 3, host 3; promoted replies
+     their first loads' byte for byte), and ``copy`` promoted three times
+     and loaded from disk once while llama7b (4, 2048) ``:predict`` runs
+     back to back on a client thread: every reply of both models must be
+     its quiet run's byte for byte;
+  9. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -121,7 +141,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      = n_layers x plain decode steps + draft layers x (spec + 1) x spec
      rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
      also counted from the prompts) and stay 0 on the solo paths;
-  9. observe — the observability layer on a served continuous node (the
+  10. observe — the observability layer on a served continuous node (the
      shared disk cache of arms (l)-(o)), configured as ``cli serve``
      configures it (``server.configure_observability``): after a warm-up,
      the recorder and the ledger are reset, then arm (a)'s schedule (16
@@ -139,7 +159,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
      the trace is deleted after the check. The burst's tok/s is printed
      beside arm (a)'s;
-  10. cluster — the router and cluster plane: three continuous paged nodes
+  11. cluster — the router and cluster plane: three continuous paged nodes
      on the card, each with a ``Router`` over static discovery (ports 0,
      127.0.0.1). (A) one replica a key: 6 warm (1, 128) ``:predict`` through
      every router, each reply byte for byte the ring owner's direct reply and
@@ -156,7 +176,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      third node's router all answered by the second replica, the closed
      peer's health in ``/monitoring/cluster`` below the threshold, rendered
      by tools/fleet_top.py;
-  11. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  12. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -339,6 +359,19 @@ BATCH_GEN_NEW_TOKENS = 32
 # shards: 1024 rows a shard) as a past block, the diagonal and a future
 # block; GQA (which the kernel takes though the ring's build does not);
 # ragged lengths down to 1; f32
+# tier phase: the serve artifact and its exact copy through one resident
+# model's budget and a host tier that holds both
+TIER_SHAPE = (1, 128)
+TIER_SCHEDULE = (("llama7b", "disk"), ("copy", "disk"), ("llama7b", "host"), ("copy", "host"))
+# small models through the tier: half_plus_two and two mnist_cnn tenants
+# (the surface phase's artifacts), whose chunks of a few bytes to a few MiB
+# lie beside each other in host memory
+TIER_SMALL = ("hpt", "mnist0", "mnist1")
+# loads of ``copy`` while another model serves: llama7b (TIER_BUSY_SHAPE)
+# :predict back to back on a client thread
+TIER_BUSY_SHAPE = (4, 2048)
+TIER_BUSY_LOADS = ("host", "host", "disk", "host")
+
 CARRY_MAIN = (1, 32, 32, 1024, 1024, 128)
 CARRY_HOPS = [
     (*CARRY_MAIN, "bfloat16", -1024),
@@ -1654,6 +1687,24 @@ SURFACE_NEW_TOKENS = 32
 SURFACE_TOL = 2.0**-7      # mnist scores against the plain forward (tests/test_torch_families.py)
 
 
+def _mnist_plain(art: Artifact, tenant: str, images):
+    """The mnist tenant's class probabilities by its plain forward on the
+    card (the artifact's weights, no serving path), float64."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.models import registry
+
+    model_def, params = registry.load_artifact(os.path.join(art.store, tenant, "1"))
+    module = model_def.make_module({k: {n: t.cuda() for n, t in v.items()}
+                                    for k, v in params.items()}).eval()
+    with torch.inference_mode():
+        logits = module({"image": torch.from_numpy(images).cuda()})["logits"]
+    logits = logits.double().cpu().numpy()
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
 def phase_surface(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
     """The serving surface of BASELINE.json configs #1 and #2 and the LM on
     the serve phase's disk cache: half_plus_two ``:predict`` / ``:regress``
@@ -1669,7 +1720,6 @@ def phase_surface(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> No
     Predict, Classify, Regress and GenerateStream and must answer as REST
     did. B2's and B1's launches are read over the phase's requests."""
     import numpy as np
-    import torch
 
     from tfservingcache_tpu_torch.config import config_from_dict
     from tfservingcache_tpu_torch.models import registry
@@ -1797,16 +1847,7 @@ def phase_surface(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> No
         images = rng.random((SURFACE_IMAGES, 28, 28, 1), dtype=np.float32)
         body = json.dumps({"examples": [{"image": img.reshape(-1).tolist()}
                                         for img in images]}).encode()
-        plain = {}
-        for tenant in tenants:
-            model_def, params = registry.load_artifact(os.path.join(art.store, tenant, "1"))
-            module = model_def.make_module({k: {n: t.cuda() for n, t in v.items()}
-                                            for k, v in params.items()}).eval()
-            with torch.inference_mode():
-                logits = module({"image": torch.from_numpy(images).cuda()})["logits"]
-            logits = logits.double().cpu().numpy()
-            e = np.exp(logits - logits.max(-1, keepdims=True))
-            plain[tenant] = e / e.sum(-1, keepdims=True)
+        plain = {tenant: _mnist_plain(art, tenant, images) for tenant in tenants}
 
         def reloads() -> tuple[float, float, float, float]:
             return (m.reload_source.labels("store").value, m.reload_source.labels("disk").value,
@@ -1974,6 +2015,379 @@ def _surface_grpc_mnist(node, tenant, images, rest_body, mbase) -> None:
     if status != 200 or got != rest:
         raise AssertionError(f"[surface] gRPC Classify differs from REST ({status})")
     log(f"  [surface] gRPC Classify of {tenant} ({len(images)} images) equal to REST :classify")
+
+
+def _load_spans(traces: list) -> list:
+    """The ``load`` spans of ``TRACER.query`` traces, oldest first."""
+    spans = []
+
+    def walk(d):
+        if d["name"] == "load":
+            spans.append(d)
+        for c in d.get("children", ()):
+            walk(c)
+
+    for trace in reversed(traces):  # query answers newest first
+        walk(trace)
+    return spans
+
+
+def _stage_ms(load: dict) -> dict:
+    return {c["name"]: c["duration_s"] * 1e3 for c in load.get("children", ())}
+
+
+def _reset_pinned() -> None:
+    import torch
+
+    from tfservingcache_tpu_torch.runtime.model_runtime import locked_chunk_bytes
+
+    torch.cuda.reset_peak_host_memory_stats()
+    locked_chunk_bytes(reset_peak=True)
+
+
+def _pinned_peak() -> str:
+    """Page-locked host memory since the last ``_reset_pinned``: the caching
+    host allocator's peaks (``torch.cuda.host_memory_stats``: the staging
+    buffers, a serialized load's artifact) and the host tier's chunks,
+    which ``cudaHostRegister`` locks outside that allocator."""
+    import torch
+
+    from tfservingcache_tpu_torch.runtime.model_runtime import locked_chunk_bytes
+
+    stats = torch.cuda.host_memory_stats()
+    got = {k: int(v) for k, v in stats.items() if k in ("allocated_bytes.peak", "active_bytes.peak")}
+    alloc = ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in got.items()) or "not reported"
+    now, peak = locked_chunk_bytes()
+    return (f"caching host allocator {alloc}; tier chunks (cudaHostRegister) peak "
+            f"{peak / 2**20:.1f} MiB, now {now / 2**20:.1f} MiB")
+
+
+def phase_tier(art: Artifact, seed: int, kernels: dict) -> None:
+    """The pipelined cold load and the host RAM tier on the serve phase's
+    disk cache, with the artifact and its exact copy ``copy``. A node with
+    ``cold_load_pipeline: false`` loads both first (``copy`` is fetched into
+    the disk cache there), then a pipelined node without a tier. Then a pipelined
+    node whose device holds one of the two models (``max_concurrent_models``
+    1) and whose ``cache.host_tier_bytes`` holds both runs TIER_SCHEDULE, a
+    (1, 128) ``:predict`` a step: llama7b and copy from disk (each load
+    retains its packed chunks, and each evicts the other to the tier), then
+    both promoted from host RAM. ``tpusc_reload_source`` must count disk 2
+    and host 2 and nothing else; each promoted model's reply must be its
+    disk load's byte for byte (so its logits are equal) and pass the serve
+    phase's logits check; B2's launches over the schedule must be n_layers
+    x (4 requests + 2 warm-up forwards of the disk loads; a promotion runs
+    none). Printed: each load's time by stage, the copies' rate, the
+    overlap ratio and the page-locked memory each load held. Then the small
+    models (``_tier_small_models``) and the loads beside a serving model
+    (``_tier_busy_loads``)."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+    ids = np.random.default_rng(seed + 18).integers(0, art.vocab, size=TIER_SHAPE,
+                                                       dtype=np.int64)
+    body = json.dumps({"instances": ids.tolist()}).encode()
+    names = [name for name, _tier in TIER_SCHEDULE[:2]]
+    log(nvidia_smi_line())
+
+    # cold loads without the tier: serialized (the whole artifact
+    # page-locked, every leaf copied out of it), then pipelined (page-locked
+    # staging buffers only)
+    untiered = {}
+    for arm, pipeline in (("serialized", False), ("pipelined", True)):
+        node = build_node(config_from_dict(art.node_config(
+            "serve", max_concurrent_models=1, cold_load_pipeline=pipeline)), device="cuda")
+        try:
+            base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+            for name in names:
+                TRACER.clear()
+                _reset_pinned()
+                status, raw, _dt = _post_raw(f"{base}/{name}/versions/1:predict", body)
+                if status != 200:
+                    raise AssertionError(f"{arm} :predict of {name} answered {status}: {raw!r}")
+                (load,) = _load_spans(TRACER.query(n=8))
+                untiered[arm, name] = load
+                attrs = next(c for c in load["children"]
+                             if c["name"] == "device_transfer").get("attrs", {})
+                log(f"{arm} cold load of {name} (no tier): {load['duration_s'] * 1e3:.1f} ms = "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in _stage_ms(load).items())
+                    + f" ms; page-locked staging {attrs.get('staging_bytes', 0) / 2**20:.1f} "
+                    f"MiB; page-locked: {_pinned_peak()} (the artifact is "
+                    f"{art.nbytes / 2**20:.1f} MiB)")
+        finally:
+            node.close()
+
+    raw_cfg = art.node_config("serve", max_concurrent_models=1)
+    raw_cfg["cache"]["host_tier_bytes"] = 3 * art.nbytes
+    node = build_node(config_from_dict(raw_cfg), device="cuda")
+    try:
+        if not (node.runtime.cold_pipeline_enabled and node.runtime.host_tier_enabled):
+            raise AssertionError("the tier node neither pipelines nor has a host tier")
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        TRACER.clear()
+        replies, peaks = [], []
+        # --- the main path: counters to 0, the schedule, counters read -----
+        A.FLASH_LAUNCHES.reset()
+        for name, _tier in TIER_SCHEDULE:
+            _reset_pinned()
+            status, raw, dt = _post_raw(f"{base}/{name}/versions/1:predict", body)
+            peaks.append(_pinned_peak())
+            replies.append((status, raw, dt))
+        launches = A.FLASH_LAUNCHES.value
+        # -------------------------------------------------------------------
+        node.runtime.drain_demotions()
+        counts = {t: node.metrics.reload_source.labels(t).value
+                  for t in ("hbm", "host", "disk", "store", "peer")}
+        log(f"tpusc_reload_source over the schedule: {counts}")
+        if counts != {"hbm": 0.0, "host": 2.0, "disk": 2.0, "store": 0.0, "peer": 0.0}:
+            raise AssertionError(f"reload sources {counts} != disk 2, host 2")
+        loads = _load_spans(TRACER.query(n=16))
+        tiers = [ld["attrs"]["tier"] for ld in loads]
+        if tiers != [t for _n, t in TIER_SCHEDULE]:
+            raise AssertionError(f"load tiers {tiers} != the schedule's")
+        expected = art.layers * (len(TIER_SCHEDULE) + 2)
+        log(f"flash_attention launches over the schedule: {launches} (n_layers {art.layers} x "
+            f"({len(TIER_SCHEDULE)} requests + 2 warm-up forwards of the disk loads) = "
+            f"{expected})")
+        if launches != expected:
+            raise AssertionError(f"kernel launch count {launches} != {expected}")
+        kernels["flash_attention"]["launches_tier_phase"] = launches
+        first = {}
+        for (name, tier), (status, raw, dt), load, peak in zip(TIER_SCHEDULE, replies, loads,
+                                                                 peaks):
+            if status != 200:
+                raise AssertionError(f":predict of {name} ({tier}) answered {status}: {raw!r}")
+            pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+            if pred.shape != (1, art.vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"{name} ({tier}): predictions {pred.shape}")
+            st = _stage_ms(load)
+            transfer = next(c for c in load["children"] if c["name"] == "device_transfer")
+            attrs = transfer["attrs"]
+            copy_s = (st["device_transfer"] + st["transfer_sync"]) / 1e3
+            log(f"{tier} load of {name}: {load['duration_s'] * 1e3:.1f} ms = " + ", ".join(
+                f"{k} {v:.1f}" for k, v in st.items()) + f" ms; {attrs['bytes']} bytes in "
+                f"{attrs['chunks']} chunks copied at {attrs['bytes'] / copy_s / 1e9:.2f} GB/s "
+                f"(device_transfer + transfer_sync); overlap ratio "
+                f"{load['attrs'].get('cold_overlap_ratio', 'n/a')}; page-locked staging "
+                f"{attrs.get('staging_bytes', 0) / 2**20:.1f} MiB; page-locked: {peak}; "
+                f"request {dt * 1e3:.1f} ms")
+            if tier == "disk":
+                first[name] = (raw, pred)
+                _check_logits(art.plain_model, TIER_SHAPE, ids, pred)
+                continue
+            want_raw, want_pred = first[name]
+            if raw != want_raw or not np.array_equal(pred, want_pred):
+                raise AssertionError(f"{name}: the promoted model's reply differs from its "
+                                     "disk load's")
+            _check_logits(art.plain_model, TIER_SHAPE, ids, pred)
+            log(f"  {name} promoted: reply byte for byte its disk load's")
+        for name in names:
+            tiered = next(ld for ld, (n, _t) in zip(loads, TIER_SCHEDULE) if n == name)
+            log(f"cold load of {name}: serialized "
+                f"{untiered['serialized', name]['duration_s'] * 1e3:.1f} ms, pipelined "
+                f"{untiered['pipelined', name]['duration_s'] * 1e3:.1f} ms, pipelined with the "
+                f"tier's capture {tiered['duration_s'] * 1e3:.1f} ms (one call, one card; "
+                "the artifact read from a warm page cache)")
+        log(f"host tier: {node.runtime._host_tier.total_bytes} bytes page-locked for "
+            f"{len(node.runtime._host_tier)} models")
+    finally:
+        node.close()
+    _tier_small_models(art, seed)
+    _tier_busy_loads(art, seed, body)
+
+
+def _tier_small_models(art: Artifact, seed: int) -> None:
+    """TIER_SMALL through the tier on a node of their own (a disk cache of
+    its own, so each first load is a store fetch) that holds one model on
+    the device and all three in host RAM: each loaded, then each promoted.
+    ``tpusc_reload_source`` must count store 3 and host 3 and nothing else
+    (a chunk that failed to page-lock would leave its model out of the
+    tier, and its second load would come from disk); every promoted reply
+    must be its first load's byte for byte, half_plus_two exactly 0.5 x +
+    2 and the mnist scores within SURFACE_TOL of the plain forward."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.server import build_node
+
+    if not os.path.isdir(os.path.join(art.store, "hpt")):
+        registry.export_artifact("half_plus_two", art.store, name="hpt", version=1)
+    for i, name in enumerate(TIER_SMALL[1:]):  # the surface phase's tenants, seeds 0, 1
+        if not os.path.isdir(os.path.join(art.store, name)):
+            registry.export_artifact("mnist_cnn", art.store, name=name, version=1, seed=i)
+    rng = np.random.default_rng(seed + 181)
+    xs = rng.standard_normal(8).astype(np.float32)
+    images = rng.random((SURFACE_IMAGES, 28, 28, 1), dtype=np.float32)
+    requests = {"hpt": ("predict", json.dumps({"instances": xs.tolist()}).encode())}
+    mnist_body = json.dumps({"examples": [{"image": img.reshape(-1).tolist()}
+                                          for img in images]}).encode()
+    requests.update({name: ("classify", mnist_body) for name in TIER_SMALL[1:]})
+    cfg = art.node_config("tiersmall", max_concurrent_models=1)
+    cfg["cache"]["disk_capacity_bytes"] = 2 * sum(  # every artifact stays on disk
+        os.path.getsize(os.path.join(d, f)) for name in TIER_SMALL
+        for d, _sub, files in os.walk(os.path.join(art.store, name)) for f in files)
+    cfg["cache"]["host_tier_bytes"] = 64 << 20
+    node = build_node(config_from_dict(cfg), device="cuda")
+    try:
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        _reset_pinned()
+        replies = {}
+        for rnd in ("first", "promoted"):
+            for name in TIER_SMALL:
+                verb, body = requests[name]
+                status, raw, dt = _post_raw(f"{base}/{name}/versions/1:{verb}", body)
+                if status != 200:
+                    raise AssertionError(f"[tier small] {name} :{verb} ({rnd}) answered "
+                                         f"{status}: {raw!r}")
+                replies[rnd, name] = raw
+                log(f"  [tier small] {name} :{verb} ({rnd} load) {dt * 1e3:.1f} ms")
+        node.runtime.drain_demotions()
+        counts = {t: node.metrics.reload_source.labels(t).value
+                  for t in ("hbm", "host", "disk", "store", "peer")}
+        log(f"  [tier small] tpusc_reload_source: {counts}; page-locked: {_pinned_peak()}; "
+            f"tier {node.runtime._host_tier.total_bytes} bytes for "
+            f"{len(node.runtime._host_tier)} models")
+        if counts != {"hbm": 0.0, "host": 3.0, "disk": 0.0, "store": 3.0, "peer": 0.0}:
+            raise AssertionError(f"[tier small] reload sources {counts} != store 3, host 3")
+        for name in TIER_SMALL:
+            if replies["promoted", name] != replies["first", name]:
+                raise AssertionError(f"[tier small] {name}: the promoted reply differs from "
+                                     "its first load's")
+        pred = np.asarray(json.loads(replies["promoted", "hpt"])["predictions"], np.float32)
+        if not np.array_equal(pred, 0.5 * xs + np.float32(2.0)):
+            raise AssertionError(f"[tier small] promoted half_plus_two answered {pred}")
+        worst = 0.0
+        for name in TIER_SMALL[1:]:
+            rows = json.loads(replies["promoted", name])["results"]
+            scores = np.asarray([[sc for _l, sc in row] for row in rows])
+            worst = max(worst, float(np.abs(scores - _mnist_plain(art, name, images)).max()))
+        if not worst <= SURFACE_TOL:
+            raise AssertionError(f"[tier small] promoted mnist scores differ from the plain "
+                                 f"forward by {worst}")
+        log(f"  [tier small] promoted replies byte for byte the first loads'; half_plus_two "
+            f"exactly 0.5 x + 2; mnist scores within {worst:.3g} of the plain forward "
+            f"(tolerance {SURFACE_TOL})")
+    finally:
+        node.close()
+
+
+def _tier_busy_loads(art: Artifact, seed: int, copy_body: bytes) -> None:
+    """Loads of ``copy`` while llama7b serves. A node that holds both models
+    on the device and in host RAM answers a TIER_BUSY_SHAPE llama7b
+    ``:predict`` twice and a TIER_SHAPE ``copy`` one (the quiet replies; the
+    first llama7b reply passes the serve phase's logits check, the second
+    must equal it). Then a client thread posts the llama7b request back to
+    back while ``copy`` goes through TIER_BUSY_LOADS: unloaded to the tier
+    and promoted, or (``disk``) unloaded with its tier entry discarded and
+    loaded from the disk cache, one ``:predict`` each, every load started
+    while a llama7b request is under way. Every reply of either model must
+    be its quiet reply byte for byte: a chunk landing in device memory that
+    a forward still reads would change them. ``tpusc_reload_source`` over
+    the loads must count host 3 and disk 1."""
+    import threading
+
+    import numpy as np
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.types import ModelId
+
+    ids = np.random.default_rng(seed + 182).integers(0, art.vocab, size=TIER_BUSY_SHAPE,
+                                                        dtype=np.int64)
+    busy_body = json.dumps({"instances": ids.tolist()}).encode()
+    cfg = art.node_config("serve", max_concurrent_models=2)
+    cfg["cache"]["host_tier_bytes"] = 3 * art.nbytes
+    node = build_node(config_from_dict(cfg), device="cuda")
+    copy_id = ModelId("copy", 1)
+    try:
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        busy_url, copy_url = (f"{base}/llama7b/versions/1:predict",
+                              f"{base}/copy/versions/1:predict")
+        quiet = [_post_raw(busy_url, busy_body) for _ in range(2)]
+        quiet_copy = _post_raw(copy_url, copy_body)
+        for status, raw, _dt in (*quiet, quiet_copy):
+            if status != 200:
+                raise AssertionError(f"[tier busy] quiet :predict answered {status}: {raw!r}")
+        if quiet[0][1] != quiet[1][1]:
+            raise AssertionError("[tier busy] two quiet llama7b replies differ")
+        pred = np.asarray(json.loads(quiet[0][1])["predictions"], np.float32)
+        _check_logits(art.plain_model, TIER_BUSY_SHAPE, ids, pred)
+        node.runtime.unload(copy_id)
+        node.runtime.drain_demotions()
+        if not node.runtime.host_tier_contains(copy_id):
+            raise AssertionError("[tier busy] copy is not in the host tier after its unload")
+        m = node.metrics
+
+        def sources() -> dict:
+            return {t: m.reload_source.labels(t).value for t in ("host", "disk", "store")}
+
+        before = sources()
+        stop = threading.Event()
+        served: list = []   # (start, end, status, reply) of the llama7b requests
+        started = [0.0]     # when the request under way was posted
+
+        def client() -> None:
+            while not stop.is_set():
+                started[0] = t0 = time.monotonic()
+                status, raw, _dt = _post_raw(busy_url, busy_body)
+                served.append((t0, time.monotonic(), status, raw))
+
+        worker = threading.Thread(target=client, name="tier-busy-client", daemon=True)
+        loads = []
+        worker.start()
+        try:
+            for tier in TIER_BUSY_LOADS:
+                if tier == "disk":
+                    node.runtime.unload_and_discard(copy_id)
+                    node.runtime.drain_demotions()
+                # start the load once a llama7b request posted after the last
+                # load has been under way a few ms
+                last_end = loads[-1][2] if loads else 0.0
+                deadline = time.monotonic() + 600.0
+                while started[0] <= last_end and worker.is_alive():
+                    if time.monotonic() > deadline:
+                        raise AssertionError("[tier busy] the client posted nothing")
+                    time.sleep(0.002)
+                time.sleep(0.005)
+                t0 = time.monotonic()
+                status, raw, dt = _post_raw(copy_url, copy_body)
+                loads.append((tier, t0, time.monotonic(), status, raw))
+                node.runtime.unload(copy_id)
+                node.runtime.drain_demotions()
+            n_done = len(served)
+            while len(served) == n_done and worker.is_alive():  # one more after the last
+                time.sleep(0.002)
+        finally:
+            stop.set()
+            worker.join(timeout=900.0)
+        if worker.is_alive():
+            raise AssertionError("[tier busy] the client thread did not stop")
+        counted = {t: v - before[t] for t, v in sources().items()}
+        for tier, t0, t1, status, raw in loads:
+            overlapped = sum(1 for s0, s1, *_ in served if s0 < t1 and s1 > t0)
+            log(f"  [tier busy] {tier} load of copy + :predict {1e3 * (t1 - t0):.1f} ms beside "
+                f"{overlapped} llama7b {TIER_BUSY_SHAPE} request(s) under way")
+            if status != 200 or raw != quiet_copy[1]:
+                raise AssertionError(f"[tier busy] copy's reply after its {tier} load "
+                                     f"(status {status}) differs from its quiet reply")
+            if not overlapped:
+                raise AssertionError(f"[tier busy] no llama7b request overlapped the {tier} "
+                                     "load")
+        bad = [i for i, (_s0, _s1, status, raw) in enumerate(served)
+               if status != 200 or raw != quiet[0][1]]
+        log(f"  [tier busy] {len(served)} llama7b requests during the loads, {len(bad)} "
+            f"differing from the quiet reply; reload sources over the loads {counted}")
+        if bad:
+            raise AssertionError(f"[tier busy] llama7b replies {bad} differ from the quiet "
+                                 "reply")
+        if counted != {"host": 3.0, "disk": 1.0, "store": 0.0}:
+            raise AssertionError(f"[tier busy] reload sources {counted} != host 3, disk 1")
+    finally:
+        node.close()
 
 
 def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
@@ -3989,6 +4403,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_batch(art, args.seed, kernels)
         with Phase("surface"):
             phase_surface(art, args.seed, args.warm, kernels)
+        with Phase("tier"):
+            phase_tier(art, args.seed, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
         with Phase("observe"):

@@ -19,7 +19,10 @@ from tfservingcache_tpu.types import NodeInfo as JNodeInfo
 from tfservingcache_tpu_torch.cluster.cluster import ClusterConnection
 from tfservingcache_tpu_torch.cluster.discovery import create_discovery
 from tfservingcache_tpu_torch.cluster.discovery.base import DiscoveryService
-from tfservingcache_tpu_torch.cluster.discovery.filewatch import FileDiscoveryService
+from tfservingcache_tpu_torch.cluster.discovery.filewatch import (
+    READ_RETRIES,
+    FileDiscoveryService,
+)
 from tfservingcache_tpu_torch.cluster.discovery.static import StaticDiscoveryService
 from tfservingcache_tpu_torch.config import DiscoveryConfig
 from tfservingcache_tpu_torch.types import NodeInfo
@@ -228,6 +231,61 @@ def test_file_discovery_leaves_a_torn_members_file_alone(tmp_path):
                                                                    "127.0.0.1:1:2"})
     finally:
         d.unregister()
+
+
+def test_file_discovery_register_and_unregister_leave_a_torn_members_file_alone(tmp_path):
+    """``register`` and ``unregister`` that find the file torn, and find it
+    torn again on each re-read, write nothing: neither this node's ident
+    alone nor ``[]`` over the other members'. A registered node joins once
+    the file reads again."""
+    path = tmp_path / "members.json"
+    torn = '{"nodes": ["10.0.0.9:5:6", "127.0.0.1:1'
+    path.write_text(torn)
+    d = FileDiscoveryService(str(path), poll_interval_s=0.05)
+    q = d.subscribe()
+    try:
+        d.register(NodeInfo("127.0.0.1", 1, 2), lambda: True)
+        assert path.read_text() == torn
+        path.write_text(json.dumps({"nodes": ["10.0.0.9:5:6"]}))
+        _drain_until(q, lambda nodes: {n.ident for n in nodes} == {"10.0.0.9:5:6",
+                                                                   "127.0.0.1:1:2"})
+        wait_until(lambda: "127.0.0.1:1:2" in path.read_text(), 10.0, "the re-registration")
+        path.write_text(torn)
+    finally:
+        d.unregister()
+    assert path.read_text() == torn
+
+
+@pytest.mark.parametrize("torn_reads", [1, READ_RETRIES - 1])
+def test_file_discovery_rereads_a_torn_members_file(tmp_path, monkeypatch, torn_reads):
+    """A members file that reads torn fewer times than the retry bound is
+    read again: ``register`` adds its ident to the other members' and
+    ``unregister`` removes only its own."""
+    path = tmp_path / "members.json"
+    path.write_text(json.dumps({"nodes": ["10.0.0.9:5:6"]}))
+    d = FileDiscoveryService(str(path), poll_interval_s=3600)
+    read = d._read
+
+    def torn_then_whole():
+        left = [torn_reads]
+
+        def reading():
+            if left[0]:
+                left[0] -= 1
+                return None
+            return read()
+
+        return reading
+
+    monkeypatch.setattr("tfservingcache_tpu_torch.cluster.discovery.filewatch.READ_RETRY_S", 0)
+    try:
+        d._read = torn_then_whole()
+        d.register(NodeInfo("127.0.0.1", 1, 2), lambda: True)
+        assert json.loads(path.read_text()) == {"nodes": ["10.0.0.9:5:6", "127.0.0.1:1:2"]}
+    finally:
+        d._read = torn_then_whole()
+        d.unregister()
+    assert json.loads(path.read_text()) == {"nodes": ["10.0.0.9:5:6"]}
 
 
 def test_port_and_reference_nodes_share_one_members_file(tmp_path, loop):

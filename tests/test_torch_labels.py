@@ -14,12 +14,15 @@ transformer_lm logits, tests/test_torch_transformer_lm.py).
 The reference's REST server is aiohttp on an event loop of its own thread,
 closed with it; every port is 0. The tests share one pair of servers (a
 module fixture); a test that puts the reference's runtime behind a backend
-puts the backend's own back.
+puts the backend's own back. Both servers parse request bodies with their
+package's native parser (``same_parser``), whose error text for a malformed
+body is the same in both packages and differs from ``json.loads``'.
 """
 
 import asyncio
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from contextlib import contextmanager
@@ -31,6 +34,7 @@ from tfservingcache_tpu.cache.disk_cache import ModelDiskCache as JDiskCache
 from tfservingcache_tpu.cache.manager import CacheManager as JCacheManager
 from tfservingcache_tpu.cache.providers.disk import DiskModelProvider as JDiskProvider
 from tfservingcache_tpu.config import ServingConfig as JServingConfig
+from tfservingcache_tpu import native as jnative
 from tfservingcache_tpu.models import registry as jreg
 from tfservingcache_tpu.protocol.local_backend import LocalServingBackend as JBackend
 from tfservingcache_tpu.protocol.rest import RestServingServer as JRest
@@ -38,6 +42,7 @@ from tfservingcache_tpu.protocol.rest import parse_model_url as jparse
 from tfservingcache_tpu.runtime.model_runtime import TPUModelRuntime
 from tfservingcache_tpu.types import ModelId as JModelId
 from tfservingcache_tpu.utils.metrics import Metrics as JMetrics
+from tfservingcache_tpu_torch import native as pnative
 from tfservingcache_tpu_torch.config import config_from_dict
 from tfservingcache_tpu_torch.protocol.rest import parse_model_url
 from tfservingcache_tpu_torch.server import build_node
@@ -116,7 +121,27 @@ class RefRest:
 
 
 @pytest.fixture(scope="module")
-def served(store, tmp_path_factory):
+def same_parser():
+    """The reference's native library loaded wherever the port's is.
+
+    The JAX package builds its library with ``make`` in the package
+    directory at first use, and a process whose ``make`` finds the library
+    another process is still writing fails to open it and keeps
+    ``json.loads`` for its lifetime; that process's reference server then
+    answers a malformed body with json's text, where the port's answers
+    with the native parser's. The load is retried until the other
+    process's build has finished."""
+    if pnative.load() is None:
+        return  # neither package has its library: both use json.loads
+    deadline = time.monotonic() + 120
+    while jnative.load() is None:
+        assert time.monotonic() < deadline, "the JAX package's native library never loaded"
+        time.sleep(0.5)
+        jnative._load_attempted = False
+
+
+@pytest.fixture(scope="module")
+def served(store, tmp_path_factory, same_parser):
     with pair(store, tmp_path_factory.mktemp("served")) as trio:
         yield trio
 

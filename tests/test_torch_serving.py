@@ -250,7 +250,8 @@ def test_port_serves_without_importing_jax(tmp_path):
     ``"draft_model"`` request, a streamed answer, a conversation parked and
     resumed, chunked prefill, shared-prefix pages and the
     solo prefix cache, the batchers on a ``batch_window_ms`` node over the
-    native host tier, and a ring ``:predict`` on a node whose
+    native host tier, a model promoted from the host RAM tier, and a ring
+    ``:predict`` on a node whose
     runtime is bound to a 4-copy CPU group — and a scrape of the node's
     metrics and monitoring endpoints, in a fresh interpreter (this test
     process has JAX loaded by the harness): neither ``jax`` nor the JAX
@@ -380,6 +381,27 @@ def test_port_serves_without_importing_jax(tmp_path):
         assert isinstance(node.backend._predictor, MicroBatcher)
         assert isinstance(node.backend._generator, GenerateCoalescer)
         assert type(node.disk_cache.lru).__name__ == "NativeLRUCache"
+        node.close()
+        # the host tier: one resident model, so the third request promotes
+        # "lm" from its packed chunks (a pipelined load retained them)
+        cfg = config_from_dict({{"serving": {{"max_concurrent_models": 1}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_tier")!r},
+                                          "host_tier_bytes": 1 << 26}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        port = node.start("127.0.0.1")
+        bodies = []
+        for name in ("lm", "dr", "lm"):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{port}}/v1/models/{{name}}/versions/1:predict",
+                data=json.dumps({{"instances": [[1, 2, 3]]}}).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200
+                bodies.append(resp.read())
+        assert bodies[2] == bodies[0]
+        assert node.metrics.reload_source.labels("host").value == 1
+        assert "tfservingcache_tpu_torch.cache.host_tier" in sys.modules
         node.close()
         registry.export_artifact("transformer_lm", store, name="ring",
                                  config={dict(SMALL, n_kv_heads=4, dtype="bfloat16",

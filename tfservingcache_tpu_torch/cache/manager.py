@@ -151,9 +151,9 @@ class CacheManager:
 
     def residency_warmth(self, model_id: ModelId) -> int:
         """How warm ``model_id`` is on this node: 3 = resident on the device,
-        1 = artifact on disk, 0 = cold (2, the reference's host tier, is not
-        ported). The router's equal-load tie-break reads it; it never raises
-        and never touches LRU order."""
+        2 = packed in the host tier, 1 = artifact on disk, 0 = cold. The
+        router's equal-load tie-break reads it; it never raises and never
+        touches LRU order."""
         try:
             if self.runtime.is_loaded(model_id):
                 return 3
@@ -225,6 +225,10 @@ class CacheManager:
             self.metrics.cache_fetch_duration.labels(
                 self.metrics.model_label(model_id.name, model_id.version)
             ).observe(time.monotonic() - t0)
+            # the fetch stage of the cold-stage family (the runtime's load
+            # span records the device stages)
+            self.metrics.cold_stage_seconds.labels("provider_fetch").observe(
+                time.monotonic() - t0)
         log.info("fetched %s (%d bytes) in %.2fs",
                  model_id, model.size_on_disk, time.monotonic() - t0)
         return model

@@ -9,7 +9,10 @@ back an ident of its own that a racing writer dropped, and publishes the
 membership when it changed. A poll that finds the file unreadable (another
 writer caught mid-write) skips its round rather than writing back only this
 node's idents over the others'. ``unregister`` stops the thread and removes
-this node's idents."""
+this node's idents. ``register`` and ``unregister`` re-read an unreadable
+file a few times; if it stays unreadable they leave it alone (the poll
+thread adds a registered ident once the file reads again), where the
+reference's would write this node's ident alone, or ``[]``, over it."""
 
 from __future__ import annotations
 
@@ -17,12 +20,18 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import Callable
 
 from tfservingcache_tpu_torch.cluster.discovery.base import DiscoveryService
 from tfservingcache_tpu_torch.types import NodeInfo
 
 log = logging.getLogger("tpusc_torch.discovery.file")
+
+# an unreadable file is re-read this many times, this far apart, before
+# register/unregister give up their write
+READ_RETRIES = 5
+READ_RETRY_S = 0.05
 
 
 class FileDiscoveryService(DiscoveryService):
@@ -46,6 +55,17 @@ class FileDiscoveryService(DiscoveryService):
             log.warning("membership file %s unreadable: %s", self.path, e)
             return None
 
+    def _read_settled(self) -> list[str] | None:
+        """``_read``, retried while another writer is caught mid-write;
+        None when the file stays unreadable."""
+        for attempt in range(READ_RETRIES):
+            if attempt:
+                time.sleep(READ_RETRY_S)
+            idents = self._read()
+            if idents is not None:
+                return idents
+        return None
+
     def _write(self, idents: list[str]) -> None:
         tmp = f"{self.path}.tmp-{os.getpid()}-{threading.get_ident()}"
         with open(tmp, "w") as f:
@@ -54,8 +74,11 @@ class FileDiscoveryService(DiscoveryService):
 
     def register(self, self_node: NodeInfo, is_healthy: Callable[[], bool]) -> None:
         self._self_idents.append(self_node.ident)
-        idents = self._read() or []
-        if self_node.ident not in idents:
+        idents = self._read_settled()
+        if idents is None:
+            log.warning("membership file %s unreadable: %s joins at the next poll",
+                        self.path, self_node.ident)
+        elif self_node.ident not in idents:
             self._write(idents + [self_node.ident])
         if self._thread is None:
             self._stop.clear()
@@ -98,9 +121,13 @@ class FileDiscoveryService(DiscoveryService):
             self._thread = None
         if self._self_idents:
             mine = set(self._self_idents)
-            idents = [i for i in self._read() or [] if i not in mine]
-            try:
-                self._write(idents)
-            except OSError as e:
-                log.warning("could not deregister from %s: %s", self.path, e)
+            idents = self._read_settled()
+            if idents is None:
+                log.warning("membership file %s unreadable: %s left in it",
+                            self.path, sorted(mine))
+            else:
+                try:
+                    self._write([i for i in idents if i not in mine])
+                except OSError as e:
+                    log.warning("could not deregister from %s: %s", self.path, e)
             self._self_idents.clear()

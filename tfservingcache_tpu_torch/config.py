@@ -31,6 +31,19 @@ class ServingConfig:
     load_timeout_s: float = 30.0
     # "cuda" (the default) or "cpu"; a missing card with "cuda" raises
     device: str = "cuda"
+    # Pipelined cold load (runtime/model_runtime.py
+    # packed_device_put_pipelined): an assembler thread packs the params
+    # into page-locked chunks of ~256 MiB while the previous chunk's copy to
+    # the device runs on a copy stream. False keeps the serialized path: the
+    # whole artifact read into page-locked memory, every leaf copied out of
+    # it, one sync. A runtime bound to a device group is always serialized.
+    # The reference's A/B setting: the serialized path is the baseline a
+    # pipelined load is measured against (chip_smoke.py's tier phase prints
+    # both), not a mode to deploy.
+    cold_load_pipeline: bool = True
+    # staging buffers the chunk assembler may run ahead of the copies (each
+    # holds one chunk: the page-locked memory of a pipelined load)
+    cold_pipeline_buffer_depth: int = 2
     # micro-batching (runtime/batcher.py): 0 (default) = off; > 0 turns on
     # MicroBatcher for :predict and GenerateCoalescer for :generate.
     # Batches form while earlier ones hold the device (no timed window), so
@@ -139,6 +152,11 @@ class CacheConfig:
 
     base_dir: str = "/tmp/tpusc_models"
     disk_capacity_bytes: int = 10 << 30
+    # Host-RAM warm tier (cache/host_tier.py): bytes of host memory that
+    # keep evicted models' packed chunks, so a re-admission replays them
+    # onto the device with no disk read and no decode. 0 = off (default).
+    # A runtime bound to a device group ignores it.
+    host_tier_bytes: int = 0
 
 
 @dataclass

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import math
+import mmap
 import os
 import threading
 from dataclasses import dataclass, field
@@ -185,6 +186,20 @@ def flatten_params(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def unflatten_params(paths: list[str], leaves: list[Any]) -> Any:
+    """The tree ``flatten_params`` flattened, from its paths and leaves."""
+    if paths == [""]:
+        return leaves[0]  # params was a single bare array
+    nested: dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = nested
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    return _restore_lists(nested)
+
+
 def _tensor_bytes(t: torch.Tensor) -> bytes:
     return t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
 
@@ -240,10 +255,14 @@ def save_artifact(dest_dir: str, model: ModelDef, params: Any,
     return dest_dir
 
 
-def load_artifact(path: str, pin_memory: bool = False) -> tuple[ModelDef, Any]:
+def load_artifact(path: str, pin_memory: bool = False,
+                  map_params: bool = False) -> tuple[ModelDef, Any]:
     """-> (ModelDef, params tree of CPU tensors). ``params.bin`` is read in
     one sequential read into one byte buffer (page-locked when
-    ``pin_memory``) and every leaf is a view into it."""
+    ``pin_memory``), or with ``map_params`` mapped privately (its pages come
+    from the page cache as they are first read, and nothing is
+    page-locked: the pipelined load's read); every leaf is a view into the
+    buffer."""
     meta_path = os.path.join(path, MODEL_JSON)
     if not os.path.exists(meta_path):
         raise ArtifactError(f"not a tpusc artifact (no {MODEL_JSON}): {path}")
@@ -258,10 +277,18 @@ def load_artifact(path: str, pin_memory: bool = False) -> tuple[ModelDef, Any]:
     if spec.get("manifest") is None or not os.path.exists(bin_path):
         raise ArtifactError(f"artifact missing params manifest or {bin_path}")
     size = os.path.getsize(bin_path)
-    blob = torch.empty(size, dtype=torch.uint8, pin_memory=pin_memory)
-    with open(bin_path, "rb") as f:
-        if f.readinto(memoryview(blob.numpy())) != size:
-            raise ArtifactError(f"short read of {bin_path}")
+    if map_params and size:
+        with open(bin_path, "rb") as f:
+            # private and writable, so that torch may view it; no write
+            # ever reaches the file
+            mapped = mmap.mmap(f.fileno(), size, flags=mmap.MAP_PRIVATE,
+                               prot=mmap.PROT_READ | mmap.PROT_WRITE)
+        blob = torch.from_numpy(np.frombuffer(mapped, dtype=np.uint8))
+    else:
+        blob = torch.empty(size, dtype=torch.uint8, pin_memory=pin_memory)
+        with open(bin_path, "rb") as f:
+            if f.readinto(memoryview(blob.numpy())) != size:
+                raise ArtifactError(f"short read of {bin_path}")
     return model, params_from_manifest(meta, blob, src=bin_path)
 
 

@@ -54,7 +54,7 @@ class BaseRuntime(abc.ABC):
     @abc.abstractmethod
     def ensure_loaded(self, model: Model) -> str | None:
         """Make ``model`` servable (idempotent); blocks until AVAILABLE or
-        raises. Returns the tier that served the call ("hbm" | "disk")."""
+        raises. Returns the tier that served the call ("hbm" | "host" | "disk")."""
 
     @abc.abstractmethod
     def is_loaded(self, model_id: ModelId) -> bool: ...

@@ -13,11 +13,16 @@ radix prefix index whose pages lanes share read-only
 ``reclaim_prefix_pages``), chunked prefill into a lane's pages
 (``slot_prefill_chunk`` / ``sample_first_token``) and conversation parking
 (``park_lane``, ``plan_conversation_resume``, ``slot_resume_prefill``).
-A load reads ``params.bin`` in one sequential read into page-locked host
-memory, copies every leaf to the device and wraps them in
-the family's ``nn.Module``; resident models live in a byte-budgeted LRU
-(capped at ``serving.max_concurrent_models``) whose eviction drops the
-module so its device memory is freed. Variable request shapes are padded to
+A cold load (``serving.cold_load_pipeline``, reference :95-:420, :1100-
+:1465) maps ``params.bin``, packs the leaves into ~256 MiB page-locked
+chunks on an assembler thread while earlier chunks copy to the device on a
+copy stream, and wraps the leaves (views into their device chunk) in the
+family's ``nn.Module``; with the knob off it reads the file into page-locked
+memory and copies every leaf out of it. Resident models live in a
+byte-budgeted LRU (capped at ``serving.max_concurrent_models``) whose
+eviction drops the module so its device memory is freed, and, with
+``cache.host_tier_bytes``, leaves the model's packed chunks in the host RAM
+tier (``cache/host_tier.py``), from which the next load promotes it. Variable request shapes are padded to
 power-of-two buckets per named axis, as in the reference, so each model sees
 O(log) distinct shapes.
 
@@ -39,8 +44,10 @@ family whose partition rules shard a weight (tensor parallelism) is refused
 on a group of more than one device.
 
 Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
-``load`` span with ``artifact_read`` and ``device_transfer`` children (the
-reference's XLA compile spans have no counterpart), a predict under
+``load`` span (``tier`` disk or host) with the reference's stage children
+(``artifact_read``, ``device_transfer``, ``transfer_sync``,
+``compile_warmup`` for the warm-up forward), which feed
+``tpusc_cold_stage_seconds{stage}`` and ``tpusc_cold_overlap_ratio``; a predict under
 ``infer`` and a solo generate under ``generate``; loads and evictions
 re-stamp ``tpusc_hbm_bytes_in_use{group}`` (``torch.cuda.memory_allocated``
 on a card, the resident parameter bytes on the CPU), its ``_peak`` twin
@@ -54,9 +61,12 @@ from __future__ import annotations
 import collections
 import logging
 import math
+import mmap
 import os
+import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -68,9 +78,16 @@ from tfservingcache_tpu_torch.cache.conversation_kv import (
     device_pages,
     host_pages,
 )
+from tfservingcache_tpu_torch.cache.host_tier import HostRamTier, PackedModelEntry
 from tfservingcache_tpu_torch.cache.lru import LRUEntry
 from tfservingcache_tpu_torch.config import ServingConfig
-from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, load_artifact
+from tfservingcache_tpu_torch.models.registry import (
+    ModelDef,
+    TensorSpec,
+    flatten_params,
+    load_artifact,
+    unflatten_params,
+)
 from tfservingcache_tpu_torch.native import make_lru_cache
 from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
@@ -117,6 +134,9 @@ def _tree_map(fn, tree: Any) -> Any:
 
 
 def tree_nbytes(tree: Any) -> int:
+    """The leaves' bytes, each leaf counted by its own elements: leaves that
+    are views into one chunk (a pipelined load's) add up to the chunk's
+    bytes once, the reference's ``tree_nbytes`` of the same artifact."""
     total = 0
 
     def add(t: torch.Tensor) -> None:
@@ -125,6 +145,386 @@ def tree_nbytes(tree: Any) -> int:
 
     _tree_map(add, tree)
     return total
+
+
+# -- packed transfer (reference :95-:420) ------------------------------------
+
+_PACK_CHUNK_BYTES = 256 << 20
+
+
+def _leaf_nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _pack_plan(arrs: list[torch.Tensor]) -> list[list[int]]:
+    """Deterministic transfer plan (reference :98): flat indices grouped per
+    dtype in order of first appearance, each group cut into chunks that
+    close once they reach ``_PACK_CHUNK_BYTES`` (a chunk ends with the leaf
+    that crosses the bound). The pipelined load, the host tier's entries
+    and the promotion all follow it, so the copies a load issues are a pure
+    function of the artifact."""
+    groups: dict[torch.dtype, list[int]] = {}
+    for i, a in enumerate(arrs):
+        groups.setdefault(a.dtype, []).append(i)
+    chunks: list[list[int]] = []
+    for idxs in groups.values():
+        chunk: list[int] = []
+        chunk_bytes = 0
+        for i in idxs:
+            chunk.append(i)
+            chunk_bytes += _leaf_nbytes(arrs[i])
+            if chunk_bytes >= _PACK_CHUNK_BYTES:
+                chunks.append(chunk)
+                chunk, chunk_bytes = [], 0
+        if chunk:
+            chunks.append(chunk)
+    return chunks
+
+
+def _flatten_for_pack(host_params: Any):
+    """-> (outer leaves, treedef, flat tensors, owner map) (reference :154):
+    the one flatten shared by the pipelined transfer and
+    ``build_packed_entry``. ``treedef`` is the leaves' paths (``registry.flatten_params``
+    order, the reference's pytree order). Every outer leaf is one flat
+    tensor of role ``plain``: the port loads no int8 artifact yet, whose
+    quantized leaves would add a ``q`` and a ``scale`` flat tensor each."""
+    pairs = flatten_params(host_params)
+    outer = [leaf for _path, leaf in pairs]
+    return outer, [path for path, _leaf in pairs], list(outer), [
+        (i, "plain") for i in range(len(outer))]
+
+
+_PAGE = mmap.PAGESIZE  # cudaHostRegister locks whole pages
+_locked_guard = threading.Lock()
+_locked = {"bytes": 0, "peak": 0}  # guarded-by: _locked_guard
+
+
+def locked_chunk_bytes(reset_peak: bool = False) -> tuple[int, int]:
+    """-> (bytes the host tier's chunks hold page-locked now, the most since
+    the last reset): ``cudaHostRegister`` memory, which
+    ``torch.cuda.host_memory_stats`` (the caching host allocator's) does
+    not count."""
+    with _locked_guard:
+        got = (_locked["bytes"], _locked["peak"])
+        if reset_peak:
+            _locked["peak"] = _locked["bytes"]
+    return got
+
+
+def _count_locked(nbytes: int) -> None:
+    with _locked_guard:
+        _locked["bytes"] += nbytes
+        _locked["peak"] = max(_locked["peak"], _locked["bytes"])
+
+
+def _unlock(cudart: Any, ptr: int, nbytes: int) -> None:
+    cudart.cudaHostUnregister(ptr)
+    _count_locked(-nbytes)
+
+
+def _page_exclusive_empty(numel: int, dtype: torch.dtype) -> tuple[torch.Tensor, int]:
+    """-> (a 1-D tensor of ``numel`` elements that starts on a page, the
+    bytes of the whole pages it spans). Those pages lie inside this one
+    allocation, so no other tensor's memory shares them: a page that an
+    earlier ``cudaHostRegister`` locked for another chunk would make this
+    chunk's lock fail."""
+    nbytes = numel * torch.empty((), dtype=dtype).element_size()
+    span = -(-nbytes // _PAGE) * _PAGE
+    raw = torch.empty(span + _PAGE, dtype=torch.uint8)
+    off = -raw.data_ptr() % _PAGE
+    return raw[off:off + nbytes].view(dtype), span
+
+
+def _page_lock(buf: torch.Tensor, span: int) -> None:
+    """Page-lock the ``span`` bytes of whole pages from ``buf``'s first
+    element (``_page_exclusive_empty``), a chunk the host tier keeps; the
+    lock goes with the tensor object.
+    ``torch.empty(pin_memory=True)`` takes blocks from PyTorch's caching host
+    allocator, which rounds each up to a power of two (a ~270 MB chunk would
+    lock 512 MiB). Locking pages a fill has already touched took ~1.1 s for
+    7 x 270 MiB against ~1.6 s for fresh ones (tools/pinned_chunk_bench.py
+    on the host of an H100 80GB HBM3 at 700 W), so a chunk is filled
+    first."""
+    cudart = torch.cuda.cudart()
+    ptr = buf.data_ptr()
+    err = int(cudart.cudaHostRegister(ptr, span, 0))
+    if err:
+        raise RuntimeError(f"cudaHostRegister of a {span}-byte chunk: cudaError {err}")
+    _count_locked(span)
+    weakref.finalize(buf, _unlock, cudart, ptr, span)
+
+
+def _packed_chunk(arrs: list[torch.Tensor], chunk: list[int], pin: bool) -> torch.Tensor:
+    """An owned 1-D host tensor holding the chunk's leaves, page-locked with
+    ``pin``: what the host tier keeps."""
+    numel, dtype = sum(arrs[i].numel() for i in chunk), arrs[chunk[0]].dtype
+    if not (pin and numel):
+        buf = torch.empty(numel, dtype=dtype)
+        _fill_chunk(buf, arrs, chunk)
+        return buf
+    buf, span = _page_exclusive_empty(numel, dtype)
+    _fill_chunk(buf, arrs, chunk)
+    _page_lock(buf, span)
+    return buf
+
+
+def _fill_chunk(buf: torch.Tensor, arrs: list[torch.Tensor], chunk: list[int]) -> None:
+    """Copy the chunk's leaves, flattened, into ``buf`` back to back."""
+    off = 0
+    for i in chunk:
+        n = arrs[i].numel()
+        buf[off:off + n].copy_(arrs[i].reshape(-1))
+        off += n
+
+
+def _chunk_views(dev: torch.Tensor, chunk: list[int],
+                 shapes: list[tuple[int, ...]]) -> list[torch.Tensor]:
+    """The chunk's leaves as views into its device buffer: the split costs
+    no copy and no second buffer."""
+    views = []
+    off = 0
+    for i in chunk:
+        n = math.prod(shapes[i])
+        views.append(dev[off:off + n].view(shapes[i]))
+        off += n
+    return views
+
+
+class _ChunkCopier:
+    """The device half of a packed transfer. Each chunk lands in a fresh
+    device buffer through ``copy_(..., non_blocking=True)`` on a dedicated
+    copy stream, ordered after the work the current stream holds when the
+    buffer is taken, so the copies queue behind each other while the calling
+    thread goes on; ``land`` returns the copy's event (what gates the reuse
+    of a staging buffer) and ``finish`` makes the device's current stream
+    wait for the last copy, returning the event to sync on. On the CPU a
+    copy is a plain ``copy_`` and there are no events."""
+
+    def __init__(self, device: torch.device, stream: Any = None) -> None:
+        self.device = device
+        self.stream = stream  # torch.cuda.Stream on a card
+
+    def land(self, buf: torch.Tensor) -> tuple[torch.Tensor, Any]:
+        dev = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+        if self.stream is None:
+            dev.copy_(buf)
+            return dev, None
+        # the block comes from the current stream's pool, which every
+        # serving thread shares: another thread's forward may have freed it
+        # with kernels that read it still queued there, so the copy waits
+        # for what that stream holds now
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            dev.copy_(buf, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        # allocated on the current stream, written on the copy stream: a
+        # load that fails midway must not free it into another allocation
+        # before the copy is done
+        dev.record_stream(self.stream)
+        return dev, ev
+
+    def drain(self) -> None:
+        """Wait for every copy issued so far (a failed transfer, before its
+        host buffers go)."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def finish(self) -> Any:
+        if self.stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(ev)
+        return ev
+
+
+def packed_device_put(host_params: Any, device: torch.device) -> Any:
+    """The serialized transfer (reference :121; the load path with
+    ``cold_load_pipeline: false``): every leaf copied with
+    ``.to(device, non_blocking=True)`` out of the artifact's one page-locked
+    buffer, the copies queued on the current stream, one sync at the end.
+    The reference packs leaves per dtype because each ``jax.device_put``
+    pays a round trip; here the leaves already sit in one pinned buffer,
+    and async copies out of it queue back to back."""
+    params = _tree_map(lambda t: t.to(device, non_blocking=True), host_params)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return params
+
+
+def packed_device_put_pipelined(
+    host_params: Any,
+    copier: _ChunkCopier,
+    buffer_depth: int = 2,
+    capture: list | None = None,
+    workers: set | None = None,
+) -> tuple[Any, Any, dict]:
+    """Pipelined packed transfer (reference :313) -> (device params, the
+    event to sync on or None, stats).
+
+    An assembler thread packs each ``_pack_plan`` chunk's leaves (read from
+    the mapped artifact) into a page-locked staging buffer and
+    hands it over through a queue bounded at ``buffer_depth``; the calling
+    thread issues the chunk's copy on the copy stream into a fresh device
+    buffer, so the assembly of chunk N+1 overlaps the copy of chunk N. There
+    are ``buffer_depth`` staging buffers, each reused only after the copy
+    that last read it is done (its event). Every copy issues from the
+    calling thread in plan order. The assembler's every put and take can be
+    abandoned (``stop``), so a failure on either side ends both.
+
+    ``capture``, when given, collects ``(chunk, buffer)`` pairs for the host
+    tier: each chunk is then assembled into a page-locked buffer of its own
+    (``_packed_chunk``), which the tier keeps, never into a staging buffer
+    that is reused.
+
+    The leaves are views into their chunk's device buffer. Page-locked host
+    memory held by the load: the staging buffers (``stats["staging_bytes"]``)
+    or the captured chunks, not the artifact. ``workers``, when given, holds
+    the assembler thread while it lives (the runtime's ``close`` joins it)."""
+    outer, treedef, arrs, owner = _flatten_for_pack(host_params)
+    if len(arrs) <= 2:
+        # leaf by leaf (reference :350); a copy even on the CPU, where the
+        # leaves would otherwise stay views into the mapped artifact
+        params = _tree_map(lambda t: t.to(copier.device, copy=True), host_params)
+        return params, None, {"chunks": 0, "bytes": sum(map(_leaf_nbytes, arrs)),
+                              "staging_bytes": 0}
+    chunks = _pack_plan(arrs)
+    shapes = [tuple(a.shape) for a in arrs]
+    sizes = [sum(_leaf_nbytes(arrs[i]) for i in chunk) for chunk in chunks]
+    pin = copier.stream is not None
+    depth = max(1, buffer_depth)
+    done = object()
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    free: queue.Queue = queue.Queue()  # staging slots the assembler may refill
+    stop = threading.Event()
+    staging: list[torch.Tensor] = []   # appended by the assembler only
+    gates: dict[int, Any] = {}         # slot -> event of the copy that read it last
+    if capture is None:
+        for slot in range(min(depth, len(chunks))):
+            free.put(slot)
+
+    def put(item) -> bool:
+        # bounded put that can always be abandoned: a failure on the
+        # consumer's side sets ``stop`` and the assembler must not block
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def take_slot() -> int | None:
+        while not stop.is_set():
+            try:
+                return free.get(timeout=0.05)
+            except queue.Empty:
+                continue
+        return None
+
+    def assemble() -> None:
+        try:
+            for chunk, nbytes in zip(chunks, sizes):
+                if capture is not None:
+                    slot = None
+                    buf = _packed_chunk(arrs, chunk, pin)
+                else:
+                    slot = take_slot()
+                    if slot is None:
+                        return
+                    if slot == len(staging):
+                        staging.append(torch.empty(max(sizes), dtype=torch.uint8,
+                                                   pin_memory=pin))
+                    gate = gates.pop(slot, None)
+                    if gate is not None:
+                        gate.synchronize()  # the copy that read it last is done
+                    buf = staging[slot][:nbytes].view(arrs[chunk[0]].dtype)
+                    _fill_chunk(buf, arrs, chunk)
+                if not put((chunk, buf, slot)):
+                    return
+                del buf
+            put(done)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+            put(e)
+
+    out: list[Any] = [None] * len(outer)
+    worker = threading.Thread(target=assemble, name="tpusc-chunk-assembler", daemon=True)
+    if workers is not None:
+        workers.add(worker)
+    worker.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            chunk, buf, slot = item
+            dev, ev = copier.land(buf)
+            if slot is not None:
+                gates[slot] = ev
+                free.put(slot)
+            if capture is not None:
+                capture.append((chunk, buf))
+            del buf
+            for i, view in zip(chunk, _chunk_views(dev, chunk, shapes)):
+                oi, _role = owner[i]
+                out[oi] = view
+    except BaseException:
+        copier.drain()  # no copy may still read a captured chunk the caller drops
+        raise
+    finally:
+        stop.set()
+        worker.join(timeout=5.0)
+        if workers is not None:
+            workers.discard(worker)
+    stats = {"chunks": len(chunks), "bytes": sum(sizes),
+             "staging_bytes": len(staging) * max(sizes) if pin else 0}
+    return unflatten_params(treedef, out), copier.finish(), stats
+
+
+def build_packed_entry(model_def: ModelDef, host_params: Any, hbm_bytes: int,
+                       captured: list | None = None, pin: bool = False) -> PackedModelEntry:
+    """A host-tier entry from a model's params (reference :511).
+
+    ``captured``, the chunk buffers a pipelined load just copied, is used as
+    it is (the load paid the assembly); otherwise the chunks are assembled
+    here from the same ``_pack_plan`` into owned buffers (page-locked with
+    ``pin``): the demotion path, where the leaves are on the device, and the
+    loads that captured nothing (a serialized load, a tree of two leaves or
+    fewer). A retained buffer is never a view into the artifact's bytes."""
+    _outer, treedef, arrs, owner = _flatten_for_pack(host_params)
+    if captured:
+        chunks = [(list(chunk), buf) for chunk, buf in captured]
+    else:
+        chunks = [(chunk, _packed_chunk(arrs, chunk, pin)) for chunk in _pack_plan(arrs)]
+    return PackedModelEntry(
+        model_def=model_def,
+        chunks=chunks,
+        owner=owner,
+        shapes=[tuple(a.shape) for a in arrs],
+        quant_dtypes={},
+        treedef=treedef,
+        make_module=model_def.make_module,
+        hbm_bytes=int(hbm_bytes),
+        nbytes=sum(_leaf_nbytes(buf) for _chunk, buf in chunks),
+        paths=list(treedef),
+    )
+
+
+def promote_packed_entry(entry: PackedModelEntry, copier: _ChunkCopier) -> tuple[Any, Any]:
+    """Replay an entry's chunks onto the device (reference :568) -> (params,
+    the event to sync on or None): the copies of the pipelined load, fed
+    straight from the retained chunks, with no disk read, no decode and no
+    assembly."""
+    out: list[Any] = [None] * len(entry.treedef)
+    for chunk, buf in entry.chunks:
+        dev, _ev = copier.land(buf)
+        for i, view in zip(chunk, _chunk_views(dev, chunk, entry.shapes)):
+            oi, _role = entry.owner[i]
+            out[oi] = view
+    return unflatten_params(entry.treedef, out), copier.finish()
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -152,6 +552,7 @@ class LoadedModel:
     model_def: ModelDef
     module: torch.nn.Module
     nbytes: int
+    params: Any = None               # the module's params tree (a demotion reads it)
 
 
 @dataclass
@@ -369,6 +770,7 @@ class TorchModelRuntime(BaseRuntime):
         device: str | torch.device | None = None,
         devices: list[str | torch.device] | None = None,
         metrics: Any = None,
+        host_tier_bytes: int = 0,
     ) -> None:
         super().__init__()
         self.cfg = cfg or ServingConfig()
@@ -407,10 +809,34 @@ class TorchModelRuntime(BaseRuntime):
         self._prefix_cache: PrefixCache | None = None
         if self.cfg.prefix_cache_bytes > 0:
             self._prefix_cache = PrefixCache(self.cfg.prefix_cache_bytes)
+        # the packed transfer's copy stream (a card only) and the chunk
+        # assemblers of loads in flight (close joins them)
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._assemblers: set[threading.Thread] = set()
+        self._closing = threading.Event()
+        # Host-RAM warm tier (cache/host_tier.py, cache.host_tier_bytes, 0 =
+        # off): the packed chunks of evicted models, so that a re-admission
+        # replays them onto the device with no disk read and no decode. A
+        # runtime bound to a device group keeps the full load path (the
+        # group's promotion is tensor-parallel work, a later slice).
+        # Demotions that must copy a model back off the device run on the
+        # demote worker, never on the evicting thread (see _on_evict).
+        self._host_tier: HostRamTier | None = None
+        self._demote_queue: queue.Queue | None = None
+        self._demote_thread: threading.Thread | None = None
+        if host_tier_bytes > 0 and self.group is None:
+            self._host_tier = HostRamTier(host_tier_bytes, metrics)
+            self._demote_queue = queue.Queue()
+            self._demote_thread = threading.Thread(
+                target=self._demote_loop, name="tpusc-demote", daemon=True)
+            self._demote_thread.start()
 
     # -- load ---------------------------------------------------------------
     def ensure_loaded(self, model: Model) -> str:
-        """-> ``"hbm"`` (already resident) or ``"disk"`` (loaded now)."""
+        """-> the tier that served this call: ``"hbm"`` (already resident),
+        ``"host"`` (promoted from the host tier) or ``"disk"`` (loaded from
+        the artifact). The cache manager counts it in
+        ``tpusc_reload_source``."""
         mid = model.identifier
         if self.is_loaded(mid):
             return "hbm"
@@ -420,8 +846,7 @@ class TorchModelRuntime(BaseRuntime):
             with lock:
                 if self.is_loaded(mid):  # singleflight: someone else finished it
                     return "hbm"
-                self._load(model)
-                return "disk"
+                return self._load(model)
         finally:
             if not self.is_loaded(mid):
                 with self._load_locks_guard:
@@ -429,20 +854,80 @@ class TorchModelRuntime(BaseRuntime):
                     if held is lock and not held.locked():
                         del self._load_locks[mid]
 
-    def _load(self, model: Model) -> None:
+    def _load(self, model: Model) -> str:
+        mid = model.identifier
+        if self._host_tier is not None:
+            entry = self._host_tier.get(mid)
+            if entry is not None:
+                try:
+                    self._promote(model, entry)
+                    return "host"
+                except Exception as e:  # noqa: BLE001 - the full path still works
+                    log.warning("host-tier promotion of %s failed (%s); "
+                                "falling back to the full load path", mid, e)
+                    self._host_tier.remove(mid)
+        self._set_state(mid, ModelState.START)
+        t0 = time.monotonic()
+        with TRACER.span("load", model=str(mid), tier="disk") as load_span:
+            self._load_traced(model, mid, t0)
+        # sum(stage) / wall (reference :1129): ~1.0 = the stages ran back to
+        # back; > 1 = stages overlapped the span's wall
+        if load_span.children and load_span.duration_s > 0:
+            ratio = sum(c.duration_s for c in load_span.children) / load_span.duration_s
+            load_span.attrs["cold_overlap_ratio"] = round(ratio, 3)
+            if self.metrics is not None:
+                self.metrics.cold_overlap_ratio.observe(ratio)
+        if self.metrics is not None:
+            for child in load_span.children:
+                self.metrics.cold_stage_seconds.labels(child.name).observe(child.duration_s)
+        self._update_gauges()
+        return "disk"
+
+    def _copier(self) -> _ChunkCopier:
+        return _ChunkCopier(self.device, self._copy_stream)
+
+    def _promote(self, model: Model, entry: PackedModelEntry) -> None:
+        """Host-tier promotion (reference :1153, its single-device branch):
+        the entry's chunks replayed onto the device through the copy path of
+        a cold load, the module built over them. No disk read, no decode, no
+        warm-up forward."""
         mid = model.identifier
         self._set_state(mid, ModelState.START)
         t0 = time.monotonic()
-        with TRACER.span("load", model=str(mid), tier="disk"):
-            self._load_traced(model, mid, t0)
+        try:
+            with TRACER.span("load", model=str(mid), tier="host"):
+                self._set_state(mid, ModelState.LOADING)
+                with TRACER.span("device_transfer", promoted=True):
+                    params, done = promote_packed_entry(entry, self._copier())
+                    TRACER.annotate(chunks=len(entry.chunks), bytes=entry.nbytes)
+                with TRACER.span("transfer_sync", pinned_by="promotion"):
+                    if done is not None:
+                        done.synchronize()
+                module = entry.make_module(params)
+                hbm = entry.hbm_bytes or tree_nbytes(params)
+                loaded = LoadedModel(entry.model_def, module.eval(), hbm, params)
+                TRACER.annotate(hbm_bytes=hbm, promoted_from="host")
+                self._resident.put(mid, hbm, loaded)
+                self._set_state(mid, ModelState.AVAILABLE)
+        except Exception as e:
+            self._set_state(mid, ModelState.END)
+            raise RuntimeError_(f"failed to promote {mid}: {e}") from e
         self._update_gauges()
+        log.info("promoted %s from the host tier in %.3fs (%d device bytes)",
+                 mid, time.monotonic() - t0, hbm)
 
     def _load_traced(self, model: Model, mid: ModelId, t0: float) -> None:
         try:
             self._set_state(mid, ModelState.LOADING)
             on_cuda = self.device.type == "cuda"
+            pipelined = self.cold_pipeline_enabled
             with TRACER.span("artifact_read"):
-                model_def, host_params = load_artifact(model.path, pin_memory=on_cuda)
+                # the serialized path copies out of one page-locked buffer;
+                # the pipelined one maps the file and pins only its staging
+                # buffers (and the chunks the tier keeps): the assembler
+                # reads the pages while earlier chunks copy
+                model_def, host_params = load_artifact(
+                    model.path, pin_memory=on_cuda and not pipelined, map_params=pipelined)
             grouped = self.group is not None and len(self.group) > 1
             if (grouped and model_def.bind_group is None
                     and _shards_weights(model_def.partition_rules)):
@@ -451,22 +936,36 @@ class TorchModelRuntime(BaseRuntime):
                     f"declares partition rules that shard its weights; this runtime's "
                     f"group has {len(self.group)} devices)"
                 )
-            # async copies out of the page-locked buffer, one sync at the end
-            with TRACER.span("device_transfer"):
-                params = _tree_map(
-                    lambda t: t.to(self.device, non_blocking=True), host_params
-                )
-                if on_cuda:
-                    torch.cuda.current_stream(self.device).synchronize()
-            del host_params
+            captured: list | None = None  # the tier's chunks, off the pipelined copy
+            if pipelined:
+                if self._host_tier is not None:
+                    captured = []
+                with TRACER.span("device_transfer", pipelined=True):
+                    params, done, stats = packed_device_put_pipelined(
+                        host_params, self._copier(),
+                        buffer_depth=self.cfg.cold_pipeline_buffer_depth,
+                        capture=captured, workers=self._assemblers)
+                    TRACER.annotate(**stats)
+                with TRACER.span("transfer_sync"):
+                    if done is not None:
+                        done.synchronize()
+            else:
+                with TRACER.span("device_transfer"):
+                    params = packed_device_put(host_params, self.device)
             if self.group is not None and model_def.bind_group is not None:
                 module = model_def.bind_group(self.group)(params)
             else:
                 module = model_def.make_module(params)
-            loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params))
+            loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params), params)
             TRACER.annotate(hbm_bytes=loaded.nbytes)
-            self._warmup(loaded)
+            with TRACER.span("compile_warmup", family=model_def.family):
+                self._warmup(loaded)
             self._resident.put(mid, loaded.nbytes, loaded)
+            # eager retain: the chunks are in hand now (captured off the
+            # pipelined copy, or packed here from the host params), so an
+            # eviction is usually an LRU touch, never a copy off the device
+            self._retain_packed(mid, model_def, host_params, loaded.nbytes, captured)
+            del host_params
             self._set_state(mid, ModelState.AVAILABLE)
         except Exception as e:
             self._set_state(mid, ModelState.END)
@@ -475,6 +974,18 @@ class TorchModelRuntime(BaseRuntime):
             "loaded %s in %.2fs (%d device bytes on %s)",
             mid, time.monotonic() - t0, loaded.nbytes, self.device,
         )
+
+    @property
+    def cold_pipeline_enabled(self) -> bool:
+        """``serving.cold_load_pipeline`` on a runtime of one device
+        (reference :1517). A runtime bound to a device group keeps the
+        serialized path."""
+        return bool(self.cfg.cold_load_pipeline) and self.group is None
+
+    def precompile_from_meta(self, meta: Mapping[str, Any]) -> None:
+        """No-op (reference :1527 starts the family's XLA compile from the
+        artifact's metadata while the params still download): a torch
+        module has no ahead-of-time compile to start."""
 
     def _warmup(self, loaded: LoadedModel) -> None:
         """One tiny forward at bucket 1 before AVAILABLE (library handles
@@ -1494,6 +2005,14 @@ class TorchModelRuntime(BaseRuntime):
         self.drop_slot_state(model_id)
         # acceptance history dies with either half of a pair
         self._spec_forget(model_id)
+        # demotion (device -> host tier): the eager retain at load makes it
+        # an LRU touch; a model whose entry was skipped or evicted from the
+        # tier meanwhile is copied back off the device by the demote worker,
+        # never here (the evicting thread may hold a load lock). The queued
+        # LoadedModel keeps the device tensors alive until the copy is done.
+        if (self._host_tier is not None and not self._closing.is_set()
+                and not self._host_tier.touch(model_id)):
+            self._demote_queue.put(("demote", model_id, entry.payload))
         # only the LRU's reference goes: an in-flight predict holding the
         # LoadedModel keeps its tensors alive until it finishes
         self._set_state(model_id, ModelState.END)
@@ -1514,6 +2033,71 @@ class TorchModelRuntime(BaseRuntime):
 
     def is_loaded(self, model_id: ModelId) -> bool:
         return self._resident.get(model_id, touch=False) is not None
+
+    # -- host-RAM warm tier (reference :3000-:3090) -------------------------
+    @property
+    def host_tier_enabled(self) -> bool:
+        return self._host_tier is not None
+
+    def host_tier_contains(self, model_id: ModelId) -> bool:
+        """Advisory residency probe (the router's warmth, the fleet status)."""
+        return self._host_tier is not None and model_id in self._host_tier
+
+    def unload_and_discard(self, model_id: ModelId) -> None:
+        """The disk tier's evict hook: drop the device residency AND the
+        host entry (tiers are inclusive downward: a host entry implies the
+        artifact is on disk). The trailing queue item runs after any
+        demotion the unload itself queued (one FIFO worker), so the discard
+        wins whatever the interleaving."""
+        self.unload(model_id)
+        if self._host_tier is not None:
+            self._host_tier.remove(model_id)
+            self._demote_queue.put(("discard", model_id, None))
+
+    def drain_demotions(self) -> None:
+        """Block until every queued demotion and discard has run."""
+        if self._demote_queue is not None:
+            self._demote_queue.join()
+
+    def _retain_packed(self, mid: ModelId, model_def: ModelDef, params: Any, hbm_bytes: int,
+                       captured: list | None = None) -> None:
+        """Put ``mid``'s packed entry in the host tier. Advisory: a failure
+        only means the model reloads the full way next time."""
+        if self._host_tier is None:
+            return
+        try:
+            entry = build_packed_entry(model_def, params, hbm_bytes, captured=captured,
+                                       pin=self.device.type == "cuda")
+            self._host_tier.put(mid, entry)
+        except Exception as e:  # noqa: BLE001 - advisory by design
+            log.warning("host-tier retain of %s skipped: %s", mid, e)
+
+    def _demote_loop(self) -> None:
+        """The demote worker: the only thread that copies models back off
+        the device, and the point that orders discards after demotions."""
+        while True:
+            item = self._demote_queue.get()
+            try:
+                if item is None:
+                    return
+                kind, mid, payload = item
+                if kind == "demote":
+                    self._demote_impl(mid, payload)
+                elif not self.is_loaded(mid):  # "discard"
+                    self._host_tier.remove(mid)
+            except Exception:  # noqa: BLE001 - the worker survives any job
+                log.exception("host-tier demotion failed")
+            finally:
+                self._demote_queue.task_done()
+
+    def _demote_impl(self, mid: ModelId, loaded: LoadedModel) -> None:
+        if self._host_tier is None or mid in self._host_tier:
+            return
+        if self.is_loaded(mid):
+            # re-admitted while queued: its load retained a fresh entry
+            return
+        # each device chunk's leaves copied back into page-locked chunks
+        self._retain_packed(mid, loaded.model_def, loaded.params, loaded.nbytes)
 
     def resident_models(self) -> list[ModelId]:
         return self._resident.keys_mru_first()
@@ -1572,6 +2156,15 @@ class TorchModelRuntime(BaseRuntime):
         self.metrics.models_resident.labels(group).set(len(self._resident))
 
     def close(self) -> None:
+        """Stop the demote worker and join it and any chunk assembler, each
+        with a deadline, then drop every resident model and state."""
+        self._closing.set()
+        if self._host_tier is not None:
+            self._host_tier.close()  # put() no-ops from here on
+            self._demote_queue.put(None)  # the worker exits after queued jobs
+            self._demote_thread.join(timeout=5.0)
+        for worker in list(self._assemblers):
+            worker.join(timeout=5.0)
         self._resident.clear()
         if self._prefix_cache is not None:
             self._prefix_cache.clear()

@@ -268,9 +268,10 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
     if cfg.mesh.chips_per_group > 1:
         runtime = TorchModelRuntime(
             cfg.serving, devices=node_group(device, cfg.mesh.chips_per_group),
-            metrics=metrics)
+            metrics=metrics, host_tier_bytes=cfg.cache.host_tier_bytes)
     else:
-        runtime = TorchModelRuntime(cfg.serving, device=device, metrics=metrics)
+        runtime = TorchModelRuntime(cfg.serving, device=device, metrics=metrics,
+                                    host_tier_bytes=cfg.cache.host_tier_bytes)
     engine = None
     if cfg.serving.generate_engine == "continuous":
         engine = ContinuousGenerateEngine(

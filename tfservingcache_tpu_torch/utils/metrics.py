@@ -7,8 +7,8 @@ names, histogram buckets and counter ``_total`` rule, so dashboards built on
 the reference read a port node unchanged; ``render()`` writes text
 exposition format 0.0.4, as ``prometheus_client.generate_latest`` does, less
 the ``*_created`` timestamp series. A family is registered here only once
-the port fires it (the group, host-tier, peer-fetch and fault families come
-with the modules that fire them). ``scrape_and_merge`` folds sidecar
+the port fires it (the group, peer-fetch and fault families come with the
+modules that fire them). ``scrape_and_merge`` folds sidecar
 exporters into a node's exposition with a stdlib copy of
 ``prometheus_client``'s text parser, so its output is the reference's.
 """
@@ -350,6 +350,18 @@ class Metrics:
             "(tier = hbm | host | disk | store | peer)",
             ["tier"], registry=r,
         )
+        # the host-RAM warm tier (cache/host_tier.py)
+        self.host_tier_bytes = Gauge(
+            "tpusc_host_tier_bytes",
+            "Host DRAM held by the warm tier's packed parameter chunks",
+            registry=r,
+        )
+        self.host_tier_bytes_peak = Gauge(
+            "tpusc_host_tier_bytes_peak",
+            "High-water warm-tier DRAM bytes since the last "
+            "/monitoring/engine scrape (reset-on-scrape)",
+            registry=r,
+        )
         # the batchers (runtime/batcher.py): how often requests coalesce and
         # how many ride each device call (kind = predict | generate)
         self.coalesced_batches = Counter(
@@ -535,6 +547,29 @@ class Metrics:
             "tpusc_prefix_cache_bytes",
             "Device bytes held by cached prompt-prefix KV entries",
             registry=r,
+        )
+        # the cold load's stages (runtime load spans + the manager's fetch)
+        self.cold_stage_seconds = Histogram(
+            "tpusc_cold_stage_seconds",
+            "Per-stage cold-load time (provider_fetch/artifact_read/"
+            "device_transfer/device_dequant/host_dequant/compile_warmup/"
+            "transfer_sync; dequant stages appear for quantized artifacts "
+            "only, so encodings stay separable): "
+            "the in-production answer to 'where do my cold seconds go' and "
+            "to the int8-vs-bf16 crossover (compare device_transfer + "
+            "device_dequant across artifact encodings on YOUR link)",
+            ["stage"], registry=r,
+            buckets=(.005, .02, .05, .1, .25, .5, 1, 2, 5, 10, 30),
+        )
+        self.cold_overlap_ratio = Histogram(
+            "tpusc_cold_overlap_ratio",
+            "Σ(per-stage seconds)/wall seconds per runtime load: ~1.0 means "
+            "the stages ran strictly back-to-back (serialized path), >1 "
+            "means the pipelined cold load overlapped them (AOT compile and "
+            "per-leaf dequant running during the transfer) — the higher, "
+            "the more of the compile the transfer hid",
+            registry=r,
+            buckets=(0.8, 0.95, 1.0, 1.1, 1.2, 1.35, 1.5, 1.75, 2.0, 2.5, 3.0, 4.0),
         )
         # fleet status plane (cluster/status.py): this node's view of its
         # peers; peer labels are pruned with ring membership
