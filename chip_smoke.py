@@ -184,7 +184,21 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      is checked against the plain single-device path; the carry kernel's
      launches must be n_layers x 16 a ring request and the flash kernel's
      n_layers a fall-through request (+ the load's warm-up forward). One
-     warm (1, 4096) forward is profiled beside the one-card "auto" model's.
+     warm (1, 4096) forward is profiled beside the one-card "auto" model's;
+  13. peer — peer model adoption over ``FetchPackedModel``: a sender node in
+     a process of its own (on the serve phase's disk cache, a host tier that
+     holds the artifact) answers a (1, 128) ``:predict``, a greedy
+     ``:generate`` and an mnist ``:classify`` once; a receiver node in this
+     process (``cluster.peer_fetch``, a Router over static discovery of
+     both) then serves (a) the artifact cold from the sender's tier:
+     ``reload_source`` peer 1 and no other load, the reply and the tokens
+     the sender's (and within the plain-path checks), flash launches =
+     n_layers (a promotion runs no warm-up), paged = n_layers x decode
+     steps; the wire's bytes and rate, the entry's rebuild, the promotion
+     and the first reply printed apart; (b) mnist with ``corrupt_peer_chunk``
+     armed once: the chunk's hash fails, the store serves it, the reply the
+     sender's; (c) mnist from a stdlib fake S3 endpoint over the artifact
+     store through ``model_provider.type: s3``, the reply the sender's.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -404,6 +418,7 @@ RING_REQUEST_SHAPES = [(1, 4096), (2, 1024), (1, 300), (1, 2)]
 RING_CHAIN = (1, 32, 32, 4096, 128)  # (B, H, Hkv, S, D) of the chained ring on one card
 # every phase runs on device 0: the last line's device count
 CARDS_USED = 1
+RUN_NOTES: dict = {}  # a number one phase keeps for a later phase's line
 
 
 def log(msg: str) -> None:
@@ -1372,6 +1387,7 @@ def phase_serve(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None
         kernels["flash_attention"]["launches"] = launches
 
         cold = [dt for *_, dt, is_cold in results if is_cold]
+        RUN_NOTES["serve_cold_ms"] = cold[0] * 1e3
         log(f"cold :predict (fetch + load + first request, shape {REQUEST_SHAPES[0]}): "
             f"{cold[0] * 1e3:.1f} ms")
         checked = set()
@@ -2017,19 +2033,19 @@ def _surface_grpc_mnist(node, tenant, images, rest_body, mbase) -> None:
     log(f"  [surface] gRPC Classify of {tenant} ({len(images)} images) equal to REST :classify")
 
 
-def _load_spans(traces: list) -> list:
-    """The ``load`` spans of ``TRACER.query`` traces, oldest first."""
-    spans = []
+def _spans_named(traces: list, name: str) -> list:
+    """Every span called ``name`` in ``TRACER.query`` traces, oldest first."""
+    found = []
 
     def walk(d):
-        if d["name"] == "load":
-            spans.append(d)
+        if d["name"] == name:
+            found.append(d)
         for c in d.get("children", ()):
             walk(c)
 
-    for trace in reversed(traces):  # query answers newest first
+    for trace in reversed(traces):
         walk(trace)
-    return spans
+    return found
 
 
 def _stage_ms(load: dict) -> dict:
@@ -2108,7 +2124,7 @@ def phase_tier(art: Artifact, seed: int, kernels: dict) -> None:
                 status, raw, _dt = _post_raw(f"{base}/{name}/versions/1:predict", body)
                 if status != 200:
                     raise AssertionError(f"{arm} :predict of {name} answered {status}: {raw!r}")
-                (load,) = _load_spans(TRACER.query(n=8))
+                (load,) = _spans_named(TRACER.query(n=8), "load")
                 untiered[arm, name] = load
                 attrs = next(c for c in load["children"]
                              if c["name"] == "device_transfer").get("attrs", {})
@@ -2144,7 +2160,7 @@ def phase_tier(art: Artifact, seed: int, kernels: dict) -> None:
         log(f"tpusc_reload_source over the schedule: {counts}")
         if counts != {"hbm": 0.0, "host": 2.0, "disk": 2.0, "store": 0.0, "peer": 0.0}:
             raise AssertionError(f"reload sources {counts} != disk 2, host 2")
-        loads = _load_spans(TRACER.query(n=16))
+        loads = _spans_named(TRACER.query(n=16), "load")
         tiers = [ld["attrs"]["tier"] for ld in loads]
         if tiers != [t for _n, t in TIER_SCHEDULE]:
             raise AssertionError(f"load tiers {tiers} != the schedule's")
@@ -4359,6 +4375,378 @@ def _cluster_grpc_predict(art, routers, owner, row) -> int:
     return launches
 
 
+PEER_SHAPE = (1, 128)            # the adopted model's cold :predict
+PEER_PROMPT = 256                # the greedy :generate's prompt tokens
+PEER_NEW_TOKENS = 32
+PEER_ARENA_BYTES = 512 << 20     # each peer node's paged arena (pages of 16 tokens)
+PEER_MNIST = "mnist0"            # arms (b) and (c): a small family
+PEER_SENDER_DEVICE = "cuda"      # where the sender process builds its node
+S3_BUCKET = "smoke"
+
+
+def _peer_sender_main(spec_path: str) -> int:
+    """The peer phase's sender in a process of its own (``--peer-sender``):
+    a port node from the JSON spec's ``config`` on its ``device``. It prints
+    its ports as one JSON line and serves until its standard input closes
+    (the parent closes it, or exits)."""
+    sys.path.insert(0, ROOT)
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.server import build_node
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    node = build_node(config_from_dict(spec["config"]), device=spec["device"])
+    try:
+        node.start("127.0.0.1")
+        print(json.dumps({"rest": node.rest_port, "grpc": node.grpc_port}), flush=True)
+        sys.stdin.read()
+    finally:
+        node.close()
+    return 0
+
+
+class _PeerSender:
+    """The sender process: started from ``raw_cfg``, its ports read from its
+    first JSON line; ``close`` ends its standard input and waits for it
+    (killed after 60 s). Its log goes to a file in the run's directory."""
+
+    def __init__(self, art: Artifact, raw_cfg: dict) -> None:
+        spec_path = os.path.join(art.work, "peer_sender.json")
+        with open(spec_path, "w") as f:
+            json.dump({"config": raw_cfg, "device": PEER_SENDER_DEVICE}, f)
+        self.log_path = os.path.join(art.work, "peer_sender.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--peer-sender", spec_path],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._log, text=True,
+            cwd=ROOT)
+        ports: list = []
+
+        def read() -> None:
+            for line in self.proc.stdout:
+                try:
+                    got = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(got, dict) and "rest" in got:
+                    ports.append(got)
+                    return
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        reader.join(600)
+        if not ports:
+            self.close()
+            raise AssertionError(f"[peer] the sender process never served: {self.tail()}")
+        self.rest, self.grpc = ports[0]["rest"], ports[0]["grpc"]
+
+    def tail(self, n: int = 3000) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.close()
+            except OSError:
+                pass
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._log.close()
+
+
+class _FakeS3:
+    """A stdlib S3 endpoint over a directory tree, on 127.0.0.1 port 0:
+    ListObjectsV2 (prefix, delimiter, max-keys; one page) and GET of
+    ``<bucket>/<relative path>``."""
+
+    def __init__(self, root: str) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qsl, unquote, urlsplit
+        from xml.sax.saxutils import escape
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                parsed = urlsplit(self.path)
+                q = dict(parse_qsl(parsed.query, keep_blank_values=True))
+                path = unquote(parsed.path).lstrip("/")
+                if not path.startswith(S3_BUCKET):
+                    self.send_error(404)
+                    return
+                key = path[len(S3_BUCKET):].lstrip("/")
+                if q.get("list-type") == "2":
+                    prefix, delim = q.get("prefix", ""), q.get("delimiter", "")
+                    keys = sorted(
+                        os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+                        for d, _sub, files in os.walk(root) for f in files)
+                    objs, prefixes = [], []
+                    for k in keys:
+                        if not k.startswith(prefix):
+                            continue
+                        rest = k[len(prefix):]
+                        if delim and delim in rest:
+                            common = prefix + rest.split(delim)[0] + delim
+                            if common not in prefixes:
+                                prefixes.append(common)
+                        else:
+                            objs.append(k)
+                    limit = int(q.get("max-keys", 0) or 0)
+                    if limit:
+                        objs = objs[:limit]
+                    body = ("<?xml version='1.0'?><ListBucketResult>" + "".join(
+                        f"<Contents><Key>{escape(k)}</Key><Size>"
+                        f"{os.path.getsize(os.path.join(root, k))}</Size></Contents>"
+                        for k in objs) + "".join(
+                        f"<CommonPrefixes><Prefix>{escape(p)}</Prefix></CommonPrefixes>"
+                        for p in prefixes) + "<IsTruncated>false</IsTruncated>"
+                        "</ListBucketResult>").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                full = os.path.join(root, *key.split("/"))
+                if not key or not os.path.isfile(full):
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Length", str(os.path.getsize(full)))
+                self.end_headers()
+                with open(full, "rb") as f:
+                    shutil.copyfileobj(f, self.wfile, 1 << 20)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(60)
+
+
+def phase_peer(art: Artifact, seed: int, kernels: dict) -> None:
+    """Peer model adoption over ``FetchPackedModel`` and an object store.
+
+    The sender is a port node in a process of its own (one interpreter for
+    three nodes held the KV wire at ~140 MB/s), on the serve phase's disk
+    cache, with a host tier that holds the artifact: it answers a (1, 128)
+    ``:predict``, a greedy ``:generate`` (PEER_PROMPT tokens, PEER_NEW_TOKENS
+    new) and an mnist ``:classify`` once, and its loads keep the packed
+    entries. The receiver is a port node in this process (a cold disk cache
+    of its own, ``cluster.peer_fetch`` on) with a Router over static
+    discovery of both; its fleet view is polled until it shows both models
+    on the sender.
+
+    (a) The receiver's cold ``:predict`` of the artifact, then the same
+    ``:generate``: ``reload_source`` peer 1, store 0, disk 0 (the adopted
+    entry promoted, no artifact read); the reply the sender's byte for byte
+    and within the serve phase's logits check; the tokens the sender's and
+    within the teacher-forced check; B2 launches = n_layers (the
+    ``:predict``; a promotion runs no warm-up), B1 = n_layers x the engine's
+    decode steps, B3 none. Printed: the wire's bytes and rate, the entry's
+    rebuild (page-locked), the promotion and the first reply, each apart,
+    beside the serve phase's cold ``:predict`` from the store. (b)
+    ``corrupt_peer_chunk`` armed once: the receiver's mnist miss fails the
+    chunk's hash, ``peer_fetch_bytes{error}`` > 0, the store serves it
+    (``reload_source{store}`` 1), the reply the sender's byte for byte. (c)
+    A node whose ``model_provider`` is ``s3`` over a stdlib fake S3
+    endpoint on the artifact store cold-loads mnist and answers
+    ``:classify`` as the sender (a disk-provider node) does."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.cluster.router import Router
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.lab import faults
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.types import NodeInfo
+    from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+    layers, name = art.layers, art.model_id.name
+    if not os.path.isdir(os.path.join(art.store, PEER_MNIST)):
+        registry.export_artifact("mnist_cnn", art.store, name=PEER_MNIST, version=1, seed=0)
+    rng = np.random.default_rng(seed + 19)
+    ids = rng.integers(0, art.vocab, size=PEER_SHAPE, dtype=np.int64)
+    prompt = rng.integers(1, art.vocab, PEER_PROMPT).astype(np.int32)
+    images = rng.random((SURFACE_IMAGES, 28, 28, 1), dtype=np.float32)
+    bodies = {
+        "predict": (name, json.dumps({"instances": ids.tolist()}).encode()),
+        "generate": (name, json.dumps({"input_ids": [prompt.tolist()],
+                                       "max_new_tokens": PEER_NEW_TOKENS}).encode()),
+        "classify": (PEER_MNIST, json.dumps({"examples": [
+            {"image": img.reshape(-1).tolist()} for img in images]}).encode()),
+    }
+    page_bytes = 2 * layers * 32 * 16 * 128 * 2  # K and V, 32 KV heads, 16 tokens, D 128, bf16
+    engine = dict(generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+                  kv_page_tokens=16, kv_arena_pages=max(64, PEER_ARENA_BYTES // page_bytes))
+    tx_cfg = art.node_config("serve", **engine)
+    tx_cfg["cache"]["host_tier_bytes"] = art.nbytes + (256 << 20)
+    tx_cfg["discovery"] = {"prefer_localhost": True}
+    rx_cfg = art.node_config("peer_rx", **engine)
+    rx_cfg["proxy"] = {"rest_port": 0, "grpc_port": 0}
+    rx_cfg["discovery"] = {"type": "static", "prefer_localhost": True}
+    rx_cfg["cluster"] = {"max_replicas_per_model": 0, "peer_fetch_timeout_s": 600.0}
+    s3_cfg = art.node_config("peer_s3")
+    s3_cfg["model_provider"] = {"type": "s3", "bucket": S3_BUCKET, "region": "us-east-1"}
+    for raw_cfg in (tx_cfg, rx_cfg, s3_cfg):  # room for mnist beside the artifact
+        raw_cfg["cache"]["disk_capacity_bytes"] += 64 << 20
+    card = nvidia_smi_line()
+    log(card)
+    sender = node = router = s3 = s3_node = None
+    try:
+        t0 = time.monotonic()
+        sender = _PeerSender(art, tx_cfg)
+        log(f"  [peer] sender process up in {time.monotonic() - t0:.1f} s (REST "
+            f"{sender.rest}, gRPC {sender.grpc})")
+        tx = f"http://127.0.0.1:{sender.rest}/v1/models"
+        want = {}
+        for verb, (model, body) in bodies.items():
+            status, raw, dt = _post_raw(f"{tx}/{model}/versions/1:{verb}", body)
+            if status != 200:
+                raise AssertionError(f"[peer] the sender's :{verb} answered {status}: "
+                                     f"{raw[:300]!r}; {sender.tail()}")
+            want[verb] = raw
+            log(f"  [peer] the sender's {model} :{verb} {dt * 1e3:.1f} ms")
+        cfg = config_from_dict(rx_cfg)
+        node = build_node(cfg, device="cuda")
+        node.start("127.0.0.1")
+        sender_ident = f"127.0.0.1:{sender.rest}:{sender.grpc}"
+        cfg.discovery.nodes = [_ident(node), sender_ident]
+        router = Router(cfg, node)
+        router.start("127.0.0.1")
+        if node.manager.provider._fleet is not router.fleet:
+            raise AssertionError("[peer] the router did not arm the receiver's PeerProvider")
+        sender_info = NodeInfo("127.0.0.1", sender.rest, sender.grpc)
+        deadline = time.monotonic() + 120
+        keys = (art.model_id.key, f"{PEER_MNIST}##1")
+        while not all(router.fleet.warmth(sender_ident, k) >= 2 for k in keys):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[peer] the receiver never saw {keys} on the sender")
+            router.fleet.ingest(router.status_exchange._fetch(sender_info))
+            time.sleep(0.05)
+        rx = f"http://127.0.0.1:{node.rest_port}/v1/models"
+        m = node.metrics
+        TRACER.clear()
+
+        # --- arm (a): counters to 0, the cold :predict and a :generate, read -
+        A.FLASH_LAUNCHES.reset()
+        A.PAGED_LAUNCHES.reset()
+        A.VERIFY_LAUNCHES.reset()
+        steps0 = node.engine.decode_steps
+        got = {verb: _post_raw(f"{rx}/{name}/versions/1:{verb}", bodies[verb][1])
+               for verb in ("predict", "generate")}
+        flash, paged = A.FLASH_LAUNCHES.value, A.PAGED_LAUNCHES.value
+        verify, steps = A.VERIFY_LAUNCHES.value, node.engine.decode_steps - steps0
+        # ---------------------------------------------------------------------
+        for verb, (status, raw, _dt) in got.items():
+            if status != 200:
+                raise AssertionError(f"[peer] the receiver's :{verb} answered {status}: "
+                                     f"{raw[:300]!r}")
+        sources = {t: m.reload_source.labels(t).value
+                   for t in ("hbm", "host", "disk", "store", "peer")}
+        log(f"  [peer] (a) the receiver's tpusc_reload_source: {sources}")
+        if (sources["peer"], sources["store"], sources["disk"], sources["host"]) != (1, 0, 0, 0):
+            raise AssertionError(f"[peer] (a) reload sources {sources}: want peer 1, no other "
+                                 "load")
+        if got["predict"][1] != want["predict"]:
+            raise AssertionError("[peer] (a) the adopted model's :predict differs from the "
+                                 "sender's")
+        pred = np.asarray(json.loads(got["predict"][1])["predictions"], np.float32)
+        _check_logits(art.plain_model, PEER_SHAPE, ids, pred)
+        toks = json.loads(got["generate"][1])["tokens"][0]
+        if toks != json.loads(want["generate"])["tokens"][0]:
+            raise AssertionError("[peer] (a) the adopted model's tokens differ from the "
+                                 "sender's")
+        gap = _check_greedy(art, prompt, np.asarray(toks), LOGITS_TOL, "[peer generate]")
+        log(f"  [peer] (a) reply byte for byte the sender's; {len(toks)} tokens the sender's, "
+            f"worst teacher-forced gap {gap:.4f}")
+        log(f"  [peer] (a) launches: flash_attention {flash} (n_layers {layers} x 1 :predict; "
+            f"the promotion runs no warm-up), paged_decode_attention {paged} (n_layers x "
+            f"{steps} decode steps), paged_verify_attention {verify}")
+        if flash != layers or paged != layers * steps or not steps or verify:
+            raise AssertionError(f"[peer] (a) launches flash {flash}, paged {paged}, verify "
+                                 f"{verify} against {layers}, {layers} x {steps}, 0")
+        kernels["flash_attention"]["launches_peer_phase"] = flash
+        kernels["paged_decode_attention"]["launches_peer_phase"] = paged
+        traces = TRACER.query(n=64)
+        (fetch,) = _spans_named(traces, "peer_fetch")
+        (wire,) = _spans_named(traces, "peer_wire")
+        (rebuild,) = _spans_named(traces, "peer_build_entry")
+        loads = _spans_named(traces, "load")
+        if [ld["attrs"].get("tier") for ld in loads] != ["host"] or any(
+                c["name"] == "artifact_read" for c in loads[0].get("children", ())):
+            raise AssertionError(f"[peer] (a) loads {[ld['attrs'] for ld in loads]}: want one "
+                                 "promotion with no artifact read")
+        nbytes = fetch["attrs"]["bytes"]
+        if m.peer_fetch_bytes.labels("ok").value != nbytes or nbytes <= 0:
+            raise AssertionError(f"[peer] (a) peer_fetch_bytes{{ok}} "
+                                 f"{m.peer_fetch_bytes.labels('ok').value} != {nbytes}")
+        wire_s, build_s = wire["duration_s"], rebuild["duration_s"]
+        promote_s, first_s = loads[0]["duration_s"], got["predict"][2]
+        cold_ms = RUN_NOTES.get("serve_cold_ms")
+        log(f"  [peer] (a) {card}: wire {nbytes} bytes in {wire_s * 1e3:.1f} ms = "
+            f"{nbytes / wire_s / 1e6:.1f} MB/s (the sender in its own process, localhost "
+            f"gRPC, {cfg.cluster.peer_fetch_chunk_bytes}-byte frames, hashed and written "
+            f"behind); the entry's rebuild "
+            f"{build_s * 1e3:.1f} ms (page-locked: {rebuild['attrs'].get('pinned')}); the peer fetch "
+            f"{fetch['duration_s'] * 1e3:.1f} ms in all; the promotion "
+            f"{promote_s * 1e3:.1f} ms ({nbytes / promote_s / 1e9:.2f} GB/s); the first reply "
+            f"{first_s * 1e3:.1f} ms (fetch + promotion + forward, host clock) against the "
+            f"serve phase's cold :predict from the store "
+            + (f"{cold_ms:.1f} ms" if cold_ms is not None else "not measured in this run"))
+
+        # --- arm (b): a corrupt chunk ---------------------------------------
+        faults.arm([faults.FaultSpec(kind="corrupt_peer_chunk", count=1)])
+        try:
+            status, raw, dt = _post_raw(f"{rx}/{PEER_MNIST}/versions/1:classify",
+                                        bodies["classify"][1])
+            fired = faults.snapshot()[0]["fired"]
+        finally:
+            faults.disarm()
+        errors = m.peer_fetch_bytes.labels("error").value
+        sources = {t: m.reload_source.labels(t).value for t in ("store", "peer")}
+        log(f"  [peer] (b) corrupt_peer_chunk fired {fired}: peer_fetch_bytes{{error}} "
+            f"{errors}, reload sources {sources}, :classify {status} in {dt * 1e3:.1f} ms")
+        if status != 200 or raw != want["classify"]:
+            raise AssertionError(f"[peer] (b) :classify answered {status}, not the sender's "
+                                 "reply")
+        if fired != 1 or errors <= 0 or sources != {"store": 1, "peer": 1}:
+            raise AssertionError(f"[peer] (b) fired {fired}, error bytes {errors}, sources "
+                                 f"{sources}: want 1, > 0, store 1 and peer 1")
+
+        # --- arm (c): an object store ----------------------------------------
+        s3 = _FakeS3(art.store)
+        s3_cfg["model_provider"]["endpoint"] = f"http://127.0.0.1:{s3.port}"
+        s3_node = build_node(config_from_dict(s3_cfg), device="cuda")
+        url = f"http://127.0.0.1:{s3_node.start('127.0.0.1')}/v1/models/{PEER_MNIST}"
+        status, raw, dt = _post_raw(f"{url}/versions/1:classify", bodies["classify"][1])
+        stores = s3_node.metrics.reload_source.labels("store").value
+        log(f"  [peer] (c) an s3 provider over a fake S3 endpoint: cold :classify {status} "
+            f"in {dt * 1e3:.1f} ms, reload_source{{store}} {stores}")
+        if status != 200 or raw != want["classify"] or stores != 1:
+            raise AssertionError(f"[peer] (c) :classify answered {status} (store loads "
+                                 f"{stores}), not the disk-provider node's reply")
+        log("  [peer] (c) reply byte for byte the disk-provider node's")
+    finally:
+        for closer in (s3_node, router, node, sender, s3):
+            if closer is not None:
+                closer.close()
+        for cache in ("peer_rx", "peer_s3"):
+            shutil.rmtree(os.path.join(art.work, f"cache_{cache}"), ignore_errors=True)
+
+
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -4368,7 +4756,10 @@ def main(argv: list[str] | None = None) -> int:
                        help="serve all 32 layers (~13.5 GB bf16)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--warm", type=int, default=5, help="warm requests per shape")
+    parser.add_argument("--peer-sender", metavar="SPEC", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.peer_sender:  # the peer phase's sender process
+        return _peer_sender_main(args.peer_sender)
     layers = 32 if args.full_depth else args.layers
 
     # the pre-chunk trash-page assertion, read when the runtime is imported
@@ -4413,6 +4804,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_cluster(art, args.seed, kernels)
         with Phase("ring"):
             phase_ring(art, args.seed, args.warm, kernels)
+        with Phase("peer"):
+            phase_peer(art, args.seed, kernels)
     finally:
         art.close()
 

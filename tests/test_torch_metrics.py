@@ -40,7 +40,7 @@ PORTED = {
     "tpusc_tenant_peer_bytes_served", "tpusc_tenant_dominant_share",
     "tpusc_assignment_warms", "tpusc_scrape_errors", "tpusc_peer_health_score",
     "tpusc_peer_status_age_seconds", "tpusc_fleet_model_replicas",
-    "tpusc_model_replicas_target",
+    "tpusc_model_replicas_target", "tpusc_peer_fetch_bytes",
 }
 
 

@@ -256,7 +256,9 @@ def test_port_serves_without_importing_jax(tmp_path):
     metrics and monitoring endpoints, in a fresh interpreter (this test
     process has JAX loaded by the harness): neither ``jax`` nor the JAX
     package, nor ``prometheus_client`` or ``aiohttp``, may enter
-    ``sys.modules``."""
+    ``sys.modules``; nor may they with the peer wire's model half and the
+    peer and object-store providers imported and a tier entry streamed
+    through the wire."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
         sys.path.insert(0, {str(ROOT)!r})
@@ -402,6 +404,20 @@ def test_port_serves_without_importing_jax(tmp_path):
         assert bodies[2] == bodies[0]
         assert node.metrics.reload_source.labels("host").value == 1
         assert "tfservingcache_tpu_torch.cache.host_tier" in sys.modules
+        # the model half of the peer wire: the tier's entry streamed into a
+        # receiver and rebuilt, and the object-store and peer providers
+        from tfservingcache_tpu_torch.cache.providers import azblob, gcs, peer, s3
+        from tfservingcache_tpu_torch.protocol import peer_transfer
+        from tfservingcache_tpu_torch.types import ModelId
+        assert isinstance(node.manager.provider, peer.PeerProvider)
+        entry = node.runtime._host_tier.get(ModelId("lm", 1))
+        rx = peer_transfer.PeerStreamReceiver({str(tmp_path / "peer_rx")!r}, assemble=True)
+        kinds = [rx.feed(f) for f in peer_transfer.iter_frames(entry, 1 << 16)]
+        rx.close()
+        assert kinds[-1] == "end" and rx.build_entry().nbytes == entry.nbytes
+        for mod in ("cache.providers.peer", "cache.providers.s3", "cache.providers.gcs",
+                    "cache.providers.azblob", "cache.providers.object_store"):
+            assert "tfservingcache_tpu_torch." + mod in sys.modules
         node.close()
         registry.export_artifact("transformer_lm", store, name="ring",
                                  config={dict(SMALL, n_kv_heads=4, dtype="bfloat16",

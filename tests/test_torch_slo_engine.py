@@ -471,11 +471,11 @@ def test_recoveries_exhaust_and_recovery_off_fails_the_rows(store):
 
 @pytest.mark.parametrize("kind", ["stall_store", "corrupt_peer_chunk", "drop_peer", "bogus"])
 def test_a_fault_kind_without_a_hooked_site_is_refused(kind):
-    """The port hooks the scheduler's step (kill_engine, freeze_scheduler)
-    and fleet status ingestion (drop_peer, cluster/status.py). A spec of any
-    other kind, which the reference may accept for a site the port has not
-    yet, is refused instead of arming a fault that never fires; a kind whose
-    site is hooked arms at the reference's site."""
+    """The port hooks the scheduler's step (kill_engine, freeze_scheduler),
+    fleet status ingestion (drop_peer, cluster/status.py), the manager's
+    provider miss (stall_store) and the peer-transfer receiver
+    (corrupt_peer_chunk): each arms at the reference's site. A spec of any
+    other kind is refused instead of arming a fault that never fires."""
     if kind != "bogus":
         assert jfaults.FaultSpec(kind=kind).site  # a reference kind with its own site
     if kind in faults.SITE_OF:
@@ -488,4 +488,5 @@ def test_a_fault_kind_without_a_hooked_site_is_refused(kind):
     assert not faults.armed()
     assert {faults.FaultSpec(kind=k).site for k in ("kill_engine", "freeze_scheduler")} == {
         "engine_step"}
-    assert set(faults.SITE_OF) == {"kill_engine", "freeze_scheduler", "drop_peer"}
+    assert set(faults.SITE_OF) == {"kill_engine", "freeze_scheduler", "drop_peer",
+                                   "stall_store", "corrupt_peer_chunk"}

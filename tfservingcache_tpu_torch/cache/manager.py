@@ -1,10 +1,17 @@
 """CacheManager — per-node JIT load orchestration (counterpart of
-``tfservingcache_tpu/cache/manager.py``; fault injection, peer and streaming
-fetch are not ported yet).
+``tfservingcache_tpu/cache/manager.py``).
 
   - HIT: artifact on disk and model resident in the runtime;
   - STALE: artifact on disk, model not resident -> reload without re-fetch;
-  - MISS: evict-to-fit on disk, fetch from the provider, then load.
+  - MISS: evict-to-fit on disk, fetch from the provider, then load. A
+    ``PeerProvider`` that streamed the model from a warm peer stamps
+    ``fetch_source: "peer"`` and hands over the packed entry it rebuilt,
+    which the runtime promotes (``adopt_packed_entry``).
+
+The scenario lab's ``store_fetch`` site (``stall_store``) sits at the top of
+the provider miss. The reference's streaming fetch hook (``on_file`` ->
+``precompile_from_meta``) is left out: a torch module has no ahead-of-time
+compile to start while the artifact downloads.
 
 Per-model singleflight: concurrent misses on different models proceed in
 parallel, concurrent requests for one model share one fetch and load. A
@@ -25,6 +32,7 @@ import time
 
 from tfservingcache_tpu_torch.cache.disk_cache import ModelDiskCache
 from tfservingcache_tpu_torch.cache.providers.base import ModelNotFoundError, ModelProvider
+from tfservingcache_tpu_torch.lab import faults as lab_faults
 from tfservingcache_tpu_torch.runtime.base import BaseRuntime, LoadTimeoutError
 from tfservingcache_tpu_torch.types import Model, ModelId, ModelState
 from tfservingcache_tpu_torch.utils.accounting import LEDGER
@@ -130,10 +138,21 @@ class CacheManager:
                     )
             else:
                 hit = False
-                source = "store"
                 model = self._with_deadline(
                     lambda: self._fetch(model_id), deadline, f"fetch {model_id}"
                 )
+                # a PeerProvider stamps where the bytes came from
+                source = model.metadata.get("fetch_source", "store")
+                if source not in ("peer", "store"):
+                    source = "store"
+                # popped whatever happens next: a Model lives in the disk
+                # cache's map, and a kept entry would hold the packed bytes
+                # in RAM for as long as the artifact stays cached
+                packed = model.metadata.pop("packed_entry", None)
+                if packed is not None:
+                    adopt = getattr(self.runtime, "adopt_packed_entry", None)
+                    if adopt is not None:
+                        adopt(model_id, packed)
                 self._with_deadline(
                     lambda: self.runtime.ensure_loaded(model), deadline,
                     f"load {model_id}",
@@ -214,6 +233,9 @@ class CacheManager:
     def _fetch(self, model_id: ModelId) -> Model:
         """MISS path: size -> evict-to-fit -> provider fetch -> index."""
         t0 = time.monotonic()
+        # the scenario lab's stall_store sleeps here (a hung object store),
+        # under the caller's cold-load deadline; disarmed, one bool read
+        lab_faults.fire("store_fetch", model=str(model_id))
         with TRACER.span("provider_fetch", model=str(model_id)):
             size = self.provider.model_size(model_id.name, model_id.version)
             self.disk_cache.ensure_free_bytes(size)

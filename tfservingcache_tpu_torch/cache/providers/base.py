@@ -1,10 +1,11 @@
 """Storage abstraction (counterpart of
 ``tfservingcache_tpu/cache/providers/base.py``): the narrow ``ModelProvider``
-interface plus atomic staging of fetched artifacts."""
+interface, its streaming variant and atomic staging of fetched artifacts."""
 
 from __future__ import annotations
 
 import abc
+import logging
 import os
 import shutil
 import uuid
@@ -47,10 +48,40 @@ class ModelNotFoundError(ProviderError):
     pass
 
 
+# files a streaming fetch lands (and announces) first
+STREAM_META_FILES = ("model.json",)
+
+
+def _notify_file(on_file, rel: str, local_path: str) -> None:
+    """Call a streaming callback; it is advisory and never breaks the fetch
+    it rides on."""
+    if on_file is None:
+        return
+    try:
+        on_file(rel, local_path)
+    except Exception:  # noqa: BLE001 - advisory hook
+        logging.getLogger("tpusc_torch.providers").debug(
+            "streaming on_file callback failed for %s", rel, exc_info=True)
+
+
 class ModelProvider(abc.ABC):
     @abc.abstractmethod
     def load_model(self, name: str, version: int, dest_dir: str) -> Model:
         """Fetch ``<name>/<version>`` into ``dest_dir`` and return the Model."""
+
+    def load_model_streaming(self, name: str, version: int, dest_dir: str,
+                             on_file=None) -> Model:
+        """``load_model`` that calls ``on_file(rel_path, local_path)`` as each
+        artifact file lands (metadata first where the backend allows). This
+        default fetches fully, then announces every file; the object-store
+        and peer providers override it."""
+        model = self.load_model(name, version, dest_dir)
+        if on_file is not None:
+            for root, _dirs, files in os.walk(model.path):
+                for fn in sorted(files, key=lambda f: f not in STREAM_META_FILES):
+                    full = os.path.join(root, fn)
+                    _notify_file(on_file, os.path.relpath(full, model.path), full)
+        return model
 
     @abc.abstractmethod
     def model_size(self, name: str, version: int) -> int:

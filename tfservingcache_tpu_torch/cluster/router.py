@@ -31,8 +31,10 @@ ports (``proxy.rest_port`` / ``proxy.grpc_port``, 0 = ephemeral), and runs
 the fleet status exchange, the replica controller and the assignment warmer
 on threads. The router does no device work.
 
-Peer fetch of packed models (``cluster.peer_fetch``) is not ported yet: a
-cold miss goes to the store, as the reference's does with no host tier.
+With ``cluster.peer_fetch`` and the status exchange on, the router arms
+its node's ``PeerProvider`` with the fleet view and the ring's members: a
+cold miss on the node streams the model from a peer that holds it in its
+host tier or on its device (``FetchPackedModel``) before it asks the store.
 """
 
 from __future__ import annotations
@@ -565,9 +567,14 @@ class Router:
             )
             self.cluster.replicas_for_key = self.replicas.replicas_for
             self.backend.demand = self.replicas
-        if cfg.cluster.peer_fetch:
-            log.info("cluster.peer_fetch: peer fetch of packed models is not ported yet; "
-                     "a cold miss loads from the store")
+        # arm the node's PeerProvider (cache/providers/peer.py): the fleet's
+        # warmth map and the ring's members turn cold misses into peer streams
+        if node is not None and self.fleet is not None:
+            provider = getattr(node.manager, "provider", None)
+            if provider is not None and hasattr(provider, "bind_fleet"):
+                provider.bind_fleet(self.fleet, self.cluster,
+                                    {n.ident for n in self.self_nodes})
+                self.cluster.on_update.append(provider.prune)
         self.rest = RestServingServer(self.backend, metrics, metrics_path=cfg.metrics.path,
                                       require_version=True)
         self.rest.fleet = self.fleet  # /monitoring/cluster on the router's REST port

@@ -161,10 +161,19 @@ class CacheConfig:
 
 @dataclass
 class ModelProviderConfig:
-    """Where artifacts are fetched from (the port has the disk provider)."""
+    """Where artifacts are fetched from: a directory tree or an object store
+    (cache/providers/)."""
 
-    type: str = "disk"
-    base_dir: str = "./models"
+    type: str = "disk"                 # disk | s3 | gcs | azblob
+    base_dir: str = "./models"         # disk provider root
+    # s3 / gcs / azblob
+    bucket: str = ""
+    base_path: str = ""
+    region: str = ""
+    endpoint: str = ""                 # a custom endpoint (MinIO, a test fake)
+    account_name: str = ""             # azblob
+    account_key: str = ""
+    container: str = ""
 
 
 @dataclass
@@ -238,8 +247,9 @@ class ClusterConfig:
     health_error_alpha: float = 0.3
     # latency factor of the health score: ref / (ref + latency EWMA)
     health_latency_ref_s: float = 1.0
-    # peer fetch of packed models: read, not ported yet (a cold miss goes
-    # to the store, as the reference's does with no host tier)
+    # peer fetch of packed models (cache/providers/peer.py): a cold miss
+    # streams a warm peer's host-tier entry over FetchPackedModel before it
+    # asks the store; the node serves its own tier to peers
     peer_fetch: bool = True
     peer_fetch_chunk_bytes: int = 2 << 20
     peer_fetch_max_inflight_per_peer: int = 2

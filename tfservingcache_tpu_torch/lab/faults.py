@@ -1,7 +1,8 @@
 """Scenario-lab fault injector: chaos hooks in serving paths (a stdlib copy
 of ``tfservingcache_tpu/lab/faults.py``).
 
-Serving code calls ``fire(site, ...)`` at a hook site. The port hooks two:
+Serving code calls ``fire(site, ...)`` at a hook site. The port hooks all
+four of the reference's:
 
 * ``engine_step`` — the top of the continuous scheduler's chunk boundary
   (runtime/batcher.py). ``kill_engine`` raises :class:`InjectedFault` there,
@@ -12,12 +13,16 @@ Serving code calls ``fire(site, ...)`` at a hook site. The port hooks two:
   ``FleetView.ingest``). ``drop_peer`` swallows the snapshot (``fire``
   returns None for the payload), so the peer's health decays through the
   normal staleness path; ``peer`` filters on the snapshot's ident.
+* ``store_fetch`` — the cache manager's provider miss (cache/manager.py
+  ``_fetch``). ``stall_store`` sleeps ``duration_s`` there, a hung object
+  store under the caller's cold-load deadline.
+* ``peer_chunk`` — each C frame the peer-transfer receiver takes
+  (protocol/peer_transfer.py ``PeerStreamReceiver.feed``).
+  ``corrupt_peer_chunk`` flips the frame's last byte: the headers parse,
+  the chunk's hash fails, and the provider falls back to the store.
 
-The reference's other sites and their kinds wait for the modules that own
-them: ``store_fetch`` (``stall_store``, the cache manager's provider miss)
-and ``peer_chunk`` (``corrupt_peer_chunk``, the peer-transfer receiver). A
-spec naming one of them is refused, as is any kind without a hooked site:
-arming it would succeed and it would never fire.
+A spec of any other kind is refused: arming it would succeed and it would
+never fire.
 
 Disarmed (the default) every hook is one bool read and a return of the
 payload. The reference's metrics counter and flight-recorder dumps are not
@@ -36,11 +41,13 @@ from typing import Any
 log = logging.getLogger("tpusc_torch.lab.faults")
 
 KILL_KINDS = ("kill_engine",)
-SLEEP_KINDS = ("freeze_scheduler",)
+SLEEP_KINDS = ("freeze_scheduler", "stall_store")
 # which hook site each fault kind attaches to (only kinds whose site is hooked)
 SITE_OF = {
     "kill_engine": "engine_step",
     "freeze_scheduler": "engine_step",
+    "stall_store": "store_fetch",
+    "corrupt_peer_chunk": "peer_chunk",
     "drop_peer": "status_ingest",
 }
 
@@ -130,6 +137,8 @@ class FaultInjector:
                 elif s.kind in KILL_KINDS:
                     to_raise = InjectedFault(
                         f"injected {s.kind} at {site}" + (f" (model={model})" if model else ""))
+                elif s.kind == "corrupt_peer_chunk":
+                    payload = _corrupt(payload)
                 elif s.kind == "drop_peer":
                     payload = None
         for kind in fired_kinds:
@@ -139,6 +148,17 @@ class FaultInjector:
         if to_raise is not None:
             raise to_raise
         return payload
+
+
+def _corrupt(payload: Any) -> Any:
+    """Flip the last byte of a bytes-like payload (a peer-transfer frame):
+    the headers stay intact, so the frame parses and the receiver's
+    per-chunk hash catches the damage, as it would wire bitrot."""
+    if payload is None or len(payload) == 0:
+        return payload
+    buf = bytearray(payload)
+    buf[-1] ^= 0xFF
+    return bytes(buf)
 
 
 _INJECTOR = FaultInjector()

@@ -22,11 +22,14 @@ A unary call carrying the ``tpusc-status-want`` metadata gets the node's
 fleet status plane). A router's backend that forwards a call re-raises the
 peer's ``grpc.RpcError``: its code and details reach the client as they are.
 
-With a conversation tier attached (``conversation_tier``, the continuous
-engine's), ``tpusc.internal.PeerTransfer/FetchParkedConversation`` streams
-a parked conversation to the node that asks for it
-(``protocol/peer_transfer.py``); the lookup leaves the tier's LRU order as
-it is, and a conversation the tier does not hold answers NOT_FOUND.
+With a peer source attached (``peer_source``, a ``PeerSource`` over the
+runtime's host tier), ``tpusc.internal.PeerTransfer/FetchPackedModel``
+streams a model's packed entry to a cold peer, pinned for the stream and
+capped in flight a requesting host; with a conversation tier attached
+(``conversation_tier``, the continuous engine's),
+``FetchParkedConversation`` streams a parked conversation to the node that
+asks for it (``protocol/peer_transfer.py``). Neither lookup touches its
+tier's LRU order, and what the tier does not hold answers NOT_FOUND.
 
 The server binds with ``grpc.so_reuseport`` off, so a port another server
 holds raises at ``start`` (ROADMAP C10; the reference binds with the
@@ -40,6 +43,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 import grpc
@@ -144,6 +148,16 @@ class _UnknownMethodHandler(grpc.GenericRpcHandler):
         return self._handler
 
 
+def peer_host(peer: str | None) -> str:
+    """The host of a ``context.peer()`` string, without its port:
+    ``ipv4:10.0.0.2:5555`` -> ``10.0.0.2``, ``ipv6:[::1]:5555`` (or grpc's
+    percent-encoded ``ipv6:%5B::1%5D:5555``) -> ``::1``."""
+    addr = urllib.parse.unquote((peer or "?").split(":", 1)[-1])
+    if addr.startswith("["):
+        return addr[1:addr.find("]")] if "]" in addr else addr
+    return addr.rsplit(":", 1)[0] if addr.count(":") == 1 else addr
+
+
 def _status_code(err: BackendError) -> grpc.StatusCode:
     return getattr(grpc.StatusCode, err.grpc_code, grpc.StatusCode.INTERNAL)
 
@@ -169,6 +183,9 @@ class GrpcServingServer:
         # conversation tier (FetchParkedConversation)
         self.status_collector = None
         self.conversation_tier = None
+        # the host tier's outbound side (peer_transfer.PeerSource):
+        # FetchPackedModel
+        self.peer_source = None
 
     # -- handler plumbing ---------------------------------------------------
     def _observe(self, verb: str, t0: float, err, sp) -> None:
@@ -275,6 +292,50 @@ class GrpcServingServer:
         if err is not None:
             context.abort(*err)
 
+    def _fetch_packed_model(self, request: bytes, context: grpc.ServicerContext):
+        """tpusc.internal.PeerTransfer/FetchPackedModel: stream this node's
+        host-tier entry of a model to a cold peer (reference :216-266).
+        UNIMPLEMENTED without a source; INVALID_ARGUMENT on a bad request;
+        RESOURCE_EXHAUSTED over the in-flight cap of the requesting host;
+        NOT_FOUND when the tier does not hold the model (the asker's fleet
+        view may lag an eviction: a clean miss); INTERNAL when the stream
+        breaks. The entry stays pinned until the stream's last frame, so a
+        concurrent eviction cannot tear its bytes."""
+        from tfservingcache_tpu_torch.protocol.peer_transfer import (
+            PeerWireError,
+            decode_request,
+            iter_frames,
+        )
+        from tfservingcache_tpu_torch.types import ModelId
+
+        src = self.peer_source
+        if src is None:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, "peer transfer not enabled")
+        try:
+            name, version = decode_request(request)
+        except PeerWireError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        mid = ModelId(name, version)
+        # the cap is per requesting host: each stream has its own port
+        host = peer_host(context.peer())
+        if not src.acquire(host):
+            context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                          f"peer fetch in-flight cap ({src.max_inflight_per_peer}) reached")
+        entry = None
+        try:
+            entry = src.pin(mid)
+            if entry is None:
+                context.abort(grpc.StatusCode.NOT_FOUND, f"{mid} not in host tier")
+            with TRACER.span("peer_stream_out", model=str(mid), peer=host):
+                yield from iter_frames(entry, src.chunk_bytes, model_id=mid)
+        except PeerWireError as e:
+            log.warning("peer stream of %s failed: %s", mid, e)
+            context.abort(grpc.StatusCode.INTERNAL, str(e))
+        finally:
+            if entry is not None:
+                src.unpin(mid)
+            src.release(host)
+
     def _fetch_parked_kv(self, request: bytes, context: grpc.ServicerContext):
         """tpusc.internal.PeerTransfer/FetchParkedConversation: stream one
         parked conversation to the peer that now serves it. NOT_FOUND = not
@@ -340,18 +401,24 @@ class GrpcServingServer:
             request_deserializer=sv.PredictRequest.FromString,
             response_serializer=sv.PredictResponse.SerializeToString,
         )
-        if self.conversation_tier is not None:
-            from tfservingcache_tpu_torch.protocol.peer_transfer import (
-                PEER_KV_METHOD,
-                PEER_TRANSFER_SERVICE,
-            )
+        # the peer-transfer service: FetchPackedModel with a peer source,
+        # FetchParkedConversation with a conversation tier
+        from tfservingcache_tpu_torch.protocol.peer_transfer import (
+            PEER_FETCH_METHOD,
+            PEER_KV_METHOD,
+            PEER_TRANSFER_SERVICE,
+        )
 
+        peer_methods = {}
+        if self.peer_source is not None:
+            peer_methods[PEER_FETCH_METHOD] = self._fetch_packed_model
+        if self.conversation_tier is not None:
+            peer_methods[PEER_KV_METHOD] = self._fetch_parked_kv
+        if peer_methods:
             per_service[PEER_TRANSFER_SERVICE] = {
-                PEER_KV_METHOD: grpc.unary_stream_rpc_method_handler(
-                    self._fetch_parked_kv,
-                    request_deserializer=lambda b: b,
-                    response_serializer=lambda b: b,
-                ),
+                method: grpc.unary_stream_rpc_method_handler(
+                    fn, request_deserializer=lambda b: b, response_serializer=lambda b: b)
+                for method, fn in peer_methods.items()
             }
         per_service[HEALTH_SERVICE] = {
             "Check": grpc.unary_unary_rpc_method_handler(

@@ -830,6 +830,11 @@ class TorchModelRuntime(BaseRuntime):
             self._demote_thread = threading.Thread(
                 target=self._demote_loop, name="tpusc-demote", daemon=True)
             self._demote_thread.start()
+        # packed entries a peer fetch rebuilt off the wire
+        # (protocol/peer_transfer.py), each consumed by the next load of its
+        # model
+        self._adopted: dict[ModelId, PackedModelEntry] = {}  # guarded-by: _adopted_lock
+        self._adopted_lock = threading.Lock()
 
     # -- load ---------------------------------------------------------------
     def ensure_loaded(self, model: Model) -> str:
@@ -854,8 +859,33 @@ class TorchModelRuntime(BaseRuntime):
                     if held is lock and not held.locked():
                         del self._load_locks[mid]
 
+    def adopt_packed_entry(self, model_id: ModelId, entry: PackedModelEntry) -> None:
+        """Hand over a ``PackedModelEntry`` that did not come from this
+        runtime's own demotion: a peer fetch rebuilt it off the wire
+        (reference :1063). The next ``_load`` of ``model_id`` promotes it
+        (the copies of a host-tier promotion, no read of the artifact) and
+        drops it. Where the reference fills the entry's jit handle
+        (``_fill_family_jit``), the entry carries its family's module
+        factory (``make_module``), with which ``_promote`` builds the
+        module. Advisory: a runtime bound to a device group keeps no tier
+        and drops it, and a failed promotion falls through to the full load
+        from the artifact."""
+        if self.group is not None:
+            return
+        with self._adopted_lock:
+            self._adopted[model_id] = entry
+
     def _load(self, model: Model) -> str:
         mid = model.identifier
+        with self._adopted_lock:
+            adopted = self._adopted.pop(mid, None)
+        if adopted is not None:
+            try:
+                self._promote(model, adopted)
+                return "host"
+            except Exception as e:  # noqa: BLE001 - the full path still works
+                log.warning("promotion of the adopted entry of %s failed (%s); "
+                            "falling back to the full load path", mid, e)
         if self._host_tier is not None:
             entry = self._host_tier.get(mid)
             if entry is not None:
@@ -2165,6 +2195,8 @@ class TorchModelRuntime(BaseRuntime):
             self._demote_thread.join(timeout=5.0)
         for worker in list(self._assemblers):
             worker.join(timeout=5.0)
+        with self._adopted_lock:
+            self._adopted.clear()
         self._resident.clear()
         if self._prefix_cache is not None:
             self._prefix_cache.clear()

@@ -21,7 +21,10 @@ member a router advertises. With ``cluster.status_exchange`` (the default)
 the group has a ``StatusCollector`` behind ``/monitoring/status`` and the
 status piggyback, named by its ``host:rest:grpc`` ident once the ports are
 bound; with a conversation tier, the gRPC server serves
-``FetchParkedConversation`` from it.
+``FetchParkedConversation`` from it. With ``cluster.peer_fetch`` (the
+default) the provider is a ``PeerProvider`` around the configured one
+(a router arms it) and the gRPC server serves ``FetchPackedModel`` from the
+runtime's host tier.
 
 ``configure_observability`` applies the config to the process-wide
 ``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
@@ -97,7 +100,19 @@ class CacheNode:
                  metrics: Metrics | None = None) -> None:
         self.cfg = cfg
         self.metrics = metrics
-        self.provider = create_provider(cfg.model_provider)
+        provider = create_provider(cfg.model_provider)
+        if cfg.cluster.peer_fetch:
+            # peer param distribution (cache/providers/peer.py): unbound it
+            # passes every call through, until a Router arms it with the
+            # fleet view
+            from tfservingcache_tpu_torch.cache.providers.peer import PeerProvider
+
+            provider = PeerProvider(
+                provider, chunk_bytes=cfg.cluster.peer_fetch_chunk_bytes,
+                timeout_s=cfg.cluster.peer_fetch_timeout_s,
+                max_message_bytes=cfg.proxy.grpc_max_message_bytes,
+                pin_entries=getattr(getattr(runtime, "device", None), "type", None) == "cuda")
+        self.provider = provider
         self.disk_cache = ModelDiskCache(cfg.cache.base_dir, cfg.cache.disk_capacity_bytes)
         self.runtime = runtime
         manager = CacheManager(
@@ -117,6 +132,14 @@ class CacheNode:
         grpc_cls = _grpc_server_class()
         grpc = (grpc_cls(backend, metrics, cfg.proxy.grpc_max_message_bytes)
                 if grpc_cls is not None else None)
+        if grpc is not None and cfg.cluster.peer_fetch:
+            # the outbound half: this node's host-tier entries served to
+            # cold peers (NOT_FOUND while the tier is off or lacks the model)
+            from tfservingcache_tpu_torch.protocol.peer_transfer import PeerSource
+
+            grpc.peer_source = PeerSource(
+                runtime, chunk_bytes=cfg.cluster.peer_fetch_chunk_bytes,
+                max_inflight_per_peer=cfg.cluster.peer_fetch_max_inflight_per_peer)
         if grpc is not None and engine is not None:
             # conversation KV migration: parked turns served to the peer
             # that takes the conversation over
@@ -201,6 +224,9 @@ class CacheNode:
         if self.engine is not None:  # the engine's threads use the runtime
             self.engine.close()
         self.manager.close()
+        close_provider = getattr(self.provider, "close", None)
+        if close_provider is not None:
+            close_provider()
 
 
 def node_group(device: str | torch.device, chips_per_group: int) -> list[torch.device]:

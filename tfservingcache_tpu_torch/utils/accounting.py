@@ -15,9 +15,8 @@ resource integrals:
 - **Residency** (runtime/model_runtime.py, cache/manager.py): device and
   disk byte-seconds from gauge stamps at load/evict sites, plus cold-load
   seconds and counts by source tier.
-
-The ``peer_bytes_served`` dimension stays in the wire order; nothing feeds
-it until the port streams parameters to peers.
+- **Peer streams** (protocol/peer_transfer.py): the packed bytes a node
+  streamed to a peer on the tenant's behalf (``peer_bytes_served``).
 
 Integrals use the gauge-integral trick: a level change at time t folds
 ``prev_level * (t - t_prev)`` into the running total, so reads just settle
@@ -303,6 +302,13 @@ class TenantLedger:
             acct.totals["cold_load_seconds"] += seconds
             acct.loads[tier] = acct.loads.get(tier, 0.0) + seconds
             acct.load_counts[tier] = acct.load_counts.get(tier, 0) + 1
+
+    def note_peer_served(self, tenant: str, nbytes: int) -> None:
+        """Bytes this node streamed TO a peer on the tenant's behalf."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._account(tenant).totals["peer_bytes_served"] += nbytes
 
     # -- read side -----------------------------------------------------------
     def arena_page_seconds(self) -> float:

@@ -7,8 +7,8 @@ names, histogram buckets and counter ``_total`` rule, so dashboards built on
 the reference read a port node unchanged; ``render()`` writes text
 exposition format 0.0.4, as ``prometheus_client.generate_latest`` does, less
 the ``*_created`` timestamp series. A family is registered here only once
-the port fires it (the group, peer-fetch and fault families come with the
-modules that fire them). ``scrape_and_merge`` folds sidecar
+the port fires it (the group and fault families come with the modules
+that fire them). ``scrape_and_merge`` folds sidecar
 exporters into a node's exposition with a stdlib copy of
 ``prometheus_client``'s text parser, so its output is the reference's.
 """
@@ -594,6 +594,16 @@ class Metrics:
             ["model", "tier"], registry=r,
         )
         # load-adaptive replication (cluster/replication.py)
+        # peer param distribution (cache/providers/peer.py): cold misses
+        # sourced from a warm peer's host tier instead of the store
+        self.peer_fetch_bytes = Counter(
+            "tpusc_peer_fetch_bytes",
+            "Packed parameter bytes streamed FROM peers on cold misses "
+            "(outcome = ok | error | not_found; error/not_found count the "
+            "bytes received before the stream gave up and fell back to "
+            "the store)",
+            ["outcome"], registry=r,
+        )
         self.model_replicas_target = Gauge(
             "tpusc_model_replicas_target",
             "Per-model ring replica count N the replica controller "
