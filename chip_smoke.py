@@ -95,7 +95,26 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      and loaded from disk once while llama7b (4, 2048) ``:predict`` runs
      back to back on a client thread: every reply of both models must be
      its quiet run's byte for byte;
-  9. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
+  9. quant — int8 artifacts: the artifact's weights written again with
+     ``save_artifact(quantize="int8")`` as ``llama7b_int8`` (every weight of
+     two or more axes and >= 65536 elements as int8 + per-output-channel f32
+     scales), its bytes beside the bf16 artifact's; a plain module on the
+     card from the host-dequantized weights. On the serve phase's disk
+     cache: serialized and pipelined nodes cold-load llama7b and the int8
+     model (each load's stages: transfer, ``device_dequant``, total, and the
+     caching host allocator's fresh page-locked blocks), the two int8
+     replies equal byte for byte; int8 ``:predict`` at (1, 128) and
+     (2, 1024) held by the serve phase's logits check to the plain module;
+     4 greedy 32-token ``:generate`` requests on a continuous paged node,
+     every token held to the teacher-forced check, paged launches =
+     n_layers x decode steps; a node with a host tier holding both models
+     loads int8 and bf16 from disk and promotes int8, bf16, int8: reload
+     sources disk 2 / host 3, every promoted reply its disk load's byte for
+     byte, the int8 entry's bytes and each promotion's stages printed beside
+     the bf16 model's. Flash launches = n_layers x (requests + the disk
+     loads' warm-ups) on every predict node. The int8 artifact and its
+     disk-cache copy are deleted at the end;
+  10. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
      sampled requests; (c) the continuous engine over an int8 arena; (d)
@@ -141,7 +160,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      = n_layers x plain decode steps + draft layers x (spec + 1) x spec
      rounds, verify = n_layers x (spec rounds + prefill chunks), the chunks
      also counted from the prompts) and stay 0 on the solo paths;
-  10. observe — the observability layer on a served continuous node (the
+  11. observe — the observability layer on a served continuous node (the
      shared disk cache of arms (l)-(o)), configured as ``cli serve``
      configures it (``server.configure_observability``): after a warm-up,
      the recorder and the ledger are reset, then arm (a)'s schedule (16
@@ -159,7 +178,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      printed beside the recorder's ``step_ms`` p50 / p90 of the first burst;
      the trace is deleted after the check. The burst's tok/s is printed
      beside arm (a)'s;
-  11. cluster — the router and cluster plane: three continuous paged nodes
+  12. cluster — the router and cluster plane: three continuous paged nodes
      on the card, each with a ``Router`` over static discovery (ports 0,
      127.0.0.1). (A) one replica a key: 6 warm (1, 128) ``:predict`` through
      every router, each reply byte for byte the ring owner's direct reply and
@@ -176,7 +195,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      third node's router all answered by the second replica, the closed
      peer's health in ``/monitoring/cluster`` below the threshold, rendered
      by tools/fleet_top.py;
-  12. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
+  13. ring — REST ``:predict`` of the ring artifact on a ``CacheNode``
      around ``TorchModelRuntime(devices=[cuda:0] * 4)`` (one card runs the
      group's four shards one after another): cold, then warm, at (1, 4096)
      (1024 rows a shard), (2, 1024), (1, 300) (pads to 512) and (1, 2)
@@ -185,7 +204,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      launches must be n_layers x 16 a ring request and the flash kernel's
      n_layers a fall-through request (+ the load's warm-up forward). One
      warm (1, 4096) forward is profiled beside the one-card "auto" model's;
-  13. peer — peer model adoption over ``FetchPackedModel``: a sender node in
+  14. peer — peer model adoption over ``FetchPackedModel``: a sender node in
      a process of its own (on the serve phase's disk cache, a host tier that
      holds the artifact) answers a (1, 128) ``:predict``, a greedy
      ``:generate`` and an mnist ``:classify`` once; a receiver node in this
@@ -1286,6 +1305,7 @@ class Artifact:
         self.layers = layers
         self.model_id = ModelId("llama7b", 1)
         model_cfg = dict(LLAMA7B_CONFIG, n_layers=layers)
+        self.model_cfg = model_cfg
         model_def = registry.build("transformer_lm", model_cfg)
         self.vocab = model_cfg["vocab_size"]
         log(f"transformer_lm at llama-7b width: d_model={model_cfg['d_model']} "
@@ -1304,6 +1324,7 @@ class Artifact:
             return tree.to(torch.bfloat16)
 
         params = to_bf16(params)  # the artifact's storage dtype, cast on the card
+        self.params = params  # the plain module's tensors (no second copy)
         self.store = os.path.join(self.work, "store")
         registry.save_artifact(os.path.join(self.store, "llama7b", "1"), model_def, params)
         self.nbytes = os.path.getsize(os.path.join(self.store, "llama7b", "1", "params.bin"))
@@ -2406,6 +2427,280 @@ def _tier_busy_loads(art: Artifact, seed: int, copy_body: bytes) -> None:
         node.close()
 
 
+QUANT_NAME = "llama7b_int8"
+QUANT_SHAPES = [(1, 128), (2, 1024)]
+QUANT_PROMPTS = 4                # greedy :generate requests on the paged engine
+QUANT_PROMPT_RANGE = (64, 512)
+QUANT_NEW_TOKENS = 32
+# the tier schedule: int8 and bf16 from disk, then both promoted, int8 twice
+QUANT_TIER_SCHEDULE = ((QUANT_NAME, "disk"), ("llama7b", "disk"), (QUANT_NAME, "host"),
+                       ("llama7b", "host"), (QUANT_NAME, "host"))
+
+
+def _quant_load(base: str, name: str, body: bytes) -> tuple[bytes, dict]:
+    """One ``:predict`` of ``name`` that loads it. -> (the reply's bytes, the
+    ``load`` span, whose attrs gain ``host_allocs``: the page-locked blocks
+    the caching host allocator had to allocate (not reuse) meanwhile, and
+    the ms it spent on them)."""
+    import torch
+
+    from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+    def allocs() -> tuple[int, float] | None:
+        st = torch.cuda.host_memory_stats()
+        if "num_host_alloc" not in st:
+            return None
+        # host_alloc_time is in microseconds
+        return int(st["num_host_alloc"]), float(st.get("host_alloc_time.total", 0)) / 1e3
+
+    TRACER.clear()
+    before = allocs()
+    status, raw, _dt = _post_raw(f"{base}/{name}/versions/1:predict", body)
+    if status != 200:
+        raise AssertionError(f":predict of {name} answered {status}: {raw!r}")
+    (load,) = _spans_named(TRACER.query(n=8), "load")
+    after = allocs()
+    load["attrs"]["host_allocs"] = "not reported" if before is None or after is None else (
+        f"{after[0] - before[0]} new page-locked blocks in {after[1] - before[1]:.1f} ms")
+    return raw, load
+
+
+def _load_line(what: str, load: dict) -> str:
+    st = _stage_ms(load)
+    attrs = next(c for c in load["children"] if c["name"] == "device_transfer").get("attrs", {})
+    nbytes = f", {attrs['bytes']} bytes in {attrs['chunks']} chunks" if "bytes" in attrs else ""
+    return (f"{what}: {load['duration_s'] * 1e3:.1f} ms = "
+            + ", ".join(f"{k} {v:.1f}" for k, v in st.items()) + f" ms{nbytes}; caching "
+            f"host allocator: {load['attrs']['host_allocs']}")
+
+
+def phase_quant(art: Artifact, seed: int, kernels: dict) -> None:
+    """int8 artifacts end to end (``save_artifact(quantize="int8")``, the
+    on-device dequant of every load path). The artifact's weights are written
+    again as ``llama7b_int8`` (each weight of 2+ axes and >= 65536 elements
+    as int8 + per-output-channel f32 scales) into the store, its
+    ``params.bin`` bytes printed beside the bf16 artifact's. A plain module
+    is built on the card from the host-dequantized weights. Then, on the
+    serve phase's disk cache: (1) serialized and pipelined nodes cold-load
+    llama7b and llama7b_int8 (load stages printed: transfer, device_dequant,
+    total), the int8 replies of both equal byte for byte; (2) on the
+    pipelined node, int8 ``:predict`` at QUANT_SHAPES, each held by the
+    serve phase's logits check to the plain module; (3) a continuous paged
+    node serves QUANT_PROMPTS greedy ``:generate`` requests of
+    QUANT_NEW_TOKENS on the int8 model, every token held to the generate
+    phase's teacher-forced check, paged launches = n_layers x decode
+    steps; (4) a node with a host tier that holds both models runs
+    QUANT_TIER_SCHEDULE: reload sources disk 2 and host 3, every promoted
+    reply its disk load's byte for byte, the int8 entry's bytes and its
+    promotions' dequant time printed. B2's launches = n_layers x (requests
+    + the disk loads' warm-up forwards) on every predict node. The int8
+    artifact and its disk-cache copies are deleted at the end."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    log(nvidia_smi_line())
+    qdir = os.path.join(art.store, QUANT_NAME, "1")
+    model_def = registry.build("transformer_lm", dict(art.model_cfg))
+    flash = paged = 0
+    plain_q = None
+    try:
+        t0 = time.monotonic()
+        registry.save_artifact(qdir, model_def, art.params, quantize="int8")
+        qbytes = os.path.getsize(os.path.join(qdir, "params.bin"))
+        with open(os.path.join(qdir, "model.json")) as f:
+            n_quant = sum("quant" in e for e in json.load(f)["params"]["manifest"])
+        log(f"wrote {QUANT_NAME} (save_artifact(quantize='int8'), {n_quant} int8 leaves) in "
+            f"{time.monotonic() - t0:.2f}s: params.bin {qbytes} bytes against the bf16 "
+            f"artifact's {art.nbytes} ({qbytes / art.nbytes:.4f}x); device bytes once "
+            f"dequantized {registry.resident_bytes_estimate(qdir)}")
+        _md, host = registry.load_artifact(qdir)  # host dequant: the plain path's weights
+        plain_q = model_def.make_module(_tree_cuda(host)).eval()
+        del host
+        qart = types.SimpleNamespace(plain_model=plain_q, vocab=art.vocab, layers=art.layers,
+                                     model_id=_mid(QUANT_NAME))
+        ids = np.random.default_rng(seed + 21).integers(0, art.vocab, size=TIER_SHAPE,
+                                                           dtype=np.int64)
+        body = json.dumps({"instances": ids.tolist()}).encode()
+
+        # (1) + (2): cold loads, serialized then pipelined; int8 :predict
+        loads, int8_replies = {}, {}
+        for arm, pipeline in (("serialized", False), ("pipelined", True)):
+            node = build_node(config_from_dict(art.node_config(
+                "serve", max_concurrent_models=1, cold_load_pipeline=pipeline)), device="cuda")
+            try:
+                base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+                A.FLASH_LAUNCHES.reset()
+                requests = 0
+                for name in ("llama7b", QUANT_NAME):
+                    raw, load = _quant_load(base, name, body)
+                    requests += 1
+                    loads[arm, name] = load
+                    log(_load_line(f"{arm} cold load of {name}", load))
+                    stages = [c["name"] for c in load["children"]]
+                    if ("device_dequant" in stages) != (name == QUANT_NAME):
+                        raise AssertionError(f"{arm} {name}: load stages {stages}")
+                int8_replies[arm] = raw
+                pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+                _check_logits(plain_q, TIER_SHAPE, ids, pred)
+                if arm == "pipelined":
+                    rng = np.random.default_rng(seed + 22)
+                    url = f"{base}/{QUANT_NAME}/versions/1:predict"
+                    for shape in QUANT_SHAPES:
+                        sids = rng.integers(0, art.vocab, size=shape, dtype=np.int64)
+                        status, out, dt = _post(url, {"instances": sids.tolist()}, 900.0)
+                        requests += 1
+                        if status != 200:
+                            raise AssertionError(f"int8 :predict {shape} answered {status}")
+                        spred = np.asarray(out["predictions"], dtype=np.float32)
+                        if spred.shape != (shape[0], art.vocab) or not np.isfinite(spred).all():
+                            raise AssertionError(f"int8 :predict {shape}: {spred.shape}")
+                        _check_logits(plain_q, shape, sids, spred)
+                        log(f"  int8 :predict {shape}: {dt * 1e3:.1f} ms (warm, host clock)")
+                launches = A.FLASH_LAUNCHES.value
+                want = art.layers * (requests + 2)  # + the two disk loads' warm-ups
+                log(f"[{arm}] flash_attention launches {launches} (n_layers {art.layers} x "
+                    f"({requests} requests + 2 warm-up forwards) = {want})")
+                if launches != want:
+                    raise AssertionError(f"[{arm}] flash launches {launches} != {want}")
+                flash += launches
+            finally:
+                node.close()
+        if int8_replies["serialized"] != int8_replies["pipelined"]:
+            raise AssertionError("the int8 model's serialized and pipelined replies differ")
+        log("int8 replies of the serialized and the pipelined load: byte for byte equal")
+
+        # (3) greedy :generate on the continuous paged engine
+        cfg = config_from_dict(art.node_config(
+            "serve", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+            kv_page_tokens=16))
+        node = build_node(cfg, device="cuda")
+        try:
+            url = (f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/{QUANT_NAME}"
+                   "/versions/1:generate")
+            rng = np.random.default_rng(seed + 23)
+            prompts = [rng.integers(0, art.vocab, size=int(n), dtype=np.int64)
+                       for n in rng.integers(*QUANT_PROMPT_RANGE, size=QUANT_PROMPTS)]
+            bodies = [{"input_ids": [p.tolist()], "max_new_tokens": QUANT_NEW_TOKENS}
+                      for p in prompts]
+            status, out, _dt = _post(url, {"input_ids": [list(range(1, 33))],
+                                           "max_new_tokens": 8}, 900.0)  # the cold load
+            if status != 200:
+                raise AssertionError(f"int8 warm-up :generate answered {status}: {out}")
+            with _Counted(qart, node.engine, "quant: int8 generate") as counted:
+                t0 = time.monotonic()
+                results = _post_many(url, bodies, QUANT_PROMPTS)
+                wall = time.monotonic() - t0
+            paged += counted.check()
+            _check_answers(qart, "quant: int8 generate", prompts, results, QUANT_NEW_TOKENS,
+                           LOGITS_TOL)
+            _check_drained(node, qart, "quant: int8 generate")
+            log(f"  [quant: int8 generate] {QUANT_PROMPTS} greedy requests x "
+                f"{QUANT_NEW_TOKENS} tokens: wall {wall * 1e3:.1f} ms, every token within "
+                f"{LOGITS_TOL} of the plain path's max logit (teacher-forced), census green")
+        finally:
+            node.close()
+
+        # (4) the host tier: int8 and bf16 from disk, then promoted
+        raw_cfg = art.node_config("serve", max_concurrent_models=1)
+        raw_cfg["cache"]["host_tier_bytes"] = 3 * art.nbytes
+        node = build_node(config_from_dict(raw_cfg), device="cuda")
+        try:
+            base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+            A.FLASH_LAUNCHES.reset()
+            first, tier_loads = {}, []
+            for name, tier in QUANT_TIER_SCHEDULE:
+                raw, load = _quant_load(base, name, body)
+                if load["attrs"]["tier"] != tier:
+                    raise AssertionError(f"{name}: loaded from {load['attrs']['tier']}, "
+                                         f"the schedule says {tier}")
+                tier_loads.append((name, load))
+                if tier == "disk":
+                    first[name] = raw
+                elif raw != first[name]:
+                    raise AssertionError(f"{name}: the promoted reply differs from its disk "
+                                         "load's")
+                log(_load_line(f"{tier} load of {name}", load))
+            launches = A.FLASH_LAUNCHES.value
+            node.runtime.drain_demotions()
+            counts = {t: node.metrics.reload_source.labels(t).value
+                      for t in ("hbm", "host", "disk", "store", "peer")}
+            if counts["disk"] != 2 or counts["host"] != 3 or counts["peer"]:
+                raise AssertionError(f"reload sources {counts} != disk 2, host 3")
+            want = art.layers * (len(QUANT_TIER_SCHEDULE) + 2)
+            log(f"[tier] reload sources {counts}; flash_attention launches {launches} "
+                f"(n_layers {art.layers} x ({len(QUANT_TIER_SCHEDULE)} requests + 2 warm-up "
+                f"forwards) = {want}); every promoted reply its disk load's byte for byte")
+            if launches != want:
+                raise AssertionError(f"[tier] flash launches {launches} != {want}")
+            flash += launches
+            entry = node.runtime._host_tier.get(_mid(QUANT_NAME))
+            if entry is None or not entry.quant_dtypes:
+                raise AssertionError("the tier holds no int8 entry of the int8 model")
+            log(f"int8 tier entry: {entry.nbytes} bytes in {len(entry.chunks)} chunks, "
+                f"{len(entry.quant_dtypes)} quantized leaves, {entry.hbm_bytes} device bytes "
+                f"once dequantized")
+            _quant_summary(art, qbytes, loads, tier_loads)
+        finally:
+            node.close()
+        log(f"quant phase launches: flash_attention {flash}, paged_decode_attention {paged}")
+        if not flash or not paged:
+            raise AssertionError("a kernel of the int8 path never launched")
+        kernels["flash_attention"]["launches"] += flash
+        kernels["flash_attention"]["launches_quant_phase"] = flash
+        kernels["paged_decode_attention"]["launches"] += paged
+        kernels["paged_decode_attention"]["launches_quant_phase"] = paged
+    finally:
+        del plain_q
+        torch.cuda.empty_cache()
+        # the card's machine caps a run's disk writes: the int8 copies go
+        shutil.rmtree(os.path.join(art.store, QUANT_NAME), ignore_errors=True)
+        shutil.rmtree(os.path.join(art.work, "cache_serve", QUANT_NAME), ignore_errors=True)
+
+
+def _mid(name: str):
+    from tfservingcache_tpu_torch.types import ModelId
+
+    return ModelId(name, 1)
+
+
+def _tree_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_cuda(v) for v in tree]
+    return tree.cuda()
+
+
+def _quant_summary(art, qbytes: int, loads: dict, tier_loads: list) -> None:
+    """One line a load path: the int8 model's transfer, dequant and total
+    ms beside the bf16 model's, from this call's load spans."""
+    def ms(load, stage):
+        return _stage_ms(load).get(stage, 0.0)
+
+    def row(what, q, b):
+        return (f"  {what}: int8 total {q['duration_s'] * 1e3:.1f} ms (device_transfer "
+                f"{ms(q, 'device_transfer'):.1f}, device_dequant {ms(q, 'device_dequant'):.1f}, "
+                f"transfer_sync {ms(q, 'transfer_sync'):.1f}) | bf16 total "
+                f"{b['duration_s'] * 1e3:.1f} ms (device_transfer "
+                f"{ms(b, 'device_transfer'):.1f}, transfer_sync {ms(b, 'transfer_sync'):.1f})")
+
+    log(f"int8 cold path ({nvidia_smi_line()}): params.bin {qbytes} bytes vs bf16 "
+        f"{art.nbytes}, {art.layers} layers")
+    for arm in ("serialized", "pipelined"):
+        log(row(f"{arm} load", loads[arm, QUANT_NAME], loads[arm, "llama7b"]))
+    promoted = {name: [ld for n, ld in tier_loads if n == name and ld["attrs"]["tier"] == "host"]
+                for name in (QUANT_NAME, "llama7b")}
+    for i, ld in enumerate(promoted[QUANT_NAME]):
+        log(row(f"promotion {i + 1}", ld, promoted["llama7b"][0]))
+
+
 def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
     """REST :predict of the "ring" artifact on a node whose runtime is bound
     to RING_SHARDS copies of the card (``TorchModelRuntime(devices=...)``
@@ -2653,8 +2948,11 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     from tfservingcache_tpu_torch.ops import attention as A
     from tfservingcache_tpu_torch.server import build_node
 
+    # one disk cache for the arms' nodes, one after another: each node of
+    # its own would copy the artifact and its drafts again, and the card's
+    # machine caps what a run writes to its disk
     cfg = config_from_dict(art.node_config(
-        name, generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+        "gen", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
         kv_page_tokens=16, **serving))
     spec = cfg.serving.spec_tokens
     node = build_node(cfg, device="cuda")
@@ -2727,7 +3025,8 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     log(f"  [{name}] {len(prompts)} requests x {n_new} tokens from {GEN_CLIENTS} clients: "
         f"wall {wall * 1e3:.1f} ms, {len(prompts) * n_new / wall:.1f} generated tok/s, "
         f"per-request p50 {statistics.median(lat) * 1e3:.1f} ms (host clock, localhost HTTP); "
-        f"cold first request {cold_s * 1e3:.1f} ms; teacher-forced max gap to the plain "
+        f"first request (the node's load, from the arms' shared disk cache after the "
+        f"first arm) {cold_s * 1e3:.1f} ms; teacher-forced max gap to the plain "
         f"path's max logit {worst:.4f} (tolerance {tol}); census green, "
         f"{st.arena_pages} pages free ({st.arena_dtype or 'model dtype'} arena, "
         f"{(st.k.nbytes + st.v.nbytes + sum(t.nbytes for t in (st.scales or {}).values())) / 2**30:.2f} GiB)")
@@ -3157,8 +3456,8 @@ def _solo_draft_arm(art, prompts):
     from tfservingcache_tpu_torch.server import build_node
 
     name = "f: solo draft_model"
-    cfg = config_from_dict(art.node_config(
-        name, generate_engine="continuous", generate_slots=8, kv_page_tokens=16))
+    cfg = config_from_dict(art.node_config(  # the arms' shared disk cache
+        "gen", generate_engine="continuous", generate_slots=8, kv_page_tokens=16))
     node = build_node(cfg, device="cuda")
     url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
     body = {"input_ids": [prompts[2].tolist()], "max_new_tokens": GEN_NEW_TOKENS,
@@ -4796,6 +5095,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_surface(art, args.seed, args.warm, kernels)
         with Phase("tier"):
             phase_tier(art, args.seed, kernels)
+        with Phase("quant"):
+            phase_quant(art, args.seed, kernels)
         with Phase("generate"):
             phase_generate(art, args.seed, kernels)
         with Phase("observe"):

@@ -83,12 +83,15 @@ def _chunk_bytes(buf) -> bytes:
     return buf.contiguous().view(torch.uint8).numpy().tobytes()
 
 
-def _hold_entry(got, want) -> None:
+def _hold_entry(got, want, quant=None, hbm=None) -> None:
+    """``quant``: the entry's expected ``quant_dtypes`` ({} unless given);
+    ``hbm``: its expected device bytes (``want.hbm_bytes`` unless given)."""
     assert [list(c) for c, _ in got.chunks] == [list(c) for c, _ in want.chunks]
-    assert got.nbytes == want.nbytes and got.hbm_bytes == want.hbm_bytes
+    assert got.nbytes == want.nbytes
+    assert got.hbm_bytes == (want.hbm_bytes if hbm is None else hbm)
     assert got.owner == want.owner and got.paths == want.paths
     assert [tuple(s) for s in got.shapes] == [tuple(s) for s in want.shapes]
-    assert got.quant_dtypes == want.quant_dtypes == {}
+    assert got.quant_dtypes == want.quant_dtypes == (quant or {})
     for (_c, g), (_c2, w) in zip(got.chunks, want.chunks):
         assert g.is_contiguous() and g._base is None  # owned, not a view
         assert _chunk_bytes(g) == _chunk_bytes(w)
@@ -119,6 +122,55 @@ def test_entry_is_the_references_build_packed_entry(store, monkeypatch, family, 
         got = rt._host_tier.get(m.identifier)
         _hold_entry(got, want)
         assert got.make_module is got.model_def.make_module
+    finally:
+        rt.close()
+
+
+QUANT_CFG = {"vocab_size": 512, "d_model": 256, "n_layers": 1, "n_heads": 4,
+             "n_kv_heads": 2, "d_ff": 512, "max_seq": 64, "dtype": "bfloat16"}
+
+
+@pytest.fixture(scope="module")
+def qpath(tmp_path_factory):
+    base = tmp_path_factory.mktemp("qstore")
+    return jreg.export_artifact("transformer_lm", str(base), name="q", version=1,
+                                config=QUANT_CFG, seed=2, quantize="int8")
+
+
+@pytest.mark.parametrize("route", ["pipelined", "serialized", "demoted"])
+def test_int8_entry_is_the_references_build_packed_entry(qpath, monkeypatch, route):
+    """An int8 artifact's retained entry is the reference's
+    ``build_packed_entry`` of its raw load: each quantized leaf as a ``q``
+    flat tensor in an int8 chunk and a ``scale`` one in an f32 chunk, its
+    bf16 dtype in ``quant_dtypes`` (embed, wq, wo, w1, w2, w3), the entry's bytes the int8 and scale
+    chunks' (under half the device bytes), its device bytes the
+    dequantized params' (the reference runtime's ``tree_nbytes`` after
+    the dequant). A demoted model (its entry dropped, copied back off the
+    device) is retained dequantized, as the device holds it."""
+    monkeypatch.setattr(mr, "_PACK_CHUNK_BYTES", SMALL_CHUNK * 8)
+    monkeypatch.setattr(jmr, "_PACK_CHUNK_BYTES", SMALL_CHUNK * 8)
+    model_def, raw = jreg.load_artifact(qpath, raw_quant=True)
+    dequantized = jreg.load_artifact(qpath)[1]
+    hbm = jmr.tree_nbytes(dequantized)
+    if route == "demoted":
+        want = jmr.build_packed_entry(model_def, dequantized, None, hbm)
+    else:
+        want = jmr.build_packed_entry(model_def, raw, None, hbm)
+        assert {role for _oi, role in want.owner} == {"plain", "q", "scale"}
+    rt = mr.TorchModelRuntime(ServingConfig(cold_load_pipeline=route != "serialized"),
+                              device="cpu", host_tier_bytes=1 << 24)
+    try:
+        m = Model(ModelId("q", 1), qpath, 0)
+        assert rt.ensure_loaded(m) == "disk"
+        if route == "demoted":
+            rt._host_tier.remove(m.identifier)
+            rt.unload(m.identifier)
+            rt.drain_demotions()
+        got = rt._host_tier.get(m.identifier)
+        _hold_entry(got, want, quant=dict(want.quant_dtypes), hbm=hbm)
+        if route != "demoted":
+            assert len(got.quant_dtypes) == 6 and set(got.quant_dtypes.values()) == {"bfloat16"}
+            assert got.nbytes < hbm / 1.8
     finally:
         rt.close()
 

@@ -5,8 +5,10 @@ the runtime's ``adopt_packed_entry``) against the JAX package's.
 - The wire: the port's frames land an artifact whose leaves are the
   sender's byte for byte, and rebuild the sender's packed entry; the port's
   frames land in the reference's receiver and the reference's in the port's,
-  each artifact loading in the other package with byte-equal leaves; broken
-  streams and quantized manifests are refused with ``PeerWireError``.
+  each artifact loading in the other package with byte-equal leaves, an
+  int8 entry among them (its ``q`` and ``scale`` chunks byte-exact, its
+  ``quant_dtypes`` the reference's); broken streams, and a quantized
+  manifest that points outside the file, are refused with ``PeerWireError``.
 - Adoption: an entry rebuilt off the wire promotes with no read of the
   artifact, predicts ``torch.equal`` to a disk load, and within bf16's 2**-4
   of the reference's forward (tests/test_torch_serving.py's tolerance).
@@ -120,7 +122,9 @@ def _path(store, name: str) -> str:
 
 
 def _port_entry(path: str) -> PackedModelEntry:
-    md, params = treg.load_artifact(path)
+    """The entry the port's load of ``path`` retains (an int8 artifact read
+    raw, as the runtime reads it)."""
+    md, params = treg.load_artifact(path, raw_quant=True)
     return mr.build_packed_entry(md, params, hbm_bytes=0)
 
 
@@ -141,19 +145,26 @@ def _dtype(leaf) -> str:
     return np.asarray(leaf).dtype.name
 
 
+def _leaf(v) -> tuple:
+    if isinstance(v, (treg.QuantLeaf, jreg.QuantLeaf)):  # a raw_quant load's
+        return ("quant", v.orig_dtype, _leaf(v.q), _leaf(v.scale))
+    return (_dtype(v), tuple(v.shape), _u8(v))
+
+
 def leaves(tree) -> dict:
     """path -> (dtype name, shape, raw bytes) of a params tree of either
-    package."""
-    return {p: (_dtype(v), tuple(v.shape), _u8(v)) for p, v in treg.flatten_params(tree)}
+    package; a quantized leaf's entry holds its ``q``'s and ``scale``'s."""
+    return {p: _leaf(v) for p, v in treg.flatten_params(tree)}
 
 
-def _hold_entry(got, want) -> None:
+def _hold_entry(got, want, quant=None) -> None:
     """The rebuilt entry is the sender's: paths, owner, shapes, plans and
-    chunk bytes and dtypes."""
+    chunk bytes and dtypes, and ``quant`` as its ``quant_dtypes`` ({} unless
+    given)."""
     assert list(got.paths) == list(want.paths)
     assert [tuple(o) for o in got.owner] == [tuple(o) for o in want.owner]
     assert [tuple(s) for s in got.shapes] == [tuple(s) for s in want.shapes]
-    assert dict(got.quant_dtypes) == dict(want.quant_dtypes) == {}
+    assert dict(got.quant_dtypes) == dict(want.quant_dtypes) == (quant or {})
     assert [list(p) for p, _ in got.chunks] == [list(p) for p, _ in want.chunks]
     for (_p, g), (_q, w) in zip(got.chunks, want.chunks):
         assert _dtype(g) == _dtype(w)
@@ -171,8 +182,13 @@ def _receive(frames, dest, assemble=True) -> tuple[pt.PeerStreamReceiver, list[s
 
 # -- the wire ------------------------------------------------------------------
 
+# the int8 artifact: (family, its quant_dtypes by outer leaf: embed, the only
+# leaf of QUANT_CFG with 65536 elements)
+QUANT = ("transformer_lm", {0: "bfloat16"})
+
+
 @pytest.mark.parametrize("chunked", [False, True])
-@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("name", [*MODELS, "q"])
 def test_wire_roundtrip_lands_the_senders_artifact(store, tmp_path, monkeypatch, name, chunked):
     """iter_frames -> PeerStreamReceiver: the landed artifact's leaves are
     the sender's byte for byte, and the entry rebuilt from the RAM image is
@@ -184,15 +200,15 @@ def test_wire_roundtrip_lands_the_senders_artifact(store, tmp_path, monkeypatch,
     rx, kinds = _receive(frames, tmp_path / "rx")
     assert kinds[0] == "meta" and kinds[-1] == "end" and kinds.count("chunk") >= 1
     assert rx.bytes_received == entry.nbytes
-    md, got = treg.load_artifact(str(tmp_path / "rx"))
-    assert md.family == MODELS[name][0]
-    assert leaves(got) == leaves(treg.load_artifact(_path(store, name))[1])
-    _hold_entry(rx.build_entry(), entry)
+    md, got = treg.load_artifact(str(tmp_path / "rx"), raw_quant=True)
+    assert md.family == MODELS.get(name, QUANT)[0]
+    assert leaves(got) == leaves(treg.load_artifact(_path(store, name), raw_quant=True)[1])
+    _hold_entry(rx.build_entry(), entry, quant=QUANT[1] if name == "q" else None)
     # the digests are computed once and kept on the entry
     assert entry.wire_hashes == [c["hash"] for c in json.loads(frames[0][1:])["chunks"]]
 
 
-@pytest.mark.parametrize("name", ["lm", "lmb", "mnist"])
+@pytest.mark.parametrize("name", ["lm", "lmb", "mnist", "q"])
 def test_port_frames_land_in_the_reference_receiver(store, tmp_path, monkeypatch, name):
     """The port's stream is the reference's wire: the reference's receiver
     lands an artifact the reference loads with the source's leaves, and
@@ -211,9 +227,10 @@ def test_port_frames_land_in_the_reference_receiver(store, tmp_path, monkeypatch
     rebuilt, want = rx.build_entry(), _ref_entry(_path(store, name))
     assert [list(p) for p, _ in rebuilt.chunks] == [list(p) for p, _ in want.chunks]
     assert [_u8(b) for _p, b in rebuilt.chunks] == [_u8(b) for _p, b in want.chunks]
+    assert dict(rebuilt.quant_dtypes) == dict(want.quant_dtypes) == dict(entry.quant_dtypes)
 
 
-@pytest.mark.parametrize("name", ["lm", "lmb", "mnist"])
+@pytest.mark.parametrize("name", ["lm", "lmb", "mnist", "q"])
 def test_reference_frames_land_in_the_port_receiver(store, tmp_path, monkeypatch, name):
     """The reference's stream of its own entry (built as
     tests/test_peer_fetch.py's ``_entry_for`` builds it) lands in the port's
@@ -227,7 +244,8 @@ def test_reference_frames_land_in_the_port_receiver(store, tmp_path, monkeypatch
     assert kinds[-1] == "end" and rx.bytes_received == jentry.nbytes
     _md, got = treg.load_artifact(str(tmp_path / "rx"))
     assert leaves(got) == leaves(treg.load_artifact(_path(store, name))[1])
-    _hold_entry(rx.build_entry(), _port_entry(_path(store, name)))
+    _hold_entry(rx.build_entry(), _port_entry(_path(store, name)),
+                quant=dict(jentry.quant_dtypes))
     # and the port's stream of the same entry is the reference's, frame for frame
     assert list(pt.iter_frames(_port_entry(_path(store, name)), FRAME,
                                model_id=ModelId(name, 1))) == frames
@@ -279,20 +297,39 @@ def test_a_broken_stream_is_refused_like_the_reference(store, tmp_path, how):
 
 
 def test_a_quantized_manifest_is_refused(store, tmp_path):
-    """The port loads no int8 artifact yet: the reference's int8 stream is
-    refused at its meta frame, naming the later slice, before any byte
-    lands; the reference's own receiver takes the same stream."""
+    """A quantized manifest whose scales lie outside the announced file is
+    refused at the meta frame, before any byte lands (the int8 stream
+    itself is taken: ``test_a_quantized_stream_from_the_reference_lands_byte_exact``)."""
     frames = list(jpt.iter_frames(_ref_entry(_path(store, "q")), FRAME))
+    meta = json.loads(frames[0][1:])
+    ent = next(e for e in meta["model_json"]["params"]["manifest"] if "quant" in e)
+    ent["quant"]["scale_offset"] = meta["file_bytes"]
     rx = pt.PeerStreamReceiver(str(tmp_path / "rx"), assemble=True)
-    with pytest.raises(pt.PeerWireError, match="int8 artifacts"):
-        rx.feed(frames[0])
+    with pytest.raises(pt.PeerWireError, match="quant scales of 'embed' lie outside"):
+        rx.feed(bytes([pt.FRAME_META]) + json.dumps(meta).encode())
     rx.close()
     assert not os.path.exists(tmp_path / "rx")
-    jrx = jpt.PeerStreamReceiver(str(tmp_path / "jrx"))
-    try:
-        assert [jrx.feed(f) for f in frames][-1] == "end"
-    finally:
-        jrx.close()
+
+
+def test_a_quantized_stream_from_the_reference_lands_byte_exact(store, tmp_path):
+    """The reference's stream of its int8 entry of model ``q`` is taken by
+    the port's receiver with no ``PeerWireError``: the landed artifact's raw
+    ``q`` and ``scale`` are the store's byte for byte, and the rebuilt entry
+    holds the reference's chunks and ``quant_dtypes``."""
+    jentry = _ref_entry(_path(store, "q"))
+    assert dict(jentry.quant_dtypes) == QUANT[1]
+    frames = list(jpt.iter_frames(jentry, FRAME, model_id=JModelId("q", 1)))
+    rx, kinds = _receive(frames, tmp_path / "rx")
+    assert kinds[0] == "meta" and kinds[-1] == "end"
+    assert rx.bytes_received == jentry.nbytes
+    _md, got = treg.load_artifact(str(tmp_path / "rx"), raw_quant=True)
+    assert isinstance(got["embed"], treg.QuantLeaf)
+    assert leaves(got) == leaves(treg.load_artifact(_path(store, "q"), raw_quant=True)[1])
+    rebuilt = rx.build_entry()
+    assert dict(rebuilt.quant_dtypes) == dict(jentry.quant_dtypes)
+    assert [tuple(o) for o in rebuilt.owner] == [tuple(o) for o in jentry.owner]
+    assert [list(p) for p, _ in rebuilt.chunks] == [list(p) for p, _ in jentry.chunks]
+    assert [_u8(b) for _p, b in rebuilt.chunks] == [_u8(b) for _p, b in jentry.chunks]
 
 
 def test_an_entry_without_paths_cannot_be_served(store):
@@ -321,7 +358,7 @@ def _predict(rt, mid):
     return {k: torch.as_tensor(np.asarray(v)) for k, v in out.items()}
 
 
-@pytest.mark.parametrize("name", ["lm", "lmb"])
+@pytest.mark.parametrize("name", ["lm", "lmb", "q"])
 def test_adopted_entry_promotes_without_reading_the_artifact(store, tmp_path, name):
     """An entry rebuilt off the wire serves the first load through the
     promotion (the Model handed over points at a directory that does not
@@ -348,7 +385,7 @@ def test_adopted_entry_promotes_without_reading_the_artifact(store, tmp_path, na
         ref = jrt.predict(JModelId(name, 1), X)
     finally:
         jrt.close()
-    tol = BF16_TOL if name == "lmb" else 1e-4
+    tol = BF16_TOL if name in ("lmb", "q") else 1e-4
     for k in want:
         np.testing.assert_allclose(got[k].float().numpy(), np.asarray(ref[k], np.float32),
                                    rtol=0, atol=tol)
@@ -457,13 +494,13 @@ def sender(tmp_path, store, name="sender", metrics=None, capacity=1 << 30,
 
 
 @contextmanager
-def cold(tmp_path, store, peers, runtime=None):
+def cold(tmp_path, store, peers, runtime=None, mid=MID):
     """A cold port manager whose PeerProvider is bound to a fleet view that
-    advertises ``peers`` ([(NodeInfo, warmth of MID)])."""
+    advertises ``peers`` ([(NodeInfo, warmth of ``mid``)])."""
     metrics = Metrics()
     fleet = FleetView(metrics=metrics)
     for info, warmth in peers:
-        fleet.ingest(NodeStatus(ident=info.ident, seq=1, models={MID.key: warmth}))
+        fleet.ingest(NodeStatus(ident=info.ident, seq=1, models={mid.key: warmth}))
     provider = PeerProvider(DiskModelProvider(str(store)), chunk_bytes=FRAME,
                             timeout_s=TIMEOUT)
     provider.bind_fleet(fleet, SimpleNamespace(
@@ -790,50 +827,85 @@ def reference_sender(tmp_path, store):
             loop.close()
 
 
+def _port_node_adopts_from_a_reference_node(store, tmp_path, name):
+    mid = ModelId(name, 1)
+    rt = mr.TorchModelRuntime(ServingConfig(), device="cpu")
+    with reference_sender(tmp_path, store) as (jtier, info), \
+            cold(tmp_path, store, [(info, 2)], rt, mid=mid) as b:
+        jtier.put(JModelId(name, 1), _ref_entry(_path(store, name)))
+        model = b.manager.ensure_servable(mid)
+        assert model.metadata["fetch_source"] == "peer"
+        assert _sources(b.metrics)["peer"] == 1
+        _md, got = treg.load_artifact(b.cache.model_path(mid), raw_quant=True)
+        assert leaves(got) == leaves(treg.load_artifact(_path(store, name), raw_quant=True)[1])
+        assert rt.is_loaded(mid) and not rt._adopted  # the adopted entry was promoted
+        adopted = _predict(rt, mid)
+        rt.unload(mid)
+        assert rt.ensure_loaded(model) == "disk"
+        for k, v in _predict(rt, mid).items():
+            assert torch.equal(adopted[k], v), k
+        assert jtier._pins == {}
+    return b
+
+
 def test_a_port_node_adopts_from_a_reference_node(store, tmp_path):
     """The reference node streams its own entry over the unchanged wire;
     the port node lands it, adopts it (promotion, no disk load) and
     predicts what its own disk load of the store's artifact predicts."""
-    rt = mr.TorchModelRuntime(ServingConfig(), device="cpu")
-    with reference_sender(tmp_path, store) as (jtier, info), \
-            cold(tmp_path, store, [(info, 2)], rt) as b:
-        jtier.put(JModelId("m", 1), _ref_entry(_path(store, "m")))
-        model = b.manager.ensure_servable(MID)
-        assert model.metadata["fetch_source"] == "peer"
-        assert _sources(b.metrics)["peer"] == 1
-        _md, got = treg.load_artifact(b.cache.model_path(MID))
-        assert leaves(got) == leaves(treg.load_artifact(_path(store, "m"))[1])
-        adopted = _predict(rt, MID)
-        rt.unload(MID)
-        assert rt.ensure_loaded(model) == "disk"
-        for k, v in _predict(rt, MID).items():
-            assert torch.equal(adopted[k], v), k
-        assert jtier._pins == {}
+    _port_node_adopts_from_a_reference_node(store, tmp_path, "m")
 
 
-def test_a_reference_node_fetches_from_a_port_node(store, tmp_path):
-    """The other direction: the reference's PeerProvider streams the port
-    node's entry and lands the store's artifact byte for byte."""
-    entry = _port_entry(_path(store, "m"))
+def test_a_port_node_adopts_an_int8_entry_from_a_reference_node(store, tmp_path, monkeypatch):
+    """The same for the reference's int8 entry: adopted, not sent to the
+    store, and promoted through the on-device dequant."""
+    calls = []
+    real = mr._dequantize_on_device
+    monkeypatch.setattr(mr, "_dequantize_on_device", lambda p: calls.append(1) or real(p))
+    b = _port_node_adopts_from_a_reference_node(store, tmp_path, "q")
+    assert _sources(b.metrics)["store"] == 0
+    assert calls  # the promotion and the disk load each dequantized on the device
+
+
+def _reference_node_fetches_from_a_port_node(store, tmp_path, name):
+    mid = ModelId(name, 1)
+    entry = _port_entry(_path(store, name))
     with sender(tmp_path, store) as (tier, info):
-        tier.put(MID, entry)
+        tier.put(mid, entry)
         jinfo = JNodeInfo(info.host, info.rest_port, info.grpc_port)
         metrics = JMetrics()
         fleet = JFleetView(metrics=metrics)
-        fleet.ingest(JNodeStatus(ident=jinfo.ident, seq=1, models={MID.key: 2}))
+        fleet.ingest(JNodeStatus(ident=jinfo.ident, seq=1, models={mid.key: 2}))
         provider = JPeerProvider(JDiskProvider(str(store)), chunk_bytes=FRAME,
                                  timeout_s=TIMEOUT)
         provider.bind_fleet(fleet, SimpleNamespace(_nodes_by_ident={jinfo.ident: jinfo}), set())
         cache = JDiskCache(str(tmp_path / "cache_jcold"), capacity_bytes=1 << 30)
         manager = JCacheManager(provider, cache, JFakeRuntime(), metrics)
         try:
-            model = manager.ensure_servable(JModelId("m", 1))
+            model = manager.ensure_servable(JModelId(name, 1))
             assert model.metadata["fetch_source"] == "peer"
             assert metrics.registry.get_sample_value(
                 "tpusc_peer_fetch_bytes_total", {"outcome": "ok"}) == entry.nbytes
-            _md, got = jreg.load_artifact(cache.model_path(JModelId("m", 1)))
-            assert leaves(got) == leaves(jreg.load_artifact(_path(store, "m"))[1])
+            path = cache.model_path(JModelId(name, 1))
+            _md, got = jreg.load_artifact(path, raw_quant=True)
+            assert leaves(got) == leaves(jreg.load_artifact(_path(store, name), raw_quant=True)[1])
+            jentry = model.metadata.get("packed_entry")
+            if jentry is None:  # the reference's own retain of what landed
+                jentry = _ref_entry(path)
+            assert dict(jentry.quant_dtypes) == dict(entry.quant_dtypes)
         finally:
             provider.close()
             manager.close()
         assert tier._pins == {}
+
+
+def test_a_reference_node_fetches_from_a_port_node(store, tmp_path):
+    """The other direction: the reference's PeerProvider streams the port
+    node's entry and lands the store's artifact byte for byte."""
+    _reference_node_fetches_from_a_port_node(store, tmp_path, "m")
+
+
+def test_a_reference_node_fetches_an_int8_entry_from_a_port_node(store, tmp_path):
+    """The same for the port's int8 entry: the reference lands the store's
+    int8 artifact byte for byte (raw ``q`` and ``scale``), with the port
+    entry's ``quant_dtypes``."""
+    _reference_node_fetches_from_a_port_node(store, tmp_path, "q")

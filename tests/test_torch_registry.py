@@ -87,15 +87,43 @@ def test_both_writers_write_the_same_bytes(tmp_path, dtype):
 
 
 def test_int8_artifact_is_refused_clearly(tmp_path):
+    """An int8 artifact loads in the port (tests/test_torch_quant.py); one
+    whose scales point past the end of params.bin is refused by both
+    packages with the reference's message, raw or dequantized."""
     path = jreg.export_artifact(
         "transformer_lm", str(tmp_path), name="lm",
         config=dict(SMALL, d_model=256, d_ff=512, dtype="float32"), seed=0, quantize="int8",
     )
-    with pytest.raises(treg.ArtifactError, match="int8 artifacts: later slice"):
-        treg.load_artifact(path)
-    with pytest.raises(treg.ArtifactError, match="int8"):
-        treg.save_artifact(str(tmp_path / "q"), treg.build("transformer_lm", SMALL), {},
-                           quantize="int8")
+    _m, good = treg.load_artifact(path, raw_quant=True)
+    assert isinstance(good["embed"], treg.QuantLeaf)
+    meta_path = os.path.join(path, "model.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    ent = next(e for e in meta["params"]["manifest"] if "quant" in e)
+    ent["quant"]["scale_offset"] = os.path.getsize(os.path.join(path, "params.bin"))
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    for raw in (True, False):
+        for reg in (treg, jreg):
+            with pytest.raises(reg.ArtifactError, match="corrupt quant scales"):
+                reg.load_artifact(path, raw_quant=raw)
+
+
+def test_unsupported_quantize_scheme_is_refused_in_both_packages(tmp_path):
+    """Only None and "int8" are schemes (the reference's
+    test_unsupported_quant_scheme_rejected): "int4" raises ArtifactError on
+    export and on save, and writes nothing."""
+    for reg, kw in ((treg, {"device": "cpu"}), (jreg, {})):
+        with pytest.raises(reg.ArtifactError, match="unsupported quantize scheme"):
+            reg.export_artifact("half_plus_two", str(tmp_path / "e"), name="m", version=1,
+                                quantize="int4", **kw)
+    model = treg.build("transformer_lm", SMALL)
+    with pytest.raises(treg.ArtifactError, match="unsupported quantize scheme"):
+        treg.save_artifact(str(tmp_path / "s"), model, {}, quantize="int4")
+    with pytest.raises(jreg.ArtifactError, match="unsupported quantize scheme"):
+        jreg.save_artifact(str(tmp_path / "j"), jreg.build("transformer_lm", SMALL), {},
+                           quantize="int4")
+    assert not os.path.exists(tmp_path / "e" / "m") and not os.path.exists(tmp_path / "s")
 
 
 def test_corrupt_manifest_and_missing_files_raise(tmp_path):

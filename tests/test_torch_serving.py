@@ -258,7 +258,8 @@ def test_port_serves_without_importing_jax(tmp_path):
     package, nor ``prometheus_client`` or ``aiohttp``, may enter
     ``sys.modules``; nor may they with the peer wire's model half and the
     peer and object-store providers imported and a tier entry streamed
-    through the wire."""
+    through the wire, nor with an int8 artifact loaded, promoted and its
+    entry streamed."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
         sys.path.insert(0, {str(ROOT)!r})
@@ -404,17 +405,37 @@ def test_port_serves_without_importing_jax(tmp_path):
         assert bodies[2] == bodies[0]
         assert node.metrics.reload_source.labels("host").value == 1
         assert "tfservingcache_tpu_torch.cache.host_tier" in sys.modules
+        # an int8 artifact the port wrote: loaded raw and dequantized on the
+        # device, retained as int8 chunks, promoted with the same reply
+        from tfservingcache_tpu_torch.types import ModelId
+        registry.export_artifact("transformer_lm", store, name="lmq",
+                                 config={dict(SMALL, dtype="bfloat16")!r}, device="cpu",
+                                 quantize="int8")
+        qbodies = []
+        for name in ("lmq", "lm", "lmq"):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{{port}}/v1/models/{{name}}/versions/1:predict",
+                data=json.dumps({{"instances": [[1, 2, 3]]}}).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200
+                qbodies.append(resp.read())
+        assert qbodies[2] == qbodies[0]
+        assert node.metrics.reload_source.labels("host").value == 3
+        qentry = node.runtime._host_tier.get(ModelId("lmq", 1))
+        assert qentry.quant_dtypes == {{0: "bfloat16"}}
         # the model half of the peer wire: the tier's entry streamed into a
         # receiver and rebuilt, and the object-store and peer providers
         from tfservingcache_tpu_torch.cache.providers import azblob, gcs, peer, s3
         from tfservingcache_tpu_torch.protocol import peer_transfer
-        from tfservingcache_tpu_torch.types import ModelId
         assert isinstance(node.manager.provider, peer.PeerProvider)
-        entry = node.runtime._host_tier.get(ModelId("lm", 1))
-        rx = peer_transfer.PeerStreamReceiver({str(tmp_path / "peer_rx")!r}, assemble=True)
-        kinds = [rx.feed(f) for f in peer_transfer.iter_frames(entry, 1 << 16)]
-        rx.close()
-        assert kinds[-1] == "end" and rx.build_entry().nbytes == entry.nbytes
+        for i, entry in enumerate((node.runtime._host_tier.get(ModelId("lm", 1)), qentry)):
+            rx = peer_transfer.PeerStreamReceiver({str(tmp_path / "peer_rx")!r} + str(i),
+                                                  assemble=True)
+            kinds = [rx.feed(f) for f in peer_transfer.iter_frames(entry, 1 << 16)]
+            rx.close()
+            rebuilt = rx.build_entry()
+            assert kinds[-1] == "end" and rebuilt.nbytes == entry.nbytes
+            assert rebuilt.quant_dtypes == entry.quant_dtypes
         for mod in ("cache.providers.peer", "cache.providers.s3", "cache.providers.gcs",
                     "cache.providers.azblob", "cache.providers.object_store"):
             assert "tfservingcache_tpu_torch." + mod in sys.modules

@@ -47,7 +47,11 @@ class PackedModelEntry:
     ``owner``/``shapes``/``quant_dtypes``/``treedef`` describe how the flat
     buffers re-slice into the params tree, the bookkeeping of
     ``packed_device_put_pipelined``, so promotion replays the same copies.
-    Only the ``plain`` role exists until the port loads int8 artifacts.
+    A weight of an int8 artifact is kept as it crossed the link: two flat
+    tensors, its int8 ``q`` (role ``q``, in an int8 chunk) and its f32
+    ``scale`` (role ``scale``, in an f32 chunk), with its original dtype in
+    ``quant_dtypes``; the promotion dequantizes it on the device again, and
+    ``nbytes`` counts those int8 and scale bytes.
 
     The reference's entry carries the family's ``jax.jit`` handle and its
     AOT executables, which have no meaning in torch: a promoted model's
@@ -57,9 +61,9 @@ class PackedModelEntry:
 
     model_def: Any
     chunks: list[tuple[list[int], torch.Tensor]]
-    owner: list[tuple[int, str]]          # flat idx -> (outer idx, plain)
+    owner: list[tuple[int, str]]          # flat idx -> (outer idx, plain | q | scale)
     shapes: list[tuple[int, ...]]         # flat idx -> leaf shape
-    quant_dtypes: dict[int, str]          # outer idx -> orig dtype (none yet)
+    quant_dtypes: dict[int, str]          # outer idx of a quantized leaf -> its orig dtype
     treedef: list[str]                    # outer idx -> leaf path
     make_module: Callable[[Any], torch.nn.Module]
     hbm_bytes: int = 0

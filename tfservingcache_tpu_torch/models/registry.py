@@ -12,6 +12,13 @@ is the same, so artifacts written by either package load in the other:
 Leaves load as torch CPU tensors viewing one byte buffer (optionally in
 pinned memory, ready for the host-to-device copy). bf16 leaves need no
 ``ml_dtypes``: their bytes are viewed as ``torch.bfloat16`` directly.
+
+An int8 artifact (``save_artifact(quantize="int8")``) stores each large
+float weight as int8 plus per-output-channel f32 scales: the cold load's
+host-to-device copy ships about half the bytes of a bf16 artifact, and the
+runtime dequantizes on the device. ``load_artifact(raw_quant=True)`` returns
+those weights as ``QuantLeaf`` (what the runtime's packed transfer ships);
+the default load dequantizes them on the host.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ MODEL_JSON = "model.json"
 PARAMS_BIN = "params.bin"
 
 _ALIGN = 16  # every leaf offset 16-byte aligned (valid views for any dtype)
+
+# int8 quantization floor (reference registry.py:204): leaves below this many
+# elements (norms, biases, small projections) keep their float dtype
+_QUANT_MIN_ELEMS = 65536
 
 # manifest dtype names <-> torch dtypes (names as numpy spells them)
 _TORCH_DTYPES: dict[str, torch.dtype] = {
@@ -170,6 +181,46 @@ class ArtifactError(Exception):
     pass
 
 
+class QuantLeaf:
+    """An int8-shipped weight (reference registry.py:210): ``q`` (int8) and
+    the per-output-channel ``scale`` (f32, the last axis kept, every other
+    axis 1), dequantized to ``orig_dtype`` on the device after the copy. A
+    plain class: ``flatten_params`` and the runtime's packed transfer take
+    it as one leaf, whose two tensors ship in the int8 and the f32 group."""
+
+    def __init__(self, q: Any, scale: Any, orig_dtype: str) -> None:
+        self.q = q
+        self.scale = scale
+        self.orig_dtype = orig_dtype
+
+    def dequant_host(self) -> torch.Tensor:
+        """``(q as f32 * scale)`` cast to ``orig_dtype`` on the host: the
+        reference's ``dequant_host`` bit for bit (one f32 product a
+        value, then one rounding)."""
+        q, scale = torch.as_tensor(self.q), torch.as_tensor(self.scale)
+        return (q.to(torch.float32) * scale).to(torch_dtype(self.orig_dtype))
+
+
+def _quantize_int8(a: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Per-output-channel (last axis) symmetric int8 (reference :256):
+    ``scale = max(amax / 127, 1e-12)`` in f32 over every other axis,
+    ``q = clip(round_half_even(a / scale), -127, 127)``. It runs in numpy on
+    the f32 value of each element (a bf16 weight widened exactly), as the
+    reference's ``a.astype(np.float32)`` does, so the bytes are its bytes."""
+    af = a.detach().to("cpu", torch.float32).numpy()
+    reduce_axes = tuple(range(af.ndim - 1))
+    amax = np.max(np.abs(af), axis=reduce_axes, keepdims=True)
+    scale = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
+    q = np.clip(np.round(af / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _leaf_bytes(t: Any) -> bytes:
+    if isinstance(t, np.ndarray):
+        return np.ascontiguousarray(t).tobytes()
+    return _tensor_bytes(torch.as_tensor(t).detach().to("cpu").contiguous())
+
+
 def flatten_params(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     """(path, leaf) pairs in the reference's pytree order: dict keys sorted,
     lists by index, paths joined with "/"."""
@@ -208,40 +259,79 @@ def save_artifact(dest_dir: str, model: ModelDef, params: Any,
                   quantize: str | None = None) -> str:
     """Write ``params`` (a tree of torch tensors, on any device) as a
     ``tpusc.v2`` artifact that both packages load. Float leaves are cast to
-    ``model.store_param_dtype``; leaves stream to disk one at a time."""
-    if quantize is not None:
-        raise ArtifactError("int8 artifacts: later slice of the port")
+    ``model.store_param_dtype``; leaves stream to disk one at a time.
+
+    ``quantize="int8"`` (reference :268) stores every float leaf of two or
+    more axes and at least ``_QUANT_MIN_ELEMS`` elements as int8 plus f32
+    scales (``_quantize_int8``). ``QuantLeaf`` inputs (a ``raw_quant``
+    load's tree) are written as they are, never quantized again."""
+    if quantize not in (None, "int8"):
+        raise ArtifactError(f"unsupported quantize scheme {quantize!r}")
     os.makedirs(dest_dir, exist_ok=True)
     store = torch_dtype(model.store_param_dtype) if model.store_param_dtype else None
     flat = []
     for i, (path, leaf) in enumerate(flatten_params(params)):
+        if isinstance(leaf, QuantLeaf):
+            flat.append(("int8", i, path, leaf))
+            continue
         t = leaf.detach().to("cpu").contiguous()
         if store is not None and t.is_floating_point() and t.dtype != store:
             t = t.to(store)
         flat.append((dtype_name(t.dtype), i, path, t))
-    # grouped by dtype NAME, then pytree order — the reference's layout
+    # grouped by dtype NAME, then pytree order — the reference's layout. A
+    # QuantLeaf sorts as "int8"; a float leaf quantized below keeps its own
+    # dtype's name as its key, as in the reference
     flat.sort(key=lambda e: (e[0], e[1]))
     manifest = []
     offset = 0
     with open(os.path.join(dest_dir, PARAMS_BIN), "wb") as f:
-        for name, _i, path, t in flat:
+        def write_aligned(buf: bytes) -> int:
+            nonlocal offset
             pad = (-offset) % _ALIGN
             if pad:
                 f.write(b"\0" * pad)
                 offset += pad
-            buf = _tensor_bytes(t)
+            start = offset
             f.write(buf)
-            manifest.append({
-                "path": path, "dtype": name, "shape": list(t.shape),
-                "offset": offset, "nbytes": len(buf),
-            })
             offset += len(buf)
+            return start
+
+        def write_quant(entry, q, scale, orig_dtype: str) -> None:
+            qb, sb = _leaf_bytes(q), _leaf_bytes(scale)
+            entry["dtype"] = "int8"
+            entry["offset"] = write_aligned(qb)
+            entry["nbytes"] = len(qb)
+            entry["quant"] = {
+                "orig_dtype": orig_dtype,
+                "scale_dtype": "float32",
+                "scale_shape": list(scale.shape),
+                "scale_offset": write_aligned(sb),
+                "scale_nbytes": len(sb),
+            }
+
+        for name, _i, path, t in flat:
+            if isinstance(t, QuantLeaf):
+                # the reference's key order for a carried leaf: path, shape, dtype
+                entry = {"path": path, "shape": list(t.q.shape)}
+                write_quant(entry, t.q, t.scale, t.orig_dtype)
+                manifest.append(entry)
+                continue
+            entry = {"path": path, "dtype": name, "shape": list(t.shape)}
+            if (quantize == "int8" and t.is_floating_point() and t.dim() >= 2
+                    and t.numel() >= _QUANT_MIN_ELEMS):
+                q, scale = _quantize_int8(t)
+                write_quant(entry, q, scale, name)
+            else:
+                buf = _tensor_bytes(t)
+                entry["offset"] = write_aligned(buf)
+                entry["nbytes"] = len(buf)
+            manifest.append(entry)
     meta = {
         "format": ARTIFACT_FORMAT,
         "family": model.family,
         "config": model.config,
         "param_dtype": model.store_param_dtype,
-        "quantize": None,
+        "quantize": quantize,
         "params": {"file": PARAMS_BIN, "manifest": manifest},
         "signature": {
             "inputs": {k: [v.dtype, list(v.shape)] for k, v in model.input_spec.items()},
@@ -255,14 +345,16 @@ def save_artifact(dest_dir: str, model: ModelDef, params: Any,
     return dest_dir
 
 
-def load_artifact(path: str, pin_memory: bool = False,
-                  map_params: bool = False) -> tuple[ModelDef, Any]:
+def load_artifact(path: str, pin_memory: bool = False, map_params: bool = False,
+                  raw_quant: bool = False) -> tuple[ModelDef, Any]:
     """-> (ModelDef, params tree of CPU tensors). ``params.bin`` is read in
     one sequential read into one byte buffer (page-locked when
     ``pin_memory``), or with ``map_params`` mapped privately (its pages come
     from the page cache as they are first read, and nothing is
     page-locked: the pipelined load's read); every leaf is a view into the
-    buffer."""
+    buffer. An int8 artifact's quantized leaves come back as ``QuantLeaf``
+    views with ``raw_quant`` (what the runtime ships and dequantizes on the
+    device), else dequantized on the host."""
     meta_path = os.path.join(path, MODEL_JSON)
     if not os.path.exists(meta_path):
         raise ArtifactError(f"not a tpusc artifact (no {MODEL_JSON}): {path}")
@@ -289,14 +381,15 @@ def load_artifact(path: str, pin_memory: bool = False,
         with open(bin_path, "rb") as f:
             if f.readinto(memoryview(blob.numpy())) != size:
                 raise ArtifactError(f"short read of {bin_path}")
-    return model, params_from_manifest(meta, blob, src=bin_path)
+    return model, params_from_manifest(meta, blob, src=bin_path, raw_quant=raw_quant)
 
 
 def params_from_manifest(meta: Mapping[str, Any], blob: Any,
-                         src: str = "params blob") -> Any:
+                         src: str = "params blob", raw_quant: bool = False) -> Any:
     """Rebuild the params tree from a v2 ``model.json`` dict plus the raw
     ``params.bin`` bytes (a uint8 torch tensor or numpy array). Leaves are
-    views into ``blob``."""
+    views into ``blob``; a quantized leaf is a ``QuantLeaf`` of two views
+    with ``raw_quant``, else its host dequant (reference :437)."""
     manifest = (meta.get("params") or {}).get("manifest")
     if manifest is None:
         raise ArtifactError(f"missing params manifest for {src}")
@@ -304,19 +397,17 @@ def params_from_manifest(meta: Mapping[str, Any], blob: Any,
         blob = torch.from_numpy(blob)
     nested: dict[str, Any] = {}
     for ent in manifest:
-        if ent.get("quant") is not None:
-            raise ArtifactError(
-                f"int8 artifacts: later slice of the port ({ent['path']!r} in {src})"
-            )
-        dt = torch_dtype(ent["dtype"])
-        shape = [int(d) for d in ent["shape"]]
-        n = int(np.prod(shape)) if shape else 1
-        itemsize = torch.empty((), dtype=dt).element_size()
-        off, nbytes = int(ent["offset"]), int(ent["nbytes"])
-        if nbytes != n * itemsize or off + nbytes > blob.numel() or off % itemsize:
+        arr = _view(blob, ent["dtype"], ent["shape"], ent["offset"], ent["nbytes"])
+        if arr is None:
             raise ArtifactError(f"corrupt manifest entry {ent['path']!r} in {src}")
-        raw = blob[off:off + nbytes]
-        arr = (raw.view(dt) if n else torch.empty(0, dtype=dt)).reshape(shape)
+        quant = ent.get("quant")
+        if quant is not None:
+            scale = _view(blob, quant.get("scale_dtype", "float32"), quant["scale_shape"],
+                          quant["scale_offset"], quant["scale_nbytes"])
+            if scale is None:
+                raise ArtifactError(f"corrupt quant scales for {ent['path']!r} in {src}")
+            ql = QuantLeaf(arr, scale, quant["orig_dtype"])
+            arr = ql if raw_quant else ql.dequant_host()
         if ent["path"] == "":
             return arr  # params was a single bare array
         node = nested
@@ -325,6 +416,20 @@ def params_from_manifest(meta: Mapping[str, Any], blob: Any,
             node = node.setdefault(part, {})
         node[parts[-1]] = arr
     return _restore_lists(nested)
+
+
+def _view(blob: torch.Tensor, dtype: str, shape: Any, offset: Any,
+          nbytes: Any) -> torch.Tensor | None:
+    """The manifest's leaf as a view into ``blob``; None when its byte
+    count, range or alignment does not fit."""
+    dt = torch_dtype(dtype)
+    shape = [int(d) for d in shape]
+    n = math.prod(shape)
+    itemsize = torch.empty((), dtype=dt).element_size()
+    off, nbytes = int(offset), int(nbytes)
+    if nbytes != n * itemsize or off + nbytes > blob.numel() or off % itemsize:
+        return None
+    return (blob[off:off + nbytes].view(dt) if n else torch.empty(0, dtype=dt)).reshape(shape)
 
 
 def resident_bytes_estimate(path: str) -> int | None:
@@ -386,12 +491,16 @@ def export_artifact(
     config: dict[str, Any] | None = None,
     seed: int = 0,
     device: str = "cuda",
+    quantize: str | None = None,
 ) -> str:
     """Initialize a family with random params from a seeded
     ``torch.Generator`` on ``device`` (the card unless the caller asks for
-    ``"cpu"``) and write ``<base_dir>/<name>/<version>/``."""
+    ``"cpu"``) and write ``<base_dir>/<name>/<version>/`` (int8 with
+    ``quantize="int8"``)."""
+    if quantize not in (None, "int8"):
+        raise ArtifactError(f"unsupported quantize scheme {quantize!r}")
     model = build(family, config)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init(gen)
     dest = os.path.join(base_dir, name or family, str(version))
-    return save_artifact(dest, model, params)
+    return save_artifact(dest, model, params, quantize=quantize)

@@ -22,9 +22,10 @@ runtime promotes with no read-back of the artifact:
 A chunk's hash is sha256 over its raw bytes cut to 32 hex digits; the
 sender keeps the digests on the entry (``wire_hashes``), so a model served
 to N peers is hashed once. Dtypes on the wire carry numpy's names
-(``registry.dtype_name``). The port writes no int8 artifact yet: a meta
-frame whose manifest holds a ``quant`` leaf is refused, and the fetching
-provider goes on to the store.
+(``registry.dtype_name``). An int8 entry's quantized leaves travel as their
+int8 and f32 scale chunks, and the manifest carries each one's ``quant``
+sub-entry (``save_artifact``'s); the receiver rebuilds them raw, so the
+adopted entry promotes with the dequant on the device.
 
 ``FetchParkedConversation`` streams one parked conversation (the KV half):
 
@@ -220,6 +221,25 @@ def iter_frames(entry: Any, chunk_msg_bytes: int, model_id: Any = None) -> Itera
         {"chunks": len(entry.chunks), "wire_bytes": meta["wire_bytes"]}).encode()
 
 
+def _check_ranges(manifest: Any, file_bytes: int) -> None:
+    """Every leaf's bytes, and a quantized leaf's scales, lie inside the
+    ``file_bytes`` the meta frame announces: a manifest that points outside
+    the file is refused before any byte lands."""
+    try:
+        for ent in manifest:
+            spans = [("bytes", int(ent["offset"]), int(ent["nbytes"]))]
+            quant = ent.get("quant")
+            if quant is not None:
+                spans.append(("quant scales", int(quant["scale_offset"]),
+                               int(quant["scale_nbytes"])))
+            for what, off, nb in spans:
+                if off < 0 or nb < 0 or off + nb > file_bytes:
+                    raise PeerWireError(f"{what} of {ent.get('path')!r} lie outside the "
+                                        f"{file_bytes}-byte params file")
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        raise PeerWireError(f"bad meta frame: {e}") from e
+
+
 class PeerStreamReceiver:
     """Receiver: assembles frames into a complete v2 artifact at
     ``dest_dir`` (the caller stages it with ``atomic_dest``), checking each
@@ -280,9 +300,7 @@ class PeerStreamReceiver:
             raise PeerWireError(f"bad meta frame: {e}") from e
         if len(self._segments) != len(chunks):
             raise PeerWireError("meta segment/chunk count mismatch")
-        if any(ent.get("quant") is not None for ent in manifest):
-            raise PeerWireError("int8 artifacts: a later slice of the port (ROADMAP item 11); "
-                                "the packed model has quantized leaves")
+        _check_ranges(manifest, file_bytes)
         os.makedirs(self.dest_dir, exist_ok=True)
         # model.json first: inside the staging dir the atomic rename makes
         # the artifact whole
@@ -398,7 +416,9 @@ class PeerStreamReceiver:
 
         model_json = self.meta["model_json"]
         md = build(model_json["family"], model_json.get("config"))
-        params = params_from_manifest(model_json, self.image, src="peer stream")
+        # raw: quantized leaves stay int8 + scales (reference :429)
+        params = params_from_manifest(model_json, self.image, src="peer stream",
+                                      raw_quant=True)
         return build_packed_entry(md, params, hbm_bytes=0, pin=pin)
 
     def close(self) -> None:

@@ -22,7 +22,12 @@ memory and copies every leaf out of it. Resident models live in a
 byte-budgeted LRU (capped at ``serving.max_concurrent_models``) whose
 eviction drops the module so its device memory is freed, and, with
 ``cache.host_tier_bytes``, leaves the model's packed chunks in the host RAM
-tier (``cache/host_tier.py``), from which the next load promotes it. Variable request shapes are padded to
+tier (``cache/host_tier.py``), from which the next load promotes it. An int8
+artifact is read raw (reference :1268): its int8 weights and f32 scales cross
+the link, and each weight is dequantized on the device with plain torch ops
+(``_dequantize_on_device``) after the serialized copy, or as both of its
+halves land on the pipelined copy and on a promotion; the host tier keeps the
+int8 chunks. Variable request shapes are padded to
 power-of-two buckets per named axis, as in the reference, so each model sees
 O(log) distinct shapes.
 
@@ -45,8 +50,9 @@ on a group of more than one device.
 
 Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
 ``load`` span (``tier`` disk or host) with the reference's stage children
-(``artifact_read``, ``device_transfer``, ``transfer_sync``,
-``compile_warmup`` for the warm-up forward), which feed
+(``artifact_read``, ``device_transfer``, ``device_dequant`` for an int8
+artifact only, ``transfer_sync``, ``compile_warmup`` for the warm-up
+forward), which feed
 ``tpusc_cold_stage_seconds{stage}`` and ``tpusc_cold_overlap_ratio``; a predict under
 ``infer`` and a solo generate under ``generate``; loads and evictions
 re-stamp ``tpusc_hbm_bytes_in_use{group}`` (``torch.cuda.memory_allocated``
@@ -83,9 +89,11 @@ from tfservingcache_tpu_torch.cache.lru import LRUEntry
 from tfservingcache_tpu_torch.config import ServingConfig
 from tfservingcache_tpu_torch.models.registry import (
     ModelDef,
+    QuantLeaf,
     TensorSpec,
     flatten_params,
     load_artifact,
+    torch_dtype,
     unflatten_params,
 )
 from tfservingcache_tpu_torch.native import make_lru_cache
@@ -185,13 +193,88 @@ def _flatten_for_pack(host_params: Any):
     """-> (outer leaves, treedef, flat tensors, owner map) (reference :154):
     the one flatten shared by the pipelined transfer and
     ``build_packed_entry``. ``treedef`` is the leaves' paths (``registry.flatten_params``
-    order, the reference's pytree order). Every outer leaf is one flat
-    tensor of role ``plain``: the port loads no int8 artifact yet, whose
-    quantized leaves would add a ``q`` and a ``scale`` flat tensor each."""
+    order, the reference's pytree order). A ``QuantLeaf`` stays one outer
+    leaf and adds two flat tensors, of roles ``q`` and ``scale``; every
+    other outer leaf is one flat tensor of role ``plain``."""
     pairs = flatten_params(host_params)
     outer = [leaf for _path, leaf in pairs]
-    return outer, [path for path, _leaf in pairs], list(outer), [
-        (i, "plain") for i in range(len(outer))]
+    arrs: list[torch.Tensor] = []
+    owner: list[tuple[int, str]] = []  # flat idx -> (outer idx, plain | q | scale)
+    for oi, leaf in enumerate(outer):
+        if isinstance(leaf, QuantLeaf):
+            arrs += [torch.as_tensor(leaf.q), torch.as_tensor(leaf.scale)]
+            owner += [(oi, "q"), (oi, "scale")]
+        else:
+            arrs.append(leaf)
+            owner.append((oi, "plain"))
+    return outer, [path for path, _leaf in pairs], arrs, owner
+
+
+def _dequantize_on_device(params: Any) -> Any:
+    """Expand every ``QuantLeaf`` (int8 ``q`` and f32 ``scale``, already on
+    the device) into ``orig_dtype`` there (reference :475): ``(q as f32 *
+    scale)`` cast once, plain torch ops on the tensors' device, the
+    reference's jitted ``_dequant_fn``. Each leaf drops its ``q`` and
+    ``scale`` as its output is made, so the transient memory stays about
+    one leaf above the params."""
+
+    def leaf(x: Any) -> Any:
+        if not isinstance(x, QuantLeaf):
+            return x
+        out = (x.q.to(torch.float32) * x.scale).to(torch_dtype(x.orig_dtype))
+        x.q = x.scale = None
+        return out
+
+    return _tree_map(leaf, params)
+
+
+def _has_quant(params: Any) -> bool:
+    return any(isinstance(leaf, QuantLeaf) for _path, leaf in flatten_params(params))
+
+
+def _to_device(params: Any, device: torch.device, **kw: Any) -> Any:
+    """``Tensor.to`` over a params tree; a ``QuantLeaf`` moves as its two
+    tensors, still quantized."""
+
+    def move(x: Any) -> Any:
+        if isinstance(x, QuantLeaf):
+            return QuantLeaf(x.q.to(device, **kw), x.scale.to(device, **kw), x.orig_dtype)
+        return x.to(device, **kw)
+
+    return _tree_map(move, params)
+
+
+class _QuantLanding:
+    """The pipelined transfer's and the promotion's int8 bookkeeping
+    (reference :400-439, :581-605): a quantized leaf's ``q`` and ``scale``
+    land in different chunks (the int8 and the f32 group), and the leaf is
+    dequantized on the device as soon as both have landed. On a card the
+    dequant runs on the current stream, which first waits for the copies
+    (on the copy stream) that wrote its two halves. ``seconds`` sums the
+    dispatch time of the dequants."""
+
+    def __init__(self, orig_dtypes: Mapping[int, str], device: torch.device) -> None:
+        self.orig_dtypes = orig_dtypes
+        self.device = device
+        self.landed: dict[int, dict[str, tuple[torch.Tensor, Any]]] = {}
+        self.seconds = 0.0
+
+    def land(self, oi: int, role: str, view: torch.Tensor, ev: Any) -> torch.Tensor | None:
+        """-> the dequantized leaf once both halves are in, else None."""
+        got = self.landed.setdefault(oi, {})
+        got[role] = (view, ev)
+        if len(got) < 2:
+            return None
+        del self.landed[oi]
+        t0 = time.monotonic()
+        for _view, event in got.values():
+            if event is not None:
+                torch.cuda.current_stream(self.device).wait_event(event)
+        (q, _), (scale, _) = got["q"], got["scale"]
+        del got
+        out = _dequantize_on_device(QuantLeaf(q, scale, self.orig_dtypes[oi]))
+        self.seconds += time.monotonic() - t0
+        return out
 
 
 _PAGE = mmap.PAGESIZE  # cudaHostRegister locks whole pages
@@ -346,8 +429,10 @@ def packed_device_put(host_params: Any, device: torch.device) -> Any:
     buffer, the copies queued on the current stream, one sync at the end.
     The reference packs leaves per dtype because each ``jax.device_put``
     pays a round trip; here the leaves already sit in one pinned buffer,
-    and async copies out of it queue back to back."""
-    params = _tree_map(lambda t: t.to(device, non_blocking=True), host_params)
+    and async copies out of it queue back to back. A ``QuantLeaf`` ships
+    its int8 and scale bytes and lands still quantized: the caller
+    dequantizes it on the device (``_dequantize_on_device``)."""
+    params = _to_device(host_params, device, non_blocking=True)
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
     return params
@@ -361,7 +446,10 @@ def packed_device_put_pipelined(
     workers: set | None = None,
 ) -> tuple[Any, Any, dict]:
     """Pipelined packed transfer (reference :313) -> (device params, the
-    event to sync on or None, stats).
+    event to sync on or None, stats). Every ``QuantLeaf`` is dequantized on
+    the device as soon as both of its halves have landed, while later
+    chunks still copy; ``stats["dequant_s"]`` is the seconds spent
+    dispatching those dequants.
 
     An assembler thread packs each ``_pack_plan`` chunk's leaves (read from
     the mapped artifact) into a page-locked staging buffer and
@@ -386,9 +474,11 @@ def packed_device_put_pipelined(
     if len(arrs) <= 2:
         # leaf by leaf (reference :350); a copy even on the CPU, where the
         # leaves would otherwise stay views into the mapped artifact
-        params = _tree_map(lambda t: t.to(copier.device, copy=True), host_params)
+        params = _to_device(host_params, copier.device, copy=True)
+        t0 = time.monotonic()
+        params = _dequantize_on_device(params)
         return params, None, {"chunks": 0, "bytes": sum(map(_leaf_nbytes, arrs)),
-                              "staging_bytes": 0}
+                              "staging_bytes": 0, "dequant_s": time.monotonic() - t0}
     chunks = _pack_plan(arrs)
     shapes = [tuple(a.shape) for a in arrs]
     sizes = [sum(_leaf_nbytes(arrs[i]) for i in chunk) for chunk in chunks]
@@ -449,6 +539,8 @@ def packed_device_put_pipelined(
             put(e)
 
     out: list[Any] = [None] * len(outer)
+    quant = _QuantLanding({oi: leaf.orig_dtype for oi, leaf in enumerate(outer)
+                           if isinstance(leaf, QuantLeaf)}, copier.device)
     worker = threading.Thread(target=assemble, name="tpusc-chunk-assembler", daemon=True)
     if workers is not None:
         workers.add(worker)
@@ -469,8 +561,9 @@ def packed_device_put_pipelined(
                 capture.append((chunk, buf))
             del buf
             for i, view in zip(chunk, _chunk_views(dev, chunk, shapes)):
-                oi, _role = owner[i]
-                out[oi] = view
+                oi, role = owner[i]
+                out[oi] = view if role == "plain" else quant.land(oi, role, view, ev)
+            del dev
     except BaseException:
         copier.drain()  # no copy may still read a captured chunk the caller drops
         raise
@@ -480,7 +573,8 @@ def packed_device_put_pipelined(
         if workers is not None:
             workers.discard(worker)
     stats = {"chunks": len(chunks), "bytes": sum(sizes),
-             "staging_bytes": len(staging) * max(sizes) if pin else 0}
+             "staging_bytes": len(staging) * max(sizes) if pin else 0,
+             "dequant_s": quant.seconds}
     return unflatten_params(treedef, out), copier.finish(), stats
 
 
@@ -493,8 +587,10 @@ def build_packed_entry(model_def: ModelDef, host_params: Any, hbm_bytes: int,
     here from the same ``_pack_plan`` into owned buffers (page-locked with
     ``pin``): the demotion path, where the leaves are on the device, and the
     loads that captured nothing (a serialized load, a tree of two leaves or
-    fewer). A retained buffer is never a view into the artifact's bytes."""
-    _outer, treedef, arrs, owner = _flatten_for_pack(host_params)
+    fewer). A retained buffer is never a view into the artifact's bytes.
+    A ``QuantLeaf`` of ``host_params`` (a ``raw_quant`` load's) is retained
+    as its int8 and scale tensors, its original dtype in ``quant_dtypes``."""
+    outer, treedef, arrs, owner = _flatten_for_pack(host_params)
     if captured:
         chunks = [(list(chunk), buf) for chunk, buf in captured]
     else:
@@ -504,7 +600,8 @@ def build_packed_entry(model_def: ModelDef, host_params: Any, hbm_bytes: int,
         chunks=chunks,
         owner=owner,
         shapes=[tuple(a.shape) for a in arrs],
-        quant_dtypes={},
+        quant_dtypes={oi: leaf.orig_dtype for oi, leaf in enumerate(outer)
+                      if isinstance(leaf, QuantLeaf)},
         treedef=treedef,
         make_module=model_def.make_module,
         hbm_bytes=int(hbm_bytes),
@@ -513,18 +610,22 @@ def build_packed_entry(model_def: ModelDef, host_params: Any, hbm_bytes: int,
     )
 
 
-def promote_packed_entry(entry: PackedModelEntry, copier: _ChunkCopier) -> tuple[Any, Any]:
+def promote_packed_entry(entry: PackedModelEntry,
+                         copier: _ChunkCopier) -> tuple[Any, Any, float]:
     """Replay an entry's chunks onto the device (reference :568) -> (params,
-    the event to sync on or None): the copies of the pipelined load, fed
-    straight from the retained chunks, with no disk read, no decode and no
-    assembly."""
+    the event to sync on or None, the seconds spent dispatching dequants):
+    the copies of the pipelined load, fed straight from the retained
+    chunks, with no disk read, no decode and no assembly. A quantized leaf
+    is rebuilt and dequantized on the device as both of its halves land."""
     out: list[Any] = [None] * len(entry.treedef)
+    quant = _QuantLanding(entry.quant_dtypes, copier.device)
     for chunk, buf in entry.chunks:
-        dev, _ev = copier.land(buf)
+        dev, ev = copier.land(buf)
         for i, view in zip(chunk, _chunk_views(dev, chunk, entry.shapes)):
-            oi, _role = entry.owner[i]
-            out[oi] = view
-    return unflatten_params(entry.treedef, out), copier.finish()
+            oi, role = entry.owner[i]
+            out[oi] = view if role == "plain" else quant.land(oi, role, view, ev)
+        del dev
+    return unflatten_params(entry.treedef, out), copier.finish(), quant.seconds
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -899,7 +1000,7 @@ class TorchModelRuntime(BaseRuntime):
         self._set_state(mid, ModelState.START)
         t0 = time.monotonic()
         with TRACER.span("load", model=str(mid), tier="disk") as load_span:
-            self._load_traced(model, mid, t0)
+            self._load_traced(model, mid, t0, load_span)
         # sum(stage) / wall (reference :1129): ~1.0 = the stages ran back to
         # back; > 1 = stages overlapped the span's wall
         if load_span.children and load_span.duration_s > 0:
@@ -925,11 +1026,14 @@ class TorchModelRuntime(BaseRuntime):
         self._set_state(mid, ModelState.START)
         t0 = time.monotonic()
         try:
-            with TRACER.span("load", model=str(mid), tier="host"):
+            with TRACER.span("load", model=str(mid), tier="host") as load_span:
                 self._set_state(mid, ModelState.LOADING)
                 with TRACER.span("device_transfer", promoted=True):
-                    params, done = promote_packed_entry(entry, self._copier())
+                    params, done, dequant_s = promote_packed_entry(entry, self._copier())
                     TRACER.annotate(chunks=len(entry.chunks), bytes=entry.nbytes)
+                if entry.quant_dtypes:
+                    # the dequants ran inside the transfer span (reference :1195)
+                    TRACER.attach(load_span, "device_dequant", dequant_s, overlapped=True)
                 with TRACER.span("transfer_sync", pinned_by="promotion"):
                     if done is not None:
                         done.synchronize()
@@ -946,7 +1050,7 @@ class TorchModelRuntime(BaseRuntime):
         log.info("promoted %s from the host tier in %.3fs (%d device bytes)",
                  mid, time.monotonic() - t0, hbm)
 
-    def _load_traced(self, model: Model, mid: ModelId, t0: float) -> None:
+    def _load_traced(self, model: Model, mid: ModelId, t0: float, load_span: Any) -> None:
         try:
             self._set_state(mid, ModelState.LOADING)
             on_cuda = self.device.type == "cuda"
@@ -955,9 +1059,13 @@ class TorchModelRuntime(BaseRuntime):
                 # the serialized path copies out of one page-locked buffer;
                 # the pipelined one maps the file and pins only its staging
                 # buffers (and the chunks the tier keeps): the assembler
-                # reads the pages while earlier chunks copy
+                # reads the pages while earlier chunks copy. An int8
+                # artifact is read raw (q + scales): its int8 bytes cross
+                # the link and dequantize on the device (reference :1268)
                 model_def, host_params = load_artifact(
-                    model.path, pin_memory=on_cuda and not pipelined, map_params=pipelined)
+                    model.path, pin_memory=on_cuda and not pipelined, map_params=pipelined,
+                    raw_quant=True)
+            has_quant = _has_quant(host_params)
             grouped = self.group is not None and len(self.group) > 1
             if (grouped and model_def.bind_group is None
                     and _shards_weights(model_def.partition_rules)):
@@ -975,13 +1083,30 @@ class TorchModelRuntime(BaseRuntime):
                         host_params, self._copier(),
                         buffer_depth=self.cfg.cold_pipeline_buffer_depth,
                         capture=captured, workers=self._assemblers)
+                    dequant_s = stats.pop("dequant_s")
                     TRACER.annotate(**stats)
+                if has_quant:
+                    # the dequants ran inside the transfer span: their
+                    # dispatch seconds are the device_dequant stage, for
+                    # quantized artifacts only (reference :1346)
+                    TRACER.attach(load_span, "device_dequant", dequant_s, overlapped=True)
                 with TRACER.span("transfer_sync"):
                     if done is not None:
                         done.synchronize()
             else:
+                # a runtime bound to a device group ships the raw int8 bytes
+                # too: the reference's rule-less mesh branch (TP-ruled
+                # families, which dequantize on the host there, are refused
+                # above)
                 with TRACER.span("device_transfer"):
                     params = packed_device_put(host_params, self.device)
+                if has_quant:
+                    # its own stage, quantized artifacts only (reference
+                    # :1361); the sync puts the device's dequant time in it
+                    with TRACER.span("device_dequant"):
+                        params = _dequantize_on_device(params)
+                        if on_cuda:
+                            torch.cuda.current_stream(self.device).synchronize()
             if self.group is not None and model_def.bind_group is not None:
                 module = model_def.bind_group(self.group)(params)
             else:

@@ -320,6 +320,22 @@ class Tracer:
         if sp is not None:
             (sp.root or sp).attrs.update(attrs)
 
+    def attach(self, parent: Span, name: str, duration_s: float,
+               start_s: float | None = None, **attrs: Any) -> Span:
+        """Add a finished child span timed elsewhere under ``parent``: work
+        that ran inside a sibling span (the pipelined load's per-leaf
+        dequant, inside its transfer) and is counted as a stage of its own.
+        The children's sum may then exceed the parent's wall, which is what
+        ``cold_overlap_ratio`` measures."""
+        sp = Span(name=name, attrs=attrs,
+                  start_s=time.time() if start_s is None else start_s,
+                  duration_s=duration_s)
+        sp.span_id = _new_span_id()
+        sp.trace_id = parent.trace_id
+        sp.root = parent.root or parent
+        parent.children.append(sp)
+        return sp
+
     def attach_remote(self, parent: Span, payload: str | bytes, **attrs: Any) -> Span | None:
         """Graft a peer's serialized finished subtree under ``parent`` (a
         router's ``route`` span), which stitches the two nodes' traces into
