@@ -26,7 +26,10 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      and the ring-attention carry
      step from a carried state at the ring phase's hop (a past block, the
      diagonal, a future block that must leave the carry bit-identical), GQA,
-     ragged lengths down to 1 and f32; then the 4-shard ring on one card
+     ragged lengths down to 1 and f32; every kernel also at head_dim 32
+     (the LM families' default: B2 bf16 and f32, B1 and B3 over bf16 and
+     int8 pages, B4's past hop and diagonal) and B2 at the moe phase's
+     attention (2, 12, 12, 1024, 64); then the 4-shard ring on one card
      against the plain attention, timed beside the flash kernel and SDPA,
      and the carry kernel's gap to the flash kernel (two kernels of one
      design: within ATTN_TOL);
@@ -217,7 +220,22 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      and the first reply printed apart; (b) mnist with ``corrupt_peer_chunk``
      armed once: the chunk's hash fails, the store serves it, the reply the
      sender's; (c) mnist from a stdlib fake S3 endpoint over the artifact
-     store through ``model_provider.type: s3``, the reply the sender's.
+     store through ``model_provider.type: s3``, the reply the sender's;
+  15. moe — the moe_lm family on a store and disk cache of its own (deleted
+     at the end): a random-weight artifact at Switch-Base-8's widths
+     (MOE_CONFIG), a 2-layer draft of its first layers and the family's
+     DEFAULT_CONFIG (head_dim 32), on one node. :predict at (1, 128) cold,
+     then warm at (1, 128), (2, 512) and (4, 1024): flash launches =
+     n_layers x (requests + the load's warm-up), every reply finite and,
+     where the plain path routes the checked token away from a tie
+     (MOE_ROUTER_TIE, MOE_SLOT_SLACK), within the serve phase's logits
+     check; a forward and a decode step against their kernels' device
+     time; seeded greedy :generate at B = 1 and 2 (two calls identical, no
+     flash launch, each first token the argmax of a full forward at the
+     padded shape); a speculative :generate with the draft (tokens,
+     acceptance, the positions that differ from the plain run); the
+     default-config model's :predict through B2 at head_dim 32 (launches =
+     its n_layers x (requests + 1), the same logits check).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -234,6 +252,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -276,8 +295,10 @@ LOGITS_TOL_INT8 = 0.5
 PAGED_TOL = {"bfloat16": 2.0**-8, "int8": 1e-4, "float32": 1e-4}
 
 # (B, Hq, Hkv, S, D): the serving path's attention at llama-7b width for the
-# request shapes below (seq buckets 128, 1024, 512), a long sequence, the
-# default preset's GQA width, and a length that is no multiple of a tile
+# request shapes below (seq buckets 128, 1024, 512), a long sequence, a GQA
+# width at head_dim 64, a length that is no multiple of a tile, the LM
+# families' default head_dim 32 (transformer_lm's GQA) and the moe phase's
+# Switch-Base-8 attention at (2, 1024)
 KERNEL_SHAPES = [
     (1, 32, 32, 128, 128),
     (16, 32, 32, 128, 128),  # the batch phase's coalesced (1, 128) requests, bucket 16
@@ -285,10 +306,14 @@ KERNEL_SHAPES = [
     (1, 32, 32, 4096, 128),
     (4, 8, 4, 1024, 64),
     (1, 32, 32, 200, 128),
+    (2, 8, 4, 1024, 32),
+    (2, 12, 12, 1024, 64),
 ]
 MAIN_SHAPE = (2, 32, 32, 1024, 128)  # the largest attention call of the served requests
+D32_SHAPE = (2, 8, 4, 1024, 32)  # head_dim 32 in the 64-column tile (the C15 repair)
+MOE_KERNEL_SHAPE = (2, 12, 12, 1024, 64)
 # f32 inputs take the kernel's f32 instantiation (an f32 artifact's :predict)
-KERNEL_SHAPES_F32 = [(1, 8, 8, 256, 128)]
+KERNEL_SHAPES_F32 = [(1, 8, 8, 256, 128), (2, 8, 4, 1024, 32)]
 # paged decode (S lanes, Hq, Hkv, D, page_tokens, max pos): the generate
 # phase's occupancy at llama-7b width (8 lanes, prompts up to 1024 + 64 new
 # tokens), full max_seq, GQA g = 4, a small page, head_dim 64
@@ -298,6 +323,7 @@ PAGED_SHAPES = [
     (16, 32, 8, 128, 16, 2047),
     (4, 32, 32, 128, 8, 300),
     (8, 16, 16, 64, 16, 500),
+    (8, 8, 4, 32, 16, 1088),  # head_dim 32 (transformer_lm's default heads)
 ]
 PAGED_MAIN = PAGED_SHAPES[0]
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (the paged kernel's FMAs)
@@ -313,6 +339,7 @@ VERIFY_SHAPES = [
     (16, 32, 8, 128, 16, 2047, 5, ("bfloat16", "int8"), False),
     (4, 32, 32, 128, 8, 300, 5, ("bfloat16", "int8"), True),
     (8, 32, 32, 128, 16, 1088, 256, ("bfloat16", "int8"), False),
+    (8, 8, 4, 32, 16, 1088, 5, ("bfloat16", "int8"), False),  # head_dim 32
 ]
 VERIFY_MAIN = (8, 32, 32, 128, 16, 1088, 5)
 # paged verify at the chunked-prefill shape of arms (h)/(i): ONE lane, T =
@@ -417,7 +444,10 @@ CARRY_HOPS = [
     (1, 32, 32, 1, 1, 128, "bfloat16", -1),
     (1, 8, 8, 256, 256, 128, "float32", 0),
     (1, 8, 8, 256, 256, 128, "float32", -256),
+    (1, 8, 8, 1024, 1024, 32, "bfloat16", -1024),  # head_dim 32: a past hop
+    (1, 8, 8, 1024, 1024, 32, "bfloat16", 0),      # and the diagonal
 ]
+CARRY_D32 = (1, 8, 8, 1024, 1024, 32)
 # |kernel - plain| of the normalized hop output acc / l: bf16 as the paged
 # kernels' (both round p to bf16, from f32 p values a few ulps apart and at
 # other points of the online softmax); f32: the same f32 math in another
@@ -701,6 +731,7 @@ def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
     main = None
+    rows = {}  # the head_dim-32 and moe rows, as the kernels line reports them
     log(f"flash_attention vs attention_reference, tolerance {ATTN_TOL} (max |diff|)")
     for (b, hq, hkv, s, d) in KERNEL_SHAPES:
         for causal in (True, False):
@@ -732,6 +763,11 @@ def phase_kernels(seed: int) -> dict:
             if (b, hq, hkv, s, d) == MAIN_SHAPE and causal:
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms}
+            for key, at in (("d32", D32_SHAPE), ("moe_shape", MOE_KERNEL_SHAPE)):
+                if (b, hq, hkv, s, d) == at and causal:
+                    rows[key] = {"shape": list(at), "causal": True, "max_abs_err": err,
+                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                 "bound_by": bound_by, "library_ms": lib_ms}
             del q, k, v, out, ref
     worst_f32 = 0.0
     log(f"flash_attention f32 vs attention_reference, tolerance {ATTN_TOL_F32} (max |diff|)")
@@ -747,7 +783,8 @@ def phase_kernels(seed: int) -> dict:
             worst_f32 = max(worst_f32, err)
             ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal))
             plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, causal), reps=10, warmup=1)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=hq != hkv))
             flops = (2 if causal else 4) * b * hq * s * s * d
             nbytes = 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -763,6 +800,10 @@ def phase_kernels(seed: int) -> dict:
                     f"f32 flash_attention disagrees at {(b, hq, hkv, s, d)} causal={causal}: "
                     f"max_abs_err {err} > {ATTN_TOL_F32} (dtype {out.dtype})"
                 )
+            if d == 32 and causal:
+                rows["d32_f32"] = {"shape": [b, hq, hkv, s, d], "causal": True,
+                                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
             del q, k, v, out, ref
     torch.cuda.empty_cache()
     return {
@@ -777,6 +818,7 @@ def phase_kernels(seed: int) -> dict:
             "shape": list(MAIN_SHAPE),
             "causal": True,
             "max_abs_err_f32": worst_f32,
+            **rows,
         }
     }
 
@@ -848,6 +890,7 @@ def phase_paged_kernel(seed: int) -> dict:
     cgen = torch.Generator(device="cuda").manual_seed(seed + 1)
     main = None
     worst = {}
+    d32 = {}
     log("paged_decode_attention vs paged_decode_attention (plain), tolerance "
         f"{PAGED_TOL} (max |diff|); yardstick: F.scaled_dot_product_attention on "
         "K/V ALREADY GATHERED to dense (S, Hkv, L, D) with a boolean mask, the "
@@ -909,6 +952,10 @@ def phase_paged_kernel(seed: int) -> dict:
             if shape == PAGED_MAIN and arena == "bfloat16":
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms, "splits": splits}
+            if d == 32:
+                d32[arena] = {"shape": list(shape), "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                              "library_ms": lib_ms, "splits": splits}
             del out, ref, kd, vd, kp, vp, plain_k, plain_v
         del kp32, vp32
         torch.cuda.empty_cache()
@@ -925,6 +972,7 @@ def phase_paged_kernel(seed: int) -> dict:
             "shape": list(PAGED_MAIN),
             "arena": "bfloat16",
             "max_abs_err_by_arena": worst,
+            "d32": d32,
         }
     }
 
@@ -943,6 +991,7 @@ def phase_verify_kernel(seed: int) -> dict:
     cgen = torch.Generator(device="cuda").manual_seed(seed + 3)
     main = None
     worst = {}
+    d32 = {}
     t1_gap = 0.0
     log("paged_verify_attention vs paged_verify_attention (plain), tolerance "
         f"{PAGED_TOL} (max |diff|); yardstick: F.scaled_dot_product_attention on "
@@ -1012,6 +1061,10 @@ def phase_verify_kernel(seed: int) -> dict:
             if shape == VERIFY_MAIN and arena == "bfloat16":
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms, "splits": splits}
+            if d == 32:
+                d32[arena] = {"shape": list(shape), "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                              "library_ms": lib_ms, "splits": splits}
             del out, ref, kd, vd, kp, vp, plain_k, plain_v
         del kp32, vp32
         torch.cuda.empty_cache()
@@ -1032,6 +1085,7 @@ def phase_verify_kernel(seed: int) -> dict:
             "arena": "bfloat16",
             "max_abs_err_by_arena": worst,
             "t1_gap_to_paged_decode": t1_gap,
+            "d32": d32,
         }
     }
 
@@ -1152,6 +1206,7 @@ def phase_carry_kernel(seed: int) -> dict:
     worst = {}
     worst_m = 0.0
     main = None
+    d32 = {}
     log("flash_attention_carry vs flash_attention_carry_reference (plain) from a carried "
         f"state, tolerance {CARRY_TOL} on acc / l and {CARRY_M_TOL} on m (max |diff|); no "
         "PyTorch call computes one hop (library yardstick: the chained ring below)")
@@ -1195,6 +1250,10 @@ def phase_carry_kernel(seed: int) -> dict:
             raise AssertionError(f"the future hop rel={rel} changed the carry")
         if (b, hq, hkv, sq, sk, d) == CARRY_MAIN and dt == "bfloat16" and rel == -sk:
             main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+        if (b, hq, hkv, sq, sk, d) == CARRY_D32 and rel == -sk:
+            d32 = {"shape": list(CARRY_D32), "rel": rel, "max_abs_err": err, "m_err": m_err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": None}
         del q, k, v, k0, v0, carry, want, got, scratch
         torch.cuda.empty_cache()
 
@@ -1266,6 +1325,7 @@ def phase_carry_kernel(seed: int) -> dict:
             "chain_b2_ms": b2_ms,
             "chain_max_abs_err": chain_err,
             "b2_gap": b2_gap,
+            "d32": d32,
         }
     }
 
@@ -5046,6 +5106,349 @@ def phase_peer(art: Artifact, seed: int, kernels: dict) -> None:
 
 
 
+# Switch-Base-8 (Fedus, Zoph and Shazeer, "Switch Transformers", 2021; the
+# google/switch-base-8 config): d_model 768, 12 heads of 64, 8 experts of
+# d_ff 3072 with top-1 routing at capacity factor 1.25, vocab 32128, 12
+# layers; served as a decoder-only moe_lm at max_seq 1024 in bf16, random
+# weights from --seed (~506 M params, ~1.01 GB)
+MOE_CONFIG = {"vocab_size": 32128, "d_model": 768, "n_layers": 12, "n_heads": 12,
+              "n_kv_heads": 12, "d_ff": 3072, "n_experts": 8, "capacity_factor": 1.25,
+              "aux_loss_weight": 0.01, "max_seq": 1024, "rope_theta": 10000.0,
+              "dtype": "bfloat16"}
+MOE_SHAPES = [(1, 128), (2, 512), (4, 1024)]  # :predict, one cold request, then warm
+MOE_PROMPTS = (100, 70)   # the solo :generate prompts (B = 1: the first; B = 2: both)
+MOE_NEW_TOKENS = 32
+MOE_DRAFT_LAYERS = 2      # the speculative draft: the target's embed, first layers, ln_f
+MOE_DEFAULT_SHAPES = [(1, 128), (1, 128), (2, 512)]  # the family's DEFAULT_CONFIG (C15)
+# A token's expert is a discrete choice: where its top-2 router logits lie
+# within bf16 noise of each other, or its queue position sits at its
+# expert's capacity, the kernel path and the plain path may route it
+# differently, and its logits then differ by far more than attention's
+# rounding. The plain forward's routing of a row's checked token decides
+# whether LOGITS_TOL binds: its smallest top-2 router-logit margin over the
+# layers must be at least MOE_ROUTER_TIE (about 10x the router-logit gap
+# that bf16 attention rounding leaves, ~2**-9 of N(0, 1) logits) and its
+# queue position at least MOE_SLOT_SLACK places from the capacity edge.
+MOE_ROUTER_TIE = 2.0**-5
+MOE_SLOT_SLACK = 2
+
+
+def _bf16_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _bf16_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_bf16_tree(v) for v in tree]
+    return tree.bfloat16()
+
+
+def _moe_plain(model, padded, last):
+    """The plain path (attention_reference in every layer) over ``padded``
+    (B, S) -> (logits (B, S, V) on the card, and for the token of each row
+    at ``last[r]``: the smallest top-2 router-logit margin over the layers
+    and the smallest distance of its queue position to its expert's
+    capacity edge), the routing recomputed as ``moe_lm.moe_block`` routes
+    from each layer's MoE input."""
+    import torch
+
+    from tfservingcache_tpu_torch.ops import attention as A
+
+    margins, slack = [], []
+
+    def hook(mod, args):
+        h, cfg = args
+        b, s, _ = h.shape
+        t, e = b * s, cfg["n_experts"]
+        cap = max(1, math.ceil(cfg["capacity_factor"] * t / e))
+        logits = h.reshape(t, -1).float() @ mod.router.float()
+        top2 = logits.topk(2, dim=-1).values
+        expert = torch.softmax(logits, dim=-1).argmax(dim=-1)
+        onehot = (expert[:, None] == torch.arange(e, device=h.device)).long()
+        slot = onehot.cumsum(dim=0).gather(1, expert[:, None])[:, 0] - 1
+        idx = torch.arange(b, device=h.device) * s + torch.as_tensor(last, device=h.device)
+        margins.append((top2[:, 0] - top2[:, 1])[idx])
+        # kept iff slot < cap: a shift of one place decides it at cap - 1 and cap
+        slack.append(torch.minimum((slot - cap + 1).abs(), (slot - cap).abs())[idx])
+
+    hooks = [layer.moe.register_forward_pre_hook(hook) for layer in model.layers]
+    try:
+        with torch.inference_mode():
+            logits = model({"input_ids": torch.from_numpy(padded).cuda()},
+                           attention_fn=A.attention_reference)["logits"]
+    finally:
+        for h in hooks:
+            h.remove()
+    return (logits, torch.stack(margins).amin(0).cpu().numpy(),
+            torch.stack(slack).amin(0).cpu().numpy())
+
+
+def _moe_check_logits(plain_model, shape, ids, pred, what) -> int:
+    """A moe_lm ``:predict`` answer's (B, V) last-token logits against the
+    plain path on the card at the same bucket-padded input: _check_logits's
+    rule (LOGITS_TOL, argmax on rows whose top-2 margin exceeds twice their
+    |diff|) on every row whose token the plain path routes away from a tie
+    (MOE_ROUTER_TIE, MOE_SLOT_SLACK). -> the rows it bound."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+
+    b, s = shape
+    padded = np.zeros((next_bucket(b), next_bucket(s)), np.int32)
+    padded[:b, :s] = ids
+    logits, margin, slack = _moe_plain(plain_model, padded, [s - 1] * padded.shape[0])
+    ref = logits[:b, s - 1, :].float().cpu().numpy()
+    del logits
+    row_err = np.abs(pred - ref).max(axis=-1)
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * row_err
+    routed = (margin[:b] >= MOE_ROUTER_TIE) & (slack[:b] >= MOE_SLOT_SLACK)
+    agree = pred.argmax(-1) == ref.argmax(-1)
+    log(f"  [{what}] {shape}: max|logits - plain| per row {np.round(row_err, 5).tolist()} "
+        f"(tolerance {LOGITS_TOL}); argmax equal {agree.tolist()}; the checked token's "
+        f"smallest router margin {np.round(margin[:b], 4).tolist()}, capacity slack "
+        f"{slack[:b].tolist()}: bound rows {routed.tolist()}")
+    if not (row_err[routed] <= LOGITS_TOL).all():
+        raise AssertionError(f"[{what}] {shape}: logits differ from the plain path by "
+                             f"{row_err.tolist()} on rows routed away from a tie")
+    if not agree[routed & decided].all():
+        raise AssertionError(f"[{what}] {shape}: argmax differs from the plain path")
+    return int(routed.sum())
+
+
+def _moe_first_tokens(plain_model, ids, lengths, first, what) -> int:
+    """The reference's rule for a KV-cached moe_lm generate
+    (tests/test_generation.py:408-433): each row's first token is the
+    argmax of a full forward at the SAME padded shape (capacity routing
+    depends on it), here the plain path on the card, up to a bf16 near-tie
+    (its logit within LOGITS_TOL of the maximum) on rows routed away from a
+    tie. -> the rows it bound."""
+    import numpy as np
+
+    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+
+    b, s = ids.shape
+    padded = np.zeros((next_bucket(b), next_bucket(s)), np.int32)
+    padded[:b, :s] = ids
+    last = [int(n) - 1 for n in lengths] + [0] * (padded.shape[0] - b)
+    logits, margin, slack = _moe_plain(plain_model, padded, last)
+    rows = logits[np.arange(b), last[:b]].float().cpu().numpy()
+    del logits
+    gap = rows.max(-1) - rows[np.arange(b), first]
+    exact = rows.argmax(-1) == first
+    routed = (margin[:b] >= MOE_ROUTER_TIE) & (slack[:b] >= MOE_SLOT_SLACK)
+    log(f"  [{what}] first tokens {first.tolist()}: the full forward's argmax at the padded "
+        f"shape {padded.shape} {exact.tolist()}, gap to its max {np.round(gap, 4).tolist()} "
+        f"(tolerance {LOGITS_TOL}); bound rows {routed.tolist()}")
+    if not (gap[routed] <= LOGITS_TOL).all():
+        raise AssertionError(f"[{what}] a first token is not the full forward's argmax: {gap}")
+    return int(routed.sum())
+
+
+def phase_moe(seed: int, warm_reps: int, kernels: dict) -> None:
+    """The moe_lm family on its own store and disk cache: Switch-Base-8 at
+    its published widths (MOE_CONFIG) and the family's DEFAULT_CONFIG (head
+    dim 32), on one "coalesce" node (moe_lm never takes the continuous
+    engine: its expert capacity spans the batch)."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    card = nvidia_smi_line()
+    work = tempfile.mkdtemp(prefix="tpusc_chip_smoke_moe_")
+    node = None
+    try:
+        store = os.path.join(work, "store")
+        t0 = time.monotonic()
+        model_def = registry.build("moe_lm", MOE_CONFIG)
+        params = _bf16_tree(model_def.init(torch.Generator(device="cuda").manual_seed(seed)))
+        n_params = sum(t.numel() for _p, t in registry.flatten_params(params))
+        registry.save_artifact(os.path.join(store, "switch8", "1"), model_def, params)
+        nbytes = os.path.getsize(os.path.join(store, "switch8", "1", "params.bin"))
+        registry.save_artifact(
+            os.path.join(store, "switch8_draft", "1"),
+            registry.build("moe_lm", dict(MOE_CONFIG, n_layers=MOE_DRAFT_LAYERS)),
+            {"embed": params["embed"], "layers": params["layers"][:MOE_DRAFT_LAYERS],
+             "ln_f": params["ln_f"]})
+        small_def = registry.build("moe_lm", {})
+        small = _bf16_tree(small_def.init(torch.Generator(device="cuda").manual_seed(seed + 1)))
+        registry.save_artifact(os.path.join(store, "moe_default", "1"), small_def, small)
+        log(f"moe_lm at Switch-Base-8 widths: d_model {MOE_CONFIG['d_model']}, "
+            f"{MOE_CONFIG['n_heads']} heads of {MOE_CONFIG['d_model'] // MOE_CONFIG['n_heads']}, "
+            f"{MOE_CONFIG['n_experts']} experts of d_ff "
+            f"{MOE_CONFIG['d_ff']}, capacity factor {MOE_CONFIG['capacity_factor']}, vocab "
+            f"{MOE_CONFIG['vocab_size']}, {MOE_CONFIG['n_layers']} layers: {n_params} params, "
+            f"{nbytes} bytes; a {MOE_DRAFT_LAYERS}-layer draft of its first layers; the "
+            f"family's DEFAULT_CONFIG (head_dim {small_def.config['d_model'] // small_def.config['n_heads']}); "
+            f"written in {time.monotonic() - t0:.2f}s")
+        plain = model_def.make_module(params).eval()
+        small_plain = small_def.make_module(small).eval()
+        cfg = config_from_dict({
+            "serving": {"load_timeout_s": 900.0, "max_concurrent_models": 3},
+            "cache": {"base_dir": os.path.join(work, "cache_moe"),
+                      "disk_capacity_bytes": 2 * sum(
+                          os.path.getsize(os.path.join(d, f))
+                          for d, _dirs, files in os.walk(store) for f in files)},
+            "model_provider": {"type": "disk", "base_dir": store},
+            "cache_node": {"rest_port": 0, "grpc_port": 0}})
+        node = build_node(cfg, device="cuda")
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        layers, vocab = MOE_CONFIG["n_layers"], MOE_CONFIG["vocab_size"]
+        rng = np.random.default_rng(seed + 11)
+        bound = 0
+
+        # --- :predict: counters to 0, REST requests, counters read ---------
+        requests = []
+        for shape in MOE_SHAPES:
+            ids = rng.integers(0, vocab, size=shape)
+            requests += [(shape, ids, i == 0) for i in range(1 + warm_reps)]
+        A.FLASH_LAUNCHES.reset()
+        results = [(shape, ids, *_post(f"{base}/switch8/versions/1:predict",
+                                        {"instances": ids.tolist()}, 900.0))
+                   for shape, ids, _first in requests]
+        launches = A.FLASH_LAUNCHES.value
+        # -------------------------------------------------------------------
+        expected = layers * (len(requests) + 1)  # + the load's warm-up forward
+        log(f"flash_attention launches over the moe :predict requests: {launches} (n_layers "
+            f"{layers} x ({len(requests)} requests + the load's warm-up) = {expected})")
+        if launches != expected:
+            raise AssertionError(f"moe :predict: {launches} flash launches != {expected}")
+        kernels["flash_attention"]["moe_launches"] = launches
+        log(f"cold :predict {MOE_SHAPES[0]} (fetch + load + first request): "
+            f"{results[0][4] * 1e3:.1f} ms ({card})")
+        for shape in MOE_SHAPES:
+            warm = [r[4] for r, req in zip(results, requests) if r[0] == shape and not req[2]]
+            log(f"warm :predict {shape}: p50 {statistics.median(warm) * 1e3:.2f} ms over "
+                f"{len(warm)} requests (host clock, localhost HTTP, JSON; {card})")
+        checked = set()
+        for shape, ids, status, body, _dt in results:
+            if status != 200:
+                raise AssertionError(f"moe :predict {shape} answered {status}: {body}")
+            pred = np.asarray(body["predictions"], dtype=np.float32)
+            if pred.shape != (shape[0], vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"moe :predict {shape}: predictions {pred.shape}")
+            if shape not in checked:
+                checked.add(shape)
+                bound += _moe_check_logits(plain, shape, ids, pred, "switch8")
+        # where a warm request's time goes: a forward on the kernel path and
+        # one solo decode step (host clock, ends in a sync) against the
+        # device kernels inside it (profiler)
+        from tfservingcache_tpu_torch.models import generation
+
+        dev_in = {"input_ids": torch.from_numpy(
+            rng.integers(0, vocab, size=MOE_SHAPES[0]).astype(np.int32)).cuda()}
+        dev = plain.embed.device
+        cache = generation.init_cache(MOE_CONFIG, 1, MOE_SHAPES[0][1] + 1, dev)
+        step_in = dev_in["input_ids"][:, :1]
+        step_pos = torch.full((1,), MOE_SHAPES[0][1], dtype=torch.long, device=dev)
+
+        def forward():
+            with torch.inference_mode():
+                plain(dev_in)
+            torch.cuda.synchronize()
+
+        def step():
+            with torch.inference_mode():
+                generation._forward_cached_dyn(plain, step_in, cache, step_pos, MOE_CONFIG)
+            torch.cuda.synchronize()
+
+        for what, fn in ((f"a {MOE_SHAPES[0]} forward", forward), ("a B = 1 decode step", step)):
+            ms = host_ms(fn)
+            busy = device_busy_ms(fn)
+            share = "not measured" if busy is None else f"{busy:.2f} ms = {busy / ms:.3f}"
+            log(f"  {what}: {ms:.2f} ms host clock, its kernels {share} (torch.profiler; "
+                f"{card})")
+        del cache
+
+        # --- solo greedy :generate (seeded: the solo path) ------------------
+        prompts = [rng.integers(1, vocab, size=n) for n in MOE_PROMPTS]
+        plain_toks = {}
+        for rows in (1, 2):
+            ids = np.zeros((rows, max(MOE_PROMPTS[:rows])), np.int64)
+            for r in range(rows):
+                ids[r, :MOE_PROMPTS[r]] = prompts[r]
+            body = {"input_ids": ids.tolist(), "prompt_lengths": list(MOE_PROMPTS[:rows]),
+                    "max_new_tokens": MOE_NEW_TOKENS, "seed": seed}
+            A.FLASH_LAUNCHES.reset()
+            res = [_post(f"{base}/switch8/versions/1:generate", body, 900.0) for _ in range(2)]
+            for status, out, _dt in res:
+                if status != 200:
+                    raise AssertionError(f"moe :generate B={rows} answered {status}: {out}")
+            a, b = (np.asarray(out["tokens"]) for _s, out, _dt in res)
+            if a.shape != (rows, MOE_NEW_TOKENS) or not (a == b).all():
+                raise AssertionError(f"moe :generate B={rows}: {a.shape}, two calls differ")
+            if not ((a >= 0) & (a < vocab)).all():
+                raise AssertionError(f"moe :generate B={rows}: tokens outside the vocabulary")
+            if A.FLASH_LAUNCHES.value:
+                raise AssertionError("the solo :generate path launched the flash kernel")
+            plain_toks[rows] = a
+            bound += _moe_first_tokens(plain, ids, MOE_PROMPTS[:rows], a[:, 0],
+                                       f"generate B={rows}")
+            log(f"  solo greedy :generate B={rows}, {MOE_NEW_TOKENS} tokens: two calls "
+                f"identical, {res[0][2] * 1e3:.1f} / {res[1][2] * 1e3:.1f} ms ({card})")
+
+        # --- solo speculative :generate with the 2-layer moe_lm draft ------
+        rt = node.runtime
+        rounds0, emitted0 = rt.spec_rounds["solo"], rt.spec_emitted["solo"]
+        ids = np.asarray([prompts[0]], np.int64)
+        status, out, dt = _post(f"{base}/switch8/versions/1:generate", {
+            "input_ids": ids.tolist(), "max_new_tokens": MOE_NEW_TOKENS,
+            "draft_model": "switch8_draft", "spec_tokens": SPEC_TOKENS}, 900.0)
+        if status != 200:
+            raise AssertionError(f"moe speculative :generate answered {status}: {out}")
+        spec = np.asarray(out["tokens"])[0]
+        rounds = rt.spec_rounds["solo"] - rounds0
+        emitted = rt.spec_emitted["solo"] - emitted0
+        if spec.shape != (MOE_NEW_TOKENS,) or not rounds:
+            raise AssertionError(f"moe speculative :generate: {spec.shape}, {rounds} rounds")
+        differ = np.flatnonzero(spec != plain_toks[1][0]).tolist()
+        log(f"  speculative :generate B=1 (draft {MOE_DRAFT_LAYERS} layers, spec "
+            f"{SPEC_TOKENS}): {rounds} rounds, {emitted / rounds:.3f} tokens a round; "
+            f"{dt * 1e3:.1f} ms ({card}); tokens {spec.tolist()}; positions that differ from "
+            f"the plain greedy run: {differ} (verify chunks route other shapes than width-1 "
+            f"steps, so capacity drops may differ)")
+
+        # --- C15: the family's DEFAULT_CONFIG (head_dim 32) ----------------
+        small_layers = small_def.config["n_layers"]
+        reqs = [(shape, rng.integers(0, small_def.config["vocab_size"], size=shape))
+                for shape in MOE_DEFAULT_SHAPES]
+        A.FLASH_LAUNCHES.reset()
+        small_res = [(shape, ids, *_post(f"{base}/moe_default/versions/1:predict",
+                                          {"instances": ids.tolist()}, 900.0))
+                     for shape, ids in reqs]
+        d32_launches = A.FLASH_LAUNCHES.value
+        expected = small_layers * (len(reqs) + 1)
+        log(f"flash_attention launches at head_dim 32 (moe_lm DEFAULT_CONFIG :predict): "
+            f"{d32_launches} (n_layers {small_layers} x ({len(reqs)} requests + the load's "
+            f"warm-up) = {expected})")
+        if d32_launches != expected:
+            raise AssertionError(f"head_dim 32 :predict: {d32_launches} launches != {expected}")
+        kernels["flash_attention"]["d32_launches"] = d32_launches
+        checked = set()
+        for shape, ids, status, body, _dt in small_res:
+            if status != 200:
+                raise AssertionError(f"moe_default :predict {shape} answered {status}: {body}")
+            pred = np.asarray(body["predictions"], dtype=np.float32)
+            if pred.shape != (shape[0], small_def.config["vocab_size"]) or \
+                    not np.isfinite(pred).all():
+                raise AssertionError(f"moe_default :predict {shape}: predictions {pred.shape}")
+            if shape not in checked:
+                checked.add(shape)
+                bound += _moe_check_logits(small_plain, shape, ids, pred,
+                                           "moe_default, head_dim 32")
+        if not bound:
+            raise AssertionError("no moe check bound: every checked token sat at a routing tie")
+        log(f"moe checks bound on {bound} rows; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    finally:
+        if node is not None:
+            node.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -5109,6 +5512,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_peer(art, args.seed, kernels)
     finally:
         art.close()
+    with Phase("moe"):
+        phase_moe(args.seed, args.warm, kernels)
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -55,6 +55,11 @@ SHAPES = [  # (B, Hq, Hkv, S, D)
     (2, 16, 4, 1024, 128),
     (1, 32, 4, 1024, 192),
     (1, 16, 16, 1200, 256),
+    # head_dim 32 (the LM families' default width) in the 64-column tile:
+    # one and two consumer warpgroups, a ragged length
+    (2, 8, 4, 1024, 32),
+    (1, 4, 4, 130, 32),
+    (2, 40, 8, 384, 32),
 ]
 
 
@@ -132,6 +137,7 @@ F32_SHAPES = [  # (B, Hq, Hkv, S, D)
     (1, 4, 4, 128, 64),
     (2, 8, 2, 200, 128),
     (1, 2, 1, 130, 256),
+    (1, 8, 4, 300, 32),
 ]
 
 
@@ -195,6 +201,8 @@ PAGED_CASES = [  # (lanes, Hq, Hkv, D, page_tokens, pages_per_slot)
     (3, 16, 2, 128, 16, 5),
     (2, 4, 2, 192, 32, 3),
     (3, 2, 2, 256, 64, 2),
+    (8, 8, 4, 32, 16, 4),
+    (3, 4, 4, 32, 8, 6),
 ]
 
 
@@ -279,6 +287,9 @@ VERIFY_CASES = [  # (lanes, Hq, Hkv, D, page_tokens, pages_per_slot, T, arena)
     (4, 8, 2, 128, 16, 4, 5, "bfloat16"),
     (3, 4, 4, 64, 8, 6, 9, "int8"),
     (5, 4, 2, 128, 16, 4, 1, "float32"),
+    (8, 8, 4, 32, 16, 4, 5, "bfloat16"),
+    (8, 8, 4, 32, 16, 4, 5, "int8"),
+    (3, 4, 4, 32, 8, 6, 9, "float32"),
 ]
 
 
@@ -375,6 +386,13 @@ CARRY_CASES = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, rel, causal)
     # more live tiles than twice the SM count: every block walks several
     (4, 16, 4, 1024, 1024, 128, torch.bfloat16, 0, True),
     (2, 32, 32, 1024, 1024, 64, torch.bfloat16, -1024, True),
+    # head_dim 32 in the 64-column tile (carry columns past 32 neither
+    # loaded nor stored): a past hop, GQA with a mid-tile frontier, two
+    # consumer warpgroups, f32
+    (1, 8, 8, 1024, 1024, 32, torch.bfloat16, -1024, True),
+    (2, 8, 4, 200, 130, 32, torch.bfloat16, 37, True),
+    (2, 40, 8, 384, 384, 32, torch.bfloat16, 63, True),
+    (1, 4, 4, 130, 200, 32, torch.float32, 0, True),
 ]
 
 
@@ -518,6 +536,7 @@ SPLIT_CASES = [  # (lanes, Hq, Hkv, D, page_tokens, pages_per_slot, T)
     (2, 16, 2, 256, 16, 6, 5),
     (3, 4, 1, 192, 32, 5, 9),
     (2, 8, 8, 128, 16, 5, 80),  # two row tiles on the mma path
+    (4, 8, 4, 32, 16, 12, 5),
 ]
 
 

@@ -259,7 +259,9 @@ def test_port_serves_without_importing_jax(tmp_path):
     ``sys.modules``; nor may they with the peer wire's model half and the
     peer and object-store providers imported and a tier entry streamed
     through the wire, nor with an int8 artifact loaded, promoted and its
-    entry streamed."""
+    entry streamed, nor with a moe_lm model served (``:predict``, greedy
+    ``:generate`` and a moe_lm draft's speculative ``:generate``, all on the
+    solo path of a continuous node)."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
         sys.path.insert(0, {str(ROOT)!r})
@@ -460,6 +462,29 @@ def test_port_serves_without_importing_jax(tmp_path):
             assert resp.status == 200
             assert len(json.loads(resp.read())["predictions"][0]) == 512
         assert len(hops) == 2 * 16  # 2 layers x 4^2 ring hops
+        node.close()
+        moe_cfg = {{"vocab_size": 512, "d_model": 64, "n_layers": 2, "n_heads": 2,
+                    "n_kv_heads": 2, "d_ff": 64, "n_experts": 4}}
+        registry.export_artifact("moe_lm", store, name="moe", config=moe_cfg, device="cpu")
+        registry.export_artifact("moe_lm", store, name="moedr",
+                                 config=dict(moe_cfg, n_layers=1), device="cpu")
+        cfg = config_from_dict({{"serving": {{"generate_engine": "continuous",
+                                             "kv_page_tokens": 16}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_moe")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        base = f"http://127.0.0.1:{{node.start('127.0.0.1')}}/v1/models/moe/versions/1"
+        for verb, body in (("predict", {{"instances": [[1, 2, 3]]}}),
+                           ("generate", {{"input_ids": [[1, 2, 3]], "max_new_tokens": 4}}),
+                           ("generate", {{"input_ids": [[1, 2, 3]], "max_new_tokens": 4,
+                                          "draft_model": "moedr"}})):
+            req = urllib.request.Request(f"{{base}}:{{verb}}", data=json.dumps(body).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200 and json.loads(resp.read())
+        assert node.engine.admitted == 0  # moe_lm never takes the continuous engine
+        assert "tfservingcache_tpu_torch.models.moe_lm" in sys.modules
         node.close()
         banned = ("jax", "tfservingcache_tpu", "prometheus_client", "aiohttp")
         bad = sorted(m for m in sys.modules

@@ -1,8 +1,9 @@
-"""KV-cached autoregressive generation for ``transformer_lm``.
+"""KV-cached autoregressive generation for ``transformer_lm`` and ``moe_lm``.
 
-Counterpart of ``tfservingcache_tpu/models/generation.py`` (dense FFN only)
-with the same arithmetic and rounding points, reusing the port's
-``rmsnorm``/``rope`` math:
+Counterpart of ``tfservingcache_tpu/models/generation.py`` with the same
+arithmetic and rounding points, reusing the port's ``rmsnorm``/``rope`` math
+and, for ``moe_lm``, its routed FFN (``moe_lm.moe_block``, which routes over
+whatever (B, S) a step forwards, as the reference's does):
   - prefill writes each layer's K/V into a preallocated cache and the
     decode steps attend one query position against it;
   - the solo path (``generate``) is prefill + a decode loop over a dense
@@ -152,10 +153,14 @@ def _rope_per_example(x: torch.Tensor, positions: torch.Tensor, theta: float) ->
     return rot.reshape(x.shape).to(x.dtype)
 
 
-def _ffn_block(layer: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """The dense FFN half of a decoder layer on the residual stream before
-    its norm; returns the residual delta (reference :830, dense arm)."""
+def _ffn_block(layer: torch.nn.Module, x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """The family's FFN half of a decoder layer on the residual stream before
+    its norm; returns the residual delta (reference :830): moe_lm's routed
+    experts (the router in f32, the experts in the activation dtype; the aux
+    loss is a training signal) or transformer_lm's dense FFN."""
     h = rmsnorm(x, layer.ln2)
+    if hasattr(layer, "moe"):
+        return layer.moe(h, cfg)
     return layer.mlp(h)
 
 
@@ -184,13 +189,13 @@ def _qkv(layer: torch.nn.Module, x: torch.Tensor, positions: torch.Tensor, cfg: 
     return q, k, v
 
 
-def _finish_layer(layer, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def _finish_layer(layer, x: torch.Tensor, out: torch.Tensor, cfg: dict) -> torch.Tensor:
     """out (B, Hq, S, hd) f32 attention -> residual adds of the attention and
     FFN halves."""
     b, _, s, _ = out.shape
     out = out.to(x.dtype).transpose(1, 2).reshape(b, s, x.shape[-1])
     x = x + out @ layer.attn.wo.to(x.dtype)
-    return x + _ffn_block(layer, x)
+    return x + _ffn_block(layer, x, cfg)
 
 
 def _logits(model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -229,7 +234,7 @@ def _forward_cached_dyn(model: torch.nn.Module, input_ids: torch.Tensor, cache: 
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
         p = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgql,bkld->bkgqd", p.to(cv.dtype).float(), cv.float())
-        x = _finish_layer(layer, x, out.reshape(b, n_heads, s_len, hd))
+        x = _finish_layer(layer, x, out.reshape(b, n_heads, s_len, hd), cfg)
     return _logits(model, x)
 
 
@@ -517,7 +522,7 @@ def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: di
         v_arena[pages, :, off, :] = v_rows.to(v_arena.dtype)
         out = attend(q, k_arena, v_arena, tables, pos, page_tokens,
                      k_scale=ks_arena, v_scale=vs_arena, kernel=kernel)
-        x = _finish_layer(layer, x, out.reshape(s_lanes, n_heads, t_q, hd))
+        x = _finish_layer(layer, x, out.reshape(s_lanes, n_heads, t_q, hd), cfg)
     return _logits(model, x)
 
 

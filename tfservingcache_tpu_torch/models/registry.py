@@ -163,7 +163,7 @@ def build(family: str, config: dict[str, Any] | None = None) -> ModelDef:
     return model
 
 
-_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm")
+_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm", "moe_lm")
 
 
 def _load_builtin_families() -> None:

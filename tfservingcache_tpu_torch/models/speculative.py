@@ -2,12 +2,12 @@
 tokens per round, the target model verifies them in ONE multi-position
 forward.
 
-Counterpart of ``tfservingcache_tpu/models/speculative.py`` (transformer_lm
-targets and drafts). Two paths:
-  - solo (``speculative_generate``): dense per-request caches through
-    ``_forward_cached_dyn``, plain torch ops; with the prefix cache it
-    returns the target's K/V (``return_cache``) and starts the target's
-    prefill from cached prefix rows (``cached_kv``);
+Counterpart of ``tfservingcache_tpu/models/speculative.py``. Two paths:
+  - solo (``speculative_generate``, transformer_lm and moe_lm targets and
+    drafts): dense per-request caches through ``_forward_cached_dyn``, plain
+    torch ops; with the prefix cache it returns the target's K/V
+    (``return_cache``) and starts the target's prefill from cached prefix
+    rows (``cached_kv``);
   - the continuous engine (``paged_spec_round``): one round for every lane
     of a paged slot state — the draft's spec+1 decode steps over its own
     arena (the paged decode kernel on the card), then the target's verify
@@ -18,7 +18,10 @@ decode — a token is kept only while it matches the target's argmax, and the
 first mismatch is replaced by the target's own choice. The verify forward
 and the width-1 decode forward are different matmul shapes, so on the card
 a near-tied argmax can round the other way; on the CPU in f32 the tests
-hold it token for token.
+hold it token for token. A moe_lm target routes its verify chunk at
+another (B, spec+1) shape than its width-1 steps, so where a token can
+overflow its expert's capacity the two may drop different tokens and
+differ, as the reference's do.
 
 Rollback costs nothing: a verify pass starts exactly at the accepted
 position and attention masks reads to ``k_pos <= query_pos``, so K/V rows

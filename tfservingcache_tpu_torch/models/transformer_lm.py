@@ -150,14 +150,18 @@ class TransformerLM(nn.Module):
     ``attention_fn`` swaps the attention op (the plain path for checks).
     ``group`` binds a ``"ring"`` model to a device group (the reference's
     ``make_apply(mesh)``): the weights and everything but attention stay
-    where ``params`` lie, each ring hop runs on its shard's device."""
+    where ``params`` lie, each ring hop runs on its shard's device. A
+    family that shares the attention half but not the FFN (moe_lm) sets
+    ``block_cls``."""
+
+    block_cls: type[nn.Module] = Block
 
     def __init__(self, params: dict, cfg: dict,
                  group: tuple[torch.device, ...] | None = None) -> None:
         super().__init__()
         self.dtype = getattr(torch, cfg["dtype"])
         self.embed = _param(params["embed"])
-        self.layers = nn.ModuleList(Block(p, cfg, group) for p in params["layers"])
+        self.layers = nn.ModuleList(self.block_cls(p, cfg, group) for p in params["layers"])
         self.ln_f = _param(params["ln_f"])
 
     def forward(

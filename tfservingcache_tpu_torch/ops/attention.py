@@ -44,7 +44,7 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 class LaunchCounter:

@@ -632,13 +632,14 @@ bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int row
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool CAUSAL, int CONSUMERS>
+// D is the tile's head dim; DG the tensors' (D, or 32 in a 64-column tile)
+template <int D, bool CAUSAL, int CONSUMERS, int DG>
 cudaError_t launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int S,
                           int sms, cudaStream_t stream) {
   using T = HopperTile<D, CONSUMERS>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!encode_map(&tm_q, q, D, S, B * Hq, T::BM) || !encode_map(&tm_k, k, D, S, B * Hkv, T::BN) ||
-      !encode_map(&tm_v, v, D, S, B * Hkv, T::BN) || !encode_map(&tm_o, o, D, S, B * Hq, 64))
+  if (!encode_map(&tm_q, q, DG, S, B * Hq, T::BM) || !encode_map(&tm_k, k, DG, S, B * Hkv, T::BN) ||
+      !encode_map(&tm_v, v, DG, S, B * Hkv, T::BN) || !encode_map(&tm_o, o, DG, S, B * Hq, 64))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_kernel<D, CAUSAL, CONSUMERS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -647,13 +648,17 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v, void* o, 
   const long long tiles = (long long)B * Hq * ((S + T::BM - 1) / T::BM);
   const int grid = (int)(tiles < sms ? tiles : sms);
   kernel<<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, B * Hq, Hq, Hkv, S,
-                                                       LOG2E / sqrtf((float)D));
+                                                       LOG2E / sqrtf((float)DG));
   return cudaGetLastError();
 }
 
 // Two consumer warpgroups (128-row tiles), or one (64-row tiles) where
 // 128-row tiles would leave streaming multiprocessors idle, and always for
 // D = 256 (two would need more shared memory than a block may use).
+// head_dim 32 runs in the 64-column tile: the maps are 32 columns wide, so
+// TMA fills the tile's other 32 columns of Q, K and V with zeros (they add
+// exact zeros to q.k and give zero output columns) and the output store
+// writes only the 32 in the map; the scale stays 1/sqrt(32).
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int S,
                      int causal, cudaStream_t stream) {
@@ -661,14 +666,15 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  constexpr int WIDE = D <= 192 ? 2 : 1;
+  constexpr int TD = D < PANEL ? PANEL : D;  // the tile's head dim
+  constexpr int WIDE = TD <= 192 ? 2 : 1;
   const bool narrow = (long long)B * Hq * ((S + 127) / 128) < sms;
   if (causal) {
-    return narrow ? launch_hopper<D, true, 1>(q, k, v, o, B, Hq, Hkv, S, sms, stream)
-                  : launch_hopper<D, true, WIDE>(q, k, v, o, B, Hq, Hkv, S, sms, stream);
+    return narrow ? launch_hopper<TD, true, 1, D>(q, k, v, o, B, Hq, Hkv, S, sms, stream)
+                  : launch_hopper<TD, true, WIDE, D>(q, k, v, o, B, Hq, Hkv, S, sms, stream);
   }
-  return narrow ? launch_hopper<D, false, 1>(q, k, v, o, B, Hq, Hkv, S, sms, stream)
-                : launch_hopper<D, false, WIDE>(q, k, v, o, B, Hq, Hkv, S, sms, stream);
+  return narrow ? launch_hopper<TD, false, 1, D>(q, k, v, o, B, Hq, Hkv, S, sms, stream)
+                : launch_hopper<TD, false, WIDE, D>(q, k, v, o, B, Hq, Hkv, S, sms, stream);
 }
 
 // ---- B4, bf16: B2's design with the carry ---------------------------------
@@ -696,8 +702,10 @@ __device__ __forceinline__ WorkTile carry_work_tile(int w, int BH, int Hq, int H
 // one tile ahead: the next tile's carry is in flight while this one
 // computes); the consumers move it into their accumulator fragments at the
 // tile's start and store the new carry from them at its end, by row: a row
-// that sees no key of the hop (r < rel) is never written.
-template <int D, int CONSUMERS>
+// that sees no key of the hop (r < rel) is never written. DG is the
+// tensors' head dim: D, or 32 in a 64-column tile, whose carry columns past
+// DG are neither loaded nor stored (they start at zero and stay there).
+template <int D, int CONSUMERS, int DG = D>
 __global__ void __launch_bounds__(HopperTile<D, CONSUMERS>::THREADS, 1)
     flash_attention_carry_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_c,
@@ -751,9 +759,9 @@ __global__ void __launch_bounds__(HopperTile<D, CONSUMERS>::THREADS, 1)
         // the carry first: the consumers freed its buffer at the last
         // tile's start, so it loads while they finish that tile
         mbar_wait(c_empty, (k & 1) ^ 1);
-        mbar_expect_tx(c_full, T::C_BYTES);
+        mbar_expect_tx(c_full, T::C_BYTES / (D / DG));
 #pragma unroll
-        for (int p = 0; p < D / T::C_PANEL; ++p)
+        for (int p = 0; p < DG / T::C_PANEL; ++p)
           tma_load_3d(sC + p * BM * 128, &tm_c, c_full, p * T::C_PANEL, wt.q0, wt.bh);
         mbar_wait(q_empty, (k & 1) ^ 1);  // the consumers are done with the last tile's Q
         mbar_expect_tx(q_full, T::Q_BYTES);
@@ -824,8 +832,10 @@ __global__ void __launch_bounds__(HopperTile<D, CONSUMERS>::THREADS, 1)
 #pragma unroll
           for (int jj = 0; jj < PV_N / 8; ++jj) {
             const int col = ch * PV_N + jj * 8 + t * 2;
-            const float2 a2 = ld_shared_f32x2(sC + (col / T::C_PANEL) * BM * 128 + rb * 128 +
-                                              ((((col % T::C_PANEL) / 4) ^ (rb % 8)) * 16) + (col % 4) * 4);
+            const float2 a2 = ch * PV_N + jj * 8 >= DG
+                                  ? make_float2(0.f, 0.f)
+                                  : ld_shared_f32x2(sC + (col / T::C_PANEL) * BM * 128 + rb * 128 +
+                                                    ((((col % T::C_PANEL) / 4) ^ (rb % 8)) * 16) + (col % 4) * 4);
             acc[ch][4 * jj + 2 * h] = a2.x;
             acc[ch][4 * jj + 2 * h + 1] = a2.y;
           }
@@ -942,13 +952,14 @@ __global__ void __launch_bounds__(HopperTile<D, CONSUMERS>::THREADS, 1)
         const int r = row_lo + h * 8;
         if (r >= Sq || r < rel) continue;
         const size_t row = (size_t)wt.bh * Sq + r;
-        float* ap = acc_io + row * D + t * 2;
+        float* ap = acc_io + row * DG + t * 2;
 #pragma unroll
         for (int ch = 0; ch < CHUNKS; ++ch) {
 #pragma unroll
           for (int jj = 0; jj < PV_N / 8; ++jj)
-            *reinterpret_cast<float2*>(ap + ch * PV_N + jj * 8) =
-                make_float2(acc[ch][4 * jj + 2 * h], acc[ch][4 * jj + 2 * h + 1]);
+            if (ch * PV_N + jj * 8 < DG)
+              *reinterpret_cast<float2*>(ap + ch * PV_N + jj * 8) =
+                  make_float2(acc[ch][4 * jj + 2 * h], acc[ch][4 * jj + 2 * h + 1]);
         }
         if (t == 0) {
           m_io[row] = m[h] / LOG2E;
@@ -966,15 +977,15 @@ int live_q_tiles(int Sq, int rel, int BM) {
   return n_q - (rel <= 0 ? 0 : rel >= Sq ? n_q : rel / BM);
 }
 
-template <int D, int CONSUMERS>
+template <int D, int CONSUMERS, int DG>
 cudaError_t launch_carry_hopper(const void* q, const void* k, const void* v, void* acc, void* m, void* l, int B,
                                 int Hq, int Hkv, int Sq, int Sk, int rel, int sms, cudaStream_t stream) {
   using T = CarryTile<D, CONSUMERS>;
   CUtensorMap tm_q, tm_k, tm_v, tm_c;
-  if (!encode_map(&tm_q, q, D, Sq, B * Hq, T::BM) || !encode_map(&tm_k, k, D, Sk, B * Hkv, T::BN) ||
-      !encode_map(&tm_v, v, D, Sk, B * Hkv, T::BN) || !encode_map(&tm_c, acc, D, Sq, B * Hq, T::BM, true))
+  if (!encode_map(&tm_q, q, DG, Sq, B * Hq, T::BM) || !encode_map(&tm_k, k, DG, Sk, B * Hkv, T::BN) ||
+      !encode_map(&tm_v, v, DG, Sk, B * Hkv, T::BN) || !encode_map(&tm_c, acc, DG, Sq, B * Hq, T::BM, true))
     return cudaErrorInvalidValue;
-  auto kernel = flash_attention_carry_kernel<D, CONSUMERS>;
+  auto kernel = flash_attention_carry_kernel<D, CONSUMERS, DG>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -985,13 +996,14 @@ cudaError_t launch_carry_hopper(const void* q, const void* k, const void* v, voi
   const int grid = (int)(tiles < 1 ? 1 : tiles < sms ? tiles : sms);
   kernel<<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_c, static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), B * Hq, Hq, Hkv,
-      Sq, Sk, rel, live, LOG2E / sqrtf((float)D));
+      Sq, Sk, rel, live, LOG2E / sqrtf((float)DG));
   return cudaGetLastError();
 }
 
 // Two consumer warpgroups (128-row tiles) or one, as B2 chooses, counting
 // only the live 128-row tiles; one for D > 128, where two with the carry's
-// buffer would need more shared memory than a block may use.
+// buffer would need more shared memory than a block may use. head_dim 32
+// runs in B2's 64-column tile (launch_d).
 template <int D>
 cudaError_t launch_carry_bf16(const void* q, const void* k, const void* v, void* acc, void* m, void* l, int B,
                               int Hq, int Hkv, int Sq, int Sk, int rel, cudaStream_t stream) {
@@ -999,10 +1011,11 @@ cudaError_t launch_carry_bf16(const void* q, const void* k, const void* v, void*
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  constexpr int WIDE = D <= 128 ? 2 : 1;
+  constexpr int TD = D < PANEL ? PANEL : D;  // the tile's head dim
+  constexpr int WIDE = TD <= 128 ? 2 : 1;
   const bool narrow = (long long)B * Hq * live_q_tiles(Sq, rel, 128) < sms;
-  return narrow ? launch_carry_hopper<D, 1>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream)
-                : launch_carry_hopper<D, WIDE>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream);
+  return narrow ? launch_carry_hopper<TD, 1, D>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream)
+                : launch_carry_hopper<TD, WIDE, D>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, sms, stream);
 }
 
 // ---- f32 inputs: plain SIMT kernels ---------------------------------------
@@ -1297,12 +1310,13 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, void* acc,
 extern "C" {
 
 // q, o: (B, Hq, S, D); k, v: (B, Hkv, S, D); all contiguous bf16 on the
-// device, 16-byte aligned. D in {64, 128, 192, 256}; Hq % Hkv == 0.
+// device, 16-byte aligned. D in {32, 64, 128, 192, 256}; Hq % Hkv == 0.
 // Returns 0 or the CUDA error code of the launch.
 int tpusc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                               int Hkv, int S, int D, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32: return (int)launch_d<32>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 64: return (int)launch_d<64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 128: return (int)launch_d<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 192: return (int)launch_d<192>(q, k, v, o, B, Hq, Hkv, S, causal, st);
@@ -1316,6 +1330,7 @@ int tpusc_flash_attention_fwd_f32(const void* q, const void* k, const void* v, v
                                   int Hq, int Hkv, int S, int D, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32: return (int)launch_f32_d<32>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 64: return (int)launch_f32_d<64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 128: return (int)launch_f32_d<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     case 192: return (int)launch_f32_d<192>(q, k, v, o, B, Hq, Hkv, S, causal, st);
@@ -1327,13 +1342,14 @@ int tpusc_flash_attention_fwd_f32(const void* q, const void* k, const void* v, v
 // One ring hop, updating the carry in place. q: (B, Hq, Sq, D); k, v:
 // (B, Hkv, Sk, D), bf16 (f32 == 0) or f32 (f32 == 1); acc: (B, Hq, Sq, D)
 // f32; m, l: (B, Hq, Sq) f32; all contiguous on the device, 16-byte
-// aligned. Local row r sees local key c when r - c >= rel. D in {64, 128,
-// 192, 256}; Hq % Hkv == 0. Returns 0 or the CUDA error code of the launch.
+// aligned. Local row r sees local key c when r - c >= rel. D in {32, 64,
+// 128, 192, 256}; Hq % Hkv == 0. Returns 0 or the CUDA error code of the launch.
 int tpusc_flash_attention_carry(const void* q, const void* k, const void* v, void* acc, void* m,
                                 void* l, int B, int Hq, int Hkv, int Sq, int Sk, int D, int rel,
                                 int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32: return (int)launch_carry<32>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
     case 64: return (int)launch_carry<64>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
     case 128: return (int)launch_carry<128>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);
     case 192: return (int)launch_carry<192>(q, k, v, acc, m, l, B, Hq, Hkv, Sq, Sk, rel, f32, st);

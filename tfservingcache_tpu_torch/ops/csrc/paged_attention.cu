@@ -201,7 +201,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// E consecutive elements at p (E even, p aligned to 2 elements) as f32
+// E consecutive elements at p (p aligned to 2 elements when E > 1) as f32
+// (E = 1 at head_dim 32: one column a lane)
 template <int E>
 __device__ __forceinline__ void load_row(const bf16* p, float (&x)[E]) {
 #pragma unroll
@@ -210,6 +211,7 @@ __device__ __forceinline__ void load_row(const bf16* p, float (&x)[E]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+  if constexpr (E % 2 == 1) x[E - 1] = __bfloat162float(p[E - 1]);
 }
 
 template <int E>
@@ -220,6 +222,7 @@ __device__ __forceinline__ void load_row(const float* p, float (&x)[E]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+  if constexpr (E % 2 == 1) x[E - 1] = p[E - 1];
 }
 
 template <int E>
@@ -230,17 +233,20 @@ __device__ __forceinline__ void load_row(const int8_t* p, float (&x)[E]) {
     x[2 * i] = (float)c.x;
     x[2 * i + 1] = (float)c.y;
   }
+  if constexpr (E % 2 == 1) x[E - 1] = (float)p[E - 1];
 }
 
-// the 16 bytes at p (16-byte aligned) as f32
-__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+// one chunk of a staged row as f32: the 16 bytes at p (16-byte aligned),
+// or 8 int8 values (8-byte aligned) where a 32-column int8 row has too few
+// 16-byte chunks for four lanes to share a key's dot product
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x;
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
 }
-__device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
+__device__ __forceinline__ void load_vec(const bf16* p, float (&x)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -250,11 +256,22 @@ __device__ __forceinline__ void load16(const bf16* p, float (&x)[8]) {
     x[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void load16(const int8_t* p, float (&x)[16]) {
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[16]) {
   const int4 u = *reinterpret_cast<const int4*>(p);
   const char4* c = reinterpret_cast<const char4*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    x[4 * i] = (float)c[i].x;
+    x[4 * i + 1] = (float)c[i].y;
+    x[4 * i + 2] = (float)c[i].z;
+    x[4 * i + 3] = (float)c[i].w;
+  }
+}
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[8]) {
+  const int2 u = *reinterpret_cast<const int2*>(p);
+  const char4* c = reinterpret_cast<const char4*>(&u);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     x[4 * i] = (float)c[i].x;
     x[4 * i + 1] = (float)c[i].y;
     x[4 * i + 2] = (float)c[i].z;
@@ -547,7 +564,9 @@ __device__ __forceinline__ void paged_attention_body(
     // (lane: key lane % KW, part lane / KW of D). The q rows wait in shared
     // memory as f32 and are read as broadcasts.
     constexpr int E = D / 32;                      // output columns a lane owns: lane * E ..
-    constexpr int VE = 16 / (int)sizeof(KVT);      // elements of a 16-byte chunk
+    // elements of a chunk: 16 bytes, or fewer where a row has fewer than
+    // four (int8 at D = 32), so that each of four lanes dots one
+    constexpr int VE = 16 / (int)sizeof(KVT) < D / 4 ? 16 / (int)sizeof(KVT) : D / 4;
     const int KW = 32 / kspl;                      // keys a warp takes of a step
     const int kl = lane % KW;
     const int part = lane / KW;
@@ -599,7 +618,7 @@ __device__ __forceinline__ void paged_attention_body(
           for (int i = 0; i < UNIT; ++i) sc[i] = 0.f;
           for (int c = part * seg_chunks; c < (part + 1) * seg_chunks; ++c) {
             float kx[VE];
-            load16(reinterpret_cast<const KVT*>(krow) + c * VE, kx);
+            load_vec(reinterpret_cast<const KVT*>(krow) + c * VE, kx);
             if constexpr (L::SCALES) {  // int8 pages: per-(page, head, token) scales
               const float a = sks[j];
 #pragma unroll
@@ -859,7 +878,7 @@ extern "C" {
 // n_splits runs of pages_per_split table slots ((n_splits - 1) *
 // pages_per_split < pps <= n_splits * pages_per_split); with n_splits > 1,
 // part_ml (S * Hq * T, n_splits, 2) and part_acc (S * Hq * T, n_splits, D)
-// are f32 scratch. All contiguous on the device. D in {64, 128, 192, 256};
+// are f32 scratch. All contiguous on the device. D in {32, 64, 128, 192, 256};
 // Hq % Hkv == 0; T >= 1, and T == 1 unless `verify` (which picks
 // paged_verify_attention_kernel over paged_decode_attention_kernel).
 // Returns 0 or the CUDA error code.
@@ -879,6 +898,7 @@ int tpusc_paged_attention(const void* q, const void* k_pages, const void* v_page
                out, part_ml, part_acc, S, Hq, Hkv, D, T, page_tokens, pps, n_pages,
                n_splits, pages_per_split, static_cast<cudaStream_t>(stream)};
   switch (D) {
+    case 32: return (int)launch_d<32>(q_type, kv_type, a);
     case 64: return (int)launch_d<64>(q_type, kv_type, a);
     case 128: return (int)launch_d<128>(q_type, kv_type, a);
     case 192: return (int)launch_d<192>(q_type, kv_type, a);

@@ -1252,14 +1252,20 @@ class TorchModelRuntime(BaseRuntime):
         return dyn_sizes, padded
 
     # -- generate -----------------------------------------------------------
-    def _lm(self, model_id: ModelId) -> LoadedModel:
+    def _lm(self, model_id: ModelId, continuous: bool = False) -> LoadedModel:
+        """The resident decoder LM: solo generate takes transformer_lm and
+        moe_lm (reference :1858), the continuous slot surface transformer_lm
+        only (:2048; moe_lm's expert capacity spans the whole batch, so its
+        rows never share a decode step)."""
         loaded = self._resident.get(model_id)
         if loaded is None:
             raise ModelNotLoadedError(f"model {model_id} is not loaded")
-        if loaded.model_def.family != "transformer_lm":
+        family = loaded.model_def.family
+        if continuous and family != "transformer_lm":
+            raise RuntimeError_(f"continuous decode supports transformer_lm only, not {family!r}")
+        if family not in ("transformer_lm", "moe_lm"):
             raise RuntimeError_(
-                "generate is supported for transformer_lm models, not "
-                f"{loaded.model_def.family!r}"
+                f"generate is supported for transformer_lm/moe_lm models, not {family!r}"
             )
         return loaded
 
@@ -1498,7 +1504,7 @@ class TorchModelRuntime(BaseRuntime):
         grows to the same byte budget) and, with ``share_prefix_bytes > 0``,
         its radix prefix index. An existing state wins. Allocation runs
         under a per-model once-guard, not under the map lock."""
-        self._lm(model_id)
+        self._lm(model_id, continuous=True)
         with self._slot_lock:
             st = self._slot_states.get(model_id)
             if st is not None:
@@ -1510,7 +1516,7 @@ class TorchModelRuntime(BaseRuntime):
             if st is not None:
                 return st
             st = self._build_slot_state(
-                self._lm(model_id), model_id, slots, page_tokens, arena_pages,
+                self._lm(model_id, continuous=True), model_id, slots, page_tokens, arena_pages,
                 arena_dtype, paged_kernel, share_prefix_bytes,
             )
             with self._slot_lock:
@@ -1633,7 +1639,7 @@ class TorchModelRuntime(BaseRuntime):
         re-admissions."""
         from tfservingcache_tpu_torch.models import generation
 
-        loaded = self._lm(model_id)
+        loaded = self._lm(model_id, continuous=True)
         cfg = loaded.model_def.config
         max_seq = int(cfg["max_seq"])
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -1675,7 +1681,7 @@ class TorchModelRuntime(BaseRuntime):
         decode writes each of them before any query reads it."""
         from tfservingcache_tpu_torch.models import generation
 
-        loaded = self._lm(model_id)
+        loaded = self._lm(model_id, continuous=True)
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         t = tokens.shape[0]
         if not 0 < t <= chunk_size:
@@ -1738,7 +1744,7 @@ class TorchModelRuntime(BaseRuntime):
             tok, pk, pv, hit, last = self._slot_prefill_impl(model_id, prompt, temperature,
                                                              top_k, seed)
             return tok, pk, pv, ("dense" if hit else "miss"), last
-        loaded = self._lm(model_id)
+        loaded = self._lm(model_id, continuous=True)
         if plan.kind == "exact":
             return self.sample_first_token(plan.logits, temperature, top_k, seed), None, None, \
                 "exact", plan.logits
@@ -1915,7 +1921,7 @@ class TorchModelRuntime(BaseRuntime):
         same K/V rows."""
         from tfservingcache_tpu_torch.models import generation
 
-        loaded = self._lm(model_id)
+        loaded = self._lm(model_id, continuous=True)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         p = prompt.shape[0]
         pages = state.lane_pages[lane][:n_pages]
