@@ -235,7 +235,21 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      padded shape); a speculative :generate with the draft (tokens,
      acceptance, the positions that differ from the plain run); the
      default-config model's :predict through B2 at head_dim 32 (launches =
-     its n_layers x (requests + 1), the same logits check).
+     its n_layers x (requests + 1), the same logits check);
+  16. zoo — the per-tenant classifier families on a store and disk cache of
+     their own (deleted at the end), f32 artifacts of random weights: bert
+     at bert-base's widths as two tenants and a third at max_seq 384, resnet
+     at ResNet-50's as two tenants, on one node of two resident models, so
+     that the tenants evict one another. bert :predict at (1, 128) cold,
+     then warm at (1, 128), (8, 128) and (4, 512); a (1, 100) request against
+     the same ids in (1, 128) with a masked tail; on the capped tenant a
+     (1, 300) request (pads to 384) answers and a (1, 400) one is refused
+     with the reference's 400; a two-example :classify. resnet :predict cold
+     at batch 1, then warm at 1, 8 and 32. Every reply's logits within
+     ZOO_TOL_FLOOR's rule of the same module's forward on the CPU, argmax
+     equal off near-ties; B1-B4 launch 0 times over the phase; 4
+     evictions; a warm forward of each family against its kernels' device
+     time.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -5449,6 +5463,339 @@ def phase_moe(seed: int, warm_reps: int, kernels: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the zoo phase (item 11b): the per-tenant classifier families at their
+# published widths, each tenant from its own seed, on one node whose device
+# holds two models at a time (BASELINE.json configs #3 and #4)
+ZOO_BERT_SHAPES = [(1, 128), (8, 128), (4, 512)]  # :predict, one cold request, then warm
+ZOO_BERT_PAD = 100          # the padded check: (1, 100) against (1, 128) with a masked tail
+ZOO_CAP = 384               # the capped tenant's max_seq (a SQuAD fine-tune's length)
+ZOO_CAPPED_SHAPES = [(1, 300), (1, 400)]  # 300 pads to 384 and answers; 400 is refused
+ZOO_CLASSIFY = (2, 64)      # a :classify of two 64-token examples
+ZOO_RESNET_BATCHES = [1, 8, 32]  # :predict, the first cold, then warm
+ZOO_RESIDENT = 2            # the node's max_concurrent_models
+# a reply's logits against the same module's bf16 forward on the CPU: within
+# twice that forward's own distance to its f32 forward, plus 2**-5 (random
+# weights carry no training that damps a flipped bf16 ulp, so the bf16 noise
+# floor is the yardstick: tests/test_torch_resnet.py)
+ZOO_TOL_FLOOR = 2.0**-5
+
+
+class _ZooPlain:
+    """Each tenant's plain forward on the CPU in bf16 (the served module)
+    and in f32, on its artifact's weights; results memoized per input."""
+
+    def __init__(self) -> None:
+        self.models: dict = {}
+        self.memo: dict = {}
+
+    def add(self, name: str, model_def, params) -> None:
+        import torch
+
+        from tfservingcache_tpu_torch.models import registry, resnet
+
+        if model_def.family == "resnet":
+            f32 = resnet.ResNet(params, model_def.config, torch.float32)
+        else:
+            f32 = registry.build(model_def.family,
+                                 dict(model_def.config, dtype="float32")).make_module(params)
+        self.models[name] = (model_def.make_module(params).eval(), f32.eval())
+
+    def logits(self, name: str, inputs: dict):
+        """-> (bf16 logits, f32 logits), float64 numpy."""
+        import numpy as np
+        import torch
+
+        key = (name, tuple((k, v.shape, v.tobytes()) for k, v in sorted(inputs.items())))
+        if key not in self.memo:
+            with torch.inference_mode():
+                got = [m({k: torch.from_numpy(v) for k, v in inputs.items()})["logits"]
+                       .double().numpy() for m in self.models[name]]
+            self.memo[key] = (np.asarray(got[0]), np.asarray(got[1]))
+        return self.memo[key]
+
+
+def _zoo_tol(plain: _ZooPlain, name: str, inputs: dict) -> float:
+    """ZOO_TOL_FLOOR's rule on the tenant's CPU forwards of ``inputs``."""
+    import numpy as np
+
+    ref16, ref32 = plain.logits(name, inputs)
+    return 2 * float(np.abs(ref16 - ref32).max()) + ZOO_TOL_FLOOR
+
+
+def _zoo_check(plain: _ZooPlain, name: str, inputs: dict, replies: list, what: str) -> float:
+    """Replies' (B, C) logits against the tenant's plain CPU forward on the
+    same inputs (ZOO_TOL_FLOOR's rule); the argmax equal on every row whose
+    top-2 margin exceeds twice that row's max |diff| (the tie rule of
+    tests/test_torch_transformer_lm.py; every row whose margin exceeds twice
+    the tolerance is among them). -> the tolerance."""
+    import numpy as np
+
+    ref16, _ref32 = plain.logits(name, inputs)
+    tol = _zoo_tol(plain, name, inputs)
+    got = np.asarray(replies, np.float64)
+    if got.shape[1:] != ref16.shape or not np.isfinite(got).all():
+        raise AssertionError(f"[zoo] {what}: logits {got.shape}, want {ref16.shape}, finite")
+    row_diff = np.abs(got - ref16).max(axis=(0, 2))
+    diff = float(row_diff.max())
+    top2 = np.sort(ref16, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * row_diff
+    agree = (got.argmax(-1) == ref16.argmax(-1)).all(0)
+    log(f"  [zoo] {what}, {len(got)} replies: max|logits - CPU bf16 forward| {diff:.5f} "
+        f"(tolerance {tol:.5f}: the CPU bf16 forward sits {(tol - ZOO_TOL_FLOOR) / 2:.5f} from "
+        f"its f32 one); argmax equal on {int(agree[decided].sum())} of {int(decided.sum())} "
+        f"decided rows ({len(agree)} rows)")
+    if diff > tol:
+        raise AssertionError(f"[zoo] {what}: logits differ from the CPU forward by {diff}")
+    if not agree[decided].all():
+        raise AssertionError(f"[zoo] {what}: argmax differs from the CPU forward")
+    return tol
+
+
+def _bert_body(ids, mask) -> bytes:
+    return json.dumps({"inputs": {"input_ids": ids.tolist(),
+                                  "attention_mask": mask.tolist()}}).encode()
+
+
+def phase_zoo(seed: int, warm_reps: int, kernels: dict) -> None:
+    """bert at bert-base's published widths (DEFAULT_CONFIG) as two tenants
+    and a third at max_seq 384, and resnet at ResNet-50's (DEFAULT_CONFIG,
+    GroupNorm) as two tenants, f32 artifacts as the reference writes them, on
+    one node of ZOO_RESIDENT resident models, its own store and disk cache:
+    REST :predict cold and warm, a padded request, the capped tenant's
+    bucket, a :classify; every reply against the plain CPU forward; no
+    kernel of the port launches (neither family runs one)."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import bert, registry, resnet
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    card = nvidia_smi_line()
+    work = tempfile.mkdtemp(prefix="tpusc_chip_smoke_zoo_")
+    node = None
+    try:
+        store = os.path.join(work, "store")
+        tenants = {
+            "bert_a": ("bert", bert.DEFAULT_CONFIG),
+            "bert_b": ("bert", bert.DEFAULT_CONFIG),
+            "bert_384": ("bert", dict(bert.DEFAULT_CONFIG, max_seq=ZOO_CAP)),
+            "resnet_a": ("resnet", resnet.DEFAULT_CONFIG),
+            "resnet_b": ("resnet", resnet.DEFAULT_CONFIG),
+        }
+        plain = _ZooPlain()
+        cuda_params = {}
+        t0 = time.monotonic()
+        for i, (name, (family, cfg)) in enumerate(tenants.items()):
+            model_def = registry.build(family, cfg)
+            params = model_def.init(torch.Generator(device="cuda").manual_seed(seed + 20 + i))
+            registry.save_artifact(os.path.join(store, name, "1"), model_def, params)
+            n_params = sum(t.numel() for _p, t in registry.flatten_params(params))
+            nbytes = os.path.getsize(os.path.join(store, name, "1", "params.bin"))
+            plain.add(name, model_def, registry.load_artifact(os.path.join(store, name, "1"))[1])
+            if name in ("bert_a", "resnet_a"):
+                cuda_params[name] = (model_def, params)
+            log(f"  [zoo] {name}: {family} {cfg}: {n_params} params, {nbytes} bytes f32")
+            del params
+        log(f"  [zoo] {len(tenants)} artifacts written and loaded for the CPU forward in "
+            f"{time.monotonic() - t0:.2f}s")
+        store_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _dirs, files in os.walk(store) for f in files)
+        node = build_node(config_from_dict({
+            "serving": {"load_timeout_s": 900.0, "max_concurrent_models": ZOO_RESIDENT},
+            "cache": {"base_dir": os.path.join(work, "cache_zoo"),
+                      "disk_capacity_bytes": 2 * store_bytes},
+            "model_provider": {"type": "disk", "base_dir": store},
+            "cache_node": {"rest_port": 0, "grpc_port": 0}}), device="cuda")
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        m = node.metrics
+        rng = np.random.default_rng(seed + 30)
+        vocab = bert.DEFAULT_CONFIG["vocab_size"]
+        size = resnet.DEFAULT_CONFIG["image_size"]
+
+        def bert_inputs(shape):
+            return {"input_ids": rng.integers(0, vocab, size=shape).astype(np.int32),
+                    "attention_mask": np.ones(shape, np.int32)}
+
+        def images(batch):
+            # pixel values 0..255, as a decoded image holds them
+            return rng.integers(0, 256, size=(batch, size, size, 3)).astype(np.float32)
+
+        counters = {"flash_attention": A.FLASH_LAUNCHES,
+                    "paged_decode_attention": A.PAGED_LAUNCHES,
+                    "paged_verify_attention": A.VERIFY_LAUNCHES,
+                    "flash_attention_carry": A.CARRY_LAUNCHES}
+        evict0 = m.evictions.labels("hbm").value
+        timed: dict = {}
+
+        # --- the path: counters to 0, the phase's requests, counters read ---
+        for c in counters.values():
+            c.reset()
+        # bert: cold (1, 128), then warm at every shape, one input a shape
+        bert_reqs = []
+        for k, shape in enumerate(ZOO_BERT_SHAPES):
+            inputs = bert_inputs(shape)
+            body = _bert_body(inputs["input_ids"], inputs["attention_mask"])
+            replies = []
+            for r in range(warm_reps + (2 if k == 0 else 1)):
+                status, raw, dt = _post_raw(f"{base}/bert_a/versions/1:predict", body)
+                if status != 200:
+                    raise AssertionError(f"[zoo] bert_a {shape} answered {status}: {raw[:300]}")
+                timed.setdefault(("bert_a", "cold (1, 128)" if k == 0 and r == 0
+                                  else f"warm {shape}"), []).append(dt)
+                replies.append(json.loads(raw)["outputs"]["logits"])
+            bert_reqs.append((shape, inputs, replies))
+        # the padded request: the same ids, a masked tail of junk tokens
+        short = bert_inputs((1, ZOO_BERT_PAD))
+        padded = {"input_ids": np.concatenate([short["input_ids"], rng.integers(
+            0, vocab, size=(1, 128 - ZOO_BERT_PAD)).astype(np.int32)], axis=1),
+                  "attention_mask": np.concatenate([short["attention_mask"], np.zeros(
+                      (1, 128 - ZOO_BERT_PAD), np.int32)], axis=1)}
+        pad_replies = []
+        for inputs in (short, padded):
+            status, raw, _dt = _post_raw(f"{base}/bert_a/versions/1:predict",
+                                         _bert_body(inputs["input_ids"], inputs["attention_mask"]))
+            if status != 200:
+                raise AssertionError(f"[zoo] bert_a padded request answered {status}")
+            pad_replies.append(np.asarray(json.loads(raw)["outputs"]["logits"]))
+        # the capped tenant: 300 tokens pad to 384 (512 would fail the
+        # forward), 400 tokens are refused with the reference's message
+        capped = bert_inputs(ZOO_CAPPED_SHAPES[0])
+        status, raw, dt = _post_raw(f"{base}/bert_384/versions/1:predict",
+                                    _bert_body(capped["input_ids"], capped["attention_mask"]))
+        if status != 200:
+            raise AssertionError(f"[zoo] bert_384 (1, 300) answered {status}: {raw[:300]}")
+        capped_logits = json.loads(raw)["outputs"]["logits"]
+        timed[("bert_384", "cold (1, 300)")] = [dt]
+        over = bert_inputs(ZOO_CAPPED_SHAPES[1])
+        status, raw, _dt = _post_raw(f"{base}/bert_384/versions/1:predict",
+                                     _bert_body(over["input_ids"], over["attention_mask"]))
+        refusal = json.loads(raw).get("error", "")
+        if status != 400 or refusal != "'seq' dim 400 exceeds this model's maximum 384":
+            raise AssertionError(f"[zoo] bert_384 (1, 400) answered {status}: {raw[:300]}")
+        # a :classify of two examples on a third bert tenant (an eviction)
+        cls_in = bert_inputs(ZOO_CLASSIFY)
+        examples = [{k: v[r].tolist() for k, v in cls_in.items()} for r in range(ZOO_CLASSIFY[0])]
+        status, raw, dt = _post_raw(f"{base}/bert_b/versions/1:classify",
+                                    json.dumps({"examples": examples}).encode())
+        if status != 200:
+            raise AssertionError(f"[zoo] bert_b :classify answered {status}: {raw[:300]}")
+        cls_rows = json.loads(raw)["results"]
+        timed[("bert_b", "cold :classify (2, 64)")] = [dt]
+        # resnet: cold at batch 1, then warm at every batch, one input a batch
+        resnet_reqs = []
+        for k, batch in enumerate(ZOO_RESNET_BATCHES):
+            img = images(batch)
+            body = json.dumps({"instances": img.astype(np.int32).tolist()}).encode()
+            replies = []
+            for r in range(warm_reps + (2 if k == 0 else 1)):
+                status, raw, dt = _post_raw(f"{base}/resnet_a/versions/1:predict", body)
+                if status != 200:
+                    raise AssertionError(f"[zoo] resnet_a batch {batch} answered {status}: "
+                                         f"{raw[:300]}")
+                timed.setdefault(("resnet_a", "cold batch 1" if k == 0 and r == 0
+                                  else f"warm batch {batch}"), []).append(dt)
+                rows = json.loads(raw)["predictions"]
+                replies.append([row["logits"] for row in rows])
+                if [row["classes"] for row in rows] != np.argmax(replies[-1], -1).tolist():
+                    raise AssertionError(f"[zoo] resnet_a batch {batch}: classes != argmax")
+            resnet_reqs.append((batch, img, replies))
+        img_b = images(1)
+        status, raw, dt = _post_raw(f"{base}/resnet_b/versions/1:predict", json.dumps(
+            {"instances": img_b.astype(np.int32).tolist()}).encode())
+        if status != 200:
+            raise AssertionError(f"[zoo] resnet_b answered {status}: {raw[:300]}")
+        resnet_b = [row["logits"] for row in json.loads(raw)["predictions"]]
+        timed[("resnet_b", "cold batch 1")] = [dt]
+        # bert_a again: evicted by the resnet tenants, reloaded
+        inputs = bert_reqs[0][1]
+        status, raw, dt = _post_raw(f"{base}/bert_a/versions/1:predict",
+                                    _bert_body(inputs["input_ids"], inputs["attention_mask"]))
+        if status != 200:
+            raise AssertionError(f"[zoo] bert_a reload answered {status}")
+        reload_logits = json.loads(raw)["outputs"]["logits"]
+        timed[("bert_a", "reload (1, 128)")] = [dt]
+        launches = {name: c.value for name, c in counters.items()}
+        # -------------------------------------------------------------------
+        evictions = m.evictions.labels("hbm").value - evict0
+        log(f"  [zoo] kernel launches over the phase's requests: {launches} (neither family "
+            f"runs a kernel of the port)")
+        for name, n in launches.items():
+            kernels[name]["launches_zoo_phase"] = n
+        if any(launches.values()):
+            raise AssertionError(f"[zoo] a kernel launched on the bert/resnet path: {launches}")
+
+        # every reply against the plain CPU forward
+        for shape, inputs, replies in bert_reqs:
+            _zoo_check(plain, "bert_a", inputs, replies, f"bert_a {shape}")
+        tol = _zoo_check(plain, "bert_a", short, pad_replies[:1], f"bert_a (1, {ZOO_BERT_PAD})")
+        pad_gap = float(np.abs(np.asarray(pad_replies[0]) - np.asarray(pad_replies[1])).max())
+        log(f"  [zoo] bert_a: (1, {ZOO_BERT_PAD}) against the same ids in (1, 128) with a "
+            f"masked tail: max|diff| {pad_gap:.5f} (tolerance {tol:.5f})")
+        if pad_gap > tol:
+            raise AssertionError(f"[zoo] the padded request's logits moved by {pad_gap}")
+        _zoo_check(plain, "bert_384", capped, [capped_logits], "bert_384 (1, 300) -> bucket 384")
+        log(f"  [zoo] bert_384 (1, 400): 400 {refusal!r}")
+        # :classify scores: the float64 softmax of the CPU forward's logits
+        # (softmax moves no score by more than half the logits' max change)
+        ref16, _ref32 = plain.logits("bert_b", cls_in)
+        e = np.exp(ref16 - ref16.max(-1, keepdims=True))
+        scores = np.asarray([[sc for _l, sc in row] for row in cls_rows])
+        score_gap = float(np.abs(scores - e / e.sum(-1, keepdims=True)).max())
+        tol = _zoo_tol(plain, "bert_b", cls_in)
+        labels = [[lab for lab, _sc in row] for row in cls_rows]
+        log(f"  [zoo] bert_b :classify {ZOO_CLASSIFY}: labels {labels}, scores within "
+            f"{score_gap:.5f} of the CPU forward's float64 softmax (tolerance {tol / 2:.5f})")
+        if labels != [["0", "1"]] * ZOO_CLASSIFY[0] or score_gap > tol / 2:
+            raise AssertionError(f"[zoo] bert_b :classify: {cls_rows}")
+        for batch, img, replies in resnet_reqs:
+            _zoo_check(plain, "resnet_a", {"image": img}, replies, f"resnet_a batch {batch}")
+        _zoo_check(plain, "resnet_b", {"image": img_b}, [resnet_b], "resnet_b batch 1")
+        _zoo_check(plain, "bert_a", bert_reqs[0][1], [reload_logits], "bert_a reloaded (1, 128)")
+
+        for (tenant, what), times in timed.items():
+            label = "p50" if len(times) > 1 else "one request"
+            log(f"  [zoo] {tenant} :predict {what}: {label} {statistics.median(times) * 1e3:.2f} "
+                f"ms over {len(times)} (host clock, localhost HTTP, JSON; {card})")
+        log(f"  [zoo] evictions {evictions:.0f} with {ZOO_RESIDENT} resident models over "
+            f"{len(tenants)} tenants; reload sources: " + ", ".join(
+                f"{s} {m.reload_source.labels(s).value:.0f}" for s in ("store", "disk", "host"))
+            + f" ({card})")
+        # bert_b, resnet_a, resnet_b and bert_a's reload each evict the
+        # least recent of two
+        if evictions != 4:
+            raise AssertionError(f"[zoo] {evictions} evictions, want 4")
+
+        # where a warm request's time goes: one forward on the card (host
+        # clock, ends in a sync) against the device kernels inside it
+        for name, shape, inputs in (
+                ("bert_a", (8, 128), bert_inputs((8, 128))),
+                ("resnet_a", (8, size, size, 3), {"image": images(8)})):
+            model_def, params = cuda_params[name]
+            module = model_def.make_module(params).eval()
+            dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+
+            def forward():
+                with torch.inference_mode():
+                    module(dev_in)
+                torch.cuda.synchronize()
+
+            ms = host_ms(forward)
+            busy = device_busy_ms(forward)
+            share = "not measured" if busy is None else f"{busy:.2f} ms = {busy / ms:.3f}"
+            log(f"  [zoo] a {name} {shape} forward: {ms:.2f} ms host clock, its kernels "
+                f"{share} (torch.profiler; {card})")
+            del module, dev_in
+        log(f"  [zoo] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card})")
+    finally:
+        if node is not None:
+            node.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -5514,6 +5861,8 @@ def main(argv: list[str] | None = None) -> int:
         art.close()
     with Phase("moe"):
         phase_moe(args.seed, args.warm, kernels)
+    with Phase("zoo"):
+        phase_zoo(args.seed, args.warm, kernels)
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -1,7 +1,8 @@
 """The port's half_plus_two and mnist_cnn families
 (tfservingcache_tpu_torch/models/{half_plus_two,mnist_cnn}.py) against the
 JAX package's, on the same params and inputs, and on artifacts the JAX
-package wrote.
+package wrote; the artifacts of bert and resnet too, at their TINY_CONFIG
+(tests/test_torch_{bert,resnet}.py hold their forwards).
 
 Tolerances: half_plus_two is exact (y = 0.5 x + 2 in f32). mnist_cnn
 computes in bf16 to f32 logits in both frameworks, which round at the same
@@ -18,10 +19,15 @@ import pytest
 import torch
 
 from tfservingcache_tpu.models import registry as jreg
+from tfservingcache_tpu.models.bert import TINY_CONFIG as BERT_TINY
+from tfservingcache_tpu.models.resnet import TINY_CONFIG as RESNET_TINY
 from tfservingcache_tpu_torch.models import registry as treg
 from tfservingcache_tpu_torch.models.half_plus_two import reference_output
 
 MNIST_TOL = 2.0**-7
+# the artifact tests' config of each family (None: its default)
+ARTIFACT_CONFIGS = {"bert": BERT_TINY, "resnet": RESNET_TINY}
+ARTIFACT_FAMILIES = ["half_plus_two", "mnist_cnn", "bert", "resnet"]
 
 
 def _jax_params(family: str, seed: int, config=None):
@@ -98,12 +104,13 @@ def test_mnist_width_and_classes_follow_the_config():
     _hold_mnist(got, want)
 
 
-@pytest.mark.parametrize("family", ["half_plus_two", "mnist_cnn"])
+@pytest.mark.parametrize("family", ARTIFACT_FAMILIES)
 def test_reference_artifacts_load_in_the_port(tmp_path, family):
     """A ``tpusc.v2`` artifact the JAX package wrote loads in the port: the
     same params tree, leaf for leaf and bit for bit, and the same
     signature."""
-    path = jreg.export_artifact(family, str(tmp_path), name="m", version=1, seed=5)
+    path = jreg.export_artifact(family, str(tmp_path), name="m", version=1, seed=5,
+                                config=ARTIFACT_CONFIGS.get(family))
     jmodel, jparams = jreg.load_artifact(path)
     tmodel, tparams = treg.load_artifact(path)
     assert tmodel.family == family
@@ -128,12 +135,12 @@ def test_reference_mnist_artifact_serves_like_flax(tmp_path):
     _hold_mnist({k: v.numpy() for k, v in out.items()}, want)
 
 
-@pytest.mark.parametrize("family", ["half_plus_two", "mnist_cnn"])
+@pytest.mark.parametrize("family", ARTIFACT_FAMILIES)
 def test_port_artifacts_load_in_the_reference(tmp_path, family):
     """An artifact the port writes (random params from a seeded CPU
     generator) loads in the JAX package with the same leaves."""
     path = treg.export_artifact(family, str(tmp_path), name="m", version=1, seed=2,
-                                device="cpu")
+                                config=ARTIFACT_CONFIGS.get(family), device="cpu")
     _tmodel, tparams = treg.load_artifact(path)
     jmodel, jparams = jreg.load_artifact(path)
     assert jmodel.family == family

@@ -19,6 +19,10 @@ promotion) against the JAX package's (tests/test_quant.py).
   within 2**-3 of the JAX model's maximum there (tests/test_torch_generation.py).
   A runtime bound to a device group ships raw int8 and dequantizes on the
   device.
+- The classifier families (bert, resnet): plain and int8 artifacts from the
+  same weights are the reference's bytes; the port's runtime serves the
+  reference's int8 artifact exactly as its module on the host-dequantized
+  weights, and as the JAX runtime within each family's bf16 bound.
 
 Every directory comes from ``tmp_path``; every runtime is closed in a
 ``finally``; no result waits on the clock.
@@ -161,6 +165,47 @@ def test_port_export_of_an_int8_artifact_loads_in_the_reference(tmp_path):
     for name, leaf in treg.flatten_params(tparams):
         assert _u8(leaf) == _u8(jflat[name]), name
     assert jreg.load_artifact_meta(path)["quantize"] == "int8"
+
+
+# the classifier families at sizes where some leaves reach the int8 floor:
+# bert's word_emb, w1 and w2 (65536 elements); resnet's 3x3 convs of the
+# last two stages (HWIO kernels, one scale per output channel)
+CLASSIFIERS = {
+    "bert": {"vocab_size": 1024, "hidden": 64, "n_layers": 2, "n_heads": 4, "d_ff": 1024,
+             "max_seq": 64, "type_vocab": 2, "num_labels": 3, "dtype": "bfloat16"},
+    "resnet": {"depth": 18, "num_classes": 10, "width": 16, "image_size": 32},
+}
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("family", sorted(CLASSIFIERS))
+def test_classifier_artifacts_are_the_references(tmp_path, family, dtype, quantize):
+    """bert and resnet, from the same seeded weights (f32, or each leaf
+    rounded to bf16): the port's ``params.bin`` and ``model.json`` are the
+    reference's byte for byte, plain and int8, and the port's raw load
+    gives the reference's int8 leaves."""
+    cfg = CLASSIFIERS[family]
+    tree = treg.build(family, cfg).init(torch.Generator().manual_seed(4))
+    if dtype == "bfloat16":
+        tree = jax.tree_util.tree_map(lambda t: t.to(torch.bfloat16), tree)
+    params = jax.tree_util.tree_map(
+        lambda t: t.numpy() if t.dtype == torch.float32 else
+        t.view(torch.uint16).numpy().view(jnp.bfloat16), tree)
+    jpath = jreg.save_artifact(str(tmp_path / "j"), jreg.build(family, cfg), params,
+                               quantize=quantize)
+    tpath = treg.save_artifact(str(tmp_path / "t"), treg.build(family, cfg),
+                               treg.params_from_jax(params), quantize=quantize)
+    for name in ("params.bin", "model.json"):
+        assert _read(tpath, name) == _read(jpath, name), name
+    _jm, jraw = jreg.load_artifact(jpath, raw_quant=True)
+    _tm, traw = treg.load_artifact(tpath, raw_quant=True)
+    want = _quant_leaves(jraw, jreg.QuantLeaf)
+    got = _quant_leaves(traw, treg.QuantLeaf)
+    assert sorted(got) == sorted(want) and (len(got) > 0) == (quantize == "int8")
+    for path, leaf in got.items():
+        assert _u8(leaf.q) == _u8(want[path].q) and _u8(leaf.scale) == _u8(want[path].scale)
+        assert tuple(leaf.scale.shape)[-1] == tuple(leaf.q.shape)[-1]  # the output axis
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -376,3 +421,42 @@ def test_a_group_runtime_ships_raw_int8(qstore, tmp_path, dequant_calls, name, c
     finally:
         group.close()
         one.close()
+
+
+@pytest.mark.parametrize("family", sorted(CLASSIFIERS))
+def test_the_port_serves_the_references_int8_classifiers(tmp_path, family):
+    """The reference's int8 bert / resnet artifact, loaded raw by the port's
+    runtime and dequantized on the device (here the CPU), answers exactly
+    as the port's module on the host-dequantized weights (the same f32
+    products ``q * scale``), and as the JAX runtime does within the
+    family's bf16 bound (tests/test_torch_{bert,resnet}.py)."""
+    cfg = CLASSIFIERS[family]
+    params = jax.tree_util.tree_map(
+        lambda t: t.numpy(), treg.build(family, cfg).init(torch.Generator().manual_seed(6)))
+    path = jreg.save_artifact(str(tmp_path / "q" / "1"), jreg.build(family, cfg), params,
+                              quantize="int8")
+    rng = np.random.default_rng(6)
+    if family == "bert":
+        inputs = {"input_ids": rng.integers(0, cfg["vocab_size"], (3, 20)).astype(np.int32),
+                  "attention_mask": np.ones((3, 20), np.int32)}
+        inputs["attention_mask"][1:, 12:] = 0
+        tol = 2.0**-5  # measured ~0.005
+    else:
+        inputs = {"image": rng.standard_normal((3, 32, 32, 3)).astype(np.float32)}
+        tol = 2.0**-3  # a random-weight depth-18 net's bf16 noise: measured ~0.06
+    port = mr.TorchModelRuntime(ServingConfig(), device="cpu")
+    ref = jmr.TPUModelRuntime(JServingConfig(platform="cpu"))
+    try:
+        port.ensure_loaded(Model(identifier=ModelId("q", 1), path=path))
+        ref.ensure_loaded(JModel(identifier=JModelId("q", 1), path=path))
+        got = port.predict(ModelId("q", 1), inputs)
+        model_def, host = treg.load_artifact(path)
+        with torch.inference_mode():
+            plain = model_def.make_module(host)({k: torch.from_numpy(v)
+                                                 for k, v in inputs.items()})
+        np.testing.assert_array_equal(got["logits"], plain["logits"].numpy())
+        want = ref.predict(JModelId("q", 1), inputs)
+        assert np.abs(got["logits"] - np.asarray(want["logits"])).max() <= tol
+    finally:
+        port.close()
+        ref.close()

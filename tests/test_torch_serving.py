@@ -261,9 +261,20 @@ def test_port_serves_without_importing_jax(tmp_path):
     through the wire, nor with an int8 artifact loaded, promoted and its
     entry streamed, nor with a moe_lm model served (``:predict``, greedy
     ``:generate`` and a moe_lm draft's speculative ``:generate``, all on the
-    solo path of a continuous node)."""
+    solo path of a continuous node), nor with bert (``:predict`` at its
+    capped seq bucket, ``:classify``) and resnet (``:predict``) built and
+    served. ``jax``, ``jaxlib`` and ``flax`` are unimportable in the
+    subprocess from its first line."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
+
+        class RefuseJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+                    raise ModuleNotFoundError(f"{{name}} is unimportable here")
+                return None
+
+        sys.meta_path.insert(0, RefuseJax())
         sys.path.insert(0, {str(ROOT)!r})
         from tfservingcache_tpu_torch.config import config_from_dict
         from tfservingcache_tpu_torch.models import registry
@@ -485,6 +496,32 @@ def test_port_serves_without_importing_jax(tmp_path):
                 assert resp.status == 200 and json.loads(resp.read())
         assert node.engine.admitted == 0  # moe_lm never takes the continuous engine
         assert "tfservingcache_tpu_torch.models.moe_lm" in sys.modules
+        node.close()
+        registry.export_artifact("bert", store, name="bert",
+                                 config={{"vocab_size": 128, "hidden": 32, "n_layers": 1,
+                                          "n_heads": 2, "d_ff": 64, "max_seq": 24,
+                                          "num_labels": 2}}, device="cpu")
+        registry.export_artifact("resnet", store, name="resnet",
+                                 config={{"depth": 18, "width": 8, "image_size": 16,
+                                          "num_classes": 5}}, device="cpu")
+        cfg = config_from_dict({{"serving": {{"max_concurrent_models": 1}},
+                                "cache": {{"base_dir": {str(tmp_path / "cache_zoo")!r}}},
+                                "model_provider": {{"base_dir": store}},
+                                "cache_node": {{"rest_port": 0, "grpc_port": 0}}}})
+        node = build_node(cfg, device="cpu")
+        base = f"http://127.0.0.1:{{node.start('127.0.0.1')}}/v1/models"
+        row = {{"input_ids": list(range(1, 21)), "attention_mask": [1] * 20}}  # pads to 24
+        for path, body, key in (
+                ("bert/versions/1:predict", {{"instances": [row]}}, "predictions"),
+                ("bert/versions/1:classify", {{"examples": [row, row]}}, "results"),
+                ("resnet/versions/1:predict", {{"instances": [[[[0.5] * 3] * 16] * 16]}},
+                 "predictions")):
+            req = urllib.request.Request(f"{{base}}/{{path}}", data=json.dumps(body).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200 and json.loads(resp.read())[key]
+        for mod in ("bert", "resnet"):
+            assert "tfservingcache_tpu_torch.models." + mod in sys.modules
         node.close()
         banned = ("jax", "tfservingcache_tpu", "prometheus_client", "aiohttp")
         bad = sorted(m for m in sys.modules

@@ -1,0 +1,214 @@
+"""bert — the BERT encoder family (BASELINE.json config #3: 100 per-tenant
+fine-tunes served from object storage), in PyTorch (counterpart of
+``tfservingcache_tpu/models/bert.py``).
+
+A bidirectional transformer encoder with a pooled classification head. The
+params tree is the reference's: ``word_emb``, ``pos_emb``, ``type_emb``,
+``emb_ln_{g,b}``, ``layers/i/{wq,bq,wk,bk,wv,bv,wo,bo,w1,b1,w2,b2,ln1_g,
+ln1_b,ln2_g,ln2_b}`` with ``(in, out)`` weights, ``pool_{w,b}``,
+``cls_{w,b}``. The arithmetic rounds where the reference's does:
+  - the three embeddings are summed in the tables' dtype (f32), then cast to
+    the compute dtype; layer norm runs in f32 (biased variance, eps 1e-12,
+    gain and bias in f32) and rounds once;
+  - inside a layer every weight and bias is in the compute dtype, each bias
+    added after its product; the four layer-norm vectors stay f32;
+  - attention is plain ops, as the reference's is plain jnp: f32 scores (q
+    and k upcast before the product) over sqrt(head_dim), an additive f32
+    mask bias of -1e30 (not -inf: an all-padding row, as the load's seq-1
+    warm-up sends, stays finite), f32 softmax, probabilities cast to the
+    compute dtype before the value product; GELU is the tanh form;
+  - the head follows jnp's type promotion: ``x[:, 0] @ pool_w`` rounds to
+    the compute dtype, adding the f32 ``pool_b`` promotes to f32, so tanh
+    and the classifier run in f32.
+The module casts each layer's weights to the compute dtype once, when it is
+built (the reference casts them at every call, to the same values).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+
+DEFAULT_CONFIG: dict[str, Any] = {
+    "vocab_size": 30522,
+    "hidden": 768,
+    "n_layers": 12,
+    "n_heads": 12,
+    "d_ff": 3072,
+    "max_seq": 512,
+    "type_vocab": 2,
+    "num_labels": 2,
+    "dtype": "bfloat16",
+}
+
+TINY_CONFIG: dict[str, Any] = {
+    "vocab_size": 512,
+    "hidden": 64,
+    "n_layers": 2,
+    "n_heads": 4,
+    "d_ff": 128,
+    "max_seq": 64,
+    "type_vocab": 2,
+    "num_labels": 3,
+    "dtype": "bfloat16",
+}
+
+_LN_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b")
+
+
+def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-12) -> torch.Tensor:
+    """The reference's ``_layernorm``: f32 statistics (biased variance), gain
+    and bias applied in f32, one rounding to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gain + bias).to(x.dtype)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, p: dict, n_heads: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.n_heads = n_heads
+        for name, t in p.items():
+            setattr(self, name, _frozen(t if name in _LN_KEYS else t.to(dtype)))
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.n_heads
+        hd = d // h
+
+        def heads(w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+            return (x @ w + bias).reshape(b, s, h, hd).transpose(1, 2)
+
+        q, k, v = heads(self.wq, self.bq), heads(self.wk, self.bk), heads(self.wv, self.bv)
+        # f32 scores from the compute-dtype q and k (products exact in f32)
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        probs = torch.softmax(scores + mask_bias, dim=-1).to(x.dtype)
+        ctx = (probs @ v).transpose(1, 2).reshape(b, s, d)
+        x = layernorm(x + (ctx @ self.wo + self.bo), self.ln1_g, self.ln1_b)
+        ff = F.gelu(x @ self.w1 + self.b1, approximate="tanh")
+        return layernorm(x + (ff @ self.w2 + self.b2), self.ln2_g, self.ln2_b)
+
+
+class BertEncoder(nn.Module):
+    """``forward({"input_ids": (B, S) ints, "attention_mask": (B, S) ints})
+    -> {"logits": (B, num_labels) f32, "pooled_output": (B, hidden) f32}``."""
+
+    def __init__(self, params: dict, cfg: dict) -> None:
+        super().__init__()
+        self.max_seq = cfg["max_seq"]
+        self.dtype = getattr(torch, cfg["dtype"])
+        for name in ("word_emb", "pos_emb", "type_emb", "emb_ln_g", "emb_ln_b",
+                     "pool_w", "pool_b", "cls_w", "cls_b"):
+            t = params[name]
+            setattr(self, name, _frozen(t.to(self.dtype) if name in ("pool_w", "cls_w") else t))
+        self.layers = nn.ModuleList(
+            EncoderLayer(p, cfg["n_heads"], self.dtype) for p in params["layers"])
+
+    def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        ids = inputs["input_ids"].long()
+        s = ids.shape[1]
+        if s > self.max_seq:
+            # beyond the table a position gather would clamp and return
+            # confident garbage (reference :79)
+            raise ValueError(f"sequence length {s} exceeds max_seq {self.max_seq}")
+        # the reference's gather semantics: negative ids wrap, out-of-range
+        # ids clamp (an unchecked CUDA index would fault the whole context)
+        vocab = self.word_emb.shape[0]
+        ids = torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)
+        x = (self.word_emb[ids] + self.pos_emb[:s][None] + self.type_emb[0]).to(self.dtype)
+        x = layernorm(x, self.emb_ln_g, self.emb_ln_b)
+        mask = inputs["attention_mask"].long()
+        mask_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e30).float()
+        for layer in self.layers:
+            x = layer(x, mask_bias)
+        # jnp's promotion: a compute-dtype product plus the f32 bias is f32
+        pooled = torch.tanh(x[:, 0] @ self.pool_w + self.pool_b)
+        head = torch.promote_types(pooled.dtype, self.cls_w.dtype)
+        logits = pooled.to(head) @ self.cls_w.to(head) + self.cls_b
+        return {"logits": logits.float(), "pooled_output": pooled.float()}
+
+
+@register("bert", DEFAULT_CONFIG)
+def build(config: dict) -> ModelDef:
+    cfg = config
+
+    def make_module(params: Any) -> nn.Module:
+        return BertEncoder(params, cfg)
+
+    def init(gen: torch.Generator) -> dict:
+        """Random params in the reference's layout: N(0, 1/fan_in) weights and
+        embeddings in f32, zero biases, unit layer-norm gains."""
+        d, ff, v = cfg["hidden"], cfg["d_ff"], cfg["vocab_size"]
+        dev = gen.device
+
+        def dense(fan_in: int, shape: tuple[int, ...]) -> torch.Tensor:
+            return torch.randn(shape, generator=gen, device=dev) / math.sqrt(fan_in)
+
+        def zeros(n: int) -> torch.Tensor:
+            return torch.zeros(n, device=dev)
+
+        def ones(n: int) -> torch.Tensor:
+            return torch.ones(n, device=dev)
+
+        layers = [{
+            "wq": dense(d, (d, d)), "bq": zeros(d),
+            "wk": dense(d, (d, d)), "bk": zeros(d),
+            "wv": dense(d, (d, d)), "bv": zeros(d),
+            "wo": dense(d, (d, d)), "bo": zeros(d),
+            "w1": dense(d, (d, ff)), "b1": zeros(ff),
+            "w2": dense(ff, (ff, d)), "b2": zeros(d),
+            "ln1_g": ones(d), "ln1_b": zeros(d),
+            "ln2_g": ones(d), "ln2_b": zeros(d),
+        } for _ in range(cfg["n_layers"])]
+        return {
+            "word_emb": dense(d, (v, d)),
+            "pos_emb": dense(d, (cfg["max_seq"], d)),
+            "type_emb": dense(d, (cfg["type_vocab"], d)),
+            "emb_ln_g": ones(d), "emb_ln_b": zeros(d),
+            "layers": layers,
+            "pool_w": dense(d, (d, d)), "pool_b": zeros(d),
+            "cls_w": dense(d, (d, cfg["num_labels"])),
+            "cls_b": zeros(cfg["num_labels"]),
+        }
+
+    # the reference's Megatron-style rules over the "model" axis; the port
+    # has no tensor parallelism yet, so a group runtime refuses them
+    partition_rules = {
+        r"layers/\d+/w[qkv]": (None, "model"),
+        r"layers/\d+/wo": ("model", None),
+        r"layers/\d+/w1": (None, "model"),
+        r"layers/\d+/w2": ("model", None),
+        r"word_emb": (None, "model"),
+    }
+
+    return ModelDef(
+        family="bert",
+        config=cfg,
+        make_module=make_module,
+        init=init,
+        input_spec={
+            "input_ids": TensorSpec("int32", ("batch", "seq")),
+            "attention_mask": TensorSpec("int32", ("batch", "seq")),
+        },
+        output_spec={
+            "logits": TensorSpec("float32", (-1, cfg["num_labels"])),
+            "pooled_output": TensorSpec("float32", (-1, cfg["hidden"])),
+        },
+        partition_rules=partition_rules,
+        # the absolute position table bounds the servable sequence: a
+        # 300-token request under max_seq 384 pads to 384, not 512
+        axis_caps={"seq": cfg["max_seq"]},
+    )

@@ -118,6 +118,10 @@ class ModelDef:
     # a rule naming an axis is tensor parallelism, which the port does not
     # have yet: a group runtime refuses such a family
     partition_rules: dict[str, tuple] = field(default_factory=dict)
+    # hard upper bound per named dynamic axis (bert's {"seq": max_seq}, its
+    # absolute position table): the runtime clamps the axis's power-of-two
+    # bucket to the cap and refuses a true size beyond it
+    axis_caps: dict[str, int] = field(default_factory=dict)
     # group-aware module factory (the reference's bind_mesh): families whose
     # forward itself needs the serving device group (ring attention) set
     # it, and a group runtime builds ``bind_group(group)(params)`` in place
@@ -163,7 +167,7 @@ def build(family: str, config: dict[str, Any] | None = None) -> ModelDef:
     return model
 
 
-_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm", "moe_lm")
+_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm", "moe_lm", "bert", "resnet")
 
 
 def _load_builtin_families() -> None:

@@ -1178,7 +1178,7 @@ class TorchModelRuntime(BaseRuntime):
         if unknown:
             raise RuntimeError_(f"unknown inputs {sorted(unknown)} for {model_id}")
 
-        dyn_sizes, padded = self._pad_to_bucket(spec, inputs)
+        dyn_sizes, padded = self._pad_to_bucket(spec, inputs, model_def.axis_caps)
         out_spec = model_def.output_spec
         derived = model_def.derived_outputs
         if output_filter:
@@ -1216,11 +1216,14 @@ class TorchModelRuntime(BaseRuntime):
             return {name: t.contiguous().cpu().numpy() for name, t in selected.items()}
 
     def _pad_to_bucket(
-        self, spec: Mapping[str, TensorSpec], inputs: Mapping[str, np.ndarray]
+        self, spec: Mapping[str, TensorSpec], inputs: Mapping[str, np.ndarray],
+        axis_caps: Mapping[str, int],
     ) -> tuple[dict[str, int], dict[str, np.ndarray]]:
         """-> (true size per named dynamic axis, padded inputs). Every named
         axis pads to its own power-of-two bucket; the same name must agree
-        across inputs."""
+        across inputs. A capped axis (``ModelDef.axis_caps``: bert's
+        position table) clamps its bucket to the cap and refuses a true
+        size beyond it (reference :1759)."""
         dyn_sizes: dict[str, int] = {}
         for name, s in spec.items():
             arr = np.asarray(inputs[name])
@@ -1238,7 +1241,14 @@ class TorchModelRuntime(BaseRuntime):
                 dyn_sizes[axis_name] = size
         if not dyn_sizes:
             return {}, {k: np.asarray(v) for k, v in inputs.items()}
-        buckets = {n: next_bucket(v) for n, v in dyn_sizes.items()}
+        for axis_name, size in dyn_sizes.items():
+            cap = axis_caps.get(axis_name)
+            if cap is not None and size > cap:
+                raise RuntimeError_(
+                    f"{axis_name!r} dim {size} exceeds this model's maximum {cap}"
+                )
+        buckets = {n: min(next_bucket(v), axis_caps[n]) if n in axis_caps else next_bucket(v)
+                   for n, v in dyn_sizes.items()}
         padded: dict[str, np.ndarray] = {}
         for name, s in spec.items():
             arr = np.asarray(inputs[name], dtype=s.np_dtype())
