@@ -250,6 +250,25 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      equal off near-ties; B1-B4 launch 0 times over the phase; 4
      evictions; a warm forward of each family against its kernels' device
      time.
+  17. t5 — the encoder-decoder family on a store and disk cache of its own
+     (deleted at the end): three tenants written by ``cli export`` on the
+     card, one process each, all started together (T5 v1.1-base's widths in
+     bf16 and as int8, and the family's DEFAULT_CONFIG); ``cli repack`` of
+     the bf16 one byte for byte its source, of the int8 one every leaf bit
+     for bit and a second repack byte for byte the first; a node of two
+     resident models: :predict at (1, 128/32) cold, then warm at (1, 128/32),
+     (4, 512/128) and (8, 300/64) (src 512), a 100-token source bare against
+     the same with 60 pad tokens (src buckets 128 / 256) and a 32-token target
+     against 33 (tgt buckets 32 / 64), each pair equal on the shared
+     positions, one gRPC Predict equal to the REST reply, :generate refused
+     with the reference's 400, the int8 and default tenants and a reload (2
+     evictions). Every reply's logits within ZOO_TOL_FLOOR's rule of the
+     same artifact's CPU forward and bit for bit the same module's forward in
+     this process on the card at the padded shape; one f32 forward on the
+     card held stage by stage (each layer, the gather, the biases, the norms,
+     the head) to the CPU's on the same inputs; B1-B4 launch 0 times; a warm
+     forward against its kernels, the reply encodes timed; ``cli warm`` on
+     t5_base in a process of its own.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -5796,6 +5815,488 @@ def phase_zoo(seed: int, warm_reps: int, kernels: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the t5 phase (item 11b's last family, with item 13's entry points): the
+# encoder-decoder at T5 v1.1-base's published widths (google/t5-v1_1-base
+# config.json) with the family's tied head, its int8 twin and the family's
+# DEFAULT_CONFIG, written by ``cli export`` on the card, on one node whose
+# device holds two models at a time
+T5_BASE_CONFIG = {"vocab_size": 32128, "d_model": 768, "n_layers": 12, "n_heads": 12,
+                  "d_ff": 2048, "rel_buckets": 32, "rel_max_dist": 128, "dtype": "bfloat16"}
+T5_SHAPES = [(1, 128, 32), (4, 512, 128), (8, 300, 64)]  # (B, src, tgt): the first cold, then warm
+T5_PAD = (100, 60)          # a 100-token source bare and with 60 trailing pad tokens: src 128 / 256
+T5_TGT_PAIR = (32, 33)      # the same first 32 target tokens: tgt buckets 32 / 64
+T5_RESIDENT = 2             # the node's max_concurrent_models
+T5_WARM_BATCHES = "1,4"     # cli warm's --batches
+# REST replies of more than this many logits ask for "output_encoding":
+# "base64" (the (4, 128, 32128) logits are ~200 MB as JSON numbers)
+T5_JSON_MAX = 1 << 21
+T5_REFUSAL = "generate is supported for transformer_lm/moe_lm models, not 't5'"
+
+
+def _t5_cli(args: list[str], cwd: str) -> subprocess.Popen:
+    """``python -m tfservingcache_tpu_torch.cli <args>`` from this checkout,
+    in ``cwd`` (which holds no config.yaml), on the card (the config's
+    default device)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    return subprocess.Popen([sys.executable, "-m", "tfservingcache_tpu_torch.cli", *args],
+                            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _t5_wait(procs: dict, what: str, timeout: float = 600.0) -> dict:
+    """-> {name: the last line of its standard output}; every process is
+    waited for (or killed) before a failure is raised."""
+    out, failed = {}, []
+    deadline = time.monotonic() + timeout
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        lines = stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            failed.append(f"{name} exited {proc.returncode}: {stderr[-1500:]}")
+        else:
+            out[name] = lines[-1]
+    if failed:
+        raise AssertionError(f"[t5] cli {what}: " + "; ".join(failed))
+    return out
+
+
+def _t5_body(src, tgt) -> bytes:
+    body = {"inputs": {"input_ids": src.tolist(), "decoder_input_ids": tgt.tolist()}}
+    if tgt.size * T5_BASE_CONFIG["vocab_size"] > T5_JSON_MAX:
+        body["output_encoding"] = "base64"
+    return json.dumps(body).encode()
+
+
+def _t5_logits(raw: bytes):
+    """A columnar reply's logits, JSON numbers or base64, as float32."""
+    import base64
+
+    import numpy as np
+
+    out = json.loads(raw)["outputs"]
+    if isinstance(out, dict):
+        return np.frombuffer(base64.b64decode(out["b64"]), dtype=out["dtype"]).reshape(
+            out["shape"])
+    return np.asarray(out, np.float32)
+
+
+def _t5_check(plain: _ZooPlain, name: str, inputs: dict, replies: list, what: str) -> float:
+    """Replies' (B, tgt, V) logits against the tenant's plain CPU forward on
+    the same inputs, within ZOO_TOL_FLOOR's rule; the argmax equal at every
+    position whose top-2 margin exceeds twice that position's max |diff|.
+    Replies equal byte for byte are held once. -> the tolerance."""
+    import numpy as np
+
+    ref16, _ref32 = plain.logits(name, inputs)
+    tol = _zoo_tol(plain, name, inputs)
+    for k, got in enumerate(replies):
+        if got.shape != ref16.shape or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise AssertionError(f"[t5] {what}: logits {got.shape} {got.dtype}, want "
+                                 f"{ref16.shape} float32, finite")
+        pos_diff = np.abs(got - ref16).max(axis=-1)
+        top2 = np.partition(ref16, -2, axis=-1)[..., -2:]
+        decided = (top2[..., 1] - top2[..., 0]) > 2 * pos_diff
+        agree = got.argmax(-1) == ref16.argmax(-1)
+        diff = float(pos_diff.max())
+        if k == 0:
+            log(f"  [t5] {what}: max|logits - CPU bf16 forward| {diff:.6f} (tolerance "
+                f"{tol:.6f}: the CPU bf16 forward sits {(tol - ZOO_TOL_FLOOR) / 2:.6f} from "
+                f"its f32 one; |logits| <= {float(np.abs(ref16).max()):.4f}); argmax equal on "
+                f"{int(agree[decided].sum())} of {int(decided.sum())} decided positions "
+                f"({agree.size} positions, {len(replies)} distinct replies)")
+        if diff > tol:
+            raise AssertionError(f"[t5] {what}: logits differ from the CPU forward by {diff}")
+        if not agree[decided].all():
+            raise AssertionError(f"[t5] {what}: argmax differs from the CPU forward")
+    return tol
+
+
+def _t5_repacks(paths: dict, work: str) -> None:
+    """``cli repack``: the bf16 artifact into a fresh directory is its
+    source byte for byte; the int8 one carries every leaf (q, scale and the
+    plain ones) bit for bit, and a second repack is the first byte for byte
+    (a first repack regroups the int8 leaves in the file, as the JAX
+    package's does)."""
+    import torch
+
+    from tfservingcache_tpu_torch.models import registry
+
+    def read(path, name):
+        with open(os.path.join(path, name), "rb") as f:
+            return f.read()
+
+    out = os.path.join(work, "repack")
+    t0 = time.monotonic()
+    got = _t5_wait({name: _t5_cli(["repack", paths[name], os.path.join(out, name)], work)
+                    for name in ("t5_base", "t5_base_int8")}, "repack")
+    again = _t5_wait({"again": _t5_cli(["repack", got["t5_base_int8"],
+                                        os.path.join(out, "again")], work)}, "repack")["again"]
+    dt = time.monotonic() - t0
+    for name in ("params.bin", "model.json"):
+        if read(got["t5_base"], name) != read(paths["t5_base"], name):
+            raise AssertionError(f"[t5] repack of t5_base: {name} differs from its source")
+        if read(again, name) != read(got["t5_base_int8"], name):
+            raise AssertionError(f"[t5] a second repack of t5_base_int8: {name} differs")
+    src = registry.flatten_params(registry.load_artifact(paths["t5_base_int8"], raw_quant=True)[1])
+    new = dict(registry.flatten_params(registry.load_artifact(got["t5_base_int8"],
+                                                              raw_quant=True)[1]))
+    quant = 0
+    for path, leaf in src:
+        other = new.pop(path)
+        if isinstance(leaf, registry.QuantLeaf):
+            quant += 1
+            same = (isinstance(other, registry.QuantLeaf) and other.orig_dtype == leaf.orig_dtype
+                    and torch.equal(other.q, leaf.q) and torch.equal(other.scale, leaf.scale))
+        else:
+            same = (not isinstance(other, registry.QuantLeaf) and other.dtype == leaf.dtype
+                    and torch.equal(other.view(torch.uint8), leaf.view(torch.uint8)))
+        if not same:
+            raise AssertionError(f"[t5] repack of t5_base_int8 changed leaf {path}")
+    if new:
+        raise AssertionError(f"[t5] repack of t5_base_int8 added leaves {sorted(new)}")
+    log(f"  [t5] cli repack (two processes, then one): t5_base byte for byte its source; "
+        f"t5_base_int8 every leaf bit for bit ({quant} int8), its second repack byte for byte "
+        f"its first, in {dt:.2f}s")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_t5(seed: int, warm_reps: int, kernels: dict) -> None:
+    """t5 at T5 v1.1-base's widths (bf16 and int8) and at the family's
+    DEFAULT_CONFIG, exported by ``cli export`` on the card into a store and
+    disk cache of their own (deleted at the end), on one node of
+    T5_RESIDENT resident models: REST ``:predict`` cold and warm at
+    T5_SHAPES, the cross-bucket pairs, a gRPC ``Predict``, the ``:generate``
+    refusal, the other tenants and a reload; every reply against the same
+    artifact's plain CPU forward; B1-B4 launch 0 times (t5's attention is
+    plain ops, as the reference's); ``cli repack`` and ``cli warm``."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry, t5
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import next_bucket
+    from tfservingcache_tpu_torch.server import build_node
+
+    card = nvidia_smi_line()
+    work = tempfile.mkdtemp(prefix="tpusc_chip_smoke_t5_")
+    node = None
+    try:
+        store = os.path.join(work, "store")
+        tenants = {"t5_base": (T5_BASE_CONFIG, None, seed + 40),
+                   "t5_base_int8": (T5_BASE_CONFIG, "int8", seed + 40),
+                   "t5_default": (t5.DEFAULT_CONFIG, None, seed + 41)}
+        t0 = time.monotonic()
+        procs = {}
+        for name, (cfg, quantize, tseed) in tenants.items():
+            args = ["export", "t5", store, "--name", name, "--config-json", json.dumps(cfg),
+                    "--seed", str(tseed)]
+            procs[name] = _t5_cli(args + (["--quantize", quantize] if quantize else []), work)
+        paths = _t5_wait(procs, "export")
+        log(f"  [t5] cli export of {len(tenants)} tenants, one process each on the card, all "
+            f"started together: {time.monotonic() - t0:.2f}s")
+        plain = _ZooPlain()
+        sizes = {}
+        for name, path in paths.items():
+            if path != os.path.join(store, name, "1"):
+                raise AssertionError(f"[t5] cli export printed {path!r}")
+            with open(os.path.join(path, "model.json")) as f:
+                manifest = json.load(f)["params"]["manifest"]
+            n_params = sum(math.prod(e["shape"]) for e in manifest)
+            sizes[name] = os.path.getsize(os.path.join(path, "params.bin"))
+            model_def, params = registry.load_artifact(path)
+            plain.add(name, model_def, params)
+            log(f"  [t5] {name}: {model_def.config}: {n_params} params, {sizes[name]} bytes "
+                f"({'int8 + f32 scales' if tenants[name][1] else 'bf16'})")
+        log(f"  [t5] t5_base_int8 is {sizes['t5_base_int8'] / sizes['t5_base']:.4f}x the bf16 "
+            f"bytes; the head is tied (v1.1 has its own lm_head: reduced)")
+        _t5_repacks(paths, work)
+        store_bytes = sum(sizes.values())
+        node = build_node(config_from_dict({
+            "serving": {"load_timeout_s": 900.0, "max_concurrent_models": T5_RESIDENT},
+            "cache": {"base_dir": os.path.join(work, "cache_t5"),
+                      "disk_capacity_bytes": 2 * store_bytes},
+            "model_provider": {"type": "disk", "base_dir": store},
+            "cache_node": {"rest_port": 0, "grpc_port": 0}}), device="cuda")
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        m = node.metrics
+        rng = np.random.default_rng(seed + 50)
+        vocab = T5_BASE_CONFIG["vocab_size"]
+
+        def t5_inputs(b, src, tgt):
+            return {"input_ids": rng.integers(1, vocab, size=(b, src)).astype(np.int32),
+                    "decoder_input_ids": rng.integers(0, vocab, size=(b, tgt)).astype(np.int32)}
+
+        def predict(name, inputs, what):
+            status, raw, dt = _post_raw(f"{base}/{name}/versions/1:predict",
+                                        _t5_body(inputs["input_ids"], inputs["decoder_input_ids"]))
+            if status != 200:
+                raise AssertionError(f"[t5] {name} {what} answered {status}: {raw[:300]}")
+            return raw, dt
+
+        counters = {"flash_attention": A.FLASH_LAUNCHES,
+                    "paged_decode_attention": A.PAGED_LAUNCHES,
+                    "paged_verify_attention": A.VERIFY_LAUNCHES,
+                    "flash_attention_carry": A.CARRY_LAUNCHES}
+        evict0 = m.evictions.labels("hbm").value
+        timed: dict = {}
+        checks = []  # (tenant, inputs, [distinct raw replies], what)
+
+        # --- the path: counters to 0, the phase's requests, counters read ---
+        for c in counters.values():
+            c.reset()
+        for k, (b, src, tgt) in enumerate(T5_SHAPES):
+            inputs = t5_inputs(b, src, tgt)
+            raws = []
+            for r in range(warm_reps + (2 if k == 0 else 1)):
+                raw, dt = predict("t5_base", inputs, f"({b}, {src}/{tgt})")
+                timed.setdefault(("t5_base", "cold (1, 128/32)" if k == 0 and r == 0
+                                  else f"warm ({b}, {src}/{tgt})"), []).append(dt)
+                raws.append(raw)
+            checks.append(("t5_base", inputs, raws, f"t5_base ({b}, {src}/{tgt})"))
+            if k == 0:
+                first = inputs
+        # a source of 100 tokens bare and with 60 trailing pad tokens
+        short = t5_inputs(1, T5_PAD[0], 32)
+        padded = {"input_ids": np.concatenate(
+            [short["input_ids"], np.zeros((1, T5_PAD[1]), np.int32)], axis=1),
+            "decoder_input_ids": short["decoder_input_ids"]}
+        pad_raw = [predict("t5_base", x, "pad pair")[0] for x in (short, padded)]
+        # a target of 32 tokens against the same 32 and one more
+        tgt_a = t5_inputs(1, 128, T5_TGT_PAIR[1])
+        tgt_short = {"input_ids": tgt_a["input_ids"],
+                     "decoder_input_ids": tgt_a["decoder_input_ids"][:, :T5_TGT_PAIR[0]]}
+        tgt_raw = [predict("t5_base", x, "tgt pair")[0] for x in (tgt_short, tgt_a)]
+        # one gRPC Predict of the cold request's inputs
+        grpc_logits = _t5_grpc(node, first)
+        # :generate answers the reference's refusal
+        status, raw, _dt = _post_raw(f"{base}/t5_base/versions/1:generate",
+                                     json.dumps({"input_ids": [[5, 6, 7]],
+                                                 "max_new_tokens": 4}).encode())
+        refusal = json.loads(raw).get("error", "")
+        if status != 400 or refusal != T5_REFUSAL:
+            raise AssertionError(f"[t5] :generate answered {status}: {raw[:300]}")
+        # the int8 and the default tenants, then t5_base again (evicted)
+        other = {}
+        for name in ("t5_base_int8", "t5_default", "t5_base"):
+            raw, dt = predict(name, first, "(1, 128/32)")
+            what = "reload (1, 128/32)" if name == "t5_base" else "cold (1, 128/32)"
+            timed[(name, what)] = [dt]
+            other[name] = raw
+        launches = {name: c.value for name, c in counters.items()}
+        # -------------------------------------------------------------------
+        evictions = m.evictions.labels("hbm").value - evict0
+        log(f"  [t5] kernel launches over the phase's requests: {launches} (t5's attention is "
+            f"plain ops, as the reference's)")
+        for name, n in launches.items():
+            kernels[name]["launches_t5_phase"] = n
+        if any(launches.values()):
+            raise AssertionError(f"[t5] a kernel launched on the t5 path: {launches}")
+
+        # every reply against the plain CPU forward of its artifact
+        for tenant, inputs, raws, what in checks:
+            _t5_check(plain, tenant, inputs, [_t5_logits(r) for r in dict.fromkeys(raws)], what)
+        pad_l = [_t5_logits(r) for r in pad_raw]
+        tol = _t5_check(plain, "t5_base", short, pad_l[:1], f"t5_base (1, {T5_PAD[0]}/32)")
+        _t5_check(plain, "t5_base", padded, pad_l[1:], f"t5_base (1, {sum(T5_PAD)}/32) with "
+                  f"{T5_PAD[1]} pad tokens")
+        gap = float(np.abs(pad_l[0] - pad_l[1]).max())
+        log(f"  [t5] the source bare (src bucket 128) against padded (256): max|diff| "
+            f"{gap:.6f} over the {pad_l[0].shape[1]} target positions (tolerance {tol:.6f})")
+        if gap > tol:
+            raise AssertionError(f"[t5] the padded source moved the logits by {gap}")
+        tgt_l = [_t5_logits(r) for r in tgt_raw]
+        tol = _t5_check(plain, "t5_base", tgt_short, tgt_l[:1], "t5_base (1, 128/32)")
+        _t5_check(plain, "t5_base", tgt_a, tgt_l[1:], "t5_base (1, 128/33)")
+        gap = float(np.abs(tgt_l[0] - tgt_l[1][:, :T5_TGT_PAIR[0]]).max())
+        log(f"  [t5] target 32 (tgt bucket 32) against 33 (64): max|diff| {gap:.6f} on the 32 "
+            f"shared positions (tolerance {tol:.6f})")
+        if gap > tol:
+            raise AssertionError(f"[t5] the longer target moved the first positions by {gap}")
+        rest_first = _t5_logits(checks[0][2][0])
+        if grpc_logits is not None:
+            if not np.array_equal(grpc_logits, rest_first):
+                raise AssertionError(f"[t5] gRPC Predict against REST: max|diff| "
+                                     f"{float(np.abs(grpc_logits - rest_first).max())}")
+            log(f"  [t5] gRPC Predict (1, 128/32) equal to the REST reply "
+                f"({grpc_logits.shape} float32)")
+        log(f"  [t5] :generate: 400 {refusal!r}")
+        for name, raw in other.items():
+            _t5_check(plain, name, first, [_t5_logits(raw)], f"{name} (1, 128/32)")
+
+        for (tenant, what), times in timed.items():
+            label = "p50" if len(times) > 1 else "one request"
+            log(f"  [t5] {tenant} :predict {what}: {label} {statistics.median(times) * 1e3:.2f} "
+                f"ms over {len(times)} (host clock, localhost HTTP; JSON logits up to "
+                f"{T5_JSON_MAX} values, base64 above; {card})")
+        log(f"  [t5] evictions {evictions:.0f} with {T5_RESIDENT} resident models over "
+            f"{len(tenants)} tenants; reload sources: " + ", ".join(
+                f"{s} {m.reload_source.labels(s).value:.0f}" for s in ("store", "disk", "host"))
+            + f" ({card})")
+        # t5_default evicts t5_base, t5_base's reload evicts t5_base_int8
+        if evictions != 2:
+            raise AssertionError(f"[t5] {evictions} evictions, want 2")
+        node.close()
+        node = None
+
+        # the served replies against the same module in this process on the
+        # card at the runtime's padded shapes, bit for bit (random weights
+        # at this depth amplify any rounding difference to the logits' own
+        # scale: the CPU bound above decides few positions, this does)
+        model_def, params = registry.load_artifact(paths["t5_base"])
+        params = _tree_cuda(params)
+        module = model_def.make_module(params).eval()
+        for _tenant, inputs, raws, what in checks:
+            padded = {k: np.pad(v, [(0, next_bucket(n) - n) for n in v.shape])
+                      for k, v in inputs.items()}
+            with torch.inference_mode():
+                want = module({k: torch.from_numpy(v).cuda() for k, v in padded.items()})[
+                    "logits"][:, :inputs["decoder_input_ids"].shape[1]].cpu().numpy()
+            got = _t5_logits(raws[0])
+            if not np.array_equal(got, want):
+                raise AssertionError(f"[t5] {what}: the reply against the module in this "
+                                     f"process: max|diff| {float(np.abs(got - want).max())}")
+        log(f"  [t5] every t5_base reply shape equal bit for bit to the same module's forward "
+            f"in this process on the card at the padded shape ({len(checks)} shapes)")
+        # the arithmetic layer by layer: the module in f32 on the card against
+        # the CPU's f32 module fed each layer's card input
+        card32 = registry.build("t5", dict(model_def.config, dtype="float32")).make_module(params)
+        _t5_layers(card32.eval(), plain.models["t5_base"][1], first)
+        del card32, plain
+
+        # where a warm request's time goes: one (4, 512/128) forward on the
+        # card (host clock, ends in a sync) against the device kernels in it
+        dev_in = {k: torch.from_numpy(v).cuda() for k, v in t5_inputs(4, 512, 128).items()}
+
+        def forward():
+            with torch.inference_mode():
+                module(dev_in)
+            torch.cuda.synchronize()
+
+        ms = host_ms(forward)
+        busy = device_busy_ms(forward)
+        share = "not measured" if busy is None else f"{busy:.2f} ms = {busy / ms:.3f}"
+        log(f"  [t5] a t5_base (4, 512/128) forward: {ms:.2f} ms host clock, its kernels "
+            f"{share} (torch.profiler; {card})")
+        # and the reply's encode: JSON numbers at (1, 32), base64 at (4, 128)
+        from tfservingcache_tpu_torch.protocol import codec
+
+        for shape, enc in (((1, 32), "json"), ((4, 128), "base64")):
+            arr = rng.standard_normal((*shape, vocab), dtype=np.float32)
+            enc_ms = host_ms(lambda: codec.encode_predict_json_bytes({"logits": arr}, False,
+                                                                     enc), reps=3)
+            n = len(codec.encode_predict_json_bytes({"logits": arr}, False, enc))
+            log(f"  [t5] encoding a {arr.shape} f32 reply as {enc}: {enc_ms:.2f} ms host clock, "
+                f"{n} bytes (median of 3; {card})")
+        log(f"  [t5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card})")
+        del module, dev_in, params
+        torch.cuda.empty_cache()
+
+        # cli warm: a process of its own loads the artifact on the card and
+        # runs its serving shapes
+        t0 = time.monotonic()
+        line = _t5_wait({"warm": _t5_cli(["warm", paths["t5_base"], "--batches",
+                                          T5_WARM_BATCHES], work)}, "warm")["warm"]
+        want = "warmed t5_base@1 (t5): " + ", ".join(
+            f"predict b={b}" for b in T5_WARM_BATCHES.split(","))
+        log(f"  [t5] cli warm in {time.monotonic() - t0:.2f}s: {line}")
+        if not line.startswith(want + " in "):
+            raise AssertionError(f"[t5] cli warm printed {line!r}, want {want!r} ...")
+    finally:
+        if node is not None:
+            node.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+T5_LAYER_TOL = 1e-4  # f32, card against CPU, a stage's max |diff| over its max |value|
+
+
+def _t5_layers(card, cpu, inputs: dict) -> None:
+    """Teacher-forced stages of one f32 forward: every encoder and decoder
+    layer on the card (forward hooks) against the CPU module's same layer on
+    the card's inputs to it; the embedding gather, the relative biases (bit
+    for bit), the encoder's final norm and the head likewise. Each stage's
+    own error, not the depth's amplified sum, within T5_LAYER_TOL."""
+    import torch
+
+    from tfservingcache_tpu_torch.models import t5
+
+    seen = []
+    layers = ([(f"enc{i}", layer, cpu.enc_layers[i]) for i, layer in enumerate(card.enc_layers)]
+              + [(f"dec{i}", layer, cpu.dec_layers[i]) for i, layer in enumerate(card.dec_layers)])
+    hooks = [layer.register_forward_hook(
+        lambda _m, args, out, name=name, ref=ref: seen.append((name, ref, args, out)))
+        for name, layer, ref in layers]
+    try:
+        with torch.inference_mode():
+            logits = card({k: torch.from_numpy(v).cuda() for k, v in inputs.items()})["logits"]
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def host(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    worst = {}
+
+    def hold(stage, got, want):
+        got, want = host(got).double(), want.double()
+        worst[stage] = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+    n_enc = len(card.enc_layers)
+    with torch.inference_mode():
+        ids = {k: torch.from_numpy(v).long() for k, v in inputs.items()}
+        hold("embed", seen[0][2][0], cpu._embed(ids["input_ids"]))
+        src, tgt = ids["input_ids"].shape[1], ids["decoder_input_ids"].shape[1]
+        for got, want in ((seen[0][2][1], cpu._bias(cpu.enc_rel, src, src, True)),
+                          (seen[n_enc][2][2], cpu._bias(cpu.dec_rel, tgt, tgt, False))):
+            if not torch.equal(host(got), want):
+                raise AssertionError("[t5] a relative bias on the card differs from the CPU's")
+        for name, ref, args, out in seen:
+            hold(name, out, ref(*[host(a) for a in args]))
+        hold("enc_ln", seen[n_enc][2][1], t5.rmsnorm(host(seen[n_enc - 1][3]), cpu.enc_ln))
+        y = t5.rmsnorm(host(seen[-1][3]), cpu.dec_ln)
+        hold("head", logits, (y / math.sqrt(cpu.cfg["d_model"])) @ cpu.embed.t())
+    stage, err = max(worst.items(), key=lambda kv: kv[1])
+    log(f"  [t5] f32 stages on the card against the CPU's on the same inputs "
+        f"({len(worst)} stages, the biases bit for bit): worst {stage} {err:.2e} of its max "
+        f"|value| (bound {T5_LAYER_TOL:.0e}); the encoder's {worst['enc0']:.2e} / "
+        f"{worst[f'enc{n_enc - 1}']:.2e}, the head's {worst['head']:.2e}")
+    if err > T5_LAYER_TOL:
+        raise AssertionError(f"[t5] the f32 stage {stage} differs from the CPU's by {err:.3e}")
+
+
+def _t5_grpc(node, inputs: dict):
+    """One gRPC ``Predict`` of ``inputs`` on t5_base -> its logits, or None
+    (with a line saying so) where ``grpc`` does not import."""
+    if node.grpc_port is None:
+        log("  [t5] gRPC not driven: grpcio or protobuf does not import here")
+        return None
+    from tfservingcache_tpu_torch.protocol import codec
+    from tfservingcache_tpu_torch.protocol.grpc_client import ServingStub, make_channel
+    from tfservingcache_tpu_torch.protocol.grpc_server import PREDICTION_SERVICE
+    from tfservingcache_tpu_torch.protocol.protos import tf_serving_pb2 as sv
+
+    req = sv.PredictRequest()
+    req.model_spec.name = "t5_base"
+    req.model_spec.version.value = 1
+    for k, v in inputs.items():
+        req.inputs[k].CopyFrom(codec.numpy_to_tensorproto(v))
+    channel = make_channel(f"127.0.0.1:{node.grpc_port}")
+    try:
+        resp = ServingStub(channel).method(PREDICTION_SERVICE, "Predict")(req, timeout=900)
+    finally:
+        channel.close()
+    return codec.tensorproto_to_numpy(resp.outputs["logits"])
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -5863,6 +6364,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_moe(args.seed, args.warm, kernels)
     with Phase("zoo"):
         phase_zoo(args.seed, args.warm, kernels)
+    with Phase("t5"):
+        phase_t5(args.seed, args.warm, kernels)
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -21,6 +21,7 @@ import torch
 
 from tfservingcache_tpu.config import ServingConfig as JServingConfig
 from tfservingcache_tpu.models import registry as jreg
+from tfservingcache_tpu.models.t5 import TINY_CONFIG as T5_TINY
 from tfservingcache_tpu.runtime import model_runtime as jmr
 from tfservingcache_tpu.types import Model as JModel
 from tfservingcache_tpu.types import ModelId as JModelId
@@ -39,8 +40,10 @@ FAMILIES = {
     "mnist_cnn": (None, lambda: {"image": np.random.default_rng(0).random(
         (2, 28, 28, 1), dtype=np.float32)}),
     "transformer_lm": (TINY, lambda: {"input_ids": np.arange(1, 9, dtype=np.int32)[None]}),
+    "t5": (T5_TINY, lambda: {"input_ids": np.array([[5, 6, 7, 8, 9, 0]], np.int32),
+                             "decoder_input_ids": np.arange(1, 4, dtype=np.int32)[None]}),
 }
-TOL = {"half_plus_two": 0.0, "mnist_cnn": 2.0**-7, "transformer_lm": 1e-4}
+TOL = {"half_plus_two": 0.0, "mnist_cnn": 2.0**-7, "transformer_lm": 1e-4, "t5": 2.0**-4}
 SMALL_CHUNK = 20000  # bytes: the tiny models cut into several chunks
 
 

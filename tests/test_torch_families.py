@@ -1,8 +1,8 @@
 """The port's half_plus_two and mnist_cnn families
 (tfservingcache_tpu_torch/models/{half_plus_two,mnist_cnn}.py) against the
 JAX package's, on the same params and inputs, and on artifacts the JAX
-package wrote; the artifacts of bert and resnet too, at their TINY_CONFIG
-(tests/test_torch_{bert,resnet}.py hold their forwards).
+package wrote; the artifacts of bert, resnet and t5 too, at their
+TINY_CONFIG (tests/test_torch_{bert,resnet,t5}.py hold their forwards).
 
 Tolerances: half_plus_two is exact (y = 0.5 x + 2 in f32). mnist_cnn
 computes in bf16 to f32 logits in both frameworks, which round at the same
@@ -21,13 +21,25 @@ import torch
 from tfservingcache_tpu.models import registry as jreg
 from tfservingcache_tpu.models.bert import TINY_CONFIG as BERT_TINY
 from tfservingcache_tpu.models.resnet import TINY_CONFIG as RESNET_TINY
+from tfservingcache_tpu.models.t5 import TINY_CONFIG as T5_TINY
 from tfservingcache_tpu_torch.models import registry as treg
 from tfservingcache_tpu_torch.models.half_plus_two import reference_output
 
 MNIST_TOL = 2.0**-7
 # the artifact tests' config of each family (None: its default)
-ARTIFACT_CONFIGS = {"bert": BERT_TINY, "resnet": RESNET_TINY}
-ARTIFACT_FAMILIES = ["half_plus_two", "mnist_cnn", "bert", "resnet"]
+ARTIFACT_CONFIGS = {"bert": BERT_TINY, "resnet": RESNET_TINY, "t5": T5_TINY}
+ARTIFACT_FAMILIES = ["half_plus_two", "mnist_cnn", "bert", "resnet", "t5"]
+
+
+def _same_leaf(leaf: torch.Tensor, want) -> None:
+    """Bit for bit, dtype included; a bf16 leaf (t5 stores bf16) compares
+    its bit patterns (numpy has no bf16 of its own)."""
+    want = np.asarray(want)
+    assert str(leaf.dtype).removeprefix("torch.") == want.dtype.name
+    if leaf.dtype == torch.bfloat16:
+        np.testing.assert_array_equal(leaf.view(torch.uint16).numpy(), want.view(np.uint16))
+    else:
+        np.testing.assert_array_equal(leaf.numpy(), want)
 
 
 def _jax_params(family: str, seed: int, config=None):
@@ -118,7 +130,7 @@ def test_reference_artifacts_load_in_the_port(tmp_path, family):
     tflat = dict(treg.flatten_params(tparams))
     assert sorted(jflat) == sorted(tflat)
     for path_, leaf in tflat.items():
-        np.testing.assert_array_equal(leaf.numpy(), np.asarray(jflat[path_]))
+        _same_leaf(leaf, jflat[path_])
     for spec in ("input_spec", "output_spec"):
         assert {k: (v.dtype, tuple(v.shape)) for k, v in getattr(tmodel, spec).items()} == {
             k: (v.dtype, tuple(v.shape)) for k, v in getattr(jmodel, spec).items()}
@@ -148,4 +160,4 @@ def test_port_artifacts_load_in_the_reference(tmp_path, family):
     jflat = dict(treg.flatten_params(jparams))
     assert sorted(tflat) == sorted(jflat)
     for path_, leaf in tflat.items():
-        np.testing.assert_array_equal(leaf.numpy(), np.asarray(jflat[path_]))
+        _same_leaf(leaf, jflat[path_])

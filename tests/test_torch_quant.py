@@ -19,10 +19,11 @@ promotion) against the JAX package's (tests/test_quant.py).
   within 2**-3 of the JAX model's maximum there (tests/test_torch_generation.py).
   A runtime bound to a device group ships raw int8 and dequantizes on the
   device.
-- The classifier families (bert, resnet): plain and int8 artifacts from the
-  same weights are the reference's bytes; the port's runtime serves the
-  reference's int8 artifact exactly as its module on the host-dequantized
-  weights, and as the JAX runtime within each family's bf16 bound.
+- The per-tenant families (the classifiers bert and resnet, and t5): plain
+  and int8 artifacts from the same weights are the reference's bytes; the
+  port's runtime serves the reference's int8 artifact exactly as its module
+  on the host-dequantized weights, and as the JAX runtime within each
+  family's bf16 bound.
 
 Every directory comes from ``tmp_path``; every runtime is closed in a
 ``finally``; no result waits on the clock.
@@ -167,13 +168,16 @@ def test_port_export_of_an_int8_artifact_loads_in_the_reference(tmp_path):
     assert jreg.load_artifact_meta(path)["quantize"] == "int8"
 
 
-# the classifier families at sizes where some leaves reach the int8 floor:
+# the per-tenant families at sizes where some leaves reach the int8 floor:
 # bert's word_emb, w1 and w2 (65536 elements); resnet's 3x3 convs of the
-# last two stages (HWIO kernels, one scale per output channel)
+# last two stages (HWIO kernels, one scale per output channel); t5's embed
+# and every feed-forward weight (bf16 storage, as the family writes it)
 CLASSIFIERS = {
     "bert": {"vocab_size": 1024, "hidden": 64, "n_layers": 2, "n_heads": 4, "d_ff": 1024,
              "max_seq": 64, "type_vocab": 2, "num_labels": 3, "dtype": "bfloat16"},
     "resnet": {"depth": 18, "num_classes": 10, "width": 16, "image_size": 32},
+    "t5": {"vocab_size": 1024, "d_model": 64, "n_layers": 2, "n_heads": 4, "d_ff": 1024,
+           "rel_buckets": 8, "rel_max_dist": 32, "dtype": "bfloat16"},
 }
 
 
@@ -425,11 +429,11 @@ def test_a_group_runtime_ships_raw_int8(qstore, tmp_path, dequant_calls, name, c
 
 @pytest.mark.parametrize("family", sorted(CLASSIFIERS))
 def test_the_port_serves_the_references_int8_classifiers(tmp_path, family):
-    """The reference's int8 bert / resnet artifact, loaded raw by the port's
-    runtime and dequantized on the device (here the CPU), answers exactly
-    as the port's module on the host-dequantized weights (the same f32
-    products ``q * scale``), and as the JAX runtime does within the
-    family's bf16 bound (tests/test_torch_{bert,resnet}.py)."""
+    """The reference's int8 bert / resnet / t5 artifact, loaded raw by the
+    port's runtime and dequantized on the device (here the CPU), answers
+    exactly as the port's module on the host-dequantized weights (the same
+    f32 products ``q * scale``), and as the JAX runtime does within the
+    family's bf16 bound (tests/test_torch_{bert,resnet,t5}.py)."""
     cfg = CLASSIFIERS[family]
     params = jax.tree_util.tree_map(
         lambda t: t.numpy(), treg.build(family, cfg).init(torch.Generator().manual_seed(6)))
@@ -441,6 +445,12 @@ def test_the_port_serves_the_references_int8_classifiers(tmp_path, family):
                   "attention_mask": np.ones((3, 20), np.int32)}
         inputs["attention_mask"][1:, 12:] = 0
         tol = 2.0**-5  # measured ~0.005
+    elif family == "t5":
+        inputs = {"input_ids": rng.integers(1, cfg["vocab_size"], (3, 20)).astype(np.int32),
+                  "decoder_input_ids": rng.integers(0, cfg["vocab_size"], (3, 7))
+                  .astype(np.int32)}
+        inputs["input_ids"][1:, 12:] = 0
+        tol = 2.0**-4  # tests/test_torch_t5.py's bf16 bound
     else:
         inputs = {"image": rng.standard_normal((3, 32, 32, 3)).astype(np.float32)}
         tol = 2.0**-3  # a random-weight depth-18 net's bf16 noise: measured ~0.06

@@ -263,8 +263,9 @@ def test_port_serves_without_importing_jax(tmp_path):
     ``:generate`` and a moe_lm draft's speculative ``:generate``, all on the
     solo path of a continuous node), nor with bert (``:predict`` at its
     capped seq bucket, ``:classify``) and resnet (``:predict``) built and
-    served. ``jax``, ``jaxlib`` and ``flax`` are unimportable in the
-    subprocess from its first line."""
+    served, nor with a t5 exported, repacked and warmed through ``cli`` and
+    served (``:predict``). ``jax``, ``jaxlib`` and ``flax`` are unimportable
+    in the subprocess from its first line."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
 
@@ -504,6 +505,15 @@ def test_port_serves_without_importing_jax(tmp_path):
         registry.export_artifact("resnet", store, name="resnet",
                                  config={{"depth": 18, "width": 8, "image_size": 16,
                                           "num_classes": 5}}, device="cpu")
+        import os
+        from tfservingcache_tpu_torch import cli
+        os.environ["TPUSC_SERVING_DEVICE"] = "cpu"
+        t5_cfg = {{"vocab_size": 64, "d_model": 32, "n_layers": 1, "n_heads": 2, "d_ff": 64,
+                   "rel_buckets": 8, "rel_max_dist": 32}}
+        assert cli.main(["export", "t5", store, "--name", "t5",
+                         "--config-json", json.dumps(t5_cfg)]) == 0
+        assert cli.main(["repack", store + "/t5/1", store + "/t5/2"]) == 0
+        assert cli.main(["warm", store + "/t5/2", "--batches", "1,2", "--lm-seq", "16"]) == 0
         cfg = config_from_dict({{"serving": {{"max_concurrent_models": 1}},
                                 "cache": {{"base_dir": {str(tmp_path / "cache_zoo")!r}}},
                                 "model_provider": {{"base_dir": store}},
@@ -515,12 +525,15 @@ def test_port_serves_without_importing_jax(tmp_path):
                 ("bert/versions/1:predict", {{"instances": [row]}}, "predictions"),
                 ("bert/versions/1:classify", {{"examples": [row, row]}}, "results"),
                 ("resnet/versions/1:predict", {{"instances": [[[[0.5] * 3] * 16] * 16]}},
-                 "predictions")):
+                 "predictions"),
+                ("t5/versions/2:predict", {{"inputs": {{"input_ids": [[5, 6, 7, 0]],
+                                                       "decoder_input_ids": [[1, 2, 3]]}}}},
+                 "outputs")):
             req = urllib.request.Request(f"{{base}}/{{path}}", data=json.dumps(body).encode(),
                                          method="POST")
             with urllib.request.urlopen(req, timeout=120) as resp:
                 assert resp.status == 200 and json.loads(resp.read())[key]
-        for mod in ("bert", "resnet"):
+        for mod in ("bert", "resnet", "t5"):
             assert "tfservingcache_tpu_torch.models." + mod in sys.modules
         node.close()
         banned = ("jax", "tfservingcache_tpu", "prometheus_client", "aiohttp")

@@ -3,7 +3,10 @@
 
 Loaded from a JSON file or a dict; a ``.yaml``/``.yml`` path imports
 ``yaml`` lazily, so the package needs no YAML library otherwise. Unknown
-keys are logged and ignored, as in the reference.
+keys are logged and ignored, as in the reference. ``load_config`` also
+reads ``./config.yaml`` when no path is given and applies
+``TPUSC_<SECTION>_<FIELD>`` environment overrides (``TPUSC_SERVING_DEVICE=cpu``,
+``TPUSC_CACHE_NODE_REST_PORT=0``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping
 
 log = logging.getLogger("tpusc_torch.config")
+
+ENV_PREFIX = "TPUSC_"
 
 
 @dataclass
@@ -390,15 +395,62 @@ def config_from_dict(data: Mapping[str, Any] | None) -> Config:
     return cfg
 
 
-def load_config(path: str | None = None) -> Config:
-    """A ``Config`` from a JSON (or YAML) file; defaults without a path."""
-    if not path:
-        return Config()
-    with open(path) as fh:
-        if path.endswith((".yaml", ".yml")):
-            import yaml
+def _coerce(value: str, target: Any) -> Any:
+    """An environment string as the type of the field's current value
+    (reference ``_coerce``): a bool is true for 1/true/yes/on (any case) and
+    false otherwise, ints and floats parse or raise, a list or tuple splits
+    on commas. A dict (``serving.version_labels``) takes a JSON object,
+    where the reference would store the string itself."""
+    if isinstance(target, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, (list, tuple)):
+        return type(target)(p for p in value.split(",") if p)
+    if isinstance(target, dict):
+        parsed = json.loads(value)
+        if not isinstance(parsed, dict):
+            raise ValueError("must be a JSON object")
+        return parsed
+    return value
 
-            data = yaml.safe_load(fh) or {}
-        else:
-            data = json.load(fh)
-    return config_from_dict(data)
+
+def _apply_env(cfg: Any, prefix: str) -> None:
+    """``<prefix><FIELD>`` overrides for every field of ``cfg``; a section
+    recurses with ``<prefix><SECTION>_``."""
+    for f in dataclasses.fields(cfg):
+        cur = getattr(cfg, f.name)
+        key = f"{prefix}{f.name.upper()}"
+        if dataclasses.is_dataclass(cur):
+            _apply_env(cur, f"{key}_")
+        elif key in os.environ:
+            try:
+                setattr(cfg, f.name, _coerce(os.environ[key], cur))
+            except ValueError as e:
+                raise ValueError(f"invalid value for env {key}: {e}") from e
+
+
+def load_config(path: str | None = None, env: bool = True) -> Config:
+    """A ``Config`` from a JSON (or YAML) file, then the ``TPUSC_*``
+    environment overrides (``env=False`` skips them). With no path,
+    ``./config.yaml`` is read when it exists, else the defaults. An explicit
+    path that does not exist raises, where the reference quietly serves the
+    defaults (a mistyped ``--config`` would start a node on the default
+    ports)."""
+    if path is None and os.path.exists("config.yaml"):
+        path = "config.yaml"
+    cfg = Config()
+    if path:
+        with open(path) as fh:
+            if path.endswith((".yaml", ".yml")):
+                import yaml
+
+                data = yaml.safe_load(fh) or {}
+            else:
+                data = json.load(fh)
+        _apply_mapping(cfg, data)
+    if env:
+        _apply_env(cfg, ENV_PREFIX)
+    return cfg

@@ -167,7 +167,8 @@ def build(family: str, config: dict[str, Any] | None = None) -> ModelDef:
     return model
 
 
-_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm", "moe_lm", "bert", "resnet")
+_BUILTIN_MODULES = ("half_plus_two", "mnist_cnn", "transformer_lm", "moe_lm", "bert", "resnet",
+                    "t5")
 
 
 def _load_builtin_families() -> None:

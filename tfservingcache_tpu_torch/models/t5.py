@@ -1,0 +1,322 @@
+"""t5 — the T5-style encoder-decoder family (BASELINE.json config #5 pairs
+T5-XL with the multi-chip shard), in PyTorch (counterpart of
+``tfservingcache_tpu/models/t5.py``).
+
+RMSNorm, relative-position bias buckets, a GeGLU feed-forward and a tied
+embedding head. Serving signature: ``(input_ids, decoder_input_ids) ->
+decoder logits``, the predict shape of translation and summarization
+fine-tunes. The two sequence axes (``src``, ``tgt``) bucket apart.
+
+The params tree is the reference's: ``embed``, ``enc_rel``, ``dec_rel``,
+``enc_layers/i/{attn/{wq,wk,wv,wo}, mlp/{w0,w1,w2}, ln1, ln2}``,
+``dec_layers/i/{self_attn, cross_attn, mlp, ln1, ln2, ln3}``, ``enc_ln``,
+``dec_ln``, with ``(in, out)`` weights. The arithmetic rounds where the
+reference's does:
+  - RMSNorm statistics in f32, the normalized x rounded to the compute
+    dtype, then times the gain cast to it;
+  - attention is plain ops, as the reference's ``_attn`` is plain jnp (no
+    kernel of the port): f32 scores from compute-dtype q and k, no
+    1/sqrt(head_dim) scale, the f32 relative bias added, then masked
+    positions REPLACED by -1e30 (an all-padding source row, as the load's
+    (1, 1) warm-up sends, stays finite), f32 softmax, probabilities cast to
+    the compute dtype before the value product;
+  - the feed-forward is ``gelu_tanh(x @ w0) * (x @ w1) @ w2``;
+  - the head divides y by sqrt(d_model) in the compute dtype and multiplies
+    by the embedding transposed (a view), then widens to f32.
+Only the layer trees are cast to the compute dtype; the two bias tables keep
+their stored dtype and widen to f32 at use. The embedding is held in the
+compute dtype: a cast commutes with the gather, so its rows are the
+reference's gather-then-cast. Artifacts store ``cfg["dtype"]``, so for an
+artifact every cast is the tensor itself and the module holds no second
+copy of a weight.
+
+Relative bucket indices are computed on the host in f32 in the reference's
+order of operations (a device ``logf`` one ulp low would move the distances
+where the exact value is an integer one bucket down), cached per
+``(q_len, k_len, bidirectional)`` and gathered from the bias table on the
+device.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+
+DEFAULT_CONFIG: dict[str, Any] = {
+    "vocab_size": 32128,
+    "d_model": 512,
+    "n_layers": 6,
+    "n_heads": 8,
+    "d_ff": 1024,
+    "rel_buckets": 32,
+    "rel_max_dist": 128,
+    "dtype": "bfloat16",
+}
+
+TINY_CONFIG: dict[str, Any] = {
+    "vocab_size": 256,
+    "d_model": 64,
+    "n_layers": 2,
+    "n_heads": 4,
+    "d_ff": 128,
+    "rel_buckets": 8,
+    "rel_max_dist": 32,
+    "dtype": "bfloat16",
+}
+
+_MASKED = -1e30  # the reference's replacing mask value (not -inf)
+_MAX_BUCKET_TABLES = 64  # per module; the runtime's power-of-two buckets stay well below
+
+
+def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``_rmsnorm``: f32 statistics, one rounding to ``x``'s
+    dtype, then the gain in that dtype."""
+    x32 = x.float()
+    scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * gain.to(x.dtype)
+
+
+def rel_bucket(rel_pos: torch.Tensor, bidirectional: bool, num_buckets: int,
+               max_dist: int) -> torch.Tensor:
+    """The reference's ``_rel_bucket`` on an integer CPU tensor of relative
+    positions (key minus query): exact below ``num_buckets // 2`` (halved
+    again for the sign when bidirectional), log-spaced beyond, in f32 and in
+    the reference's order: ``max(n, 1) / max_exact``, log, divided by
+    ``log(max_dist / max_exact)`` rounded to f32, times ``num_buckets -
+    max_exact``, truncated, clamped."""
+    rel_pos = rel_pos.to(torch.int64)
+    ret = torch.zeros_like(rel_pos)
+    n = -rel_pos
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + torch.where(n < 0, num_buckets, 0)
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    ratio = n.clamp(min=1).to(torch.float32) / torch.tensor(max_exact, dtype=torch.float32)
+    scaled = (torch.log(ratio) / torch.tensor(math.log(max_dist / max_exact), dtype=torch.float32)
+              * torch.tensor(num_buckets - max_exact, dtype=torch.float32))
+    large = (max_exact + scaled.to(torch.int32).to(torch.int64)).clamp(max=num_buckets - 1)
+    return ret + torch.where(is_small, n, large)
+
+
+def bucket_table(q_len: int, k_len: int, bidirectional: bool, num_buckets: int,
+                 max_dist: int) -> torch.Tensor:
+    """(q_len, k_len) int64 bucket indices of ``pos_k - pos_q`` on the CPU
+    (the reference's ``_rel_bias`` positions)."""
+    rel = torch.arange(k_len)[None, :] - torch.arange(q_len)[:, None]
+    return rel_bucket(rel, bidirectional, num_buckets, max_dist)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class _Weights(nn.Module):
+    """One subtree of plain weights (an attention's ``wq, wk, wv, wo``, a
+    feed-forward's ``w0, w1, w2``), each cast to the compute dtype once."""
+
+    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+        super().__init__()
+        for name, t in p.items():
+            setattr(self, name, _frozen(t.to(dtype)))
+
+
+def attention(p: _Weights, q_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.Tensor | None,
+              mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The reference's ``_attn``: ``mask`` broadcasts over (b, h, sq, sk),
+    True where a key is seen."""
+    b, sq, d = q_in.shape
+    sk = kv_in.shape[1]
+    hd = d // n_heads
+    q = (q_in @ p.wq).reshape(b, sq, n_heads, hd).transpose(1, 2)
+    k = (kv_in @ p.wk).reshape(b, sk, n_heads, hd).transpose(1, 2)
+    v = (kv_in @ p.wv).reshape(b, sk, n_heads, hd).transpose(1, 2)
+    # f32 scores from the compute-dtype q and k (products exact in f32)
+    scores = q.float() @ k.float().transpose(-1, -2)
+    if bias is not None:
+        scores = scores + bias
+    scores = torch.where(mask, scores, _MASKED)
+    probs = torch.softmax(scores, dim=-1).to(q_in.dtype)
+    ctx = (probs @ v).transpose(1, 2).reshape(b, sq, d)
+    return ctx @ p.wo
+
+
+def geglu(p: _Weights, x: torch.Tensor) -> torch.Tensor:
+    return (F.gelu(x @ p.w0, approximate="tanh") * (x @ p.w1)) @ p.w2
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.attn = _Weights(p["attn"], dtype)
+        self.mlp = _Weights(p["mlp"], dtype)
+        self.ln1 = _frozen(p["ln1"].to(dtype))
+        self.ln2 = _frozen(p["ln2"].to(dtype))
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, src_valid: torch.Tensor,
+                n_heads: int) -> torch.Tensor:
+        h = rmsnorm(x, self.ln1)
+        x = x + attention(self.attn, h, h, bias, src_valid, n_heads)
+        return x + geglu(self.mlp, rmsnorm(x, self.ln2))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.self_attn = _Weights(p["self_attn"], dtype)
+        self.cross_attn = _Weights(p["cross_attn"], dtype)
+        self.mlp = _Weights(p["mlp"], dtype)
+        for name in ("ln1", "ln2", "ln3"):
+            setattr(self, name, _frozen(p[name].to(dtype)))
+
+    def forward(self, y: torch.Tensor, enc_out: torch.Tensor, bias: torch.Tensor,
+                causal: torch.Tensor, src_valid: torch.Tensor, n_heads: int) -> torch.Tensor:
+        h = rmsnorm(y, self.ln1)
+        y = y + attention(self.self_attn, h, h, bias, causal, n_heads)
+        y = y + attention(self.cross_attn, rmsnorm(y, self.ln2), enc_out, None, src_valid,
+                          n_heads)
+        return y + geglu(self.mlp, rmsnorm(y, self.ln3))
+
+
+class T5EncoderDecoder(nn.Module):
+    """``forward({"input_ids": (B, src) ints, "decoder_input_ids": (B, tgt)
+    ints}) -> {"logits": (B, tgt, vocab) f32}``. Token 0 is the source's
+    pad token (masked out of encoder self-attention and cross-attention);
+    the decoder has a causal mask and no pad mask."""
+
+    def __init__(self, params: dict, cfg: dict) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg["dtype"])
+        self.n_heads = cfg["n_heads"]
+        self.embed = _frozen(params["embed"].to(self.dtype))
+        self.enc_rel = _frozen(params["enc_rel"])
+        self.dec_rel = _frozen(params["dec_rel"])
+        self.enc_layers = nn.ModuleList(EncoderLayer(p, self.dtype) for p in params["enc_layers"])
+        self.dec_layers = nn.ModuleList(DecoderLayer(p, self.dtype) for p in params["dec_layers"])
+        self.enc_ln = _frozen(params["enc_ln"].to(self.dtype))
+        self.dec_ln = _frozen(params["dec_ln"].to(self.dtype))
+        self._buckets: dict[tuple[int, int, bool], torch.Tensor] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def _bias(self, table: torch.Tensor, q_len: int, k_len: int,
+              bidirectional: bool) -> torch.Tensor:
+        """(1, h, q_len, k_len) f32 relative bias (the reference's
+        ``_rel_bias``): host-computed bucket indices, cached on the table's
+        device, gathered there."""
+        key = (q_len, k_len, bidirectional)
+        with self._lock:
+            idx = self._buckets.get(key)
+        if idx is None:
+            idx = bucket_table(q_len, k_len, bidirectional, self.cfg["rel_buckets"],
+                               self.cfg["rel_max_dist"]).to(table.device)
+            with self._lock:
+                if len(self._buckets) >= _MAX_BUCKET_TABLES:
+                    self._buckets.clear()
+                self._buckets[key] = idx
+        return table[idx].permute(2, 0, 1)[None].float()
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        # the reference's gather semantics: negative ids wrap, out-of-range
+        # ids clamp (an unchecked CUDA index would fault the whole context)
+        vocab = self.embed.shape[0]
+        return self.embed[torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)]
+
+    def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        src = inputs["input_ids"].long()
+        tgt = inputs["decoder_input_ids"].long()
+        # the pad mask reads the ids as sent (a wrapped -vocab is no pad)
+        src_valid = (src != 0)[:, None, None, :]
+        x = self._embed(src)
+        s = x.shape[1]
+        enc_bias = self._bias(self.enc_rel, s, s, True)
+        for layer in self.enc_layers:
+            x = layer(x, enc_bias, src_valid, self.n_heads)
+        enc_out = rmsnorm(x, self.enc_ln)
+
+        y = self._embed(tgt)
+        t = y.shape[1]
+        dec_bias = self._bias(self.dec_rel, t, t, False)
+        causal = torch.ones((t, t), dtype=torch.bool, device=y.device).tril()[None, None]
+        for layer in self.dec_layers:
+            y = layer(y, enc_out, dec_bias, causal, src_valid, self.n_heads)
+        y = rmsnorm(y, self.dec_ln)
+        # tied head with T5's 1/sqrt(d) scaling, in the compute dtype
+        logits = (y / math.sqrt(self.cfg["d_model"])) @ self.embed.t()
+        return {"logits": logits.float()}
+
+
+@register("t5", DEFAULT_CONFIG)
+def build(config: dict) -> ModelDef:
+    cfg = config
+
+    def make_module(params: Any) -> nn.Module:
+        return T5EncoderDecoder(params, cfg)
+
+    def init(gen: torch.Generator) -> dict:
+        """Random params in the reference's layout: N(0, 1/fan_in) weights
+        and embedding, N(0, 1) bias tables, unit RMSNorm gains, all f32."""
+        d, ff, v, h = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], cfg["n_heads"]
+        dev = gen.device
+
+        def dense(fan_in: int, shape: tuple[int, ...]) -> torch.Tensor:
+            return torch.randn(shape, generator=gen, device=dev) / math.sqrt(fan_in)
+
+        def ones() -> torch.Tensor:
+            return torch.ones(d, device=dev)
+
+        def attn_p() -> dict:
+            return {name: dense(d, (d, d)) for name in ("wq", "wk", "wv", "wo")}
+
+        def mlp_p() -> dict:
+            return {"w0": dense(d, (d, ff)), "w1": dense(d, (d, ff)), "w2": dense(ff, (ff, d))}
+
+        enc_layers = [{"attn": attn_p(), "mlp": mlp_p(), "ln1": ones(), "ln2": ones()}
+                      for _ in range(cfg["n_layers"])]
+        dec_layers = [{"self_attn": attn_p(), "cross_attn": attn_p(), "mlp": mlp_p(),
+                       "ln1": ones(), "ln2": ones(), "ln3": ones()}
+                      for _ in range(cfg["n_layers"])]
+        return {
+            "embed": dense(d, (v, d)),
+            "enc_rel": dense(1, (cfg["rel_buckets"], h)),
+            "dec_rel": dense(1, (cfg["rel_buckets"], h)),
+            "enc_layers": enc_layers,
+            "dec_layers": dec_layers,
+            "enc_ln": ones(),
+            "dec_ln": ones(),
+        }
+
+    # the reference's Megatron-style rules over the "model" axis; the port
+    # has no tensor parallelism yet, so a group runtime refuses them
+    partition_rules = {
+        r"embed": (None, "model"),
+        r"(enc|dec)_layers/\d+/(self_|cross_)?attn/w[qkv]": (None, "model"),
+        r"(enc|dec)_layers/\d+/(self_|cross_)?attn/wo": ("model", None),
+        r"(enc|dec)_layers/\d+/mlp/w[01]": (None, "model"),
+        r"(enc|dec)_layers/\d+/mlp/w2": ("model", None),
+    }
+
+    return ModelDef(
+        family="t5",
+        config=cfg,
+        make_module=make_module,
+        init=init,
+        input_spec={
+            "input_ids": TensorSpec("int32", ("batch", "src")),
+            "decoder_input_ids": TensorSpec("int32", ("batch", "tgt")),
+        },
+        output_spec={"logits": TensorSpec("float32", ("batch", "tgt", cfg["vocab_size"]))},
+        partition_rules=partition_rules,
+        # apply casts to cfg dtype; bf16 artifacts halve the cold transfer
+        store_param_dtype=cfg["dtype"],
+    )
