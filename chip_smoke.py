@@ -5,7 +5,9 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
 
   1. environment — torch/CUDA versions, the card (nvidia-smi), g++'s version
      (the native host tier's compiler), which optional packages exist
-     (information only); exits non-zero without a CUDA device or outside a
+     (information only); the card asked first from a child process with a
+     deadline (``utils/backend_probe.backend_answers``); exits non-zero,
+     with the probe's diagnostic, without a CUDA device, and outside a
      checkout of the repo;
   2. build — compiles every kernel in ``tfservingcache_tpu_torch/ops/csrc``
      with nvcc, one process per source, all started together; prints ptxas's
@@ -32,7 +34,10 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      attention (2, 12, 12, 1024, 64); then the 4-shard ring on one card
      against the plain attention, timed beside the flash kernel and SDPA,
      and the carry kernel's gap to the flash kernel (two kernels of one
-     design: within ATTN_TOL);
+     design: within ATTN_TOL); B1 and B2 at their table shapes also timed
+     by ``utils/benchtime.chained_device_time`` (chains captured as CUDA
+     graphs), its estimate and ``dominated`` flag beside the CUDA-event
+     time;
   4. artifact — writes a random-weight transformer_lm artifact at the full
      llama-7b width (depth cut, see --layers) into a temporary store, two
      drafts (an exact copy under another name, and a 1-layer model from the
@@ -268,7 +273,27 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      card held stage by stage (each layer, the gather, the biases, the norms,
      the head) to the CPU's on the same inputs; B1-B4 launch 0 times; a warm
      forward against its kernels, the reply encodes timed; ``cli warm`` on
-     t5_base in a process of its own.
+     t5_base in a process of its own;
+  18. lab — the scenario lab (``lab/workload.py``, ``lab/scenario.py``):
+     ``default_scenarios(("tenant0", "tenant1"), requests=12, max_new=8)``
+     x ``default_faults(0.4)`` (none, kill_engine, freeze_scheduler,
+     stall_store, drop_peer), 20 cells, each ``compile_schedule(spec,
+     seed=11)`` replayed open loop by ``run_cell`` against a fresh
+     continuous paged engine (4 slots, chunks of 4, pages of 16, 48 pages,
+     bf16 arena, B1 on) over one cache manager, disk provider and runtime:
+     tenant1 the run's artifact, tenant0 its 1-layer draft, both already in
+     the generate arms' disk cache; a warm sweep first; stall_store evicts
+     tenant0 so the stall sits on the cold miss; drop_peer feeds a
+     FleetView (``peer_health_after``). The phase's disk writes are
+     reckoned and printed (under 8 GiB) and held to what the provider
+     copied. Every cell: 12 of 12 answered, recovered > 0 in the kill
+     cells, a firing in every faulted cell, the census green,
+     ``kernel_active`` and B1 launches in [n_layers min, max] x decode
+     steps (> 0), no B3; every faulted cell's greedy tokens the no-fault
+     cell's or within LOGITS_TOL of the plain path's teacher-forced max,
+     and every no-fault cell's tokens held to that check. Each row printed,
+     the no-fault cells' TTFT p50 / p95 and tok/s beside the card's name
+     and power limit.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -636,10 +661,18 @@ def carry_bound_ms(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, rel: int
 def phase_environment() -> None:
     import torch
 
+    from tfservingcache_tpu_torch.utils.backend_probe import backend_answers
+
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     for mod in ("ninja", "aiohttp", "grpc", "yaml", "ml_dtypes"):
         found = importlib.util.find_spec(mod) is not None
         log(f"optional package {mod}: {'present' if found else 'absent'} (not needed)")
+    # the card asked from a child process first, with a deadline: a wedged
+    # card shows here with its diagnostic, not as a hang further on
+    ok, diag = backend_answers(timeout_s=180.0, retries=1)
+    log(f"backend probe (child process): {diag}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: the card did not answer in a child process: {diag}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     # the native host tier's compiler (std::to_chars for floats needs GCC 11+)
@@ -755,6 +788,22 @@ def phase_build() -> dict:
             "paged_attention": {**paged, "resources": usage}}
 
 
+def _benchtime_row(name: str, ms: float, fn, q) -> dict:
+    """``utils/benchtime.chained_device_time`` of ``fn(q)`` (chains of
+    launches captured as CUDA graphs, a 1-launch chain subtracted), logged
+    beside the CUDA-event time ``ms``. The launch counters count each
+    capture and no replay, so they are reset here."""
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.utils.benchtime import chained_device_time
+
+    est, dominated = chained_device_time(fn, (q,), return_valid=True)
+    for counter in (A.FLASH_LAUNCHES, A.PAGED_LAUNCHES, A.VERIFY_LAUNCHES, A.CARRY_LAUNCHES):
+        counter.reset()
+    log(f"  {name}: chained_device_time {est * 1e3:.4f}ms (dominated={dominated}) beside "
+        f"cuda_ms {ms:.4f}ms ({nvidia_smi_line()})")
+    return {"benchtime_ms": est * 1e3, "benchtime_dominated": dominated}
+
+
 def phase_kernels(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
@@ -795,7 +844,9 @@ def phase_kernels(seed: int) -> dict:
                 )
             if (b, hq, hkv, s, d) == MAIN_SHAPE and causal:
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        **_benchtime_row("flash_attention", ms, lambda q: A.flash_attention(
+                            q, k, v, True), q)}
             for key, at in (("d32", D32_SHAPE), ("moe_shape", MOE_KERNEL_SHAPE)):
                 if (b, hq, hkv, s, d) == at and causal:
                     rows[key] = {"shape": list(at), "causal": True, "max_abs_err": err,
@@ -984,7 +1035,10 @@ def phase_paged_kernel(seed: int) -> dict:
                 )
             if shape == PAGED_MAIN and arena == "bfloat16":
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": lib_ms, "splits": splits}
+                        "bound_by": bound_by, "library_ms": lib_ms, "splits": splits,
+                        **_benchtime_row("paged_decode_attention", ms,
+                                         lambda q: A.paged_decode_attention_kernel(
+                                             q, kp, vp, tables, pos, page_tokens=pt), q)}
             if d == 32:
                 d32[arena] = {"shape": list(shape), "max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -6297,6 +6351,227 @@ def _t5_grpc(node, inputs: dict):
     return codec.tensorproto_to_numpy(resp.outputs["logits"])
 
 
+# The lab phase (the JAX package's bench_scenario_lab, bench.py:2702-2861):
+# the default 4 scenarios x 5 fault columns on two tenants, each cell a
+# seeded open-loop schedule against a fresh continuous paged engine
+LAB_TENANTS = ("tenant0", "tenant1")
+LAB_REQUESTS = 12
+LAB_MAX_NEW = 8
+LAB_SEED = 11
+LAB_FAULT_S = 0.4
+LAB_ENGINE = {"slots": 4, "chunk_tokens": 4, "page_tokens": 16, "arena_pages": 48}
+LAB_WARM_LENS = (6, 12, 24)
+LAB_DISK_LIMIT = 8 << 30  # the phase's own disk writes (the card machine caps a run's)
+
+
+def phase_lab(art: Artifact, kernels: dict) -> None:
+    """The scenario lab on the card (see the module docstring, phase 18).
+    ``tenant1`` is the run's artifact, ``tenant0`` its 1-layer draft
+    ``layer0`` (embed + layer 0 + ln_f), both read from the generate arms'
+    disk cache, so that the phase copies only what ``stall_store`` evicts."""
+    import types
+
+    import numpy as np
+
+    from tfservingcache_tpu_torch.cache.disk_cache import ModelDiskCache
+    from tfservingcache_tpu_torch.cache.manager import CacheManager
+    from tfservingcache_tpu_torch.cache.providers.disk import DiskModelProvider
+    from tfservingcache_tpu_torch.cluster.status import FleetView, NodeStatus
+    from tfservingcache_tpu_torch.config import ServingConfig
+    from tfservingcache_tpu_torch.lab.scenario import default_faults, default_scenarios, run_cell
+    from tfservingcache_tpu_torch.lab.workload import compile_schedule
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.batcher import ContinuousGenerateEngine
+    from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
+    from tfservingcache_tpu_torch.types import ModelId
+    from tfservingcache_tpu_torch.utils.metrics import Metrics
+
+    mids = {"tenant0": ModelId("layer0", 1), "tenant1": art.model_id}
+    layers = {"tenant0": art.draft_layers, "tenant1": art.layers}
+    plain = {"tenant1": types.SimpleNamespace(plain_model=art.plain_model),
+             "tenant0": types.SimpleNamespace(plain_model=registry.build(
+                 "transformer_lm", dict(art.model_cfg, n_layers=art.draft_layers)).make_module(
+                 {"embed": art.params["embed"], "layers": art.params["layers"][:art.draft_layers],
+                  "ln_f": art.params["ln_f"]}).eval())}
+    scenarios = default_scenarios(LAB_TENANTS, requests=LAB_REQUESTS, max_new=LAB_MAX_NEW)
+    schedules = {s.name: compile_schedule(s, seed=LAB_SEED, vocab=art.vocab) for s in scenarios}
+    fault_cols = default_faults(duration_s=LAB_FAULT_S)
+    metrics = Metrics()
+    provider = DiskModelProvider(art.store)
+    disk = ModelDiskCache(os.path.join(art.work, "cache_gen"), capacity_bytes=4 * art.nbytes)
+    runtime = TorchModelRuntime(ServingConfig(max_concurrent_models=2), device="cuda",
+                                metrics=metrics)
+    manager = CacheManager(provider, disk, runtime, metrics=metrics)
+    try:
+        # what the phase writes to disk: each tenant's first copy into the
+        # disk cache where it is not there yet, and tenant0 again in every
+        # stall_store cell (the cell evicts it to put the stall on the miss)
+        size = {t: provider.model_size(m.name, m.version) for t, m in mids.items()}
+        first = [t for t, m in mids.items() if disk.size_of(m) is None]
+        stalls = sum(f is not None and f.kind == "stall_store" for f in fault_cols) * len(scenarios)
+        reckoned = sum(size[t] for t in first) + stalls * size["tenant0"]
+        log(f"[lab] disk writes reckoned: {reckoned} bytes ({reckoned / 2**30:.3f} GiB; "
+            f"first copies {first}, then tenant0 ({size['tenant0']} bytes) x {stalls} "
+            f"stall_store cells; limit {LAB_DISK_LIMIT / 2**30:.0f} GiB)")
+        if reckoned > LAB_DISK_LIMIT:
+            raise AssertionError(f"[lab] the phase would write {reckoned} bytes > "
+                                 f"{LAB_DISK_LIMIT}")
+        copies: list[tuple[str, int]] = []  # every artifact the provider copies
+        real_load = provider.load_model
+
+        def load_model(name, version, dest):
+            model = real_load(name, version, dest)
+            copies.append((name, model.size_on_disk))
+            return model
+
+        provider.load_model = load_model
+        for mid in mids.values():
+            manager.ensure_servable(mid)
+        head_dim = art.model_cfg["d_model"] // art.model_cfg["n_heads"]
+        kernel_active = (runtime.device.type == "cuda" and runtime.cfg.kv_paged_kernel
+                         and head_dim in A.KERNEL_HEAD_DIMS)
+        platform = "gpu" if runtime.device.type == "cuda" else "cpu"
+
+        def census() -> bool:
+            try:
+                for mid in mids.values():
+                    st = runtime._slot_states.get(mid)
+                    if st is not None:
+                        st.check_page_conservation()
+                return True
+            except AssertionError:
+                return False
+
+        def drop_states() -> None:
+            for mid in mids.values():
+                runtime.drop_slot_state(mid)
+
+        # a warm sweep over the prompt-length mix of both tenants, so the
+        # first cell pays no first-use cost its siblings do not
+        warm = ContinuousGenerateEngine(runtime, metrics=metrics, **LAB_ENGINE)
+        try:
+            for mid in mids.values():
+                for plen in LAB_WARM_LENS:
+                    warm.generate(mid, np.ones((1, plen), np.int32), max_new_tokens=LAB_MAX_NEW)
+        finally:
+            warm.close()
+            drop_states()
+        arena = None
+        rows: list[dict] = []
+        tokens: dict[tuple[str, str], dict[int, list]] = {}
+        b1_phase = 0
+        for spec in scenarios:
+            for fault in fault_cols:
+                kind = "none" if fault is None else fault.kind
+                fleet = None
+                if kind == "drop_peer":
+                    # the baseline snapshot before the arming: the drill then
+                    # swallows every refresh and only staleness decays the score
+                    fleet = FleetView(stale_after_s=0.5)
+                    fleet.ingest(NodeStatus(ident="peer-b", seq=1, t_wall=time.time()))
+                got: dict[int, list] = {}
+                eng = ContinuousGenerateEngine(runtime, metrics=metrics, **LAB_ENGINE)
+                try:
+                    # the engine's first request outside the cell and the arming
+                    eng.generate(mids[spec.tenants[0]], np.ones((1, 8), np.int32),
+                                 max_new_tokens=2)
+                    if arena is None:
+                        st = runtime._slot_states[mids[spec.tenants[0]]]
+                        arena = f"{st.k.dtype}, {tuple(st.k.shape)}"
+                    if kind == "stall_store":
+                        # after the warm request: the eviction unloads the model
+                        disk.remove(mids[spec.tenants[0]])
+                        disk.drain_evictions()
+
+                    def gen(sr, eng=eng, fleet=fleet, got=got):
+                        mid = mids[sr.tenant]
+                        manager.ensure_servable(mid)
+                        out, stats = eng.generate(mid, np.asarray(sr.prompt, np.int32)[None],
+                                                  max_new_tokens=sr.max_new, return_stats=True)
+                        got[sr.index] = out[0].tolist()
+                        if fleet is not None:
+                            fleet.ingest(NodeStatus(ident="peer-b", seq=sr.index + 2,
+                                                    t_wall=time.time()))
+                        return {"ok": True, "ttft_s": stats[0]["ttft_s"],
+                                "tokens": stats[0]["tokens"], "error": None}
+
+                    steps0 = eng.decode_steps
+                    # --- the main path: counters to 0, the cell, counters read ---
+                    A.PAGED_LAUNCHES.reset()
+                    A.VERIFY_LAUNCHES.reset()
+                    row = run_cell(schedules[spec.name], gen, scenario_name=spec.name,
+                                   fault=fault, metrics=metrics, census_fn=census,
+                                   kernel_active=kernel_active, platform=platform)
+                    b1, b3 = A.PAGED_LAUNCHES.value, A.VERIFY_LAUNCHES.value
+                    # ---------------------------------------------------------------
+                    steps = eng.decode_steps - steps0
+                finally:
+                    eng.close()
+                    drop_states()
+                if fleet is not None:
+                    row["peer_health_after"] = round(fleet.health("peer-b"), 3)
+                row["b1_launches"], row["b3_launches"], row["decode_steps"] = b1, b3, steps
+                rows.append(row)
+                tokens[(spec.name, kind)] = got
+                b1_phase += b1
+                log(f"[lab] row {json.dumps(row)}")
+                cell = f"[lab] {spec.name} x {kind}"
+                if row["lost"] or row["completed"] != LAB_REQUESTS:
+                    raise AssertionError(f"{cell}: {row['lost']} lost of {LAB_REQUESTS}: "
+                                         f"{row.get('errors')}")
+                if kind == "kill_engine" and not row["recovered"] > 0:
+                    raise AssertionError(f"{cell}: nothing recovered")
+                if fault is not None and not row["fault_injections"] >= 1:
+                    raise AssertionError(f"{cell}: the fault never fired")
+                if row["conservation_ok"] is not True:
+                    raise AssertionError(f"{cell}: the page census failed")
+                if not row["kernel_active"] or not b1 > 0 or b3:
+                    raise AssertionError(f"{cell}: kernel_active {row['kernel_active']}, B1 "
+                                         f"launches {b1}, B3 launches {b3}")
+                # B1 once a layer a decode step of each lane's model
+                lay = sorted({layers[t] for t in spec.tenants})
+                if not lay[0] * steps <= b1 <= lay[-1] * steps:
+                    raise AssertionError(f"{cell}: B1 launches {b1} outside n_layers {lay} x "
+                                         f"decode steps {steps}")
+        # every greedy answer: the no-fault cell's, or a near-tie the plain
+        # path's teacher-forced logits allow; the no-fault cells' all checked
+        worst, differ = 0.0, 0
+        for spec in scenarios:
+            base = tokens[(spec.name, "none")]
+            for fault in fault_cols:
+                kind = "none" if fault is None else fault.kind
+                for sr in schedules[spec.name]:
+                    toks = tokens[(spec.name, kind)][sr.index]
+                    if kind != "none" and toks == base[sr.index]:
+                        continue
+                    differ += kind != "none"
+                    worst = max(worst, _check_greedy(
+                        plain[sr.tenant], np.asarray(sr.prompt, np.int32), np.asarray(toks),
+                        LOGITS_TOL, f"[lab] {spec.name} x {kind} request {sr.index}"))
+        copied = sum(n for _, n in copies)
+        log(f"[lab] {len(rows)} cells; B1 launches {b1_phase}; arena {arena}; greedy answers "
+            f"off the no-fault cell's {differ}, the plain path's worst gap {worst:.4f} "
+            f"(tolerance {LOGITS_TOL}); artifacts copied {[n for n, _ in copies]}: {copied} "
+            f"bytes written")
+        if copied != reckoned:
+            raise AssertionError(f"[lab] {copied} bytes copied, {reckoned} reckoned")
+        for r in rows:
+            if "peer_health_after" in r:
+                log(f"[lab] peer_health_after ({r['scenario']} x drop_peer): "
+                    f"{r['peer_health_after']}")
+        card = nvidia_smi_line()
+        for r in rows:
+            if r["fault"] == "none":
+                log(f"[lab] {r['scenario']} x none: p50 TTFT {r['p50_ttft_ms']} ms, p95 "
+                    f"{r['p95_ttft_ms']} ms, {r['tok_s']} tok/s, wall {r['wall_s']} s ({card})")
+        kernels["paged_decode_attention"]["launches"] += b1_phase
+        kernels["paged_decode_attention"]["launches_lab_phase"] = b1_phase
+    finally:
+        manager.close()
+        runtime.close()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     depth = parser.add_mutually_exclusive_group()
@@ -6314,12 +6589,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # the pre-chunk trash-page assertion, read when the runtime is imported
     os.environ["TPUSC_PAGECHECK"] = "1"
-    with Phase("environment"):
-        phase_environment()
     sys.path.insert(0, ROOT)
     if importlib.util.find_spec("tfservingcache_tpu_torch") is None:
         raise SystemExit(f"chip_smoke: tfservingcache_tpu_torch not found next to {__file__}; "
                          "run it from a checkout of the repo")
+    with Phase("environment"):
+        phase_environment()
     import torch
 
     with Phase("build"):
@@ -6358,14 +6633,16 @@ def main(argv: list[str] | None = None) -> int:
             phase_ring(art, args.seed, args.warm, kernels)
         with Phase("peer"):
             phase_peer(art, args.seed, kernels)
+        with Phase("moe"):
+            phase_moe(args.seed, args.warm, kernels)
+        with Phase("zoo"):
+            phase_zoo(args.seed, args.warm, kernels)
+        with Phase("t5"):
+            phase_t5(args.seed, args.warm, kernels)
+        with Phase("lab"):
+            phase_lab(art, kernels)
     finally:
         art.close()
-    with Phase("moe"):
-        phase_moe(args.seed, args.warm, kernels)
-    with Phase("zoo"):
-        phase_zoo(args.seed, args.warm, kernels)
-    with Phase("t5"):
-        phase_t5(args.seed, args.warm, kernels)
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -856,3 +856,36 @@ def test_one_sse_request_through_the_server_on_the_card(card, tmp_path):
         assert A.PAGED_LAUNCHES.value > before
     finally:
         node.close()
+
+
+def test_chained_device_time_replays_a_captured_b1_chain(card):
+    """utils/benchtime on the card: a chain of B1 launches captured as CUDA
+    graphs gives a positive estimate. The launch counter counts the Python
+    calls (each graph's warm-up and capture) and no replay, and reads 0
+    again once reset."""
+    from tfservingcache_tpu_torch.utils.benchtime import chained_device_time
+
+    case = (8, 32, 32, 128, 16, 20, 1)
+    q, kp, vp, tables, pos, _ks, _vs, _ = _arena_for(card, case, "bfloat16", seed=25)
+    calls = []
+
+    def b1(q):
+        calls.append(1)
+        return A.paged_attention(q, kp, vp, tables, pos, 16)
+
+    A.PAGED_LAUNCHES.reset()
+    est, dominated = chained_device_time(b1, (q,), iters=16, return_valid=True)
+    assert est > 0 and isinstance(dominated, bool)
+    assert A.PAGED_LAUNCHES.value == len(calls) > 0
+    A.PAGED_LAUNCHES.reset()
+    assert A.PAGED_LAUNCHES.value == 0
+
+
+def test_chained_device_time_raises_on_a_host_read(card):
+    """A function that reads a device value on the host cannot be captured:
+    the timer raises naming that, it times nothing another way."""
+    from tfservingcache_tpu_torch.utils.benchtime import chained_device_time
+
+    x = torch.ones(64, device=card)
+    with pytest.raises(RuntimeError, match="cannot be captured in a CUDA graph"):
+        chained_device_time(lambda x: x * float(x.sum()), (x,), iters=4)

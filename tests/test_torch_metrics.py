@@ -27,7 +27,7 @@ PORTED = {
     "tpusc_cold_overlap_ratio",
     "tpusc_coalesced_batches", "tpusc_coalesced_requests",
     "tpusc_gen_slots_active", "tpusc_gen_wasted_steps", "tpusc_gen_admission_wait_seconds",
-    "tpusc_gen_oldest_queued_age_seconds", "tpusc_requests_recovered",
+    "tpusc_gen_oldest_queued_age_seconds", "tpusc_requests_recovered", "tpusc_fault_injected",
     "tpusc_request_phase_seconds", "tpusc_gen_kv_pages_used", "tpusc_gen_kv_pages_total",
     "tpusc_gen_kv_pages_used_peak", "tpusc_gen_kv_pages_shared", "tpusc_gen_prefix_hits",
     "tpusc_gen_preemptions", "tpusc_gen_prefill_chunks", "tpusc_gen_stream_frames",

@@ -358,8 +358,11 @@ def test_the_kill_drill_writes_one_crash_dump(served):
     def reasons(flight_dir):
         return sorted(f.split("_", 3)[-1][:-5] for f in os.listdir(flight_dir))
 
-    assert reasons(port["flight"]) == ["engine_crash", "page_exhaustion"]
+    # the firing itself writes one fault_injected dump, as the reference's does
+    assert reasons(port["flight"]) == ["engine_crash", "fault_injected:kill_engine",
+                                       "page_exhaustion"]
     assert reasons(ref["flight"]).count("engine_crash") == 1
+    assert reasons(ref["flight"]).count("fault_injected:kill_engine") == 1
     crash = next(f for f in os.listdir(port["flight"]) if "engine_crash" in f)
     ctx = json.loads((port["flight"] / crash).read_text())["context"]
     assert ctx["recovered_rows"] == 2 and ctx["failed_rows"] == 0

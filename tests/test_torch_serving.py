@@ -264,8 +264,10 @@ def test_port_serves_without_importing_jax(tmp_path):
     solo path of a continuous node), nor with bert (``:predict`` at its
     capped seq bucket, ``:classify``) and resnet (``:predict``) built and
     served, nor with a t5 exported, repacked and warmed through ``cli`` and
-    served (``:predict``). ``jax``, ``jaxlib`` and ``flax`` are unimportable
-    in the subprocess from its first line."""
+    served (``:predict``), nor with the scenario lab's workload and scenario
+    modules, the chained timer and the backend probe imported and run. ``jax``,
+    ``jaxlib`` and ``flax`` are unimportable in the subprocess from its first
+    line."""
     script = textwrap.dedent(f"""
         import json, sys, urllib.request
 
@@ -536,6 +538,18 @@ def test_port_serves_without_importing_jax(tmp_path):
         for mod in ("bert", "resnet", "t5"):
             assert "tfservingcache_tpu_torch.models." + mod in sys.modules
         node.close()
+        # the scenario lab and the timing and probe helpers
+        import torch
+        from tfservingcache_tpu_torch.lab import scenario, workload
+        from tfservingcache_tpu_torch.utils import backend_probe, benchtime
+        sched = workload.compile_schedule(workload.WorkloadSpec(name="s", requests=2,
+                                                                rate_rps=500.0), 1)
+        row = scenario.run_cell(sched, lambda sr: {{"ok": True, "ttft_s": 0.001, "tokens": 1,
+                                                    "error": None}})
+        assert row["completed"] == 2 and row["platform"] == "cpu", row
+        assert benchtime.chained_device_time(lambda x: x * 2, (torch.ones(4),), iters=2,
+                                             max_iters=2) > 0
+        assert callable(backend_probe.cached_backend_answers)
         banned = ("jax", "tfservingcache_tpu", "prometheus_client", "aiohttp")
         bad = sorted(m for m in sys.modules
                      if m in banned or m.startswith(tuple(b + "." for b in banned)))

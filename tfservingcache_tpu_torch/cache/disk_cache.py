@@ -117,6 +117,11 @@ class ModelDiskCache:
     def ensure_free_bytes(self, n: int) -> list[ModelId]:
         return self.lru.ensure_free_bytes(n)
 
+    def remove(self, model_id: ModelId) -> None:
+        """Evict ``model_id`` now (its tree is deleted and the evict
+        callbacks run on the eviction worker; ``drain_evictions`` waits)."""
+        self.lru.remove(model_id, run_callback=True)
+
     def size_of(self, model_id: ModelId) -> int | None:
         """On-disk artifact bytes (None if absent)."""
         model = self.lru.get(model_id, touch=False)

@@ -340,6 +340,14 @@ class ObservabilityConfig:
     noisy_neighbor_window_s: float = 5.0
     # windows with less than this much total step time never fire
     noisy_neighbor_min_step_s: float = 0.25
+    # scenario-lab fault injector (lab/faults.py): "" keeps it disarmed and
+    # every hook site a one-bool-read passthrough; a JSON list of fault
+    # specs arms a drill at node start, e.g. '[{"kind": "freeze_scheduler",
+    # "after": 10, "duration_s": 0.25}]' (kinds: kill_engine,
+    # freeze_scheduler, stall_store, corrupt_peer_chunk, drop_peer). Also
+    # the TPUSC_OBSERVABILITY_LAB_FAULTS override; a malformed spec fails
+    # the start instead of running a drill that arms nothing.
+    lab_faults: str = ""
 
 
 @dataclass

@@ -24,9 +24,12 @@ four of the reference's:
 A spec of any other kind is refused: arming it would succeed and it would
 never fire.
 
-Disarmed (the default) every hook is one bool read and a return of the
-payload. The reference's metrics counter and flight-recorder dumps are not
-ported.
+Disarmed (the default, and the only state a node reaches without
+``observability.lab_faults``) every hook is one bool read and a return of
+the payload. Every firing tallies into the flight recorder
+(``RECORDER.note_fault``), increments ``tpusc_fault_injected_total{kind}``
+when a ``Metrics`` was armed alongside the specs, and writes one
+``fault_injected:<kind>`` flight dump under the recorder's cooldown.
 """
 
 from __future__ import annotations
@@ -38,10 +41,19 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+from tfservingcache_tpu_torch.utils.flight_recorder import RECORDER
+
 log = logging.getLogger("tpusc_torch.lab.faults")
 
 KILL_KINDS = ("kill_engine",)
 SLEEP_KINDS = ("freeze_scheduler", "stall_store")
+KINDS = (
+    "kill_engine",
+    "freeze_scheduler",
+    "stall_store",
+    "corrupt_peer_chunk",
+    "drop_peer",
+)
 # which hook site each fault kind attaches to (only kinds whose site is hooked)
 SITE_OF = {
     "kill_engine": "engine_step",
@@ -91,12 +103,16 @@ class FaultInjector:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._specs: list[FaultSpec] = []  # guarded-by: _lock
+        self._metrics: Any = None  # guarded-by: _lock
         self.armed = False
 
-    def arm(self, specs: list[FaultSpec]) -> None:
-        """Arm ``specs``, replacing any earlier arming."""
+    def arm(self, specs: list[FaultSpec], metrics: Any = None) -> None:
+        """Arm ``specs``, replacing any earlier arming. ``metrics`` is the
+        node's ``Metrics`` for the fault counter family; optional, so an
+        engine-only harness arms without a registry."""
         with self._lock:
             self._specs = list(specs)
+            self._metrics = metrics
         self.armed = True
         log.warning("fault injector ARMED: %s",
                     [f"{s.kind}(after={s.after},count={s.count})" for s in specs])
@@ -105,6 +121,7 @@ class FaultInjector:
         self.armed = False
         with self._lock:
             self._specs = []
+            self._metrics = None
 
     def snapshot(self) -> list[dict[str, Any]]:
         """Per-spec tallies."""
@@ -120,6 +137,7 @@ class FaultInjector:
         to_raise: InjectedFault | None = None
         fired_kinds: list[str] = []
         with self._lock:
+            metrics = self._metrics
             for s in self._specs:
                 if s.site != site:
                     continue
@@ -142,6 +160,12 @@ class FaultInjector:
                 elif s.kind == "drop_peer":
                     payload = None
         for kind in fired_kinds:
+            RECORDER.note_fault(kind)
+            if metrics is not None:
+                metrics.fault_injected.labels(kind).inc()
+            # one dump per (reason, model) inside the recorder's cooldown: a
+            # storm of firings is one spool file, not one each
+            RECORDER.dump(f"fault_injected:{kind}", model=model, site=site, peer=peer)
             log.warning("fault fired: %s at %s model=%s peer=%s", kind, site, model, peer)
         if to_sleep > 0.0:
             time.sleep(to_sleep)
@@ -173,8 +197,8 @@ def fire(site: str, model: str | None = None, peer: str | None = None,
     return _INJECTOR.fire(site, model=model, peer=peer, payload=payload)
 
 
-def arm(specs: list[FaultSpec]) -> None:
-    _INJECTOR.arm(specs)
+def arm(specs: list[FaultSpec], metrics: Any = None) -> None:
+    _INJECTOR.arm(specs, metrics=metrics)
 
 
 def disarm() -> None:
@@ -189,12 +213,13 @@ def snapshot() -> list[dict[str, Any]]:
     return _INJECTOR.snapshot()
 
 
-def arm_json(spec_json: str) -> None:
-    """Arm from a JSON list of FaultSpec dicts, e.g.
-    ``[{"kind": "freeze_scheduler", "after": 10, "duration_s": 0.25}]``. A
-    malformed spec raises: a drill that silently armed nothing would report
-    a meaningless green result."""
+def arm_json(spec_json: str, metrics: Any = None) -> None:
+    """Arm from the ``observability.lab_faults`` string (also the
+    ``TPUSC_OBSERVABILITY_LAB_FAULTS`` override): a JSON list of FaultSpec
+    dicts, e.g. ``[{"kind": "freeze_scheduler", "after": 10, "duration_s":
+    0.25}]``. A malformed spec raises: a drill that silently armed nothing
+    would report a meaningless green result."""
     raw = json.loads(spec_json)
     if not isinstance(raw, list):
         raise ValueError("lab_faults must be a JSON list of fault specs")
-    arm([FaultSpec(**d) for d in raw])
+    arm([FaultSpec(**d) for d in raw], metrics=metrics)

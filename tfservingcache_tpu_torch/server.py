@@ -46,6 +46,7 @@ from tfservingcache_tpu_torch.cache.manager import CacheManager
 from tfservingcache_tpu_torch.cache.providers import create_provider
 from tfservingcache_tpu_torch.cluster.status import StatusCollector
 from tfservingcache_tpu_torch.config import Config
+from tfservingcache_tpu_torch.lab import faults as lab_faults
 from tfservingcache_tpu_torch.parallel.mesh import chip_groups
 from tfservingcache_tpu_torch.protocol.local_backend import LocalServingBackend
 from tfservingcache_tpu_torch.protocol.rest import RestServingServer
@@ -291,6 +292,11 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
     device = device or cfg.serving.device
     metrics = Metrics(model_labels=cfg.metrics.model_labels,
                       max_model_labels=cfg.metrics.max_model_labels)
+    if cfg.observability.lab_faults:
+        # a scenario-lab drill (reference server.py:349-355), armed before
+        # anything is built: a malformed spec raises here and leaves no
+        # thread behind
+        lab_faults.arm_json(cfg.observability.lab_faults, metrics=metrics)
     if cfg.mesh.chips_per_group > 1:
         runtime = TorchModelRuntime(
             cfg.serving, devices=node_group(device, cfg.mesh.chips_per_group),

@@ -143,6 +143,7 @@ class FlightRecorder:
     _tpusc_guarded = {
         "_dumped_keys": "_lock",
         "_last_dump": "_lock",
+        "_fault_counts": "_lock",
     }
 
     def __init__(
@@ -163,6 +164,11 @@ class FlightRecorder:
         self._dump_seq = itertools.count()
         self._dumped_keys: collections.deque = collections.deque(maxlen=256)
         self._last_dump: dict[tuple, float] = {}
+        # scenario-lab fault tally (lab/faults.py note_fault): kind -> count
+        # of injections fired in this process. Rides the recorder, not
+        # Metrics, so an engine-only harness without a registry still gets
+        # a scorecard's fault count.
+        self._fault_counts: dict[str, int] = {}
         # latest conversation-KV tier stats (cache/conversation_kv.py
         # _update_gauges): parked counts/bytes/hit-rate. Rides the recorder
         # so /monitoring/engine and tools/engine_dump.py surface the tier
@@ -343,6 +349,18 @@ class FlightRecorder:
     def conversation_kv_stats(self) -> dict[str, Any] | None:
         with self._lock:
             return dict(self._conversation_kv) if self._conversation_kv else None
+
+    def note_fault(self, kind: str) -> None:
+        """Tally one scenario-lab fault injection (lab/faults.py): a handful
+        a drill, never on a per-token path."""
+        with self._lock:
+            self._fault_counts[kind] = self._fault_counts.get(kind, 0) + 1
+
+    def fault_counts(self) -> dict[str, int]:
+        """The per-kind injection tally (a scorecard diffs two of these
+        around a cell's replay)."""
+        with self._lock:
+            return dict(self._fault_counts)
 
     def engine_stats(self, tail: int = 32) -> dict[str, float]:
         """Cheap cross-model aggregate for the fleet status plane

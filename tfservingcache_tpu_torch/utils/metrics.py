@@ -7,8 +7,8 @@ names, histogram buckets and counter ``_total`` rule, so dashboards built on
 the reference read a port node unchanged; ``render()`` writes text
 exposition format 0.0.4, as ``prometheus_client.generate_latest`` does, less
 the ``*_created`` timestamp series. A family is registered here only once
-the port fires it (the group and fault families come with the modules
-that fire them). ``scrape_and_merge`` folds sidecar
+the port fires it (the group families come with the modules that fire
+them). ``scrape_and_merge`` folds sidecar
 exporters into a node's exposition with a stdlib copy of
 ``prometheus_client``'s text parser, so its output is the reference's.
 """
@@ -83,6 +83,17 @@ class Registry:
                 raise ValueError(f"duplicated metric family {fam.name!r}")
             self._names.add(fam.name)
             self._families.append(fam)
+
+    def family_total(self, name: str) -> float:
+        """The sum of a counter's or gauge's series over every label set
+        (the value of its ``<name>_total`` or bare samples); 0 for a name
+        not registered or a histogram."""
+        with self._lock:
+            fam = next((f for f in self._families if f.name == name), None)
+        if fam is None or fam.type == "histogram":
+            return 0.0
+        with fam.lock:
+            return sum(c.value for c in fam._children.values())
 
     def render(self) -> bytes:
         with self._lock:
@@ -411,6 +422,15 @@ class Metrics:
             "Generate rows transparently requeued after an engine-thread "
             "crash (reason=mid_decode|queued)",
             ["reason"], registry=r,
+        )
+        # scenario-lab drills (lab/faults.py, armed only through
+        # observability.lab_faults or an explicit arm): one increment per
+        # firing; zero unless an operator armed the injector
+        self.fault_injected = Counter(
+            "tpusc_fault_injected",
+            "Scenario-lab fault injections fired (kind=kill_engine|"
+            "freeze_scheduler|stall_store|corrupt_peer_chunk|drop_peer)",
+            ["kind"], registry=r,
         )
         # per-request phase attribution; the class label rides the
         # model_labels gate, so callers go through observe_phase
