@@ -120,8 +120,8 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      sources disk 2 / host 3, every promoted reply its disk load's byte for
      byte, the int8 entry's bytes and each promotion's stages printed beside
      the bf16 model's. Flash launches = n_layers x (requests + the disk
-     loads' warm-ups) on every predict node. The int8 artifact and its
-     disk-cache copy are deleted at the end;
+     loads' warm-ups) on every predict node. The int8 artifact's disk-cache
+     copy is deleted at the end; the artifact stays for the tp phase;
   10. generate — REST ``:generate`` on the same artifact in eighteen arms: (a)
      the continuous paged engine over a bf16 arena, 16 concurrent greedy
      requests plus a top_k=1 sampled one; (b) the solo path, two seeded
@@ -212,7 +212,20 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      launches must be n_layers x 16 a ring request and the flash kernel's
      n_layers a fall-through request (+ the load's warm-up forward). One
      warm (1, 4096) forward is profiled beside the one-card "auto" model's;
-  14. peer — peer model adoption over ``FetchPackedModel``: a sender node in
+  14. tp — tensor parallelism: REST ``:predict`` of the artifact on a
+     ``CacheNode`` around ``TorchModelRuntime(devices=[cuda:0] * 2)`` (the
+     generate arms' disk cache): the Megatron rules cut every weight over
+     the two shards (16 query and KV heads, 5504 FFN columns a shard; one
+     card runs them one after another), each shard's attention through the
+     flash kernel. One cold request, then ``--warm`` warm ones at each
+     serve shape, every reply held to the plain single-device path, flash
+     launches = n_layers x 2 x (requests + the load's warm-up forward);
+     the warm p50s, and one warm (2, 1024) forward profiled beside the
+     one-card module's. Then one cold ``:predict`` of the quant phase's
+     int8 artifact on a TP group (dequantized on the card, then cut), held
+     to that phase's one-card int8 reply; the int8 artifact and its copies
+     are deleted after it;
+  15. peer — peer model adoption over ``FetchPackedModel``: a sender node in
      a process of its own (on the serve phase's disk cache, a host tier that
      holds the artifact) answers a (1, 128) ``:predict``, a greedy
      ``:generate`` and an mnist ``:classify`` once; a receiver node in this
@@ -226,7 +239,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      armed once: the chunk's hash fails, the store serves it, the reply the
      sender's; (c) mnist from a stdlib fake S3 endpoint over the artifact
      store through ``model_provider.type: s3``, the reply the sender's;
-  15. moe — the moe_lm family on a store and disk cache of its own (deleted
+  16. moe — the moe_lm family on a store and disk cache of its own (deleted
      at the end): a random-weight artifact at Switch-Base-8's widths
      (MOE_CONFIG), a 2-layer draft of its first layers and the family's
      DEFAULT_CONFIG (head_dim 32), on one node. :predict at (1, 128) cold,
@@ -241,7 +254,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      acceptance, the positions that differ from the plain run); the
      default-config model's :predict through B2 at head_dim 32 (launches =
      its n_layers x (requests + 1), the same logits check);
-  16. zoo — the per-tenant classifier families on a store and disk cache of
+  17. zoo — the per-tenant classifier families on a store and disk cache of
      their own (deleted at the end), f32 artifacts of random weights: bert
      at bert-base's widths as two tenants and a third at max_seq 384, resnet
      at ResNet-50's as two tenants, on one node of two resident models, so
@@ -255,7 +268,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      equal off near-ties; B1-B4 launch 0 times over the phase; 4
      evictions; a warm forward of each family against its kernels' device
      time.
-  17. t5 — the encoder-decoder family on a store and disk cache of its own
+  18. t5 — the encoder-decoder family on a store and disk cache of its own
      (deleted at the end): three tenants written by ``cli export`` on the
      card, one process each, all started together (T5 v1.1-base's widths in
      bf16 and as int8, and the family's DEFAULT_CONFIG); ``cli repack`` of
@@ -274,7 +287,7 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      the head) to the CPU's on the same inputs; B1-B4 launch 0 times; a warm
      forward against its kernels, the reply encodes timed; ``cli warm`` on
      t5_base in a process of its own;
-  18. lab — the scenario lab (``lab/workload.py``, ``lab/scenario.py``):
+  19. lab — the scenario lab (``lab/workload.py``, ``lab/scenario.py``):
      ``default_scenarios(("tenant0", "tenant1"), requests=12, max_new=8)``
      x ``default_faults(0.4)`` (none, kill_engine, freeze_scheduler,
      stall_store, drop_peer), 20 cells, each ``compile_schedule(spec,
@@ -524,6 +537,12 @@ RING_DEVICE = "cuda:0"
 RING_REQUEST_SHAPES = [(1, 4096), (2, 1024), (1, 300), (1, 2)]
 RING_CHAIN = (1, 32, 32, 4096, 128)  # (B, H, Hkv, S, D) of the chained ring on one card
 # every phase runs on device 0: the last line's device count
+# the tp phase: REST :predict of the artifact on a group of TP_SHARDS copies
+# of the card (Megatron tensor parallelism: 16 query and KV heads and 5504
+# FFN columns a shard at llama-7b width), at REQUEST_SHAPES
+TP_SHARDS = 2
+TP_DEVICE = "cuda:0"
+TP_FORWARD_SHAPE = (2, 1024)  # the profiled warm forward, TP against one card
 CARDS_USED = 1
 RUN_NOTES: dict = {}  # a number one phase keeps for a later phase's line
 
@@ -1494,6 +1513,7 @@ class Artifact:
             f"(embed + layer 0 + ln_f) in {time.monotonic() - t0:.2f}s")
         # the same weights under "attention": "ring" for the ring phase
         t0 = time.monotonic()
+        self.int8_reply = None  # (ids, last-token logits): the quant phase's one-card reply
         self.ring_id = ModelId("llama7b_ring", 1)
         registry.save_artifact(
             os.path.join(self.store, self.ring_id.name, "1"),
@@ -2641,7 +2661,9 @@ def phase_quant(art: Artifact, seed: int, kernels: dict) -> None:
     reply its disk load's byte for byte, the int8 entry's bytes and its
     promotions' dequant time printed. B2's launches = n_layers x (requests
     + the disk loads' warm-up forwards) on every predict node. The int8
-    artifact and its disk-cache copies are deleted at the end."""
+    artifact's disk-cache copies are deleted at the end; the artifact stays
+    in the store, with its one-card (1, 128) reply in ``art.int8_reply``,
+    for the tp phase, which deletes it."""
     import types
 
     import numpy as np
@@ -2696,6 +2718,7 @@ def phase_quant(art: Artifact, seed: int, kernels: dict) -> None:
                 int8_replies[arm] = raw
                 pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
                 _check_logits(plain_q, TIER_SHAPE, ids, pred)
+                art.int8_reply = (ids, pred)  # the tp phase's one-card reference
                 if arm == "pipelined":
                     rng = np.random.default_rng(seed + 22)
                     url = f"{base}/{QUANT_NAME}/versions/1:predict"
@@ -2806,8 +2829,8 @@ def phase_quant(art: Artifact, seed: int, kernels: dict) -> None:
     finally:
         del plain_q
         torch.cuda.empty_cache()
-        # the card's machine caps a run's disk writes: the int8 copies go
-        shutil.rmtree(os.path.join(art.store, QUANT_NAME), ignore_errors=True)
+        # the card's machine caps a run's disk writes: the int8 disk-cache
+        # copy goes (the tp phase reads the artifact from the store)
         shutil.rmtree(os.path.join(art.work, "cache_serve", QUANT_NAME), ignore_errors=True)
 
 
@@ -2953,6 +2976,166 @@ def phase_ring(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
         log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     finally:
         node.close()
+
+
+def _check_against(pred, ref, what: str) -> float:
+    """(B, V) logits against another path's reply on the same input:
+    within LOGITS_TOL, argmax equal on every row whose top-2 margin exceeds
+    twice its own |diff| (``_check_logits``'s rule). -> max |diff|."""
+    import numpy as np
+
+    row_err = np.abs(pred - ref).max(axis=-1)
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * row_err
+    err = float(row_err.max())
+    log(f"  {what}: max|logits - reference| = {err:.5g} (tolerance {LOGITS_TOL}); argmax "
+        f"equal {(pred.argmax(-1) == ref.argmax(-1)).tolist()}")
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"{what}: logits differ from the reference by {err}")
+    if not (pred.argmax(-1) == ref.argmax(-1))[decided].all():
+        raise AssertionError(f"{what}: argmax differs from the reference")
+    return err
+
+
+def phase_tp(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
+    """REST :predict of the artifact on a node whose runtime is bound to
+    TP_SHARDS copies of the card (``TorchModelRuntime(devices=...)`` behind
+    ``CacheNode``, on the generate arms' disk cache): the partition rules cut
+    the weights over the group and each shard runs its heads' attention
+    through B2 (one card runs the shards one after another). One cold
+    request, then ``warm_reps`` warm ones at each of REQUEST_SHAPES; every
+    reply is checked (200, shape, finite) and held to the plain
+    single-device path by ``_check_logits``; B2's launches must be n_layers
+    x TP_SHARDS x (requests + the load's warm-up forward). The warm p50 of
+    each shape, then one warm TP_FORWARD_SHAPE forward of the TP module
+    profiled beside the one-card module's. Last, one cold :predict of the
+    quant phase's int8 artifact on a TP group, held to that phase's
+    one-card int8 reply (the int8 artifact and its disk-cache copy are
+    deleted after it)."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
+    from tfservingcache_tpu_torch.server import CacheNode
+
+    log(nvidia_smi_line())
+    try:
+        cfg = config_from_dict(art.node_config("gen"))
+        runtime = TorchModelRuntime(cfg.serving, devices=[TP_DEVICE] * TP_SHARDS)
+        node = CacheNode(cfg, runtime)
+        try:
+            base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+            url = f"{base}/{art.model_id.name}/versions/1:predict"
+            rng = np.random.default_rng(seed + 31)
+            requests = []
+            for shape in REQUEST_SHAPES:
+                ids = rng.integers(0, art.vocab, size=shape, dtype=np.int64)
+                requests += [(shape, ids) for _ in range(1 + warm_reps)]
+
+            # --- the main path: counters to 0, REST requests, counters read
+            A.FLASH_LAUNCHES.reset()
+            results = []
+            for shape, ids in requests:
+                status, body, dt = _post(url, {"instances": ids.tolist()}, timeout=900.0)
+                results.append((shape, ids, status, body, dt))
+            flash = A.FLASH_LAUNCHES.value
+            # -----------------------------------------------------------------
+
+            want = art.layers * TP_SHARDS * (len(requests) + 1)
+            log(f"flash launches on the tp path: {flash} (n_layers {art.layers} x "
+                f"{TP_SHARDS} shards x ({len(requests)} requests + the load's warm-up "
+                f"forward) = {want})")
+            if flash != want:
+                raise AssertionError(f"tp phase flash launches {flash} != {want}")
+            loaded = runtime._resident.get(art.model_id, touch=False)
+            if not loaded.tensor_parallel:
+                raise AssertionError("the tp node loaded the artifact on one device")
+            kernels["flash_attention"]["launches"] += flash
+            kernels["flash_attention"]["launches_tp_phase"] = flash
+            log(f"cold tp :predict (fetch + load + first request, shape {requests[0][0]}): "
+                f"{results[0][4] * 1e3:.1f} ms; resident bytes {loaded.nbytes} (the "
+                f"artifact's {art.nbytes})")
+            for shape, ids, status, body, _dt in results:
+                if status != 200:
+                    raise AssertionError(f"tp :predict {shape} answered {status}: {body}")
+                pred = np.asarray(body["predictions"], dtype=np.float32)
+                if pred.shape != (shape[0], art.vocab) or not np.isfinite(pred).all():
+                    raise AssertionError(f"tp :predict {shape}: predictions {pred.shape}, "
+                                         f"finite={bool(np.isfinite(pred).all())}")
+                _check_logits(art.plain_model, shape, ids, pred)
+            for shape in REQUEST_SHAPES:
+                warm = [r[4] for r in results if r[0] == shape][1:]
+                log(f"warm tp-node :predict {shape}: p50 {statistics.median(warm) * 1e3:.2f} "
+                    f"ms over {len(warm)} requests (host clock, localhost HTTP, JSON; "
+                    f"{nvidia_smi_line()})")
+            torch.cuda.empty_cache()
+
+            # one warm forward: the TP module (two shards, one after another
+            # on the card) and the one-card module on the same weights
+            dev_in = {"input_ids": torch.from_numpy(
+                rng.integers(0, art.vocab, size=TP_FORWARD_SHAPE, dtype=np.int64)).cuda()}
+            for name, model in ((f"tp, {TP_SHARDS} shards on one card", loaded.module),
+                                ("one card", art.plain_model)):
+                def forward():
+                    with torch.inference_mode():
+                        model(dev_in)
+                    torch.cuda.synchronize()
+
+                fwd_ms = host_ms(forward, reps=5)
+                by_kernel = device_kernels(lambda: model(dev_in))
+                prof = device_kernel_ms(None, ("flash_fwd_kernel",), by_kernel)
+                if prof is None:
+                    log(f"  {TP_FORWARD_SHAPE} forward, {name}: {fwd_ms:.2f} ms host clock; "
+                        "device time not measured (the profiler saw none)")
+                    continue
+                busy, (attn,) = prof
+                log(f"  {TP_FORWARD_SHAPE} forward, {name}: {fwd_ms:.2f} ms host clock; "
+                    f"device kernels {busy:.2f} ms (busy share {busy / fwd_ms:.3f}, "
+                    f"torch.profiler); flash_fwd_kernel {attn:.3f} ms = {attn / busy:.3f} of "
+                    f"device time ({nvidia_smi_line()})")
+                top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+                log("    largest kernels: " + "; ".join(
+                    f"{ms / busy:.3f} {key[:60]}" for key, ms in top))
+            log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        finally:
+            node.close()
+
+        # the int8 arm: the quant phase's artifact, cold, on a TP group
+        if art.int8_reply is None:
+            raise AssertionError("the quant phase left no one-card int8 reply")
+        ids, ref = art.int8_reply
+        runtime = TorchModelRuntime(cfg.serving, devices=[TP_DEVICE] * TP_SHARDS)
+        node = CacheNode(cfg, runtime)
+        try:
+            base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+            A.FLASH_LAUNCHES.reset()
+            status, body, dt = _post(f"{base}/{QUANT_NAME}/versions/1:predict",
+                                     {"instances": ids.tolist()}, timeout=900.0)
+            flash = A.FLASH_LAUNCHES.value
+            if status != 200:
+                raise AssertionError(f"tp int8 :predict answered {status}: {body}")
+            pred = np.asarray(body["predictions"], dtype=np.float32)
+            if pred.shape != ref.shape or not np.isfinite(pred).all():
+                raise AssertionError(f"tp int8 :predict: predictions {pred.shape}")
+            want = art.layers * TP_SHARDS * 2
+            log(f"cold tp int8 :predict {TIER_SHAPE}: {dt * 1e3:.1f} ms; flash launches "
+                f"{flash} (n_layers x {TP_SHARDS} shards x (1 request + the warm-up) = "
+                f"{want})")
+            if flash != want or not runtime._resident.get(_mid(QUANT_NAME)).tensor_parallel:
+                raise AssertionError(f"tp int8 arm: flash launches {flash} != {want}, or "
+                                     "loaded on one device")
+            kernels["flash_attention"]["launches"] += flash
+            kernels["flash_attention"]["launches_tp_phase"] += flash
+            _check_against(pred, ref, f"tp int8 {TIER_SHAPE} against the one-card int8 reply")
+        finally:
+            node.close()
+    finally:
+        torch.cuda.empty_cache()
+        # the card's machine caps a run's disk writes: the int8 copies go
+        shutil.rmtree(os.path.join(art.store, QUANT_NAME), ignore_errors=True)
+        shutil.rmtree(os.path.join(art.work, "cache_gen", QUANT_NAME), ignore_errors=True)
 
 
 def _teacher_forced_logits(plain_model, prompt, tokens):
@@ -6317,7 +6500,7 @@ def _t5_layers(card, cpu, inputs: dict) -> None:
             hold(name, out, ref(*[host(a) for a in args]))
         hold("enc_ln", seen[n_enc][2][1], t5.rmsnorm(host(seen[n_enc - 1][3]), cpu.enc_ln))
         y = t5.rmsnorm(host(seen[-1][3]), cpu.dec_ln)
-        hold("head", logits, (y / math.sqrt(cpu.cfg["d_model"])) @ cpu.embed.t())
+        hold("head", logits, (y / math.sqrt(cpu.cfg["d_model"])) @ cpu.embed.to(cpu.dtype).t())
     stage, err = max(worst.items(), key=lambda kv: kv[1])
     log(f"  [t5] f32 stages on the card against the CPU's on the same inputs "
         f"({len(worst)} stages, the biases bit for bit): worst {stage} {err:.2e} of its max "
@@ -6631,6 +6814,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_cluster(art, args.seed, kernels)
         with Phase("ring"):
             phase_ring(art, args.seed, args.warm, kernels)
+        with Phase("tp"):
+            phase_tp(art, args.seed, args.warm, kernels)
         with Phase("peer"):
             phase_peer(art, args.seed, kernels)
         with Phase("moe"):

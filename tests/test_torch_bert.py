@@ -224,6 +224,27 @@ def test_past_the_cap_both_runtimes_refuse_alike(cap_runtimes):
     assert str(got.value) == str(want.value) == "'seq' dim 50 exceeds this model's maximum 48"
 
 
+def test_a_group_runtime_refuses_the_tp_rules(tmp_path):
+    """bert declares the reference's Megatron rules and has no tensor-parallel
+    module: a group of more than one device refuses it before any transfer,
+    a group of one serves it."""
+    path = jreg.export_artifact("bert", str(tmp_path), name="bg", version=1, config=TINY,
+                                seed=2)
+    model = Model(identifier=ModelId("bg", 1), path=path)
+    rt = TorchModelRuntime(ServingConfig(), devices=["cpu", "cpu"])
+    try:
+        with pytest.raises(RuntimeError_, match="tensor parallelism over a group: later slice"):
+            rt.ensure_loaded(model)
+        assert not rt.is_loaded(model.identifier)
+    finally:
+        rt.close()
+    rt = TorchModelRuntime(ServingConfig(), devices=["cpu"])
+    try:
+        assert rt.ensure_loaded(model) == "disk"
+    finally:
+        rt.close()
+
+
 def test_an_uncapped_family_still_pads_to_a_power_of_two(cap_runtimes):
     port, _ref = cap_runtimes
     spec = {"x": treg.TensorSpec("int32", ("batch", "seq"))}

@@ -48,7 +48,6 @@ from tfservingcache_tpu_torch.config import ServingConfig, config_from_dict
 from tfservingcache_tpu_torch.models import moe_lm as tmoe
 from tfservingcache_tpu_torch.models import registry as treg
 from tfservingcache_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
-from tfservingcache_tpu_torch.runtime.base import RuntimeError_
 from tfservingcache_tpu_torch.runtime.batcher import GenerateCoalescer
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
 from tfservingcache_tpu_torch.server import build_node
@@ -187,12 +186,21 @@ def test_each_lm_default_head_dim_has_a_kernel(family):
 
 
 def test_a_group_runtime_refuses_the_expert_rules(store):
-    rt = TorchModelRuntime(ServingConfig(), devices=["cpu", "cpu"])
-    try:
-        with pytest.raises(RuntimeError_, match="tensor parallelism over a group"):
+    """A group's one axis is "model": the expert rule degrades to
+    replication, attention is tensor parallel, and the group serves the
+    logits of a group of one."""
+    ids = np.random.default_rng(6).integers(0, MOE["vocab_size"], (2, 12)).astype(np.int32)
+    logits = {}
+    for group in (["cpu", "cpu"], ["cpu"]):
+        rt = TorchModelRuntime(ServingConfig(), devices=group)
+        try:
             rt.ensure_loaded(Model(identifier=M, path=str(store / "moe" / "1")))
-    finally:
-        rt.close()
+            assert rt._resident.get(M).tensor_parallel is (len(group) > 1)
+            logits[len(group)] = rt.predict(M, {"input_ids": ids},
+                                            output_filter=["logits"])["logits"]
+        finally:
+            rt.close()
+    np.testing.assert_allclose(logits[2], logits[1], rtol=0, atol=1e-4)  # f32
 
 
 # -- the runtimes ---------------------------------------------------------------

@@ -183,24 +183,26 @@ def test_generate_on_a_group_runtime_gives_the_one_device_tokens(ring_store, cou
         rt_one.close()
 
 
-def test_tensor_parallel_model_on_a_group_raises(tmp_path):
-    """A non-ring transformer_lm declares the reference's Megatron rules:
-    a group of more than one device refuses it; a group of one serves it."""
+def test_tensor_parallel_model_on_a_group_raises(tmp_path, counted_hops):
+    """A non-ring transformer_lm declares the reference's Megatron rules: a
+    group of more than one device serves it tensor parallel (no ring hop),
+    with the logits of a group of one, which serves it as one device."""
     jreg.export_artifact("transformer_lm", str(tmp_path), name="tp",
                          config=dict(RING, attention="auto", dtype="float32"))
     model = Model(identifier=ModelId("tp", 1), path=str(tmp_path / "tp" / "1"))
-    rt = TorchModelRuntime(device="cpu", devices=["cpu"] * 2)
-    try:
-        with pytest.raises(RuntimeError_, match="tensor parallelism over a group: later slice"):
-            rt.ensure_loaded(model)
-        assert not rt.is_loaded(model.identifier)
-    finally:
-        rt.close()
-    rt1 = TorchModelRuntime(device="cpu", devices=["cpu"])
-    try:
-        assert rt1.ensure_loaded(model) == "disk"
-    finally:
-        rt1.close()
+    ids = np.random.default_rng(5).integers(0, 512, (2, 16)).astype(np.int32)
+    logits = {}
+    for n in (2, 1):
+        rt = TorchModelRuntime(device="cpu", devices=["cpu"] * n)
+        try:
+            assert rt.ensure_loaded(model) == "disk"
+            assert rt._resident.get(model.identifier).tensor_parallel is (n > 1)
+            logits[n] = rt.predict(model.identifier, {"input_ids": ids},
+                                   output_filter=["logits"])["logits"]
+        finally:
+            rt.close()
+    assert counted_hops == []
+    np.testing.assert_allclose(logits[2], logits[1], rtol=0, atol=1e-4)
 
 
 def test_group_runtime_rejects_a_leader_that_is_not_devices_0(monkeypatch):

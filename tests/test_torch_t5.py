@@ -316,14 +316,28 @@ def test_a_group_runtime_refuses_the_tp_rules(runtimes):
         rt.close()
 
 
-def test_the_loaded_module_shares_the_artifacts_storage(runtimes):
-    """The resident module's parameters are the loaded tree's leaves (a bf16
-    artifact: no cast copy on the device)."""
+def test_the_loaded_module_shares_the_artifacts_storage(runtimes, tmp_path):
+    """The resident module's parameters are the loaded tree's leaves, for a
+    bf16 artifact and for an f32 one served in bf16 (the module casts at
+    use: no cast copy on the device)."""
+    import dataclasses
+
     port, _ref, _path = runtimes
     loaded = port._resident.get(ModelId("t5t", 1), touch=False)
     leaves = {leaf.data_ptr() for _p, leaf in treg.flatten_params(loaded.params)}
     assert all(p.dtype == torch.bfloat16 and p.data_ptr() in leaves
                for p in loaded.module.parameters())
+    f32_model = dataclasses.replace(jreg.build("t5", TINY), store_param_dtype=None)
+    path = jreg.save_artifact(str(tmp_path / "t5f" / "1"), f32_model, _params(TINY, 3))
+    rt = TorchModelRuntime(ServingConfig(), device="cpu")
+    try:
+        rt.ensure_loaded(Model(identifier=ModelId("t5f", 1), path=path))
+        loaded = rt._resident.get(ModelId("t5f", 1), touch=False)
+        leaves = {leaf.data_ptr() for _p, leaf in treg.flatten_params(loaded.params)}
+        assert all(p.dtype == torch.float32 and p.data_ptr() in leaves
+                   for p in loaded.module.parameters())
+    finally:
+        rt.close()
 
 
 def test_concurrent_requests_batch_and_answer_their_solo_replies(runtimes):

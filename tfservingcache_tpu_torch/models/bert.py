@@ -20,8 +20,10 @@ ln1_b,ln2_g,ln2_b}`` with ``(in, out)`` weights, ``pool_{w,b}``,
   - the head follows jnp's type promotion: ``x[:, 0] @ pool_w`` rounds to
     the compute dtype, adding the f32 ``pool_b`` promotes to f32, so tanh
     and the classifier run in f32.
-The module casts each layer's weights to the compute dtype once, when it is
-built (the reference casts them at every call, to the same values).
+The module holds the loaded tree's leaves as they are and casts each weight
+to the compute dtype inside the forward, as the reference casts inside its
+jitted apply: an f32 artifact served in bf16 keeps no second copy of its
+weights on the device, and the resident bytes are the tree's bytes.
 """
 
 from __future__ import annotations
@@ -59,9 +61,6 @@ TINY_CONFIG: dict[str, Any] = {
     "dtype": "bfloat16",
 }
 
-_LN_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b")
-
-
 def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-12) -> torch.Tensor:
     """The reference's ``_layernorm``: f32 statistics (biased variance), gain
@@ -78,28 +77,33 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, p: dict, n_heads: int, dtype: torch.dtype) -> None:
+    def __init__(self, p: dict, n_heads: int) -> None:
         super().__init__()
         self.n_heads = n_heads
         for name, t in p.items():
-            setattr(self, name, _frozen(t if name in _LN_KEYS else t.to(dtype)))
+            setattr(self, name, _frozen(t))
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
         h = self.n_heads
         hd = d // h
+        dt = x.dtype
+
+        def dense(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+            # weight and bias cast to the compute dtype at use (reference :93)
+            return y @ w.to(dt) + bias.to(dt)
 
         def heads(w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-            return (x @ w + bias).reshape(b, s, h, hd).transpose(1, 2)
+            return dense(x, w, bias).reshape(b, s, h, hd).transpose(1, 2)
 
         q, k, v = heads(self.wq, self.bq), heads(self.wk, self.bk), heads(self.wv, self.bv)
         # f32 scores from the compute-dtype q and k (products exact in f32)
         scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
-        probs = torch.softmax(scores + mask_bias, dim=-1).to(x.dtype)
+        probs = torch.softmax(scores + mask_bias, dim=-1).to(dt)
         ctx = (probs @ v).transpose(1, 2).reshape(b, s, d)
-        x = layernorm(x + (ctx @ self.wo + self.bo), self.ln1_g, self.ln1_b)
-        ff = F.gelu(x @ self.w1 + self.b1, approximate="tanh")
-        return layernorm(x + (ff @ self.w2 + self.b2), self.ln2_g, self.ln2_b)
+        x = layernorm(x + dense(ctx, self.wo, self.bo), self.ln1_g, self.ln1_b)
+        ff = F.gelu(dense(x, self.w1, self.b1), approximate="tanh")
+        return layernorm(x + dense(ff, self.w2, self.b2), self.ln2_g, self.ln2_b)
 
 
 class BertEncoder(nn.Module):
@@ -112,10 +116,8 @@ class BertEncoder(nn.Module):
         self.dtype = getattr(torch, cfg["dtype"])
         for name in ("word_emb", "pos_emb", "type_emb", "emb_ln_g", "emb_ln_b",
                      "pool_w", "pool_b", "cls_w", "cls_b"):
-            t = params[name]
-            setattr(self, name, _frozen(t.to(self.dtype) if name in ("pool_w", "cls_w") else t))
-        self.layers = nn.ModuleList(
-            EncoderLayer(p, cfg["n_heads"], self.dtype) for p in params["layers"])
+            setattr(self, name, _frozen(params[name]))
+        self.layers = nn.ModuleList(EncoderLayer(p, cfg["n_heads"]) for p in params["layers"])
 
     def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         ids = inputs["input_ids"].long()
@@ -135,9 +137,9 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, mask_bias)
         # jnp's promotion: a compute-dtype product plus the f32 bias is f32
-        pooled = torch.tanh(x[:, 0] @ self.pool_w + self.pool_b)
-        head = torch.promote_types(pooled.dtype, self.cls_w.dtype)
-        logits = pooled.to(head) @ self.cls_w.to(head) + self.cls_b
+        pooled = torch.tanh(x[:, 0] @ self.pool_w.to(self.dtype) + self.pool_b)
+        head = torch.promote_types(pooled.dtype, self.dtype)
+        logits = pooled.to(head) @ self.cls_w.to(self.dtype).to(head) + self.cls_b
         return {"logits": logits.float(), "pooled_output": pooled.float()}
 
 
@@ -184,8 +186,8 @@ def build(config: dict) -> ModelDef:
             "cls_b": zeros(cfg["num_labels"]),
         }
 
-    # the reference's Megatron-style rules over the "model" axis; the port
-    # has no tensor parallelism yet, so a group runtime refuses them
+    # the reference's Megatron-style rules over the "model" axis; the family
+    # has no tensor-parallel module, so a group runtime refuses them
     partition_rules = {
         r"layers/\d+/w[qkv]": (None, "model"),
         r"layers/\d+/wo": ("model", None),

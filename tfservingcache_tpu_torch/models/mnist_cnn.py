@@ -33,25 +33,26 @@ class MnistCNN(nn.Module):
 
     def __init__(self, params: dict) -> None:
         super().__init__()
-        bf16 = torch.bfloat16
-        # HWIO -> OIHW, cast to the compute dtype once (flax casts at use)
-        self.conv0 = _frozen(params["Conv_0"]["kernel"].permute(3, 2, 0, 1).to(bf16).contiguous())
-        self.conv0_b = _frozen(params["Conv_0"]["bias"].to(bf16))
-        self.conv1 = _frozen(params["Conv_1"]["kernel"].permute(3, 2, 0, 1).to(bf16).contiguous())
-        self.conv1_b = _frozen(params["Conv_1"]["bias"].to(bf16))
-        self.dense0 = _frozen(params["Dense_0"]["kernel"].to(bf16))
-        self.dense0_b = _frozen(params["Dense_0"]["bias"].to(bf16))
-        self.dense1 = _frozen(params["Dense_1"]["kernel"].float())
-        self.dense1_b = _frozen(params["Dense_1"]["bias"].float())
+        # HWIO -> OIHW: a view of the leaf; every weight is cast to the
+        # compute dtype at use, as flax casts it
+        self.conv0 = _frozen(params["Conv_0"]["kernel"].permute(3, 2, 0, 1))
+        self.conv0_b = _frozen(params["Conv_0"]["bias"])
+        self.conv1 = _frozen(params["Conv_1"]["kernel"].permute(3, 2, 0, 1))
+        self.conv1_b = _frozen(params["Conv_1"]["bias"])
+        self.dense0 = _frozen(params["Dense_0"]["kernel"])
+        self.dense0_b = _frozen(params["Dense_0"]["bias"])
+        self.dense1 = _frozen(params["Dense_1"]["kernel"])
+        self.dense1_b = _frozen(params["Dense_1"]["bias"])
 
     def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        x = inputs["image"].to(torch.bfloat16).permute(0, 3, 1, 2)          # NCHW
+        bf16 = torch.bfloat16
+        x = inputs["image"].to(bf16).permute(0, 3, 1, 2)                    # NCHW
         for w, b in ((self.conv0, self.conv0_b), (self.conv1, self.conv1_b)):
-            x = F.conv2d(x, w, padding=1) + b[None, :, None, None]           # SAME, 3x3
-            x = F.avg_pool2d(torch.relu(x), 2)
+            x = F.conv2d(x, w.to(bf16).contiguous(), padding=1)              # SAME, 3x3
+            x = F.avg_pool2d(torch.relu(x + b.to(bf16)[None, :, None, None]), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)                    # NHWC flatten
-        x = torch.relu(x @ self.dense0 + self.dense0_b)
-        logits = x.float() @ self.dense1 + self.dense1_b
+        x = torch.relu(x @ self.dense0.to(bf16) + self.dense0_b.to(bf16))
+        logits = x.float() @ self.dense1.float() + self.dense1_b.float()
         return {"logits": logits, "classes": logits.argmax(dim=-1).to(torch.int32)}
 
 

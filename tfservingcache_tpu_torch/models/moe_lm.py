@@ -33,12 +33,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+from tfservingcache_tpu_torch.models.registry import (
+    ModelDef,
+    TensorParallelPlan,
+    TensorSpec,
+    register,
+)
 from tfservingcache_tpu_torch.models.transformer_lm import (
     Attention,
+    TensorParallelLM,
+    TPAttention,
     TransformerLM,
     _param,
     rmsnorm,
+    tensor_parallel_plan,
 )
 
 DEFAULT_CONFIG: dict[str, Any] = {
@@ -119,12 +127,42 @@ class MoELM(TransformerLM):
     block_cls = MoEBlock
 
 
+class TPMoEBlock(nn.Module):
+    """``MoEBlock`` on a group whose only axis is ``"model"``: attention
+    tensor parallel (``TPAttention``); the expert weights' ``"expert"`` axis
+    is absent, so they are replicated and the routed FFN runs whole on the
+    leader with the router (the reference's model-mesh case, its
+    ``moe_lm.py:172-184``)."""
+
+    def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.attn = TPAttention(p["attn"], cfg, group)
+        self.moe = MoE({name: leaf.shards[0] for name, leaf in p["moe"].items()})
+        self.ln1, self.ln2 = _param(p["ln1"].shards[0]), _param(p["ln2"].shards[0])
+
+    def forward(self, x: torch.Tensor, attention_fn) -> torch.Tensor:
+        x = x + self.attn(rmsnorm(x, self.ln1), attention_fn)
+        return x + self.moe(rmsnorm(x, self.ln2), self.cfg)
+
+
+class TensorParallelMoELM(TensorParallelLM):
+    """``TensorParallelLM``'s embedding, norms and tied output over
+    ``TPMoEBlock`` layers."""
+
+    block_cls = TPMoEBlock
+
+
 @register("moe_lm", DEFAULT_CONFIG)
 def build(config: dict) -> ModelDef:
     cfg = config
 
     def make_module(params: Any) -> nn.Module:
         return MoELM(params, cfg)
+
+    def tensor_parallel(group: tuple[torch.device, ...]) -> TensorParallelPlan:
+        return tensor_parallel_plan(cfg, partition_rules, group, TensorParallelMoELM,
+                                    halves=("attn", "embed"))
 
     def init(gen: torch.Generator) -> dict:
         """Random params in the reference's layout: N(0, 1/fan_in) weights in
@@ -167,8 +205,9 @@ def build(config: dict) -> ModelDef:
         return logits[:b, s - 1, :]
 
     # the reference's expert parallelism ("expert" axis) and Megatron-style
-    # attention over "model"; the port shards no weight yet, so a group
-    # runtime refuses these rules (runtime/model_runtime.py)
+    # attention over "model"; a port group has the "model" axis only, so
+    # the expert rule degrades to replication (an expert axis is a later
+    # slice)
     partition_rules = {
         "embed": (None, "model"),
         r"layers/\d+/attn/w[qkv]": (None, "model"),
@@ -194,4 +233,5 @@ def build(config: dict) -> ModelDef:
         default_outputs=["last_token_logits"],
         store_param_dtype=cfg["dtype"],
         partition_rules=partition_rules,
+        tensor_parallel=tensor_parallel,
     )

@@ -115,8 +115,9 @@ class ModelDef:
     # float params are cast to this dtype when the artifact is written
     store_param_dtype: str | None = None
     # the reference's mesh-axis partition rules (param path regex -> axes);
-    # a rule naming an axis is tensor parallelism, which the port does not
-    # have yet: a group runtime refuses such a family
+    # a rule naming an axis is tensor parallelism: on a group of more than
+    # one device a family that declares such rules is served through
+    # ``tensor_parallel``, or refused where it has none
     partition_rules: dict[str, tuple] = field(default_factory=dict)
     # hard upper bound per named dynamic axis (bert's {"seq": max_seq}, its
     # absolute position table): the runtime clamps the axis's power-of-two
@@ -127,6 +128,23 @@ class ModelDef:
     # it, and a group runtime builds ``bind_group(group)(params)`` in place
     # of ``make_module(params)``; None = the family ignores the group
     bind_group: Callable[[tuple[torch.device, ...]], Callable[[Any], torch.nn.Module]] | None = None
+    # tensor parallelism on a device group (the reference's GSPMD program
+    # over its partition rules): ``tensor_parallel(group)`` -> the plan a
+    # group runtime shards the loaded tree by and builds the module with
+    tensor_parallel: Callable[[tuple[torch.device, ...]], TensorParallelPlan] | None = None
+
+
+@dataclass
+class TensorParallelPlan:
+    """How a family runs on a device group. ``rules`` are the partition
+    rules the runtime cuts the tree by (``parallel.sharding.shard_params``):
+    the family's, with every half the group's size does not divide
+    replicated; ``halves`` says which halves are cut (the load span logs
+    it); ``make_module(sharded_tree)`` builds the group's module."""
+
+    rules: dict[str, tuple]
+    halves: dict[str, bool]
+    make_module: Callable[[Any], torch.nn.Module]
 
 
 _REGISTRY: dict[str, Callable[[dict[str, Any]], ModelDef]] = {}

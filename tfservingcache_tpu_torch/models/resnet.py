@@ -16,8 +16,11 @@ norm takes f32 statistics and applies scale and bias in f32 before one
 rounding (flax's ``GroupNorm``, eps 1e-6); the global mean accumulates in
 f32 and rounds to bf16, as ``jnp.mean`` does; the classifier runs in f32.
 Flax convolves NHWC: the module permutes the NHWC input to an NCHW view,
-which lies channels-last in memory, and keeps its conv weights
-channels-last to match.
+which lies channels-last in memory, and lays each conv weight out
+channels-last to match when it casts it. The module holds the loaded
+tree's leaves (a conv kernel as an OIHW view of its HWIO leaf) and casts
+each weight to the compute dtype inside the forward, as flax casts at use:
+an f32 artifact served in bf16 keeps no second copy on the device.
 """
 
 from __future__ import annotations
@@ -75,15 +78,18 @@ class ConvNorm(nn.Module):
     def __init__(self, conv: dict, norm: dict, groups: int, stride: int,
                  dtype: torch.dtype) -> None:
         super().__init__()
-        # HWIO -> OIHW, channels-last in memory, cast once (flax casts at use)
-        self.kernel = _frozen(conv["kernel"].permute(3, 2, 0, 1).to(dtype)
-                              .contiguous(memory_format=torch.channels_last))
-        self.scale, self.bias = _frozen(norm["scale"].float()), _frozen(norm["bias"].float())
+        # HWIO -> OIHW: a view of the leaf
+        self.kernel = _frozen(conv["kernel"].permute(3, 2, 0, 1))
+        self.dtype = dtype
+        self.scale, self.bias = _frozen(norm["scale"]), _frozen(norm["bias"])
         self.k, self.stride, self.groups = self.kernel.shape[-1], stride, groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(same_pad(x, self.k, self.stride), self.kernel, stride=self.stride)
-        return group_norm(y, self.groups, self.scale, self.bias)
+        # cast to the compute dtype at use, as flax does, channels-last in
+        # memory; the copy lives for this call only
+        kernel = self.kernel.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(same_pad(x, self.k, self.stride), kernel, stride=self.stride)
+        return group_norm(y, self.groups, self.scale.float(), self.bias.float())
 
 
 class Block(nn.Module):
@@ -145,8 +151,8 @@ class ResNet(nn.Module):
                 blocks.append(Block(params[f"{name}_{i}"], bottleneck, stride, dtype))
                 i += 1
         self.blocks = nn.ModuleList(blocks)
-        self.dense = _frozen(params["Dense_0"]["kernel"].float())
-        self.dense_b = _frozen(params["Dense_0"]["bias"].float())
+        self.dense = _frozen(params["Dense_0"]["kernel"])
+        self.dense_b = _frozen(params["Dense_0"]["bias"])
 
     def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         x = inputs["image"].to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last
@@ -154,7 +160,7 @@ class ResNet(nn.Module):
         for block in self.blocks:
             x = block(x)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
-        logits = x.float() @ self.dense + self.dense_b
+        logits = x.float() @ self.dense.float() + self.dense_b.float()
         return {"logits": logits, "classes": logits.argmax(dim=-1).to(torch.int32)}
 
 

@@ -23,12 +23,14 @@ reference's does:
   - the feed-forward is ``gelu_tanh(x @ w0) * (x @ w1) @ w2``;
   - the head divides y by sqrt(d_model) in the compute dtype and multiplies
     by the embedding transposed (a view), then widens to f32.
-Only the layer trees are cast to the compute dtype; the two bias tables keep
-their stored dtype and widen to f32 at use. The embedding is held in the
-compute dtype: a cast commutes with the gather, so its rows are the
-reference's gather-then-cast. Artifacts store ``cfg["dtype"]``, so for an
-artifact every cast is the tensor itself and the module holds no second
-copy of a weight.
+The module holds the loaded tree's leaves as they are and casts each
+weight, norm gain and the embedding to the compute dtype at use, as the
+reference's jitted apply does; the two bias tables keep their stored dtype
+and widen to f32 at use. The embedding gather casts the gathered rows (a
+cast commutes with the gather), the head the whole table. The family's
+artifacts store ``cfg["dtype"]``, so for them every cast is the tensor
+itself; an f32 artifact served in bf16 keeps no second copy of a weight
+either, its copies living for one call.
 
 Relative bucket indices are computed on the host in f32 in the reference's
 order of operations (a device ``logf`` one ulp low would move the distances
@@ -123,12 +125,12 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 class _Weights(nn.Module):
     """One subtree of plain weights (an attention's ``wq, wk, wv, wo``, a
-    feed-forward's ``w0, w1, w2``), each cast to the compute dtype once."""
+    feed-forward's ``w0, w1, w2``), held as loaded and cast at use."""
 
-    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+    def __init__(self, p: dict) -> None:
         super().__init__()
         for name, t in p.items():
-            setattr(self, name, _frozen(t.to(dtype)))
+            setattr(self, name, _frozen(t))
 
 
 def attention(p: _Weights, q_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.Tensor | None,
@@ -138,30 +140,32 @@ def attention(p: _Weights, q_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.
     b, sq, d = q_in.shape
     sk = kv_in.shape[1]
     hd = d // n_heads
-    q = (q_in @ p.wq).reshape(b, sq, n_heads, hd).transpose(1, 2)
-    k = (kv_in @ p.wk).reshape(b, sk, n_heads, hd).transpose(1, 2)
-    v = (kv_in @ p.wv).reshape(b, sk, n_heads, hd).transpose(1, 2)
+    dt = q_in.dtype
+    q = (q_in @ p.wq.to(dt)).reshape(b, sq, n_heads, hd).transpose(1, 2)
+    k = (kv_in @ p.wk.to(dt)).reshape(b, sk, n_heads, hd).transpose(1, 2)
+    v = (kv_in @ p.wv.to(dt)).reshape(b, sk, n_heads, hd).transpose(1, 2)
     # f32 scores from the compute-dtype q and k (products exact in f32)
     scores = q.float() @ k.float().transpose(-1, -2)
     if bias is not None:
         scores = scores + bias
     scores = torch.where(mask, scores, _MASKED)
-    probs = torch.softmax(scores, dim=-1).to(q_in.dtype)
+    probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = (probs @ v).transpose(1, 2).reshape(b, sq, d)
-    return ctx @ p.wo
+    return ctx @ p.wo.to(dt)
 
 
 def geglu(p: _Weights, x: torch.Tensor) -> torch.Tensor:
-    return (F.gelu(x @ p.w0, approximate="tanh") * (x @ p.w1)) @ p.w2
+    dt = x.dtype
+    return (F.gelu(x @ p.w0.to(dt), approximate="tanh") * (x @ p.w1.to(dt))) @ p.w2.to(dt)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+    def __init__(self, p: dict) -> None:
         super().__init__()
-        self.attn = _Weights(p["attn"], dtype)
-        self.mlp = _Weights(p["mlp"], dtype)
-        self.ln1 = _frozen(p["ln1"].to(dtype))
-        self.ln2 = _frozen(p["ln2"].to(dtype))
+        self.attn = _Weights(p["attn"])
+        self.mlp = _Weights(p["mlp"])
+        self.ln1 = _frozen(p["ln1"])
+        self.ln2 = _frozen(p["ln2"])
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, src_valid: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
@@ -171,13 +175,13 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, p: dict, dtype: torch.dtype) -> None:
+    def __init__(self, p: dict) -> None:
         super().__init__()
-        self.self_attn = _Weights(p["self_attn"], dtype)
-        self.cross_attn = _Weights(p["cross_attn"], dtype)
-        self.mlp = _Weights(p["mlp"], dtype)
+        self.self_attn = _Weights(p["self_attn"])
+        self.cross_attn = _Weights(p["cross_attn"])
+        self.mlp = _Weights(p["mlp"])
         for name in ("ln1", "ln2", "ln3"):
-            setattr(self, name, _frozen(p[name].to(dtype)))
+            setattr(self, name, _frozen(p[name]))
 
     def forward(self, y: torch.Tensor, enc_out: torch.Tensor, bias: torch.Tensor,
                 causal: torch.Tensor, src_valid: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -199,13 +203,13 @@ class T5EncoderDecoder(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg["dtype"])
         self.n_heads = cfg["n_heads"]
-        self.embed = _frozen(params["embed"].to(self.dtype))
+        self.embed = _frozen(params["embed"])
         self.enc_rel = _frozen(params["enc_rel"])
         self.dec_rel = _frozen(params["dec_rel"])
-        self.enc_layers = nn.ModuleList(EncoderLayer(p, self.dtype) for p in params["enc_layers"])
-        self.dec_layers = nn.ModuleList(DecoderLayer(p, self.dtype) for p in params["dec_layers"])
-        self.enc_ln = _frozen(params["enc_ln"].to(self.dtype))
-        self.dec_ln = _frozen(params["dec_ln"].to(self.dtype))
+        self.enc_layers = nn.ModuleList(EncoderLayer(p) for p in params["enc_layers"])
+        self.dec_layers = nn.ModuleList(DecoderLayer(p) for p in params["dec_layers"])
+        self.enc_ln = _frozen(params["enc_ln"])
+        self.dec_ln = _frozen(params["dec_ln"])
         self._buckets: dict[tuple[int, int, bool], torch.Tensor] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
 
@@ -230,7 +234,8 @@ class T5EncoderDecoder(nn.Module):
         # the reference's gather semantics: negative ids wrap, out-of-range
         # ids clamp (an unchecked CUDA index would fault the whole context)
         vocab = self.embed.shape[0]
-        return self.embed[torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)]
+        rows = self.embed[torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)]
+        return rows.to(self.dtype)
 
     def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         src = inputs["input_ids"].long()
@@ -252,7 +257,7 @@ class T5EncoderDecoder(nn.Module):
             y = layer(y, enc_out, dec_bias, causal, src_valid, self.n_heads)
         y = rmsnorm(y, self.dec_ln)
         # tied head with T5's 1/sqrt(d) scaling, in the compute dtype
-        logits = (y / math.sqrt(self.cfg["d_model"])) @ self.embed.t()
+        logits = (y / math.sqrt(self.cfg["d_model"])) @ self.embed.to(self.dtype).t()
         return {"logits": logits.float()}
 
 
@@ -296,8 +301,8 @@ def build(config: dict) -> ModelDef:
             "dec_ln": ones(),
         }
 
-    # the reference's Megatron-style rules over the "model" axis; the port
-    # has no tensor parallelism yet, so a group runtime refuses them
+    # the reference's Megatron-style rules over the "model" axis; the family
+    # has no tensor-parallel module, so a group runtime refuses them
     partition_rules = {
         r"embed": (None, "model"),
         r"(enc|dec)_layers/\d+/(self_|cross_)?attn/w[qkv]": (None, "model"),

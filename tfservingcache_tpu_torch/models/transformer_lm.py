@@ -12,6 +12,11 @@ arithmetic and rounding points:
     bound device group it goes through ``parallel.ring_attention`` (the
     carry kernel on CUDA) where the reference rings;
   - the output projection is the tied ``embed.T``; logits are f32.
+
+On a device group of more than one device an ``"auto"`` model is tensor
+parallel (``TensorParallelLM``): the reference's Megatron rules cut the
+weights over the group (``parallel/sharding.py``), and each shard computes
+its heads and its slice of the FFN.
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ from torch import nn
 
 from tfservingcache_tpu_torch.models.registry import (  # noqa: F401 - params_from_jax re-exported
     ModelDef,
+    TensorParallelPlan,
     TensorSpec,
     params_from_jax,
     register,
 )
 from tfservingcache_tpu_torch.ops.attention import attention
 from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
+from tfservingcache_tpu_torch.parallel.sharding import ShardedLeaf
 
 DEFAULT_CONFIG: dict[str, Any] = {
     "vocab_size": 2048,
@@ -88,6 +95,26 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, n_heads: int,
+        n_kv: int, head_dim: int, theta: float) -> tuple[torch.Tensor, ...]:
+    """The rotated (B, H, S, D) q, k, v of ``x`` (B, S, d), the weights
+    cast to x's dtype at use."""
+    b, s, _d = x.shape
+    dt = x.dtype
+    q = (x @ wq.to(dt)).reshape(b, s, n_heads, head_dim).transpose(1, 2)
+    k = (x @ wk.to(dt)).reshape(b, s, n_kv, head_dim).transpose(1, 2)
+    v = (x @ wv.to(dt)).reshape(b, s, n_kv, head_dim).transpose(1, 2)
+    positions = torch.arange(s, device=x.device)
+    return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    gate = F.silu(x @ w1.to(dt))
+    up = x @ w3.to(dt)
+    return (gate * up) @ w2.to(dt)
+
+
 class Attention(nn.Module):
     def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...] | None = None) -> None:
         super().__init__()
@@ -102,14 +129,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
         b, s, d_model = x.shape
-        hd = d_model // self.n_heads
-        dt = x.dtype
-        q = (x @ self.wq.to(dt)).reshape(b, s, self.n_heads, hd).transpose(1, 2)
-        k = (x @ self.wk.to(dt)).reshape(b, s, self.n_kv, hd).transpose(1, 2)
-        v = (x @ self.wv.to(dt)).reshape(b, s, self.n_kv, hd).transpose(1, 2)
-        positions = torch.arange(s, device=x.device)
-        q = rope(q, positions, self.theta)
-        k = rope(k, positions, self.theta)
+        q, k, v = qkv(x, self.wq, self.wk, self.wv, self.n_heads, self.n_kv,
+                      d_model // self.n_heads, self.theta)
         if self.ring_group is not None and s % len(self.ring_group) == 0:
             # context parallelism: the sequence split over the group's
             # devices, K/V rotating around it — a bucket the ring does not
@@ -118,7 +139,7 @@ class Attention(nn.Module):
         else:
             out = attention_fn(q, k, v, True)                            # (b,h,s,hd)
         out = out.transpose(1, 2).reshape(b, s, d_model)
-        return out @ self.wo.to(dt)
+        return out @ self.wo.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -127,10 +148,7 @@ class MLP(nn.Module):
         self.w1, self.w2, self.w3 = _param(p["w1"]), _param(p["w2"]), _param(p["w3"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        gate = F.silu(x @ self.w1.to(dt))
-        up = x @ self.w3.to(dt)
-        return (gate * up) @ self.w2.to(dt)
+        return mlp(x, self.w1, self.w2, self.w3)
 
 
 class Block(nn.Module):
@@ -180,6 +198,164 @@ class TransformerLM(nn.Module):
         return {"logits": (x @ self.embed.to(self.dtype).T).float()}
 
 
+def reduce_partials(parts: list[torch.Tensor], lead: torch.device) -> torch.Tensor:
+    """The sum of the shards' partial results on ``lead``: each moves there
+    with ``.to(lead, non_blocking=True)`` (ordered after the work queued on
+    both devices' current streams), the partials add in f32 in shard order,
+    and the sum rounds once to their dtype, where the one-device product
+    rounds its output. One partial comes back as it is."""
+    if len(parts) == 1:
+        return parts[0].to(lead, non_blocking=True)
+    acc = parts[0].to(lead, non_blocking=True).to(torch.float32, copy=True)
+    for part in parts[1:]:
+        acc += part.to(lead, non_blocking=True)
+    return acc.to(parts[0].dtype)
+
+
+def _shards(leaf: ShardedLeaf, n: int) -> nn.ParameterList:
+    return nn.ParameterList(_param(t) for t in leaf.shards[:n])
+
+
+class TPAttention(nn.Module):
+    """The attention half on a group: with ``wq``/``wk``/``wv`` cut by
+    columns and ``wo`` by rows, shard i computes q, k, v of its
+    ``n_heads / P`` query and ``n_kv_heads / P`` KV heads, runs attention on
+    them through ``attention_fn`` (the flash kernel on a card) and
+    multiplies by its row block of ``wo``; the partials are reduced on the
+    leader. Replicated weights (P does not divide ``n_kv_heads``) run the
+    whole half on the leader."""
+
+    def __init__(self, p: dict[str, ShardedLeaf], cfg: dict,
+                 group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.devices = group if p["wq"].dim is not None else group[:1]
+        n = len(self.devices)
+        self.n_heads, self.n_kv = cfg["n_heads"] // n, cfg["n_kv_heads"] // n
+        self.head_dim = cfg["d_model"] // cfg["n_heads"]
+        self.theta = cfg["rope_theta"]
+        self.wq, self.wk = _shards(p["wq"], n), _shards(p["wk"], n)
+        self.wv, self.wo = _shards(p["wv"], n), _shards(p["wo"], n)
+
+    def forward(self, h: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
+        b, s, _d = h.shape
+        parts = []
+        for i, dev in enumerate(self.devices):
+            x = h.to(dev, non_blocking=True)
+            q, k, v = qkv(x, self.wq[i], self.wk[i], self.wv[i], self.n_heads, self.n_kv,
+                          self.head_dim, self.theta)
+            out = attention_fn(q, k, v, True).transpose(1, 2).reshape(b, s, -1)
+            parts.append(out @ self.wo[i].to(x.dtype))
+        return reduce_partials(parts, h.device)
+
+
+class TPMLP(nn.Module):
+    """The FFN half on a group: ``w1``/``w3`` cut by columns, ``w2`` by rows,
+    each shard's ``silu(x w1_i) * (x w3_i) @ w2_i`` reduced on the leader;
+    replicated (P does not divide ``d_ff``), the whole half on the leader."""
+
+    def __init__(self, p: dict[str, ShardedLeaf], group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.devices = group if p["w1"].dim is not None else group[:1]
+        n = len(self.devices)
+        self.w1, self.w2, self.w3 = _shards(p["w1"], n), _shards(p["w2"], n), _shards(p["w3"], n)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        parts = [mlp(h.to(dev, non_blocking=True), self.w1[i], self.w2[i], self.w3[i])
+                 for i, dev in enumerate(self.devices)]
+        return reduce_partials(parts, h.device)
+
+
+class TPBlock(nn.Module):
+    """``Block`` on a group: the norms (replicated) and the residual stream
+    on the leader, each half tensor parallel."""
+
+    def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.attn = TPAttention(p["attn"], cfg, group)
+        self.ffn = TPMLP(p["mlp"], group)
+        self.ln1, self.ln2 = _param(p["ln1"].shards[0]), _param(p["ln2"].shards[0])
+
+    def forward(self, x: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
+        x = x + self.attn(rmsnorm(x, self.ln1), attention_fn)
+        return x + self.ffn(rmsnorm(x, self.ln2))
+
+
+class TensorParallelLM(nn.Module):
+    """``TransformerLM`` over a tree that ``parallel.sharding.shard_params``
+    placed on a device group (Megatron tensor parallelism, the program the
+    reference's GSPMD compiles from the same partition rules). The input,
+    the residual stream, the norms and the logits live on ``group[0]``, the
+    leader. The embedding, cut by its d_model columns, is gathered per
+    shard and concatenated on the leader; the tied head contracts each
+    shard's column slice and sums the partial logits. Every reduce
+    (attention's ``wo``, the FFN's ``w2``, the head) moves the partials to
+    the leader and adds them in f32 in shard order, rounding the sum once to
+    the activation dtype where the one-device product rounds its output
+    (``reduce_partials``); the sum then moves back to each shard for the
+    next half-layer. A half whose width the group does not divide is
+    replicated and runs whole on the leader (``tensor_parallel_plan``). On a
+    group that repeats one device the shards run one after another there;
+    the shards are views of the loaded weights, so the device holds one copy
+    of them. A family whose FFN differs (moe_lm) sets ``block_cls``."""
+
+    block_cls: type[nn.Module] = TPBlock
+
+    def __init__(self, sharded: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.dtype = getattr(torch, cfg["dtype"])
+        self.group = tuple(group)
+        embed = sharded["embed"]
+        self.embed_devices = self.group if embed.dim is not None else self.group[:1]
+        self.embed = _shards(embed, len(self.embed_devices))
+        self.vocab = embed.shape[0]
+        self.layers = nn.ModuleList(self.block_cls(p, cfg, self.group) for p in sharded["layers"])
+        self.ln_f = _param(sharded["ln_f"].shards[0])
+
+    def forward(
+        self, inputs: dict[str, torch.Tensor], attention_fn: AttentionFn = attention
+    ) -> dict[str, torch.Tensor]:
+        lead = self.group[0]
+        ids = inputs["input_ids"].long().to(lead)
+        ids = torch.where(ids < 0, ids + self.vocab, ids).clamp(0, self.vocab - 1)
+        x = torch.cat([e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
+                       for e, dev in zip(self.embed, self.embed_devices)], dim=-1)
+        x = x.to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, attention_fn)
+        x = rmsnorm(x, self.ln_f)
+        width = x.shape[-1] // len(self.embed_devices)
+        parts = [x[..., i * width:(i + 1) * width].to(dev, non_blocking=True) @ e.to(self.dtype).T
+                 for i, (e, dev) in enumerate(zip(self.embed, self.embed_devices))]
+        return {"logits": reduce_partials(parts, lead).float()}
+
+
+# the weights of each half, replicated where the group does not divide it
+_TP_HALVES = {
+    "attn": r"layers/\d+/attn/w[qkvo]",
+    "mlp": r"layers/\d+/mlp/w[123]",
+    "embed": r"embed",
+}
+
+
+def tensor_parallel_plan(cfg: dict, rules: dict[str, tuple], group: tuple[torch.device, ...],
+                         module_cls: type[nn.Module],
+                         halves: tuple[str, ...] = ("attn", "mlp", "embed")) -> TensorParallelPlan:
+    """The plan of a group of P devices over the family's ``halves``:
+    attention is cut where P divides ``n_kv_heads`` (then it also divides
+    ``n_heads``; one process cannot run attention on part of a head, so an
+    indivisible head count replicates attention, as the reference's
+    ``kv_arena_spec`` degrades its arena), the FFN where P divides ``d_ff``,
+    the embedding where P divides ``d_model``. A half that is not cut is
+    replicated by a rule ahead of the family's."""
+    n = len(group)
+    widths = {"attn": cfg["n_kv_heads"], "mlp": cfg["d_ff"], "embed": cfg["d_model"]}
+    cut = {half: widths[half] % n == 0 for half in halves}
+    replicate = {_TP_HALVES[half]: () for half, is_cut in cut.items() if not is_cut}
+    return TensorParallelPlan(
+        rules={**replicate, **rules}, halves=cut,
+        make_module=lambda sharded: module_cls(sharded, cfg, tuple(group)))
+
+
 @register("transformer_lm", DEFAULT_CONFIG)
 def build(config: dict) -> ModelDef:
     cfg = config
@@ -198,6 +374,9 @@ def build(config: dict) -> ModelDef:
 
     def bind_group(group: tuple[torch.device, ...]) -> Callable[[Any], nn.Module]:
         return lambda params: TransformerLM(params, cfg, group)
+
+    def tensor_parallel(group: tuple[torch.device, ...]) -> TensorParallelPlan:
+        return tensor_parallel_plan(cfg, partition_rules, group, TensorParallelLM)
 
     def init(gen: torch.Generator) -> dict:
         """Random params in the reference's layout: N(0, 1/fan_in) weights in
@@ -246,8 +425,8 @@ def build(config: dict) -> ModelDef:
         partition_rules: dict[str, tuple] = {r".*": ()}
     else:
         # the reference's Megatron-style tensor parallelism over the "model"
-        # axis; the port has no tensor parallelism yet, so a group runtime
-        # refuses these rules (runtime/model_runtime.py)
+        # axis: column-parallel QKV/W1/W3, row-parallel WO/W2; a group
+        # runtime serves them through TensorParallelLM
         partition_rules = {
             "embed": (None, "model"),
             r"layers/\d+/attn/w[qkv]": (None, "model"),
@@ -275,4 +454,5 @@ def build(config: dict) -> ModelDef:
         partition_rules=partition_rules,
         # a ring model needs its serving group inside the forward
         bind_group=bind_group if ring else None,
+        tensor_parallel=None if ring else tensor_parallel,
     )

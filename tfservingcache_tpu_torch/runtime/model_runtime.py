@@ -37,16 +37,22 @@ no card and no explicit device it raises. Forwards run eagerly under
 
 A runtime constructed with ``devices=[...]`` is bound to that device group
 (the reference's runtime on a chip-group mesh). ``devices[0]`` is the
-leader: params load onto it alone, and a family with a ``bind_group``
-factory (a ``"ring"`` transformer_lm) builds its module bound to the group,
-so that each forward splits attention's sequence over the group's devices.
-The reference replicates a ring model's weights on every chip of the group
-(partition rule ``{".*": ()}``) and computes the projections redundantly on
-each; the port computes them once on the leader and shards only attention,
-with the same output. Everything else (``:generate``, the slot surface)
-runs on the leader as before: the reference's generation never rings. A
-family whose partition rules shard a weight (tensor parallelism) is refused
-on a group of more than one device.
+leader: params load onto it (the serialized path; an int8 artifact
+dequantized there). A family with a ``bind_group`` factory (a ``"ring"``
+transformer_lm) builds its module bound to the group, so that each forward
+splits attention's sequence over the group's devices. The reference
+replicates a ring model's weights on every chip of the group (partition
+rule ``{".*": ()}``) and computes the projections redundantly on each; the
+port computes them once on the leader and shards only attention, with the
+same output; its ``:generate`` runs on the leader, as the reference's
+generation never rings. A family whose partition rules cut weights over
+``"model"`` and that has a ``tensor_parallel`` plan (transformer_lm,
+moe_lm) is tensor parallel on a group of more than one device: the loaded
+tree is cut by the plan's rules (``parallel.sharding.shard_params``), the
+load span says which halves (``tp_attn``, ``tp_mlp``, ``tp_embed``), and
+the resident bytes stay the tree's logical bytes. ``:generate`` and the
+slot surface refuse such a model (the sharded KV arena is a later slice);
+bert and t5, which have no plan, are refused on such a group.
 
 Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
 ``load`` span (``tier`` disk or host) with the reference's stage children
@@ -90,6 +96,7 @@ from tfservingcache_tpu_torch.config import ServingConfig
 from tfservingcache_tpu_torch.models.registry import (
     ModelDef,
     QuantLeaf,
+    TensorParallelPlan,
     TensorSpec,
     flatten_params,
     load_artifact,
@@ -97,6 +104,7 @@ from tfservingcache_tpu_torch.models.registry import (
     unflatten_params,
 )
 from tfservingcache_tpu_torch.native import make_lru_cache
+from tfservingcache_tpu_torch.parallel.sharding import shard_params
 from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
     ModelNotLoadedError,
@@ -654,6 +662,9 @@ class LoadedModel:
     module: torch.nn.Module
     nbytes: int
     params: Any = None               # the module's params tree (a demotion reads it)
+    # the module is tensor parallel over the runtime's group (its params
+    # tree holds parallel.sharding.ShardedLeaf leaves)
+    tensor_parallel: bool = False
 
 
 @dataclass
@@ -856,6 +867,15 @@ def _arena(state: SlotDecodeState) -> dict:
     if state.scales is not None:
         arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
     return arena
+
+
+def _refuse_tensor_parallel(loaded: LoadedModel) -> None:
+    """Generation reads each layer's weights whole (``models/generation.py``)
+    and the KV arena is not sharded yet: ``:generate`` and the slot surface
+    refuse a tensor-parallel model before any page or cache is taken.
+    Nothing falls back to a one-device decode on the leader."""
+    if loaded.tensor_parallel:
+        raise RuntimeError_("`:generate` over a tensor-parallel group: later slice (item 12d)")
 
 
 def _shards_weights(rules: Mapping[str, tuple]) -> bool:
@@ -1066,14 +1086,7 @@ class TorchModelRuntime(BaseRuntime):
                     model.path, pin_memory=on_cuda and not pipelined, map_params=pipelined,
                     raw_quant=True)
             has_quant = _has_quant(host_params)
-            grouped = self.group is not None and len(self.group) > 1
-            if (grouped and model_def.bind_group is None
-                    and _shards_weights(model_def.partition_rules)):
-                raise RuntimeError_(
-                    f"tensor parallelism over a group: later slice ({model_def.family} "
-                    f"declares partition rules that shard its weights; this runtime's "
-                    f"group has {len(self.group)} devices)"
-                )
+            tp = self._tensor_parallel(model_def)
             captured: list | None = None  # the tier's chunks, off the pipelined copy
             if pipelined:
                 if self._host_tier is not None:
@@ -1095,9 +1108,9 @@ class TorchModelRuntime(BaseRuntime):
                         done.synchronize()
             else:
                 # a runtime bound to a device group ships the raw int8 bytes
-                # too: the reference's rule-less mesh branch (TP-ruled
-                # families, which dequantize on the host there, are refused
-                # above)
+                # too, a tensor-parallel one included (the reference
+                # dequantizes on the host for its TP branch, :1305; both
+                # expand q * scale in f32 and cast once)
                 with TRACER.span("device_transfer"):
                     params = packed_device_put(host_params, self.device)
                 if has_quant:
@@ -1107,11 +1120,19 @@ class TorchModelRuntime(BaseRuntime):
                         params = _dequantize_on_device(params)
                         if on_cuda:
                             torch.cuda.current_stream(self.device).synchronize()
-            if self.group is not None and model_def.bind_group is not None:
+            if tp is not None:
+                # the loaded tree cut over the group; tree_nbytes of it is
+                # the tree's logical bytes (the reference's tree_nbytes of
+                # the global arrays), a replicated leaf counted once
+                params = shard_params(params, tp.rules, self.group)
+                TRACER.annotate(**{f"tp_{half}": cut for half, cut in tp.halves.items()})
+                module = tp.make_module(params)
+            elif self.group is not None and model_def.bind_group is not None:
                 module = model_def.bind_group(self.group)(params)
             else:
                 module = model_def.make_module(params)
-            loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params), params)
+            loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params), params,
+                                 tensor_parallel=tp is not None)
             TRACER.annotate(hbm_bytes=loaded.nbytes)
             with TRACER.span("compile_warmup", family=model_def.family):
                 self._warmup(loaded)
@@ -1129,6 +1150,23 @@ class TorchModelRuntime(BaseRuntime):
             "loaded %s in %.2fs (%d device bytes on %s)",
             mid, time.monotonic() - t0, loaded.nbytes, self.device,
         )
+
+    def _tensor_parallel(self, model_def: ModelDef) -> TensorParallelPlan | None:
+        """The family's tensor-parallel plan on this runtime's group: None on
+        one device, for a family that binds the group itself (a ring model)
+        and for rules that cut no weight; a family whose rules cut weights
+        but that has no tensor-parallel module is refused."""
+        if self.group is None or len(self.group) < 2 or model_def.bind_group is not None:
+            return None
+        if not _shards_weights(model_def.partition_rules):
+            return None
+        if model_def.tensor_parallel is None:
+            raise RuntimeError_(
+                f"tensor parallelism over a group: later slice ({model_def.family} "
+                f"declares partition rules that shard its weights; this runtime's "
+                f"group has {len(self.group)} devices)"
+            )
+        return model_def.tensor_parallel(self.group)
 
     @property
     def cold_pipeline_enabled(self) -> bool:
@@ -1277,6 +1315,7 @@ class TorchModelRuntime(BaseRuntime):
             raise RuntimeError_(
                 f"generate is supported for transformer_lm/moe_lm models, not {family!r}"
             )
+        _refuse_tensor_parallel(loaded)
         return loaded
 
     def generate(
@@ -1320,6 +1359,7 @@ class TorchModelRuntime(BaseRuntime):
             draft = self._resident.get(draft_model_id)
             if draft is None:
                 raise ModelNotLoadedError(f"draft model {draft_model_id} is not loaded")
+            _refuse_tensor_parallel(draft)
         ids = np.asarray(input_ids, np.int32)
         if ids.ndim != 2 or not ids.size:
             raise RuntimeError_(f"input_ids must be (batch, seq), got {ids.shape}")
