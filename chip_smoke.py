@@ -224,7 +224,20 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      one-card module's. Then one cold ``:predict`` of the quant phase's
      int8 artifact on a TP group (dequantized on the card, then cut), held
      to that phase's one-card int8 reply; the int8 artifact and its copies
-     are deleted after it;
+     are deleted after it. Then ``:generate`` on the group: continuous
+     nodes around the same group, with the generate phase's engine
+     settings, over the same disk cache, with each shard's arena holding
+     its 16 KV heads (``parallel.sharding.shard_kv_arena``) and B1 / B3 on
+     each shard: (tp-a) arm (a)'s requests, tokens teacher-forced and
+     against arm (a)'s up to near-ties, paged launches = n_layers x 2 x
+     decode steps, one warm decode chunk profiled beside arm (a)'s; (tp-h)
+     chunked prefill and (tp-d) the exact-copy draft, verify launches =
+     n_layers x 2 x (spec rounds + prefill chunks), the chunks counted from
+     the prompts; (tp-c) the int8 arena, its bytes those of arm (c)'s
+     one-card arena; (tp-l) one conversation of arm (l) through the tier:
+     turn 2 prefills its suffix + 1, the resumed pages equal the parked ones
+     bit for bit, and the parked payload has one card's layout and holds
+     arm (l)'s one-card park of the same prompt rows within PARK_TOL;
   15. peer — peer model adoption over ``FetchPackedModel``: a sender node in
      a process of its own (on the serve phase's disk cache, a host tier that
      holds the artifact) answers a (1, 128) ``:predict``, a greedy
@@ -543,6 +556,11 @@ RING_CHAIN = (1, 32, 32, 4096, 128)  # (B, H, Hkv, S, D) of the chained ring on 
 TP_SHARDS = 2
 TP_DEVICE = "cuda:0"
 TP_FORWARD_SHAPE = (2, 1024)  # the profiled warm forward, TP against one card
+# the tp phase's parked prompt rows against one card's park of the same
+# prompt: the shards' partial sums reduce in another order than one card's
+# products, so the bf16 K/V rows are close, not equal; max |diff| over max
+# |one card's rows|
+PARK_TOL = 2.0**-4
 CARDS_USED = 1
 RUN_NOTES: dict = {}  # a number one phase keeps for a later phase's line
 
@@ -1514,6 +1532,13 @@ class Artifact:
         # the same weights under "attention": "ring" for the ring phase
         t0 = time.monotonic()
         self.int8_reply = None  # (ids, last-token logits): the quant phase's one-card reply
+        # what the tp phase's :generate arms hold the group to: the generate
+        # phase's prompts and one-card greedy tokens (arms (a) and (c)),
+        # arm (c)'s int8 arena bytes, and arm (l)'s first conversation with
+        # its one-card park (prompt, suffix, the parked pages on the host)
+        self.gen_prompts = self.gen_greedy = self.int8_greedy = None
+        self.int8_arena_bytes = 0
+        self.conv_park = None
         self.ring_id = ModelId("llama7b_ring", 1)
         registry.save_artifact(
             os.path.join(self.store, self.ring_id.name, "1"),
@@ -3131,11 +3156,188 @@ def phase_tp(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
             _check_against(pred, ref, f"tp int8 {TIER_SHAPE} against the one-card int8 reply")
         finally:
             node.close()
+        torch.cuda.empty_cache()
+        _tp_generate_arms(art, kernels)
     finally:
         torch.cuda.empty_cache()
         # the card's machine caps a run's disk writes: the int8 copies go
         shutil.rmtree(os.path.join(art.store, QUANT_NAME), ignore_errors=True)
         shutil.rmtree(os.path.join(art.work, "cache_gen", QUANT_NAME), ignore_errors=True)
+
+
+def _tp_generate_arms(art: Artifact, kernels: dict) -> None:
+    """:generate on the group ``[TP_DEVICE] * TP_SHARDS``: continuous nodes
+    with the generate phase's engine settings over its disk cache, each
+    shard's arena holding its KV heads, B1 and B3 launched once a layer and
+    shard. (tp-a) arm (a)'s requests, (tp-h) with chunked prefill, (tp-d)
+    the exact-copy draft, (tp-c) the int8 arena, (tp-l) one conversation;
+    tokens held to the plain path and to the one-card arms'. Adds the arms'
+    B1 and B3 launches to the kernels line."""
+    import torch
+
+    from tfservingcache_tpu_torch.parallel.sharding import kv_shards
+
+    if art.gen_greedy is None or art.conv_park is None:
+        raise AssertionError("the generate phase left no one-card arms to hold the group to")
+    devices = [TP_DEVICE] * TP_SHARDS
+    prompts = art.gen_prompts
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    launches = verify = 0
+    node = None
+    try:
+        name = f"tp-a: bf16 arena, {TP_SHARDS} shards"
+        node, _url, n, v, greedy = _continuous_arm(art, name, {}, prompts, LOGITS_TOL,
+                                                   top1=False, devices=devices)
+        launches += n
+        verify += v
+        _compare_to_plain_arm(art, name, prompts, art.gen_greedy, greedy, LOGITS_TOL)
+        st = node.runtime._slot_states[art.model_id]
+        log(f"  [{name}] arena {_arena_nbytes(st)} bytes in {len(kv_shards(st.k))} shards of "
+            f"{tuple(kv_shards(st.k)[0].shape)} (K and V each), every shard contiguous: "
+            f"{all(t.is_contiguous() for t in kv_shards(st.k) + kv_shards(st.v))}; "
+            f"{nvidia_smi_line()}")
+        node.close()
+        node = None
+        name = f"tp-h: chunked prefill, {TP_SHARDS} shards"
+        node, _url, n, v, chunked = _continuous_arm(
+            art, name, {"prefill_chunk_tokens": PREFILL_CHUNK}, prompts, LOGITS_TOL,
+            top1=False, devices=devices)
+        launches += n
+        verify += v
+        if not node.engine.prefill_chunks:
+            raise AssertionError(f"[{name}] no prefill chunk ran")
+        _compare_to_plain_arm(art, name, prompts, art.gen_greedy, chunked, LOGITS_TOL)
+        node.close()
+        node = None
+        name = f"tp-d: spec, exact-copy draft, {TP_SHARDS} shards"
+        node, _url, n, v, spec_toks = _continuous_arm(
+            art, name, {"spec_draft_model": "copy", "spec_tokens": SPEC_TOKENS}, prompts,
+            LOGITS_TOL, top1=False, draft_layers=art.layers, devices=devices)
+        launches += n
+        verify += v
+        eng = node.engine
+        per_round = eng.accepted / max(1.0, eng.drafted / SPEC_TOKENS)
+        if not per_round >= 0.8 * (SPEC_TOKENS + 1):
+            raise AssertionError(f"[{name}] {per_round:.3f} tokens per lane-round < "
+                                 f"0.8 x (spec + 1) = {0.8 * (SPEC_TOKENS + 1)}")
+        _compare_to_plain_arm(art, name, prompts, art.gen_greedy, spec_toks, LOGITS_TOL)
+        node.close()
+        node = None
+        name = f"tp-c: int8 arena, {TP_SHARDS} shards"
+        node, _url, n, v, int8_toks = _continuous_arm(
+            art, name, {"kv_arena_dtype": "int8"}, prompts, LOGITS_TOL_INT8, top1=False,
+            devices=devices)
+        launches += n
+        verify += v
+        st = node.runtime._slot_states[art.model_id]
+        gauge = node.metrics.gen_kv_arena_bytes.labels(dtype="int8").value
+        log(f"  [{name}] arena {_arena_nbytes(st)} bytes in {len(kv_shards(st.k))} shards "
+            f"(scales cut with the payload: {len(kv_shards(st.scales['k']))} shards); "
+            f"tpusc_gen_kv_arena_bytes {gauge:.0f}; arm (c)'s one-card int8 arena "
+            f"{art.int8_arena_bytes} bytes")
+        if not (_arena_nbytes(st) == gauge == art.int8_arena_bytes
+                and len(kv_shards(st.scales["k"])) == TP_SHARDS):
+            raise AssertionError(f"[{name}] arena bytes {_arena_nbytes(st)} / gauge {gauge} / "
+                                 f"one card {art.int8_arena_bytes}")
+        _compare_to_plain_arm(art, name, prompts, art.int8_greedy, int8_toks, LOGITS_TOL_INT8)
+        node.close()
+        node = None
+        launches += _tp_conversation_arm(art, devices)
+    finally:
+        if node is not None:
+            node.close()
+        torch.cuda.empty_cache()
+    kernels["paged_decode_attention"]["launches"] += launches
+    kernels["paged_decode_attention"]["launches_tp_phase"] = launches
+    kernels["paged_verify_attention"]["launches"] += verify
+    kernels["paged_verify_attention"]["launches_tp_phase"] = verify
+    log(f"tp :generate arms: {time.monotonic() - t0:.1f} s; B1 launches {launches}, B3 "
+        f"launches {verify}; peak device memory over the arms "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({nvidia_smi_line()})")
+
+
+def _tp_conversation_arm(art: Artifact, devices) -> int:
+    """(tp-l) arm (l)'s first conversation on a group node with the tier:
+    turn 2 resumes and prefills its suffix + 1, the pages it wrote back
+    equal the parked ones bit for bit (``_ParkWatch``); the parked payload
+    has one card's layout (it passes through a one-card arena's import and
+    export bit for bit) and its prompt rows hold arm (l)'s one-card park of
+    the same prompt within PARK_TOL. -> the paged launches."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import generation as G
+    from tfservingcache_tpu_torch.server import build_node
+
+    name = f"tp-l: one conversation, {TP_SHARDS} shards"
+    p1, sfx, one_park = art.conv_park
+    cfg = config_from_dict(art.node_config(
+        "gen", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+        kv_page_tokens=16, conversation_kv_bytes=CONV_KV_BYTES,
+        conversation_kv_disk_bytes=CONV_KV_DISK_BYTES,
+        conversation_kv_dir=os.path.join(art.work, "conv_kv_tp")))
+    node = build_node(cfg, device="cuda", devices=devices)
+    try:
+        url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
+        eng = node.engine
+        watch = _ParkWatch(node.runtime)
+
+        def turn(prompt):
+            return _post(url, {"input_ids": [prompt.tolist()], "max_new_tokens": GEN_NEW_TOKENS,
+                               "conversation_id": "tp"}, 900.0)
+
+        with _Counted(art, eng, name, shards=TP_SHARDS) as counted:
+            (t1,) = _check_answers(art, name, [p1], [turn(p1)], GEN_NEW_TOKENS, LOGITS_TOL)
+            p2 = np.concatenate([p1, t1, sfx])
+            pf0 = eng.prefill_tokens
+            res2 = turn(p2)
+            prefilled = eng.prefill_tokens - pf0
+        _check_answers(art, name, [p2], [res2], GEN_NEW_TOKENS, LOGITS_TOL)
+        launches = counted.check()
+        if eng.resumes != 1 or prefilled != len(sfx) + 1 or watch.mismatches:
+            raise AssertionError(f"[{name}] {eng.resumes} resumes, turn-2 prefill {prefilled} "
+                                 f"(want {len(sfx) + 1}), {watch.mismatches} resumed pages "
+                                 "unlike the parked ones")
+        mine = watch.snapshot(np.concatenate([p1, t1[:-1]]).astype(np.int32))
+        if any(mine[k].shape != one_park[k].shape or mine[k].dtype != one_park[k].dtype
+               for k in one_park):
+            raise AssertionError(f"[{name}] parked {({k: tuple(t.shape) for k, t in mine.items()})}"
+                                 f", one card {({k: tuple(t.shape) for k, t in one_park.items()})}")
+        # one card's arena takes the group's payload and gives it back bit for bit
+        n_pages = mine["k"].shape[1]
+        arena = G.init_paged_cache(art.model_cfg, n_pages + 1, 16, "", devices[0])
+        G.pages_import(arena, list(range(1, n_pages + 1)), mine)
+        back = G.pages_export(arena, list(range(1, n_pages + 1)))
+        if not all(torch.equal(back[k], mine[k]) for k in mine):
+            raise AssertionError(f"[{name}] the parked pages do not pass through one card's arena")
+        del arena, back
+
+        def prompt_rows(t):
+            layers, n, heads, pt, hd = t.shape
+            return t.permute(0, 2, 1, 3, 4).reshape(layers, heads, n * pt, hd)[:, :, :len(p1)]
+
+        errs, same = [], []
+        for k in ("k", "v"):
+            a = prompt_rows(mine[k].cpu()).float()
+            b = prompt_rows(one_park[k]).float()
+            errs.append(float((a - b).abs().max() / b.abs().max()))
+            same.append(float((a == b).float().mean()))
+        log(f"  [{name}] turn 2 resumed from the tier ({eng.resumes} resume, prefill "
+            f"{prefilled} tokens = suffix {len(sfx)} + 1); resumed pages equal the parked ones "
+            f"bit for bit; the parked payload {tuple(mine['k'].shape)} {mine['k'].dtype} has one "
+            f"card's layout and passes through a one-card arena bit for bit; its {len(p1)} "
+            f"prompt rows against arm (l)'s one-card park: max |diff| / max |rows| K {errs[0]:.4g}"
+            f" V {errs[1]:.4g} (tolerance {PARK_TOL}), bit-equal share K {same[0]:.4f} V "
+            f"{same[1]:.4f}")
+        if max(errs) > PARK_TOL:
+            raise AssertionError(f"[{name}] the parked prompt rows are {max(errs)} from one "
+                                 "card's park")
+        _check_drained(node, art, name)
+        return launches
+    finally:
+        node.close()
 
 
 def _teacher_forced_logits(plain_model, prompt, tokens):
@@ -3180,12 +3382,13 @@ def _post_many(url, bodies, clients):
 
 
 def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
-                            prompt_tokens: int = 600) -> None:
+                            prompt_tokens: int = 600, shards: int = 1) -> None:
     """One warm decode chunk with every lane live at ``prompt_tokens``
     (the arena rows are whatever earlier rows left, fine for timing): host
     clock, device kernel time under torch.profiler, the paged kernel's
-    share. Runs on the runtime directly while the engine is idle, and
-    hands every page back."""
+    share (``shards`` launches a layer and step on a group's arena). Runs
+    on the runtime directly while the engine is idle, and hands every page
+    back."""
     st = rt._slot_states[model_id]
     for lane in range(st.slots):
         if not st.reserve_pages(lane, prompt_tokens + 8 * chunk):
@@ -3213,10 +3416,12 @@ def _decode_chunk_breakdown(rt, model_id, layers: int, chunk: int = 8,
     log(f"  warm decode chunk ({st.slots} lanes at {prompt_tokens} tokens, {chunk} steps): "
         f"{ms:.2f} ms host clock; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, "
         f"torch.profiler); paged kernel {paged:.3f} ms = {paged / busy:.3f} of device time, "
-        f"{paged / (chunk * layers):.4f} ms a launch")
+        f"{paged / (chunk * layers * shards):.4f} ms a launch ({shards} shard(s); "
+        f"{nvidia_smi_line()})")
 
 
-def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600) -> None:
+def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600,
+                          shards: int = 1) -> None:
     """One warm speculative round with every lane live at
     ``prompt_tokens`` on both arenas (rows are whatever earlier rows left,
     fine for timing): host clock, device kernel time under torch.profiler,
@@ -3255,11 +3460,11 @@ def _spec_round_breakdown(rt, model_id, layers: int, prompt_tokens: int = 600) -
     log(f"{what}; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, torch.profiler); "
         f"draft decode kernel (B1) {decode:.3f} ms = {decode / busy:.3f} of device time; "
         f"target verify kernel (B3) {verify:.3f} ms = {verify / busy:.3f}, "
-        f"{verify / layers:.4f} ms a launch")
+        f"{verify / (layers * shards):.4f} ms a launch ({shards} shard(s))")
 
 
 def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: int = 0,
-                    repeats=()):
+                    repeats=(), devices=None):
     """One continuous-engine arm on a fresh node: a warm-up request, the
     concurrent greedy burst, then ``repeats`` one after another, optionally
     an unseeded top_k=1 request. Every response checked; the census must be
@@ -3270,12 +3475,15 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     verify = n_layers x (spec rounds + prefill chunks), where the prefill
     chunks are also counted from the prompts: ceil(p / chunk) of every
     prompt longer than the chunk (none with a draft, whose engine prefills
-    in one dispatch). -> (node, its :generate url, the arm's paged
+    in one dispatch). ``devices`` binds the node's runtime to that group:
+    the model is tensor parallel, each launch identity then counts once a
+    shard of the arena. -> (node, its :generate url, the arm's paged
     launches, its verify launches, greedy tokens of prompts + repeats)."""
     import numpy as np
 
     from tfservingcache_tpu_torch.config import config_from_dict
     from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.parallel.sharding import kv_shards
     from tfservingcache_tpu_torch.server import build_node
 
     # one disk cache for the arms' nodes, one after another: each node of
@@ -3285,7 +3493,7 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
         "gen", generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
         kv_page_tokens=16, **serving))
     spec = cfg.serving.spec_tokens
-    node = build_node(cfg, device="cuda")
+    node = build_node(cfg, device="cuda", devices=devices)
     url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/llama7b/versions/1:generate"
     n_new = GEN_NEW_TOKENS
     bodies = [{"input_ids": [p.tolist()], "max_new_tokens": n_new} for p in prompts]
@@ -3313,11 +3521,17 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
     sent = [warm_prompt, *prompts, *repeats] + ([prompts[0]] if top1 else [])
     want_chunks = 0 if draft_layers or not size else sum(
         -(-len(p) // size) for p in sent if len(p) > size)
-    expected = art.layers * eng.decode_steps + draft_layers * (spec + 1) * eng.spec_rounds
-    expected_verify = art.layers * (eng.spec_rounds + eng.prefill_chunks)
-    log(f"  [{name}] paged kernel launches: {launches} (n_layers {art.layers} x decode steps "
-        f"{eng.decode_steps} + draft layers {draft_layers} x (spec + 1) x spec rounds "
-        f"{eng.spec_rounds} = {expected}); verify kernel launches: {verify} (n_layers "
+    st = node.runtime._slot_states[art.model_id]
+    shards = len(kv_shards(st.k))
+    if shards != (len(devices) if devices else 1):
+        raise AssertionError(f"[{name}] an arena of {shards} shards on {devices or 'one card'}")
+    expected = shards * (art.layers * eng.decode_steps
+                         + draft_layers * (spec + 1) * eng.spec_rounds)
+    expected_verify = shards * art.layers * (eng.spec_rounds + eng.prefill_chunks)
+    per = f"{shards} shards x " if devices else ""
+    log(f"  [{name}] paged kernel launches: {launches} ({per}(n_layers {art.layers} x decode "
+        f"steps {eng.decode_steps} + draft layers {draft_layers} x (spec + 1) x spec rounds "
+        f"{eng.spec_rounds}) = {expected}); verify kernel launches: {verify} ({per}n_layers "
         f"{art.layers} x (spec rounds {eng.spec_rounds} + prefill chunks {eng.prefill_chunks}) "
         f"= {expected_verify}; prefill chunks from the prompts at chunk {size}: {want_chunks}); "
         f"chunks {eng.chunks}, admitted {eng.admitted}, mean lanes per plain decode step "
@@ -3343,7 +3557,6 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
                                  f"{bool(((toks >= 0) & (toks < art.vocab)).all())}")
         greedy.append(toks[0])
         worst = max(worst, _check_greedy(art, p, toks[0], tol, name))
-    st = node.runtime._slot_states[art.model_id]
     for s in (st, st.spec_draft) if draft_layers else (st,):
         s.check_page_conservation()
         if s.prefix_index is not None:
@@ -3359,7 +3572,7 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
         f"first arm) {cold_s * 1e3:.1f} ms; teacher-forced max gap to the plain "
         f"path's max logit {worst:.4f} (tolerance {tol}); census green, "
         f"{st.arena_pages} pages free ({st.arena_dtype or 'model dtype'} arena, "
-        f"{(st.k.nbytes + st.v.nbytes + sum(t.nbytes for t in (st.scales or {}).values())) / 2**30:.2f} GiB)")
+        f"{_arena_nbytes(st) / 2**30:.2f} GiB)")
     if draft_layers:
         lane_rounds = eng.drafted / spec
         per_round = eng.accepted / max(1.0, lane_rounds)
@@ -3384,11 +3597,11 @@ def _continuous_arm(art, name, serving, prompts, tol, top1: bool, draft_layers: 
         else:
             log(f"  [{name}] top_k=1 at t=0.8 equals greedy ({n_new} tokens)")
     if draft_layers:
-        _spec_round_breakdown(node.runtime, art.model_id, art.layers)
+        _spec_round_breakdown(node.runtime, art.model_id, art.layers, shards=shards)
     elif size:
-        _prefill_chunk_breakdown(node.runtime, art.model_id, art.layers, size)
+        _prefill_chunk_breakdown(node.runtime, art.model_id, art.layers, size, shards=shards)
     else:
-        _decode_chunk_breakdown(node.runtime, art.model_id, art.layers)
+        _decode_chunk_breakdown(node.runtime, art.model_id, art.layers, shards=shards)
     return node, url, launches, verify, greedy
 
 
@@ -3431,7 +3644,7 @@ def _check_drained_with_index(rt, st, name, peak) -> None:
 
 
 def _prefill_chunk_breakdown(rt, model_id, layers: int, chunk: int,
-                             prompt_tokens: int = 1024) -> None:
+                             prompt_tokens: int = 1024, shards: int = 1) -> None:
     """A warm chunked prefill of one ``prompt_tokens``-token prompt on a lane
     of the idle engine's state (``slot_prefill_chunk`` chunk by chunk, the
     last chunk's logits read back): host clock, device kernel time under
@@ -3474,7 +3687,8 @@ def _prefill_chunk_breakdown(rt, model_id, layers: int, chunk: int,
     busy, (verify,) = prof
     log(f"{what}; device kernels {busy:.2f} ms (busy share {busy / ms:.3f}, torch.profiler); "
         f"verify kernel (B3) {verify:.3f} ms = {verify / busy:.3f} of device time, "
-        f"{verify / (n_chunks * layers):.4f} ms a launch (T = {chunk})")
+        f"{verify / (n_chunks * layers * shards):.4f} ms a launch (T = {chunk}, "
+        f"{shards} shard(s))")
 
 
 def _compare_to_plain_arm(art, name, prompts, plain, spec_toks, tol) -> None:
@@ -3531,6 +3745,7 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
                                                         LOGITS_TOL, top1=True)
         launches += n
         verify += v
+        art.gen_prompts, art.gen_greedy = prompts, plain_greedy
         # (b) the solo path: seeded requests bypass the engine
         body = {"input_ids": [prompts[1].tolist()], "max_new_tokens": GEN_NEW_TOKENS,
                 "temperature": 0.8, "top_k": 40, "seed": 7}
@@ -3561,6 +3776,8 @@ def phase_generate(art: Artifact, seed: int, kernels: dict) -> None:
             top1=False)
         launches += n
         verify += v
+        art.int8_greedy = int8_greedy
+        art.int8_arena_bytes = _arena_nbytes(node.runtime._slot_states[art.model_id])
         node.close()
         node = None
         # (d) speculative rounds drafted by an exact copy of the target: every
@@ -3845,11 +4062,11 @@ def _gen_node(art, name, **serving):
 class _Counted:
     """The paged and verify launches and the engine's decode steps over a
     window: counters to 0 at ``__enter__``, read at ``__exit__``; ``check``
-    holds paged = n_layers x plain decode steps and verify = 0 (these arms
-    run neither rounds nor chunked prefill)."""
+    holds paged = shards x n_layers x plain decode steps and verify = 0
+    (these arms run neither rounds nor chunked prefill)."""
 
-    def __init__(self, art, eng, name):
-        self.art, self.eng, self.name = art, eng, name
+    def __init__(self, art, eng, name, shards: int = 1):
+        self.art, self.eng, self.name, self.shards = art, eng, name, shards
 
     def __enter__(self):
         from tfservingcache_tpu_torch.ops import attention as A
@@ -3867,9 +4084,10 @@ class _Counted:
         return False
 
     def check(self) -> int:
-        want = self.art.layers * self.steps
-        log(f"  [{self.name}] paged kernel launches {self.paged} (n_layers {self.art.layers} x "
-            f"plain decode steps {self.steps} = {want}); verify launches {self.verify}")
+        want = self.shards * self.art.layers * self.steps
+        log(f"  [{self.name}] paged kernel launches {self.paged} ({self.shards} shard(s) x "
+            f"n_layers {self.art.layers} x plain decode steps {self.steps} = {want}); verify "
+            f"launches {self.verify}")
         if self.paged != want or not self.paged or self.verify:
             raise AssertionError(f"[{self.name}] launches paged {self.paged} / verify "
                                  f"{self.verify} != {want} / 0")
@@ -3922,6 +4140,14 @@ class _ParkWatch:
             return out
 
         rt.park_lane, rt.slot_resume_prefill = park, resume
+
+    def snapshot(self, history) -> dict:
+        """The device copy of the pages parked for ``history`` (the one-card
+        layout ``pages_export`` gives, values and int8 scales)."""
+        snap = self._snap.get(history.tobytes())
+        if snap is None:
+            raise AssertionError(f"no park of a {len(history)}-token history was watched")
+        return snap
 
 
 def _key(prompt) -> bytes:
@@ -4034,6 +4260,10 @@ def _conversation_arms(art, seed: int) -> int:
         if prefilled != want_pf or watch.mismatches:
             raise AssertionError(f"[{name}] turn-2 prefill {prefilled} != {want_pf}, or "
                                  f"{watch.mismatches} resumes wrote other pages than parked")
+        # conversation 0's one-card park, for the tp phase's conversation
+        history = np.concatenate([firsts[0], t1[0][:-1]]).astype(np.int32)
+        art.conv_park = (firsts[0], suffixes[0], {
+            k: t.cpu() for k, t in watch.snapshot(history).items()})
         _check_drained(node, art, name)
         st = rt._slot_states[art.model_id]
         park_ms, resume_ms, page_nbytes = _time_park_resume(art, rt, st, watch, rng)
@@ -4117,10 +4347,15 @@ def _conversation_arms(art, seed: int) -> int:
     return launches
 
 
+def _arena_nbytes(st) -> int:
+    """Bytes of a state's arena (K, V and an int8 arena's scales; on a
+    group the sum of the shards')."""
+    return sum(t.nbytes for t in (st.k, st.v, *(st.scales or {}).values()))
+
+
 def _page_nbytes(st) -> int:
     """Bytes one arena page parks (K, V and an int8 arena's scales)."""
-    n = st.arena_pages + 1
-    return sum(t.nbytes for t in (st.k, st.v, *(st.scales or {}).values())) // n
+    return _arena_nbytes(st) // (st.arena_pages + 1)
 
 
 def _time_park_resume(art, rt, st, watch, rng) -> tuple[float, float, int]:

@@ -889,3 +889,54 @@ def test_chained_device_time_raises_on_a_host_read(card):
     x = torch.ones(64, device=card)
     with pytest.raises(RuntimeError, match="cannot be captured in a CUDA graph"):
         chained_device_time(lambda x: x * float(x.sum()), (x,), iters=4)
+
+
+# ---- the paged kernels on each shard of a group's arena ----
+
+@pytest.mark.parametrize("arena", ["bfloat16", "int8"])
+def test_paged_kernels_on_each_shard_of_a_group_arena(card, arena):
+    """A 2-layer arena placed by ``shard_kv_arena`` on ``[cuda:0] * 2`` (the
+    tensor-parallel ``:generate`` on one card): each shard is a contiguous
+    tensor of its own, and B1 (T = 1) and B3 (T = 5) on each shard's layer
+    slice, over that shard's query heads, match the plain version on the
+    same shard with the tolerances above; one launch of each a layer and
+    shard."""
+    from tfservingcache_tpu_torch.models.generation import _quantize_kv_rows
+    from tfservingcache_tpu_torch.parallel.sharding import KVShards, shard_kv_arena
+
+    lanes, hq, hkv, d, pt, pps, t_q = 4, 8, 4, 128, 16, 4, 5
+    _q, kp, vp, tables, pos = _verify_case(card, lanes, hq, hkv, d, pt, pps, t_q, seed=41)
+    gen = torch.Generator(device=card).manual_seed(41)
+    whole = {"k": torch.stack([kp, kp.flip(0)]), "v": torch.stack([vp, vp.flip(0)])}
+    if arena == "int8":
+        whole["k"], whole["k_scale"] = _quantize_kv_rows(whole["k"])
+        whole["v"], whole["v_scale"] = _quantize_kv_rows(whole["v"])
+    else:
+        whole = {name: t.bfloat16() for name, t in whole.items()}
+    placed = shard_kv_arena(whole, (card, card))
+    A.PAGED_LAUNCHES.reset()
+    A.VERIFY_LAUNCHES.reset()
+    for name, buf in placed.items():
+        assert isinstance(buf, KVShards) and len(buf.shards) == 2, name
+    for i in range(2):
+        shard = {name: buf.shards[i] for name, buf in placed.items()}
+        assert all(t.is_contiguous() and t.shape[2] == hkv // 2 for t in shard.values())
+        for layer in range(2):
+            kl, vl = shard["k"][layer], shard["v"][layer]
+            ks = shard["k_scale"][layer] if arena == "int8" else None
+            vs = shard["v_scale"][layer] if arena == "int8" else None
+            plain = ((A.dequantize_pages(kl, ks), A.dequantize_pages(vl, vs))
+                     if arena == "int8" else (kl, vl))
+            for t in (1, t_q):
+                q = torch.randn(lanes, hq // 2, t, d, device=card, generator=gen).bfloat16()
+                dispatch = A.paged_attention if t == 1 else A.paged_attention_verify
+                got = dispatch(q, kl, vl, tables, pos, pt, ks, vs)
+                want = A.paged_verify_attention(q, *plain, tables, pos, pt)
+                assert got.shape == (lanes, hq // 2, t, d)
+                if arena == "bfloat16":
+                    held = _kernel_reference(q, kl, vl, tables, pos, pt)
+                    assert _bf16_off(got, held) <= BF16_PAGED_TOL, (i, layer, t)
+                else:
+                    assert (got - want).abs().max().item() <= 1e-5, (i, layer, t)
+    torch.cuda.synchronize()
+    assert A.PAGED_LAUNCHES.value == A.VERIFY_LAUNCHES.value == 2 * 2

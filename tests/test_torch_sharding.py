@@ -42,7 +42,6 @@ from tfservingcache_tpu_torch.models import transformer_lm as tlm
 from tfservingcache_tpu_torch.parallel import mesh as tmesh
 from tfservingcache_tpu_torch.parallel import sharding
 from tfservingcache_tpu_torch.runtime import model_runtime as mr
-from tfservingcache_tpu_torch.runtime.base import RuntimeError_
 from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
 from tfservingcache_tpu_torch.server import build_node
 from tfservingcache_tpu_torch.types import Model, ModelId
@@ -59,7 +58,6 @@ WIDE = {"vocab_size": 1024, "d_model": 64, "n_layers": 2, "n_heads": 4, "n_kv_he
 MOE_TINY = {"vocab_size": 64, "d_model": 32, "n_layers": 2, "n_heads": 4, "n_kv_heads": 4,
             "d_ff": 64, "n_experts": 4, "max_seq": 32}
 BAR = 5e-2
-REFUSAL = "`:generate` over a tensor-parallel group: later slice (item 12d)"
 
 
 def _group(n: int) -> tuple:
@@ -303,21 +301,29 @@ def test_runtime_serves_a_tp_artifact_as_the_jax_mesh_runtime(store, name, n, mo
 
 
 def test_generate_and_the_slot_surface_refuse_a_tp_group(store):
+    """A group of two serves the solo ``generate`` of transformer_lm (f32:
+    the one-device tokens) and moe_lm, and builds the continuous slot state
+    on the group: the paged arena cut over WIDE's 2 KV heads, one
+    contiguous shard a device."""
     rt = TorchModelRuntime(ServingConfig(kv_page_tokens=8), devices=["cpu"] * 2)
+    one = TorchModelRuntime(ServingConfig(), device="cpu")
     try:
-        rt.ensure_loaded(_model(store, "bf16"))
-        rt.ensure_loaded(_model(store, "moe"))
-        ids = np.ones((1, 4), np.int32)
-        for mid in (ModelId("bf16", 1), ModelId("moe", 1)):
-            with pytest.raises(RuntimeError_) as err:
-                rt.generate(mid, ids, max_new_tokens=2)
-            assert str(err.value) == REFUSAL
-        with pytest.raises(RuntimeError_) as err:
-            rt.slot_decode_state(ModelId("bf16", 1), 2)
-        assert str(err.value) == REFUSAL
-        assert rt._slot_states == {}
+        for name in ("f32", "moe"):
+            rt.ensure_loaded(_model(store, name))
+        one.ensure_loaded(_model(store, "f32"))
+        ids = np.random.default_rng(1).integers(0, 64, (2, 5)).astype(np.int32)
+        got = rt.generate(ModelId("f32", 1), ids, max_new_tokens=6)
+        np.testing.assert_array_equal(got, one.generate(ModelId("f32", 1), ids,
+                                                        max_new_tokens=6))
+        moe = rt.generate(ModelId("moe", 1), ids, max_new_tokens=2)
+        assert moe.shape == (2, 2) and ((moe >= 0) & (moe < MOE_TINY["vocab_size"])).all()
+        st = rt.slot_decode_state(ModelId("f32", 1), 2)
+        assert rt._slot_states == {ModelId("f32", 1): st} and st.page_tokens == 8
+        assert isinstance(st.k, sharding.KVShards) and len(st.k.shards) == 2
+        assert all(s.is_contiguous() and s.shape[2] == 1 for s in st.k.shards + st.v.shards)
     finally:
         rt.close()
+        one.close()
 
 
 def _post(url: str, body: dict) -> tuple[int, dict]:
@@ -330,6 +336,10 @@ def _post(url: str, body: dict) -> tuple[int, dict]:
 
 
 def test_a_two_device_node_serves_tp_predict_over_rest_and_refuses_generate(store, tmp_path):
+    """A node of two CPU devices answers REST ``:predict`` tensor parallel
+    and ``:generate`` on its continuous engine over the group's sharded
+    arena, each as one device answers (``:generate`` of the f32 artifact
+    token for token)."""
     cfg = config_from_dict({
         "mesh": {"chips_per_group": 2},
         "serving": {"generate_engine": "continuous", "generate_slots": 2,
@@ -339,32 +349,37 @@ def test_a_two_device_node_serves_tp_predict_over_rest_and_refuses_generate(stor
         "cache_node": {"rest_port": 0, "grpc_port": 0},
     })
     with confined_globals():
-        got, ids = _serve_and_refuse(build_node(cfg, device="cpu"))
+        got, toks, ids = _serve(build_node(cfg, device="cpu"))
     one = TorchModelRuntime(ServingConfig(), device="cpu")
     try:
         one.ensure_loaded(_model(store, "bf16"))
+        one.ensure_loaded(_model(store, "f32"))
         want = one.predict(ModelId("bf16", 1), {"input_ids": ids})["last_token_logits"]
+        want_toks = one.generate(ModelId("f32", 1), ids, max_new_tokens=4)
     finally:
         one.close()
     assert got.shape == want.shape == (1, 1024)
     _hold(got, want)
+    np.testing.assert_array_equal(toks, want_toks)
 
 
-def _serve_and_refuse(node) -> tuple[np.ndarray, np.ndarray]:
+def _serve(node) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     try:
         assert node.runtime.group == (torch.device("cpu"),) * 2
-        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/bf16/versions/1"
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
         ids = np.random.default_rng(4).integers(0, 1024, (1, 9)).astype(np.int32)
-        status, body = _post(f"{base}:predict", {"instances": ids.tolist()})
+        status, body = _post(f"{base}/bf16/versions/1:predict", {"instances": ids.tolist()})
         assert status == 200
         got = np.asarray(body["predictions"], np.float32)
         assert node.runtime._resident.get(ModelId("bf16", 1), touch=False).tensor_parallel
-        status, body = _post(f"{base}:generate", {"input_ids": ids.tolist(),
-                                                  "max_new_tokens": 4})
-        assert status >= 400 and REFUSAL in json.dumps(body)
-        # the refusal took no page: the engine holds no decode state
-        assert node.runtime._slot_states == {}
-        assert node.engine is not None and node.engine.admitted == 0
-        return got, ids
+        status, body = _post(f"{base}/f32/versions/1:generate", {"input_ids": ids.tolist(),
+                                                                 "max_new_tokens": 4})
+        assert status == 200, body
+        # the continuous engine admitted it onto the group's sharded arena
+        assert node.engine is not None and node.engine.admitted == 1
+        st = node.runtime._slot_states[ModelId("f32", 1)]
+        assert isinstance(st.k, sharding.KVShards) and len(st.k.shards) == 2
+        st.check_page_conservation()
+        return got, np.asarray(body["tokens"]), ids
     finally:
         node.close()

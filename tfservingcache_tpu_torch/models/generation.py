@@ -26,6 +26,22 @@ whatever (B, S) a step forwards, as the reference's does):
     (``pages_export``) and written back into fresh pages at resume
     (``pages_import``).
 
+On a device group (``TensorParallelLM``, ``TensorParallelMoELM``) the
+cache and the arena are cut over the KV-head axis where the group's size
+divides it (``parallel.sharding.shard_kv_arena``; reference :43-58, :382-426)
+and the cached forward runs shard by shard: shard i projects the q/k/v of
+its heads, writes its rows into cache shard i and attends over it (B1 or B3
+on the card, on its own heads), then multiplies by its rows of ``wo``; the
+partials reduce on the leader as the tensor-parallel ``:predict`` reduces
+them (``transformer_lm.reduce_partials``), and the FFN, the embedding and
+the tied head run through the module's own tensor-parallel halves. Where
+the group does not divide the KV heads, attention and the cache are whole
+on the leader. One device is the case of one shard. Block tables and
+positions are copied once to each distinct device of the group. The page
+helpers work shard by shard, and ``pages_export``/``pages_import`` carry
+the one-device layout, so a parked conversation is the same bytes whichever
+placement parked it.
+
 The JAX functions are pure and donate their buffers; here the cache and the
 arena are updated IN PLACE (index assignment under ``torch.inference_mode``).
 Write offsets follow ``lax.dynamic_update_slice``: a start index is clamped
@@ -46,11 +62,23 @@ import math
 
 import torch
 
-from tfservingcache_tpu_torch.models.transformer_lm import rmsnorm
+from tfservingcache_tpu_torch.models.transformer_lm import (
+    TensorParallelLM,
+    TPAttention,
+    reduce_partials,
+    rmsnorm,
+)
 from tfservingcache_tpu_torch.ops.attention import (
     NEG_INF,
     paged_attention,
     paged_attention_verify,
+)
+from tfservingcache_tpu_torch.parallel.sharding import (
+    KV_HEAD_DIM,
+    KVShards,
+    kv_shards,
+    like_kv,
+    shard_kv_arena,
 )
 
 
@@ -59,35 +87,67 @@ def _dims(cfg: dict) -> tuple[int, int, int]:
     return n_heads, n_kv, cfg["d_model"] // n_heads
 
 
-def init_cache(cfg: dict, batch: int, max_len: int, device: torch.device | str) -> dict:
+def kv_group(model: torch.nn.Module) -> tuple[torch.device, ...] | None:
+    """The device group a model's KV cache is placed on: a tensor-parallel
+    module's group, None for a one-device module (a ring model's
+    ``:generate`` runs on its leader)."""
+    return model.group if isinstance(model, TensorParallelLM) else None
+
+
+def _allocate(buffers: dict[str, tuple[tuple[int, ...], torch.dtype]],
+              device: torch.device | str,
+              group: tuple[torch.device, ...] | None) -> dict:
+    """Zeroed buffers ``{name: (shape, dtype)}`` on ``device``, or placed on
+    ``group`` by ``shard_kv_arena`` without a whole copy anywhere."""
+    if group is None or len(group) < 2:
+        return {name: torch.zeros(shape, dtype=dt, device=device)
+                for name, (shape, dt) in buffers.items()}
+    return shard_kv_arena({name: torch.empty(shape, dtype=dt, device="meta")
+                           for name, (shape, dt) in buffers.items()}, group)
+
+
+def init_cache(cfg: dict, batch: int, max_len: int, device: torch.device | str,
+               group: tuple[torch.device, ...] | None = None) -> dict:
     """Per-layer K/V buffers ``(layers, batch, n_kv, max_len, hd)`` in the
-    model dtype (reference :43)."""
+    model dtype (reference :43); ``group`` places them on a device group
+    (the reference's ``mesh=``)."""
     _, n_kv, hd = _dims(cfg)
     shape = (cfg["n_layers"], batch, n_kv, max_len, hd)
     dtype = getattr(torch, cfg["dtype"])
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _allocate({"k": (shape, dtype), "v": (shape, dtype)}, device, group)
 
 
 def init_paged_cache(cfg: dict, n_pages: int, page_tokens: int, arena_dtype: str,
-                     device: torch.device | str) -> dict:
+                     device: torch.device | str,
+                     group: tuple[torch.device, ...] | None = None) -> dict:
     """The paged arena ``(layers, n_pages, n_kv, page_tokens, hd)`` shared by
     every lane of one model (reference :381). Page 0 is the trash page.
     ``arena_dtype="int8"`` adds per-(page, head, token) f32 scale buffers
     ``k_scale``/``v_scale``; another non-empty name overrides the model
-    dtype."""
+    dtype. ``group`` places the arena on a device group, the scales cut
+    with the payload."""
     _, n_kv, hd = _dims(cfg)
     shape = (cfg["n_layers"], n_pages, n_kv, page_tokens, hd)
     if arena_dtype == "int8":
-        return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-        }
+        return _allocate({
+            "k": (shape, torch.int8), "v": (shape, torch.int8),
+            "k_scale": (shape[:-1], torch.float32), "v_scale": (shape[:-1], torch.float32),
+        }, device, group)
     dtype = getattr(torch, arena_dtype or cfg["dtype"])
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _allocate({"k": (shape, dtype), "v": (shape, dtype)}, device, group)
+
+
+def _cache_shards(cache: dict) -> list[dict]:
+    """A cache or arena dict as one dict of tensors per shard (one for a
+    cache on one device)."""
+    per = {name: kv_shards(buf) for name, buf in cache.items()}
+    n = len(per["k"])
+    return [{name: bufs[i] for name, bufs in per.items()} for i in range(n)]
+
+
+def _layer_shards(cache: dict, li: int) -> list[dict]:
+    """Layer ``li``'s buffers of a cache or arena, one dict a shard."""
+    return [{name: t[li] for name, t in c.items()} for c in _cache_shards(cache)]
 
 
 def _quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -157,50 +217,85 @@ def _ffn_block(layer: torch.nn.Module, x: torch.Tensor, cfg: dict) -> torch.Tens
     """The family's FFN half of a decoder layer on the residual stream before
     its norm; returns the residual delta (reference :830): moe_lm's routed
     experts (the router in f32, the experts in the activation dtype; the aux
-    loss is a training signal) or transformer_lm's dense FFN."""
+    loss is a training signal; whole on the leader on a group),
+    transformer_lm's dense FFN, or its tensor-parallel FFN (``TPMLP``)."""
     h = rmsnorm(x, layer.ln2)
     if hasattr(layer, "moe"):
         return layer.moe(h, cfg)
-    return layer.mlp(h)
+    return layer.ffn(h) if hasattr(layer, "ffn") else layer.mlp(h)
 
 
 def _embed(model: torch.nn.Module, ids: torch.Tensor) -> torch.Tensor:
     """The reference's gather semantics: negative ids wrap, out-of-range ids
-    clamp (as ``TransformerLM.forward``)."""
+    clamp (as ``TransformerLM.forward``); a tensor-parallel module gathers
+    its column shards (``embed_tokens``)."""
+    if isinstance(model, TensorParallelLM):
+        return model.embed_tokens(ids)
     vocab = model.embed.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)
     return model.embed[ids].to(model.dtype)
 
 
-def _qkv(layer: torch.nn.Module, x: torch.Tensor, positions: torch.Tensor, cfg: dict):
-    """Pre-norm projections + RoPE: x (B, S, d) -> q (B, Hq, S, hd), k/v
-    (B, Hkv, S, hd) in the activation dtype."""
-    n_heads, n_kv, hd = _dims(cfg)
-    b, s, _ = x.shape
-    dt = x.dtype
-    attn = layer.attn
-    h = rmsnorm(x, layer.ln1)
-    q = (h @ attn.wq.to(dt)).reshape(b, s, n_heads, hd).transpose(1, 2)
-    k = (h @ attn.wk.to(dt)).reshape(b, s, n_kv, hd).transpose(1, 2)
-    v = (h @ attn.wv.to(dt)).reshape(b, s, n_kv, hd).transpose(1, 2)
-    q = _rope_per_example(q, positions, cfg["rope_theta"])
-    k = _rope_per_example(k, positions, cfg["rope_theta"])
-    return q, k, v
-
-
-def _finish_layer(layer, x: torch.Tensor, out: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """out (B, Hq, S, hd) f32 attention -> residual adds of the attention and
-    FFN halves."""
-    b, _, s, _ = out.shape
-    out = out.to(x.dtype).transpose(1, 2).reshape(b, s, x.shape[-1])
-    x = x + out @ layer.attn.wo.to(x.dtype)
-    return x + _ffn_block(layer, x, cfg)
-
-
 def _logits(model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, model.ln_f)
+    if isinstance(model, TensorParallelLM):
+        return model.tied_logits(x)
     return (x @ model.embed.to(x.dtype).T).float()
+
+
+def _attn_shards(attn: torch.nn.Module) -> list[tuple]:
+    """``(device, wq, wk, wv, wo)`` of each shard of an attention half: a
+    ``TPAttention``'s column (and ``wo`` row) shards, or a one-device
+    module's whole weights as one shard. ``attn.n_heads``/``attn.n_kv`` are
+    one shard's counts."""
+    if isinstance(attn, TPAttention):
+        return [(dev, attn.wq[i], attn.wk[i], attn.wv[i], attn.wo[i])
+                for i, dev in enumerate(attn.devices)]
+    return [(attn.wq.device, attn.wq, attn.wk, attn.wv, attn.wo)]
+
+
+def _per_device(model: torch.nn.Module, *tensors: torch.Tensor) -> dict:
+    """``{device: tensors there}`` for each distinct device the model's
+    attention shards run on: one copy a device, none on the tensors' own
+    device (a group that repeats one device copies nothing)."""
+    out: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+    for dev, *_weights in _attn_shards(model.layers[0].attn):
+        if dev not in out:
+            out[dev] = tuple(t.to(dev, non_blocking=True) for t in tensors)
+    return out
+
+
+def _attention_half(layer: torch.nn.Module, x: torch.Tensor, cfg: dict, kv: list[dict],
+                    on: dict, attend) -> torch.Tensor:
+    """The attention half of one cached decoder layer, shard by shard: shard
+    i projects the pre-norm stream to the q/k/v of its heads on its device
+    (RoPE at ``on[dev][0]``, the (B, S) positions there), ``attend(kv[i],
+    q, k, v, on[dev])`` writes its K/V rows into cache shard ``kv[i]`` and
+    returns its f32 attention ``(B, Hq_i, S, hd)``, and the shard's rows of
+    ``wo`` turn that into its partial; the partials reduce on the leader.
+    One shard (one device) is the one-device layer, operation for
+    operation. -> x plus the half's output."""
+    attn = layer.attn
+    shards = _attn_shards(attn)
+    if len(shards) != len(kv):
+        raise ValueError(f"a cache in {len(kv)} shards for attention in {len(shards)}")
+    hd = cfg["d_model"] // cfg["n_heads"]
+    theta = cfg["rope_theta"]
+    dt = x.dtype
+    b, s, _ = x.shape
+    h = rmsnorm(x, layer.ln1)
+    parts = []
+    for c, (dev, wq, wk, wv, wo) in zip(kv, shards):
+        hi = h.to(dev, non_blocking=True)
+        positions = on[dev][0]
+        q = (hi @ wq.to(dt)).reshape(b, s, attn.n_heads, hd).transpose(1, 2)
+        k = (hi @ wk.to(dt)).reshape(b, s, attn.n_kv, hd).transpose(1, 2)
+        v = (hi @ wv.to(dt)).reshape(b, s, attn.n_kv, hd).transpose(1, 2)
+        out = attend(c, _rope_per_example(q, positions, theta),
+                     _rope_per_example(k, positions, theta), v, on[dev])
+        parts.append(out.to(dt).transpose(1, 2).reshape(b, s, -1) @ wo.to(dt))
+    return x + reduce_partials(parts, x.device)
 
 
 def _forward_cached_dyn(model: torch.nn.Module, input_ids: torch.Tensor, cache: dict,
@@ -211,30 +306,37 @@ def _forward_cached_dyn(model: torch.nn.Module, input_ids: torch.Tensor, cache: 
     (reference :848). Attention reads the whole cache with the mask
     ``k_pos <= q_pos``; scores and p.v are f32 sums of the stored values, p
     cast to the cache dtype first. -> logits (B, S, V) f32."""
-    n_heads, n_kv, hd = _dims(cfg)
+    hd = cfg["d_model"] // cfg["n_heads"]
     b, s_len = input_ids.shape
     max_len = cache["k"].shape[3]
+    dev = input_ids.device
     start_pos = start_pos.long()
-    positions = start_pos[:, None] + torch.arange(s_len, device=input_ids.device)[None, :]
+    positions = start_pos[:, None] + torch.arange(s_len, device=dev)[None, :]
     write = start_pos.clamp(0, max_len - s_len)[:, None] + torch.arange(
-        s_len, device=input_ids.device)[None, :]                            # (B, S)
-    rows = torch.arange(b, device=input_ids.device)[:, None]
-    k_pos = torch.arange(max_len, device=input_ids.device)
+        s_len, device=dev)[None, :]                                         # (B, S)
+    rows = torch.arange(b, device=dev)[:, None]
+    k_pos = torch.arange(max_len, device=dev)
     mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None, None]   # (B,1,1,S,L)
-    g = n_heads // n_kv
-    x = _embed(model, input_ids)
-    for li, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, x, positions, cfg)
-        ck, cv = cache["k"][li], cache["v"][li]
+    on = _per_device(model, positions, write, rows, mask)
+
+    def attend(c, q, k, v, at):
+        _positions, write, rows, mask = at
+        ck, cv = c["k"], c["v"]
         # advanced indices at dims 0 and 2: the updated block is (B, S, n_kv, hd)
         ck[rows, :, write] = k.transpose(1, 2).to(ck.dtype)
         cv[rows, :, write] = v.transpose(1, 2).to(cv.dtype)
-        qg = q.reshape(b, n_kv, g, s_len, hd).float()
+        n_kv, n_q = k.shape[1], q.shape[1]
+        qg = q.reshape(b, n_kv, n_q // n_kv, s_len, hd).float()
         sc = torch.einsum("bkgqd,bkld->bkgql", qg, ck.float()) / math.sqrt(hd)
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
         p = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgql,bkld->bkgqd", p.to(cv.dtype).float(), cv.float())
-        x = _finish_layer(layer, x, out.reshape(b, n_heads, s_len, hd), cfg)
+        return out.reshape(b, n_q, s_len, hd)
+
+    x = _embed(model, input_ids)
+    for li, layer in enumerate(model.layers):
+        x = _attention_half(layer, x, cfg, _layer_shards(cache, li), on, attend)
+        x = x + _ffn_block(layer, x, cfg)
     return _logits(model, x)
 
 
@@ -279,7 +381,7 @@ def generate(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor,
         )
     dev = input_ids.device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    cache = init_cache(cfg, b, s + max_new_tokens, dev)
+    cache = init_cache(cfg, b, s + max_new_tokens, dev, kv_group(model))
     lengths = prompt_lengths.long().to(dev)
     logits = _forward_cached_dyn(model, input_ids, cache, torch.zeros(b, dtype=torch.long,
                                                                       device=dev), cfg)
@@ -293,12 +395,19 @@ def generate(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor,
 def _cache_from_prefix(cfg: dict, cached_k: torch.Tensor, cached_v: torch.Tensor,
                        max_len: int) -> dict:
     """A fresh ``(layers, 1, n_kv, max_len, hd)`` cache whose first rows are
-    the cached prefix's (cast to the model dtype)."""
-    cache = init_cache(cfg, cached_k.shape[1], max_len, cached_k.device)
-    l_pad = cached_k.shape[3]
-    cache["k"][:, :, :, :l_pad] = cached_k.to(cache["k"].dtype)
-    cache["v"][:, :, :, :l_pad] = cached_v.to(cache["v"].dtype)
-    return cache
+    the cached prefix's (cast to the model dtype), placed as the prefix is:
+    each shard on its own device."""
+    dtype = getattr(torch, cfg["dtype"])
+
+    def grow(buf: torch.Tensor | KVShards) -> torch.Tensor | KVShards:
+        parts = []
+        for t in kv_shards(buf):
+            c = torch.zeros((*t.shape[:3], max_len, t.shape[4]), dtype=dtype, device=t.device)
+            c[:, :, :, :t.shape[3]] = t.to(dtype)
+            parts.append(c)
+        return like_kv(buf, parts)
+
+    return {"k": grow(cached_k), "v": grow(cached_v)}
 
 
 @torch.inference_mode()
@@ -336,7 +445,7 @@ def slot_prefill(model: torch.nn.Module, cfg: dict, input_ids: torch.Tensor, pro
     (1,), k, v ``(layers, 1, n_kv, S_pad, hd)``, last logits (1, V) f32). The
     first token's own K/V is written by the first decode step."""
     dev = input_ids.device
-    cache = init_cache(cfg, 1, input_ids.shape[1], dev)
+    cache = init_cache(cfg, 1, input_ids.shape[1], dev, kv_group(model))
     logits = _forward_cached_dyn(model, input_ids, cache,
                                  torch.zeros(1, dtype=torch.long, device=dev), cfg)
     last = logits[:, prompt_len - 1].clone()  # not a view that pins every row's logits
@@ -373,15 +482,17 @@ def sample_logits(last: torch.Tensor, temperature: float, top_k: int,
 
 
 @torch.inference_mode()
-def slot_insert(slot_k: torch.Tensor, slot_v: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-                idx: int) -> None:
+def slot_insert(slot_k: torch.Tensor | KVShards, slot_v: torch.Tensor | KVShards,
+                pk: torch.Tensor | KVShards, pv: torch.Tensor | KVShards, idx: int) -> None:
     """Copy one admitted request's prefill K/V ``(layers, 1, n_kv, P_pad, hd)``
     into lane ``idx`` of the dense slot array IN PLACE (``_slot_insert_jit``
-    :315). Rows past P_pad keep a previous occupant's K/V, never visible:
-    a decode step writes row p before attending to it."""
-    p_pad = pk.shape[3]
-    slot_k[:, idx:idx + 1, :, :p_pad] = pk.to(slot_k.dtype)
-    slot_v[:, idx:idx + 1, :, :p_pad] = pv.to(slot_v.dtype)
+    :315), shard by shard. Rows past P_pad keep a previous occupant's K/V,
+    never visible: a decode step writes row p before attending to it."""
+    for sk, sv, k, v in zip(kv_shards(slot_k), kv_shards(slot_v), kv_shards(pk), kv_shards(pv),
+                            strict=True):
+        p_pad = k.shape[3]
+        sk[:, idx:idx + 1, :, :p_pad] = k.to(sk.dtype)
+        sv[:, idx:idx + 1, :, :p_pad] = v.to(sv.dtype)
 
 
 @torch.inference_mode()
@@ -405,83 +516,106 @@ def decode_chunk(model: torch.nn.Module, cfg: dict, slot_k: torch.Tensor,
 
 
 @torch.inference_mode()
-def paged_insert(arena: dict, pk: torch.Tensor, pv: torch.Tensor, table_row: torch.Tensor,
-                 page_tokens: int, base: int = 0) -> None:
+def paged_insert(arena: dict, pk: torch.Tensor | KVShards, pv: torch.Tensor | KVShards,
+                 table_row: torch.Tensor, page_tokens: int, base: int = 0) -> None:
     """Scatter one admitted request's prefill K/V ``(layers, 1, n_kv, P_pad,
-    hd)`` into its reserved pages IN PLACE (``_paged_insert_jit`` :654):
-    logical row ``r`` goes to page ``table_row[r // page_tokens]`` offset
-    ``r % page_tokens``; rows below ``base`` (the shared-prefix boundary: those
-    rows live in pages mapped read-only, and a suffix prefill produced junk
-    there) go to the trash page. An int8 arena quantizes the rows first."""
-    p_pad = pk.shape[3]
-    pps = table_row.shape[0]
-    dev = pk.device
-    rows = torch.arange(p_pad, device=dev)
-    pages = table_row.long()[(rows // page_tokens).clamp(0, pps - 1)]
-    pages = torch.where(rows >= base, pages, torch.zeros_like(pages))
-    offs = rows % page_tokens
-    # (layers, 1, n_kv, P_pad, hd) -> (P_pad, layers, n_kv, hd): the two
-    # advanced indices below are non-adjacent, so their broadcast dim moves
-    # to the front of the updated block
-    kv = pk[:, 0].permute(2, 0, 1, 3)
-    vv = pv[:, 0].permute(2, 0, 1, 3)
-    if "k_scale" in arena:
-        kv, k_s = _quantize_kv_rows(kv)
-        vv, v_s = _quantize_kv_rows(vv)
-        arena["k_scale"][:, pages, :, offs] = k_s
-        arena["v_scale"][:, pages, :, offs] = v_s
-    arena["k"][:, pages, :, offs, :] = kv.to(arena["k"].dtype)
-    arena["v"][:, pages, :, offs, :] = vv.to(arena["v"].dtype)
+    hd)`` into its reserved pages IN PLACE (``_paged_insert_jit`` :654),
+    each shard into its arena shard: logical row ``r`` goes to page
+    ``table_row[r // page_tokens]`` offset ``r % page_tokens``; rows below
+    ``base`` (the shared-prefix boundary: those rows live in pages mapped
+    read-only, and a suffix prefill produced junk there) go to the trash
+    page. An int8 arena quantizes the rows first."""
+    shards = _cache_shards(arena)
+    for a, k, v in zip(shards, kv_shards(pk), kv_shards(pv), strict=True):
+        p_pad = k.shape[3]
+        dev = k.device
+        row = table_row.to(dev, non_blocking=True).long()
+        rows = torch.arange(p_pad, device=dev)
+        pages = row[(rows // page_tokens).clamp(0, row.shape[0] - 1)]
+        pages = torch.where(rows >= base, pages, torch.zeros_like(pages))
+        offs = rows % page_tokens
+        # (layers, 1, n_kv, P_pad, hd) -> (P_pad, layers, n_kv, hd): the two
+        # advanced indices below are non-adjacent, so their broadcast dim
+        # moves to the front of the updated block
+        kv, vv = k[:, 0].permute(2, 0, 1, 3), v[:, 0].permute(2, 0, 1, 3)
+        if "k_scale" in a:
+            kv, k_s = _quantize_kv_rows(kv)
+            vv, v_s = _quantize_kv_rows(vv)
+            a["k_scale"][:, pages, :, offs] = k_s
+            a["v_scale"][:, pages, :, offs] = v_s
+        a["k"][:, pages, :, offs, :] = kv.to(a["k"].dtype)
+        a["v"][:, pages, :, offs, :] = vv.to(a["v"].dtype)
 
 
 @torch.inference_mode()
-def paged_gather_prefix(arena: dict, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+def paged_gather_prefix(arena: dict, pages: list[int]) -> tuple:
     """Gather ``n`` full shared-prefix pages into the dense ``(layers, 1,
     n_kv, n * page_tokens, hd)`` rows ``slot_prefill_from_cache`` takes
-    (``_paged_gather_prefix_jit`` :697). Read-only on the arena. An int8
-    arena is dequantized to f32 rows here."""
-    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
-    k, v = arena["k"][:, idx], arena["v"][:, idx]          # (L, n, n_kv, pt, hd)
-    if "k_scale" in arena:
-        k = k.float() * arena["k_scale"][:, idx][..., None]
-        v = v.float() * arena["v_scale"][:, idx][..., None]
-    layers, n, n_kv, pt, hd = k.shape
-    k = k.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None]
-    v = v.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None]
-    return k, v
+    (``_paged_gather_prefix_jit`` :697), shard by shard (a sharded arena
+    gives sharded rows). Read-only on the arena. An int8 arena is
+    dequantized to f32 rows here."""
+    ks, vs = [], []
+    pages_t = torch.as_tensor(pages, dtype=torch.long)
+    for a in _cache_shards(arena):
+        idx = pages_t.to(a["k"].device)
+        k, v = a["k"][:, idx], a["v"][:, idx]              # (L, n, n_kv, pt, hd)
+        if "k_scale" in a:
+            k = k.float() * a["k_scale"][:, idx][..., None]
+            v = v.float() * a["v_scale"][:, idx][..., None]
+        layers, n, n_kv, pt, hd = k.shape
+        ks.append(k.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None])
+        vs.append(v.transpose(1, 2).reshape(layers, n_kv, n * pt, hd)[:, None])
+    return like_kv(arena["k"], ks), like_kv(arena["k"], vs)
 
 
 @torch.inference_mode()
 def page_copy(arena: dict, src: int, dst: int) -> None:
-    """Copy arena page ``src`` to ``dst`` IN PLACE, with an int8 arena's
-    scales (``_page_copy_jit`` :718): copy-on-write, and the index's
-    pristine copy of a published boundary page."""
-    for name in ("k", "v", "k_scale", "v_scale"):
-        if name in arena:
-            arena[name][:, dst] = arena[name][:, src]
+    """Copy arena page ``src`` to ``dst`` IN PLACE on every shard, with an
+    int8 arena's scales (``_page_copy_jit`` :718): copy-on-write, and the
+    index's pristine copy of a published boundary page."""
+    for a in _cache_shards(arena):
+        for t in a.values():
+            t[:, dst] = t[:, src]
 
 
 @torch.inference_mode()
 def pages_export(arena: dict, pages: list[int]) -> dict:
     """Gather ``n`` arena pages' RAW rows for conversation parking
     (``_pages_export_jit`` :737): ``{"k", "v"[, "k_scale", "v_scale"]}``
-    in page layout ``(layers, n, n_kv, page_tokens[, hd])``, in the arena's
-    dtype. An int8 arena's values and scales come back as they are, never
+    in the one-device page layout ``(layers, n, n_kv, page_tokens[, hd])``
+    on the leader, in the arena's dtype: a sharded arena's shards are
+    concatenated on the head axis in shard order, so the tier, its disk
+    spill and the peer wire carry the same bytes whichever placement parked
+    them. An int8 arena's values and scales come back as they are, never
     dequantized, so that an import writes the same bits back. Read-only on
     the arena (a gather copies)."""
-    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
-    return {name: t.index_select(1, idx) for name, t in arena.items()}
+    out = {}
+    pages_t = torch.as_tensor(pages, dtype=torch.long)
+    for name, buf in arena.items():
+        parts = [t.index_select(1, pages_t.to(t.device)) for t in kv_shards(buf)]
+        if len(parts) == 1:
+            out[name] = parts[0]
+        else:
+            lead = buf.device
+            out[name] = torch.cat([t.to(lead, non_blocking=True) for t in parts], dim=KV_HEAD_DIM)
+    return out
 
 
 @torch.inference_mode()
 def pages_import(arena: dict, pages: list[int], payload: dict) -> None:
     """Write parked page payloads (``pages_export``'s layout and dtype) into
-    the arena pages ``pages`` IN PLACE (``_pages_import_jit`` :754): one
-    batched index copy along the page axis per buffer, values and int8
-    scales, so a park followed by an import leaves every page bit-identical."""
-    idx = torch.as_tensor(pages, dtype=torch.long, device=arena["k"].device)
-    for name, t in arena.items():
-        t.index_copy_(1, idx, payload[name].to(t.dtype))
+    the arena pages ``pages`` IN PLACE (``_pages_import_jit`` :754): the
+    payload is split on the head axis into the arena's shards, then one
+    batched index copy along the page axis per buffer and shard, values and
+    int8 scales, so a park followed by an import leaves every page
+    bit-identical."""
+    pages_t = torch.as_tensor(pages, dtype=torch.long)
+    for name, buf in arena.items():
+        shards = kv_shards(buf)
+        sizes = [t.shape[KV_HEAD_DIM] for t in shards]
+        for t, part in zip(shards, payload[name].split(sizes, dim=KV_HEAD_DIM), strict=True):
+            t.index_copy_(1, pages_t.to(t.device),
+                          part.to(t.device, non_blocking=True).to(t.dtype))
 
 
 def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: dict,
@@ -494,35 +628,38 @@ def _paged_step(model: torch.nn.Module, cfg: dict, toks: torch.Tensor, arena: di
     past ``pps * page_tokens`` then goes to the trash page 0 explicitly (the
     clip alone would alias it onto the lane's last slot and overwrite
     visible history). An int8 arena quantizes the T rows at write time.
-    Attention is one ``attend`` call per layer (the decode or the verify
-    dispatch). -> logits (S, T, V) f32."""
-    n_heads, n_kv, hd = _dims(cfg)
+    Attention is one ``attend`` call per layer and shard (the decode or the
+    verify dispatch), over that shard's heads and arena shard. -> logits
+    (S, T, V) f32."""
     s_lanes, t_q = toks.shape
     pps = tables.shape[1]
     positions = pos.long()[:, None] + torch.arange(t_q, device=toks.device)[None, :]  # (S, T)
     pages = tables.gather(1, (positions // page_tokens).clamp(0, pps - 1)).long()
     pages = torch.where(positions // page_tokens >= pps, torch.zeros_like(pages), pages)
     off = positions % page_tokens
-    quantized = "k_scale" in arena
-    x = _embed(model, toks)                                               # (S, T, d)
-    for li, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, x, positions, cfg)
+    on = _per_device(model, positions, pages, off, tables, pos)
+
+    def write_and_attend(a, q, k, v, at):
+        _positions, pages, off, tables, pos = at
         # advanced indices (S, T) at arena dims 0 and 2 straddle the head
         # slice, so the updated block is (S, T, n_kv, hd)
-        k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)              # (S, T, n_kv, hd)
-        ks_arena = vs_arena = None
-        if quantized:
+        k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)            # (S, T, n_kv, hd)
+        ks_arena, vs_arena = a.get("k_scale"), a.get("v_scale")
+        if ks_arena is not None:
             k_rows, k_s = _quantize_kv_rows(k_rows)
             v_rows, v_s = _quantize_kv_rows(v_rows)
-            ks_arena, vs_arena = arena["k_scale"][li], arena["v_scale"][li]
             ks_arena[pages, :, off] = k_s
             vs_arena[pages, :, off] = v_s
-        k_arena, v_arena = arena["k"][li], arena["v"][li]
+        k_arena, v_arena = a["k"], a["v"]
         k_arena[pages, :, off, :] = k_rows.to(k_arena.dtype)
         v_arena[pages, :, off, :] = v_rows.to(v_arena.dtype)
-        out = attend(q, k_arena, v_arena, tables, pos, page_tokens,
-                     k_scale=ks_arena, v_scale=vs_arena, kernel=kernel)
-        x = _finish_layer(layer, x, out.reshape(s_lanes, n_heads, t_q, hd), cfg)
+        return attend(q, k_arena, v_arena, tables, pos, page_tokens,
+                      k_scale=ks_arena, v_scale=vs_arena, kernel=kernel)
+
+    x = _embed(model, toks)                                               # (S, T, d)
+    for li, layer in enumerate(model.layers):
+        x = _attention_half(layer, x, cfg, _layer_shards(arena, li), on, write_and_attend)
+        x = x + _ffn_block(layer, x, cfg)
     return _logits(model, x)
 
 

@@ -148,7 +148,9 @@ class TPMoEBlock(nn.Module):
 
 class TensorParallelMoELM(TensorParallelLM):
     """``TensorParallelLM``'s embedding, norms and tied output over
-    ``TPMoEBlock`` layers."""
+    ``TPMoEBlock`` layers. Its solo ``:generate`` runs shard by shard as
+    ``TensorParallelLM``'s does (``models/generation.py``), the routed FFN
+    whole on the leader."""
 
     block_cls = TPMoEBlock
 

@@ -13,6 +13,11 @@ Counterpart of ``tfservingcache_tpu/models/speculative.py``. Two paths:
     arena (the paged decode kernel on the card), then the target's verify
     pass over all spec+1 positions (the paged verify kernel).
 
+Either model may be tensor parallel on a device group (``TensorParallelLM``,
+``TensorParallelMoELM``): its caches and arena are then cut over its KV
+heads as ``models/generation.py`` places them, and each of its steps runs
+shard by shard, the draft's and the target's alike.
+
 Exactness: at temperature 0 the emitted sequence is the target's own greedy
 decode — a token is kept only while it matches the target's argmax, and the
 first mismatch is replaced by the target's own choice. The verify forward
@@ -42,6 +47,7 @@ from tfservingcache_tpu_torch.models.generation import (
     _paged_verify_step,
     _sample_per_row,
     init_cache,
+    kv_group,
 )
 
 
@@ -176,7 +182,7 @@ def speculative_generate(
     slack = max_new_tokens + spec_tokens + 1
     zeros = torch.zeros((b,), dtype=torch.long, device=dev)
     if cached_kv is None:
-        cache_t = init_cache(cfg_t, b, s + slack, dev)
+        cache_t = init_cache(cfg_t, b, s + slack, dev, kv_group(model_t))
         logits_t = _forward_cached_dyn(model_t, input_ids, cache_t, zeros, cfg_t)
         last = logits_t[torch.arange(b, device=dev), lengths - 1]
     else:
@@ -187,7 +193,7 @@ def speculative_generate(
         start = torch.full((1,), int(cached_len), dtype=torch.long, device=dev)
         logits_t = _forward_cached_dyn(model_t, suffix_ids, cache_t, start, cfg_t)
         last = logits_t[:, int(suffix_len) - 1]
-    cache_d = init_cache(cfg_d, b, s + slack, dev)
+    cache_d = init_cache(cfg_d, b, s + slack, dev, kv_group(model_d))
     _forward_cached_dyn(model_d, input_ids, cache_d, zeros, cfg_d)
     first = _greedy(last)
     out, rounds, final_tok, final_idx = _spec_decode_loop(

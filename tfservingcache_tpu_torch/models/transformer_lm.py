@@ -223,7 +223,10 @@ class TPAttention(nn.Module):
     them through ``attention_fn`` (the flash kernel on a card) and
     multiplies by its row block of ``wo``; the partials are reduced on the
     leader. Replicated weights (P does not divide ``n_kv_heads``) run the
-    whole half on the leader."""
+    whole half on the leader. ``n_heads``/``n_kv`` are one shard's head
+    counts. The cached forward of ``:generate`` (``models/generation.py``)
+    runs the same shards, each against its own shard of the KV cache, and
+    reduces the same products the same way."""
 
     def __init__(self, p: dict[str, ShardedLeaf], cfg: dict,
                  group: tuple[torch.device, ...]) -> None:
@@ -311,22 +314,34 @@ class TensorParallelLM(nn.Module):
         self.layers = nn.ModuleList(self.block_cls(p, cfg, self.group) for p in sharded["layers"])
         self.ln_f = _param(sharded["ln_f"].shards[0])
 
-    def forward(
-        self, inputs: dict[str, torch.Tensor], attention_fn: AttentionFn = attention
-    ) -> dict[str, torch.Tensor]:
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``ids`` on the leader in the model dtype, with
+        the reference's gather semantics (negative ids wrap, out-of-range
+        ids clamp): each shard gathers its d_model columns, concatenated on
+        the leader in shard order."""
         lead = self.group[0]
-        ids = inputs["input_ids"].long().to(lead)
+        ids = ids.long().to(lead)
         ids = torch.where(ids < 0, ids + self.vocab, ids).clamp(0, self.vocab - 1)
         x = torch.cat([e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
                        for e, dev in zip(self.embed, self.embed_devices)], dim=-1)
-        x = x.to(self.dtype)
-        for layer in self.layers:
-            x = layer(x, attention_fn)
-        x = rmsnorm(x, self.ln_f)
+        return x.to(self.dtype)
+
+    def tied_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The tied head over the normed stream ``x`` on the leader -> f32
+        logits: each shard contracts its column slice of ``x`` with its
+        slice of the embedding, the partial logits reduced on the leader."""
         width = x.shape[-1] // len(self.embed_devices)
         parts = [x[..., i * width:(i + 1) * width].to(dev, non_blocking=True) @ e.to(self.dtype).T
                  for i, (e, dev) in enumerate(zip(self.embed, self.embed_devices))]
-        return {"logits": reduce_partials(parts, lead).float()}
+        return reduce_partials(parts, self.group[0]).float()
+
+    def forward(
+        self, inputs: dict[str, torch.Tensor], attention_fn: AttentionFn = attention
+    ) -> dict[str, torch.Tensor]:
+        x = self.embed_tokens(inputs["input_ids"])
+        for layer in self.layers:
+            x = layer(x, attention_fn)
+        return {"logits": self.tied_logits(rmsnorm(x, self.ln_f))}
 
 
 # the weights of each half, replicated where the group does not divide it

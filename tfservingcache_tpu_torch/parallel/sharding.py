@@ -17,10 +17,18 @@ entry, and one on an axis of size 1, degrades to None, so one rule set
 serves a single device and any group.
 
 ``is_single_process`` has no counterpart: a port group is one process by
-construction (cross-process groups are a later slice). The KV-arena and
-batch helpers of the reference (``kv_arena_shardings``, ``shard_kv_arena``,
-``batch_sharding``, ``replicated``) wait for the sharded arena;
-``kv_arena_spec`` is here already, a pure function of the axis sizes.
+construction (the port has no cross-process group yet).
+
+The KV cache of a tensor-parallel model, dense or paged, is cut over its
+KV-head axis (dimension 2 of every buffer, ``KV_HEAD_DIM``) where the
+group's size divides the head count (``kv_arena_spec``), so that each shard
+holds the K/V rows of the heads its slice of ``wk``/``wv`` computes; an int8
+arena's scales are cut with the payload (``kv_arena_shardings``).
+``shard_kv_arena`` places a cache dict on a group: a cut buffer becomes a
+``KVShards``, one contiguous tensor of its own on each device (the paged
+kernels take no strided view), an uncut one stays one tensor on the leader.
+The page bookkeeping (free lists, refcounts, the prefix index) counts pages
+on the host and never needs a gather across shards.
 """
 
 from __future__ import annotations
@@ -140,4 +148,118 @@ def kv_arena_spec(axes: Mapping[str, int], n_kv: int, axis: str = "model") -> Sp
     size = axes.get(axis, 1)
     if size > 1 and n_kv % size == 0:
         return (None, None, axis, None, None)
+    return ()
+
+
+# the KV-head axis of a dense cache (layers, B, n_kv, L, hd), a paged arena
+# (layers, pages, n_kv, pt, hd) and an int8 arena's scales (layers, pages,
+# n_kv, pt) alike (reference :83)
+KV_HEAD_DIM = 2
+
+
+class KVShards:
+    """One KV buffer (a cache's ``k``, ``v``, ``k_scale`` or ``v_scale``) cut
+    over the KV-head axis: ``shards[i]`` holds the i-th block of heads,
+    contiguous, on the group's i-th device. ``shape`` and ``dtype`` are the
+    one-device buffer's, ``device`` the leader's, and ``nbytes`` the sum of
+    the shards' bytes: what the group really allocated (reference
+    ``model_runtime.py:2188-2205``)."""
+
+    def __init__(self, shards: Sequence[torch.Tensor]) -> None:
+        self.shards = tuple(shards)
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.shards[0].shape)
+        shape[KV_HEAD_DIM] = sum(t.shape[KV_HEAD_DIM] for t in self.shards)
+        return torch.Size(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.shards)
+
+    def gather(self) -> torch.Tensor:
+        """The one-device buffer on the leader: the shards concatenated on
+        the head axis in shard order."""
+        lead = self.device
+        return torch.cat([t.to(lead, non_blocking=True) for t in self.shards], dim=KV_HEAD_DIM)
+
+
+def kv_shards(buf: torch.Tensor | KVShards) -> tuple[torch.Tensor, ...]:
+    """The per-device tensors of a KV buffer: a ``KVShards``'s shards, or the
+    one tensor of an uncut buffer."""
+    return buf.shards if isinstance(buf, KVShards) else (buf,)
+
+
+def like_kv(buf: torch.Tensor | KVShards,
+            parts: Sequence[torch.Tensor]) -> torch.Tensor | KVShards:
+    """``parts`` (one tensor per shard of ``buf``) in ``buf``'s kind."""
+    return KVShards(parts) if isinstance(buf, KVShards) else parts[0]
+
+
+def kv_arena_shardings(axes: Mapping[str, int], cache: Mapping[str, Any],
+                       axis: str = "model") -> dict[str, Spec]:
+    """The spec of each buffer of an ``init_cache``/``init_paged_cache`` dict
+    (reference :100): ``k``/``v`` by ``kv_arena_spec``, an int8 arena's
+    ``k_scale``/``v_scale`` cut over the same axis (their dimension 2)
+    whenever the payload is, replicated otherwise."""
+    spec = kv_arena_spec(axes, int(cache["k"].shape[KV_HEAD_DIM]), axis)
+    scale = (None, None, axis) if axis in spec else ()
+    return {name: spec if name in ("k", "v") else scale for name in cache}
+
+
+def _placed(buf: torch.Tensor, shape: tuple[int, ...], dev: torch.device,
+            part: torch.Tensor | None) -> torch.Tensor:
+    """A contiguous tensor of its own on ``dev``: zeros for a buffer on the
+    meta device, else a copy of ``part``."""
+    if buf.is_meta:
+        return torch.zeros(shape, dtype=buf.dtype, device=dev)
+    return torch.empty(shape, dtype=buf.dtype, device=dev).copy_(part)
+
+
+def shard_kv_arena(cache: Mapping[str, torch.Tensor], group: Sequence[torch.device],
+                   axis: str = "model") -> dict[str, torch.Tensor | KVShards]:
+    """Place a KV cache dict on ``group`` by ``kv_arena_shardings`` (reference
+    :121): a cut buffer becomes a ``KVShards`` whose i-th shard holds heads
+    ``i * n/P .. (i+1) * n/P`` on ``group[i]``, each allocated contiguous on
+    its own device, on a group that repeats one device too; an uncut buffer
+    is one tensor on the leader. A buffer on the meta device only gives its
+    shape and dtype: the placed tensors are zeros, and nothing of the whole
+    buffer is ever allocated (how ``init_cache``/``init_paged_cache`` build a
+    group's cache)."""
+    devs = tuple(torch.device(d) for d in group)
+    axes = group_axes(devs)
+    specs = kv_arena_shardings(axes, cache, axis)
+    out: dict[str, torch.Tensor | KVShards] = {}
+    for name, buf in cache.items():
+        cut = sharded_dim(specs[name], axes)
+        if cut is None:
+            out[name] = _placed(buf, tuple(buf.shape), devs[0], buf)
+            continue
+        dim, n = cut
+        size = buf.shape[dim] // n
+        shape = tuple(size if d == dim else s for d, s in enumerate(buf.shape))
+        out[name] = KVShards([
+            _placed(buf, shape, dev, None if buf.is_meta else buf.narrow(dim, i * size, size))
+            for i, dev in enumerate(devs)])
+    return out
+
+
+def batch_sharding(axes: Mapping[str, int], axis: str = "data") -> Spec:
+    """The spec of a batch-major array (reference :134): its leading axis
+    over ``axis`` where the group has it above size 1, replicated
+    otherwise. A port group has only ``"model"``, so a batch replicates."""
+    return (axis,) if axes.get(axis, 1) > 1 else ()
+
+
+def replicated(axes: Mapping[str, int]) -> Spec:
+    """The spec of a replicated array (reference :140)."""
     return ()

@@ -23,7 +23,8 @@ Observability (reference rest.py:138-300, 381-415):
     node's ``Metrics`` after ``LEDGER.publish``;
   - ``/monitoring/traces`` (``n``, ``min_ms``, ``trace_id``),
     ``/monitoring/engine`` (``n``, ``reset``, ``model``; the flight
-    recorder's snapshot plus its ``dumps``) and ``/monitoring/tenants``
+    recorder's snapshot plus its ``dumps``, and ``mesh``, the runtime's
+    ``mesh_topology()``, on a device group) and ``/monitoring/tenants``
     (``top``, ``dim``, ``model``, ``reset``); ``/monitoring/status`` is
     the node's ``NodeStatus`` as a dict (``status_collector``) and
     ``/monitoring/cluster`` the router's ``FleetView`` snapshot (``fleet``),
@@ -262,6 +263,12 @@ class RestServingServer:
                 model=query.get("model"),
             )
             snap["dumps"] = RECORDER.list_dumps()
+            # the group stamp (reference rest.py:196-206): engine numbers
+            # from a sharded arena are read beside the group that made them
+            runtime = getattr(getattr(self.backend, "manager", None), "runtime", None)
+            topology = getattr(runtime, "mesh_topology", lambda: None)()
+            if topology is not None:
+                snap["mesh"] = topology
             return _json(snap)
         if path == "/monitoring/tenants":
             try:

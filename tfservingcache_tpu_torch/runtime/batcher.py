@@ -1739,6 +1739,9 @@ class ContinuousGenerateEngine:
         if rank is None:
             raise ValueError(f"unknown priority {priority!r} (expected high|normal|low)")
         ids = np.asarray(input_ids, np.int32)
+        # a runtime on a device group is one process, so it runs this engine
+        # on its group's slot state as one device does (the reference's rule
+        # for a single-process mesh, batcher.py:2117-2128)
         solo = (
             seed is not None
             or ids.ndim != 2

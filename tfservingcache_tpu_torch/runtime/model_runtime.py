@@ -51,8 +51,16 @@ moe_lm) is tensor parallel on a group of more than one device: the loaded
 tree is cut by the plan's rules (``parallel.sharding.shard_params``), the
 load span says which halves (``tp_attn``, ``tp_mlp``, ``tp_embed``), and
 the resident bytes stay the tree's logical bytes. ``:generate`` and the
-slot surface refuse such a model (the sharded KV arena is a later slice);
-bert and t5, which have no plan, are refused on such a group.
+slot surface serve such a model on the group: its KV cache, dense or paged,
+is cut over the KV-head axis where the group divides it
+(``parallel.sharding.shard_kv_arena``), else whole on the leader, and each
+shard's cached forward runs the paged kernels on its own heads (the
+reference turns its Pallas kernel off on a mesh, model_runtime.py:2102; the
+port's shards are whole local tensors, so ``serving.kv_paged_kernel`` keeps
+its one-card meaning). The page bookkeeping stays on the host, the host
+mirrors and sampling on the leader. ``mesh_topology`` stamps the group on
+``/monitoring/engine``. bert and t5, which have no plan, are refused on
+such a group.
 
 Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
 ``load`` span (``tier`` disk or host) with the reference's stage children
@@ -104,7 +112,8 @@ from tfservingcache_tpu_torch.models.registry import (
     unflatten_params,
 )
 from tfservingcache_tpu_torch.native import make_lru_cache
-from tfservingcache_tpu_torch.parallel.sharding import shard_params
+from tfservingcache_tpu_torch.parallel.mesh import group_axes
+from tfservingcache_tpu_torch.parallel.sharding import KVShards, kv_shards, like_kv, shard_params
 from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
     ModelNotLoadedError,
@@ -678,13 +687,16 @@ class SlotDecodeState:
     ``block_tables`` row; the free list hands pages out at admission and
     takes them back at retirement. The host mirrors (tok/pos/active/temps/
     topks, block tables, free list) belong to the engine's scheduler
-    thread; the runtime copies them to the device once per chunk."""
+    thread; the runtime copies them to the device once per chunk. On a
+    tensor-parallel model's group ``k``/``v`` (and ``scales``) are
+    ``KVShards`` cut over the KV-head axis, one shard a device; their
+    ``shape`` and ``dtype`` are the one-device buffer's."""
 
     model_id: ModelId
     slots: int
     max_seq: int
-    k: torch.Tensor                  # slot array or paged arena, updated in place
-    v: torch.Tensor
+    k: torch.Tensor | KVShards       # slot array or paged arena, updated in place
+    v: torch.Tensor | KVShards
     tok: np.ndarray                  # (S,) i32 last sampled token per lane
     pos: np.ndarray                  # (S,) i32 next write position
     active: np.ndarray               # (S,) bool
@@ -867,15 +879,6 @@ def _arena(state: SlotDecodeState) -> dict:
     if state.scales is not None:
         arena["k_scale"], arena["v_scale"] = state.scales["k"], state.scales["v"]
     return arena
-
-
-def _refuse_tensor_parallel(loaded: LoadedModel) -> None:
-    """Generation reads each layer's weights whole (``models/generation.py``)
-    and the KV arena is not sharded yet: ``:generate`` and the slot surface
-    refuse a tensor-parallel model before any page or cache is taken.
-    Nothing falls back to a one-device decode on the leader."""
-    if loaded.tensor_parallel:
-        raise RuntimeError_("`:generate` over a tensor-parallel group: later slice (item 12d)")
 
 
 def _shards_weights(rules: Mapping[str, tuple]) -> bool:
@@ -1315,7 +1318,6 @@ class TorchModelRuntime(BaseRuntime):
             raise RuntimeError_(
                 f"generate is supported for transformer_lm/moe_lm models, not {family!r}"
             )
-        _refuse_tensor_parallel(loaded)
         return loaded
 
     def generate(
@@ -1359,7 +1361,6 @@ class TorchModelRuntime(BaseRuntime):
             draft = self._resident.get(draft_model_id)
             if draft is None:
                 raise ModelNotLoadedError(f"draft model {draft_model_id} is not loaded")
-            _refuse_tensor_parallel(draft)
         ids = np.asarray(input_ids, np.int32)
         if ids.ndim != 2 or not ids.size:
             raise RuntimeError_(f"input_ids must be (batch, seq), got {ids.shape}")
@@ -1480,10 +1481,12 @@ class TorchModelRuntime(BaseRuntime):
         l_store = 1 << (valid.bit_length() - 1)
         if l_store >= 16:
             entry_tokens = np.concatenate([prompt, host[0, :max_new]])
-            self._prefix_cache.insert(
-                model_id, entry_tokens[:l_store],
-                k_full[:, :, :, :l_store].clone(), v_full[:, :, :, :l_store].clone(), l_store,
-            )
+
+            def rows(buf: torch.Tensor | KVShards) -> torch.Tensor | KVShards:
+                return like_kv(buf, [t[:, :, :, :l_store].clone() for t in kv_shards(buf)])
+
+            self._prefix_cache.insert(model_id, entry_tokens[:l_store], rows(k_full),
+                                      rows(v_full), l_store)
         return host
 
     def _speculative(self, loaded: LoadedModel, draft: LoadedModel, model_id: ModelId,
@@ -1581,7 +1584,9 @@ class TorchModelRuntime(BaseRuntime):
 
     def _note_arena_bytes(self, state: SlotDecodeState) -> None:
         """``tpusc_gen_kv_arena_bytes{dtype}`` of a freshly built paged
-        arena: pages plus an int8 arena's scales (reference :2188)."""
+        arena: pages plus an int8 arena's scales, on a group the sum of the
+        shards' bytes (``KVShards.nbytes``), what the devices really hold
+        (reference :2188-2205)."""
         if self.metrics is None or not state.page_tokens:
             return
         nbytes = state.k.nbytes + state.v.nbytes
@@ -1614,6 +1619,9 @@ class TorchModelRuntime(BaseRuntime):
             share_prefix_bytes = int(self.cfg.kv_share_prefix_bytes)
         cfg = loaded.model_def.config
         max_seq = int(cfg["max_seq"])
+        # a tensor-parallel model's cache is cut over its group's KV heads
+        # (whole on the leader where the group does not divide them)
+        group = generation.kv_group(loaded.module)
         common = dict(
             model_id=model_id,
             slots=slots,
@@ -1638,7 +1646,7 @@ class TorchModelRuntime(BaseRuntime):
                 usable = max(usable, (usable * hd * dense_item) // (hd + 4))
             # +1: page 0 is the trash page, permanently reserved
             arena = generation.init_paged_cache(
-                cfg, usable + 1, page_tokens, arena_dtype, self.device
+                cfg, usable + 1, page_tokens, arena_dtype, self.device, group
             )
             scales = None
             if "k_scale" in arena:
@@ -1657,8 +1665,21 @@ class TorchModelRuntime(BaseRuntime):
                 prefix_index=prefix_index,
                 **common,
             )
-        cache = generation.init_cache(cfg, slots, max_seq, self.device)
+        cache = generation.init_cache(cfg, slots, max_seq, self.device, group)
         return SlotDecodeState(k=cache["k"], v=cache["v"], **common)
+
+    def mesh_topology(self) -> dict | None:
+        """The group stamp of ``/monitoring/engine`` (reference :2212-2222):
+        a runtime bound to a group of P devices is one process driving a
+        ``{"model": P}`` group, always on the fast path (the port has no
+        lockstep group); None on one device."""
+        if self.group is None:
+            return None
+        return {
+            "mesh_devices": len(self.group),
+            "mesh_axes": group_axes(self.group),
+            "mesh_fast_path": True,
+        }
 
     def drop_slot_state(self, model_id: ModelId) -> None:
         with self._slot_lock:

@@ -284,11 +284,13 @@ def configure_observability(cfg: Config) -> None:
     )
 
 
-def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNode:
+def build_node(cfg: Config, device: str | torch.device | None = None,
+               devices: list[str | torch.device] | None = None) -> CacheNode:
     """A ``CacheNode`` on ``device`` (default: ``cfg.serving.device``, which
     defaults to ``cuda``; a missing card raises rather than falling back).
     With ``mesh.chips_per_group`` > 1 its runtime is bound to one device
-    group (``node_group``)."""
+    group (``node_group``); ``devices`` binds it to that group instead (a
+    group that repeats one card, say)."""
     device = device or cfg.serving.device
     metrics = Metrics(model_labels=cfg.metrics.model_labels,
                       max_model_labels=cfg.metrics.max_model_labels)
@@ -297,10 +299,11 @@ def build_node(cfg: Config, device: str | torch.device | None = None) -> CacheNo
         # anything is built: a malformed spec raises here and leaves no
         # thread behind
         lab_faults.arm_json(cfg.observability.lab_faults, metrics=metrics)
-    if cfg.mesh.chips_per_group > 1:
-        runtime = TorchModelRuntime(
-            cfg.serving, devices=node_group(device, cfg.mesh.chips_per_group),
-            metrics=metrics, host_tier_bytes=cfg.cache.host_tier_bytes)
+    if devices is None and cfg.mesh.chips_per_group > 1:
+        devices = node_group(device, cfg.mesh.chips_per_group)
+    if devices is not None:
+        runtime = TorchModelRuntime(cfg.serving, devices=devices, metrics=metrics,
+                                    host_tier_bytes=cfg.cache.host_tier_bytes)
     else:
         runtime = TorchModelRuntime(cfg.serving, device=device, metrics=metrics,
                                     host_tier_bytes=cfg.cache.host_tier_bytes)
