@@ -222,9 +222,22 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      launches = n_layers x 2 x (requests + the load's warm-up forward);
      the warm p50s, and one warm (2, 1024) forward profiled beside the
      one-card module's. Then one cold ``:predict`` of the quant phase's
-     int8 artifact on a TP group (dequantized on the card, then cut), held
-     to that phase's one-card int8 reply; the int8 artifact and its copies
-     are deleted after it. Then ``:generate`` on the group: continuous
+     int8 artifact on a TP group (expanded on the host in a
+     ``host_dequant`` stage, then the pipelined sharded transfer), held to
+     that phase's one-card int8 reply, its shards ``torch.equal`` to the
+     expansion on the card cut by the same plan and that module's reply
+     equal byte for byte; the int8 artifact and its copies are deleted
+     after it. Then the group's cold path (tp-cold): after one card's
+     pipelined load into its tier (its stages printed beside), the group
+     loads the artifact serialized, pipelined sharded into its own host
+     tier, promoted from that tier after an unload (a greedy ``:generate``
+     before the demotion and after the promotion, the tokens equal),
+     adopted from the one-card entry, and serialized on a lockstep group
+     (``mesh_fast_path: false``, stamped so on /monitoring/engine); every
+     load's replies byte for byte the serialized load's, reload sources
+     disk, disk + host, host, disk, flash launches = n_layers x 2 x (the
+     requests + 3 warm-up forwards), paged = n_layers x 2 x decode steps.
+     Then ``:generate`` on the group: continuous
      nodes around the same group, with the generate phase's engine
      settings, over the same disk cache, with each shard's arena holding
      its 16 KV heads (``parallel.sharding.shard_kv_arena``) and B1 / B3 on
@@ -280,7 +293,11 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      ZOO_TOL_FLOOR's rule of the same module's forward on the CPU, argmax
      equal off near-ties; B1-B4 launch 0 times over the phase; 4
      evictions; a warm forward of each family against its kernels' device
-     time.
+     time. Then (zoo-tp) a node on ``[cuda:0] * 2`` over the same disk
+     cache serves bert tensor parallel: bert_a's requests and bert_b's
+     :classify within the same bar, the labels the one-card node's, B1-B4
+     at 0, the resident bytes the artifacts', the warm p50 and a (8, 128)
+     forward beside one card's.
   18. t5 — the encoder-decoder family on a store and disk cache of its own
      (deleted at the end): three tenants written by ``cli export`` on the
      card, one process each, all started together (T5 v1.1-base's widths in
@@ -299,7 +316,12 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      card held stage by stage (each layer, the gather, the biases, the norms,
      the head) to the CPU's on the same inputs; B1-B4 launch 0 times; a warm
      forward against its kernels, the reply encodes timed; ``cli warm`` on
-     t5_base in a process of its own;
+     t5_base in a process of its own. Between the node and the module
+     checks, (t5-tp) a node on ``[cuda:0] * 2`` over the same disk cache
+     serves t5_base tensor parallel at every T5_SHAPES input and the int8
+     twin (expanded on the host) within the same bar, B1-B4 at 0, the
+     resident bytes one card's, the warm p50 and a (4, 512/128) forward
+     beside one card's;
   19. lab — the scenario lab (``lab/workload.py``, ``lab/scenario.py``):
      ``default_scenarios(("tenant0", "tenant1"), requests=12, max_new=8)``
      x ``default_faults(0.4)`` (none, kill_engine, freeze_scheduler,
@@ -3135,10 +3157,18 @@ def phase_tp(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
         node = CacheNode(cfg, runtime)
         try:
             base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+            from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+            TRACER.clear()
             A.FLASH_LAUNCHES.reset()
             status, body, dt = _post(f"{base}/{QUANT_NAME}/versions/1:predict",
                                      {"instances": ids.tolist()}, timeout=900.0)
             flash = A.FLASH_LAUNCHES.value
+            (load,) = _spans_named(TRACER.query(n=8), "load")
+            log(f"  tp int8 {_load_stages(load)}")
+            if "host_dequant" not in _stage_ms(load) or "device_dequant" in _stage_ms(load):
+                raise AssertionError(f"tp int8: the load's stages {list(_stage_ms(load))} have "
+                                     "no host_dequant, or a device_dequant")
             if status != 200:
                 raise AssertionError(f"tp int8 :predict answered {status}: {body}")
             pred = np.asarray(body["predictions"], dtype=np.float32)
@@ -3154,15 +3184,271 @@ def phase_tp(art: Artifact, seed: int, warm_reps: int, kernels: dict) -> None:
             kernels["flash_attention"]["launches"] += flash
             kernels["flash_attention"]["launches_tp_phase"] += flash
             _check_against(pred, ref, f"tp int8 {TIER_SHAPE} against the one-card int8 reply")
+            _tp_int8_against_device_dequant(art, runtime, ids, pred)
         finally:
             node.close()
         torch.cuda.empty_cache()
+        _tp_cold_path_arm(art, seed, kernels)
         _tp_generate_arms(art, kernels)
     finally:
         torch.cuda.empty_cache()
         # the card's machine caps a run's disk writes: the int8 copies go
         shutil.rmtree(os.path.join(art.store, QUANT_NAME), ignore_errors=True)
         shutil.rmtree(os.path.join(art.work, "cache_gen", QUANT_NAME), ignore_errors=True)
+
+
+TP_COLD_NEW_TOKENS = 32  # the greedy :generate before the demotion and after the promotion
+
+
+def _tp_node(art, tier_bytes: int = 0, engine: bool = False, **serving):
+    """A ``CacheNode`` on the generate arms' disk cache (no copy of the
+    artifact) whose runtime is bound to ``[TP_DEVICE] * TP_SHARDS`` with a
+    host tier of ``tier_bytes`` (``build_node`` gives a group none, as the
+    reference's node does) and, with ``engine``, the generate phase's
+    continuous engine. -> (node, its /v1/models url)."""
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.runtime.batcher import ContinuousGenerateEngine
+    from tfservingcache_tpu_torch.runtime.model_runtime import TorchModelRuntime
+    from tfservingcache_tpu_torch.server import CacheNode
+    from tfservingcache_tpu_torch.utils.metrics import Metrics
+
+    knobs = dict(generate_engine="continuous", generate_slots=8, generate_chunk_tokens=8,
+                 kv_page_tokens=16) if engine else {}
+    cfg = config_from_dict(art.node_config("gen", **knobs, **serving))
+    metrics = Metrics()
+    runtime = TorchModelRuntime(cfg.serving, devices=[TP_DEVICE] * TP_SHARDS, metrics=metrics,
+                                host_tier_bytes=tier_bytes)
+    eng = (ContinuousGenerateEngine(runtime, slots=cfg.serving.generate_slots,
+                                    chunk_tokens=cfg.serving.generate_chunk_tokens,
+                                    metrics=metrics) if engine else None)
+    node = CacheNode(cfg, runtime, eng, metrics)
+    try:
+        return node, f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+    except BaseException:
+        node.close()
+        raise
+
+
+def _load_stages(load: dict) -> str:
+    """A load span's stages, and its transfer's chunks and bytes."""
+    attrs = next(c for c in load["children"] if c["name"] == "device_transfer").get("attrs", {})
+    how = ", ".join(k for k in ("pipelined", "sharded", "promoted") if attrs.get(k)) or "serialized"
+    moved = (f"; {attrs['bytes']} bytes in {attrs['chunks']} chunks" if "bytes" in attrs else "")
+    return (f"{load['attrs']['tier']} load ({how}) {load['duration_s'] * 1e3:.1f} ms = "
+            + ", ".join(f"{k} {v:.1f}" for k, v in _stage_ms(load).items())
+            + f" ms{moved}; overlap ratio {load['attrs'].get('cold_overlap_ratio', 'n/a')}")
+
+
+def _tp_cold_path_arm(art: Artifact, seed: int, kernels: dict) -> None:
+    """The group's cold path (item 12b) on ``[TP_DEVICE] * TP_SHARDS``, on
+    the generate arms' disk cache. First, outside the counted path, one
+    card's pipelined load of the artifact (its stages, the comparison) with
+    a host tier whose packed entry the adoption below takes. Then, counters
+    to 0: the group loads the artifact serialized (``cold_load_pipeline:
+    false``), pipelined sharded (a group runtime with a host tier and the
+    continuous engine), promoted from its tier after an ``unload`` and
+    ``drain_demotions``, adopted from the one-card entry, and serialized
+    again on a lockstep group (``mesh_fast_path: false``), each answering
+    one request at each of REQUEST_SHAPES; around the promotion, one greedy
+    ``:generate`` of TP_COLD_NEW_TOKENS before the demotion and one after.
+    Every load's replies must be the serialized load's byte for byte; the
+    tokens after the promotion those before, within the teacher-forced
+    check; ``tpusc_reload_source`` disk, disk + host, host, disk on the
+    four nodes; the lockstep node stamps ``"mesh_fast_path": false`` on
+    /monitoring/engine. B2 = n_layers x TP_SHARDS x (requests + the warm-up
+    forwards of the three disk loads), B1 = n_layers x TP_SHARDS x decode
+    steps, B3 none."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.utils.tracing import TRACER
+
+    t_arm = time.monotonic()
+    card = nvidia_smi_line()
+    mid = art.model_id
+    rng = np.random.default_rng(seed + 33)
+    bodies = [json.dumps({"instances": rng.integers(0, art.vocab, size=shape,
+                                                    dtype=np.int64).tolist()}).encode()
+              for shape in REQUEST_SHAPES]
+    prompt = art.gen_prompts[0]
+    gen_body = json.dumps({"input_ids": [prompt.tolist()],
+                           "max_new_tokens": TP_COLD_NEW_TOKENS}).encode()
+
+    def ask(base: str, what: str) -> tuple[list, dict]:
+        """The requests, in order -> (raw replies, the load span they ran)."""
+        TRACER.clear()
+        raws = []
+        for shape, body in zip(REQUEST_SHAPES, bodies):
+            status, raw, _dt = _post_raw(f"{base}/{mid.name}/versions/1:predict", body)
+            if status != 200:
+                raise AssertionError(f"[tp-cold] {what} :predict {shape} answered {status}: "
+                                     f"{raw[:300]!r}")
+            raws.append(raw)
+        (load,) = _spans_named(TRACER.query(n=16), "load")
+        log(f"  [tp-cold] {what}: {_load_stages(load)}")
+        return raws, load
+
+    def generate(base: str, what: str) -> np.ndarray:
+        status, raw, dt = _post_raw(f"{base}/{mid.name}/versions/1:generate", gen_body)
+        if status != 200:
+            raise AssertionError(f"[tp-cold] {what} :generate answered {status}: {raw[:300]!r}")
+        toks = np.asarray(json.loads(raw)["tokens"])[0]
+        gap = _check_greedy(art, prompt, toks, LOGITS_TOL, f"[tp-cold] {what}")
+        log(f"  [tp-cold] {what} :generate of {TP_COLD_NEW_TOKENS} tokens: {dt * 1e3:.1f} ms; "
+            f"teacher-forced gap {gap:.4f}")
+        return toks
+
+    # one card, outside the counted path: the comparison and the entry
+    one_cfg = art.node_config("gen")
+    one_cfg["cache"]["host_tier_bytes"] = art.nbytes + (256 << 20)
+    one = build_node(config_from_dict(one_cfg), device="cuda")
+    nodes = []
+    try:
+        one_base = f"http://127.0.0.1:{one.start('127.0.0.1')}/v1/models"
+        _reset_pinned()
+        one_raws, _load = ask(one_base, "one card, pipelined, into its tier")
+        entry = one.runtime._host_tier.get(mid)
+        if entry is None:
+            raise AssertionError("[tp-cold] the one-card node retained no packed entry")
+        log(f"  [tp-cold] one card's page-locked memory: {_pinned_peak()}")
+
+        # --- the main path: counters to 0, the group's loads, counters read
+        for c in (A.FLASH_LAUNCHES, A.PAGED_LAUNCHES, A.VERIFY_LAUNCHES):
+            c.reset()
+        node, base = _tp_node(art, cold_load_pipeline=False)
+        nodes.append(node)
+        ser_raws, _ = ask(base, f"group of {TP_SHARDS}, serialized")
+        sources = [node.metrics.reload_source.labels("disk").value]
+        node.close()
+        nodes.pop()
+        torch.cuda.empty_cache()
+        _reset_pinned()
+        node, base = _tp_node(art, tier_bytes=2 * art.nbytes, engine=True)
+        nodes.append(node)
+        pipe_raws, _ = ask(base, f"group of {TP_SHARDS}, pipelined sharded, into its tier")
+        log(f"  [tp-cold] the group's page-locked memory (staging, and the tier's whole-leaf "
+            f"entry): {_pinned_peak()}")
+        before = generate(base, "before the demotion")
+        t0 = time.monotonic()
+        node.runtime.unload(mid)
+        node.runtime.drain_demotions()
+        if not node.runtime.host_tier_contains(mid):
+            raise AssertionError("[tp-cold] the group's tier lost the model")
+        log(f"  [tp-cold] unload + drain_demotions: {(time.monotonic() - t0) * 1e3:.1f} ms "
+            f"(the entry was retained at the load)")
+        host_raws, _ = ask(base, "the same group, promoted from its tier")
+        after = generate(base, "after the promotion")
+        steps = node.engine.decode_steps
+        sources += [node.metrics.reload_source.labels(t).value for t in ("disk", "host")]
+        node.close()
+        nodes.pop()
+        torch.cuda.empty_cache()
+        node, base = _tp_node(art)
+        nodes.append(node)
+        node.runtime.adopt_packed_entry(mid, entry)
+        adopt_raws, _ = ask(base, "a fresh group, the one-card entry adopted")
+        sources.append(node.metrics.reload_source.labels("host").value)
+        node.close()
+        nodes.pop()
+        torch.cuda.empty_cache()
+        node, base = _tp_node(art, mesh_fast_path=False)
+        nodes.append(node)
+        lock_raws, lock_load = ask(base, "a lockstep group (mesh_fast_path: false)")
+        sources.append(node.metrics.reload_source.labels("disk").value)
+        with urllib.request.urlopen(base.replace("/v1/models", "/monitoring/engine"),
+                                    timeout=60) as resp:
+            stamp = json.loads(resp.read()).get("mesh")
+        flash, paged, verify = (A.FLASH_LAUNCHES.value, A.PAGED_LAUNCHES.value,
+                                A.VERIFY_LAUNCHES.value)
+        # -------------------------------------------------------------------
+        node.close()
+        nodes.pop()
+    finally:
+        for n in nodes:
+            n.close()
+        one.close()
+        torch.cuda.empty_cache()
+    n_req = len(REQUEST_SHAPES)
+    want_flash = art.layers * TP_SHARDS * (5 * n_req + 3)
+    want_paged = art.layers * TP_SHARDS * steps
+    log(f"  [tp-cold] launches: flash {flash} (n_layers {art.layers} x {TP_SHARDS} shards x "
+        f"(5 loads x {n_req} requests + 3 warm-up forwards of the disk loads) = {want_flash}); "
+        f"paged decode {paged} (n_layers x {TP_SHARDS} shards x decode steps {steps} = "
+        f"{want_paged}); paged verify {verify}")
+    if flash != want_flash or paged != want_paged or not paged or verify:
+        raise AssertionError(f"[tp-cold] launches flash {flash} / paged {paged} / verify "
+                             f"{verify} != {want_flash} / {want_paged} / 0")
+    kernels["flash_attention"]["launches"] += flash
+    kernels["flash_attention"]["launches_tp_cold_path"] = flash
+    kernels["paged_decode_attention"]["launches"] += paged
+    kernels["paged_decode_attention"]["launches_tp_cold_path"] = paged
+    log(f"  [tp-cold] tpusc_reload_source on the four nodes: serialized disk {sources[0]:.0f}; "
+        f"pipelined disk {sources[1]:.0f}, host {sources[2]:.0f}; adopted host {sources[3]:.0f}; "
+        f"lockstep disk {sources[4]:.0f}")
+    if sources != [1.0, 1.0, 1.0, 1.0, 1.0]:
+        raise AssertionError(f"[tp-cold] reload sources {sources}")
+    for what, raws in (("pipelined", pipe_raws), ("promoted", host_raws),
+                       ("adopted", adopt_raws), ("lockstep", lock_raws)):
+        if raws != ser_raws:
+            raise AssertionError(f"[tp-cold] the {what} load's replies differ from the "
+                                 "serialized group load's")
+    log(f"  [tp-cold] every load's {n_req} replies byte for byte the serialized group load's")
+    for shape, raw in zip(REQUEST_SHAPES, ser_raws):
+        pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+        ids = np.asarray(json.loads(bodies[REQUEST_SHAPES.index(shape)])["instances"])
+        _check_logits(art.plain_model, shape, ids, pred)
+    _check_against(np.asarray(json.loads(ser_raws[0])["predictions"], np.float32),
+                   np.asarray(json.loads(one_raws[0])["predictions"], np.float32),
+                   f"[tp-cold] group {REQUEST_SHAPES[0]} against one card's reply")
+    if not np.array_equal(before, after):
+        raise AssertionError("[tp-cold] the tokens after the promotion differ from before")
+    log(f"  [tp-cold] the {TP_COLD_NEW_TOKENS} tokens after the promotion equal those before")
+    attrs = next(c for c in lock_load["children"] if c["name"] == "device_transfer").get(
+        "attrs", {})
+    if attrs.get("pipelined") or not stamp or stamp.get("mesh_fast_path") is not False:
+        raise AssertionError(f"[tp-cold] the lockstep node: transfer {attrs}, stamp {stamp}")
+    log(f"  [tp-cold] the lockstep node loaded serialized and stamps {stamp}")
+    log(f"  [tp-cold] arm: {time.monotonic() - t_arm:.1f} s ({card})")
+
+
+def _tp_int8_against_device_dequant(art: Artifact, runtime, ids, pred) -> None:
+    """The int8 artifact's group weights, expanded on the host by the
+    pipelined sharded load, against the expansion the group load did on
+    the device before this slice: the raw artifact copied to the card,
+    ``_dequantize_on_device``, cut by the same plan into contiguous shards.
+    Every shard ``torch.equal``, and that module's reply to ``ids`` equal
+    to the served one byte for byte."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.parallel.sharding import shard_params
+    from tfservingcache_tpu_torch.runtime import model_runtime as mr
+
+    loaded = runtime._resident.get(_mid(QUANT_NAME), touch=False)
+    host = registry.load_artifact(os.path.join(art.store, QUANT_NAME, "1"), raw_quant=True)[1]
+    plan = loaded.model_def.tensor_parallel(runtime.group)
+    want = shard_params(mr._dequantize_on_device(mr._to_device(host, runtime.device)),
+                        plan.rules, runtime.group)
+    del host
+    pairs = list(zip(registry.flatten_params(loaded.params), registry.flatten_params(want)))
+    for (path, got), (_p, exp) in pairs:
+        if not all(torch.equal(a, b) for a, b in zip(got.shards, exp.shards)):
+            raise AssertionError(f"tp int8: {path}: the host expansion differs from the device's")
+    module = plan.make_module(want).eval()
+    with torch.inference_mode():
+        out = module({"input_ids": torch.from_numpy(ids).cuda()})["logits"][:, -1]
+    if not np.array_equal(out.float().cpu().numpy(), pred):
+        raise AssertionError("tp int8: the device-dequant group module's reply differs from "
+                             "the served host-dequant one")
+    log(f"  tp int8: {len(pairs)} leaves expanded on the host torch.equal to the device "
+        f"expansion, shard for shard; the device-dequant group module's reply equal byte for "
+        f"byte ({nvidia_smi_line()})")
+    del module, want
+    torch.cuda.empty_cache()
 
 
 def _tp_generate_arms(art: Artifact, kernels: dict) -> None:
@@ -6280,11 +6566,133 @@ def phase_zoo(seed: int, warm_reps: int, kernels: dict) -> None:
             del module, dev_in
         log(f"  [zoo] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({card})")
+        # the phase's node goes before a group node reopens its disk cache
+        node.close()
+        node = None
+        cuda_params.clear()
+        torch.cuda.empty_cache()
+        _zoo_tp_arm(work, store, 2 * store_bytes, plain, bert_reqs, cls_in, cls_rows, timed,
+                    kernels)
     finally:
         if node is not None:
             node.close()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def _zoo_tp_arm(work: str, store: str, capacity: int, plain: _ZooPlain, bert_reqs: list,
+                cls_in: dict, cls_rows: list, timed: dict, kernels: dict) -> None:
+    """bert tensor parallel (item 12h) on ``[TP_DEVICE] * TP_SHARDS``: a
+    node on the phase's store and disk cache (no copy of an artifact)
+    answers bert_a's requests at every ZOO_BERT_SHAPES input and bert_b's
+    :classify; every reply within the phase's bar of the CPU forward, the
+    :classify labels the one-card node's and its scores within the phase's
+    bar; B1-B4 launch 0 times; the resident bytes are the artifact's; the
+    warm p50 and one (8, 128) forward's host and kernel time beside one
+    card's."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import tree_nbytes
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.types import ModelId
+
+    t_arm = time.monotonic()
+    card = nvidia_smi_line()
+    node = build_node(config_from_dict({
+        "serving": {"load_timeout_s": 900.0, "max_concurrent_models": ZOO_RESIDENT},
+        "cache": {"base_dir": os.path.join(work, "cache_zoo"), "disk_capacity_bytes": capacity},
+        "model_provider": {"type": "disk", "base_dir": store},
+        "cache_node": {"rest_port": 0, "grpc_port": 0}}), device="cuda",
+        devices=[TP_DEVICE] * TP_SHARDS)
+    try:
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+        counters = (A.FLASH_LAUNCHES, A.PAGED_LAUNCHES, A.VERIFY_LAUNCHES, A.CARRY_LAUNCHES)
+        tp_timed: dict = {}
+        # --- the path: counters to 0, the arm's requests, counters read ---
+        for c in counters:
+            c.reset()
+        replies = []
+        for k, (shape, inputs, _one) in enumerate(bert_reqs):
+            body = _bert_body(inputs["input_ids"], inputs["attention_mask"])
+            got = []
+            for r in range(len(_one)):
+                status, raw, dt = _post_raw(f"{base}/bert_a/versions/1:predict", body)
+                if status != 200:
+                    raise AssertionError(f"[zoo-tp] bert_a {shape} answered {status}: "
+                                         f"{raw[:300]}")
+                tp_timed.setdefault("cold (1, 128)" if k == 0 and r == 0 else f"warm {shape}",
+                                    []).append(dt)
+                got.append(json.loads(raw)["outputs"]["logits"])
+            replies.append((shape, inputs, got))
+        examples = [{k: v[r].tolist() for k, v in cls_in.items()} for r in range(ZOO_CLASSIFY[0])]
+        status, raw, _dt = _post_raw(f"{base}/bert_b/versions/1:classify",
+                                     json.dumps({"examples": examples}).encode())
+        launches = [c.value for c in counters]
+        # -------------------------------------------------------------------
+        if status != 200:
+            raise AssertionError(f"[zoo-tp] bert_b :classify answered {status}: {raw[:300]}")
+        rows = json.loads(raw)["results"]
+        log(f"  [zoo-tp] kernel launches over the arm's requests: {launches} (B2, B1, B3, B4)")
+        if any(launches):
+            raise AssertionError(f"[zoo-tp] a kernel launched on the bert group path: {launches}")
+        for name, n in zip(("flash_attention", "paged_decode_attention",
+                            "paged_verify_attention", "flash_attention_carry"), launches):
+            kernels[name]["launches_zoo_tp_arm"] = n
+        for shape, inputs, got in replies:
+            _zoo_check(plain, "bert_a", inputs, got, f"bert_a {shape} on {TP_SHARDS} shards")
+        ref16, _ref32 = plain.logits("bert_b", cls_in)
+        e = np.exp(ref16 - ref16.max(-1, keepdims=True))
+        scores = np.asarray([[sc for _l, sc in row] for row in rows])
+        one_scores = np.asarray([[sc for _l, sc in row] for row in cls_rows])
+        gap = float(np.abs(scores - e / e.sum(-1, keepdims=True)).max())
+        tol = _zoo_tol(plain, "bert_b", cls_in)
+        labels = [[lab for lab, _sc in row] for row in rows]
+        log(f"  [zoo-tp] bert_b :classify on {TP_SHARDS} shards: labels {labels} (one card "
+            f"{[[lab for lab, _sc in row] for row in cls_rows]}), scores within {gap:.5f} of "
+            f"the CPU forward's float64 softmax (tolerance {tol / 2:.5f}) and "
+            f"{float(np.abs(scores - one_scores).max()):.5f} of the one-card node's")
+        if labels != [[lab for lab, _sc in row] for row in cls_rows] or gap > tol / 2:
+            raise AssertionError(f"[zoo-tp] bert_b :classify: {rows} against one card's "
+                                 f"{cls_rows}")
+        for tenant in ("bert_a", "bert_b"):
+            loaded = node.runtime._resident.get(ModelId(tenant, 1), touch=False)
+            want = tree_nbytes(registry.load_artifact(os.path.join(store, tenant, "1"))[1])
+            if loaded is None or not loaded.tensor_parallel or loaded.nbytes != want:
+                raise AssertionError(f"[zoo-tp] {tenant}: resident {loaded and loaded.nbytes} "
+                                     f"bytes, tensor parallel "
+                                     f"{loaded and loaded.tensor_parallel}; artifact {want}")
+        log(f"  [zoo-tp] bert_a and bert_b resident tensor parallel at the artifacts' bytes")
+        for what, times in tp_timed.items():
+            one = timed.get(("bert_a", what), [])
+            log(f"  [zoo-tp] bert_a :predict {what} on {TP_SHARDS} shards: p50 "
+                f"{statistics.median(times) * 1e3:.2f} ms over {len(times)}; one card "
+                + (f"{statistics.median(one) * 1e3:.2f} ms" if one else "not measured")
+                + f" (host clock, localhost HTTP, JSON; {card})")
+        module = node.runtime._resident.get(ModelId("bert_a", 1), touch=False).module
+        rng = np.random.default_rng(7)
+        vocab = module.vocab
+        dev_in = {"input_ids": torch.from_numpy(rng.integers(0, vocab, (8, 128))).cuda(),
+                  "attention_mask": torch.ones((8, 128), dtype=torch.int32, device="cuda")}
+
+        def forward():
+            with torch.inference_mode():
+                module(dev_in)
+            torch.cuda.synchronize()
+
+        ms = host_ms(forward)
+        busy = device_busy_ms(forward)
+        share = "not measured" if busy is None else f"{busy:.2f} ms = {busy / ms:.3f}"
+        log(f"  [zoo-tp] a bert_a (8, 128) forward on {TP_SHARDS} shards: {ms:.2f} ms host "
+            f"clock, its kernels {share} (torch.profiler; one card's is logged above; {card})")
+        del module, dev_in
+    finally:
+        node.close()
+        torch.cuda.empty_cache()
+    log(f"  [zoo-tp] arm: {time.monotonic() - t_arm:.1f} s")
 
 
 # the t5 phase (item 11b's last family, with item 13's entry points): the
@@ -6615,6 +7023,7 @@ def phase_t5(seed: int, warm_reps: int, kernels: dict) -> None:
             raise AssertionError(f"[t5] {evictions} evictions, want 2")
         node.close()
         node = None
+        _t5_tp_arm(work, store, 2 * store_bytes, plain, checks, first, timed, kernels)
 
         # the served replies against the same module in this process on the
         # card at the runtime's padded shapes, bit for bit (random weights
@@ -6685,6 +7094,112 @@ def phase_t5(seed: int, warm_reps: int, kernels: dict) -> None:
             node.close()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def _t5_tp_arm(work: str, store: str, capacity: int, plain: _ZooPlain, checks: list,
+               first: dict, timed: dict, kernels: dict) -> None:
+    """t5 tensor parallel (item 12h) on ``[TP_DEVICE] * TP_SHARDS``: a node
+    on the phase's store and disk cache answers t5_base at every T5_SHAPES
+    input (as often as the phase's node did) and t5_base_int8 (its int8
+    twin, expanded on the host before the cut) at the cold input; every
+    reply within the phase's bar of the CPU forward; B1-B4 launch 0 times;
+    the resident bytes are the one-card node's (the int8 twin's expanded
+    tree); the warm p50 and one (4, 512/128) forward's host and kernel time
+    beside one card's."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.runtime.model_runtime import tree_nbytes
+    from tfservingcache_tpu_torch.server import build_node
+    from tfservingcache_tpu_torch.types import ModelId
+
+    t_arm = time.monotonic()
+    card = nvidia_smi_line()
+    node = build_node(config_from_dict({
+        "serving": {"load_timeout_s": 900.0, "max_concurrent_models": T5_RESIDENT},
+        "cache": {"base_dir": os.path.join(work, "cache_t5"), "disk_capacity_bytes": capacity},
+        "model_provider": {"type": "disk", "base_dir": store},
+        "cache_node": {"rest_port": 0, "grpc_port": 0}}), device="cuda",
+        devices=[TP_DEVICE] * TP_SHARDS)
+    try:
+        base = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models"
+
+        def predict(name, inputs, what):
+            status, raw, dt = _post_raw(f"{base}/{name}/versions/1:predict",
+                                        _t5_body(inputs["input_ids"], inputs["decoder_input_ids"]))
+            if status != 200:
+                raise AssertionError(f"[t5-tp] {name} {what} answered {status}: {raw[:300]}")
+            return raw, dt
+
+        counters = (A.FLASH_LAUNCHES, A.PAGED_LAUNCHES, A.VERIFY_LAUNCHES, A.CARRY_LAUNCHES)
+        tp_timed: dict = {}
+        got = []
+        # --- the path: counters to 0, the arm's requests, counters read ---
+        for c in counters:
+            c.reset()
+        for k, (tenant, inputs, raws, what) in enumerate(checks[:len(T5_SHAPES)]):
+            mine = []
+            for r in range(len(raws)):
+                raw, dt = predict(tenant, inputs, what)
+                b, src = inputs["input_ids"].shape
+                tgt = inputs["decoder_input_ids"].shape[1]
+                tp_timed.setdefault("cold (1, 128/32)" if k == 0 and r == 0
+                                    else f"warm ({b}, {src}/{tgt})", []).append(dt)
+                mine.append(raw)
+            got.append((tenant, inputs, mine, what))
+        raw8, dt8 = predict("t5_base_int8", first, "(1, 128/32)")
+        launches = [c.value for c in counters]
+        # -------------------------------------------------------------------
+        log(f"  [t5-tp] kernel launches over the arm's requests: {launches} (B2, B1, B3, B4)")
+        if any(launches):
+            raise AssertionError(f"[t5-tp] a kernel launched on the t5 group path: {launches}")
+        for name, n in zip(("flash_attention", "paged_decode_attention",
+                            "paged_verify_attention", "flash_attention_carry"), launches):
+            kernels[name]["launches_t5_tp_arm"] = n
+        for tenant, inputs, raws, what in got:
+            _t5_check(plain, tenant, inputs, [_t5_logits(r) for r in dict.fromkeys(raws)],
+                      f"{what} on {TP_SHARDS} shards")
+        _t5_check(plain, "t5_base_int8", first, [_t5_logits(raw8)],
+                  f"t5_base_int8 (1, 128/32) on {TP_SHARDS} shards (host expansion)")
+        for tenant in ("t5_base", "t5_base_int8"):
+            loaded = node.runtime._resident.get(ModelId(tenant, 1), touch=False)
+            want = tree_nbytes(registry.load_artifact(os.path.join(store, tenant, "1"))[1])
+            if loaded is None or not loaded.tensor_parallel or loaded.nbytes != want:
+                raise AssertionError(f"[t5-tp] {tenant}: resident {loaded and loaded.nbytes} "
+                                     f"bytes, tensor parallel "
+                                     f"{loaded and loaded.tensor_parallel}; one card's {want}")
+        log("  [t5-tp] t5_base and t5_base_int8 resident tensor parallel at one card's bytes; "
+            f"t5_base_int8 cold (1, 128/32) {dt8 * 1e3:.1f} ms")
+        for what, times in tp_timed.items():
+            one = timed.get(("t5_base", what), [])
+            log(f"  [t5-tp] t5_base :predict {what} on {TP_SHARDS} shards: p50 "
+                f"{statistics.median(times) * 1e3:.2f} ms over {len(times)}; one card "
+                + (f"{statistics.median(one) * 1e3:.2f} ms" if one else "not measured")
+                + f" (host clock, localhost HTTP; {card})")
+        module = node.runtime._resident.get(ModelId("t5_base", 1), touch=False).module
+        rng = np.random.default_rng(9)
+        vocab = T5_BASE_CONFIG["vocab_size"]
+        dev_in = {"input_ids": torch.from_numpy(rng.integers(1, vocab, (4, 512))).cuda(),
+                  "decoder_input_ids": torch.from_numpy(rng.integers(0, vocab, (4, 128))).cuda()}
+
+        def forward():
+            with torch.inference_mode():
+                module(dev_in)
+            torch.cuda.synchronize()
+
+        ms = host_ms(forward)
+        busy = device_busy_ms(forward)
+        share = "not measured" if busy is None else f"{busy:.2f} ms = {busy / ms:.3f}"
+        log(f"  [t5-tp] a t5_base (4, 512/128) forward on {TP_SHARDS} shards: {ms:.2f} ms host "
+            f"clock, its kernels {share} (torch.profiler; one card's is logged below; {card})")
+        del module, dev_in
+    finally:
+        node.close()
+        torch.cuda.empty_cache()
+    log(f"  [t5-tp] arm: {time.monotonic() - t_arm:.1f} s")
 
 
 T5_LAYER_TOL = 1e-4  # f32, card against CPU, a stage's max |diff| over its max |value|

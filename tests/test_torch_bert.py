@@ -225,22 +225,32 @@ def test_past_the_cap_both_runtimes_refuse_alike(cap_runtimes):
 
 
 def test_a_group_runtime_refuses_the_tp_rules(tmp_path):
-    """bert declares the reference's Megatron rules and has no tensor-parallel
-    module: a group of more than one device refuses it before any transfer,
-    a group of one serves it."""
+    """bert's Megatron rules are served on a group of more than one device
+    by ``TensorParallelBert`` (the refusal this test pinned is lifted): the
+    group's replies sit within the bf16 bar of one device's, with the
+    halves cut and the resident bytes one device's; a group of one serves
+    it on its leader."""
     path = jreg.export_artifact("bert", str(tmp_path), name="bg", version=1, config=TINY,
                                 seed=2)
     model = Model(identifier=ModelId("bg", 1), path=path)
+    inputs = _inputs(TINY, 7)
     rt = TorchModelRuntime(ServingConfig(), devices=["cpu", "cpu"])
+    one = TorchModelRuntime(ServingConfig(), device="cpu")
     try:
-        with pytest.raises(RuntimeError_, match="tensor parallelism over a group: later slice"):
-            rt.ensure_loaded(model)
-        assert not rt.is_loaded(model.identifier)
+        assert rt.ensure_loaded(model) == one.ensure_loaded(model) == "disk"
+        loaded = rt._resident.get(model.identifier, touch=False)
+        assert loaded.tensor_parallel and isinstance(loaded.module, tbert.TensorParallelBert)
+        assert loaded.nbytes == one._resident.get(model.identifier, touch=False).nbytes
+        got, want = rt.predict(model.identifier, inputs), one.predict(model.identifier, inputs)
+        for k in want:
+            assert np.abs(got[k] - want[k]).max() <= BF16_TOL, k
     finally:
         rt.close()
+        one.close()
     rt = TorchModelRuntime(ServingConfig(), devices=["cpu"])
     try:
         assert rt.ensure_loaded(model) == "disk"
+        assert not rt._resident.get(model.identifier, touch=False).tensor_parallel
     finally:
         rt.close()
 

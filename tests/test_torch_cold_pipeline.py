@@ -324,9 +324,11 @@ def _loaded_bytes(m) -> int:
 
 
 def test_group_runtime_keeps_the_serialized_path(store):
-    """A runtime bound to a device group neither pipelines nor keeps a host
-    tier (the group's promotion is tensor-parallel work, a later slice)."""
-    rt = mr.TorchModelRuntime(ServingConfig(), devices=["cpu", "cpu"], host_tier_bytes=1 << 24)
+    """A lockstep group (``serving.mesh_fast_path`` off) neither pipelines
+    nor keeps a host tier (reference tests/test_mesh_parity.py:170); a
+    fast-path group does both (tests/test_torch_group_cold_path.py)."""
+    rt = mr.TorchModelRuntime(ServingConfig(mesh_fast_path=False), devices=["cpu", "cpu"],
+                              host_tier_bytes=1 << 24)
     try:
         assert not rt.cold_pipeline_enabled and not rt.host_tier_enabled
         assert rt._demote_thread is None

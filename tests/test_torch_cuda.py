@@ -940,3 +940,50 @@ def test_paged_kernels_on_each_shard_of_a_group_arena(card, arena):
                     assert (got - want).abs().max().item() <= 1e-5, (i, layer, t)
     torch.cuda.synchronize()
     assert A.PAGED_LAUNCHES.value == A.VERIFY_LAUNCHES.value == 2 * 2
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+def test_sharded_pipelined_transfer_lands_the_serialized_group_loads_shards(
+        card, tmp_path, monkeypatch, quantize):
+    """The group's cold path on ``[cuda:0] * 2``: the sharded pipelined
+    transfer (many chunks, the copy stream, page-locked staging) lands
+    shards ``torch.equal`` to the serialized group load's, each contiguous
+    with the same strides, for a bf16 and an int8 artifact (the int8 one
+    expanded on the host; its weights equal the device expansion cut by
+    the same plan), and the two loads answer byte for byte."""
+    from tfservingcache_tpu_torch.config import ServingConfig
+    from tfservingcache_tpu_torch.models import registry
+    from tfservingcache_tpu_torch.parallel.sharding import shard_params
+    from tfservingcache_tpu_torch.runtime import model_runtime as mr
+    from tfservingcache_tpu_torch.types import Model, ModelId
+
+    monkeypatch.setattr(mr, "_PACK_CHUNK_BYTES", 1 << 20)
+    cfg = dict(CARD_LM, vocab_size=4096, d_ff=1024)
+    path = registry.export_artifact("transformer_lm", str(tmp_path), name="g", config=cfg,
+                                    quantize=quantize)
+    model, mid = Model(ModelId("g", 1), path), ModelId("g", 1)
+    group = [card, card]
+    pipe = mr.TorchModelRuntime(ServingConfig(), devices=group)
+    ser = mr.TorchModelRuntime(ServingConfig(cold_load_pipeline=False), devices=group)
+    try:
+        assert pipe.cold_pipeline_enabled and not ser.cold_pipeline_enabled
+        pipe.ensure_loaded(model)
+        ser.ensure_loaded(model)
+        got = registry.flatten_params(pipe._resident.get(mid).params)
+        want = registry.flatten_params(ser._resident.get(mid).params)
+        host = registry.load_artifact(path, raw_quant=True)[1]
+        plan = registry.build("transformer_lm", cfg).tensor_parallel(pipe.group)
+        expanded = registry.flatten_params(shard_params(
+            mr._dequantize_on_device(mr._to_device(host, card)), plan.rules, pipe.group))
+        for (path_, a), (_p, b), (_q, c) in zip(got, want, expanded):
+            assert a.spec == b.spec and a.shape == b.shape, path_
+            for x, y, z in zip(a.shards, b.shards, c.shards):
+                assert x.is_cuda and x.is_contiguous() and x.stride() == y.stride(), path_
+                assert torch.equal(x, y) and torch.equal(x, z), path_
+        ids = np.arange(2 * 96).reshape(2, 96).astype(np.int32) % cfg["vocab_size"]
+        a = pipe.predict(mid, {"input_ids": ids}, output_filter=["logits"])["logits"]
+        b = ser.predict(mid, {"input_ids": ids}, output_filter=["logits"])["logits"]
+        np.testing.assert_array_equal(a, b)
+    finally:
+        pipe.close()
+        ser.close()

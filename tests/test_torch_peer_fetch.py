@@ -406,7 +406,10 @@ def test_a_failed_promotion_falls_through_to_the_disk_load(store, tmp_path):
 
 
 def test_a_group_runtime_drops_an_adopted_entry(store, tmp_path):
-    rt = mr.TorchModelRuntime(ServingConfig(), devices=["cpu"])  # a group of one
+    # a lockstep group of one (serving.mesh_fast_path off, reference
+    # model_runtime.py:1073); a fast-path group adopts it
+    # (tests/test_torch_group_cold_path.py)
+    rt = mr.TorchModelRuntime(ServingConfig(mesh_fast_path=False), devices=["cpu"])
     try:
         rt.adopt_packed_entry(ModelId("lm", 1), _wire_entry(store, "lm", tmp_path))
         assert not rt._adopted

@@ -400,10 +400,11 @@ RING_Q = {"vocab_size": 512, "d_model": 128, "n_layers": 1, "n_heads": 4, "n_kv_
     ("ringq", RING_Q, ["cpu"] * 2),
 ])
 def test_a_group_runtime_ships_raw_int8(qstore, tmp_path, dequant_calls, name, config, devices):
-    """A runtime bound to a device group (the serialized load) ships the raw
-    int8 bytes and dequantizes on the device, as the reference's rule-less
-    mesh runtime does (tests/test_quant.py): the params are the one-device
-    pipelined load's, and so are the logits."""
+    """A runtime bound to a device group whose rules cut nothing (a group of
+    one, a ring model) pipelines its load onto the leader as one device
+    does: it ships the raw int8 bytes and dequantizes on the device, as the
+    reference's rule-less mesh runtime does (tests/test_quant.py): the
+    params are the one-device pipelined load's, and so are the logits."""
     path = (jreg.export_artifact("transformer_lm", str(tmp_path), name=name, version=1,
                                  config=config, seed=4, quantize="int8")
             if name != "q" else _qmodel(qstore).path)
@@ -412,7 +413,7 @@ def test_a_group_runtime_ships_raw_int8(qstore, tmp_path, dequant_calls, name, c
     group = mr.TorchModelRuntime(ServingConfig(), device="cpu", devices=devices)
     one = mr.TorchModelRuntime(ServingConfig(), device="cpu")
     try:
-        assert not group.cold_pipeline_enabled
+        assert group.cold_pipeline_enabled
         group.ensure_loaded(m)
         assert sum(dequant_calls) >= 1
         one.ensure_loaded(m)

@@ -142,8 +142,10 @@ def test_each_shard_holds_the_slice_its_spec_names(n):
         size = leaf.shape[dim] // parts
         for i, s in enumerate(placed.shards):
             assert torch.equal(s, leaf.narrow(dim, i * size, size))
-            # a view of the loaded leaf: one device holds one copy
-            assert s.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr()
+            # a contiguous tensor of its own, the layout the sharded packed
+            # transfer lands: the loaded leaf can be freed once it is cut
+            assert s.is_contiguous()
+            assert s.untyped_storage().data_ptr() != leaf.untyped_storage().data_ptr()
     # P = 8 does not divide the 4 heads: attention replicates, the rest is cut
     assert plan.halves == {"attn": n != 8, "mlp": True, "embed": True}
     assert mr.tree_nbytes(sharded) == mr.tree_nbytes(params)
@@ -260,12 +262,12 @@ def _model(store, name: str) -> Model:
 def test_runtime_serves_a_tp_artifact_as_the_jax_mesh_runtime(store, name, n, monkeypatch):
     """The port's group runtime against ``TPUModelRuntime(mesh=make_mesh(
     {"model": n}))`` on the same artifact (the int8 one dequantized on the
-    device before it is cut; the reference dequantizes it on the host):
+    host before it is cut, in a ``host_dequant`` stage, as the reference's):
     every reply within the bar, the load span naming the halves it cut,
     the resident bytes the tree's logical bytes."""
     dequants = []
-    real = mr._dequantize_on_device
-    monkeypatch.setattr(mr, "_dequantize_on_device",
+    real = mr._dequantize_on_host
+    monkeypatch.setattr(mr, "_dequantize_on_host",
                         lambda params: dequants.append(1) or real(params))
     mid = ModelId(name, 1)
     with confined_globals():
@@ -278,6 +280,9 @@ def test_runtime_serves_a_tp_artifact_as_the_jax_mesh_runtime(store, name, n, mo
             assert load["attrs"]["tp_attn"] is (n == 2)  # 2 KV heads
             assert load["attrs"]["tp_mlp"] is True and load["attrs"]["tp_embed"] is True
             assert bool(dequants) == (name == "int8")
+            stages = [c["name"] for c in load["children"]]
+            assert ("host_dequant" in stages) == (name == "int8")
+            assert "device_dequant" not in stages
             one.ensure_loaded(_model(store, name))
             jrt.ensure_loaded(JModel(identifier=JModelId(name, 1),
                                      path=str(store / name / "1")))

@@ -307,11 +307,23 @@ def test_generate_is_refused_with_the_references_message(runtimes):
 
 
 def test_a_group_runtime_refuses_the_tp_rules(runtimes):
-    _port, _ref, path = runtimes
+    """t5's Megatron rules are served on a group of two by
+    ``TensorParallelT5`` (the refusal this test pinned is lifted): within
+    the bf16 bar of the one-device runtime's reply, the resident bytes one
+    device's, and ``:generate`` still the reference's refusal."""
+    port, _ref, path = runtimes
+    mid = ModelId("t5t", 1)
+    inputs = _inputs(TINY, 8)
     rt = TorchModelRuntime(ServingConfig(), devices=["cpu", "cpu"])
     try:
-        with pytest.raises(RuntimeError_, match="tensor parallelism over a group"):
-            rt.ensure_loaded(Model(identifier=ModelId("t5t", 1), path=path))
+        assert rt.ensure_loaded(Model(identifier=mid, path=path)) == "disk"
+        loaded = rt._resident.get(mid, touch=False)
+        assert loaded.tensor_parallel and isinstance(loaded.module, tt5.TensorParallelT5)
+        assert loaded.nbytes == port._resident.get(mid, touch=False).nbytes
+        _hold(rt.predict(mid, inputs)["logits"], port.predict(mid, inputs)["logits"], BF16_TOL)
+        with pytest.raises(RuntimeError_) as got:
+            rt.generate(mid, np.ones((1, 4), np.int32), max_new_tokens=2)
+        assert str(got.value) == GENERATE_REFUSAL
     finally:
         rt.close()
 

@@ -41,11 +41,20 @@ class ServingConfig:
     # into page-locked chunks of ~256 MiB while the previous chunk's copy to
     # the device runs on a copy stream. False keeps the serialized path: the
     # whole artifact read into page-locked memory, every leaf copied out of
-    # it, one sync. A runtime bound to a device group is always serialized.
+    # it, one sync. A group pipelines too, unless mesh_fast_path is off: a
+    # tensor-parallel model streams each device its own shard chunks.
     # The reference's A/B setting: the serialized path is the baseline a
     # pipelined load is measured against (chip_smoke.py's tier phase prints
     # both), not a mode to deploy.
     cold_load_pipeline: bool = True
+    # A runtime bound to a device group runs the cold path of one device
+    # (the pipelined load, the host tier and promotion, adopted peer
+    # entries; a tensor-parallel model's through the sharded transfer) and
+    # the continuous :generate engine on its KV-head-sharded arena. False
+    # makes the group lockstep, the reference's A/B lever: serialized
+    # loads, no host tier, adopted entries dropped, :generate on the solo
+    # path (the coalescer with batching on). One device ignores it.
+    mesh_fast_path: bool = True
     # staging buffers the chunk assembler may run ahead of the copies (each
     # holds one chunk: the page-locked memory of a pipelined load)
     cold_pipeline_buffer_depth: int = 2
@@ -160,7 +169,8 @@ class CacheConfig:
     # Host-RAM warm tier (cache/host_tier.py): bytes of host memory that
     # keep evicted models' packed chunks, so a re-admission replays them
     # onto the device with no disk read and no decode. 0 = off (default).
-    # A runtime bound to a device group ignores it.
+    # A node whose runtime is bound to a device group gives it no tier, as
+    # the reference's node does.
     host_tier_bytes: int = 0
 
 

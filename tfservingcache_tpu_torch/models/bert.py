@@ -24,6 +24,15 @@ The module holds the loaded tree's leaves as they are and casts each weight
 to the compute dtype inside the forward, as the reference casts inside its
 jitted apply: an f32 artifact served in bf16 keeps no second copy of its
 weights on the device, and the resident bytes are the tree's bytes.
+
+On a device group ``TensorParallelBert`` runs the reference's Megatron
+rules (the program GSPMD compiles from them): ``w[qkv]`` cut by columns,
+i.e. by heads, ``wo`` and ``w2`` by rows, ``w1`` by columns, ``word_emb``
+over ``hidden``; the position and type tables, the biases, the norms, the
+pooler and the classifier replicated. Shard i adds its slice of a
+column-cut weight's bias; the partials of ``wo`` and ``w2`` reduce on the
+leader in f32 in shard order and round once (``reduce_partials``), where
+one device rounds its product, and the bias follows the sum.
 """
 
 from __future__ import annotations
@@ -35,7 +44,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+from tfservingcache_tpu_torch.models.registry import (
+    ModelDef,
+    TensorParallelPlan,
+    TensorSpec,
+    cut_halves,
+    register,
+)
+from tfservingcache_tpu_torch.models.transformer_lm import reduce_partials
+from tfservingcache_tpu_torch.parallel.sharding import ShardedLeaf
 
 DEFAULT_CONFIG: dict[str, Any] = {
     "vocab_size": 30522,
@@ -143,6 +160,113 @@ class BertEncoder(nn.Module):
         return {"logits": logits.float(), "pooled_output": pooled.float()}
 
 
+def _cut(leaf: ShardedLeaf, n: int) -> nn.ParameterList:
+    """The first ``n`` shards of a placed leaf (a replicated half's one
+    whole weight on the leader when ``n`` is 1)."""
+    return nn.ParameterList(_frozen(t) for t in leaf.shards[:n])
+
+
+def _slices(bias: ShardedLeaf, n: int) -> nn.ParameterList:
+    """A replicated bias of a column-cut weight as ``n`` slices, the i-th a
+    view of the copy on shard i's device."""
+    width = bias.shape[0] // n
+    return nn.ParameterList(_frozen(bias.shards[i].narrow(0, i * width, width))
+                            for i in range(n))
+
+
+class TPEncoderLayer(nn.Module):
+    """``EncoderLayer`` on a group: shard i computes the q, k, v of its
+    ``n_heads / P`` heads, their attention and its rows of ``wo``; then its
+    columns of ``w1`` and rows of ``w2``. The partials reduce on the leader,
+    where the residual stream, the output biases and the norms live. A half
+    whose width P does not divide runs whole on the leader."""
+
+    def __init__(self, p: dict[str, ShardedLeaf], n_heads: int,
+                 group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.attn_devices = group if p["wq"].dim is not None else group[:1]
+        self.mlp_devices = group if p["w1"].dim is not None else group[:1]
+        na, nm = len(self.attn_devices), len(self.mlp_devices)
+        self.n_heads = n_heads // na
+        self.wq, self.wk, self.wv, self.wo = (_cut(p[w], na) for w in ("wq", "wk", "wv", "wo"))
+        self.bq, self.bk, self.bv = (_slices(p[b], na) for b in ("bq", "bk", "bv"))
+        self.w1, self.w2 = _cut(p["w1"], nm), _cut(p["w2"], nm)
+        self.b1 = _slices(p["b1"], nm)
+        for name in ("bo", "b2", "ln1_g", "ln1_b", "ln2_g", "ln2_b"):
+            setattr(self, name, _frozen(p[name].shards[0]))
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        dt = x.dtype
+        hd = d // (self.n_heads * len(self.attn_devices))
+        parts = []
+        for i, dev in enumerate(self.attn_devices):
+            xi = x.to(dev, non_blocking=True)
+
+            def heads(w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                y = xi @ w.to(dt) + bias.to(dt)
+                return y.reshape(b, s, self.n_heads, hd).transpose(1, 2)
+
+            q, k = heads(self.wq[i], self.bq[i]), heads(self.wk[i], self.bk[i])
+            v = heads(self.wv[i], self.bv[i])
+            scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+            probs = torch.softmax(scores + mask_bias.to(dev, non_blocking=True), dim=-1).to(dt)
+            ctx = (probs @ v).transpose(1, 2).reshape(b, s, -1)
+            parts.append(ctx @ self.wo[i].to(dt))
+        x = layernorm(x + (reduce_partials(parts, x.device) + self.bo.to(dt)),
+                      self.ln1_g, self.ln1_b)
+        parts = [F.gelu(x.to(dev, non_blocking=True) @ self.w1[i].to(dt) + self.b1[i].to(dt),
+                        approximate="tanh") @ self.w2[i].to(dt)
+                 for i, dev in enumerate(self.mlp_devices)]
+        return layernorm(x + (reduce_partials(parts, x.device) + self.b2.to(dt)),
+                         self.ln2_g, self.ln2_b)
+
+
+class TensorParallelBert(nn.Module):
+    """``BertEncoder`` over a tree that ``parallel.sharding`` placed on a
+    device group. The input, the residual stream, the norms and the head
+    live on ``group[0]``, the leader. The word embedding, cut over
+    ``hidden``, is gathered per shard and joined on the hidden axis on the
+    leader before the position and type rows are added, so the embedding
+    is one device's exactly. On a group that repeats one device the shards
+    run one after another there."""
+
+    def __init__(self, sharded: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.max_seq = cfg["max_seq"]
+        self.dtype = getattr(torch, cfg["dtype"])
+        self.group = tuple(group)
+        word = sharded["word_emb"]
+        self.embed_devices = self.group if word.dim is not None else self.group[:1]
+        self.word_emb = _cut(word, len(self.embed_devices))
+        self.vocab = word.shape[0]
+        for name in ("pos_emb", "type_emb", "emb_ln_g", "emb_ln_b",
+                     "pool_w", "pool_b", "cls_w", "cls_b"):
+            setattr(self, name, _frozen(sharded[name].shards[0]))
+        self.layers = nn.ModuleList(TPEncoderLayer(p, cfg["n_heads"], self.group)
+                                    for p in sharded["layers"])
+
+    def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        lead = self.group[0]
+        ids = inputs["input_ids"].long().to(lead)
+        s = ids.shape[1]
+        if s > self.max_seq:
+            raise ValueError(f"sequence length {s} exceeds max_seq {self.max_seq}")
+        ids = torch.where(ids < 0, ids + self.vocab, ids).clamp(0, self.vocab - 1)
+        words = torch.cat([e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
+                           for e, dev in zip(self.word_emb, self.embed_devices)], dim=-1)
+        x = (words + self.pos_emb[:s][None] + self.type_emb[0]).to(self.dtype)
+        x = layernorm(x, self.emb_ln_g, self.emb_ln_b)
+        mask = inputs["attention_mask"].long().to(lead)
+        mask_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e30).float()
+        for layer in self.layers:
+            x = layer(x, mask_bias)
+        pooled = torch.tanh(x[:, 0] @ self.pool_w.to(self.dtype) + self.pool_b)
+        head = torch.promote_types(pooled.dtype, self.dtype)
+        logits = pooled.to(head) @ self.cls_w.to(self.dtype).to(head) + self.cls_b
+        return {"logits": logits.float(), "pooled_output": pooled.float()}
+
+
 @register("bert", DEFAULT_CONFIG)
 def build(config: dict) -> ModelDef:
     cfg = config
@@ -186,8 +310,17 @@ def build(config: dict) -> ModelDef:
             "cls_b": zeros(cfg["num_labels"]),
         }
 
-    # the reference's Megatron-style rules over the "model" axis; the family
-    # has no tensor-parallel module, so a group runtime refuses them
+    def tensor_parallel(group: tuple[torch.device, ...]) -> TensorParallelPlan:
+        # attention is cut where P divides the heads, the FFN where it
+        # divides d_ff, the word embedding where it divides hidden
+        return cut_halves(partition_rules, group, {
+            "attn": (r"layers/\d+/w[qkvo]", cfg["n_heads"]),
+            "mlp": (r"layers/\d+/w[12]", cfg["d_ff"]),
+            "embed": (r"word_emb", cfg["hidden"]),
+        }, lambda sharded: TensorParallelBert(sharded, cfg, tuple(group)))
+
+    # the reference's Megatron-style rules over the "model" axis, served on
+    # a group by TensorParallelBert
     partition_rules = {
         r"layers/\d+/w[qkv]": (None, "model"),
         r"layers/\d+/wo": ("model", None),
@@ -210,6 +343,7 @@ def build(config: dict) -> ModelDef:
             "pooled_output": TensorSpec("float32", (-1, cfg["hidden"])),
         },
         partition_rules=partition_rules,
+        tensor_parallel=tensor_parallel,
         # the absolute position table bounds the servable sequence: a
         # 300-token request under max_seq 384 pads to 384, not 512
         axis_caps={"seq": cfg["max_seq"]},

@@ -147,6 +147,21 @@ class TensorParallelPlan:
     make_module: Callable[[Any], torch.nn.Module]
 
 
+def cut_halves(rules: dict[str, tuple], group: tuple[torch.device, ...],
+               halves: Mapping[str, tuple[str, int]],
+               make_module: Callable[[Any], torch.nn.Module]) -> TensorParallelPlan:
+    """A family's plan on a group of P devices: ``halves`` maps each half to
+    (the pattern of its weights' paths, its width: heads, ``d_ff`` or the
+    model width). A half whose width P divides is cut by the family's
+    ``rules``; any other is replicated by a rule ahead of them (one process
+    cannot run attention on part of a head, as the reference's
+    ``kv_arena_spec`` degrades its arena)."""
+    n = len(group)
+    cut = {half: width % n == 0 for half, (_pattern, width) in halves.items()}
+    replicate = {halves[half][0]: () for half, is_cut in cut.items() if not is_cut}
+    return TensorParallelPlan(rules={**replicate, **rules}, halves=cut, make_module=make_module)
+
+
 _REGISTRY: dict[str, Callable[[dict[str, Any]], ModelDef]] = {}
 _DEFAULT_CONFIGS: dict[str, dict[str, Any]] = {}
 

@@ -32,6 +32,17 @@ artifacts store ``cfg["dtype"]``, so for them every cast is the tensor
 itself; an f32 artifact served in bf16 keeps no second copy of a weight
 either, its copies living for one call.
 
+On a device group ``TensorParallelT5`` runs the reference's Megatron rules:
+the encoder's self-attention and the decoder's self- and cross-attention
+cut by heads (``w[qkv]`` by columns, ``wo`` by rows), the GeGLU ``w0``/``w1``
+by columns and ``w2`` by rows, ``embed`` over ``d_model``; the bias tables
+and the norms replicated. The bias tables are indexed by head, so each
+shard adds its own heads' rows. With ``embed`` cut, the gather joins the
+shards' columns on the leader, and the tied head is a row-parallel product:
+each shard's slice of ``y / sqrt(d)`` against its slice of ``embed``. Every
+partial reduces on the leader in f32 in shard order and rounds once
+(``reduce_partials``), where one device rounds its product.
+
 Relative bucket indices are computed on the host in f32 in the reference's
 order of operations (a device ``logf`` one ulp low would move the distances
 where the exact value is an integer one bucket down), cached per
@@ -49,7 +60,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfservingcache_tpu_torch.models.registry import ModelDef, TensorSpec, register
+from tfservingcache_tpu_torch.models.registry import (
+    ModelDef,
+    TensorParallelPlan,
+    TensorSpec,
+    cut_halves,
+    register,
+)
+from tfservingcache_tpu_torch.models.transformer_lm import reduce_partials
+from tfservingcache_tpu_torch.parallel.sharding import ShardedLeaf
 
 DEFAULT_CONFIG: dict[str, Any] = {
     "vocab_size": 32128,
@@ -261,6 +280,165 @@ class T5EncoderDecoder(nn.Module):
         return {"logits": logits.float()}
 
 
+def _cut(leaf: ShardedLeaf, n: int) -> nn.ParameterList:
+    """The first ``n`` shards of a placed leaf (a replicated half's one
+    whole weight on the leader when ``n`` is 1)."""
+    return nn.ParameterList(_frozen(t) for t in leaf.shards[:n])
+
+
+class TPAttention(nn.Module):
+    """One attention block on a group: shard i projects its ``n_heads / P``
+    heads' q, k and v, attends with its heads' rows of the relative bias
+    and multiplies by its rows of ``wo``; the partials reduce on the
+    leader. Replicated (P does not divide the heads), the whole block on
+    the leader."""
+
+    def __init__(self, p: dict[str, ShardedLeaf], n_heads: int,
+                 group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.devices = group if p["wq"].dim is not None else group[:1]
+        n = len(self.devices)
+        self.n_heads = n_heads // n
+        self.wq, self.wk, self.wv, self.wo = (_cut(p[w], n) for w in ("wq", "wk", "wv", "wo"))
+
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.Tensor | None,
+                mask: torch.Tensor) -> torch.Tensor:
+        b, sq, d = q_in.shape
+        sk = kv_in.shape[1]
+        h = self.n_heads
+        hd = d // (h * len(self.devices))
+        dt = q_in.dtype
+        parts = []
+        for i, dev in enumerate(self.devices):
+            qi, kvi = q_in.to(dev, non_blocking=True), kv_in.to(dev, non_blocking=True)
+            q = (qi @ self.wq[i].to(dt)).reshape(b, sq, h, hd).transpose(1, 2)
+            k = (kvi @ self.wk[i].to(dt)).reshape(b, sk, h, hd).transpose(1, 2)
+            v = (kvi @ self.wv[i].to(dt)).reshape(b, sk, h, hd).transpose(1, 2)
+            scores = q.float() @ k.float().transpose(-1, -2)
+            if bias is not None:
+                scores = scores + bias[:, i * h:(i + 1) * h].to(dev, non_blocking=True)
+            scores = torch.where(mask.to(dev, non_blocking=True), scores, _MASKED)
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            ctx = (probs @ v).transpose(1, 2).reshape(b, sq, -1)
+            parts.append(ctx @ self.wo[i].to(dt))
+        return reduce_partials(parts, q_in.device)
+
+
+class TPGeGLU(nn.Module):
+    """The feed-forward on a group: ``w0``/``w1`` cut by columns, ``w2`` by
+    rows, each shard's ``gelu(x w0_i) * (x w1_i) @ w2_i`` reduced on the
+    leader; replicated (P does not divide ``d_ff``), whole on the leader."""
+
+    def __init__(self, p: dict[str, ShardedLeaf], group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.devices = group if p["w0"].dim is not None else group[:1]
+        n = len(self.devices)
+        self.w0, self.w1, self.w2 = (_cut(p[w], n) for w in ("w0", "w1", "w2"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        parts = []
+        for i, dev in enumerate(self.devices):
+            xi = x.to(dev, non_blocking=True)
+            ff = F.gelu(xi @ self.w0[i].to(dt), approximate="tanh") * (xi @ self.w1[i].to(dt))
+            parts.append(ff @ self.w2[i].to(dt))
+        return reduce_partials(parts, x.device)
+
+
+class TPEncoderLayer(nn.Module):
+    def __init__(self, p: dict, n_heads: int, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.attn = TPAttention(p["attn"], n_heads, group)
+        self.mlp = TPGeGLU(p["mlp"], group)
+        self.ln1 = _frozen(p["ln1"].shards[0])
+        self.ln2 = _frozen(p["ln2"].shards[0])
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, src_valid: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, self.ln1)
+        x = x + self.attn(h, h, bias, src_valid)
+        return x + self.mlp(rmsnorm(x, self.ln2))
+
+
+class TPDecoderLayer(nn.Module):
+    def __init__(self, p: dict, n_heads: int, group: tuple[torch.device, ...]) -> None:
+        super().__init__()
+        self.self_attn = TPAttention(p["self_attn"], n_heads, group)
+        self.cross_attn = TPAttention(p["cross_attn"], n_heads, group)
+        self.mlp = TPGeGLU(p["mlp"], group)
+        for name in ("ln1", "ln2", "ln3"):
+            setattr(self, name, _frozen(p[name].shards[0]))
+
+    def forward(self, y: torch.Tensor, enc_out: torch.Tensor, bias: torch.Tensor,
+                causal: torch.Tensor, src_valid: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(y, self.ln1)
+        y = y + self.self_attn(h, h, bias, causal)
+        y = y + self.cross_attn(rmsnorm(y, self.ln2), enc_out, None, src_valid)
+        return y + self.mlp(rmsnorm(y, self.ln3))
+
+
+class TensorParallelT5(T5EncoderDecoder):
+    """``T5EncoderDecoder`` over a tree that ``parallel.sharding`` placed on
+    a device group. The inputs, the residual streams, the norms, the bias
+    tables and the logits live on ``group[0]``, the leader; the relative
+    bias is gathered there for all heads and each shard takes its heads'
+    rows. On a group that repeats one device the shards run one after
+    another there."""
+
+    def __init__(self, sharded: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
+        nn.Module.__init__(self)
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg["dtype"])
+        self.n_heads = cfg["n_heads"]
+        self.group = tuple(group)
+        embed = sharded["embed"]
+        self.embed_devices = self.group if embed.dim is not None else self.group[:1]
+        self.embed_shards = _cut(embed, len(self.embed_devices))
+        self.vocab = embed.shape[0]
+        for name in ("enc_rel", "dec_rel", "enc_ln", "dec_ln"):
+            setattr(self, name, _frozen(sharded[name].shards[0]))
+        self.enc_layers = nn.ModuleList(TPEncoderLayer(p, self.n_heads, self.group)
+                                        for p in sharded["enc_layers"])
+        self.dec_layers = nn.ModuleList(TPDecoderLayer(p, self.n_heads, self.group)
+                                        for p in sharded["dec_layers"])
+        self._buckets = {}
+        self._lock = threading.Lock()
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Each shard gathers its ``d_model`` columns, joined on the leader
+        in shard order, then cast (a cast commutes with the gather)."""
+        lead = self.group[0]
+        ids = torch.where(ids < 0, ids + self.vocab, ids).clamp(0, self.vocab - 1)
+        rows = torch.cat([e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
+                          for e, dev in zip(self.embed_shards, self.embed_devices)], dim=-1)
+        return rows.to(self.dtype)
+
+    def forward(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        lead = self.group[0]
+        src = inputs["input_ids"].long().to(lead)
+        tgt = inputs["decoder_input_ids"].long().to(lead)
+        src_valid = (src != 0)[:, None, None, :]
+        x = self._embed(src)
+        s = x.shape[1]
+        enc_bias = self._bias(self.enc_rel, s, s, True)
+        for layer in self.enc_layers:
+            x = layer(x, enc_bias, src_valid)
+        enc_out = rmsnorm(x, self.enc_ln)
+
+        y = self._embed(tgt)
+        t = y.shape[1]
+        dec_bias = self._bias(self.dec_rel, t, t, False)
+        causal = torch.ones((t, t), dtype=torch.bool, device=lead).tril()[None, None]
+        for layer in self.dec_layers:
+            y = layer(y, enc_out, dec_bias, causal, src_valid)
+        y = rmsnorm(y, self.dec_ln) / math.sqrt(self.cfg["d_model"])
+        # the tied head, row parallel over the cut embedding
+        width = y.shape[-1] // len(self.embed_devices)
+        parts = [y[..., i * width:(i + 1) * width].to(dev, non_blocking=True)
+                 @ e.to(self.dtype).t()
+                 for i, (e, dev) in enumerate(zip(self.embed_shards, self.embed_devices))]
+        return {"logits": reduce_partials(parts, lead).float()}
+
+
 @register("t5", DEFAULT_CONFIG)
 def build(config: dict) -> ModelDef:
     cfg = config
@@ -301,8 +479,18 @@ def build(config: dict) -> ModelDef:
             "dec_ln": ones(),
         }
 
-    # the reference's Megatron-style rules over the "model" axis; the family
-    # has no tensor-parallel module, so a group runtime refuses them
+    def tensor_parallel(group: tuple[torch.device, ...]) -> TensorParallelPlan:
+        # every attention block is cut where P divides the heads, the GeGLU
+        # where it divides d_ff, the embedding (and so the tied head) where
+        # it divides d_model
+        return cut_halves(partition_rules, group, {
+            "attn": (r"(enc|dec)_layers/\d+/(self_|cross_)?attn/w[qkvo]", cfg["n_heads"]),
+            "mlp": (r"(enc|dec)_layers/\d+/mlp/w[012]", cfg["d_ff"]),
+            "embed": (r"embed", cfg["d_model"]),
+        }, lambda sharded: TensorParallelT5(sharded, cfg, tuple(group)))
+
+    # the reference's Megatron-style rules over the "model" axis, served on
+    # a group by TensorParallelT5
     partition_rules = {
         r"embed": (None, "model"),
         r"(enc|dec)_layers/\d+/(self_|cross_)?attn/w[qkv]": (None, "model"),
@@ -322,6 +510,7 @@ def build(config: dict) -> ModelDef:
         },
         output_spec={"logits": TensorSpec("float32", ("batch", "tgt", cfg["vocab_size"]))},
         partition_rules=partition_rules,
+        tensor_parallel=tensor_parallel,
         # apply casts to cfg dtype; bf16 artifacts halve the cold transfer
         store_param_dtype=cfg["dtype"],
     )

@@ -32,6 +32,7 @@ from tfservingcache_tpu_torch.models.registry import (  # noqa: F401 - params_fr
     ModelDef,
     TensorParallelPlan,
     TensorSpec,
+    cut_halves,
     params_from_jax,
     register,
 )
@@ -298,8 +299,9 @@ class TensorParallelLM(nn.Module):
     next half-layer. A half whose width the group does not divide is
     replicated and runs whole on the leader (``tensor_parallel_plan``). On a
     group that repeats one device the shards run one after another there;
-    the shards are views of the loaded weights, so the device holds one copy
-    of them. A family whose FFN differs (moe_lm) sets ``block_cls``."""
+    each shard is a contiguous tensor of its own and the whole leaf is gone
+    once it is cut, so the device holds one copy of the weights. A family
+    whose FFN differs (moe_lm) sets ``block_cls``."""
 
     block_cls: type[nn.Module] = TPBlock
 
@@ -355,20 +357,13 @@ _TP_HALVES = {
 def tensor_parallel_plan(cfg: dict, rules: dict[str, tuple], group: tuple[torch.device, ...],
                          module_cls: type[nn.Module],
                          halves: tuple[str, ...] = ("attn", "mlp", "embed")) -> TensorParallelPlan:
-    """The plan of a group of P devices over the family's ``halves``:
-    attention is cut where P divides ``n_kv_heads`` (then it also divides
-    ``n_heads``; one process cannot run attention on part of a head, so an
-    indivisible head count replicates attention, as the reference's
-    ``kv_arena_spec`` degrades its arena), the FFN where P divides ``d_ff``,
-    the embedding where P divides ``d_model``. A half that is not cut is
-    replicated by a rule ahead of the family's."""
-    n = len(group)
+    """The plan of a group of P devices over the family's ``halves``
+    (``registry.cut_halves``): attention is cut where P divides
+    ``n_kv_heads`` (then it also divides ``n_heads``), the FFN where P
+    divides ``d_ff``, the embedding where P divides ``d_model``."""
     widths = {"attn": cfg["n_kv_heads"], "mlp": cfg["d_ff"], "embed": cfg["d_model"]}
-    cut = {half: widths[half] % n == 0 for half in halves}
-    replicate = {_TP_HALVES[half]: () for half, is_cut in cut.items() if not is_cut}
-    return TensorParallelPlan(
-        rules={**replicate, **rules}, halves=cut,
-        make_module=lambda sharded: module_cls(sharded, cfg, tuple(group)))
+    return cut_halves(rules, group, {half: (_TP_HALVES[half], widths[half]) for half in halves},
+                      lambda sharded: module_cls(sharded, cfg, tuple(group)))
 
 
 @register("transformer_lm", DEFAULT_CONFIG)

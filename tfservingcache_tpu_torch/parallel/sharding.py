@@ -98,12 +98,12 @@ class ShardedLeaf:
 
 def shard_leaf(leaf: torch.Tensor, spec: Spec, group: Sequence[torch.device]) -> ShardedLeaf:
     """Place ``leaf`` on ``group`` by ``spec``. A cut dimension must divide
-    by the group's size. Where every member of the group is one device (a
-    group of one card, the CPU tests' groups) the slices are views of
-    ``leaf``; on a group of distinct devices each slice is a copy of its
-    own, the one on ``leaf``'s device too, so that the whole leaf can be
-    freed once it is placed. A replicated leaf is ``leaf`` itself on its own
-    device and one copy on each other device."""
+    by the group's size. Each slice is a contiguous tensor of its own on its
+    device, the one on ``leaf``'s device too, where a view would be strided
+    (a column cut of a row-major weight): the layout the sharded packed
+    transfer lands, and ``leaf`` can be freed once it is cut. A replicated
+    leaf is ``leaf`` itself on its own device and one copy on each other
+    device."""
     devs = [torch.device(d) for d in group]
     axes = group_axes(devs)
     cut = sharded_dim(spec, axes)
@@ -119,8 +119,9 @@ def shard_leaf(leaf: torch.Tensor, spec: Spec, group: Sequence[torch.device]) ->
         raise ValueError(f"dimension {dim} of a {tuple(leaf.shape)} leaf does not divide "
                          f"into {n} shards")
     size = leaf.shape[dim] // n
-    shards = tuple(leaf.narrow(dim, i * size, size).to(dev, copy=not one_device)
-                   for i, dev in enumerate(devs))
+    shards = tuple(torch.empty(part.shape, dtype=part.dtype, device=dev).copy_(part)
+                   for dev, part in ((dev, leaf.narrow(dim, i * size, size))
+                                     for i, dev in enumerate(devs)))
     return ShardedLeaf(spec, dim, tuple(leaf.shape), shards)
 
 
@@ -135,6 +136,17 @@ def shard_params(params: Any, rules: Mapping[str, Spec], group: Sequence[torch.d
     return unflatten_params(
         [path for path, _leaf in pairs],
         [shard_leaf(leaf, spec_for(path, rules, axes), group) for path, leaf in pairs])
+
+
+def gather_leaf(leaf: ShardedLeaf) -> torch.Tensor:
+    """The whole array of a placed leaf on the group's leader: a cut leaf's
+    shards concatenated on their dimension in shard order, a replicated
+    leaf's leader copy (the host tier's demotion of a tensor-parallel
+    model)."""
+    if leaf.dim is None:
+        return leaf.shards[0]
+    lead = leaf.shards[0].device
+    return torch.cat([t.to(lead, non_blocking=True) for t in leaf.shards], dim=leaf.dim)
 
 
 def kv_arena_spec(axes: Mapping[str, int], n_kv: int, axis: str = "model") -> Spec:

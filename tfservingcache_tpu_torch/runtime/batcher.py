@@ -1740,10 +1740,12 @@ class ContinuousGenerateEngine:
             raise ValueError(f"unknown priority {priority!r} (expected high|normal|low)")
         ids = np.asarray(input_ids, np.int32)
         # a runtime on a device group is one process, so it runs this engine
-        # on its group's slot state as one device does (the reference's rule
-        # for a single-process mesh, batcher.py:2117-2128)
+        # on its group's slot state as one device does, unless the group is
+        # lockstep (serving.mesh_fast_path off): then every request runs
+        # solo (the reference's rule, batcher.py:2117-2128)
         solo = (
             seed is not None
+            or getattr(self.runtime, "mesh_lockstep", False)
             or ids.ndim != 2
             or not ids.size
             or self.runtime.family_of(model_id) != "transformer_lm"

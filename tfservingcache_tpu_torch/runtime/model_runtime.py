@@ -37,35 +37,43 @@ no card and no explicit device it raises. Forwards run eagerly under
 
 A runtime constructed with ``devices=[...]`` is bound to that device group
 (the reference's runtime on a chip-group mesh). ``devices[0]`` is the
-leader: params load onto it (the serialized path; an int8 artifact
-dequantized there). A family with a ``bind_group`` factory (a ``"ring"``
-transformer_lm) builds its module bound to the group, so that each forward
-splits attention's sequence over the group's devices. The reference
-replicates a ring model's weights on every chip of the group (partition
-rule ``{".*": ()}``) and computes the projections redundantly on each; the
-port computes them once on the leader and shards only attention, with the
-same output; its ``:generate`` runs on the leader, as the reference's
-generation never rings. A family whose partition rules cut weights over
-``"model"`` and that has a ``tensor_parallel`` plan (transformer_lm,
-moe_lm) is tensor parallel on a group of more than one device: the loaded
-tree is cut by the plan's rules (``parallel.sharding.shard_params``), the
-load span says which halves (``tp_attn``, ``tp_mlp``, ``tp_embed``), and
-the resident bytes stay the tree's logical bytes. ``:generate`` and the
-slot surface serve such a model on the group: its KV cache, dense or paged,
-is cut over the KV-head axis where the group divides it
+leader. A family with a ``bind_group`` factory (a ``"ring"``
+transformer_lm) loads onto the leader as one device does and builds its
+module bound to the group, so that each forward splits attention's sequence
+over the group's devices. The reference replicates a ring model's weights
+on every chip of the group (partition rule ``{".*": ()}``) and computes the
+projections redundantly on each; the port computes them once on the leader
+and shards only attention, with the same output; its ``:generate`` runs on
+the leader, as the reference's generation never rings. A family whose
+partition rules cut weights over ``"model"`` (transformer_lm, moe_lm, bert,
+t5) is tensor parallel on a group of more than one device through its
+``tensor_parallel`` plan: an int8 artifact is expanded on the host first
+(``_dequantize_on_host``, a ``host_dequant`` stage), then each device gets
+its own shard bytes through the pipelined ``packed_device_put_sharded``
+(with ``cold_load_pipeline`` off, ``packed_device_put_group`` copies each
+leaf to the leader and cuts it there); both land contiguous shards, so the
+two loads give the same module. The load span says which halves are cut
+(``tp_attn``, ``tp_mlp``, ``tp_embed``) and the resident bytes stay the
+tree's logical bytes. The group keeps a host tier (whole leaves, replayed
+through the sharded transfer by ``_promote``) and promotes adopted peer
+entries the same way. ``serving.mesh_fast_path: false`` makes the group
+lockstep (``mesh_lockstep``): serialized loads, no tier, adopted entries
+dropped, ``:generate`` on the solo path. ``:generate`` and the slot surface
+serve a tensor-parallel LM on the group: its KV cache, dense or paged, is
+cut over the KV-head axis where the group divides it
 (``parallel.sharding.shard_kv_arena``), else whole on the leader, and each
 shard's cached forward runs the paged kernels on its own heads (the
 reference turns its Pallas kernel off on a mesh, model_runtime.py:2102; the
 port's shards are whole local tensors, so ``serving.kv_paged_kernel`` keeps
 its one-card meaning). The page bookkeeping stays on the host, the host
 mirrors and sampling on the leader. ``mesh_topology`` stamps the group on
-``/monitoring/engine``. bert and t5, which have no plan, are refused on
-such a group.
+``/monitoring/engine``.
 
 Observability (reference :1129-1436, :1733, :3404-3427): a load runs under a
 ``load`` span (``tier`` disk or host) with the reference's stage children
-(``artifact_read``, ``device_transfer``, ``device_dequant`` for an int8
-artifact only, ``transfer_sync``, ``compile_warmup`` for the warm-up
+(``artifact_read``, ``device_dequant`` for an int8 artifact only, or
+``host_dequant`` before a tensor-parallel group's transfer,
+``device_transfer``, ``transfer_sync``, ``compile_warmup`` for the warm-up
 forward), which feed
 ``tpusc_cold_stage_seconds{stage}`` and ``tpusc_cold_overlap_ratio``; a predict under
 ``infer`` and a solo generate under ``generate``; loads and evictions
@@ -113,7 +121,16 @@ from tfservingcache_tpu_torch.models.registry import (
 )
 from tfservingcache_tpu_torch.native import make_lru_cache
 from tfservingcache_tpu_torch.parallel.mesh import group_axes
-from tfservingcache_tpu_torch.parallel.sharding import KVShards, kv_shards, like_kv, shard_params
+from tfservingcache_tpu_torch.parallel.sharding import (
+    KVShards,
+    ShardedLeaf,
+    gather_leaf,
+    kv_shards,
+    like_kv,
+    shard_leaf,
+    sharded_dim,
+    spec_for,
+)
 from tfservingcache_tpu_torch.runtime.base import (
     BaseRuntime,
     ModelNotLoadedError,
@@ -455,51 +472,27 @@ def packed_device_put(host_params: Any, device: torch.device) -> Any:
     return params
 
 
-def packed_device_put_pipelined(
-    host_params: Any,
-    copier: _ChunkCopier,
-    buffer_depth: int = 2,
-    capture: list | None = None,
-    workers: set | None = None,
-) -> tuple[Any, Any, dict]:
-    """Pipelined packed transfer (reference :313) -> (device params, the
-    event to sync on or None, stats). Every ``QuantLeaf`` is dequantized on
-    the device as soon as both of its halves have landed, while later
-    chunks still copy; ``stats["dequant_s"]`` is the seconds spent
-    dispatching those dequants.
+def _run_pipeline(sizes: list[int], dtypes: list[torch.dtype], fill, land, drain,
+                  buffer_depth: int, pin: bool, own=None, workers: set | None = None,
+                  name: str = "tpusc-chunk-assembler") -> int:
+    """The two threads of a pipelined packed transfer (reference :313) over
+    ``len(sizes)`` chunks -> the bytes of staging memory it allocated.
 
-    An assembler thread packs each ``_pack_plan`` chunk's leaves (read from
-    the mapped artifact) into a page-locked staging buffer and
-    hands it over through a queue bounded at ``buffer_depth``; the calling
-    thread issues the chunk's copy on the copy stream into a fresh device
-    buffer, so the assembly of chunk N+1 overlaps the copy of chunk N. There
-    are ``buffer_depth`` staging buffers, each reused only after the copy
-    that last read it is done (its event). Every copy issues from the
-    calling thread in plan order. The assembler's every put and take can be
-    abandoned (``stop``), so a failure on either side ends both.
-
-    ``capture``, when given, collects ``(chunk, buffer)`` pairs for the host
-    tier: each chunk is then assembled into a page-locked buffer of its own
-    (``_packed_chunk``), which the tier keeps, never into a staging buffer
-    that is reused.
-
-    The leaves are views into their chunk's device buffer. Page-locked host
-    memory held by the load: the staging buffers (``stats["staging_bytes"]``)
-    or the captured chunks, not the artifact. ``workers``, when given, holds
-    the assembler thread while it lives (the runtime's ``close`` joins it)."""
-    outer, treedef, arrs, owner = _flatten_for_pack(host_params)
-    if len(arrs) <= 2:
-        # leaf by leaf (reference :350); a copy even on the CPU, where the
-        # leaves would otherwise stay views into the mapped artifact
-        params = _to_device(host_params, copier.device, copy=True)
-        t0 = time.monotonic()
-        params = _dequantize_on_device(params)
-        return params, None, {"chunks": 0, "bytes": sum(map(_leaf_nbytes, arrs)),
-                              "staging_bytes": 0, "dequant_s": time.monotonic() - t0}
-    chunks = _pack_plan(arrs)
-    shapes = [tuple(a.shape) for a in arrs]
-    sizes = [sum(_leaf_nbytes(arrs[i]) for i in chunk) for chunk in chunks]
-    pin = copier.stream is not None
+    An assembler thread packs chunk k (``fill(k, buf)``, ``buf`` a 1-D
+    tensor of ``dtypes[k]`` holding ``sizes[k]`` bytes) into a staging
+    buffer, page-locked with ``pin``, and hands it over through a queue
+    bounded at ``buffer_depth``; the calling thread issues its copy with
+    ``land(k, buf)`` -> the copy's event, so the assembly of chunk k + 1
+    overlaps the copy of chunk k. There are ``buffer_depth`` staging
+    buffers, each refilled only after the copy that last read it is done
+    (its event). Every copy issues from the calling thread in plan order.
+    ``own(k)``, when given, returns an owned buffer holding chunk k that
+    takes the staging buffer's place (the host tier keeps it). The
+    assembler's every put and take can be abandoned, so a failure on
+    either side ends both; ``drain()`` then waits for the copies already
+    issued before the error goes up (no copy may still read a buffer the
+    caller drops). ``workers``, when given, holds the assembler thread
+    while it lives (the runtime's ``close`` joins it)."""
     depth = max(1, buffer_depth)
     done = object()
     q: queue.Queue = queue.Queue(maxsize=depth)
@@ -507,8 +500,8 @@ def packed_device_put_pipelined(
     stop = threading.Event()
     staging: list[torch.Tensor] = []   # appended by the assembler only
     gates: dict[int, Any] = {}         # slot -> event of the copy that read it last
-    if capture is None:
-        for slot in range(min(depth, len(chunks))):
+    if own is None:
+        for slot in range(min(depth, len(sizes))):
             free.put(slot)
 
     def put(item) -> bool:
@@ -532,10 +525,10 @@ def packed_device_put_pipelined(
 
     def assemble() -> None:
         try:
-            for chunk, nbytes in zip(chunks, sizes):
-                if capture is not None:
+            for k, nbytes in enumerate(sizes):
+                if own is not None:
                     slot = None
-                    buf = _packed_chunk(arrs, chunk, pin)
+                    buf = own(k)
                 else:
                     slot = take_slot()
                     if slot is None:
@@ -546,19 +539,16 @@ def packed_device_put_pipelined(
                     gate = gates.pop(slot, None)
                     if gate is not None:
                         gate.synchronize()  # the copy that read it last is done
-                    buf = staging[slot][:nbytes].view(arrs[chunk[0]].dtype)
-                    _fill_chunk(buf, arrs, chunk)
-                if not put((chunk, buf, slot)):
+                    buf = staging[slot][:nbytes].view(dtypes[k])
+                    fill(k, buf)
+                if not put((k, buf, slot)):
                     return
                 del buf
             put(done)
         except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
             put(e)
 
-    out: list[Any] = [None] * len(outer)
-    quant = _QuantLanding({oi: leaf.orig_dtype for oi, leaf in enumerate(outer)
-                           if isinstance(leaf, QuantLeaf)}, copier.device)
-    worker = threading.Thread(target=assemble, name="tpusc-chunk-assembler", daemon=True)
+    worker = threading.Thread(target=assemble, name=name, daemon=True)
     if workers is not None:
         workers.add(worker)
     worker.start()
@@ -569,30 +559,239 @@ def packed_device_put_pipelined(
                 break
             if isinstance(item, BaseException):
                 raise item
-            chunk, buf, slot = item
-            dev, ev = copier.land(buf)
+            k, buf, slot = item
+            ev = land(k, buf)
             if slot is not None:
                 gates[slot] = ev
                 free.put(slot)
-            if capture is not None:
-                capture.append((chunk, buf))
             del buf
-            for i, view in zip(chunk, _chunk_views(dev, chunk, shapes)):
-                oi, role = owner[i]
-                out[oi] = view if role == "plain" else quant.land(oi, role, view, ev)
-            del dev
     except BaseException:
-        copier.drain()  # no copy may still read a captured chunk the caller drops
+        drain()
         raise
     finally:
         stop.set()
         worker.join(timeout=5.0)
         if workers is not None:
             workers.discard(worker)
-    stats = {"chunks": len(chunks), "bytes": sum(sizes),
-             "staging_bytes": len(staging) * max(sizes) if pin else 0,
+    return len(staging) * max(sizes, default=0) if pin else 0
+
+
+def packed_device_put_pipelined(
+    host_params: Any,
+    copier: _ChunkCopier,
+    buffer_depth: int = 2,
+    capture: list | None = None,
+    workers: set | None = None,
+) -> tuple[Any, Any, dict]:
+    """Pipelined packed transfer (reference :313) -> (device params, the
+    event to sync on or None, stats). The ``_pack_plan`` chunks go through
+    ``_run_pipeline``: each chunk's leaves are read from the mapped artifact
+    into a staging buffer while the previous chunk copies to the device on
+    the copy stream, into a fresh device buffer. Every ``QuantLeaf`` is
+    dequantized on the device as soon as both of its halves have landed,
+    while later chunks still copy; ``stats["dequant_s"]`` is the seconds
+    spent dispatching those dequants.
+
+    ``capture``, when given, collects ``(chunk, buffer)`` pairs for the host
+    tier: each chunk is then assembled into a page-locked buffer of its own
+    (``_packed_chunk``), which the tier keeps, never into a staging buffer
+    that is reused.
+
+    The leaves are views into their chunk's device buffer. Page-locked host
+    memory held by the load: the staging buffers (``stats["staging_bytes"]``)
+    or the captured chunks, not the artifact."""
+    outer, treedef, arrs, owner = _flatten_for_pack(host_params)
+    if len(arrs) <= 2:
+        # leaf by leaf (reference :350); a copy even on the CPU, where the
+        # leaves would otherwise stay views into the mapped artifact
+        params = _to_device(host_params, copier.device, copy=True)
+        t0 = time.monotonic()
+        params = _dequantize_on_device(params)
+        return params, None, {"chunks": 0, "bytes": sum(map(_leaf_nbytes, arrs)),
+                              "staging_bytes": 0, "dequant_s": time.monotonic() - t0}
+    chunks = _pack_plan(arrs)
+    shapes = [tuple(a.shape) for a in arrs]
+    sizes = [sum(_leaf_nbytes(arrs[i]) for i in chunk) for chunk in chunks]
+    pin = copier.stream is not None
+    out: list[Any] = [None] * len(outer)
+    quant = _QuantLanding({oi: leaf.orig_dtype for oi, leaf in enumerate(outer)
+                           if isinstance(leaf, QuantLeaf)}, copier.device)
+
+    def land(k: int, buf: torch.Tensor) -> Any:
+        dev, ev = copier.land(buf)
+        if capture is not None:
+            capture.append((chunks[k], buf))
+        for i, view in zip(chunks[k], _chunk_views(dev, chunks[k], shapes)):
+            oi, role = owner[i]
+            out[oi] = view if role == "plain" else quant.land(oi, role, view, ev)
+        return ev
+
+    staging = _run_pipeline(
+        sizes, [arrs[chunk[0]].dtype for chunk in chunks],
+        lambda k, buf: _fill_chunk(buf, arrs, chunks[k]), land, copier.drain, buffer_depth,
+        pin, own=(lambda k: _packed_chunk(arrs, chunks[k], pin)) if capture is not None else None,
+        workers=workers)
+    stats = {"chunks": len(chunks), "bytes": sum(sizes), "staging_bytes": staging,
              "dequant_s": quant.seconds}
     return unflatten_params(treedef, out), copier.finish(), stats
+
+
+def _dequantize_on_host(params: Any) -> Any:
+    """Every ``QuantLeaf`` expanded on the host (reference :498): the
+    tensor-parallel group's loads, whose partition rules name float leaves,
+    so a quantized pair expands before the cut. ``dequant_host`` computes
+    ``q as f32 * scale`` and casts once, as ``_dequantize_on_device`` does
+    on the card, so the two give the same weights."""
+    return _tree_map(lambda x: x.dequant_host() if isinstance(x, QuantLeaf) else x, params)
+
+
+def _shard_chunk_plan(arrs: list[torch.Tensor], cuts: list[tuple[int, int] | None],
+                      group: tuple[torch.device, ...]) -> list[tuple[int, list[tuple]]]:
+    """The sharded transfer's chunks (reference :180) -> ``[(member,
+    [(flat idx, dim, start, size), ...]), ...]``: for each member of the
+    group in order, the slice of each flat leaf that lands on it, grouped
+    per dtype in order of first appearance and cut into chunks that close
+    once they reach ``_PACK_CHUNK_BYTES``, as ``_pack_plan`` cuts a whole
+    tree. A cut leaf (``cuts[i] = (dim, parts)``) gives member m its m-th
+    block along ``dim``; a replicated leaf (``None``) lands whole on the
+    first member of each distinct device and nowhere else (members of a
+    group that repeat a device share it). The copies a load issues are a
+    pure function of the artifact, the rules and the group."""
+    plan: list[tuple[int, list[tuple]]] = []
+    seen: set[torch.device] = set()
+    for m, dev in enumerate(group):
+        first = dev not in seen
+        seen.add(dev)
+        by_dtype: dict[torch.dtype, list[tuple]] = {}
+        for i, (a, cut) in enumerate(zip(arrs, cuts)):
+            if cut is None:
+                if first:
+                    by_dtype.setdefault(a.dtype, []).append((i, None, 0, 0))
+                continue
+            dim, parts = cut
+            size = a.shape[dim] // parts
+            by_dtype.setdefault(a.dtype, []).append((i, dim, m * size, size))
+        for segs in by_dtype.values():
+            chunk: list[tuple] = []
+            chunk_bytes = 0
+            for seg in segs:
+                chunk.append(seg)
+                chunk_bytes += _seg_nbytes(arrs, seg)
+                if chunk_bytes >= _PACK_CHUNK_BYTES:
+                    plan.append((m, chunk))
+                    chunk, chunk_bytes = [], 0
+            if chunk:
+                plan.append((m, chunk))
+    return plan
+
+
+def _seg_view(arrs: list[torch.Tensor], seg: tuple) -> torch.Tensor:
+    """The host slice a segment ships: the whole leaf, or its block."""
+    i, dim, start, size = seg
+    return arrs[i] if dim is None else arrs[i].narrow(dim, start, size)
+
+
+def _seg_nbytes(arrs: list[torch.Tensor], seg: tuple) -> int:
+    return _leaf_nbytes(_seg_view(arrs, seg))
+
+
+def packed_device_put_sharded(
+    host_params: Any,
+    rules: Mapping[str, tuple],
+    group: tuple[torch.device, ...],
+    copiers: Mapping[torch.device, _ChunkCopier],
+    buffer_depth: int = 2,
+    workers: set | None = None,
+) -> tuple[Any, list, dict]:
+    """Pipelined packed transfer onto a device group (reference :218) ->
+    (the tree of ``ShardedLeaf``s, the events to sync on, stats). Each
+    member of the group gets only its own shard bytes: the
+    ``_shard_chunk_plan`` chunks go through ``_run_pipeline`` with the
+    pipelined load's bounded queue, ``buffer_depth`` and page-locked
+    staging, each chunk assembled from the host slices (a column block is
+    gathered into the staging buffer) while the previous chunk copies on
+    its device's copy stream (``copiers``, one a distinct device). A shard
+    is a contiguous view into its device chunk, with the spec, dimension
+    and shape ``shard_params`` gives; a replicated leaf lands once a
+    distinct device. Every leaf must be plain: an int8 artifact is expanded
+    on the host first (``_dequantize_on_host``), as the rules name float
+    leaves."""
+    pairs = flatten_params(host_params)
+    if any(isinstance(leaf, QuantLeaf) for _path, leaf in pairs):
+        raise ValueError("the sharded packed transfer takes host-dequantized leaves")
+    paths = [path for path, _leaf in pairs]
+    arrs = [torch.as_tensor(leaf) for _path, leaf in pairs]
+    axes = group_axes(group)
+    specs = [spec_for(path, rules, axes) for path in paths]
+    cuts = [sharded_dim(spec, axes) for spec in specs]
+    for a, cut in zip(arrs, cuts):
+        if cut is not None and a.shape[cut[0]] % cut[1]:
+            raise ValueError(f"dimension {cut[0]} of a {tuple(a.shape)} leaf does not divide "
+                             f"into {cut[1]} shards")
+    plan = _shard_chunk_plan(arrs, cuts, group)
+    sizes = [sum(_seg_nbytes(arrs, seg) for seg in segs) for _m, segs in plan]
+    landed: list[dict[int, torch.Tensor]] = [{} for _ in arrs]  # flat idx -> {member: shard}
+    pin = any(c.stream is not None for c in copiers.values())
+
+    def fill(k: int, buf: torch.Tensor) -> None:
+        off = 0
+        for seg in plan[k][1]:
+            part = _seg_view(arrs, seg)
+            n = part.numel()
+            buf[off:off + n].view(part.shape).copy_(part)
+            off += n
+
+    def land(k: int, buf: torch.Tensor) -> Any:
+        m, segs = plan[k]
+        dev, ev = copiers[group[m]].land(buf)
+        off = 0
+        for seg in segs:
+            shape = tuple(_seg_view(arrs, seg).shape)
+            n = math.prod(shape)
+            landed[seg[0]][m] = dev[off:off + n].view(shape)
+            off += n
+        return ev
+
+    def drain() -> None:
+        for c in copiers.values():
+            c.drain()
+
+    staging = _run_pipeline(sizes, [arrs[plan[k][1][0][0]].dtype for k in range(len(plan))],
+                            fill, land, drain, buffer_depth, pin, workers=workers,
+                            name="tpusc-shard-assembler")
+    out = []
+    for i, (a, spec, cut) in enumerate(zip(arrs, specs, cuts)):
+        if cut is None:
+            # landed on the first member of each distinct device
+            by_dev = {group[m]: shard for m, shard in landed[i].items()}
+            shards = tuple(by_dev[dev] for dev in group)
+        else:
+            shards = tuple(landed[i][m] for m in range(len(group)))
+        out.append(ShardedLeaf(spec, None if cut is None else cut[0], tuple(a.shape), shards))
+    events = [ev for ev in (c.finish() for c in copiers.values()) if ev is not None]
+    stats = {"chunks": len(plan), "bytes": sum(sizes), "staging_bytes": staging}
+    return unflatten_params(paths, out), events, stats
+
+
+def packed_device_put_group(host_params: Any, rules: Mapping[str, tuple],
+                            group: tuple[torch.device, ...]) -> Any:
+    """The serialized transfer onto a device group (``cold_load_pipeline:
+    false``, a lockstep group): each leaf copied whole to the leader out of
+    the artifact's page-locked buffer, then cut there by ``rules`` into
+    contiguous shards (``parallel.sharding.shard_leaf``), the whole leaf
+    dropped once it is cut, so the device holds the shards plus one leaf
+    at most; one sync on each device at the end. The shards have the
+    sharded packed transfer's layout, so the two loads give the same
+    module. Every leaf must be plain (``_dequantize_on_host`` first)."""
+    lead = group[0]
+    axes = group_axes(group)
+    pairs = flatten_params(host_params)
+    placed = [shard_leaf(leaf.to(lead, non_blocking=True), spec_for(path, rules, axes), group)
+              for path, leaf in pairs]
+    for dev in dict.fromkeys(group):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    return unflatten_params([path for path, _leaf in pairs], placed)
 
 
 def build_packed_entry(model_def: ModelDef, host_params: Any, hbm_bytes: int,
@@ -643,6 +842,27 @@ def promote_packed_entry(entry: PackedModelEntry,
             out[oi] = view if role == "plain" else quant.land(oi, role, view, ev)
         del dev
     return unflatten_params(entry.treedef, out), copier.finish(), quant.seconds
+
+
+def unpack_entry_host(entry: PackedModelEntry) -> Any:
+    """The host tree of an entry's chunks (reference :608): each leaf a
+    view into its retained chunk, a quantized leaf expanded on the host
+    (``dequant_host``). The sharded promotion re-cuts this tree, since the
+    chunks hold whole leaves and the partition rules name float leaves."""
+    flat: list[Any] = [None] * len(entry.shapes)
+    for chunk, buf in entry.chunks:
+        for i, view in zip(chunk, _chunk_views(buf, chunk, entry.shapes)):
+            flat[i] = view
+    outer: list[Any] = [None] * len(entry.treedef)
+    pending: dict[int, dict[str, torch.Tensor]] = {}
+    for i, (oi, role) in enumerate(entry.owner):
+        if role == "plain":
+            outer[oi] = flat[i]
+        else:
+            pending.setdefault(oi, {})[role] = flat[i]
+    for oi, got in pending.items():
+        outer[oi] = QuantLeaf(got["q"], got["scale"], entry.quant_dtypes[oi]).dequant_host()
+    return unflatten_params(entry.treedef, outer)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -936,19 +1156,25 @@ class TorchModelRuntime(BaseRuntime):
         # the packed transfer's copy stream (a card only) and the chunk
         # assemblers of loads in flight (close joins them)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # one copy stream a distinct device of the group: the sharded
+        # transfer lands each shard's chunks on its own device's stream
+        self._copy_streams = {
+            dev: self._copy_stream if dev == self.device else torch.cuda.Stream(dev)
+            for dev in dict.fromkeys(self.group or (self.device,)) if dev.type == "cuda"}
         self._assemblers: set[threading.Thread] = set()
         self._closing = threading.Event()
         # Host-RAM warm tier (cache/host_tier.py, cache.host_tier_bytes, 0 =
         # off): the packed chunks of evicted models, so that a re-admission
         # replays them onto the device with no disk read and no decode. A
-        # runtime bound to a device group keeps the full load path (the
-        # group's promotion is tensor-parallel work, a later slice).
-        # Demotions that must copy a model back off the device run on the
-        # demote worker, never on the evicting thread (see _on_evict).
+        # group keeps one too, unless it is lockstep (reference :971-983);
+        # a tensor-parallel model's entry holds whole leaves, re-cut by the
+        # sharded promotion. Demotions that must copy a model back off the
+        # device run on the demote worker, never on the evicting thread (see
+        # _on_evict).
         self._host_tier: HostRamTier | None = None
         self._demote_queue: queue.Queue | None = None
         self._demote_thread: threading.Thread | None = None
-        if host_tier_bytes > 0 and self.group is None:
+        if host_tier_bytes > 0 and not self.mesh_lockstep:
             self._host_tier = HostRamTier(host_tier_bytes, metrics)
             self._demote_queue = queue.Queue()
             self._demote_thread = threading.Thread(
@@ -991,10 +1217,11 @@ class TorchModelRuntime(BaseRuntime):
         drops it. Where the reference fills the entry's jit handle
         (``_fill_family_jit``), the entry carries its family's module
         factory (``make_module``), with which ``_promote`` builds the
-        module. Advisory: a runtime bound to a device group keeps no tier
-        and drops it, and a failed promotion falls through to the full load
-        from the artifact."""
-        if self.group is not None:
+        module; a tensor-parallel group promotes it through the sharded
+        replay. Advisory: a lockstep group (``serving.mesh_fast_path:
+        false``) drops it, and a failed promotion falls through to the full
+        load from the artifact."""
+        if self.mesh_lockstep:
             return
         with self._adopted_lock:
             self._adopted[model_id] = entry
@@ -1040,29 +1267,63 @@ class TorchModelRuntime(BaseRuntime):
     def _copier(self) -> _ChunkCopier:
         return _ChunkCopier(self.device, self._copy_stream)
 
+    def _copiers(self) -> dict[torch.device, _ChunkCopier]:
+        """One copier a distinct device of the group, each on its device's
+        copy stream (on ``[cuda:0] * P`` the runtime's one stream)."""
+        return {dev: _ChunkCopier(dev, self._copy_streams.get(dev))
+                for dev in dict.fromkeys(self.group or (self.device,))}
+
+    def _module(self, model_def: ModelDef, params: Any, tp: TensorParallelPlan | None,
+                make_module: Any = None) -> torch.nn.Module:
+        """The family's module over ``params``: the tensor-parallel module on
+        a group that cuts the tree, a ring model bound to its group, else
+        ``make_module`` (the family's, by default)."""
+        if tp is not None:
+            return tp.make_module(params)
+        if self.group is not None and model_def.bind_group is not None:
+            return model_def.bind_group(self.group)(params)
+        return (make_module or model_def.make_module)(params)
+
     def _promote(self, model: Model, entry: PackedModelEntry) -> None:
-        """Host-tier promotion (reference :1153, its single-device branch):
-        the entry's chunks replayed onto the device through the copy path of
-        a cold load, the module built over them. No disk read, no decode, no
-        warm-up forward."""
+        """Host-tier promotion (reference :1153): the entry's chunks
+        replayed onto the device through the copy path of a cold load, the
+        module built over them. No disk read, no decode, no warm-up forward.
+        On a tensor-parallel group the sharded branch (reference :1170-1188)
+        rebuilds the host leaves from the chunks (``unpack_entry_host``, an
+        int8 entry expanded there) and re-cuts them through
+        ``packed_device_put_sharded``, as the disk load did."""
         mid = model.identifier
         self._set_state(mid, ModelState.START)
         t0 = time.monotonic()
         try:
             with TRACER.span("load", model=str(mid), tier="host") as load_span:
                 self._set_state(mid, ModelState.LOADING)
-                with TRACER.span("device_transfer", promoted=True):
-                    params, done, dequant_s = promote_packed_entry(entry, self._copier())
-                    TRACER.annotate(chunks=len(entry.chunks), bytes=entry.nbytes)
-                if entry.quant_dtypes:
+                tp = self._tensor_parallel(entry.model_def)
+                if tp is not None:
+                    with TRACER.span("device_transfer", promoted=True, sharded=True):
+                        host_params = unpack_entry_host(entry)
+                        params, events, stats = packed_device_put_sharded(
+                            host_params, tp.rules, self.group, self._copiers(),
+                            buffer_depth=self.cfg.cold_pipeline_buffer_depth,
+                            workers=self._assemblers)
+                        del host_params
+                        TRACER.annotate(**stats)
+                    dequant_s = 0.0
+                else:
+                    with TRACER.span("device_transfer", promoted=True):
+                        params, done, dequant_s = promote_packed_entry(entry, self._copier())
+                        TRACER.annotate(chunks=len(entry.chunks), bytes=entry.nbytes)
+                    events = [done] if done is not None else []
+                if entry.quant_dtypes and tp is None:
                     # the dequants ran inside the transfer span (reference :1195)
                     TRACER.attach(load_span, "device_dequant", dequant_s, overlapped=True)
                 with TRACER.span("transfer_sync", pinned_by="promotion"):
-                    if done is not None:
-                        done.synchronize()
-                module = entry.make_module(params)
+                    for ev in events:
+                        ev.synchronize()
+                module = self._module(entry.model_def, params, tp, entry.make_module)
                 hbm = entry.hbm_bytes or tree_nbytes(params)
-                loaded = LoadedModel(entry.model_def, module.eval(), hbm, params)
+                loaded = LoadedModel(entry.model_def, module.eval(), hbm, params,
+                                     tensor_parallel=tp is not None)
                 TRACER.annotate(hbm_bytes=hbm, promoted_from="host")
                 self._resident.put(mid, hbm, loaded)
                 self._set_state(mid, ModelState.AVAILABLE)
@@ -1091,7 +1352,34 @@ class TorchModelRuntime(BaseRuntime):
             has_quant = _has_quant(host_params)
             tp = self._tensor_parallel(model_def)
             captured: list | None = None  # the tier's chunks, off the pipelined copy
-            if pipelined:
+            if tp is not None:
+                # the group's branch (reference :1283-1327): the partition
+                # rules name float leaves, so an int8 artifact expands on
+                # the host before the cut, in its own stage (reference
+                # :1300); the tier retains the expanded tree
+                if has_quant:
+                    with TRACER.span("host_dequant"):
+                        host_params = _dequantize_on_host(host_params)
+                if pipelined:
+                    # each device gets only its own shard bytes, chunk
+                    # assembly overlapping the previous chunk's copy
+                    with TRACER.span("device_transfer", pipelined=True, sharded=True):
+                        params, events, stats = packed_device_put_sharded(
+                            host_params, tp.rules, self.group, self._copiers(),
+                            buffer_depth=self.cfg.cold_pipeline_buffer_depth,
+                            workers=self._assemblers)
+                        TRACER.annotate(**stats)
+                    with TRACER.span("transfer_sync"):
+                        for ev in events:
+                            ev.synchronize()
+                else:
+                    with TRACER.span("device_transfer"):
+                        params = packed_device_put_group(host_params, tp.rules, self.group)
+                # tree_nbytes of the sharded tree is the tree's logical
+                # bytes (the reference's tree_nbytes of the global arrays),
+                # a replicated leaf counted once
+                TRACER.annotate(**{f"tp_{half}": cut for half, cut in tp.halves.items()})
+            elif pipelined:
                 if self._host_tier is not None:
                     captured = []
                 with TRACER.span("device_transfer", pipelined=True):
@@ -1110,10 +1398,8 @@ class TorchModelRuntime(BaseRuntime):
                     if done is not None:
                         done.synchronize()
             else:
-                # a runtime bound to a device group ships the raw int8 bytes
-                # too, a tensor-parallel one included (the reference
-                # dequantizes on the host for its TP branch, :1305; both
-                # expand q * scale in f32 and cast once)
+                # one device, a ring model's leader or a group whose rules
+                # cut nothing: the raw int8 bytes cross the link
                 with TRACER.span("device_transfer"):
                     params = packed_device_put(host_params, self.device)
                 if has_quant:
@@ -1123,17 +1409,7 @@ class TorchModelRuntime(BaseRuntime):
                         params = _dequantize_on_device(params)
                         if on_cuda:
                             torch.cuda.current_stream(self.device).synchronize()
-            if tp is not None:
-                # the loaded tree cut over the group; tree_nbytes of it is
-                # the tree's logical bytes (the reference's tree_nbytes of
-                # the global arrays), a replicated leaf counted once
-                params = shard_params(params, tp.rules, self.group)
-                TRACER.annotate(**{f"tp_{half}": cut for half, cut in tp.halves.items()})
-                module = tp.make_module(params)
-            elif self.group is not None and model_def.bind_group is not None:
-                module = model_def.bind_group(self.group)(params)
-            else:
-                module = model_def.make_module(params)
+            module = self._module(model_def, params, tp)
             loaded = LoadedModel(model_def, module.eval(), tree_nbytes(params), params,
                                  tensor_parallel=tp is not None)
             TRACER.annotate(hbm_bytes=loaded.nbytes)
@@ -1165,18 +1441,29 @@ class TorchModelRuntime(BaseRuntime):
             return None
         if model_def.tensor_parallel is None:
             raise RuntimeError_(
-                f"tensor parallelism over a group: later slice ({model_def.family} "
-                f"declares partition rules that shard its weights; this runtime's "
-                f"group has {len(self.group)} devices)"
+                f"{model_def.family} declares partition rules that shard its weights "
+                f"and has no tensor-parallel module; this runtime's group has "
+                f"{len(self.group)} devices"
             )
         return model_def.tensor_parallel(self.group)
 
     @property
+    def mesh_lockstep(self) -> bool:
+        """A group whose device-op stream must stay a function of the
+        request sequence alone (reference :1501-1514): in the port, a group
+        with ``serving.mesh_fast_path`` off, the A/B lever (the port has no
+        cross-process group). Such a group loads serialized, keeps no host
+        tier, drops adopted entries and runs ``:generate`` on the solo
+        path."""
+        return self.group is not None and not self.cfg.mesh_fast_path
+
+    @property
     def cold_pipeline_enabled(self) -> bool:
-        """``serving.cold_load_pipeline`` on a runtime of one device
-        (reference :1517). A runtime bound to a device group keeps the
-        serialized path."""
-        return bool(self.cfg.cold_load_pipeline) and self.group is None
+        """``serving.cold_load_pipeline`` on one device and on a group that
+        is not lockstep (reference :1516-1525): a tensor-parallel model
+        streams each device its own shard chunks
+        (``packed_device_put_sharded``)."""
+        return bool(self.cfg.cold_load_pipeline) and not self.mesh_lockstep
 
     def precompile_from_meta(self, meta: Mapping[str, Any]) -> None:
         """No-op (reference :1527 starts the family's XLA compile from the
@@ -1556,7 +1843,15 @@ class TorchModelRuntime(BaseRuntime):
         auto-sizes to slots x ceil(max_seq / page_tokens); an int8 arena
         grows to the same byte budget) and, with ``share_prefix_bytes > 0``,
         its radix prefix index. An existing state wins. Allocation runs
-        under a per-model once-guard, not under the map lock."""
+        under a per-model once-guard, not under the map lock. A lockstep
+        group builds none: the engine sends its requests to the solo path
+        (reference :2107-2110 keeps such a state uncut, and no dispatch
+        reaches it; the port's tensor-parallel cached forward runs shard by
+        shard over a cut cache, so it refuses instead)."""
+        if self.mesh_lockstep:
+            raise RuntimeError_(
+                "a lockstep group (serving.mesh_fast_path: false) builds no slot state; "
+                "its :generate runs on the solo path")
         self._lm(model_id, continuous=True)
         with self._slot_lock:
             st = self._slot_states.get(model_id)
@@ -1671,14 +1966,14 @@ class TorchModelRuntime(BaseRuntime):
     def mesh_topology(self) -> dict | None:
         """The group stamp of ``/monitoring/engine`` (reference :2212-2222):
         a runtime bound to a group of P devices is one process driving a
-        ``{"model": P}`` group, always on the fast path (the port has no
-        lockstep group); None on one device."""
+        ``{"model": P}`` group, on the fast path unless lockstep; None on
+        one device."""
         if self.group is None:
             return None
         return {
             "mesh_devices": len(self.group),
             "mesh_axes": group_axes(self.group),
-            "mesh_fast_path": True,
+            "mesh_fast_path": not self.mesh_lockstep,
         }
 
     def drop_slot_state(self, model_id: ModelId) -> None:
@@ -2328,8 +2623,14 @@ class TorchModelRuntime(BaseRuntime):
         if self.is_loaded(mid):
             # re-admitted while queued: its load retained a fresh entry
             return
-        # each device chunk's leaves copied back into page-locked chunks
-        self._retain_packed(mid, loaded.model_def, loaded.params, loaded.nbytes)
+        # each device chunk's leaves copied back into page-locked chunks; a
+        # tensor-parallel model's leaves gathered whole first (the entry
+        # holds whole leaves, as the disk load's retain does)
+        params = loaded.params
+        if loaded.tensor_parallel:
+            params = _tree_map(
+                lambda x: gather_leaf(x) if isinstance(x, ShardedLeaf) else x, params)
+        self._retain_packed(mid, loaded.model_def, params, loaded.nbytes)
 
     def resident_models(self) -> list[ModelId]:
         return self._resident.keys_mru_first()

@@ -302,13 +302,17 @@ def build_node(cfg: Config, device: str | torch.device | None = None,
     if devices is None and cfg.mesh.chips_per_group > 1:
         devices = node_group(device, cfg.mesh.chips_per_group)
     if devices is not None:
-        runtime = TorchModelRuntime(cfg.serving, devices=devices, metrics=metrics,
-                                    host_tier_bytes=cfg.cache.host_tier_bytes)
+        # the reference's node gives a group runtime no host tier
+        # (server.py:142-143, :168-172); a runtime built with devices= and
+        # host_tier_bytes directly keeps one
+        runtime = TorchModelRuntime(cfg.serving, devices=devices, metrics=metrics)
     else:
         runtime = TorchModelRuntime(cfg.serving, device=device, metrics=metrics,
                                     host_tier_bytes=cfg.cache.host_tier_bytes)
     engine = None
-    if cfg.serving.generate_engine == "continuous":
+    # a lockstep group (serving.mesh_fast_path off) keeps the coalescer
+    # (reference local_backend.py:128-133)
+    if cfg.serving.generate_engine == "continuous" and not runtime.mesh_lockstep:
         engine = ContinuousGenerateEngine(
             runtime, slots=cfg.serving.generate_slots,
             chunk_tokens=cfg.serving.generate_chunk_tokens,
