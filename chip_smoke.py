@@ -251,6 +251,21 @@ Drives the port's main path on one NVIDIA GPU and checks every kernel on it:
      turn 2 prefills its suffix + 1, the resumed pages equal the parked ones
      bit for bit, and the parked payload has one card's layout and holds
      arm (l)'s one-card park of the same prompt rows within PARK_TOL;
+  14b. mp — a group across processes (``parallel/multihost.py``): the
+     artifact on 2 members, one in this process (the leader, REST) and one
+     in a follower process of its own (``--mp-follower``, the group-work
+     service on a disk cache of its own, deleted after), both on the card,
+     their partials all-gathered over gloo through page-locked host memory.
+     :predict at the serve shapes (one cold, MP_WARM warm each), every reply
+     held to the plain path; flash launches = n_layers x 1 x (requests + 1)
+     in EACH process (the follower's read over its standard input). Then
+     :generate: a greedy solo request, a two-turn conversation whose turn 2
+     hits the leader-decided prefix cache, turn 3 with the 1-layer draft and
+     plain (teacher-forced; the draft turn the plain one's up to a
+     near-tie). Then the one-process group ``[cuda:0] * 2`` runs the same
+     requests: every reply byte for byte, every token list equal. The warm
+     p50s beside the one-process group's and the collective's share of each
+     warm request (host clock);
   15. peer — peer model adoption over ``FetchPackedModel``: a sender node in
      a process of its own (on the serve phase's disk cache, a host tier that
      holds the artifact) answers a (1, 128) ``:predict``, a greedy
@@ -583,6 +598,15 @@ TP_FORWARD_SHAPE = (2, 1024)  # the profiled warm forward, TP against one card
 # products, so the bf16 K/V rows are close, not equal; max |diff| over max
 # |one card's rows|
 PARK_TOL = 2.0**-4
+# the mp phase: a group of MP_PROCS processes with one member each on
+# MP_DEVICE (gloo between them: NCCL refuses two ranks on one device);
+# MP_WARM warm :predict requests a shape (each request runs twice: on the
+# group and on the one-process group); the :generate sequence's sizes
+MP_PROCS = 2
+MP_DEVICE = "cuda:0"
+MP_WARM = 3
+MP_NEW_TOKENS = 32
+MP_CONV_TOKENS = 96
 CARDS_USED = 1
 RUN_NOTES: dict = {}  # a number one phase keeps for a later phase's line
 
@@ -5534,6 +5558,315 @@ PEER_SENDER_DEVICE = "cuda"      # where the sender process builds its node
 S3_BUCKET = "smoke"
 
 
+def _mp_follower_main(spec_path: str) -> int:
+    """The mp phase's follower in a process of its own (``--mp-follower``):
+    process 1 of the phase's group, a port node from the JSON spec's
+    ``config`` on its ``device``. It prints one JSON line once its
+    group-work service serves, answers each ``launches`` line on its
+    standard input with its B2 launch count (``reset`` sets it to 0), and
+    closes its node, and the process group with it, when the input
+    closes."""
+    sys.path.insert(0, ROOT)
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.server import build_node
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    node = build_node(config_from_dict(spec["config"]), device=spec["device"])
+    try:
+        port = node.start("127.0.0.1")
+        print(json.dumps({"work_port": port, "device": str(node.runtime.device),
+                          "group": [str(d) for d in node.runtime.group]}), flush=True)
+        for line in sys.stdin:
+            if line.strip() == "reset":
+                A.FLASH_LAUNCHES.reset()
+            print(json.dumps({"flash_launches": A.FLASH_LAUNCHES.value}), flush=True)
+    finally:
+        node.close()
+    return 0
+
+
+class _MpFollower:
+    """The follower process of the mp phase, started from ``raw_cfg``;
+    ``ask`` sends one line and reads its JSON answer; ``close`` ends its
+    standard input and waits for it (killed after 60 s). Its log goes to a
+    file in the run's directory."""
+
+    def __init__(self, art: Artifact, raw_cfg: dict) -> None:
+        import queue
+
+        spec_path = os.path.join(art.work, "mp_follower.json")
+        with open(spec_path, "w") as f:
+            json.dump({"config": raw_cfg, "device": MP_DEVICE}, f)
+        self.log_path = os.path.join(art.work, "mp_follower.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-follower", spec_path],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._log, text=True,
+            cwd=ROOT)
+        self._lines: queue.Queue = queue.Queue()
+
+        def read() -> None:
+            for line in self.proc.stdout:
+                try:
+                    self._lines.put(json.loads(line))
+                except ValueError:
+                    continue
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def answer(self, timeout: float = 600.0) -> dict:
+        import queue
+
+        try:
+            return self._lines.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"[mp] the follower did not answer: {self.tail()}") from None
+
+    def ask(self, line: str) -> dict:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        return self.answer(60.0)
+
+    def tail(self, n: int = 3000) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.close()
+            except OSError:
+                pass
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._log.close()
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _mp_generate(url: str, art: Artifact, seed: int) -> dict:
+    """The mp phase's :generate sequence on one node: a greedy solo request,
+    a two-turn conversation whose turn 2 hits the prefix cache, then turn 3
+    with the 1-layer draft and the same turn 3 plain. -> {name: tokens}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 59)
+    out: dict = {"prompts": {}}
+
+    def gen(name: str, prompt, **extra) -> list:
+        out["prompts"][name] = prompt
+        status, body, dt = _post(f"{url}:generate", {"input_ids": [list(map(int, prompt))],
+                                                     "max_new_tokens": MP_NEW_TOKENS, **extra},
+                                 900.0)
+        if status != 200:
+            raise AssertionError(f"[mp] :generate {name} answered {status}: {body}")
+        out[name] = body["tokens"][0]
+        out[f"{name}_ms"] = dt * 1e3
+        return out[name]
+
+    gen("greedy", rng.integers(0, art.vocab, 64), seed=1)
+    t1 = rng.integers(0, art.vocab, MP_CONV_TOKENS)
+    c1 = gen("turn1", t1, seed=2)
+    t2 = np.concatenate([t1, c1, rng.integers(0, art.vocab, 16)])
+    c2 = gen("turn2", t2, seed=2)
+    t3 = np.concatenate([t2, c2, rng.integers(0, art.vocab, 16)])
+    gen("turn3_draft", t3, temperature=0.0, draft_model="layer0", spec_tokens=SPEC_TOKENS)
+    gen("turn3_plain", t3, temperature=0.0)
+    return out
+
+
+def phase_mp(art: Artifact, seed: int, kernels: dict) -> None:
+    """A group across processes (item 12c, ``parallel/multihost.py``): the
+    artifact on a group of MP_PROCS processes with one member each, both on
+    MP_DEVICE, the leader this process (REST) and the follower a process of
+    its own (``--mp-follower``: the group-work service on its own disk
+    cache); their partials meet over gloo through page-locked host memory.
+    Counters to 0 in both processes, then REST :predict at REQUEST_SHAPES,
+    one cold and MP_WARM warm a shape: every reply held to the plain path by
+    ``_check_logits``; B2 launches = n_layers x 1 x (requests + the load's
+    warm-up) in EACH process, the follower's read over its standard input.
+    Then :generate: a greedy solo request, a two-turn conversation whose
+    turn 2 hits the leader-decided prefix cache, turn 3 with the 1-layer
+    draft and plain, every turn teacher-forced within LOGITS_TOL and the
+    draft turn the plain one's up to a near-tie (the verify chunk and the
+    one-token step are other bf16 GEMM shapes). Last, the one-process
+    group ``[cuda:0] * 2`` runs the same requests in this process: every
+    :predict reply equal byte for byte, every token equal (the draft turn's
+    included). The warm p50 of each shape beside the
+    one-process group's, and the collective's share of each warm request
+    (host clock). The follower's disk cache is deleted at the end."""
+    import numpy as np
+    import torch
+
+    from tfservingcache_tpu_torch.config import config_from_dict
+    from tfservingcache_tpu_torch.ops import attention as A
+    from tfservingcache_tpu_torch.parallel import mesh
+    from tfservingcache_tpu_torch.parallel.multihost import MultiHostGroupRuntime
+    from tfservingcache_tpu_torch.server import build_node
+
+    log(nvidia_smi_line())
+    torch.cuda.empty_cache()
+    ports = _free_ports(1 + MP_PROCS)
+    group = {"chips_per_group": MP_PROCS, "coordinator": f"127.0.0.1:{ports[0]}",
+             "num_processes": MP_PROCS, "worker_addrs": [f"127.0.0.1:{p}" for p in ports[1:]]}
+    serving = {"prefix_cache_bytes": PREFIX_CACHE_BYTES}
+    rng = np.random.default_rng(seed + 53)
+    requests = [(shape, rng.integers(0, art.vocab, size=shape, dtype=np.int64))
+                for shape in REQUEST_SHAPES for _ in range(1 + MP_WARM)]
+    follower = _MpFollower(art, dict(art.node_config("mp1", **serving),
+                                     mesh=dict(group, process_id=1)))
+    node = None
+    try:
+        t0 = time.monotonic()
+        # build_node joins the process group with the follower (both block
+        # until then): a follower that dies first fails the phase here
+        built: dict = {}
+
+        def build() -> None:
+            try:
+                built["node"] = build_node(config_from_dict(dict(
+                    art.node_config("gen", **serving), mesh=dict(group, process_id=0))),
+                    device="cuda")
+            except BaseException as e:  # noqa: BLE001 - raised below
+                built["error"] = e
+
+        joining = threading.Thread(target=build, name="mp-build", daemon=True)
+        joining.start()
+        while joining.is_alive():
+            joining.join(1.0)
+            if joining.is_alive() and follower.proc.poll() is not None:
+                raise AssertionError(f"[mp] the follower exited ({follower.proc.returncode}) "
+                                     f"before the group formed: {follower.tail()}")
+        if "error" in built:
+            raise built["error"]
+        node = built["node"]
+        ready = follower.answer()
+        rt = node.runtime
+        kind = torch.device(MP_DEVICE).type  # never the CPU in place of the card
+        if (not isinstance(rt, MultiHostGroupRuntime) or not rt.spans_processes
+                or [d.type for d in rt.group] != [kind, "meta"]
+                or torch.device(ready["device"]).type != kind
+                or ready["group"] != ["meta", ready["device"]]):
+            raise AssertionError(f"[mp] the group is not one member a process on the card: "
+                                 f"leader {rt.group}, follower {ready}")
+        log(f"  [mp] group of {MP_PROCS} processes up in {time.monotonic() - t0:.1f}s: leader "
+            f"{[str(d) for d in rt.group]}, follower {ready['group']} (work service "
+            f":{ready['work_port']}); collectives over gloo, partials staged through "
+            "page-locked host memory")
+        url = f"http://127.0.0.1:{node.start('127.0.0.1')}/v1/models/{art.model_id.name}/versions/1"
+
+        # --- the main path: counters to 0 in both processes, REST requests,
+        # --- counters read
+        A.FLASH_LAUNCHES.reset()
+        follower.ask("reset")
+        results = []
+        for shape, ids in requests:
+            mesh.GATHER_STATS.update(calls=0, seconds=0.0, bytes=0)
+            status, raw, dt = _post_raw(f"{url}:predict",
+                                        json.dumps({"instances": ids.tolist()}).encode())
+            results.append((shape, ids, status, raw, dt, dict(mesh.GATHER_STATS)))
+        flash = A.FLASH_LAUNCHES.value
+        follower_flash = follower.ask("launches")["flash_launches"]
+        # -----------------------------------------------------------------
+
+        want = art.layers * 1 * (len(requests) + 1)
+        log(f"  [mp] flash launches: leader {flash}, follower {follower_flash} (each n_layers "
+            f"{art.layers} x 1 member x ({len(requests)} requests + the load's warm-up "
+            f"forward) = {want})")
+        if flash != want or follower_flash != want:
+            raise AssertionError(f"[mp] flash launches leader {flash}, follower "
+                                 f"{follower_flash} != {want}")
+        kernels["flash_attention"]["launches"] += flash
+        kernels["flash_attention"]["launches_mp_phase"] = {"leader": flash,
+                                                           "follower": follower_flash}
+        for shape, ids, status, raw, _dt, _g in results:
+            if status != 200:
+                raise AssertionError(f"[mp] :predict {shape} answered {status}: {raw[:300]}")
+            pred = np.asarray(json.loads(raw)["predictions"], dtype=np.float32)
+            if pred.shape != (shape[0], art.vocab) or not np.isfinite(pred).all():
+                raise AssertionError(f"[mp] :predict {shape}: predictions {pred.shape}")
+            _check_logits(art.plain_model, shape, ids, pred)
+        log(f"  [mp] cold :predict (fetch + load in both processes + first request, "
+            f"{requests[0][0]}): {results[0][4] * 1e3:.1f} ms")
+        gens = _mp_generate(url, art, seed)
+        pc = rt._prefix_cache
+        if pc.hits < 2 or not rt.spec_rounds["solo"]:
+            raise AssertionError(f"[mp] prefix hits {pc.hits} (want turns 2 and 3), spec rounds "
+                                 f"{rt.spec_rounds['solo']}")
+        for name, prompt in gens["prompts"].items():
+            _check_greedy(art, prompt, np.asarray(gens[name]), LOGITS_TOL, f"[mp] {name}")
+        # the draft turn against the group's own plain turn: the verify chunk
+        # and the one-token step are other bf16 GEMM shapes, so (as arms (f)
+        # and (k) on one card) equal up to a first divergence at a near-tie
+        # of the plain path
+        _compare_to_plain_arm(art, "mp: draft turn 3 vs plain turn 3",
+                              [gens["prompts"]["turn3_plain"]],
+                              [np.asarray(gens["turn3_plain"])],
+                              [np.asarray(gens["turn3_draft"])], LOGITS_TOL)
+        log(f"  [mp] :generate ({MP_NEW_TOKENS} new tokens): greedy "
+            f"{gens['greedy_ms']:.1f} ms, turn 1 {gens['turn1_ms']:.1f} ms, turn 2 (prefix hit) "
+            f"{gens['turn2_ms']:.1f} ms, turn 3 with the draft {gens['turn3_draft_ms']:.1f} ms "
+            f"(its first request loads the draft), plain {gens['turn3_plain_ms']:.1f} ms; "
+            f"prefix cache hits {pc.hits}, misses "
+            f"{pc.misses}; {rt.spec_rounds['solo']} spec rounds")
+        group_gens = gens
+    finally:
+        if node is not None:
+            node.close()
+        follower.close()
+        shutil.rmtree(os.path.join(art.work, "cache_mp1"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # the one-process group of the same P, the same requests
+    one, base = _tp_node(art, **serving)
+    try:
+        url = f"{base}/{art.model_id.name}/versions/1"
+        ref = []
+        for shape, ids in requests:
+            status, raw, dt = _post_raw(f"{url}:predict",
+                                        json.dumps({"instances": ids.tolist()}).encode())
+            ref.append((status, raw, dt))
+        gens = _mp_generate(url, art, seed)
+    finally:
+        one.close()
+        torch.cuda.empty_cache()
+    for (shape, _ids, _s, raw, _dt, _g), (status, want_raw, _wdt) in zip(results, ref):
+        if status != 200 or raw != want_raw:
+            raise AssertionError(f"[mp] :predict {shape}: the group's reply is not the "
+                                 "one-process group's byte for byte")
+    for name in ("greedy", "turn1", "turn2", "turn3_draft", "turn3_plain"):
+        if group_gens[name] != gens[name]:
+            raise AssertionError(f"[mp] :generate {name}: {group_gens[name]} != the "
+                                 f"one-process group's {gens[name]}")
+    log(f"  [mp] {len(results)} :predict replies byte for byte and 5 :generate token lists "
+        "equal to the one-process group [cuda:0] * 2's")
+    for shape in REQUEST_SHAPES:
+        warm = [r for r in results if r[0] == shape][1:]
+        warm_ref = [r for (s, *_), r in zip(requests, ref) if s == shape][1:]
+        share = statistics.median(r[5]["seconds"] / r[4] for r in warm)
+        log(f"  [mp] warm :predict {shape}: p50 {statistics.median(r[4] for r in warm) * 1e3:.2f}"
+            f" ms, one-process group {statistics.median(r[2] for r in warm_ref) * 1e3:.2f} ms "
+            f"over {len(warm)} requests; collective share {share:.3f} of the request "
+            f"({warm[0][5]['calls']} all-gathers, {warm[0][5]['bytes']} bytes gathered; host "
+            f"clock, {nvidia_smi_line()})")
+
+
 def _peer_sender_main(spec_path: str) -> int:
     """The peer phase's sender in a process of its own (``--peer-sender``):
     a port node from the JSON spec's ``config`` on its ``device``. It prints
@@ -7515,9 +7848,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--warm", type=int, default=5, help="warm requests per shape")
     parser.add_argument("--peer-sender", metavar="SPEC", help=argparse.SUPPRESS)
+    parser.add_argument("--mp-follower", metavar="SPEC", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.peer_sender:  # the peer phase's sender process
         return _peer_sender_main(args.peer_sender)
+    if args.mp_follower:  # the mp phase's follower process
+        return _mp_follower_main(args.mp_follower)
     layers = 32 if args.full_depth else args.layers
 
     # the pre-chunk trash-page assertion, read when the runtime is imported
@@ -7566,6 +7902,8 @@ def main(argv: list[str] | None = None) -> int:
             phase_ring(art, args.seed, args.warm, kernels)
         with Phase("tp"):
             phase_tp(art, args.seed, args.warm, kernels)
+        with Phase("mp"):
+            phase_mp(art, args.seed, kernels)
         with Phase("peer"):
             phase_peer(art, args.seed, kernels)
         with Phase("moe"):

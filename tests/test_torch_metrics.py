@@ -24,7 +24,7 @@ PORTED = {
     "tpusc_hbm_bytes_in_use", "tpusc_hbm_bytes_peak", "tpusc_models_resident",
     "tpusc_disk_cache_bytes_in_use", "tpusc_evictions", "tpusc_reload_source",
     "tpusc_host_tier_bytes", "tpusc_host_tier_bytes_peak", "tpusc_cold_stage_seconds",
-    "tpusc_cold_overlap_ratio",
+    "tpusc_cold_overlap_ratio", "tpusc_group_reform_events", "tpusc_group_healthy",
     "tpusc_coalesced_batches", "tpusc_coalesced_requests",
     "tpusc_gen_slots_active", "tpusc_gen_wasted_steps", "tpusc_gen_admission_wait_seconds",
     "tpusc_gen_oldest_queued_age_seconds", "tpusc_requests_recovered", "tpusc_fault_injected",

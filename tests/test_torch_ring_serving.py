@@ -260,9 +260,16 @@ def test_build_node_group_on_cuda_needs_exactly_one_group_of_cards(monkeypatch):
 
 
 def test_mesh_config_section_keeps_chips_per_group_only(caplog):
+    """The section keeps the group size and, since groups span processes,
+    the reference's four cross-process fields; axis_names and data_parallel
+    are still logged as unknown keys."""
     with caplog.at_level("WARNING"):
         cfg = config_from_dict({"mesh": {"chips_per_group": 4, "coordinator": "host0:8476",
-                                         "num_processes": 2}})
+                                         "num_processes": 2, "process_id": 1,
+                                         "worker_addrs": ["h0:1", "h1:2"],
+                                         "axis_names": ["model"]}})
     assert cfg.mesh.chips_per_group == 4
-    assert "coordinator" in caplog.text and "num_processes" in caplog.text
+    assert (cfg.mesh.coordinator, cfg.mesh.num_processes, cfg.mesh.process_id,
+            cfg.mesh.worker_addrs) == ("host0:8476", 2, 1, ["h0:1", "h1:2"])
+    assert "unknown config key(s) ['axis_names']" in caplog.text
     assert config_from_dict({}).mesh.chips_per_group == 1

@@ -230,6 +230,18 @@ class CacheManager:
             raise box["error"]
         return box.get("value")
 
+    def prefetch(self, model_id: ModelId) -> Model:
+        """The host half of a cold miss only: the artifact onto the local
+        disk, the runtime untouched (reference manager.py:288). A group that
+        spans processes runs it as a joinable first phase
+        (``parallel/multihost.py``), so that a provider or disk failure
+        surfaces before any process enters a collective."""
+        with self.disk_cache.fetch_lock(model_id):
+            model = self.disk_cache.get(model_id)
+            if model is not None:
+                return model
+            return self._fetch(model_id)
+
     def _fetch(self, model_id: ModelId) -> Model:
         """MISS path: size -> evict-to-fit -> provider fetch -> index."""
         t0 = time.monotonic()

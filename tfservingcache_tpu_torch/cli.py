@@ -3,7 +3,10 @@
 
   serve   run a single-GPU cache node until SIGINT/SIGTERM, and a router on
           the proxy ports beside it when the config sets ``discovery.type``
-          (``server.serve``);
+          (``server.serve``); with ``mesh.coordinator`` and
+          ``mesh.num_processes > 1`` a process other than 0 runs a pure
+          follower of the group that spans processes (its group-work
+          service only);
   export  write a family's artifact with random weights from ``--seed``
           (``--quantize int8``, ``--config-json`` overrides), initialized on
           ``serving.device``;
@@ -40,8 +43,13 @@ def serve(cfg: Config) -> int:
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
-    log.info("starting a cache node on %s%s", cfg.serving.device,
-             f" and a router ({cfg.discovery.type} discovery)" if cfg.discovery.type else "")
+    if cfg.mesh.coordinator and cfg.mesh.num_processes > 1 and cfg.mesh.process_id:
+        log.info("starting follower %d of a group across %d processes on %s",
+                 cfg.mesh.process_id, cfg.mesh.num_processes, cfg.serving.device)
+    else:
+        log.info("starting a cache node on %s%s", cfg.serving.device,
+                 f" and a router ({cfg.discovery.type} discovery)" if cfg.discovery.type
+                 else "")
     server.serve(cfg, stop)
     return 0
 

@@ -282,14 +282,25 @@ class ClusterConfig:
 
 @dataclass
 class MeshConfig:
-    """Device groups (the reference's ``mesh`` section). Only the in-process
-    group size is ported: with ``chips_per_group > 1`` the node serves from
-    one group of that many devices driven by this process (a ``"ring"``
-    model splits its sequence over them). The reference's cross-process
-    fields (coordinator, num_processes, process_id, worker_addrs) and its
-    axis_names/data_parallel are logged as unknown keys and ignored."""
+    """Device groups (the reference's ``mesh`` section). With
+    ``chips_per_group > 1`` the node serves from one group of that many
+    devices (a ``"ring"`` model splits its sequence over them, a
+    ``transformer_lm``/``moe_lm`` is tensor parallel on them).
+
+    A group that spans processes (``parallel/multihost.py``): set
+    ``coordinator`` (the ``torch.distributed`` rendezvous, "host:port"),
+    ``num_processes``, this process's ``process_id``, and one
+    ``worker_addrs`` "host:port" entry PER PROCESS, the group-work endpoint
+    the leader (process 0, the ring member) sends each op to; each process
+    owns ``chips_per_group / num_processes`` of the members. The reference's
+    ``axis_names``/``data_parallel`` are logged as unknown keys and
+    ignored."""
 
     chips_per_group: int = 1
+    coordinator: str = ""              # torch.distributed rendezvous address
+    num_processes: int = 1
+    process_id: int = 0
+    worker_addrs: list[str] = field(default_factory=list)  # per-process host:port
 
 
 @dataclass

@@ -36,7 +36,10 @@ partials reduce on the leader as the tensor-parallel ``:predict`` reduces
 them (``transformer_lm.reduce_partials``), and the FFN, the embedding and
 the tied head run through the module's own tensor-parallel halves. Where
 the group does not divide the KV heads, attention and the cache are whole
-on the leader. One device is the case of one shard. Block tables and
+on the leader. One device is the case of one shard. On a group that spans
+processes each process runs its own members' shards against its own cache
+shards (another process's are meta tensors, skipped) and the partials meet
+over ``torch.distributed``; the leader is this process's first member. Block tables and
 positions are copied once to each distinct device of the group. The page
 helpers work shard by shard, and ``pages_export``/``pages_import`` carry
 the one-device layout, so a parked conversation is the same bytes whichever
@@ -73,6 +76,7 @@ from tfservingcache_tpu_torch.ops.attention import (
     paged_attention,
     paged_attention_verify,
 )
+from tfservingcache_tpu_torch.parallel.mesh import is_remote
 from tfservingcache_tpu_torch.parallel.sharding import (
     KV_HEAD_DIM,
     KVShards,
@@ -261,7 +265,7 @@ def _per_device(model: torch.nn.Module, *tensors: torch.Tensor) -> dict:
     device (a group that repeats one device copies nothing)."""
     out: dict[torch.device, tuple[torch.Tensor, ...]] = {}
     for dev, *_weights in _attn_shards(model.layers[0].attn):
-        if dev not in out:
+        if dev not in out and not is_remote(dev):
             out[dev] = tuple(t.to(dev, non_blocking=True) for t in tensors)
     return out
 
@@ -287,6 +291,8 @@ def _attention_half(layer: torch.nn.Module, x: torch.Tensor, cfg: dict, kv: list
     h = rmsnorm(x, layer.ln1)
     parts = []
     for c, (dev, wq, wk, wv, wo) in zip(kv, shards):
+        if is_remote(dev):
+            continue
         hi = h.to(dev, non_blocking=True)
         positions = on[dev][0]
         q = (hi @ wq.to(dt)).reshape(b, s, attn.n_heads, hd).transpose(1, 2)
@@ -295,7 +301,7 @@ def _attention_half(layer: torch.nn.Module, x: torch.Tensor, cfg: dict, kv: list
         out = attend(c, _rope_per_example(q, positions, theta),
                      _rope_per_example(k, positions, theta), v, on[dev])
         parts.append(out.to(dt).transpose(1, 2).reshape(b, s, -1) @ wo.to(dt))
-    return x + reduce_partials(parts, x.device)
+    return x + reduce_partials(parts, x.device, getattr(attn, "devices", None))
 
 
 def _forward_cached_dyn(model: torch.nn.Module, input_ids: torch.Tensor, cache: dict,

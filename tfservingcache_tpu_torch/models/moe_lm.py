@@ -44,6 +44,7 @@ from tfservingcache_tpu_torch.models.transformer_lm import (
     TensorParallelLM,
     TPAttention,
     TransformerLM,
+    _lead_shard,
     _param,
     rmsnorm,
     tensor_parallel_plan,
@@ -132,14 +133,16 @@ class TPMoEBlock(nn.Module):
     tensor parallel (``TPAttention``); the expert weights' ``"expert"`` axis
     is absent, so they are replicated and the routed FFN runs whole on the
     leader with the router (the reference's model-mesh case, its
-    ``moe_lm.py:172-184``)."""
+    ``moe_lm.py:172-184``); on a group that spans processes every process
+    runs it itself on its own leader."""
 
     def __init__(self, p: dict, cfg: dict, group: tuple[torch.device, ...]) -> None:
         super().__init__()
         self.cfg = cfg
         self.attn = TPAttention(p["attn"], cfg, group)
-        self.moe = MoE({name: leaf.shards[0] for name, leaf in p["moe"].items()})
-        self.ln1, self.ln2 = _param(p["ln1"].shards[0]), _param(p["ln2"].shards[0])
+        self.moe = MoE({name: _lead_shard(leaf, group) for name, leaf in p["moe"].items()})
+        self.ln1 = _param(_lead_shard(p["ln1"], group))
+        self.ln2 = _param(_lead_shard(p["ln2"], group))
 
     def forward(self, x: torch.Tensor, attention_fn) -> torch.Tensor:
         x = x + self.attn(rmsnorm(x, self.ln1), attention_fn)

@@ -16,7 +16,9 @@ arithmetic and rounding points:
 On a device group of more than one device an ``"auto"`` model is tensor
 parallel (``TensorParallelLM``): the reference's Megatron rules cut the
 weights over the group (``parallel/sharding.py``), and each shard computes
-its heads and its slice of the FFN.
+its heads and its slice of the FFN. On a group that spans processes each
+process computes its own members' shards and the partials meet over
+``torch.distributed`` (``reduce_partials``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ from tfservingcache_tpu_torch.models.registry import (  # noqa: F401 - params_fr
     register,
 )
 from tfservingcache_tpu_torch.ops.attention import attention
+from tfservingcache_tpu_torch.parallel.mesh import (
+    gather_members,
+    is_remote,
+    local_lead,
+    local_members,
+    spans_processes,
+)
 from tfservingcache_tpu_torch.parallel.ring_attention import ring_attention
 from tfservingcache_tpu_torch.parallel.sharding import ShardedLeaf
 
@@ -199,22 +208,46 @@ class TransformerLM(nn.Module):
         return {"logits": (x @ self.embed.to(self.dtype).T).float()}
 
 
-def reduce_partials(parts: list[torch.Tensor], lead: torch.device) -> torch.Tensor:
+def reduce_partials(parts: list[torch.Tensor], lead: torch.device,
+                    devices: tuple[torch.device, ...] | None = None) -> torch.Tensor:
     """The sum of the shards' partial results on ``lead``: each moves there
     with ``.to(lead, non_blocking=True)`` (ordered after the work queued on
     both devices' current streams), the partials add in f32 in shard order,
     and the sum rounds once to their dtype, where the one-device product
-    rounds its output. One partial comes back as it is."""
+    rounds its output. One partial comes back as it is. ``devices`` are the
+    half's members: where they span processes, ``parts`` are this process's
+    members' partials and every member's comes first through
+    ``parallel.mesh.gather_members`` (exact f32 copies), so that each
+    process holds the one-process group's sum bit for bit."""
+    dtype = parts[0].dtype
+    if spans_processes(devices):
+        parts = gather_members([p.to(lead, non_blocking=True) for p in parts], devices)
     if len(parts) == 1:
         return parts[0].to(lead, non_blocking=True)
     acc = parts[0].to(lead, non_blocking=True).to(torch.float32, copy=True)
     for part in parts[1:]:
         acc += part.to(lead, non_blocking=True)
-    return acc.to(parts[0].dtype)
+    return acc.to(dtype)
 
 
-def _shards(leaf: ShardedLeaf, n: int) -> nn.ParameterList:
-    return nn.ParameterList(_param(t) for t in leaf.shards[:n])
+def _lead_shard(leaf: ShardedLeaf, group: tuple[torch.device, ...]) -> torch.Tensor:
+    """A replicated leaf's copy on this process's leader."""
+    return leaf.shards[local_members(group)[0]]
+
+
+def _half(leaf: ShardedLeaf, group: tuple[torch.device, ...]) -> tuple[torch.device, ...]:
+    """The devices a half whose weights are placed like ``leaf`` runs on:
+    every member for a cut leaf (those another process owns are skipped at
+    run time), this process's leader for a replicated one."""
+    return tuple(group) if leaf.dim is not None else (local_lead(group),)
+
+
+def _shards(leaf: ShardedLeaf, group: tuple[torch.device, ...]) -> nn.ParameterList:
+    """A half's weights on ``_half``'s devices: a cut leaf's P shards (meta
+    tensors on another process's members), or the leader's copy."""
+    if leaf.dim is None:
+        return nn.ParameterList([_param(_lead_shard(leaf, group))])
+    return nn.ParameterList(_param(t) for t in leaf.shards)
 
 
 class TPAttention(nn.Module):
@@ -225,31 +258,34 @@ class TPAttention(nn.Module):
     multiplies by its row block of ``wo``; the partials are reduced on the
     leader. Replicated weights (P does not divide ``n_kv_heads``) run the
     whole half on the leader. ``n_heads``/``n_kv`` are one shard's head
-    counts. The cached forward of ``:generate`` (``models/generation.py``)
+    counts. On a group that spans processes the shards of another process's
+    members are skipped here and their partials gathered. The cached forward of ``:generate`` (``models/generation.py``)
     runs the same shards, each against its own shard of the KV cache, and
     reduces the same products the same way."""
 
     def __init__(self, p: dict[str, ShardedLeaf], cfg: dict,
                  group: tuple[torch.device, ...]) -> None:
         super().__init__()
-        self.devices = group if p["wq"].dim is not None else group[:1]
+        self.devices = _half(p["wq"], group)
         n = len(self.devices)
         self.n_heads, self.n_kv = cfg["n_heads"] // n, cfg["n_kv_heads"] // n
         self.head_dim = cfg["d_model"] // cfg["n_heads"]
         self.theta = cfg["rope_theta"]
-        self.wq, self.wk = _shards(p["wq"], n), _shards(p["wk"], n)
-        self.wv, self.wo = _shards(p["wv"], n), _shards(p["wo"], n)
+        self.wq, self.wk = _shards(p["wq"], group), _shards(p["wk"], group)
+        self.wv, self.wo = _shards(p["wv"], group), _shards(p["wo"], group)
 
     def forward(self, h: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
         b, s, _d = h.shape
         parts = []
         for i, dev in enumerate(self.devices):
+            if is_remote(dev):
+                continue
             x = h.to(dev, non_blocking=True)
             q, k, v = qkv(x, self.wq[i], self.wk[i], self.wv[i], self.n_heads, self.n_kv,
                           self.head_dim, self.theta)
             out = attention_fn(q, k, v, True).transpose(1, 2).reshape(b, s, -1)
             parts.append(out @ self.wo[i].to(x.dtype))
-        return reduce_partials(parts, h.device)
+        return reduce_partials(parts, h.device, self.devices)
 
 
 class TPMLP(nn.Module):
@@ -259,14 +295,14 @@ class TPMLP(nn.Module):
 
     def __init__(self, p: dict[str, ShardedLeaf], group: tuple[torch.device, ...]) -> None:
         super().__init__()
-        self.devices = group if p["w1"].dim is not None else group[:1]
-        n = len(self.devices)
-        self.w1, self.w2, self.w3 = _shards(p["w1"], n), _shards(p["w2"], n), _shards(p["w3"], n)
+        self.devices = _half(p["w1"], group)
+        self.w1, self.w2 = _shards(p["w1"], group), _shards(p["w2"], group)
+        self.w3 = _shards(p["w3"], group)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         parts = [mlp(h.to(dev, non_blocking=True), self.w1[i], self.w2[i], self.w3[i])
-                 for i, dev in enumerate(self.devices)]
-        return reduce_partials(parts, h.device)
+                 for i, dev in enumerate(self.devices) if not is_remote(dev)]
+        return reduce_partials(parts, h.device, self.devices)
 
 
 class TPBlock(nn.Module):
@@ -277,7 +313,8 @@ class TPBlock(nn.Module):
         super().__init__()
         self.attn = TPAttention(p["attn"], cfg, group)
         self.ffn = TPMLP(p["mlp"], group)
-        self.ln1, self.ln2 = _param(p["ln1"].shards[0]), _param(p["ln2"].shards[0])
+        self.ln1 = _param(_lead_shard(p["ln1"], group))
+        self.ln2 = _param(_lead_shard(p["ln2"], group))
 
     def forward(self, x: torch.Tensor, attention_fn: AttentionFn) -> torch.Tensor:
         x = x + self.attn(rmsnorm(x, self.ln1), attention_fn)
@@ -300,8 +337,13 @@ class TensorParallelLM(nn.Module):
     replicated and runs whole on the leader (``tensor_parallel_plan``). On a
     group that repeats one device the shards run one after another there;
     each shard is a contiguous tensor of its own and the whole leaf is gone
-    once it is cut, so the device holds one copy of the weights. A family
-    whose FFN differs (moe_lm) sets ``block_cls``."""
+    once it is cut, so the device holds one copy of the weights. On a group
+    that spans processes (``parallel/mesh.py``) the leader is this process's
+    first member: each process runs its own members' shards, holds the
+    replicated stream, norms and logits, and runs a half the group does not
+    cut itself; every reduce and the embedding's concatenation gather the
+    members' results over ``torch.distributed``. A family whose FFN differs
+    (moe_lm) sets ``block_cls``."""
 
     block_cls: type[nn.Module] = TPBlock
 
@@ -309,24 +351,27 @@ class TensorParallelLM(nn.Module):
         super().__init__()
         self.dtype = getattr(torch, cfg["dtype"])
         self.group = tuple(group)
+        self.lead = local_lead(self.group)
         embed = sharded["embed"]
-        self.embed_devices = self.group if embed.dim is not None else self.group[:1]
-        self.embed = _shards(embed, len(self.embed_devices))
+        self.embed_devices = _half(embed, self.group)
+        self.embed = _shards(embed, self.group)
         self.vocab = embed.shape[0]
         self.layers = nn.ModuleList(self.block_cls(p, cfg, self.group) for p in sharded["layers"])
-        self.ln_f = _param(sharded["ln_f"].shards[0])
+        self.ln_f = _param(_lead_shard(sharded["ln_f"], self.group))
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         """The embedding of ``ids`` on the leader in the model dtype, with
         the reference's gather semantics (negative ids wrap, out-of-range
         ids clamp): each shard gathers its d_model columns, concatenated on
-        the leader in shard order."""
-        lead = self.group[0]
+        the leader in shard order (gathered across processes first)."""
+        lead = self.lead
         ids = ids.long().to(lead)
         ids = torch.where(ids < 0, ids + self.vocab, ids).clamp(0, self.vocab - 1)
-        x = torch.cat([e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
-                       for e, dev in zip(self.embed, self.embed_devices)], dim=-1)
-        return x.to(self.dtype)
+        cols = [e[ids.to(dev, non_blocking=True)].to(lead, non_blocking=True)
+                for e, dev in zip(self.embed, self.embed_devices) if not is_remote(dev)]
+        if spans_processes(self.embed_devices):
+            cols = gather_members(cols, self.embed_devices)
+        return torch.cat(cols, dim=-1).to(self.dtype)
 
     def tied_logits(self, x: torch.Tensor) -> torch.Tensor:
         """The tied head over the normed stream ``x`` on the leader -> f32
@@ -334,8 +379,9 @@ class TensorParallelLM(nn.Module):
         slice of the embedding, the partial logits reduced on the leader."""
         width = x.shape[-1] // len(self.embed_devices)
         parts = [x[..., i * width:(i + 1) * width].to(dev, non_blocking=True) @ e.to(self.dtype).T
-                 for i, (e, dev) in enumerate(zip(self.embed, self.embed_devices))]
-        return reduce_partials(parts, self.group[0]).float()
+                 for i, (e, dev) in enumerate(zip(self.embed, self.embed_devices))
+                 if not is_remote(dev)]
+        return reduce_partials(parts, self.lead, self.embed_devices).float()
 
     def forward(
         self, inputs: dict[str, torch.Tensor], attention_fn: AttentionFn = attention

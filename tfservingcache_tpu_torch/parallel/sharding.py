@@ -16,8 +16,13 @@ the reference's ``_path_str``). Specs are plain tuples (the reference's
 entry, and one on an axis of size 1, degrades to None, so one rule set
 serves a single device and any group.
 
-``is_single_process`` has no counterpart: a port group is one process by
-construction (the port has no cross-process group yet).
+A group that spans processes (``parallel/mesh.py``) keeps all P members in
+order, so specs and cut sizes are the one-process group's; each process
+reads the whole artifact and keeps only its own members' slices (the
+reference's multi-process ``shard_params`` through
+``make_array_from_callback``, :55-73): a slice or copy placed on another
+process's member is a meta tensor, which holds no memory.
+``is_single_process`` has no counterpart (``mesh.spans_processes``).
 
 The KV cache of a tensor-parallel model, dense or paged, is cut over its
 KV-head axis (dimension 2 of every buffer, ``KV_HEAD_DIM``) where the
@@ -41,7 +46,7 @@ from typing import Any, Mapping, Sequence
 import torch
 
 from tfservingcache_tpu_torch.models.registry import flatten_params, unflatten_params
-from tfservingcache_tpu_torch.parallel.mesh import group_axes
+from tfservingcache_tpu_torch.parallel.mesh import group_axes, is_remote, local_lead
 
 Spec = tuple  # one mesh axis name (or None) per dimension of a leaf
 
@@ -192,7 +197,9 @@ class KVShards:
 
     @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        """The leader's device: the first shard this process holds."""
+        return next((t.device for t in self.shards if not is_remote(t.device)),
+                    self.shards[0].device)
 
     @property
     def nbytes(self) -> int:
@@ -243,10 +250,11 @@ def shard_kv_arena(cache: Mapping[str, torch.Tensor], group: Sequence[torch.devi
     :121): a cut buffer becomes a ``KVShards`` whose i-th shard holds heads
     ``i * n/P .. (i+1) * n/P`` on ``group[i]``, each allocated contiguous on
     its own device, on a group that repeats one device too; an uncut buffer
-    is one tensor on the leader. A buffer on the meta device only gives its
-    shape and dtype: the placed tensors are zeros, and nothing of the whole
-    buffer is ever allocated (how ``init_cache``/``init_paged_cache`` build a
-    group's cache)."""
+    is one tensor on the leader (this process's first member). A buffer on
+    the meta device only gives its shape and dtype: the placed tensors are
+    zeros, and nothing of the whole buffer is ever allocated (how
+    ``init_cache``/``init_paged_cache`` build a group's cache). A member
+    another process owns gets a meta tensor."""
     devs = tuple(torch.device(d) for d in group)
     axes = group_axes(devs)
     specs = kv_arena_shardings(axes, cache, axis)
@@ -254,7 +262,7 @@ def shard_kv_arena(cache: Mapping[str, torch.Tensor], group: Sequence[torch.devi
     for name, buf in cache.items():
         cut = sharded_dim(specs[name], axes)
         if cut is None:
-            out[name] = _placed(buf, tuple(buf.shape), devs[0], buf)
+            out[name] = _placed(buf, tuple(buf.shape), local_lead(devs), buf)
             continue
         dim, n = cut
         size = buf.shape[dim] // n

@@ -47,6 +47,7 @@ from tfservingcache_tpu_torch.models.registry import TensorSpec
 from tfservingcache_tpu_torch.protocol import codec
 from tfservingcache_tpu_torch.protocol.backend import BackendError, RestResponse, ServingBackend
 from tfservingcache_tpu_torch.runtime.base import (
+    GroupUnhealthyError,
     LoadTimeoutError,
     ModelNotLoadedError,
     RuntimeError_,
@@ -118,6 +119,10 @@ class LocalServingBackend(ServingBackend):
             raise BackendError(str(e), 404) from e
         except LoadTimeoutError as e:
             raise BackendError(str(e), 504) from e
+        except GroupUnhealthyError as e:
+            # a torn-down cross-process group fails fast, retriable against
+            # a replica (reference local_backend.py:238)
+            raise BackendError(str(e), 503, "UNAVAILABLE") from e
         except RuntimeError_ as e:
             raise BackendError(str(e), 500, "FAILED_PRECONDITION") from e
 
@@ -209,6 +214,8 @@ class LocalServingBackend(ServingBackend):
                 return self._predictor.predict(model_id, arrays, output_filter)
             except ModelNotLoadedError:
                 raise
+            except GroupUnhealthyError as e:
+                raise BackendError(str(e), 503, "UNAVAILABLE") from e
             except RuntimeError_ as e:
                 raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
 
@@ -278,6 +285,8 @@ class LocalServingBackend(ServingBackend):
                 )
             except ModelNotLoadedError:
                 raise
+            except GroupUnhealthyError as e:
+                raise BackendError(str(e), 503, "UNAVAILABLE") from e
             except RuntimeError_ as e:
                 raise BackendError(str(e), 400, "FAILED_PRECONDITION") from e
             except (ValueError, TypeError) as e:

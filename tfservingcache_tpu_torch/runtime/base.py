@@ -31,6 +31,12 @@ class LoadTimeoutError(RuntimeError_):
     ``serving.load_timeout_s``). Maps to HTTP 504."""
 
 
+class GroupUnhealthyError(RuntimeError_):
+    """A group that spans processes is torn down after a follower failure
+    and re-forming (``parallel/multihost.py``): the request fails fast,
+    retriable against a replica. Maps to HTTP 503 / gRPC UNAVAILABLE."""
+
+
 class BaseRuntime(abc.ABC):
     def __init__(self) -> None:
         self._states: dict[ModelId, ModelState] = {}  # guarded-by: _states_lock

@@ -58,9 +58,15 @@ tree's logical bytes. The group keeps a host tier (whole leaves, replayed
 through the sharded transfer by ``_promote``) and promotes adopted peer
 entries the same way. ``serving.mesh_fast_path: false`` makes the group
 lockstep (``mesh_lockstep``): serialized loads, no tier, adopted entries
-dropped, ``:generate`` on the solo path. ``:generate`` and the slot surface
-serve a tensor-parallel LM on the group: its KV cache, dense or paged, is
-cut over the KV-head axis where the group divides it
+dropped, ``:generate`` on the solo path. A group that spans processes
+(``parallel/mesh.py``: members another process owns are meta placeholders,
+``devices[0]`` may be one) is always lockstep; ``self.device`` is this
+process's first member, every process loads the whole artifact and keeps
+its own members' shards, and the leader process's
+``parallel.multihost.MultiHostGroupRuntime`` has every other process replay
+each op (bert, t5 and ring models refuse such a group). ``:generate`` and
+the slot surface serve a tensor-parallel LM on the group: its KV cache,
+dense or paged, is cut over the KV-head axis where the group divides it
 (``parallel.sharding.shard_kv_arena``), else whole on the leader, and each
 shard's cached forward runs the paged kernels on its own heads (the
 reference turns its Pallas kernel off on a mesh, model_runtime.py:2102; the
@@ -120,7 +126,12 @@ from tfservingcache_tpu_torch.models.registry import (
     unflatten_params,
 )
 from tfservingcache_tpu_torch.native import make_lru_cache
-from tfservingcache_tpu_torch.parallel.mesh import group_axes
+from tfservingcache_tpu_torch.parallel.mesh import (
+    group_axes,
+    is_remote,
+    local_lead,
+    spans_processes,
+)
 from tfservingcache_tpu_torch.parallel.sharding import (
     KVShards,
     ShardedLeaf,
@@ -782,8 +793,10 @@ def packed_device_put_group(host_params: Any, rules: Mapping[str, tuple],
     dropped once it is cut, so the device holds the shards plus one leaf
     at most; one sync on each device at the end. The shards have the
     sharded packed transfer's layout, so the two loads give the same
-    module. Every leaf must be plain (``_dequantize_on_host`` first)."""
-    lead = group[0]
+    module. Every leaf must be plain (``_dequantize_on_host`` first). On a
+    group that spans processes the leader is this process's first member,
+    and another process's members get meta tensors."""
+    lead = local_lead(group)
     axes = group_axes(group)
     pairs = flatten_params(host_params)
     placed = [shard_leaf(leaf.to(lead, non_blocking=True), spec_for(path, rules, axes), group)
@@ -1119,18 +1132,25 @@ class TorchModelRuntime(BaseRuntime):
         super().__init__()
         self.cfg = cfg or ServingConfig()
         self.metrics = metrics
-        # the device group (None = one device); its first device leads
+        # the device group (None = one device); its first device leads. A
+        # member another process owns is a meta placeholder, and this
+        # process's first member leads its half
         self.group: tuple[torch.device, ...] | None = None
         if devices is not None:
-            group = tuple(resolve_device(d) for d in devices)
+            group = tuple(torch.device(d) if is_remote(torch.device(d)) else resolve_device(d)
+                          for d in devices)
             if not group:
                 raise RuntimeError_("a device group needs at least one device")
-            if device is not None and resolve_device(device) != group[0]:
+            try:
+                lead = local_lead(group)
+            except ValueError as e:
+                raise RuntimeError_(str(e)) from None
+            if device is not None and resolve_device(device) != lead:
                 raise RuntimeError_(
-                    f"device {device!r} is not the group's leader {group[0]} (devices[0])"
+                    f"device {device!r} is not the group's leader {lead} (devices[0])"
                 )
             self.group = group
-            device = group[0]
+            device = lead
         self.device = resolve_device(device)
         self._resident = make_lru_cache(
             self.cfg.hbm_capacity_bytes,
@@ -1271,7 +1291,7 @@ class TorchModelRuntime(BaseRuntime):
         """One copier a distinct device of the group, each on its device's
         copy stream (on ``[cuda:0] * P`` the runtime's one stream)."""
         return {dev: _ChunkCopier(dev, self._copy_streams.get(dev))
-                for dev in dict.fromkeys(self.group or (self.device,))}
+                for dev in dict.fromkeys(self.group or (self.device,)) if not is_remote(dev)}
 
     def _module(self, model_def: ModelDef, params: Any, tp: TensorParallelPlan | None,
                 make_module: Any = None) -> torch.nn.Module:
@@ -1434,7 +1454,17 @@ class TorchModelRuntime(BaseRuntime):
         """The family's tensor-parallel plan on this runtime's group: None on
         one device, for a family that binds the group itself (a ring model)
         and for rules that cut no weight; a family whose rules cut weights
-        but that has no tensor-parallel module is refused."""
+        but that has no tensor-parallel module is refused, and so are a ring
+        model, bert and t5 on a group that spans processes."""
+        if self.spans_processes and (
+                model_def.bind_group is not None
+                or (_shards_weights(model_def.partition_rules)
+                    and model_def.family not in ("transformer_lm", "moe_lm"))):
+            # refused the same way in every process, before any collective
+            raise RuntimeError_(
+                f"{model_def.family} on a group that spans processes: cross-process groups: "
+                f"later slice (tensor-parallel transformer_lm and moe_lm serve on one)"
+            )
         if self.group is None or len(self.group) < 2 or model_def.bind_group is not None:
             return None
         if not _shards_weights(model_def.partition_rules):
@@ -1448,14 +1478,21 @@ class TorchModelRuntime(BaseRuntime):
         return model_def.tensor_parallel(self.group)
 
     @property
+    def spans_processes(self) -> bool:
+        """Is this runtime's group one whose members other processes own
+        too (``parallel/mesh.py``)?"""
+        return spans_processes(self.group)
+
+    @property
     def mesh_lockstep(self) -> bool:
         """A group whose device-op stream must stay a function of the
-        request sequence alone (reference :1501-1514): in the port, a group
-        with ``serving.mesh_fast_path`` off, the A/B lever (the port has no
-        cross-process group). Such a group loads serialized, keeps no host
-        tier, drops adopted entries and runs ``:generate`` on the solo
-        path."""
-        return self.group is not None and not self.cfg.mesh_fast_path
+        request sequence alone (reference :1501-1514): a group that spans
+        processes, whose every process must run the same ops in the same
+        order whatever ``serving.mesh_fast_path`` says (reference :974,
+        :1513), and a group with ``serving.mesh_fast_path`` off, the A/B
+        lever. Such a group loads serialized, keeps no host tier, drops
+        adopted entries and runs ``:generate`` on the solo path."""
+        return self.group is not None and (self.spans_processes or not self.cfg.mesh_fast_path)
 
     @property
     def cold_pipeline_enabled(self) -> bool:
@@ -1618,12 +1655,24 @@ class TorchModelRuntime(BaseRuntime):
         seed: int = 0,
         draft_model_id: ModelId | None = None,
         spec_tokens: int = 4,
+        prefix_rows: int | None = None,
+        spec_admitted: bool | None = None,
     ) -> np.ndarray:
         """KV-cached decoding (``models/generation.generate``) on the solo
         path (reference :1813-1993): the same validation; prompt seq,
         max_new_tokens and the batch axis padded to power-of-two buckets,
         with the exact sizes where the buckets would overshoot max_seq.
         -> (B, max_new_tokens) int32.
+
+        ``prefix_rows`` forces the prefix-cache decision (None = decide
+        here): the leader of a group that spans processes decides once and
+        ships it in the work envelope, so that every process runs the same
+        ops (< 0 = the plain path without the cache, 0 = a miss through the
+        cache, N = reuse exactly N cached rows); a process that cannot honour
+        it raises before any device op. ``spec_admitted=True`` says the
+        draft-acceptance gate was decided upstream (the leader admits once
+        in its envelope; admitting again would count the re-audition
+        cadence twice).
 
         ``draft_model_id`` switches to greedy speculative decoding
         (``models/speculative.py``): the draft proposes ``spec_tokens``
@@ -1681,24 +1730,37 @@ class TorchModelRuntime(BaseRuntime):
         if b_bucket != b:  # padding rows decode junk that is sliced off
             ids = np.pad(ids, ((0, b_bucket - b), (0, 0)))
             lengths = np.pad(lengths, (0, b_bucket - b), constant_values=1)
-        if draft is not None and not self._spec_admit(model_id, draft_model_id):
+        if (draft is not None and spec_admitted is None
+                and not self._spec_admit(model_id, draft_model_id)):
             # sustained low acceptance: the draft is pure overhead; plain
             # greedy decode gives the same tokens until the pair re-auditions
             draft = None
         # B = 1 requests go through the prefix cache when it is on
-        # (reference :1937-1990; the port has no multi-process group, so the
-        # hit is always decided here)
+        # (reference :1937-1990), unless a forced decision says otherwise
         prefix_capable = self._prefix_cache is not None and ids.shape[0] == 1
+        if prefix_rows is not None:
+            if prefix_rows < 0:
+                # the leader runs the plain path (no cache kept, nothing
+                # stored): so does this process, cache or not
+                prefix_capable = False
+            elif not prefix_capable:
+                raise RuntimeError_(
+                    f"prefix-cache divergence for {model_id}: the leader decided "
+                    f"{prefix_rows} cached rows but this process cannot run the prefix "
+                    "path (prefix_cache_bytes differs across the group?)"
+                )
+        forced_rows = prefix_rows if prefix_capable else None
         with TRACER.span("generate", model=str(model_id), tokens=new_bucket, batch=b,
                          draft=str(draft_model_id) if draft_model_id else ""):
             if draft is not None:
                 toks, rounds = self._speculative(loaded, draft, model_id, ids, lengths,
                                                  new_bucket, max_new_tokens, spec_tokens,
-                                                 prefix_capable)
+                                                 prefix_capable, forced_rows)
                 self._spec_observe(model_id, draft_model_id, new_bucket, rounds)
             elif prefix_capable:
                 toks = self._prefix_generate(loaded, model_id, ids, int(lengths[0]), new_bucket,
-                                             max_new_tokens, temperature, top_k, seed)
+                                             max_new_tokens, temperature, top_k, seed,
+                                             forced_rows)
             else:
                 toks = generation.generate(
                     loaded.module, cfg, torch.from_numpy(ids).to(self.device),
@@ -1710,18 +1772,19 @@ class TorchModelRuntime(BaseRuntime):
     # -- the solo path's prefix cache (reference :3173-3334) ----------------
     def _prefix_generate(self, loaded: LoadedModel, model_id: ModelId, ids: np.ndarray,
                          prompt_len: int, new_bucket: int, max_new: int, temperature: float,
-                         top_k: int, seed: int) -> np.ndarray:
+                         top_k: int, seed: int, forced_rows: int | None = None) -> np.ndarray:
         """B = 1 generate through the prefix cache: reuse the longest cached
         token prefix's K/V rows, prefill only the suffix, and store the
         prompt + completion rows for the next turn. The same math at the
         same positions and the same generator stream as the plain path; the
         suffix-only prefill is another matmul shape, so on the card a
-        near-tied argmax can break the other way between hit and miss."""
+        near-tied argmax can break the other way between hit and miss.
+        ``forced_rows``: the group leader's decision (``_prefix_resolve``)."""
         from tfservingcache_tpu_torch.models import generation
 
         cfg = loaded.model_def.config
         prompt = ids[0, :prompt_len]
-        hit = self._prefix_cache.lookup(model_id, prompt)
+        hit = self._prefix_resolve(model_id, prompt, forced_rows)
         if hit is None:
             toks, k_full, v_full = generation.generate(
                 loaded.module, cfg, torch.from_numpy(ids).to(self.device),
@@ -1743,6 +1806,31 @@ class TorchModelRuntime(BaseRuntime):
              else self.metrics.prefix_cache_misses).inc()
             self.metrics.prefix_cache_bytes.set(self._prefix_cache.total_bytes)
         return out
+
+    def _prefix_resolve(self, model_id: ModelId, prompt: np.ndarray,
+                        forced_rows: int | None) -> PrefixEntry | None:
+        """The hit of the prefix paths, plain and speculative (reference
+        :3220): the local lookup, or the group leader's forced decision,
+        which this process honours exactly or refuses before any device op
+        (0 = a miss, counted; N = the first N rows of a local entry that
+        has at least N)."""
+        pc = self._prefix_cache
+        if forced_rows == 0:
+            pc.note_forced_miss()
+            return None
+        hit = pc.lookup(model_id, prompt)
+        if forced_rows is not None and forced_rows > 0:
+            if hit is None or hit.valid_len < forced_rows:
+                raise RuntimeError_(
+                    f"prefix-cache divergence for {model_id}: the leader decided "
+                    f"{forced_rows} cached rows, this process has "
+                    f"{0 if hit is None else hit.valid_len}: the group's states are out of "
+                    "lockstep (re-form required)"
+                )
+            if hit.valid_len > forced_rows:
+                hit = PrefixEntry(hit.tokens[:forced_rows], hit.k, hit.v, forced_rows,
+                                  hit.nbytes)
+        return hit
 
     @staticmethod
     def _prefix_suffix(ids: np.ndarray, prompt_len: int,
@@ -1778,12 +1866,14 @@ class TorchModelRuntime(BaseRuntime):
 
     def _speculative(self, loaded: LoadedModel, draft: LoadedModel, model_id: ModelId,
                      ids: np.ndarray, lengths: np.ndarray, new_bucket: int, max_new: int,
-                     spec_tokens: int, prefix_capable: bool) -> tuple[np.ndarray, int]:
+                     spec_tokens: int, prefix_capable: bool,
+                     forced_rows: int | None = None) -> tuple[np.ndarray, int]:
         """Speculative decoding, prefix-cache aware (reference :3296): with
         the cache on and B = 1 the TARGET's prefill starts from the cached
         prefix rows and the completion is stored back, so a draft-assisted
         conversation pays the target's prefill only for its new tokens from
-        turn 2. -> (host tokens, verify rounds)."""
+        turn 2. ``forced_rows``: the group leader's prefix decision. ->
+        (host tokens, verify rounds)."""
         from tfservingcache_tpu_torch.models.speculative import speculative_generate
 
         dev_ids = torch.from_numpy(ids).to(self.device)
@@ -1795,7 +1885,7 @@ class TorchModelRuntime(BaseRuntime):
             return toks.cpu().numpy(), int(rounds)
         prompt_len = int(lengths[0])
         prompt = ids[0, :prompt_len]
-        hit = self._prefix_cache.lookup(model_id, prompt)
+        hit = self._prefix_resolve(model_id, prompt, forced_rows)
         cached_kv = None
         if hit is not None:
             suffix, suffix_len = self._prefix_suffix(ids, prompt_len, hit)
@@ -2635,6 +2725,28 @@ class TorchModelRuntime(BaseRuntime):
     def resident_models(self) -> list[ModelId]:
         return self._resident.keys_mru_first()
 
+    def reset_group_state(self) -> None:
+        """Drop every resident model, the host tier, the prefix K/V, the slot
+        states and the draft-acceptance history (reference :3385-3405): the
+        empty state a re-forming cross-process group resets every process
+        to (``parallel/multihost.py``), since the survivors' states cannot
+        be proven equal after a follower failure; models load again on
+        demand."""
+        for mid in self.resident_models():
+            self._resident.remove(mid, run_callback=True)
+        if self._host_tier is not None:
+            # the removals may have queued demotions that would refill the
+            # tier after the clear
+            self.drain_demotions()
+            self._host_tier.clear()
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+        with self._slot_lock:
+            self._slot_states.clear()
+            self._slot_init_guards.clear()
+        with self._spec_lock:
+            self._spec_health.clear()
+
     def resident_headroom(self) -> tuple[int | None, int]:
         """(free resident-model slots, None when uncapped; free bytes of
         ``hbm_capacity_bytes``): what the assignment warmer may fill without
@@ -2654,9 +2766,11 @@ class TorchModelRuntime(BaseRuntime):
         return d.input_spec, out_spec, d.method_name
 
     def check(self) -> None:
-        """Health probe: every device of the runtime must answer a trivial
-        computation."""
+        """Health probe: every device of the runtime that this process owns
+        must answer a trivial computation."""
         for dev in dict.fromkeys(self.group or (self.device,)):
+            if is_remote(dev):
+                continue
             x = torch.ones(8, device=dev)
             if float(x.sum()) != 8.0:
                 raise RuntimeError_(f"device smoke computation on {dev} returned wrong result")

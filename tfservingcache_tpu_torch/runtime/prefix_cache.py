@@ -21,9 +21,9 @@ same matching rules, same byte totals), host code only:
     exact hit samples its first token without a host round trip.
 
 The reference decorates ``PrefixCache`` with its lock checker; the port
-keeps the lock and the guarded-by notes without it. The reference's
-``peek`` and ``note_forced_miss`` serve a multi-process group's leader;
-the port has no such group.
+keeps the lock and the guarded-by notes without it. ``peek`` and
+``note_forced_miss`` serve the leader of a group that spans processes
+(``parallel/multihost.py``), which decides every hit for the group.
 """
 
 from __future__ import annotations
@@ -126,6 +126,22 @@ class PrefixCache:
                 ev_tok, ev = model_entries.popitem(last=False)
                 self._total -= ev.nbytes
                 self._recency.pop((model_id, ev_tok), None)
+
+    def peek(self, model_id: ModelId, prompt: np.ndarray) -> int:
+        """The usable row count of the best entry for ``prompt`` (0 = a
+        miss), touching neither recency nor the hit and miss counts
+        (reference :141): the leader of a group that spans processes peeks
+        under its op lock to form the envelope's decision; the lookup itself
+        runs inside ``generate`` in every process."""
+        prompt = np.asarray(prompt, np.int32)
+        with self._lock:
+            return self._best_match(model_id, prompt)[1]
+
+    def note_forced_miss(self) -> None:
+        """Count a miss decided upstream (an envelope's ``prefix_rows`` 0):
+        the local lookup was skipped, the miss happened all the same."""
+        with self._lock:
+            self.misses += 1
 
     def drop_model(self, model_id: ModelId) -> None:
         """Model unloaded or evicted: its prefix K/V goes with it."""

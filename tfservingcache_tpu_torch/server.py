@@ -26,6 +26,20 @@ default) the provider is a ``PeerProvider`` around the configured one
 (a router arms it) and the gRPC server serves ``FetchPackedModel`` from the
 runtime's host tier.
 
+A group that spans processes (``mesh.coordinator`` set, ``mesh.num_processes
+> 1``; ``parallel/multihost.py``): ``build_node`` joins the
+``torch.distributed`` process group first, then builds the group with this
+process's ``chips_per_group / num_processes`` members (``node_group``, or
+``devices=``) and meta placeholders for the others. Process 0 leads: its
+runtime is a ``MultiHostGroupRuntime`` whose followers are the other
+processes' ``mesh.worker_addrs``, and its node serves as any node does.
+Every other process builds a FOLLOWER node: its own disk cache, a cache
+manager and a runtime over the group behind a ``GroupWorkHandler`` and a
+``GroupWorkServer`` bound to its own ``worker_addrs`` port; it leads no
+group (``node.groups`` is empty) and binds no REST or gRPC port. Closing a
+node that joined the process group destroys it. Multi-group nodes stay a
+later slice.
+
 ``configure_observability`` applies the config to the process-wide
 ``TRACER``, ``RECORDER`` and ``LEDGER`` (the reference's ``serve`` does this,
 server.py:325-348). ``serve`` (what ``cli serve`` runs) calls it, builds and
@@ -47,7 +61,8 @@ from tfservingcache_tpu_torch.cache.providers import create_provider
 from tfservingcache_tpu_torch.cluster.status import StatusCollector
 from tfservingcache_tpu_torch.config import Config
 from tfservingcache_tpu_torch.lab import faults as lab_faults
-from tfservingcache_tpu_torch.parallel.mesh import chip_groups
+from tfservingcache_tpu_torch.parallel import multihost
+from tfservingcache_tpu_torch.parallel.mesh import chip_groups, cross_process_group
 from tfservingcache_tpu_torch.protocol.local_backend import LocalServingBackend
 from tfservingcache_tpu_torch.protocol.rest import RestServingServer
 from tfservingcache_tpu_torch.runtime.base import RuntimeError_
@@ -94,13 +109,21 @@ class ServingGroup:
 class CacheNode:
     """One serving host with one device or one device group: provider +
     disk cache + runtime behind a REST server and, where ``grpcio`` imports,
-    a gRPC server."""
+    a gRPC server. ``follower=True`` builds the follower of a group that
+    spans processes: provider + disk cache + runtime behind the group-work
+    service only (``work_handler``, ``work_server``; ``groups`` is empty).
+    ``process_group``: the node joined the ``torch.distributed`` process
+    group, and its close destroys it."""
 
     def __init__(self, cfg: Config, runtime: TorchModelRuntime,
                  engine: ContinuousGenerateEngine | None = None,
-                 metrics: Metrics | None = None) -> None:
+                 metrics: Metrics | None = None, follower: bool = False,
+                 process_group: bool = False) -> None:
         self.cfg = cfg
         self.metrics = metrics
+        self._process_group = process_group
+        self._stop_health = threading.Event()
+        self._health_thread: threading.Thread | None = None
         provider = create_provider(cfg.model_provider)
         if cfg.cluster.peer_fetch:
             # peer param distribution (cache/providers/peer.py): unbound it
@@ -121,7 +144,17 @@ class CacheNode:
             load_timeout_s=cfg.serving.load_timeout_s, metrics=metrics,
             version_labels=cfg.serving.version_labels,
         )
+        self._manager = manager
         self.engine = engine
+        # the follower work service (a group that spans processes)
+        self.work_handler: multihost.GroupWorkHandler | None = None
+        self.work_server: multihost.GroupWorkServer | None = None
+        if follower:
+            self.work_handler = multihost.GroupWorkHandler()
+            self.work_handler.register(0, manager, runtime)
+            self.work_server = multihost.GroupWorkServer(self.work_handler)
+            self.groups: list[ServingGroup] = []
+            return
         backend = LocalServingBackend(
             manager, generator=engine, spec_draft_model=cfg.serving.spec_draft_model,
             batch_window_ms=cfg.serving.batch_window_ms,
@@ -159,14 +192,13 @@ class CacheNode:
             if grpc is not None:
                 grpc.status_collector = group.status
         # multi-group nodes are a later slice: node_group raises for them
-        self.groups: list[ServingGroup] = [group]
-        self._stop_health = threading.Event()
-        self._health_thread: threading.Thread | None = None
+        self.groups = [group]
 
     # group-0 aliases
     @property
     def manager(self) -> CacheManager:
-        return self.groups[0].manager
+        """The node's cache manager (a follower's too)."""
+        return self._manager
 
     @property
     def backend(self) -> LocalServingBackend:
@@ -191,7 +223,15 @@ class CacheNode:
     def start(self, host: str = "0.0.0.0") -> int:
         """Bind the REST server (``cache_node.rest_port``) and the gRPC
         server (``cache_node.grpc_port``), 0 = ephemeral; returns the REST
-        port (the gRPC one is ``grpc_port``)."""
+        port (the gRPC one is ``grpc_port``). A follower binds only its work
+        service, on the port of its ``mesh.worker_addrs`` entry, and
+        returns that port."""
+        if self.work_server is not None:
+            me, addrs = self.cfg.mesh.process_id, self.cfg.mesh.worker_addrs
+            port = int(addrs[me].rsplit(":", 1)[1]) if me < len(addrs) and ":" in addrs[me] else 0
+            bound = self.work_server.start(port, host)
+            log.info("group work service on :%d (follower of group 0)", bound)
+            return bound
         g = self.groups[0]
         g.rest_port = g.rest.start(self.cfg.cache_node.rest_port, host)
         if g.grpc is not None:
@@ -219,15 +259,21 @@ class CacheNode:
         if self._health_thread is not None:
             self._health_thread.join(timeout=10.0)
             self._health_thread = None
-        self.rest.close()
-        if self.grpc is not None:
-            self.grpc.close()
+        for g in self.groups:
+            g.rest.close()
+            if g.grpc is not None:
+                g.grpc.close()
         if self.engine is not None:  # the engine's threads use the runtime
             self.engine.close()
+        if self.work_server is not None:
+            self.work_server.close()
         self.manager.close()
         close_provider = getattr(self.provider, "close", None)
         if close_provider is not None:
             close_provider()
+        if self._process_group:
+            multihost.leave_process_group()
+            self._process_group = False
 
 
 def node_group(device: str | torch.device, chips_per_group: int) -> list[torch.device]:
@@ -284,14 +330,60 @@ def configure_observability(cfg: Config) -> None:
     )
 
 
+def _spans_processes(cfg: Config) -> bool:
+    return bool(cfg.mesh.coordinator) and cfg.mesh.num_processes > 1
+
+
+def _cross_process_node(cfg: Config, device: str | torch.device,
+                        devices: list[str | torch.device] | None,
+                        metrics: Metrics) -> CacheNode:
+    """A node of a group that spans processes (the process group is joined
+    already): the leader's or a follower's (reference server.py:113-167)."""
+    mesh = cfg.mesh
+    n, me = mesh.num_processes, mesh.process_id
+    if mesh.chips_per_group < n or mesh.chips_per_group % n:
+        raise RuntimeError_(
+            f"mesh.chips_per_group={mesh.chips_per_group} does not divide over "
+            f"mesh.num_processes={n} processes"
+        )
+    if len(mesh.worker_addrs) != n:
+        raise RuntimeError_(
+            f"mesh.worker_addrs has {len(mesh.worker_addrs)} entries, one per process "
+            f"({n}) expected"
+        )
+    per = mesh.chips_per_group // n
+    local = list(devices) if devices is not None else node_group(device, per)
+    if len(local) != per:
+        raise RuntimeError_(f"{len(local)} local devices for {per} members a process")
+    group = list(cross_process_group(local, n, me))
+    if me == 0:
+        runtime = multihost.MultiHostGroupRuntime(
+            cfg.serving, devices=group, metrics=metrics,
+            followers=[a for p, a in enumerate(mesh.worker_addrs) if p != me], group_index=0)
+        # a cross-process group is lockstep: no engine (reference
+        # local_backend.py:128-133)
+        return CacheNode(cfg, runtime, None, metrics, process_group=True)
+    runtime = TorchModelRuntime(cfg.serving, devices=group, metrics=metrics)
+    return CacheNode(cfg, runtime, None, metrics, follower=True, process_group=True)
+
+
 def build_node(cfg: Config, device: str | torch.device | None = None,
                devices: list[str | torch.device] | None = None) -> CacheNode:
     """A ``CacheNode`` on ``device`` (default: ``cfg.serving.device``, which
     defaults to ``cuda``; a missing card raises rather than falling back).
     With ``mesh.chips_per_group`` > 1 its runtime is bound to one device
     group (``node_group``); ``devices`` binds it to that group instead (a
-    group that repeats one card, say)."""
+    group that repeats one card, say). With ``mesh.coordinator`` and
+    ``mesh.num_processes > 1`` the group spans processes: the node first
+    joins the process group (rank ``mesh.process_id``), then builds the
+    leader's node (process 0) or a follower's, ``devices`` naming this
+    process's own members."""
     device = device or cfg.serving.device
+    if _spans_processes(cfg):
+        # the rendezvous before anything else is built (reference
+        # server.py:88-111)
+        multihost.join_process_group(cfg.mesh.coordinator, cfg.mesh.num_processes,
+                                     cfg.mesh.process_id)
     metrics = Metrics(model_labels=cfg.metrics.model_labels,
                       max_model_labels=cfg.metrics.max_model_labels)
     if cfg.observability.lab_faults:
@@ -299,6 +391,12 @@ def build_node(cfg: Config, device: str | torch.device | None = None,
         # anything is built: a malformed spec raises here and leaves no
         # thread behind
         lab_faults.arm_json(cfg.observability.lab_faults, metrics=metrics)
+    if _spans_processes(cfg):
+        try:
+            return _cross_process_node(cfg, device, devices, metrics)
+        except BaseException:
+            multihost.leave_process_group()
+            raise
     if devices is None and cfg.mesh.chips_per_group > 1:
         devices = node_group(device, cfg.mesh.chips_per_group)
     if devices is not None:
@@ -333,6 +431,14 @@ def serve(cfg: Config, stop: threading.Event, device: str | None = None) -> None
     router = None
     try:
         port = node.start()
+        if node.work_server is not None:
+            # a follower of a group that spans processes: the group-work
+            # service until stopped; the leader is the group's ring member
+            log.info("group follower (process %d) serving group work on :%d (device %s)",
+                     cfg.mesh.process_id, port, node.runtime.device)
+            stop.wait()
+            log.info("shutting down")
+            return
         log.info("cache node serving REST on :%d, gRPC on %s (device %s)", port,
                  f":{node.grpc_port}" if node.grpc_port is not None else "none",
                  node.runtime.device)

@@ -591,6 +591,18 @@ class Metrics:
             registry=r,
             buckets=(0.8, 0.95, 1.0, 1.1, 1.2, 1.35, 1.5, 1.75, 2.0, 2.5, 3.0, 4.0),
         )
+        # groups that span processes (parallel/multihost.py): teardowns and
+        # re-formations, and whether the group serves
+        self.group_reforms = Counter(
+            "tpusc_group_reform_events_total",
+            "Cross-host group failure-containment events",
+            ["group", "event"], registry=r,  # event: torn_down | reformed
+        )
+        self.group_healthy = Gauge(
+            "tpusc_group_healthy",
+            "1 while the cross-host group serves; 0 while torn down/re-forming",
+            ["group"], registry=r,
+        )
         # fleet status plane (cluster/status.py): this node's view of its
         # peers; peer labels are pruned with ring membership
         self.peer_health_score = Gauge(
